@@ -137,10 +137,10 @@ def test_main_path_launches_each_kernel(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert K.launches == {"prep": 1, "wavefront": 1, "grad": 1}
+    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "wavefront": 1, "grad": 1}
     K.reset_launches()
     costs_t, grads_t = rnnt_loss_and_grad(acts.detach(), labels, il, ll, implementation="torch")
-    assert K.launches == {"prep": 0, "wavefront": 0, "grad": 0}
+    assert K.launches == dict.fromkeys(K.launches, 0)
     _close(loss.detach(), costs_t.sum())
     torch.testing.assert_close(acts.grad, grads_t, rtol=1e-5, atol=1e-6)
 

@@ -26,7 +26,9 @@ def _imported_roots(path):
 
 
 def test_sources_found():
-    assert (PKG / "ops" / "rnnt.py") in SOURCES and len(SOURCES) >= 10
+    assert len(SOURCES) >= 10
+    for module in ("rnnt", "simple", "pruned", "band", "cuda/band", "cuda/ranges"):
+        assert (PKG / "ops" / f"{module}.py") in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -48,6 +50,13 @@ def test_imports_with_jax_blocked():
         "c = W.rnnt_loss(a, torch.ones(1, 2, dtype=torch.int32),\n"
         "                torch.tensor([2]), torch.tensor([2]), reduction='none')\n"
         "assert torch.isfinite(c).all()\n"
+        "import warp_transducer_tpu_torch.ops.cuda.band, warp_transducer_tpu_torch.ops.cuda.ranges\n"
+        "am, lm, lab = torch.zeros(1, 3, 4), torch.zeros(1, 2, 4), torch.ones(1, 1, dtype=torch.int32)\n"
+        "il, ll = torch.tensor([3]), torch.tensor([1])\n"
+        "loss, r = W.rnnt_loss_simple(am, lm, lab, il, ll, prune_range=2)\n"
+        "assert torch.equal(r, W.rnnt_prune_ranges(am, lm, lab, il, ll, 2))\n"
+        "p = W.rnnt_loss_pruned(am[:, :, None] + W.gather_banded(lm, r, 2), r, lab, il, ll)\n"
+        "assert torch.isfinite(loss) and torch.isfinite(p)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

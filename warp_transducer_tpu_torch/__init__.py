@@ -1,29 +1,43 @@
 """warp_transducer_tpu_torch — the RNN-Transducer loss in PyTorch, with
 hand-written CUDA kernels for Hopper.
 
-The PyTorch/CUDA counterpart of ``warp_transducer_tpu``: the dense RNN-T
-negative log-likelihood and its analytic gradient over the (B, T, U, V)
-joint lattice, with fused log-softmax, per-utterance lengths, configurable
-blank, none|sum|mean reductions, a loss-only scoring path, FastEmit and the
-delay penalty. A CUDA tensor runs the kernels of ``csrc/`` (built with
-``nvcc`` on first use); a CPU tensor runs their plain PyTorch versions.
+The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
+
+* the dense RNN-T negative log-likelihood and its analytic gradient over
+  the (B, T, U, V) joint lattice, with fused log-softmax, per-utterance
+  lengths, configurable blank, none|sum|mean reductions, a loss-only
+  scoring path, FastEmit and the delay penalty (``rnnt_loss`` and its
+  relatives);
+* the pruned path (arXiv:2206.13236): ``rnnt_loss_simple`` for the
+  additive joiner without the (B, T, U, V) tensor, ``rnnt_prune_ranges``
+  for per-frame band starts, ``gather_banded`` to bring U-indexed rows to
+  the band and ``rnnt_loss_pruned`` for the loss on a (B, T, S, V) band.
+
+A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
+use); a CPU tensor runs their plain PyTorch versions.
 """
 
 from .ops.lattice import LatticeResult
+from .ops.pruned import gather_banded, rnnt_loss_pruned, rnnt_prune_ranges
 from .ops.rnnt import (RNNTLoss, forward_backward_mismatch, rnnt_forward_backward,
                        rnnt_loss, rnnt_loss_and_grad, rnnt_score)
+from .ops.simple import rnnt_loss_simple
 from .utils.options import RNNTOptions
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "LatticeResult",
     "RNNTLoss",
     "RNNTOptions",
     "forward_backward_mismatch",
+    "gather_banded",
     "rnnt_forward_backward",
     "rnnt_loss",
     "rnnt_loss_and_grad",
+    "rnnt_loss_pruned",
+    "rnnt_loss_simple",
+    "rnnt_prune_ranges",
     "rnnt_score",
     "__version__",
 ]

@@ -75,4 +75,27 @@ __device__ __forceinline__ T warp_sum(T x) {
   return x;
 }
 
+// -logsumexp of one row of V values, reduced by the calling warp (the row
+// body of prep.cu and band_prep.cu). The lanes stride over the row, each
+// keeping an online (max, sum-exp) pair, the renormalisation online softmax
+// uses, so the row is read once; the warp then combines the 32 pairs with
+// shuffles. Each element is converted to Tacc first (bf16/f16 to f32, f64
+// to f32 where Tacc is float). Every lane returns the row's value.
+template <typename Tacc, typename Tin>
+__device__ __forceinline__ Tacc neg_logsumexp_row(const Tin* __restrict__ x, int V, int lane) {
+  Tacc m = lowest<Tacc>(), s = Tacc(0);
+  for (int v = lane; v < V; v += kWarp) {
+    const Tacc xv = static_cast<Tacc>(to_acc(x[v]));
+    if (xv > m) {
+      s = s * ex(m - xv) + Tacc(1);
+      m = xv;
+    } else {
+      s += ex(xv - m);
+    }
+  }
+  const Tacc row_max = warp_max(m);
+  const Tacc row_sum = warp_sum(s * ex(m - row_max));
+  return -(row_max + lg(row_sum));
+}
+
 }  // namespace wtt

@@ -16,7 +16,8 @@
 // rows = 896 contiguous bytes, at V=5000 each warp loops 157 times over its
 // own contiguous row. Each lane keeps an online (max, sum-exp) pair, the
 // renormalisation online softmax uses, so the row is read once; the warp
-// then combines the 32 pairs with shuffles. bf16/f16 are read natively and
+// then combines the 32 pairs with shuffles (wtt::neg_logsumexp_row in
+// common.cuh, shared with band_prep.cu). bf16/f16 are read natively and
 // converted per element; they accumulate in f32, f64 in f64. Lane 0 reads
 // x[blank] and x[y_u] (already in L1 after the pass) and writes the row's
 // three outputs. With log_probs_input the reduction is skipped.
@@ -36,22 +37,7 @@ __global__ void prep_kernel(const Tin* __restrict__ acts, const int* __restrict_
   if (row >= rows) return;  // the whole warp leaves together
   const Tin* x = acts + row * V;
 
-  Tacc d = Tacc(0);
-  if (!log_probs_input) {
-    Tacc m = wtt::lowest<Tacc>(), s = Tacc(0);
-    for (int v = lane; v < V; v += wtt::kWarp) {
-      const Tacc xv = wtt::to_acc(x[v]);
-      if (xv > m) {
-        s = s * wtt::ex(m - xv) + Tacc(1);
-        m = xv;
-      } else {
-        s += wtt::ex(xv - m);
-      }
-    }
-    const Tacc row_max = wtt::warp_max(m);
-    const Tacc row_sum = wtt::warp_sum(s * wtt::ex(m - row_max));
-    d = -(row_max + wtt::lg(row_sum));
-  }
+  const Tacc d = log_probs_input ? Tacc(0) : wtt::neg_logsumexp_row<Tacc>(x, V, lane);
   if (lane == 0) {
     const int u = (int)(row % U);
     const long long b = row / ((long long)T * U);

@@ -1,9 +1,15 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``) and their wrappers.
 
-Counterpart of ``warp_transducer_tpu/ops/pallas/``. Each wrapper
-(``prep.prepare``, ``wavefront.forward_backward``, ``grad.dense_grad`` /
-``grad.sparse_grad``) has the signature of the plain version it stands
-for. On a CPU tensor it runs that plain version; on a CUDA tensor it
+Counterpart of ``warp_transducer_tpu/ops/pallas/``. Each wrapper has the
+signature of the plain version it stands for:
+
+* the dense loss: ``prep.prepare``, ``wavefront.forward_backward`` (also
+  the lattice of the simple loss), ``grad.dense_grad`` /
+  ``grad.sparse_grad``;
+* the pruned path: ``band.band_prep``, ``band.forward_backward``,
+  ``band.band_grad`` and ``ranges.band_starts``.
+
+On a CPU tensor a wrapper runs that plain version; on a CUDA tensor it
 launches its kernel on PyTorch's current stream, or raises. It never falls
 back. ``launches`` counts the launches of each kernel, so a run can show
 that it went through them.
@@ -15,10 +21,14 @@ import torch
 from .build import library as lib
 
 # One counter per kernel, raised by one right after each successful launch.
-launches = {"prep": 0, "wavefront": 0, "grad": 0}
+launches = {"prep": 0, "wavefront": 0, "grad": 0, "band_prep": 0, "band_stream": 0,
+            "band_grad": 0, "ranges": 0}
 
 # Type codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
+# Shared memory a block may use on sm_90 (227 KB); the wrappers check what
+# their kernel keeps there against it.
+SMEM_BYTES = 232448
 
 
 def reset_launches() -> None:

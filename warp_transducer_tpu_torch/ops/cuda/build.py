@@ -100,7 +100,12 @@ def library() -> ctypes.CDLL:
     lib.wtt_prep.argtypes = [p, i, p, p, p, p, ll, i, i, i, i, i, p]
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, p]
-    for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_grad):
+    lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
+    lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
+    lib.wtt_band_starts.argtypes = [p, p, p, p, i, i, i, p]
+    for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_grad, lib.wtt_band_prep,
+               lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts):
         fn.restype = ctypes.c_int
     lib.wtt_error_string.argtypes = [i]
     lib.wtt_error_string.restype = ctypes.c_char_p

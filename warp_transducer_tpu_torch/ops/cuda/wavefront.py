@@ -6,12 +6,9 @@ from __future__ import annotations
 import torch
 
 from .. import lattice as _plain
-from . import DTYPE_CODES, check, lib, require, stream
+from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
 
 _LATTICE_DTYPES = (torch.float32, torch.float64)
-# Shared memory a block may use on sm_90 (227 KB); the kernel keeps two
-# diagonals of U values there (csrc/wavefront.cu, launch()).
-_SMEM_BYTES = 232448
 
 
 def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor,
@@ -29,7 +26,7 @@ def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor,
     if lpe.shape != lpb.shape:
         raise ValueError(f"lpe shape {tuple(lpe.shape)} != lpb shape {tuple(lpb.shape)}")
     B, T, U = lpb.shape
-    max_u = _SMEM_BYTES // (2 * lpb.element_size())
+    max_u = SMEM_BYTES // (2 * lpb.element_size())  # two diagonals of U values
     if U > max_u:
         raise ValueError(
             f"U={U} exceeds the lattice kernel's limit of {max_u} for {lpb.dtype}: "

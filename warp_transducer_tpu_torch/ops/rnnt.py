@@ -29,26 +29,38 @@ from types import SimpleNamespace
 
 import torch
 
+from . import band as _band
 from . import gradients as _gradients
 from . import lattice as _lattice
 from . import prep as _prep
+from .cuda import band as _cuda_band
 from .cuda import grad as _cuda_grad
 from .cuda import prep as _cuda_prep
+from .cuda import ranges as _cuda_ranges
 from .cuda import wavefront as _cuda_wavefront
 from ..utils.options import RNNTOptions
 
 _IMPLEMENTATIONS = ("auto", "torch", "cuda")
 
-# The three stages, as plain PyTorch and as kernel wrappers. A wrapper given
-# a CPU tensor runs the plain version, so "auto" needs no branch of its own.
+# The stages of the dense loss and of the pruned path (ops/simple.py,
+# ops/pruned.py), as plain PyTorch and as kernel wrappers. A wrapper given a
+# CPU tensor runs the plain version, so "auto" needs no branch of its own.
 _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          forward_backward=_lattice.forward_backward,
                          dense_grad=_gradients.dense_grad,
-                         sparse_grad=_gradients.sparse_grad)
+                         sparse_grad=_gradients.sparse_grad,
+                         band_prep=_band.band_prep,
+                         band_forward_backward=_band.forward_backward,
+                         band_grad=_band.band_grad,
+                         band_starts=_band.band_starts)
 _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            forward_backward=_cuda_wavefront.forward_backward,
                            dense_grad=_cuda_grad.dense_grad,
-                           sparse_grad=_cuda_grad.sparse_grad)
+                           sparse_grad=_cuda_grad.sparse_grad,
+                           band_prep=_cuda_band.band_prep,
+                           band_forward_backward=_cuda_band.forward_backward,
+                           band_grad=_cuda_band.band_grad,
+                           band_starts=_cuda_ranges.band_starts)
 
 
 def _engine(implementation: str, acts: torch.Tensor):
@@ -57,8 +69,16 @@ def _engine(implementation: str, acts: torch.Tensor):
             f"implementation must be one of {_IMPLEMENTATIONS}, got {implementation!r}")
     if implementation == "cuda" and acts.device.type != "cuda":
         raise ValueError(
-            f"implementation='cuda' needs CUDA tensors; acts is on {acts.device}")
+            f"implementation='cuda' needs CUDA tensors; input is on {acts.device}")
     return _PLAIN if implementation == "torch" else _KERNELS
+
+
+def _reduce(costs, reduction):
+    if reduction == "sum":
+        return costs.sum()
+    if reduction == "mean":
+        return costs.mean()
+    return costs
 
 
 def _certify_inputs(acts, labels, input_lengths, label_lengths):
@@ -209,11 +229,7 @@ def rnnt_loss(acts, labels, input_lengths, label_lengths, blank: int = 0,
         acts, labels, input_lengths, label_lengths, int(blank), bool(log_probs_input),
         eng, None if check_tol is None else float(check_tol),
         float(fastemit_lambda), float(delay_penalty))
-    if reduction == "sum":
-        return costs.sum()
-    if reduction == "mean":
-        return costs.mean()
-    return costs
+    return _reduce(costs, reduction)
 
 
 @torch.no_grad()
