@@ -5,17 +5,22 @@
 
 Builds the CUDA kernels of warp_transducer_tpu_torch/csrc from this
 checkout, holds each kernel against its plain PyTorch version on the card,
-drives the two main paths with every launch counter read — the dense loss
+drives the main paths with every launch counter read — the dense loss
 (``rnnt_loss(...).backward()`` and ``rnnt_loss_and_grad``) at the
-reference's published shapes, and the pruned step (``rnnt_loss_simple``
+reference's published shapes, the pruned step (``rnnt_loss_simple``
 with ``prune_range`` → ``gather_banded`` → ``rnnt_loss_pruned``, backward
-through both) at the JAX package's two published pruned shapes — checks
-that a full band equals the dense loss, times each path and each kernel
-with CUDA events, and prints:
+through both) at the JAX package's two published pruned shapes, the fused
+joint+loss step (``Joint.fused_loss`` forward and backward, weights loaded
+through ``joint_state_dict_from_flax``) at the JAX package's published
+fused shape, held against the unfused composition, and the pruned fused
+step (``rnnt_loss_simple`` → ``Joint.pruned_fused_loss``) at the shape whose
+band would not fit — checks that a full band equals the dense loss, times
+each path and each kernel with CUDA events, reads the peak memory of the
+fused and the unfused step, and prints:
 
   card line, build line, one line per comparison, per shape, per timing;
   the card's name and power limit as nvidia-smi gives them;
-  {"kernels": [...]} — one entry per kernel;
+  {"kernels": [...]} — one entry per kernel (nine);
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}} last.
 
 Every check raises, so any failure ends the run with a non-zero exit and
@@ -36,6 +41,7 @@ import torch
 # The published H100 SXM rates (NVIDIA data sheet) for the roofline bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # bf16 inputs in the tensor cores, dense
 
 # The reference's published benchmark shapes (BASELINE.md; U = L + 1).
 SHAPES = [("headline", 128, 150, 40, 28), ("large_v", 32, 150, 20, 5000),
@@ -67,13 +73,13 @@ def fail_unless(cond, msg):
         raise RuntimeError(msg)
 
 
-def grad_tol(want, tol_key):
-    """(rtol, atol) for a gradient: atol is GRAD_ATOL_SHARE of the median
-    nonzero |g| of ``want``, taken over at most ~1e7 evenly strided entries."""
+def grad_tol(want, tol_key, share=GRAD_ATOL_SHARE):
+    """(rtol, atol) for a gradient: atol is ``share`` of the median nonzero
+    |g| of ``want``, taken over at most ~1e7 evenly strided entries."""
     nz = want.abs()[want != 0].float()
     if not nz.numel():
         return TOL[tol_key][0], 0.0
-    return TOL[tol_key][0], GRAD_ATOL_SHARE * float(nz[::max(1, nz.numel() // 10 ** 7)].median())
+    return TOL[tol_key][0], share * float(nz[::max(1, nz.numel() // 10 ** 7)].median())
 
 
 def compare(name, got, want, tol):
@@ -106,7 +112,8 @@ def time_ms(fn, iters, warmup=2):
 
 # Kernel names of csrc/*.cu as the profiler shows them.
 PORT_KERNELS = ("prep_kernel", "wavefront_kernel", "grad_kernel", "band_prep_kernel",
-                "band_kernel", "band_grad_kernel", "band_starts_kernel")
+                "band_kernel", "band_grad_kernel", "band_starts_kernel", "joint_prep_kernel",
+                "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_sum_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
@@ -431,6 +438,380 @@ def pruned_timings(problems):
     return out, step_ms
 
 
+# The JAX package's published fused shape (README.md, "Fused joint + loss";
+# B, T, L, V, H) and a small one on which no tile divides V, H or the rows,
+# with the blank in the last column.
+FUSED_SHAPE = ("fused", 64, 150, 20, 5000, 256)
+AWKWARD_SHAPE = ("awkward", 3, 37, 8, 1003, 200)
+# The shape ops/pruned_fused.py names (B, T, L, V, H, S): its band would take
+# 19 GB in f32. PRUNED_FUSED_CUT_B utterances of it give a band of 2.4 GB,
+# which both routes can run.
+PRUNED_FUSED_SHAPE = ("pruned_fused", 128, 1500, 300, 5000, 256, 5)
+PRUNED_FUSED_CUT_B = 16
+# Relative norm error of the fused gradients, kernel against plain version.
+# f32: the sums over rows (dW, db, dp) and over V (dh) run in another order,
+# de and dp through atomics. bf16: h and g are rounded to bf16 after sums
+# taken in different orders, so single elements land on neighbouring bf16
+# values (2^-9 relative each).
+FUSED_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Elementwise, f32: each dW element is a sum of ~10^5 terms of mixed sign
+# taken in another order, so its rtol is 1e-4 and its atol 1e-2 of the median
+# nonzero |g|.
+FUSED_GRAD_ELEMENTWISE = (1e-4, 1e-2)
+# bf16 prep: a tanh that differs in its last bit can round h to the
+# neighbouring bf16 value (2^-9 relative), which moves a logit by ~1e-4.
+FUSED_PREP_TOL = {torch.float32: "f32", torch.bfloat16: (1e-5, 1e-3)}
+
+
+def make_joint_problem(B, T, L, V, H, seed, dev, dtype=torch.float32, blank=0):
+    """Random projected activations e (B, T, H) and p (B, U, H), W ~ N(0, 1/H)
+    so that the logits spread as a trained joint's do, bias, labels that avoid
+    ``blank`` and ragged lengths, from a seed, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = L + 1
+    e = (torch.randn((B, T, H), generator=g, device=dev) * 0.5).to(dtype)
+    p = (torch.randn((B, U, H), generator=g, device=dev) * 0.5).to(dtype)
+    W = (torch.randn((H, V), generator=g, device=dev) / H ** 0.5).to(dtype)
+    bias = torch.randn((V,), generator=g, device=dev) * 0.1
+    labels = torch.randint(0, V - 1, (B, L), generator=g, device=dev, dtype=torch.int32)
+    labels = labels + (labels >= blank).int()
+    il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    il[0], ll[0] = T, L
+    return e, p, W, bias, labels, il, ll
+
+
+def joint_fields(problem, blank):
+    """What the fused step hands its gradient kernels: the fused prep, the
+    lattice and the coefficient fields (kernels, unit cotangent)."""
+    from warp_transducer_tpu_torch.ops import gradients
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
+    e, p, W, bias, labels, il, ll = problem
+    with torch.no_grad():
+        pr = kjoint.fused_prep(e, p, W, bias, labels, il, ll, blank)
+        res = kwave.forward_backward(pr.lpb, pr.lpe, il, ll)
+        fields = gradients.coefficients(pr.lpb, pr.lpe, res.alphas, res.betas, res.ll_forward,
+                                        il, ll)
+    return pr, fields
+
+
+def rel_norm(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def joint_kernels_vs_plain(dev, errs):
+    """The two fused joint kernels against their plain versions: at the
+    fused shape in f32 and with bf16 e, p, W, and at the awkward shape."""
+    from warp_transducer_tpu_torch.ops import fused_joint
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    cases = [(FUSED_SHAPE, torch.float32, 0), (FUSED_SHAPE, torch.bfloat16, 0),
+             (AWKWARD_SHAPE, torch.float32, AWKWARD_SHAPE[4] - 1),
+             (AWKWARD_SHAPE, torch.bfloat16, AWKWARD_SHAPE[4] - 1)]
+    for (tag, B, T, L, V, H), dtype, blank in cases:
+        problem = make_joint_problem(B, T, L, V, H, seed=7, dev=dev, dtype=dtype, blank=blank)
+        e, p, W, bias, labels, il, ll = problem
+        name = f"{tag} {dtype}"
+        p_k = kjoint.fused_prep(e, p, W, bias, labels, il, ll, blank)
+        torch.cuda.synchronize()
+        p_p = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, blank)
+        err = max(compare(f"joint_prep {name} {f}", getattr(p_k, f), getattr(p_p, f),
+                          FUSED_PREP_TOL[dtype]) for f in ("lpb", "lpe", "denom"))
+        if dtype == torch.float32:
+            errs["joint_prep"] = max(errs["joint_prep"], err)
+        _, fields = joint_fields(problem, blank)
+        g_k = kjoint.fused_grad(e, p, W, bias, labels, il, ll, p_p.denom, fields, blank)
+        torch.cuda.synchronize()
+        g_p = fused_joint.fused_grad(e, p, W, bias, labels, il, ll, p_p.denom, fields, blank)
+        for f, got, want in zip(("de", "dp", "dW", "db"), g_k, g_p):
+            rel = rel_norm(got, want)
+            print(f"joint_grad {name} {f}: relative norm error {rel:.3e} "
+                  f"(tol {FUSED_GRAD_REL[dtype]:g})")
+            fail_unless(rel <= FUSED_GRAD_REL[dtype] and bool(torch.isfinite(got.float()).all()),
+                        f"joint_grad {name} {f}: kernel disagrees with its plain version")
+            if dtype == torch.float32:
+                rtol, share = FUSED_GRAD_ELEMENTWISE
+                err = compare(f"joint_grad {name} {f}", got, want,
+                              (rtol, grad_tol(want, "f32", share)[1]))
+                errs["joint_grad"] = max(errs["joint_grad"], err)
+        del p_k, p_p, g_k, g_p, fields, problem
+        torch.cuda.empty_cache()
+
+
+def make_joint_module(V, H, seed, dev, dtype=torch.float32):
+    """The port's Joint at the default widths (encoder and prediction 256),
+    its weights drawn with numpy from a seed as a Flax parameter tree and
+    loaded through joint_state_dict_from_flax."""
+    import numpy as np
+    from warp_transducer_tpu_torch.models import Joint, TransducerConfig
+    from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax
+    cfg = TransducerConfig(vocab_size=V, joint_dim=H, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    tree = {name: {"kernel": (rng.standard_normal((i, o)) / i ** 0.5).astype(np.float32),
+                   "bias": (rng.standard_normal(o) * 0.1).astype(np.float32)}
+            for name, i, o in (("Dense_0", cfg.encoder_dim, H), ("Dense_1", cfg.prediction_dim, H),
+                               ("Dense_2", H, V))}
+    joint = Joint(cfg, device=dev)
+    joint.load_state_dict(joint_state_dict_from_flax({"params": tree}))
+    return joint
+
+
+def make_model_problem(B, T, L, V, seed, dev, cfg):
+    """Random encoder and prediction outputs, labels and ragged lengths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = torch.randn((B, T, cfg.encoder_dim), generator=g, device=dev)
+    pred = torch.randn((B, L + 1, cfg.prediction_dim), generator=g, device=dev)
+    labels = torch.randint(1, V, (B, L), generator=g, device=dev, dtype=torch.int32)
+    il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    il[0], ll[0] = T, L
+    return enc, pred, labels, il, ll
+
+
+def joint_step(joint, loss_fn, enc, pred):
+    """Forward and backward of ``loss_fn(enc, pred)`` (a sum of costs) into
+    the joint's parameters and enc, pred; returns (loss, {name: grad})."""
+    joint.zero_grad(set_to_none=True)
+    enc = enc.detach().requires_grad_(True)
+    pred = pred.detach().requires_grad_(True)
+    loss = loss_fn(enc, pred)
+    loss.backward()
+    grads = {n: q.grad for n, q in joint.named_parameters()} | {"enc": enc.grad, "pred": pred.grad}
+    return loss.detach(), grads
+
+
+def check_step(tag, got, want, what):
+    """Costs rtol 1e-5 and every gradient within a relative norm error of
+    1e-3, as the other end-to-end checks."""
+    compare(f"{tag} loss vs {what}", got[0], want[0], "f32")
+    for n in got[1]:
+        rel = rel_norm(got[1][n], want[1][n])
+        print(f"{tag} d{n} vs {what}: relative norm error {rel:.3e} (tol 1e-3)")
+        fail_unless(rel <= 1e-3 and bool(torch.isfinite(got[1][n]).all()),
+                    f"{tag}: d{n} differs from {what}")
+
+
+def peak_mb(fn):
+    """Peak device memory of one call of ``fn`` above what is allocated
+    before it, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def fused_main_path(dev, totals):
+    """``Joint.fused_loss`` forward and backward at the fused shape under
+    the launch counters, with no host sync allowed, held against
+    implementation="torch" and against the unfused composition
+    (``Joint.forward`` → ``rnnt_loss``: 4.0 GB of logits). Returns what the
+    timings need."""
+    from warp_transducer_tpu_torch import rnnt_loss
+    from warp_transducer_tpu_torch.ops import cuda as K
+    tag, B, T, L, V, H = FUSED_SHAPE
+    joint = make_joint_module(V, H, seed=8, dev=dev)
+    enc, pred, labels, il, ll = make_model_problem(B, T, L, V, seed=9, dev=dev, cfg=joint.cfg)
+
+    def fused(implementation="auto"):
+        return joint_step(joint, lambda a, b: joint.fused_loss(
+            a, b, labels, il, ll, reduction="sum", implementation=implementation), enc, pred)
+
+    def unfused():
+        return joint_step(joint, lambda a, b: rnnt_loss(
+            joint(a, b), labels, il, ll, blank=joint.cfg.blank, reduction="sum"), enc, pred)
+
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+    got = fused()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    print(f"main path {tag} B={B} T={T} L={L} V={V} H={H}: launches {counts}")
+    for k in ("joint_prep", "wavefront", "joint_grad"):
+        fail_unless(counts[k] > 0, f"{k} kernel was not launched on the fused path")
+    for k, n in counts.items():
+        totals[k] += n
+    got = (got[0], {n: g.clone() for n, g in got[1].items()})
+    check_step(tag, got, fused("torch"), "the plain path")
+    check_step(tag, got, unfused(), "the unfused composition")
+    return fused, unfused
+
+
+def pruned_fused_path(dev, totals):
+    """``rnnt_loss_simple(..., prune_range=S)`` for the band starts, then
+    ``Joint.pruned_fused_loss`` forward and backward, at the full shape (the
+    sweep: its band would not fit the threshold) under the launch counters
+    and with no host sync allowed; then the first PRUNED_FUSED_CUT_B
+    utterances on both routes, held against each other (the materialised
+    route is ``rnnt_loss_pruned`` on the band: K5a, K5b) and against the
+    full run's costs. Returns the cut problem for the timings."""
+    from warp_transducer_tpu_torch import rnnt_loss_simple
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import pruned_fused
+    tag, B, T, L, V, H, S = PRUNED_FUSED_SHAPE
+    joint = make_joint_module(V, H, seed=10, dev=dev)
+    enc, pred, labels, il, ll = make_model_problem(B, T, L, V, seed=11, dev=dev, cfg=joint.cfg)
+    g = torch.Generator(device=dev).manual_seed(12)
+    am = torch.randn((B, T, V), generator=g, device=dev)
+    lm = torch.randn((B, L + 1, V), generator=g, device=dev)
+    fail_unless(pruned_fused._materialize_bytes(B, T, S, H, V)
+                > pruned_fused._MATERIALIZE_MB << 20, "the full shape must take the sweep")
+
+    def step(n, ranges):
+        return joint_step(joint, lambda a, b: joint.pruned_fused_loss(
+            a, b, ranges[:n], labels[:n], il[:n], ll[:n], s_range=S, reduction="sum"),
+            enc[:n], pred[:n])
+
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    with torch.no_grad():
+        _, ranges = rnnt_loss_simple(am, lm, labels, il, ll, prune_range=S)
+    joint.zero_grad(set_to_none=True)
+    e_leaf = enc.detach().requires_grad_(True)
+    p_leaf = pred.detach().requires_grad_(True)
+    costs = joint.pruned_fused_loss(e_leaf, p_leaf, ranges, labels, il, ll, s_range=S,
+                                    reduction="none")
+    costs.sum().backward()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    print(f"main path {tag} B={B} T={T} L={L} V={V} H={H} S={S}: launches {counts}")
+    for k in ("wavefront", "ranges", "band_stream"):
+        fail_unless(counts[k] > 0, f"{k} kernel was not launched on the pruned fused path")
+    for k, n in counts.items():
+        totals[k] += n
+    grads = [q.grad for q in joint.parameters()] + [e_leaf.grad, p_leaf.grad]
+    fail_unless(bool(torch.isfinite(costs).all()) and costs.shape == (B,)
+                and all(bool(torch.isfinite(x).all()) for x in grads),
+                "pruned fused step: costs or gradients not finite")
+    costs = costs.detach()
+    feasible = float((costs < 1e29).float().mean())
+    print(f"pruned fused {tag}: mean cost {float(costs[costs < 1e29].mean()):.4f}, "
+          f"{feasible:.3f} of the utterances have a path inside the band")
+    del am, lm, e_leaf, p_leaf, grads
+    torch.cuda.empty_cache()
+
+    n = PRUNED_FUSED_CUT_B
+    old = pruned_fused._MATERIALIZE_MB
+    try:
+        pruned_fused._MATERIALIZE_MB = 0
+        K.reset_launches()
+        sweep = step(n, ranges)
+        fail_unless(K.launches["band_prep"] == 0 and K.launches["band_stream"] > 0,
+                    "the sweep route ran the band prep kernel")
+        sweep = (sweep[0], {k: v.clone() for k, v in sweep[1].items()})
+        pruned_fused._MATERIALIZE_MB = 1 << 20
+        K.reset_launches()
+        mat = step(n, ranges)
+        fail_unless(K.launches["band_prep"] > 0 and K.launches["band_grad"] > 0,
+                    "the materialised route did not run the band kernels")
+    finally:
+        pruned_fused._MATERIALIZE_MB = old
+    check_step(f"{tag} B={n} sweep", sweep, mat, "rnnt_loss_pruned on the materialised band")
+    compare(f"{tag}: the full run's first {n} costs vs the cut run", costs[:n].sum(), sweep[0],
+            "f32")
+    return step, ranges
+
+
+def time_routes(step, ranges):
+    """Both routes of rnnt_loss_pruned_fused at the cut shape, step time and
+    peak memory, for the threshold note."""
+    from warp_transducer_tpu_torch.ops import pruned_fused
+    tag, B, T, L, V, H, S = PRUNED_FUSED_SHAPE
+    n = PRUNED_FUSED_CUT_B
+    old = pruned_fused._MATERIALIZE_MB
+    out = {}
+    try:
+        for route, mb in (("sweep", 0), ("materialised", 1 << 20), ("materialised", 1 << 20),
+                          ("sweep", 0)):
+            pruned_fused._MATERIALIZE_MB = mb
+            ms = time_ms(lambda: step(n, ranges), 2, 1)
+            mem = peak_mb(lambda: step(n, ranges))
+            out.setdefault(route, []).append(ms)
+            print(f"time {tag} B={n} T={T} L={L} V={V} H={H} S={S} {route} route: "
+                  f"{ms:.4f} ms a step, peak {mem:.1f} MB")
+        pruned_fused._MATERIALIZE_MB = 0
+        ms = time_ms(lambda: step(B, ranges), 2, 1)
+        mem = peak_mb(lambda: step(B, ranges))
+        print(f"time {tag} B={B} T={T} L={L} V={V} H={H} S={S} sweep route: {ms:.4f} ms a "
+              f"step, peak {mem:.1f} MB")
+        device_breakdown(f"{tag} step", lambda: step(B, ranges), ms, iters=1, top=12)
+    finally:
+        pruned_fused._MATERIALIZE_MB = old
+    band_mb = pruned_fused._materialize_bytes(n, T, S, H, V) / 2 ** 20
+    faster = min(out, key=lambda r: min(out[r]))
+    print(f"threshold {tag}: at a working set of {band_mb:.0f} MB the {faster} route is the "
+          f"faster (sweep {min(out['sweep']):.4f} ms, materialised "
+          f"{min(out['materialised']):.4f} ms)")
+    return out, ms
+
+
+def fused_timings(dev, fused, unfused):
+    """The fused and the unfused step (time, peak memory, device breakdown)
+    and the two fused kernels at the fused shape in f32 and bf16: ms, plain
+    ms, library ms, bound. Returns ({kernel: {case: timing}}, step times)."""
+    from warp_transducer_tpu_torch.ops import fused_joint
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    tag, B, T, L, V, H = FUSED_SHAPE
+    steps = {}
+    for name, fn in (("fused", fused), ("unfused", unfused), ("unfused", unfused),
+                     ("fused", fused)):
+        ms = time_ms(fn, 3, 1)
+        mem = peak_mb(fn)
+        steps.setdefault(name, []).append((ms, mem))
+        print(f"time {tag} B={B} T={T} L={L} V={V} H={H}: {name} step {ms:.4f} ms, "
+              f"peak {mem:.1f} MB")
+    device_breakdown(f"{tag} fused step", fused, steps["fused"][0][0], iters=3, top=10)
+    device_breakdown(f"{tag} unfused step", unfused, steps["unfused"][0][0], iters=3, top=10)
+    torch.cuda.empty_cache()
+
+    out = {"joint_prep": {}, "joint_grad": {}}
+    U = L + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        case = f"{tag}_{'f32' if dtype == torch.float32 else 'bf16'}"
+        problem = make_joint_problem(B, T, L, V, H, seed=7, dev=dev, dtype=dtype)
+        e, p, W, bias, labels, il, ll = problem
+        pr, fields = joint_fields(problem, 0)
+        # Data-dependent work: only the rows inside each utterance's lattice.
+        rows = int((il.long() * (ll.long() + 1)).sum())
+        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias)) + B * L * 4 + 2 * B * 4
+        small = B * T * U * 4
+        # The library's products, timed only: on the whole h (B·T·U, H) and g.
+        h = torch.tanh(e.float()[:, :, None] + p.float()[:, None]).reshape(-1, H).to(dtype)
+        g = torch.randn((h.shape[0], V), device=dev).to(dtype)
+
+        def three_products():
+            torch.matmul(h, W)
+            torch.matmul(g, W.t())
+            torch.matmul(h.t(), g)
+
+        prep_args = (e, p, W, bias, labels, il, ll, 0)
+        grad_args = (e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
+        out["joint_prep"][case] = dict(
+            ms=time_ms(lambda: kjoint.fused_prep(*prep_args), 5),
+            plain_ms=time_ms(lambda: fused_joint.fused_prep(*prep_args), 2, 1),
+            library_ms=time_ms(lambda: torch.matmul(h, W), 5),
+            bound=bound(in_bytes + 3 * small, 2 * rows * H * V, rate))
+        out["joint_grad"][case] = dict(
+            ms=time_ms(lambda: kjoint.fused_grad(*grad_args), 3),
+            plain_ms=time_ms(lambda: fused_joint.fused_grad(*grad_args), 2, 1),
+            library_ms=time_ms(three_products, 3),
+            bound=bound(2 * in_bytes + 4 * small, 3 * 2 * rows * H * V, rate))
+        print(f"time {case}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
+        for k in out:
+            v = out[k][case]
+            print(f"time {case} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
+                  f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library "
+                  f"{v['library_ms']:.4f} ms")
+        del h, g, pr, fields, problem, prep_args, grad_args
+        torch.cuda.empty_cache()
+    return out, steps
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
@@ -619,6 +1000,20 @@ def main():
     pruned_problems = pruned_main_path(dev, totals)
     full_band_check(dev)
     band_timings, step_ms = pruned_timings(pruned_problems)
+    del pruned_problems
+    torch.cuda.empty_cache()
+
+    # ---- 7. the fused joint+loss: its two kernels against their plain
+    # versions, the fused step against the unfused composition, the pruned
+    # fused step on both routes, the timings and peak memories
+    joint_kernels_vs_plain(dev, errs)
+    fused, unfused = fused_main_path(dev, totals)
+    joint_timings, fused_steps = fused_timings(dev, fused, unfused)
+    del fused, unfused
+    torch.cuda.empty_cache()
+    pf_step, pf_ranges = pruned_fused_path(dev, totals)
+    route_ms, pf_full_ms = time_routes(pf_step, pf_ranges)
+    del pf_step, pf_ranges
 
     sources = {
         "prep": ("warp_transducer_tpu_torch/csrc/prep.cu",
@@ -667,6 +1062,34 @@ def main():
                                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                                "library_ms": t["library_ms"], "pruned_step_ms": step_ms[tag]}
                          for tag, t in band_timings[k].items()}})
+    joint_sources = {
+        "joint_prep": ("warp_transducer_tpu_torch/csrc/joint_prep.cu",
+                       "warp_transducer_tpu/ops/pallas/joint_fused.py:123"),
+        "joint_grad": ("warp_transducer_tpu_torch/csrc/joint_grad.cu",
+                       "warp_transducer_tpu/ops/pallas/joint_fused.py:283"),
+    }
+    fused_step_ms = {name: min(ms for ms, _ in runs) for name, runs in fused_steps.items()}
+    fused_peak_mb = {name: max(mb for _, mb in runs) for name, runs in fused_steps.items()}
+    for k, (source, replaces) in joint_sources.items():
+        head = joint_timings[k]["fused_f32"]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": totals[k], "max_abs_err": errs[k], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": head["library_ms"],
+            "shape": "fused B=64 T=150 L=20 V=5000 H=256 f32",
+            "by_shape": {case: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                                "library_ms": t["library_ms"],
+                                "fused_step_ms": fused_step_ms["fused"],
+                                "unfused_step_ms": fused_step_ms["unfused"],
+                                "fused_peak_mb": fused_peak_mb["fused"],
+                                "unfused_peak_mb": fused_peak_mb["unfused"]}
+                         for case, t in joint_timings[k].items()}})
+    print(json.dumps({"pruned_fused": {
+        "full_sweep_step_ms": pf_full_ms, "cut_batch": PRUNED_FUSED_CUT_B,
+        "cut_sweep_step_ms": min(route_ms["sweep"]),
+        "cut_materialised_step_ms": min(route_ms["materialised"])}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -27,8 +27,11 @@ def _imported_roots(path):
 
 def test_sources_found():
     assert len(SOURCES) >= 10
-    for module in ("rnnt", "simple", "pruned", "band", "cuda/band", "cuda/ranges"):
+    for module in ("rnnt", "simple", "pruned", "band", "cuda/band", "cuda/ranges", "fused_joint",
+                   "pruned_fused", "cuda/joint"):
         assert (PKG / "ops" / f"{module}.py") in SOURCES, module
+    for module in ("models/transducer", "utils/convert"):
+        assert (PKG / f"{module}.py") in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -57,6 +60,20 @@ def test_imports_with_jax_blocked():
         "assert torch.equal(r, W.rnnt_prune_ranges(am, lm, lab, il, ll, 2))\n"
         "p = W.rnnt_loss_pruned(am[:, :, None] + W.gather_banded(lm, r, 2), r, lab, il, ll)\n"
         "assert torch.isfinite(loss) and torch.isfinite(p)\n"
+        "import warp_transducer_tpu_torch.ops.cuda.joint\n"
+        "from warp_transducer_tpu_torch.models import Joint, TransducerConfig\n"
+        "from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax\n"
+        "e, q, Wt, b = torch.zeros(1, 3, 5), torch.zeros(1, 2, 5), torch.zeros(5, 4), torch.zeros(4)\n"
+        "f = W.rnnt_loss_fused_joint(e, q, Wt, b, lab, il, ll)\n"
+        "pf = W.rnnt_loss_pruned_fused(e, q, Wt, b, r, lab, il, ll, 2)\n"
+        "j = Joint(TransducerConfig(vocab_size=4, encoder_dim=5, prediction_dim=5, joint_dim=5,\n"
+        "                           dtype=torch.float32))\n"
+        "j.load_state_dict(joint_state_dict_from_flax(\n"
+        "    {n: {'kernel': w.detach().numpy().T, 'bias': c.detach().numpy()} for n, (w, c) in\n"
+        "     zip(('Dense_0', 'Dense_1', 'Dense_2'), ((l.weight, l.bias) for l in\n"
+        "         (j.enc_proj, j.pred_proj, j.out_proj)))}))\n"
+        "jl = j.fused_loss(e, q, lab, il, ll)\n"
+        "assert all(torch.isfinite(x) for x in (f, pf, jl))\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

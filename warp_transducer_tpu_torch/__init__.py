@@ -11,20 +11,28 @@ The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
 * the pruned path (arXiv:2206.13236): ``rnnt_loss_simple`` for the
   additive joiner without the (B, T, U, V) tensor, ``rnnt_prune_ranges``
   for per-frame band starts, ``gather_banded`` to bring U-indexed rows to
-  the band and ``rnnt_loss_pruned`` for the loss on a (B, T, S, V) band.
+  the band and ``rnnt_loss_pruned`` for the loss on a (B, T, S, V) band;
+* the fused joint+loss: ``rnnt_loss_fused_joint`` for the loss of
+  ``tanh(e ⊕ p) @ W + bias`` with gradients to e, p, W and bias, without
+  the (B, T, U, V) logits or their gradient in device memory, and
+  ``rnnt_loss_pruned_fused`` for the same on a pruned band;
+  ``models.transducer.Joint`` is the module through which a model calls
+  both, and ``utils.convert`` carries the Flax module's weights across.
 
 A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
 use); a CPU tensor runs their plain PyTorch versions.
 """
 
+from .ops.fused_joint import rnnt_loss_fused_joint
 from .ops.lattice import LatticeResult
 from .ops.pruned import gather_banded, rnnt_loss_pruned, rnnt_prune_ranges
+from .ops.pruned_fused import rnnt_loss_pruned_fused
 from .ops.rnnt import (RNNTLoss, forward_backward_mismatch, rnnt_forward_backward,
                        rnnt_loss, rnnt_loss_and_grad, rnnt_score)
 from .ops.simple import rnnt_loss_simple
 from .utils.options import RNNTOptions
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = [
     "LatticeResult",
@@ -35,7 +43,9 @@ __all__ = [
     "rnnt_forward_backward",
     "rnnt_loss",
     "rnnt_loss_and_grad",
+    "rnnt_loss_fused_joint",
     "rnnt_loss_pruned",
+    "rnnt_loss_pruned_fused",
     "rnnt_loss_simple",
     "rnnt_prune_ranges",
     "rnnt_score",

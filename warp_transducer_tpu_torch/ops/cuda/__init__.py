@@ -7,7 +7,9 @@ signature of the plain version it stands for:
   the lattice of the simple loss), ``grad.dense_grad`` /
   ``grad.sparse_grad``;
 * the pruned path: ``band.band_prep``, ``band.forward_backward``,
-  ``band.band_grad`` and ``ranges.band_starts``.
+  ``band.band_grad`` and ``ranges.band_starts``;
+* the fused joint+loss: ``joint.fused_prep`` and ``joint.fused_grad`` (two
+  kernels, both counted under ``joint_grad``).
 
 On a CPU tensor a wrapper runs that plain version; on a CUDA tensor it
 launches its kernel on PyTorch's current stream, or raises. It never falls
@@ -22,7 +24,7 @@ from .build import library as lib
 
 # One counter per kernel, raised by one right after each successful launch.
 launches = {"prep": 0, "wavefront": 0, "grad": 0, "band_prep": 0, "band_stream": 0,
-            "band_grad": 0, "ranges": 0}
+            "band_grad": 0, "ranges": 0, "joint_prep": 0, "joint_grad": 0}
 
 # Type codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}

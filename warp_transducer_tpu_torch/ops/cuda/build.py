@@ -104,9 +104,22 @@ def library() -> ctypes.CDLL:
     lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
     lib.wtt_band_starts.argtypes = [p, p, p, p, i, i, i, p]
+    joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
+    lib.wtt_joint_prep.argtypes = joint + [p, p, p, i, i, i, i, i, i, p]
+    lib.wtt_joint_grad_rows.argtypes = joint + [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.wtt_joint_grad_cols.argtypes = joint + [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_grad, lib.wtt_band_prep,
-               lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts):
+               lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
+               lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols):
         fn.restype = ctypes.c_int
+    # What the joint kernels' tiling needs at a given H, for the wrapper's checks.
+    lib.wtt_joint_max_h.argtypes = []
+    lib.wtt_joint_max_h.restype = i
+    lib.wtt_joint_grad_stripe.argtypes = [i]
+    lib.wtt_joint_grad_stripe.restype = i
+    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_smem):
+        fn.argtypes = [i]
+        fn.restype = ll
     lib.wtt_error_string.argtypes = [i]
     lib.wtt_error_string.restype = ctypes.c_char_p
     return lib

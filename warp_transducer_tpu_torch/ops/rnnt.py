@@ -30,11 +30,13 @@ from types import SimpleNamespace
 import torch
 
 from . import band as _band
+from . import fused_joint as _fused
 from . import gradients as _gradients
 from . import lattice as _lattice
 from . import prep as _prep
 from .cuda import band as _cuda_band
 from .cuda import grad as _cuda_grad
+from .cuda import joint as _cuda_joint
 from .cuda import prep as _cuda_prep
 from .cuda import ranges as _cuda_ranges
 from .cuda import wavefront as _cuda_wavefront
@@ -42,8 +44,9 @@ from ..utils.options import RNNTOptions
 
 _IMPLEMENTATIONS = ("auto", "torch", "cuda")
 
-# The stages of the dense loss and of the pruned path (ops/simple.py,
-# ops/pruned.py), as plain PyTorch and as kernel wrappers. A wrapper given a
+# The stages of the dense loss, of the pruned path (ops/simple.py,
+# ops/pruned.py) and of the fused joint (ops/fused_joint.py,
+# ops/pruned_fused.py), as plain PyTorch and as kernel wrappers. A wrapper given a
 # CPU tensor runs the plain version, so "auto" needs no branch of its own.
 _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          forward_backward=_lattice.forward_backward,
@@ -52,7 +55,9 @@ _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          band_prep=_band.band_prep,
                          band_forward_backward=_band.forward_backward,
                          band_grad=_band.band_grad,
-                         band_starts=_band.band_starts)
+                         band_starts=_band.band_starts,
+                         fused_prep=_fused.fused_prep,
+                         fused_grad=_fused.fused_grad)
 _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            forward_backward=_cuda_wavefront.forward_backward,
                            dense_grad=_cuda_grad.dense_grad,
@@ -60,7 +65,9 @@ _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            band_prep=_cuda_band.band_prep,
                            band_forward_backward=_cuda_band.forward_backward,
                            band_grad=_cuda_band.band_grad,
-                           band_starts=_cuda_ranges.band_starts)
+                           band_starts=_cuda_ranges.band_starts,
+                           fused_prep=_cuda_joint.fused_prep,
+                           fused_grad=_cuda_joint.fused_grad)
 
 
 def _engine(implementation: str, acts: torch.Tensor):
