@@ -14,13 +14,16 @@ joint+loss step (``Joint.fused_loss`` forward and backward, weights loaded
 through ``joint_state_dict_from_flax``) at the JAX package's published
 fused shape, held against the unfused composition, and the pruned fused
 step (``rnnt_loss_simple`` → ``Joint.pruned_fused_loss``) at the shape whose
-band would not fit — checks that a full band equals the dense loss, times
-each path and each kernel with CUDA events, reads the peak memory of the
-fused and the unfused step, and prints:
+band would not fit, and the two duration-arc steps
+(``rnnt_loss_multiblank`` with big blanks of 2 and 4 frames,
+``rnnt_loss_tdt`` with durations 0, 1, 2, 4, forward and backward) at the
+JAX package's two published shapes for them — checks that a full band
+equals the dense loss, times each path and each kernel with CUDA events,
+reads the peak memory of the fused and the unfused step, and prints:
 
   card line, build line, one line per comparison, per shape, per timing;
   the card's name and power limit as nvidia-smi gives them;
-  {"kernels": [...]} — one entry per kernel (nine);
+  {"kernels": [...]} — one entry per kernel (ten);
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}} last.
 
 Every check raises, so any failure ends the run with a non-zero exit and
@@ -113,7 +116,8 @@ def time_ms(fn, iters, warmup=2):
 # Kernel names of csrc/*.cu as the profiler shows them.
 PORT_KERNELS = ("prep_kernel", "wavefront_kernel", "grad_kernel", "band_prep_kernel",
                 "band_kernel", "band_grad_kernel", "band_starts_kernel", "joint_prep_kernel",
-                "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_sum_kernel")
+                "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_sum_kernel",
+                "window_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
@@ -143,8 +147,10 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
     print(f"profile {tag}: device busy {busy:.4f} ms/call of {event_ms:.4f} ms "
           f"(idle share {max(0.0, 1 - busy / event_ms):.3f}); wall under the profiler "
           f"{wall_ms:.4f} ms/call")
-    port = sum(ms for ms, key in rows if "at::" not in key and
-               re.split(r"[<(]", key.split("(anonymous namespace)::")[-1])[0] in PORT_KERNELS)
+    # A kernel's own name: the first identifier that a '<' or '(' follows
+    # ("void (anonymous namespace)::prep_kernel<float, float>(float const*, …").
+    port = sum(ms for ms, key in rows
+               if (m := re.search(r"(\w+)[<(]", key)) and m.group(1) in PORT_KERNELS)
     print(f"profile {tag}: the port's kernels {port:.4f} ms/call, other kernels "
           f"{busy - port:.4f} ms/call in {len(rows)} kinds")
     for ms, key in rows[:top]:
@@ -812,6 +818,283 @@ def fused_timings(dev, fused, unfused):
     return out, steps
 
 
+# The JAX package's two published duration-arc shapes (bench.py:394-419 and
+# README.md:285, :292; B, T, L, V): the headline and the long utterances.
+# Multi-blank: K = 2 big blanks of 2 and 4 frames on the last two columns,
+# sigma 0.05; TDT: durations 0, 1, 2, 4 (D = 4). Labels stay off the
+# big-blank columns.
+DURATION_SHAPES = [("headline", 128, 150, 40, 28), ("long_t", 16, 1500, 300, 50)]
+MB_DURATIONS, MB_SIGMA = (2, 4), 0.05
+TDT_DURATIONS = (0, 1, 2, 4)
+TDT_NO_D0 = (1, 2)
+
+
+def make_duration_problem(B, T, L, V, seed, dev, dtype=torch.float32):
+    """Random token logits, duration logits (D = 4), labels below the last
+    two columns and ragged lengths, from a seed, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = L + 1
+    acts = torch.randn((B, T, U, V), generator=g, device=dev, dtype=torch.float32).to(dtype)
+    dur = torch.randn((B, T, U, len(TDT_DURATIONS)), generator=g, device=dev).to(dtype)
+    labels = torch.randint(1, V - len(MB_DURATIONS), (B, L), generator=g, device=dev,
+                           dtype=torch.int32)
+    il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    il[0], ll[0] = T, L
+    return acts, dur, labels, il, ll
+
+
+def window_tol(chain_weight, dtype):
+    """(rtol, atol) of the window lattice, kernel against plain version. The
+    chain's prefix form α = c + LSE(ne − c) cancels against c, the summed
+    chain weights of a row, in both versions alike but in another order of
+    addition: atol is that of the dtype plus four ulps of the largest |c|
+    (2^-22 of it in f32, 2^-51 in f64). No chain: the dtype's own."""
+    key = "f64" if dtype == torch.float64 else "f32"
+    rtol, atol = TOL[key]
+    if chain_weight is None:
+        return rtol, atol
+    c_max = float(chain_weight[..., :-1].clamp_min(-1e4).sum(-1).abs().max())
+    return rtol, atol + c_max * (2.0 ** -51 if dtype == torch.float64 else 2.0 ** -22)
+
+
+def window_cell_ops(arcs, U):
+    """Operations of one lattice cell in one direction of the window kernel:
+    per arc a weight sum, an add and a log-sum-exp of about six operations;
+    for the chain two block scans of ceil(log2 U) steps (an add, and a
+    log-sum-exp) and four more (the clamp, ne − c, c + z, the select)."""
+    n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
+    steps = max(1, (U - 1).bit_length())
+    return n_arcs * 8 + (steps * 7 + 4 if arcs.chain is not None else 0)
+
+
+def duration_kernels_vs_plain(dev, errs):
+    """The window kernel against the plain lattice for the multi-blank and
+    the TDT arcs (with and without d = 0), f32 and f64, at both shapes, and
+    at K = 0 against the wavefront kernel; prep and grad with K = 2 extra
+    columns at both shapes and at the large-vocabulary one, f32 and bf16."""
+    from warp_transducer_tpu_torch.ops import gradients, multiblank, prep, window
+    from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
+    from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+    from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    fields4 = ("alphas", "betas", "ll_forward", "ll_backward")
+
+    def extra_cols_case(tag, B, T, L, V, dtype):
+        """prep and grad with the two big-blank columns; returns the f32
+        channels for the lattice checks."""
+        acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=13, dev=dev,
+                                                          dtype=dtype)
+        cols = (V - 2, V - 1)
+        f32 = dtype == torch.float32
+        p_k = kprep.prepare(acts, labels, 0, False, extra_cols=cols)
+        torch.cuda.synchronize()
+        p = prep.prepare(acts, labels, 0, False, extra_cols=cols)
+        e = max(compare(f"prep K=2 {tag} {dtype} {f}", getattr(p_k, f), getattr(p, f), "f32")
+                for f in ("lpb", "lpe", "denom", "extras"))
+        if f32:
+            errs["prep"] = max(errs["prep"], e)
+        del p_k
+        arcs = window.multiblank_arcs(MB_DURATIONS)
+        lat = kwindow.forward_backward(p.lpb, p.lpe, p.extras, arcs, il, ll)
+        coef, cb, ce, cBs = multiblank._mb_coefs(p.lpb, p.lpe, p.extras, lat, MB_DURATIONS, il, ll)
+        fields = gradients.Coefficients(coef, cb, ce)
+        extra = torch.stack(cBs, dim=-1)
+        args = (acts, p.denom, fields, prep.label_rows(labels, L + 1), il, ll, 0, dtype)
+        g_k = kgrad.dense_grad(*args, extra_cols=cols, extra_fields=extra)
+        torch.cuda.synchronize()
+        g_p = gradients.dense_grad(*args, extra_cols=cols, extra_fields=extra)
+        e = compare(f"grad K=2 {tag} {dtype}", g_k, g_p, grad_tol(g_p, "f32" if f32 else "bf16_out"))
+        if f32:
+            errs["grad"] = max(errs["grad"], e)
+        return p, torch.log_softmax(dur.float(), -1), il, ll
+
+    def lattice_case(name, arcs, lpb, lpe, extra, il, ll, chain_weight, want=None):
+        got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+        torch.cuda.synchronize()
+        if want is None:
+            want = window.forward_backward(lpb, lpe, extra, arcs, il, ll)
+        tol = window_tol(chain_weight, lpb.dtype)
+        e = max(compare(f"window_stream {name} {f}", getattr(got, f), getattr(want, f), tol)
+                for f in fields4)
+        if lpb.dtype == torch.float32:
+            errs["window_stream"] = max(errs["window_stream"], e)
+
+    for tag, B, T, L, V in DURATION_SHAPES:
+        p, lpd, il, ll = extra_cols_case(tag, B, T, L, V, torch.float32)
+        if tag == "headline":
+            extra_cols_case(tag, B, T, L, V, torch.bfloat16)
+        j0 = TDT_DURATIONS.index(0)
+        for dtype in (torch.float32, torch.float64):
+            name = f"{tag} {'f32' if dtype == torch.float32 else 'f64'}"
+            lpb, lpe, lpB, d = (x.to(dtype) for x in (p.lpb, p.lpe, p.extras, lpd))
+            lattice_case(f"multiblank {MB_DURATIONS} {name}", window.multiblank_arcs(MB_DURATIONS),
+                         lpb, lpe, lpB, il, ll, lpe)
+            lattice_case(f"tdt {TDT_DURATIONS} {name}", window.tdt_arcs(TDT_DURATIONS), lpb, lpe,
+                         d, il, ll, lpe + d[..., j0])
+            if dtype == torch.float32 or tag == "headline":
+                lattice_case(f"tdt {TDT_NO_D0} {name}", window.tdt_arcs(TDT_NO_D0), lpb, lpe,
+                             d[..., :2].contiguous(), il, ll, None)
+            # K = 0: the dense lattice, which the wavefront kernel computes
+            # along anti-diagonals and cell by cell, without the prefix form.
+            lattice_case(f"K=0 vs wavefront kernel {name}", window.multiblank_arcs(()), lpb, lpe,
+                         lpB[..., :0].contiguous(), il, ll, lpe,
+                         want=kwave.forward_backward(lpb, lpe, il, ll))
+        del p, lpd
+        torch.cuda.empty_cache()
+    _, B, T, L, V = SHAPES[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        extra_cols_case("large_v", B, T, L, V, dtype)
+        torch.cuda.empty_cache()
+
+
+def duration_step(loss, acts, dur, labels, il, ll, implementation="auto"):
+    """One training step's loss part through a public entry point: forward
+    and backward into the logits (leaves that require grad). Returns the
+    costs and the gradients."""
+    from warp_transducer_tpu_torch import rnnt_loss_multiblank, rnnt_loss_tdt
+    acts.grad = dur.grad = None
+    if loss == "multiblank":
+        costs = rnnt_loss_multiblank(acts, labels, il, ll, MB_DURATIONS, sigma=MB_SIGMA,
+                                     reduction="none", implementation=implementation)
+    else:
+        costs = rnnt_loss_tdt(acts, dur, labels, il, ll, TDT_DURATIONS, reduction="none",
+                              implementation=implementation)
+    costs.sum().backward()
+    grads = {"acts": acts.grad} if loss == "multiblank" else {"tok": acts.grad, "dur": dur.grad}
+    return costs.detach(), grads
+
+
+def duration_main_path(dev, totals):
+    """Both duration-arc steps at both shapes under the launch counters,
+    with no host sync allowed, held against the same step with
+    implementation="torch" (timed once there: its lattice is T steps of torch
+    ops). Returns {shape: problem}."""
+    from warp_transducer_tpu_torch.ops import cuda as K
+    problems = {}
+    for tag, B, T, L, V in DURATION_SHAPES:
+        acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=14, dev=dev)
+        acts.requires_grad_(True)
+        dur.requires_grad_(True)
+        for loss in ("multiblank", "tdt"):
+            K.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+            costs, grads = duration_step(loss, acts, dur, labels, il, ll)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            counts = dict(K.launches)
+            print(f"main path {loss} {tag} B={B} T={T} L={L} V={V}: launches {counts}")
+            for k in ("prep", "window_stream", "grad"):
+                fail_unless(counts[k] > 0, f"{k} kernel was not launched on the {loss} path ({tag})")
+            fail_unless(counts["wavefront"] == 0, f"the {loss} path ran the dense lattice ({tag})")
+            for k, n in counts.items():
+                totals[k] += n
+            grads = {n: g.clone() for n, g in grads.items()}
+            fail_unless(costs.shape == (B,) and bool(torch.isfinite(costs).all())
+                        and bool((costs < 1e29).all()), f"{loss} {tag}: costs not finite")
+            started = time.perf_counter()
+            costs_p, grads_p = duration_step(loss, acts, dur, labels, il, ll, "torch")
+            torch.cuda.synchronize()
+            print(f"time {loss} {tag}: the plain step once {(time.perf_counter() - started) * 1e3:.1f} ms")
+            compare(f"{loss} costs {tag} kernels vs plain", costs, costs_p, "f32")
+            # As for the dense path: the prep's rounding moves α + β − ll, and
+            # exp() turns that into a relative error of the gradient.
+            for n in grads:
+                fail_unless(grads[n].shape == grads_p[n].shape
+                            and bool(torch.isfinite(grads[n]).all()), f"{loss} {tag}: d{n} not finite")
+                rel = rel_norm(grads[n], grads_p[n])
+                print(f"{loss} grads {tag} d{n} kernels vs plain: relative norm error {rel:.3e} "
+                      "(tol 1e-3)")
+                fail_unless(rel <= 1e-3, f"d{n} of the kernels and the plain path differ ({loss} {tag})")
+            del grads, grads_p
+        acts.grad = dur.grad = None
+        problems[tag] = (acts, dur, labels, il, ll)
+        torch.cuda.empty_cache()
+    return problems
+
+
+def duration_timings(problems):
+    """Both steps (CUDA events, device breakdown) and, at both shapes: the
+    window kernel for each family, prep and grad with K = 2, the coefficient
+    passes. Returns ({kernel: {case: timing}}, {case: step ms})."""
+    from warp_transducer_tpu_torch.ops import gradients, multiblank, prep, tdt, window
+    from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
+    from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    out, step_ms = {"window_stream": {}, "prep": {}, "grad": {}}, {}
+    for tag, B, T, L, V in DURATION_SHAPES:
+        acts, dur, labels, il, ll = problems[tag]
+        U = L + 1
+        long_t = tag == "long_t"
+        iters, plain_iters = (5, 1) if long_t else (20, 2)
+        for loss in ("multiblank", "tdt"):
+            step = lambda: duration_step(loss, acts, dur, labels, il, ll)  # noqa: E731
+            step_ms[f"{loss}_{tag}"] = ms = time_ms(step, iters)
+            print(f"time {loss} {tag} B={B} T={T} L={L} V={V}: step {ms:.4f} ms")
+            device_breakdown(f"{loss} {tag} step", step, ms, top=8)
+        with torch.no_grad():
+            a = acts.detach()
+            cols = (V - 2, V - 1)
+            n_big, n_small, elt = B * T * U * V, B * T * U, a.element_size()
+            valid_cells = int((il.long() * (ll.long() + 1)).sum())
+            p = kprep.prepare(a, labels, 0, False, extra_cols=cols)
+            lpd = torch.log_softmax(dur.detach(), -1)
+            mb_arcs, tdt_arcs = window.multiblank_arcs(MB_DURATIONS), window.tdt_arcs(TDT_DURATIONS)
+            cases = {"multiblank": (mb_arcs, p.extras), "tdt": (tdt_arcs, lpd)}
+            lats = {}
+            for loss, (arcs, extra) in cases.items():
+                C = extra.shape[-1]
+                lats[loss] = kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)
+                v = out["window_stream"][f"{loss}_{tag}"] = dict(
+                    ms=time_ms(lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll),
+                               iters),
+                    plain_ms=time_ms(lambda: window.forward_backward(p.lpb, p.lpe, extra, arcs,
+                                                                     il, ll), plain_iters, 0),
+                    library_ms=None,
+                    # Data-dependent: the channels are read at valid cells only;
+                    # every cell of alphas and betas is written.
+                    bound=bound(((2 + C) * valid_cells + 2 * n_small) * 4 + 4 * B * 4,
+                                2 * window_cell_ops(arcs, U) * valid_cells, F32_OPS_PER_S))
+                print(f"time {tag} window_stream {loss}: {v['ms'] * 1e3 / T:.3f} us a row of "
+                      f"U={U} (both directions side by side, B={B} blocks each)")
+            out["prep"][f"{tag}_k2"] = dict(
+                ms=time_ms(lambda: kprep.prepare(a, labels, 0, False, extra_cols=cols), iters),
+                plain_ms=time_ms(lambda: prep.prepare(a, labels, 0, False, extra_cols=cols),
+                                 plain_iters, 1),
+                library_ms=time_ms(lambda: torch.logsumexp(a, -1), iters),
+                bound=bound(n_big * elt + B * U * 4 + 5 * n_small * 4, 4 * n_big, F32_OPS_PER_S))
+            coef, cb, ce, cBs = multiblank._mb_coefs(p.lpb, p.lpe, p.extras, lats["multiblank"],
+                                                     MB_DURATIONS, il, ll)
+            fields, extra_f = gradients.Coefficients(coef, cb, ce), torch.stack(cBs, dim=-1)
+            g_args = (a, p.denom, fields, prep.label_rows(labels, U), il, ll, 0, a.dtype)
+            out["grad"][f"{tag}_k2"] = dict(
+                ms=time_ms(lambda: kgrad.dense_grad(*g_args, extra_cols=cols, extra_fields=extra_f),
+                           iters),
+                plain_ms=time_ms(lambda: gradients.dense_grad(*g_args, extra_cols=cols,
+                                                              extra_fields=extra_f), plain_iters, 1),
+                library_ms=time_ms(lambda: torch.softmax(a, -1), iters),
+                bound=bound((n_big + valid_cells * V) * elt + 6 * valid_cells * 4 + B * U * 4
+                            + 2 * B * 4, 4 * valid_cells * V, F32_OPS_PER_S))
+            coef_ms = {
+                "multiblank": time_ms(lambda: multiblank._mb_coefs(
+                    p.lpb, p.lpe, p.extras, lats["multiblank"], MB_DURATIONS, il, ll), iters),
+                "tdt": time_ms(lambda: tdt._tdt_coefs(p.lpb, p.lpe, lpd, lats["tdt"], TDT_DURATIONS,
+                                                      il, ll), iters)}
+            print(f"time {tag}: coefficient passes (plain torch on {n_small} cells) multiblank "
+                  f"{coef_ms['multiblank']:.4f} ms, tdt {coef_ms['tdt']:.4f} ms "
+                  f"(valid cells {valid_cells / n_small:.3f} of B·T·U)")
+            for k, cases_k in out.items():
+                for case, v in cases_k.items():
+                    if tag not in case:
+                        continue
+                    lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+                    print(f"time {case} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
+                          f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}")
+            del p, lpd, lats, fields, extra_f, g_args, coef, cb, ce, cBs, a
+        torch.cuda.empty_cache()
+    return out, step_ms
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
@@ -1014,6 +1297,15 @@ def main():
     pf_step, pf_ranges = pruned_fused_path(dev, totals)
     route_ms, pf_full_ms = time_routes(pf_step, pf_ranges)
     del pf_step, pf_ranges
+    torch.cuda.empty_cache()
+
+    # ---- 8. the duration-arc losses: the window kernel and the extra
+    # columns of prep and grad against their plain versions, both steps
+    # under the launch counters, the timings
+    duration_kernels_vs_plain(dev, errs)
+    duration_problems = duration_main_path(dev, totals)
+    duration_kernel_ms, duration_step_ms = duration_timings(duration_problems)
+    del duration_problems
 
     sources = {
         "prep": ("warp_transducer_tpu_torch/csrc/prep.cu",
@@ -1039,6 +1331,11 @@ def main():
                               for tag, t in timings.items()}}
         if k == "wavefront":
             entry["also_replaces"] = "warp_transducer_tpu/ops/pallas/wavefront.py:72"
+        else:  # with the two big-blank columns of the multi-blank step
+            entry["by_shape"].update({
+                case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                       "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                for case, t in duration_kernel_ms[k].items()})
         kernels.append(entry)
     pruned_sources = {
         "band_prep": ("warp_transducer_tpu_torch/csrc/band_prep.cu",
@@ -1086,6 +1383,19 @@ def main():
                                 "fused_peak_mb": fused_peak_mb["fused"],
                                 "unfused_peak_mb": fused_peak_mb["unfused"]}
                          for case, t in joint_timings[k].items()}})
+    head = duration_kernel_ms["window_stream"]["multiblank_headline"]
+    kernels.append({
+        "name": "window_stream", "route": "cuda",
+        "source": "warp_transducer_tpu_torch/csrc/window_stream.cu",
+        "replaces": "warp_transducer_tpu/ops/pallas/window_stream.py:104",
+        "launches": totals["window_stream"], "max_abs_err": errs["window_stream"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+        "bound_by": head["bound"][1], "library_ms": head["library_ms"],
+        "shape": "multiblank headline B=128 T=150 L=40 V=28 durations (2, 4) f32",
+        "by_shape": {case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                            "step_ms": duration_step_ms[case]}
+                     for case, t in duration_kernel_ms["window_stream"].items()}})
     print(json.dumps({"pruned_fused": {
         "full_sweep_step_ms": pf_full_ms, "cut_batch": PRUNED_FUSED_CUT_B,
         "cut_sweep_step_ms": min(route_ms["sweep"]),

@@ -1,0 +1,351 @@
+"""The duration-arc losses' CUDA kernels against their plain PyTorch versions
+on the card, at small shapes: the pending-window lattice
+(csrc/window_stream.cu vs ops/window.py), the prep and gradient kernels with
+extra columns (csrc/prep.cu, csrc/grad.cu), and ``rnnt_loss_multiblank`` /
+``rnnt_loss_tdt`` through them.
+
+Every test here needs a CUDA device; without one each skips (the ``dev``
+fixture decides while the test runs, never at import). On a machine with an
+H100: ``python -m pytest tests/test_torch_cuda_window.py --noconftest``
+(tests/conftest.py imports JAX).
+
+Tolerances: f32 rtol 1e-5 / atol 1e-5, f64 1e-10 — the kernel's block-wide
+scans add and log-sum-exp in another order than ``torch.cumsum`` and
+``torch.logcumsumexp``; a lattice's atol grows with its row width (see
+``_close``). 16-bit gradients within one ulp of their type (both versions
+round one f32 value once).
+"""
+import numpy as np
+import pytest
+import torch
+
+from warp_transducer_tpu_torch import rnnt_loss_multiblank, rnnt_loss_tdt
+from warp_transducer_tpu_torch.ops import cuda as K
+from warp_transducer_tpu_torch.ops import gradients, lattice, prep, window
+from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
+from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
+from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.float64: dict(rtol=1e-10, atol=1e-10)}
+
+MULTIBLANK = [(), (2,), (2, 4), (2, 3, 8)]
+TDT = [(0, 1, 2, 4), (1, 2, 3), (0, 1, 3), (1, 2), (2,)]
+# (B, T, U): ragged; B = 1; T = 1 (so T_b = 1); U = 1; U not a multiple of
+# 32; U above one block of 512 threads; U above 1024.
+SHAPES = [(4, 9, 6), (1, 9, 4), (2, 1, 3), (3, 7, 1), (2, 6, 45), (2, 5, 600), (2, 4, 1100)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _lengths(rng, B, T, U, device):
+    il = torch.tensor(rng.integers(1, T + 1, B), dtype=torch.int32, device=device)
+    ll = torch.tensor(rng.integers(0, U, B), dtype=torch.int32, device=device)
+    il[0], ll[0] = T, U - 1
+    return il, ll
+
+
+def _channels(B, T, U, C, seed, dtype, device):
+    """lpb, lpe (column U-1 NEG) and C extra channels: log-probs of random
+    logits over 3 + C classes, and ragged lengths."""
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(torch.tensor(rng.standard_normal((B, T, U, 3 + C)) * 2.0,
+                                        dtype=dtype, device=device), -1)
+    lpe = lp[..., 1].clone()
+    lpe[:, :, U - 1] = prep.NEG
+    il, ll = _lengths(rng, B, T, U, device)
+    return lp[..., 0].contiguous(), lpe, lp[..., 3:].contiguous(), il, ll
+
+
+def _close(got, want, dtype, U=0):
+    """``U``: the width of a lattice row. The prefix form c + LSE(ne − c)
+    cancels against |c| <= ~2·U with these inputs, in the kernel and in the
+    plain version alike but in another order of addition, so a lattice's
+    atol grows with U (|c|·2^-23 in f32, a few times over)."""
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.double().cpu(), want.double().cpu(), rtol=tol["rtol"],
+                               atol=tol["atol"] * (1 + U / 10))
+
+
+def _check_lattice(arcs, B, T, U, C, dtype, dev, betas=True, seed=1):
+    lpb, lpe, extra, il, ll = _channels(B, T, U, C, seed, dtype, dev)
+    got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll, compute_betas=betas)
+    torch.cuda.synchronize()
+    want = window.forward_backward(lpb, lpe, extra, arcs, il, ll, compute_betas=betas)
+    # Every cell is written, NEG at invalid ones, in both versions.
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        _close(getattr(got, name), getattr(want, name), dtype, U)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B,T,U", SHAPES)
+@pytest.mark.parametrize("durations", MULTIBLANK, ids=str)
+def test_window_kernel_multiblank(dev, durations, B, T, U, dtype):
+    _check_lattice(window.multiblank_arcs(durations), B, T, U, len(durations), dtype, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B,T,U", SHAPES)
+@pytest.mark.parametrize("durations", TDT, ids=str)
+def test_window_kernel_tdt(dev, durations, B, T, U, dtype):
+    _check_lattice(window.tdt_arcs(durations), B, T, U, len(durations), dtype, dev)
+
+
+@pytest.mark.parametrize("W", range(1, 9))
+def test_window_kernel_every_window(dev, W):
+    """One arc with m = W for W = 1 … 8 (it lands on the slot being
+    cleared), as a big blank and as a TDT duration beside d = 1."""
+    if W == 1:
+        _check_lattice(window.multiblank_arcs(()), 3, 19, 5, 0, torch.float32, dev)
+    else:
+        _check_lattice(window.multiblank_arcs((W,)), 3, 19, 5, 1, torch.float32, dev)
+    durs = (1,) if W == 1 else (1, W)
+    _check_lattice(window.tdt_arcs(durs), 3, 19, 5, len(durs), torch.float32, dev)
+    _check_lattice(window.tdt_arcs((0,) + durs), 3, 19, 5, 1 + len(durs), torch.float32, dev)
+
+
+@pytest.mark.parametrize("durations", [(2, 4), (0, 1, 2, 4), (1, 2)], ids=str)
+def test_window_kernel_score_only(dev, durations):
+    arcs = (window.tdt_arcs(durations) if 1 in durations
+            else window.multiblank_arcs(durations))
+    got = _check_lattice(arcs, 4, 9, 6, len(durations), torch.float32, dev, betas=False)
+    assert got.betas is got.alphas and got.ll_backward is got.ll_forward
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("B,T,U", [(4, 9, 6), (2, 40, 45), (2, 3, 600)])
+def test_window_kernel_without_big_blanks_is_the_wavefront_kernel(dev, B, T, U, dtype):
+    """K = 0: W = 1, one blank arc, the label chain: the dense lattice, which
+    csrc/wavefront.cu computes along anti-diagonals, cell by cell."""
+    lpb, lpe, extra, il, ll = _channels(B, T, U, 0, 2, dtype, dev)
+    got = kwindow.forward_backward(lpb, lpe, extra, window.multiblank_arcs(()), il, ll)
+    want = kwave.forward_backward(lpb, lpe, il, ll)
+    torch.cuda.synchronize()
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        _close(getattr(got, name), getattr(want, name), dtype, U)
+
+
+def test_window_kernel_infeasible_tdt(dev):
+    """durations (2,): an odd T_b has no path and ll_forward is NEG in both;
+    T_b = 4 with one label (2 + 2 frames) has one."""
+    arcs = window.tdt_arcs((2,))
+    lpb, lpe, extra, il, ll = _channels(2, 5, 3, 1, 3, torch.float32, dev)
+    il[:], ll[:] = torch.tensor([5, 4]), torch.tensor([2, 1])
+    got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    want = window.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    torch.cuda.synchronize()
+    assert float(got.ll_forward[0]) < -1e29 and float(got.ll_forward[1]) > -1e29
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        _close(getattr(got, name), getattr(want, name), torch.float32)
+
+
+def test_window_kernel_rejects(dev):
+    lpb = torch.zeros((1, 2, 30000), device=dev)
+    extra = torch.zeros((1, 2, 30000, 1), device=dev)
+    il, ll = torch.tensor([2]), torch.tensor([3])
+    with pytest.raises(ValueError, match="limit"):
+        kwindow.forward_backward(lpb, lpb, extra, window.multiblank_arcs((8,)), il, ll)
+    small, ex = lpb[:, :, :4].contiguous(), extra[:, :, :4].contiguous()
+    with pytest.raises(ValueError, match="channels"):
+        kwindow.forward_backward(small, small, ex, window.multiblank_arcs((2, 3)), il, ll)
+    with pytest.raises(ValueError, match="dtype"):
+        kwindow.forward_backward(small.half(), small.half(), ex.half(),
+                                 window.multiblank_arcs((2,)), il, ll)
+    with pytest.raises(ValueError, match="contiguous"):
+        kwindow.forward_backward(lpb[:, :, ::2], lpb[:, :, ::2], extra[:, :, ::2],
+                                 window.multiblank_arcs((2,)), il, ll)
+
+
+def _acts_problem(B, T, U, V, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    acts = torch.tensor(rng.standard_normal((B, T, U, V)) * 2.0, dtype=dtype, device=device)
+    labels = torch.tensor(rng.integers(1, V, (B, max(U - 1, 1))), dtype=torch.int32,
+                          device=device)
+    return (acts, labels) + _lengths(rng, B, T, U, device)
+
+
+EXTRA_COLS = {0: (), 1: (5,), 2: (26, 27), 8: (27, 3, 9, 26, 11, 2, 25, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+@pytest.mark.parametrize("lpi", [False, True], ids=["acts", "log_probs"])
+@pytest.mark.parametrize("K_cols", EXTRA_COLS)
+def test_prep_kernel_extra_cols(dev, K_cols, lpi, dtype):
+    cols = EXTRA_COLS[K_cols]
+    acts, labels, _, _ = _acts_problem(3, 7, 5, 28, 4, dtype, dev)
+    if lpi:
+        acts = torch.log_softmax(acts.float(), -1).to(dtype)
+    got = kprep.prepare(acts, labels, 0, lpi, extra_cols=cols)
+    base = kprep.prepare(acts, labels, 0, lpi)
+    torch.cuda.synchronize()
+    want = prep.prepare(acts, labels, 0, lpi, extra_cols=cols)
+    cdtype = prep.compute_dtype(dtype)
+    assert got.extras.shape == (3, 7, 5, K_cols) and got.extras.dtype == cdtype
+    assert base.extras.shape == (3, 7, 5, 0)
+    _close(got.extras, want.extras, cdtype)
+    # The extra columns leave the three standard outputs as they were, bit
+    # for bit.
+    for name in ("lpb", "lpe") + (() if lpi else ("denom",)):
+        assert torch.equal(getattr(got, name), getattr(base, name)), name
+        _close(getattr(got, name), getattr(want, name), cdtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+@pytest.mark.parametrize("K_cols", EXTRA_COLS)
+def test_grad_kernel_extra_cols(dev, K_cols, dtype):
+    cols = EXTRA_COLS[K_cols]
+    B, T, U, V = 3, 6, 4, 28
+    acts, labels, il, ll = _acts_problem(B, T, U, V, 5, dtype, dev)
+    labels[1, 0] = 0  # a label equal to blank
+    if K_cols:
+        labels[2, 0] = cols[0]  # and one equal to an extra column: both subtractions apply
+    p = prep.prepare(acts, labels, 0, False)
+    res = lattice.forward_backward(p.lpb, p.lpe, il, ll)
+    fields = gradients.coefficients(p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, il, ll,
+                                    fastemit_lambda=0.1)
+    rng = np.random.default_rng(6)
+    extra = torch.tensor(rng.random((B, T, U, K_cols)), dtype=fields.coef.dtype, device=dev)
+    labels_u = prep.label_rows(labels, U)
+    args = (acts, p.denom, fields, labels_u, il, ll, 0, dtype)
+    got = kgrad.dense_grad(*args, extra_cols=cols, extra_fields=extra)
+    base = kgrad.dense_grad(*args)
+    zeroed = kgrad.dense_grad(*args, extra_cols=cols, extra_fields=torch.zeros_like(extra))
+    torch.cuda.synchronize()
+    want = gradients.dense_grad(*args, extra_cols=cols, extra_fields=extra)
+    assert got.dtype == dtype
+    # With zero posteriors the extra columns change no bit of the standard pass.
+    assert torch.equal(zeroed, base)
+    if K_cols:
+        assert not torch.equal(got, base)
+    if dtype in (torch.bfloat16, torch.float16):
+        ulp = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -11
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=ulp, atol=1e-6)
+    else:
+        _close(got, want, dtype)
+
+
+def test_extra_cols_rejected(dev):
+    acts, labels, il, ll = _acts_problem(2, 3, 3, 12, 7, torch.float32, dev)
+    with pytest.raises(ValueError, match="at most 8"):
+        kprep.prepare(acts, labels, 0, False, extra_cols=tuple(range(1, 10)))
+    with pytest.raises(ValueError, match="inside"):
+        kprep.prepare(acts, labels, 0, False, extra_cols=(12,))
+    p = prep.prepare(acts, labels, 0, False)
+    fields = gradients.Coefficients(p.lpb, p.lpb, p.lpb)
+    with pytest.raises(ValueError, match="extra_fields"):
+        kgrad.dense_grad(acts, p.denom, fields, prep.label_rows(labels, 3), il, ll, 0,
+                         torch.float32, extra_cols=(3, 4),
+                         extra_fields=torch.zeros((2, 3, 3, 1), device=dev))
+
+
+def _no_sync(fn):
+    torch.cuda.set_sync_debug_mode("error")  # the main path never waits on the card
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("durations,sigma,lam,dp,indices", [
+    ((2,), 0.0, 0.0, 0.0, None), ((2, 4), 0.05, 0.0, 0.0, None), ((2, 3, 8), 0.0, 0.25, 0.0, None),
+    ((2, 4), 0.05, 0.1, 0.02, (3, 7)), ((), 0.0, 0.1, 0.0, None)], ids=str)
+def test_multiblank_loss_cuda_vs_torch(dev, durations, sigma, lam, dp, indices, dtype):
+    B, T, U, V = 4, 9, 5, 11
+    Kb = len(durations)
+    rng = np.random.default_rng(8)
+    acts = torch.tensor(rng.standard_normal((B, T, U, V)) * 2.0, dtype=dtype, device=dev)
+    labels = torch.tensor(rng.integers(1, V - Kb, (B, U - 1)), dtype=torch.int32, device=dev)
+    if indices:
+        labels[(labels == indices[0]) | (labels == indices[1])] = 1
+    il, ll = _lengths(rng, B, T, U, dev)
+    scale = torch.linspace(0.5, 1.5, B, device=dev, dtype=dtype)
+
+    def run(implementation):
+        a = acts.clone().requires_grad_(True)
+        costs = rnnt_loss_multiblank(a, labels, il, ll, durations, big_blank_indices=indices,
+                                     sigma=sigma, fastemit_lambda=lam, delay_penalty=dp,
+                                     reduction="none", implementation=implementation)
+        (costs * scale).sum().backward()
+        return costs.detach(), a.grad
+
+    K.reset_launches()
+    costs, grads = _no_sync(lambda: run("cuda"))
+    torch.cuda.synchronize()
+    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "window_stream": 1, "grad": 1}
+    K.reset_launches()
+    costs_t, grads_t = run("torch")
+    assert K.launches == dict.fromkeys(K.launches, 0)
+    assert costs.dtype == dtype and grads.dtype == dtype
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(costs.float(), costs_t.float(), rtol=2 ** -8, atol=1e-6)
+        torch.testing.assert_close(grads.float(), grads_t.float(), rtol=2 ** -8, atol=1e-4)
+    else:
+        _close(costs, costs_t, dtype)
+        # exp(α + β − ll) turns the lattice's rounding into a relative error.
+        tol = dict(rtol=1e-4, atol=1e-6) if dtype == torch.float32 else TOL[dtype]
+        torch.testing.assert_close(grads, grads_t, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("durations,sigma,lam,dp", [
+    ((0, 1, 2, 4), 0.0, 0.0, 0.0), ((0, 1, 2, 4), 0.05, 0.0, 0.0), ((1, 2, 3), 0.0, 0.25, 0.0),
+    ((0, 1, 3), 0.05, 0.1, 0.02), ((2,), 0.0, 0.0, 0.0)], ids=str)
+def test_tdt_loss_cuda_vs_torch(dev, durations, sigma, lam, dp, dtype):
+    """The last case has utterances no path consumes exactly: the cost is the
+    sentinel and both gradients are zero, on both routes."""
+    B, T, U, V = 4, 9, 4, 7
+    rng = np.random.default_rng(9)
+    tok = torch.tensor(rng.standard_normal((B, T, U, V)) * 2.0, dtype=dtype, device=dev)
+    dur = torch.tensor(rng.standard_normal((B, T, U, len(durations))) * 2.0, dtype=dtype,
+                       device=dev)
+    labels = torch.tensor(rng.integers(1, V, (B, U - 1)), dtype=torch.int32, device=dev)
+    il, ll = _lengths(rng, B, T, U, dev)
+
+    def run(implementation):
+        t = tok.clone().requires_grad_(True)
+        d = dur.clone().requires_grad_(True)
+        costs = rnnt_loss_tdt(t, d, labels, il, ll, durations, sigma=sigma, fastemit_lambda=lam,
+                              delay_penalty=dp, reduction="none", implementation=implementation)
+        costs.sum().backward()
+        return costs.detach(), t.grad, d.grad
+
+    K.reset_launches()
+    costs, gt, gd = _no_sync(lambda: run("cuda"))
+    torch.cuda.synchronize()
+    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "window_stream": 1, "grad": 1}
+    costs_t, gt_t, gd_t = run("torch")
+    infeasible = costs_t.float() > 1e29
+    assert bool(infeasible[0]) == (durations == (2,))  # T_b = 9 is odd
+    assert torch.equal(costs.float() > 1e29, infeasible)
+    for g in (gt, gd):
+        assert bool(torch.isfinite(g).all()) and not bool(g[infeasible].any())
+    ok = ~infeasible
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(costs[ok].float(), costs_t[ok].float(), rtol=2 ** -8, atol=1e-6)
+        torch.testing.assert_close(gt.float(), gt_t.float(), rtol=2 ** -8, atol=1e-4)
+        torch.testing.assert_close(gd.float(), gd_t.float(), rtol=2 ** -8, atol=1e-4)
+    else:
+        _close(costs[ok], costs_t[ok], dtype)
+        tol = dict(rtol=1e-4, atol=1e-6) if dtype == torch.float32 else TOL[dtype]
+        torch.testing.assert_close(gt, gt_t, **tol)
+        torch.testing.assert_close(gd, gd_t, **tol)
+
+
+def test_losses_need_cuda_tensors_for_cuda(dev):
+    acts = torch.zeros((1, 3, 2, 6))
+    args = (torch.ones((1, 1), dtype=torch.int32), torch.tensor([3]), torch.tensor([1]))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rnnt_loss_multiblank(acts, *args, (2,), implementation="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rnnt_loss_tdt(acts, torch.zeros((1, 3, 2, 2)), *args, (0, 1), implementation="cuda")
+    with pytest.raises(ValueError, match="duration_logits is on"):
+        rnnt_loss_tdt(acts.to(dev), torch.zeros((1, 3, 2, 2)), *args, (0, 1))

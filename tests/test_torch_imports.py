@@ -28,7 +28,7 @@ def _imported_roots(path):
 def test_sources_found():
     assert len(SOURCES) >= 10
     for module in ("rnnt", "simple", "pruned", "band", "cuda/band", "cuda/ranges", "fused_joint",
-                   "pruned_fused", "cuda/joint"):
+                   "pruned_fused", "cuda/joint", "window", "multiblank", "tdt", "cuda/window"):
         assert (PKG / "ops" / f"{module}.py") in SOURCES, module
     for module in ("models/transducer", "utils/convert"):
         assert (PKG / f"{module}.py") in SOURCES, module
@@ -41,11 +41,23 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+_BLOCK_JAX = (
+    "import sys\n"
+    "for name in ('jax', 'jaxlib', 'flax', 'optax', 'warp_transducer_tpu'):\n"
+    "    sys.modules[name] = None\n"
+)
+
+
+def _run_with_jax_blocked(code):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _BLOCK_JAX + code + "print('ok')\n"], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_imports_with_jax_blocked():
     code = (
-        "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'warp_transducer_tpu'):\n"
-        "    sys.modules[name] = None\n"
         "import warp_transducer_tpu_torch as W\n"
         "import warp_transducer_tpu_torch.ops.cuda.build\n"
         "import torch\n"
@@ -74,10 +86,49 @@ def test_imports_with_jax_blocked():
         "         (j.enc_proj, j.pred_proj, j.out_proj)))}))\n"
         "jl = j.fused_loss(e, q, lab, il, ll)\n"
         "assert all(torch.isfinite(x) for x in (f, pf, jl))\n"
-        "print('ok')\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    _run_with_jax_blocked(code)
+
+
+_DURATION_ARC_SETUP = (
+    "import torch\n"
+    "import warp_transducer_tpu_torch as W\n"
+    "g = torch.Generator().manual_seed(0)\n"
+    "a = torch.randn(2, 6, 3, 7, generator=g, requires_grad=True)\n"
+    "d = torch.randn(2, 6, 3, 3, generator=g, requires_grad=True)\n"
+    "lab, il, ll = torch.tensor([[1, 2], [3, 1]], dtype=torch.int32), torch.tensor([6, 4]), "
+    "torch.tensor([2, 1])\n"
+)
+_DURATION_ARC_CASES = {
+    "multiblank": (
+        "c = W.rnnt_loss_multiblank(a, lab, il, ll, (2, 4), sigma=0.05, reduction='none')\n"
+        "c.sum().backward()\n"
+        "assert torch.isfinite(c).all() and torch.isfinite(a.grad).all() and a.grad.any()\n"),
+    "multiblank_k0_is_rnnt_loss": (
+        "c = W.rnnt_loss_multiblank(a, lab, il, ll, (), reduction='none')\n"
+        "assert torch.allclose(c, W.rnnt_loss(a, lab, il, ll, reduction='none'), rtol=1e-5)\n"),
+    "tdt": (
+        "c = W.rnnt_loss_tdt(a, d, lab, il, ll, (0, 1, 2), fastemit_lambda=0.1)\n"
+        "c.backward()\n"
+        "assert torch.isfinite(c) and a.grad.any() and d.grad.any()\n"),
+    "tdt_without_d0_and_infeasible": (
+        # T_b = 6: two labels and the last blank, 2 frames each; T_b = 5: no path
+        "c = W.rnnt_loss_tdt(a, d[..., :1], lab, torch.tensor([6, 5]), ll, (2,),\n"
+        "                    reduction='none')\n"
+        "c.sum().backward()\n"
+        "assert c[0] < 1e29 and c[1] > 1e29 and torch.isfinite(a.grad).all()\n"
+        "assert a.grad[0].any() and not a.grad[1].any() and not d.grad[1].any()\n"),
+    "kernel_wrappers_on_cpu_tensors": (
+        "from warp_transducer_tpu_torch.ops import window\n"
+        "from warp_transducer_tpu_torch.ops.cuda import launches, prep, window as kwindow\n"
+        "p = prep.prepare(a.detach(), lab, 0, False, extra_cols=(5, 6))\n"
+        "r = kwindow.forward_backward(p.lpb, p.lpe, p.extras, window.multiblank_arcs((2, 4)),\n"
+        "                             il, ll)\n"
+        "assert p.extras.shape == (2, 6, 3, 2) and torch.isfinite(r.ll_forward).all()\n"
+        "assert launches['window_stream'] == 0 and launches['prep'] == 0\n"),
+}
+
+
+@pytest.mark.parametrize("case", _DURATION_ARC_CASES)
+def test_duration_arc_losses_with_jax_blocked(case):
+    _run_with_jax_blocked(_DURATION_ARC_SETUP + _DURATION_ARC_CASES[case])

@@ -17,7 +17,11 @@ The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
   the (B, T, U, V) logits or their gradient in device memory, and
   ``rnnt_loss_pruned_fused`` for the same on a pruned band;
   ``models.transducer.Joint`` is the module through which a model calls
-  both, and ``utils.convert`` carries the Flax module's weights across.
+  both, and ``utils.convert`` carries the Flax module's weights across;
+* the duration-arc losses on logits: ``rnnt_loss_multiblank``
+  (arXiv:2211.03541, big blanks that advance several frames) and
+  ``rnnt_loss_tdt`` (arXiv:2304.06795, a token head and a duration head),
+  both over one pending-window lattice.
 
 A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
 use); a CPU tensor runs their plain PyTorch versions.
@@ -25,14 +29,16 @@ use); a CPU tensor runs their plain PyTorch versions.
 
 from .ops.fused_joint import rnnt_loss_fused_joint
 from .ops.lattice import LatticeResult
+from .ops.multiblank import rnnt_loss_multiblank
 from .ops.pruned import gather_banded, rnnt_loss_pruned, rnnt_prune_ranges
 from .ops.pruned_fused import rnnt_loss_pruned_fused
 from .ops.rnnt import (RNNTLoss, forward_backward_mismatch, rnnt_forward_backward,
                        rnnt_loss, rnnt_loss_and_grad, rnnt_score)
 from .ops.simple import rnnt_loss_simple
+from .ops.tdt import rnnt_loss_tdt
 from .utils.options import RNNTOptions
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "LatticeResult",
@@ -44,9 +50,11 @@ __all__ = [
     "rnnt_loss",
     "rnnt_loss_and_grad",
     "rnnt_loss_fused_joint",
+    "rnnt_loss_multiblank",
     "rnnt_loss_pruned",
     "rnnt_loss_pruned_fused",
     "rnnt_loss_simple",
+    "rnnt_loss_tdt",
     "rnnt_prune_ranges",
     "rnnt_score",
     "__version__",

@@ -20,6 +20,25 @@ enum DType { kF32 = 0, kF64 = 1, kBF16 = 2, kF16 = 3 };
 
 constexpr int kWarp = 32;
 
+// Extra vocabulary columns of the prep and gradient kernels (the big blanks
+// of the multi-blank loss), passed to the kernel by value.
+constexpr int kMaxExtraCols = 8;
+struct ExtraCols {
+  int n;
+  int col[kMaxExtraCols];  // entries beyond n hold -1
+};
+// Fill `out` from a host array of K indices; false unless 0 <= K <=
+// kMaxExtraCols and every index lies inside [0, V).
+inline bool extra_cols(const int* host, int K, int V, ExtraCols* out) {
+  if (K < 0 || K > kMaxExtraCols || (K > 0 && host == nullptr)) return false;
+  out->n = K;
+  for (int k = 0; k < kMaxExtraCols; ++k) {
+    out->col[k] = k < K ? host[k] : -1;
+    if (k < K && (host[k] < 0 || host[k] >= V)) return false;
+  }
+  return true;
+}
+
 // Read an element of any input type in its accumulation type.
 __device__ __forceinline__ float to_acc(float x) { return x; }
 __device__ __forceinline__ double to_acc(double x) { return x; }

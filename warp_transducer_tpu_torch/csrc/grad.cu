@@ -8,7 +8,12 @@
 //
 // Dense convention (sparse == 0), per element of a valid row:
 //   g = coef * exp(x + denom) - cb * [v == blank] - ce * [v == y_u]
-// (both subtractions apply when y_u == blank). Sparse convention
+//       - sum_k extra[k] * [v == cols[k]]
+// (every subtraction whose column matches applies). The K <= 8 extra
+// columns are the big blanks of the multi-blank loss (the JAX package's
+// ops/multiblank.py:268, _multiblank_grad); their posteriors come as one
+// (B,T,U,K) field and are subtracted in the accumulation type before the
+// one rounding to the output type. With K = 0 the pass is the standard one. Sparse convention
 // (log-prob inputs, sparse == 1): g = -ce at the label when the row has
 // one, else -cb at blank, else 0 (the label overwrites blank, as in
 // cpu_rnnt.h:253-267). Rows outside (t < T_b) & (u < U_b) are written 0.
@@ -31,10 +36,11 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;
 
-template <typename Tio, typename Tacc>
+template <typename Tio, typename Tacc, bool kExtra>
 __global__ void grad_kernel(const Tio* __restrict__ acts, const Tacc* __restrict__ denom,
                             const Tacc* __restrict__ coef, const Tacc* __restrict__ cb,
-                            const Tacc* __restrict__ ce, const int* __restrict__ labels,
+                            const Tacc* __restrict__ ce, const Tacc* __restrict__ extra,
+                            const wtt::ExtraCols cols, const int* __restrict__ labels,
                             const int* __restrict__ input_lengths,
                             const int* __restrict__ label_lengths, Tio* __restrict__ grads,
                             long long rows, int T, int U, int V, int blank, int sparse) {
@@ -65,24 +71,35 @@ __global__ void grad_kernel(const Tio* __restrict__ acts, const Tacc* __restrict
   const Tio* x = acts + row * V;
   const Tacc c = coef[row];
   const Tacc d = denom[row];
+  Tacc exv[wtt::kMaxExtraCols];
+#pragma unroll
+  for (int k = 0; k < wtt::kMaxExtraCols; ++k)
+    exv[k] = (kExtra && k < cols.n) ? extra[row * cols.n + k] : Tacc(0);
   for (int v = lane; v < V; v += wtt::kWarp) {
     Tacc out = wtt::mul_rn(c, wtt::ex(wtt::to_acc(x[v]) + d));
     if (v == blank) out -= cbv;
     if (v == lab) out -= cev;
+    if constexpr (kExtra) {  // compiled out of the K = 0 instantiation
+#pragma unroll
+      for (int k = 0; k < wtt::kMaxExtraCols; ++k)
+        if (v == cols.col[k]) out -= exv[k];  // unused entries hold -1
+    }
     wtt::store(g + v, out);
   }
 }
 
 template <typename Tio, typename Tacc>
 int launch(const void* acts, const void* denom, const void* coef, const void* cb,
-           const void* ce, const int* labels, const int* input_lengths,
-           const int* label_lengths, void* grads, long long rows, int T, int U, int V,
-           int blank, int sparse, cudaStream_t stream) {
+           const void* ce, const void* extra, const wtt::ExtraCols& cols, const int* labels,
+           const int* input_lengths, const int* label_lengths, void* grads, long long rows,
+           int T, int U, int V, int blank, int sparse, cudaStream_t stream) {
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  grad_kernel<Tio, Tacc><<<(unsigned)blocks, kRowsPerBlock * wtt::kWarp, 0, stream>>>(
+  auto kernel = cols.n > 0 ? grad_kernel<Tio, Tacc, true> : grad_kernel<Tio, Tacc, false>;
+  kernel<<<(unsigned)blocks, kRowsPerBlock * wtt::kWarp, 0, stream>>>(
       static_cast<const Tio*>(acts), static_cast<const Tacc*>(denom),
       static_cast<const Tacc*>(coef), static_cast<const Tacc*>(cb),
-      static_cast<const Tacc*>(ce), labels, input_lengths, label_lengths,
+      static_cast<const Tacc*>(ce), static_cast<const Tacc*>(extra), cols, labels,
+      input_lengths, label_lengths,
       static_cast<Tio*>(grads), rows, T, U, V, blank, sparse);
   return (int)cudaGetLastError();
 }
@@ -93,28 +110,32 @@ extern "C" {
 
 // acts, grads: (B,T,U,V) of type `dtype` (acts and denom unused, may be
 // null, when sparse); denom, coef, cb, ce: (B,T,U) f32, or f64 for f64;
-// labels: (B,U) int32; lengths: (B,) int32. Returns the launch's
-// cudaError_t.
+// extra: (B,T,U,K) of the same type for the K columns extra_cols (a host
+// array; dense only, K = 0 when sparse); labels: (B,U) int32; lengths: (B,)
+// int32. Returns the launch's cudaError_t.
 int wtt_grad(const void* acts, int dtype, const void* denom, const void* coef,
-             const void* cb, const void* ce, const int* labels, const int* input_lengths,
-             const int* label_lengths, void* grads, long long rows, int T, int U, int V,
-             int blank, int sparse, void* stream) {
+             const void* cb, const void* ce, const void* extra, const int* extra_cols, int K,
+             const int* labels, const int* input_lengths, const int* label_lengths,
+             void* grads, long long rows, int T, int U, int V, int blank, int sparse,
+             void* stream) {
   if (rows == 0) return 0;
+  wtt::ExtraCols cols;
+  if (!wtt::extra_cols(extra_cols, K, V, &cols) || (sparse && K > 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case wtt::kF32:
-      return launch<float, float>(acts, denom, coef, cb, ce, labels, input_lengths,
-                                  label_lengths, grads, rows, T, U, V, blank, sparse, s);
+      return launch<float, float>(acts, denom, coef, cb, ce, extra, cols, labels,
+          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, s);
     case wtt::kF64:
-      return launch<double, double>(acts, denom, coef, cb, ce, labels, input_lengths,
-                                    label_lengths, grads, rows, T, U, V, blank, sparse, s);
+      return launch<double, double>(acts, denom, coef, cb, ce, extra, cols, labels,
+          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, s);
     case wtt::kBF16:
-      return launch<__nv_bfloat16, float>(acts, denom, coef, cb, ce, labels, input_lengths,
-                                          label_lengths, grads, rows, T, U, V, blank, sparse,
-                                          s);
+      return launch<__nv_bfloat16, float>(acts, denom, coef, cb, ce, extra, cols, labels,
+          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, s);
     case wtt::kF16:
-      return launch<__half, float>(acts, denom, coef, cb, ce, labels, input_lengths,
-                                   label_lengths, grads, rows, T, U, V, blank, sparse, s);
+      return launch<__half, float>(acts, denom, coef, cb, ce, extra, cols, labels,
+          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,6 +21,10 @@
 // converted per element; they accumulate in f32, f64 in f64. Lane 0 reads
 // x[blank] and x[y_u] (already in L1 after the pass) and writes the row's
 // three outputs. With log_probs_input the reduction is skipped.
+//
+// Extra columns (the big blanks of the multi-blank loss; the JAX package's
+// prep.onepass_stats(extra_cols=...)): lane k < K reads x[cols[k]] and
+// writes extras[row, k] = x + denom. The K <= 8 indices come in by value.
 #include "common.cuh"
 
 namespace {
@@ -30,7 +34,8 @@ constexpr int kRowsPerBlock = 8;
 template <typename Tin, typename Tacc>
 __global__ void prep_kernel(const Tin* __restrict__ acts, const int* __restrict__ labels,
                             Tacc* __restrict__ lpb, Tacc* __restrict__ lpe,
-                            Tacc* __restrict__ denom, long long rows, int T, int U, int V,
+                            Tacc* __restrict__ denom, Tacc* __restrict__ extras,
+                            const wtt::ExtraCols cols, long long rows, int T, int U, int V,
                             int blank, int log_probs_input) {
   const int lane = threadIdx.x % wtt::kWarp;
   const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / wtt::kWarp;
@@ -47,17 +52,22 @@ __global__ void prep_kernel(const Tin* __restrict__ acts, const int* __restrict_
     lpe[row] = (u == U - 1) ? Tacc(wtt::kNeg) : xe + d;
     if (denom != nullptr) denom[row] = d;
   }
+  int col = -1;  // lane k < K takes extra column k (a select: no indexed copy of `cols`)
+#pragma unroll
+  for (int k = 0; k < wtt::kMaxExtraCols; ++k)
+    if (lane == k) col = cols.col[k];
+  if (col >= 0) extras[row * cols.n + lane] = wtt::to_acc(x[col]) + d;
 }
 
 template <typename Tin, typename Tacc>
 int launch(const void* acts, const int* labels, void* lpb, void* lpe, void* denom,
-           long long rows, int T, int U, int V, int blank, int log_probs_input,
-           cudaStream_t stream) {
+           void* extras, const wtt::ExtraCols& cols, long long rows, int T, int U, int V,
+           int blank, int log_probs_input, cudaStream_t stream) {
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   prep_kernel<Tin, Tacc><<<(unsigned)blocks, kRowsPerBlock * wtt::kWarp, 0, stream>>>(
       static_cast<const Tin*>(acts), labels, static_cast<Tacc*>(lpb),
-      static_cast<Tacc*>(lpe), static_cast<Tacc*>(denom), rows, T, U, V, blank,
-      log_probs_input);
+      static_cast<Tacc*>(lpe), static_cast<Tacc*>(denom), static_cast<Tacc*>(extras), cols,
+      rows, T, U, V, blank, log_probs_input);
   return (int)cudaGetLastError();
 }
 
@@ -67,25 +77,29 @@ extern "C" {
 
 // acts: (B,T,U,V) of type `dtype`; labels: (B,U) int32 (column U-1 unused);
 // lpb, lpe, denom: (B,T,U) f32, or f64 for f64 acts; denom may be null
-// (log_probs_input). Returns the launch's cudaError_t.
+// (log_probs_input); extras: (B,T,U,K) of the same type for the K columns
+// extra_cols (a host array, each inside [0, V); K <= wtt::kMaxExtraCols).
+// Returns the launch's cudaError_t.
 int wtt_prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe,
-             void* denom, long long rows, int T, int U, int V, int blank,
-             int log_probs_input, void* stream) {
+             void* denom, void* extras, const int* extra_cols, int K, long long rows, int T,
+             int U, int V, int blank, int log_probs_input, void* stream) {
   if (rows == 0) return 0;
+  wtt::ExtraCols cols;
+  if (!wtt::extra_cols(extra_cols, K, V, &cols)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case wtt::kF32:
-      return launch<float, float>(acts, labels, lpb, lpe, denom, rows, T, U, V, blank,
-                                  log_probs_input, s);
+      return launch<float, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
+                                  blank, log_probs_input, s);
     case wtt::kF64:
-      return launch<double, double>(acts, labels, lpb, lpe, denom, rows, T, U, V, blank,
-                                    log_probs_input, s);
+      return launch<double, double>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
+                                    blank, log_probs_input, s);
     case wtt::kBF16:
-      return launch<__nv_bfloat16, float>(acts, labels, lpb, lpe, denom, rows, T, U, V,
-                                          blank, log_probs_input, s);
+      return launch<__nv_bfloat16, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T,
+                                          U, V, blank, log_probs_input, s);
     case wtt::kF16:
-      return launch<__half, float>(acts, labels, lpb, lpe, denom, rows, T, U, V, blank,
-                                   log_probs_input, s);
+      return launch<__half, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
+                                   blank, log_probs_input, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

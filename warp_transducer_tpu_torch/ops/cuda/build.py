@@ -97,9 +97,10 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry's argtypes declared."""
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wtt_prep.argtypes = [p, i, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.wtt_prep.argtypes = [p, i, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
-    lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p]
     lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
     lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
@@ -108,7 +109,8 @@ def library() -> ctypes.CDLL:
     lib.wtt_joint_prep.argtypes = joint + [p, p, p, i, i, i, i, i, i, p]
     lib.wtt_joint_grad_rows.argtypes = joint + [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wtt_joint_grad_cols.argtypes = joint + [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-    for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_grad, lib.wtt_band_prep,
+    for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_window_stream, lib.wtt_grad,
+               lib.wtt_band_prep,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
                lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols):
         fn.restype = ctypes.c_int

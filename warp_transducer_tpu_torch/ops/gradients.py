@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from .prep import NEG
+from .prep import NEG, check_extra_cols
 
 
 def _iotas(B, T, U, input_lengths, label_lengths, device):
@@ -86,11 +86,16 @@ def coefficients(lpb, lpe, alphas, betas, ll, input_lengths, label_lengths,
 
 
 def dense_grad(acts, denom, fields: Coefficients, labels_u, input_lengths,
-               label_lengths, blank, out_dtype):
+               label_lengths, blank, out_dtype, extra_cols=(), extra_fields=None):
     """The (B, T, U, V) pass of the dense convention (plain version of
-    ``csrc/grad.cu``): g = coef·exp(x+denom) − cb·[v=blank] − ce·[v=y_u],
-    zero in invalid rows; both subtractions apply when y_u == blank."""
+    ``csrc/grad.cu``): g = coef·exp(x+denom) − cb·[v=blank] − ce·[v=y_u]
+    − Σ_k extra_fields[..., k]·[v=extra_cols[k]], zero in invalid rows;
+    every subtraction whose column matches applies. ``extra_fields``:
+    (B, T, U, K) posteriors of K further arcs (the big blanks), or None."""
     B, T, U, V = acts.shape
+    cols = check_extra_cols(extra_cols, V)
+    if cols and (extra_fields is None or extra_fields.shape != (B, T, U, len(cols))):
+        raise ValueError(f"extra_fields must be (B, T, U, {len(cols)}) for extra_cols {cols}")
     dtype = fields.coef.dtype
     v = torch.arange(V, device=acts.device)
     is_blank = (v == blank)[None, None, None, :]
@@ -100,6 +105,8 @@ def dense_grad(acts, denom, fields: Coefficients, labels_u, input_lengths,
     g = fields.coef[..., None] * torch.exp(acts.to(dtype) + denom[..., None])
     g = g - torch.where(is_blank, fields.cb[..., None], zero)
     g = g - torch.where(is_label, fields.ce[..., None], zero)
+    for k, col in enumerate(cols):
+        g = g - torch.where((v == col)[None, None, None, :], extra_fields[..., k, None], zero)
     g = torch.where(valid[..., None], g, zero)
     return g.to(out_dtype)
 

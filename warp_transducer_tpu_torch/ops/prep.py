@@ -5,8 +5,10 @@ One pass over the (B, T, U, V) activations produces three (B, T, U) arrays:
 * ``denom[b,t,u] = -logsumexp_v acts[b,t,u,v]``;
 * ``lpb = acts[..., blank] + denom``;
 * ``lpe = acts[..., y_u] + denom``, column U-1 set to the finite sentinel
-  ``NEG`` (there is no label to emit from the last row).
+  ``NEG`` (there is no label to emit from the last row);
 
+and, for K extra columns (the big blanks of the multi-blank loss), one
+(B, T, U, K) array ``extras[..., k] = acts[..., extra_cols[k]] + denom``,
 so the O(T·U) recursion never touches the alphabet axis. ``prepare`` here is
 the plain PyTorch version; on a CUDA tensor the same function is the
 ``prep.cu`` kernel (``ops/cuda/prep.py``). Counterpart of
@@ -27,6 +29,8 @@ class PreparedInputs(NamedTuple):
     lpb: torch.Tensor  # (B, T, U) blank log-probs
     lpe: torch.Tensor  # (B, T, U) label log-probs (column U-1 is NEG)
     denom: Optional[torch.Tensor]  # (B, T, U) -logsumexp(acts), or None
+    # (B, T, U, K) log-probs of the extra columns (K = 0: an empty last axis)
+    extras: Optional[torch.Tensor] = None
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -49,8 +53,24 @@ def label_rows(labels: torch.Tensor, U: int) -> torch.Tensor:
     return torch.nn.functional.pad(lab, (0, 1)).contiguous()
 
 
+# The most extra columns one prep or gradient pass takes (the kernels hold
+# their indices in a fixed array).
+MAX_EXTRA_COLS = 8
+
+
+def check_extra_cols(extra_cols, V: int) -> tuple:
+    """The extra columns as a tuple of ints, each inside [0, V), at most
+    ``MAX_EXTRA_COLS`` of them."""
+    cols = tuple(int(c) for c in extra_cols)
+    if len(cols) > MAX_EXTRA_COLS:
+        raise ValueError(f"at most {MAX_EXTRA_COLS} extra columns, got {len(cols)}")
+    if any(c < 0 or c >= V for c in cols):
+        raise ValueError(f"extra columns {cols} must lie inside [0, V={V})")
+    return cols
+
+
 def prepare(acts: torch.Tensor, labels: torch.Tensor, blank: int,
-            log_probs_input: bool) -> PreparedInputs:
+            log_probs_input: bool, extra_cols=()) -> PreparedInputs:
     """Plain PyTorch prep (the plain version of ``csrc/prep.cu``).
 
     Args:
@@ -59,8 +79,10 @@ def prepare(acts: torch.Tensor, labels: torch.Tensor, blank: int,
         directly).
       labels: (B, L) integer targets, L >= U-1.
       blank: blank symbol index.
+      extra_cols: K further column indices to read beside blank and label.
     """
     B, T, U, V = acts.shape
+    cols = check_extra_cols(extra_cols, V)
     x = acts.to(compute_dtype(acts.dtype))
     lab = label_rows(labels, U).to(torch.int64)
     # A label outside [0, V) selects nothing (NEG), as the masked select of
@@ -71,6 +93,7 @@ def prepare(acts: torch.Tensor, labels: torch.Tensor, blank: int,
     e = torch.gather(x, 3, idx)[..., 0]
     e = torch.where(in_range[:, None, :], e, torch.full_like(e, NEG))
     lpb = x[..., blank]
+    extras = x[..., list(cols)]
     if log_probs_input:
         denom = None
     else:
@@ -78,10 +101,11 @@ def prepare(acts: torch.Tensor, labels: torch.Tensor, blank: int,
         denom = -(m + torch.log(torch.exp(x - m[..., None]).sum(dim=-1)))
         lpb = lpb + denom
         e = e + denom
+        extras = extras + denom[..., None]
     last = torch.arange(U, device=x.device) == U - 1
     lpe = torch.where(last, torch.full_like(e, NEG), e)
     return PreparedInputs(lpb=lpb.contiguous(), lpe=lpe.contiguous(),
-                          denom=denom)
+                          denom=denom, extras=extras.contiguous())
 
 
 def delay_shift(lpe: torch.Tensor, input_lengths: torch.Tensor,

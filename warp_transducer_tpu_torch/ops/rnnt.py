@@ -34,19 +34,22 @@ from . import fused_joint as _fused
 from . import gradients as _gradients
 from . import lattice as _lattice
 from . import prep as _prep
+from . import window as _window
 from .cuda import band as _cuda_band
 from .cuda import grad as _cuda_grad
 from .cuda import joint as _cuda_joint
 from .cuda import prep as _cuda_prep
 from .cuda import ranges as _cuda_ranges
 from .cuda import wavefront as _cuda_wavefront
+from .cuda import window as _cuda_window
 from ..utils.options import RNNTOptions
 
 _IMPLEMENTATIONS = ("auto", "torch", "cuda")
 
 # The stages of the dense loss, of the pruned path (ops/simple.py,
-# ops/pruned.py) and of the fused joint (ops/fused_joint.py,
-# ops/pruned_fused.py), as plain PyTorch and as kernel wrappers. A wrapper given a
+# ops/pruned.py), of the fused joint (ops/fused_joint.py,
+# ops/pruned_fused.py) and of the duration-arc losses (ops/multiblank.py,
+# ops/tdt.py), as plain PyTorch and as kernel wrappers. A wrapper given a
 # CPU tensor runs the plain version, so "auto" needs no branch of its own.
 _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          forward_backward=_lattice.forward_backward,
@@ -57,7 +60,8 @@ _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          band_grad=_band.band_grad,
                          band_starts=_band.band_starts,
                          fused_prep=_fused.fused_prep,
-                         fused_grad=_fused.fused_grad)
+                         fused_grad=_fused.fused_grad,
+                         window_forward_backward=_window.forward_backward)
 _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            forward_backward=_cuda_wavefront.forward_backward,
                            dense_grad=_cuda_grad.dense_grad,
@@ -67,7 +71,8 @@ _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            band_grad=_cuda_band.band_grad,
                            band_starts=_cuda_ranges.band_starts,
                            fused_prep=_cuda_joint.fused_prep,
-                           fused_grad=_cuda_joint.fused_grad)
+                           fused_grad=_cuda_joint.fused_grad,
+                           window_forward_backward=_cuda_window.forward_backward)
 
 
 def _engine(implementation: str, acts: torch.Tensor):
