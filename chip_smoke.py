@@ -17,13 +17,16 @@ step (``rnnt_loss_simple`` → ``Joint.pruned_fused_loss``) at the shape whose
 band would not fit, and the two duration-arc steps
 (``rnnt_loss_multiblank`` with big blanks of 2 and 4 frames,
 ``rnnt_loss_tdt`` with durations 0, 1, 2, 4, forward and backward) at the
-JAX package's two published shapes for them — checks that a full band
-equals the dense loss, times each path and each kernel with CUDA events,
-reads the peak memory of the fused and the unfused step, and prints:
+JAX package's two published shapes for them, and the same two losses fused
+into the joint (``Joint.multiblank_fused_loss``, ``Joint.tdt_fused_loss`` on
+both of its routes) at the fused shape, held against their unfused
+compositions — checks that a full band equals the dense loss, times each
+path and each kernel with CUDA events, reads the peak memory of the fused
+and the unfused steps, and prints:
 
   card line, build line, one line per comparison, per shape, per timing;
   the card's name and power limit as nvidia-smi gives them;
-  {"kernels": [...]} — one entry per kernel (ten);
+  {"kernels": [...]} — one entry per kernel (eleven);
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}} last.
 
 Every check raises, so any failure ends the run with a non-zero exit and
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -116,8 +120,8 @@ def time_ms(fn, iters, warmup=2):
 # Kernel names of csrc/*.cu as the profiler shows them.
 PORT_KERNELS = ("prep_kernel", "wavefront_kernel", "grad_kernel", "band_prep_kernel",
                 "band_kernel", "band_grad_kernel", "band_starts_kernel", "joint_prep_kernel",
-                "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_sum_kernel",
-                "window_kernel")
+                "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
+                "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "window_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
@@ -469,17 +473,18 @@ FUSED_GRAD_ELEMENTWISE = (1e-4, 1e-2)
 FUSED_PREP_TOL = {torch.float32: "f32", torch.bfloat16: (1e-5, 1e-3)}
 
 
-def make_joint_problem(B, T, L, V, H, seed, dev, dtype=torch.float32, blank=0):
+def make_joint_problem(B, T, L, V, H, seed, dev, dtype=torch.float32, blank=0, n_cols=0):
     """Random projected activations e (B, T, H) and p (B, U, H), W ~ N(0, 1/H)
     so that the logits spread as a trained joint's do, bias, labels that avoid
-    ``blank`` and ragged lengths, from a seed, made on the card."""
+    ``blank`` and the last ``n_cols`` columns, and ragged lengths, from a
+    seed, made on the card."""
     g = torch.Generator(device=dev).manual_seed(seed)
     U = L + 1
     e = (torch.randn((B, T, H), generator=g, device=dev) * 0.5).to(dtype)
     p = (torch.randn((B, U, H), generator=g, device=dev) * 0.5).to(dtype)
     W = (torch.randn((H, V), generator=g, device=dev) / H ** 0.5).to(dtype)
     bias = torch.randn((V,), generator=g, device=dev) * 0.1
-    labels = torch.randint(0, V - 1, (B, L), generator=g, device=dev, dtype=torch.int32)
+    labels = torch.randint(0, V - 1 - n_cols, (B, L), generator=g, device=dev, dtype=torch.int32)
     labels = labels + (labels >= blank).int()
     il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
     ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
@@ -544,30 +549,33 @@ def joint_kernels_vs_plain(dev, errs):
         torch.cuda.empty_cache()
 
 
-def make_joint_module(V, H, seed, dev, dtype=torch.float32):
+def make_joint_module(V, H, seed, dev, dtype=torch.float32, durations=()):
     """The port's Joint at the default widths (encoder and prediction 256),
-    its weights drawn with numpy from a seed as a Flax parameter tree and
-    loaded through joint_state_dict_from_flax."""
+    with a duration head when ``durations``, its weights drawn with numpy
+    from a seed as a Flax parameter tree and loaded through
+    joint_state_dict_from_flax."""
     import numpy as np
     from warp_transducer_tpu_torch.models import Joint, TransducerConfig
     from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax
-    cfg = TransducerConfig(vocab_size=V, joint_dim=H, dtype=dtype)
+    cfg = TransducerConfig(vocab_size=V, joint_dim=H, dtype=dtype, tdt_durations=tuple(durations))
     rng = np.random.default_rng(seed)
+    layers = [("Dense_0", cfg.encoder_dim, H), ("Dense_1", cfg.prediction_dim, H),
+              ("Dense_2", H, V)] + ([("DurHead_0", H, len(durations))] if durations else [])
     tree = {name: {"kernel": (rng.standard_normal((i, o)) / i ** 0.5).astype(np.float32),
                    "bias": (rng.standard_normal(o) * 0.1).astype(np.float32)}
-            for name, i, o in (("Dense_0", cfg.encoder_dim, H), ("Dense_1", cfg.prediction_dim, H),
-                               ("Dense_2", H, V))}
+            for name, i, o in layers}
     joint = Joint(cfg, device=dev)
     joint.load_state_dict(joint_state_dict_from_flax({"params": tree}))
     return joint
 
 
-def make_model_problem(B, T, L, V, seed, dev, cfg):
-    """Random encoder and prediction outputs, labels and ragged lengths."""
+def make_model_problem(B, T, L, V, seed, dev, cfg, n_cols=0):
+    """Random encoder and prediction outputs, labels (off the blank 0 and
+    the last ``n_cols`` columns) and ragged lengths."""
     g = torch.Generator(device=dev).manual_seed(seed)
     enc = torch.randn((B, T, cfg.encoder_dim), generator=g, device=dev)
     pred = torch.randn((B, L + 1, cfg.prediction_dim), generator=g, device=dev)
-    labels = torch.randint(1, V, (B, L), generator=g, device=dev, dtype=torch.int32)
+    labels = torch.randint(1, V - n_cols, (B, L), generator=g, device=dev, dtype=torch.int32)
     il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
     ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
     il[0], ll[0] = T, L
@@ -1095,6 +1103,367 @@ def duration_timings(problems):
     return out, step_ms
 
 
+# The fused duration-arc losses run at the fused shape with the settings of
+# the unfused ones above: K = 2 big blanks of 2 and 4 frames on the last two
+# columns, sigma 0.05; D = 4 durations 0, 1, 2, 4, sigma 0.05 (the JAX
+# package's bench.py:478 and :494). On the awkward shape the blank is column
+# V - 3, in the last, partial tile of V beside the two big blanks.
+VARIANT_CASES = [(FUSED_SHAPE, torch.float32, 0), (FUSED_SHAPE, torch.bfloat16, 0),
+                 (AWKWARD_SHAPE, torch.float32, AWKWARD_SHAPE[4] - 3),
+                 (AWKWARD_SHAPE, torch.bfloat16, AWKWARD_SHAPE[4] - 3)]
+VARIANT_SIGMA = 0.05
+
+
+def make_dur_head(H, seed, dev):
+    """Wd (H, D) ~ N(0, 1/H) and bias_d (D,) in f32, from a seed, on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = len(TDT_DURATIONS)
+    return (torch.randn((H, D), generator=g, device=dev) / H ** 0.5,
+            torch.randn((D,), generator=g, device=dev) * 0.1)
+
+
+def variant_fields(problem, blank, Wd, bias_d):
+    """What the two fused duration-arc steps hand their gradient kernels
+    (kernels, unit cotangent, sigma as above): for the multi-blank loss the
+    coefficient fields and the K = 2 big-blank fields cX, for the TDT loss
+    the coefficient fields and the duration head's cotangent g_dur; and the
+    denominator both share."""
+    from warp_transducer_tpu_torch.ops import gradients, multiblank, tdt, window
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    e, p, W, bias, labels, il, ll = problem
+    V = W.shape[1]
+    cols = (V - 2, V - 1)
+    with torch.no_grad():
+        pr = kjoint.fused_prep(e, p, W, bias, labels, il, ll, blank, extra_cols=cols,
+                               dur_head=(Wd, bias_d))
+        lpb, lpe = pr.lpb - VARIANT_SIGMA, torch.clamp_min(pr.lpe - VARIANT_SIGMA, -1.0e30)
+        lpB = pr.extras - VARIANT_SIGMA
+        lat = kwindow.forward_backward(lpb, lpe, lpB, window.multiblank_arcs(MB_DURATIONS), il, ll)
+        coef, cb, ce, cBs = multiblank._mb_coefs(lpb, lpe, lpB, lat, MB_DURATIONS, il, ll)
+        mb = (gradients.Coefficients(coef.contiguous(), cb.contiguous(), ce.contiguous()),
+              torch.stack(cBs, dim=-1))
+        lpd = torch.log_softmax(pr.dur, dim=-1)
+        lat = kwindow.forward_backward(lpb, lpe, lpd, window.tdt_arcs(TDT_DURATIONS), il, ll)
+        coef, cb, ce, cb_js, ce_js = tdt._tdt_coefs(lpb, lpe, lpd, lat, TDT_DURATIONS, il, ll)
+        g_dur = coef[..., None] * torch.exp(lpd) - torch.stack(
+            [cb_js[j] + ce_js[j] for j in range(len(TDT_DURATIONS))], dim=-1)
+        td = (gradients.Coefficients(coef.contiguous(), cb.contiguous(), ce.contiguous()),
+              g_dur.contiguous())
+    return pr.denom, cols, mb, td
+
+
+def check_fused_grads(name, got, want, dtype, errs):
+    """The fused gradients by relative norm error (dWd, which never sees a
+    rounded h, at the f32 tolerance), and in f32 also elementwise."""
+    for f, g, w in zip(("de", "dp", "dW", "db", "dWd"), got, want):
+        tol = FUSED_GRAD_REL[torch.float32 if f == "dWd" else dtype]
+        rel = rel_norm(g, w)
+        print(f"{name} {f}: relative norm error {rel:.3e} (tol {tol:g})")
+        fail_unless(rel <= tol and bool(torch.isfinite(g.float()).all()),
+                    f"{name} {f}: kernel disagrees with its plain version")
+        if dtype == torch.float32:
+            rtol, share = FUSED_GRAD_ELEMENTWISE
+            key = "dur_head" if name.startswith("dur_head") else "joint_grad"
+            errs[key] = max(errs[key], compare(f"{name} {f}", g, w,
+                                               (rtol, grad_tol(w, "f32", share)[1])))
+
+
+def variant_kernels_vs_plain(dev, errs):
+    """joint_prep and joint_grad with K = 2 extra columns and with the D = 4
+    duration head, and the standalone duration-head pair, against their
+    plain versions: at the fused shape and at the awkward one, f32 and
+    bf16 e, p, W."""
+    from warp_transducer_tpu_torch.ops import fused_joint
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    for (tag, B, T, L, V, H), dtype, blank in VARIANT_CASES:
+        problem = make_joint_problem(B, T, L, V, H, seed=15, dev=dev, dtype=dtype, blank=blank,
+                                     n_cols=2)
+        e, p, W, bias, labels, il, ll = problem
+        Wd, bias_d = make_dur_head(H, 16, dev)
+        f32 = dtype == torch.float32
+        name = f"{tag} {dtype}"
+        denom, cols, (mb_fields, cX), (td_fields, g_dur) = variant_fields(problem, blank, Wd, bias_d)
+        args = (e, p, W, bias, labels, il, ll, blank)
+        for hook, kw in (("K=2", {"extra_cols": cols}), ("D=4", {"dur_head": (Wd, bias_d)})):
+            p_k = kjoint.fused_prep(*args, **kw)
+            torch.cuda.synchronize()
+            p_p = fused_joint.fused_prep(*args, **kw)
+            out = [("lpb", p_k.lpb, p_p.lpb, FUSED_PREP_TOL[dtype]),
+                   ("lpe", p_k.lpe, p_p.lpe, FUSED_PREP_TOL[dtype]),
+                   ("denom", p_k.denom, p_p.denom, FUSED_PREP_TOL[dtype])]
+            if hook == "K=2":
+                out.append(("lpX", p_k.extras, p_p.extras, FUSED_PREP_TOL[dtype]))
+            else:  # the duration logits never see the rounded h: f32 tolerance for both
+                out.append(("dlog", p_k.dur, p_p.dur, "f32"))
+            err = max(compare(f"joint_prep {hook} {name} {f}", a, b, tol) for f, a, b, tol in out)
+            if f32:
+                errs["joint_prep"] = max(errs["joint_prep"], err)
+            del p_k, p_p, out
+        g_args = args[:-1] + (denom,)
+        for hook, fields, kw in (("K=2", mb_fields, {"extra": (cols, cX)}),
+                                 ("D=4", td_fields, {"dur_head": (Wd, g_dur)})):
+            g_k = kjoint.fused_grad(*g_args, fields, blank, **kw)
+            torch.cuda.synchronize()
+            g_p = fused_joint.fused_grad(*g_args, fields, blank, **kw)
+            check_fused_grads(f"joint_grad {hook} {name}", g_k, g_p, dtype, errs)
+            del g_k, g_p
+        d_k = kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll)
+        torch.cuda.synchronize()
+        d_p = fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll)
+        err = compare(f"dur_head prep {name}", d_k, d_p, "f32")
+        if f32:
+            errs["dur_head"] = max(errs["dur_head"], err)
+        g_k = kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll)
+        torch.cuda.synchronize()
+        g_p = fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll)
+        # de2 and dp2 come back in the type of e and p: one more bf16 rounding.
+        for f, g, w in zip(("de2", "dp2", "dWd"), g_k, g_p):
+            tol = FUSED_GRAD_REL[torch.float32 if f == "dWd" else dtype]
+            rel = rel_norm(g, w)
+            print(f"dur_head grad {name} {f}: relative norm error {rel:.3e} (tol {tol:g})")
+            fail_unless(rel <= tol and bool(torch.isfinite(g.float()).all()),
+                        f"dur_head grad {name} {f}: kernel disagrees with its plain version")
+            if f32:
+                rtol, share = FUSED_GRAD_ELEMENTWISE
+                errs["dur_head"] = max(errs["dur_head"], compare(
+                    f"dur_head grad {name} {f}", g, w, (rtol, grad_tol(w, "f32", share)[1])))
+        del d_k, d_p, g_k, g_p, problem, denom, mb_fields, cX, td_fields, g_dur
+        torch.cuda.empty_cache()
+
+
+def set_tdt_route(integrated):
+    """Patch the route predicate of ops/tdt_fused.py; returns the old one."""
+    from warp_transducer_tpu_torch.ops import tdt_fused
+    old = tdt_fused._tdt_single_chunk
+    tdt_fused._tdt_single_chunk = lambda e, p, W: integrated
+    return old
+
+
+def variant_main_path(dev, totals):
+    """``Joint.multiblank_fused_loss`` and ``Joint.tdt_fused_loss`` (on both
+    of its routes) forward and backward at the fused shape under the launch
+    counters, with no host sync allowed, each held against
+    implementation="torch" and against its unfused composition
+    (``Joint.forward`` → ``rnnt_loss_multiblank``; ``Joint.tdt`` →
+    ``rnnt_loss_tdt``), the two TDT routes against each other. Returns the
+    step functions for the timings."""
+    from warp_transducer_tpu_torch import rnnt_loss_multiblank, rnnt_loss_tdt
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import tdt_fused
+    tag, B, T, L, V, H = FUSED_SHAPE
+    joint = make_joint_module(V, H, seed=17, dev=dev, durations=TDT_DURATIONS)
+    enc, pred, labels, il, ll = make_model_problem(B, T, L, V, seed=18, dev=dev, cfg=joint.cfg,
+                                                   n_cols=2)
+    blank = joint.cfg.blank
+    rows = int((il.long() * (ll.long() + 1)).sum())
+    print(f"main path fused duration-arc steps {tag}: valid rows {rows} "
+          f"({rows / (B * T * (L + 1)):.3f} of B·T·U)")
+
+    def mb_fused(implementation="auto"):
+        return joint_step(joint, lambda a, b: joint.multiblank_fused_loss(
+            a, b, labels, il, ll, MB_DURATIONS, reduction="sum", sigma=VARIANT_SIGMA,
+            implementation=implementation), enc, pred)
+
+    def mb_unfused():
+        return joint_step(joint, lambda a, b: rnnt_loss_multiblank(
+            joint(a, b), labels, il, ll, MB_DURATIONS, blank=blank, reduction="sum",
+            sigma=VARIANT_SIGMA), enc, pred)
+
+    def tdt_fused_step(implementation="auto"):
+        return joint_step(joint, lambda a, b: joint.tdt_fused_loss(
+            a, b, labels, il, ll, reduction="sum", sigma=VARIANT_SIGMA,
+            implementation=implementation), enc, pred)
+
+    def tdt_unfused():
+        return joint_step(joint, lambda a, b: rnnt_loss_tdt(
+            *joint.tdt(a, b), labels, il, ll, TDT_DURATIONS, blank=blank, reduction="sum",
+            sigma=VARIANT_SIGMA), enc, pred)
+
+    def counted(name, step, must, must_not=()):
+        K.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+        got = step()
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        print(f"main path {name} {tag} B={B} T={T} L={L} V={V} H={H}: launches {counts}")
+        for k in must:
+            fail_unless(counts[k] > 0, f"{k} kernel was not launched on the {name} path")
+        for k in must_not:
+            fail_unless(counts[k] == 0, f"{k} kernel was launched on the {name} path")
+        for k, n in counts.items():
+            totals[k] += n
+        # A gradient of a parameter the loss does not reach stays None.
+        return got[0], {n: g.clone() for n, g in got[1].items() if g is not None}
+
+    def without_none(step):
+        loss, grads = step
+        return loss, {n: g for n, g in grads.items() if g is not None}
+
+    fused_kernels = ("joint_prep", "joint_grad", "window_stream")
+    got = counted("multiblank_fused", mb_fused, fused_kernels, ("wavefront", "dur_head"))
+    check_step(f"multiblank_fused {tag}", got, without_none(mb_fused("torch")), "the plain path")
+    check_step(f"multiblank_fused {tag}", got, without_none(mb_unfused()),
+               "the unfused composition")
+    del got
+    torch.cuda.empty_cache()
+
+    default_integrated = bool(tdt_fused._tdt_single_chunk(None, None, None))
+    old = set_tdt_route(True)
+    try:
+        integrated = counted("tdt_fused integrated", tdt_fused_step, fused_kernels,
+                             ("wavefront", "dur_head"))
+        set_tdt_route(False)
+        composed = counted("tdt_fused composed", tdt_fused_step, fused_kernels + ("dur_head",),
+                           ("wavefront",))
+    finally:
+        tdt_fused._tdt_single_chunk = old
+    print(f"tdt_fused {tag}: the module's rule takes the "
+          f"{'integrated' if default_integrated else 'composed'} route")
+    check_step(f"tdt_fused {tag} integrated", integrated, composed, "the composed route")
+    check_step(f"tdt_fused {tag} integrated", integrated, tdt_fused_step("torch"),
+               "the plain path")
+    unfused = tdt_unfused()
+    check_step(f"tdt_fused {tag} integrated", integrated, unfused, "the unfused composition")
+    check_step(f"tdt_fused {tag} composed", composed, unfused, "the unfused composition")
+    return mb_fused, mb_unfused, tdt_fused_step, tdt_unfused
+
+
+def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
+    """The two fused duration-arc steps beside their unfused compositions
+    (time, peak memory, device breakdown), the TDT step on both routes, and
+    the kernels at the fused shape: joint_prep and joint_grad with K = 0,
+    K = 2 and D = 4 in f32 and with K = 2 and D = 4 in bf16, and the
+    duration-head pair. Returns ({kernel: {case: timing}}, {step: (ms, MB)},
+    {route: [ms]})."""
+    from warp_transducer_tpu_torch.ops import fused_joint
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    tag, B, T, L, V, H = FUSED_SHAPE
+    steps = {}
+    for name, fn in (("multiblank_fused", mb_fused), ("multiblank_unfused", mb_unfused),
+                     ("tdt_unfused", tdt_unfused)):
+        ms = time_ms(fn, 3, 1)
+        steps[name] = (ms, peak_mb(fn))
+        print(f"time {tag} B={B} T={T} L={L} V={V} H={H}: {name} step {ms:.4f} ms, "
+              f"peak {steps[name][1]:.1f} MB")
+    routes = {}
+    from warp_transducer_tpu_torch.ops import tdt_fused
+    old = tdt_fused._tdt_single_chunk
+    try:
+        for route in ("integrated", "composed", "composed", "integrated") * 2:
+            set_tdt_route(route == "integrated")
+            ms = time_ms(tdt_fused_step, 3, 1)
+            mem = peak_mb(tdt_fused_step)
+            routes.setdefault(route, []).append(ms)
+            steps[f"tdt_fused_{route}"] = (min(routes[route]), mem)
+            print(f"time {tag} B={B} T={T} L={L} V={V} H={H}: tdt_fused step, {route} route "
+                  f"{ms:.4f} ms, peak {mem:.1f} MB")
+        set_tdt_route(True)
+        device_breakdown(f"{tag} tdt_fused integrated step", tdt_fused_step,
+                         min(routes["integrated"]), iters=3, top=10)
+        set_tdt_route(False)
+        device_breakdown(f"{tag} tdt_fused composed step", tdt_fused_step,
+                         min(routes["composed"]), iters=3, top=10)
+    finally:
+        tdt_fused._tdt_single_chunk = old
+    median = {r: statistics.median(ms) for r, ms in routes.items()}
+    faster = min(median, key=median.get)
+    print(f"route {tag}: the {faster} route of rnnt_loss_tdt_fused_joint is the faster by the "
+          f"median of {len(routes[faster])} readings (integrated {median['integrated']:.4f} ms, "
+          f"least {min(routes['integrated']):.4f}; composed {median['composed']:.4f} ms, least "
+          f"{min(routes['composed']):.4f})")
+    device_breakdown(f"{tag} multiblank_fused step", mb_fused, steps["multiblank_fused"][0],
+                     iters=3, top=10)
+    torch.cuda.empty_cache()
+
+    out = {"joint_prep": {}, "joint_grad": {}, "dur_head": {}}
+    U, D = L + 1, len(TDT_DURATIONS)
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        suffix = "f32" if f32 else "bf16"
+        problem = make_joint_problem(B, T, L, V, H, seed=15, dev=dev, dtype=dtype, n_cols=2)
+        e, p, W, bias, labels, il, ll = problem
+        Wd, bias_d = make_dur_head(H, 16, dev)
+        denom, cols, (mb_fields, cX), (td_fields, g_dur) = variant_fields(problem, 0, Wd, bias_d)
+        rows = int((il.long() * (ll.long() + 1)).sum())
+        rate = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+        in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias)) + B * L * 4 + 2 * B * 4
+        small = B * T * U * 4
+        head_bytes = (Wd.numel() + bias_d.numel()) * 4
+        h32 = torch.tanh(e.float()[:, :, None] + p.float()[:, None]).reshape(-1, H)
+        h, g = h32.to(dtype), torch.randn((h32.shape[0], V), device=dev).to(dtype)
+        gd2 = g_dur.reshape(-1, D)
+
+        def three_products():
+            torch.matmul(h, W)
+            torch.matmul(g, W.t())
+            torch.matmul(h.t(), g)
+
+        def prep_library(with_dur):
+            torch.matmul(h, W)
+            if with_dur:
+                torch.matmul(h32, Wd)
+
+        def grad_library(with_dur):
+            three_products()
+            if with_dur:
+                torch.matmul(gd2, Wd.t())
+                torch.matmul(h32.t(), gd2)
+
+        args = (e, p, W, bias, labels, il, ll, 0)
+        g_args = args[:-1] + (denom,)
+        # (case, prep hooks, grad fields and hooks, K, D)
+        cases = [("k2", {"extra_cols": cols}, mb_fields, {"extra": (cols, cX)}, 2, 0),
+                 ("d4", {"dur_head": (Wd, bias_d)}, td_fields, {"dur_head": (Wd, g_dur)}, 0, D)]
+        if f32:
+            cases.insert(0, ("k0", {}, mb_fields, {}, 0, 0))
+        for case, pkw, fields, gkw, n_k, n_d in cases:
+            key = f"{tag}_{suffix}_{case}"
+            # Bytes: the inputs once, the (B, T, U) fields, the K or D values a
+            # valid row; operations: the products on the valid rows.
+            per_row = rows * (n_k + n_d) * 4 + (head_bytes if n_d else 0)
+            out["joint_prep"][key] = dict(
+                ms=time_ms(lambda: kjoint.fused_prep(*args, **pkw), 5),
+                plain_ms=time_ms(lambda: fused_joint.fused_prep(*args, **pkw), 2, 1),
+                library_ms=time_ms(lambda: prep_library(n_d > 0), 5),
+                bound=bound(in_bytes + 3 * small + per_row, 2 * rows * H * (V + n_d), rate))
+            out["joint_grad"][key] = dict(
+                ms=time_ms(lambda: kjoint.fused_grad(*g_args, fields, 0, **gkw), 3),
+                plain_ms=time_ms(lambda: fused_joint.fused_grad(*g_args, fields, 0, **gkw), 2, 1),
+                library_ms=time_ms(lambda: grad_library(n_d > 0), 3),
+                bound=bound(2 * in_bytes + 4 * small + per_row + (head_bytes if n_d else 0),
+                            3 * 2 * rows * H * V + 2 * 2 * rows * H * n_d, rate))
+        if f32:
+            ep_bytes = (e.numel() + p.numel()) * 4
+            out["dur_head"][f"{tag}_prep"] = dict(
+                ms=time_ms(lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll), 10),
+                plain_ms=time_ms(lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), 2, 1),
+                library_ms=time_ms(lambda: torch.matmul(h32, Wd), 10),
+                bound=bound(ep_bytes + head_bytes + rows * D * 4 + 2 * B * 4, 2 * rows * H * D,
+                            F32_OPS_PER_S))
+            out["dur_head"][f"{tag}_grad"] = dict(
+                ms=time_ms(lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll), 10),
+                plain_ms=time_ms(lambda: fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll), 2, 1),
+                library_ms=time_ms(lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2)),
+                                   10),
+                bound=bound(2 * ep_bytes + 2 * Wd.numel() * 4 + rows * D * 4 + 2 * B * 4,
+                            4 * rows * H * D, F32_OPS_PER_S))
+        print(f"time {tag} {suffix}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
+        for k, cases_k in out.items():
+            for key, v in cases_k.items():
+                if suffix not in key and k != "dur_head":
+                    continue
+                if k == "dur_head" and not f32:
+                    continue
+                print(f"time {key} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
+                      f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library "
+                      f"{v['library_ms']:.4f} ms")
+        del h32, h, g, gd2, denom, mb_fields, cX, td_fields, g_dur, problem, args, g_args, cases
+        torch.cuda.empty_cache()
+    return out, steps, routes
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
@@ -1306,6 +1675,17 @@ def main():
     duration_problems = duration_main_path(dev, totals)
     duration_kernel_ms, duration_step_ms = duration_timings(duration_problems)
     del duration_problems
+    torch.cuda.empty_cache()
+
+    # ---- 9. the duration-arc losses fused into the joint: joint_prep and
+    # joint_grad with the extra columns and with the duration head, and the
+    # duration-head pair, against their plain versions; both steps under the
+    # launch counters against their unfused compositions, the TDT step on
+    # both routes; the timings and peak memories
+    variant_kernels_vs_plain(dev, errs)
+    variant_steps = variant_main_path(dev, totals)
+    variant_kernel_ms, variant_step, variant_routes = variant_timings(dev, *variant_steps)
+    del variant_steps
 
     sources = {
         "prep": ("warp_transducer_tpu_torch/csrc/prep.cu",
@@ -1382,7 +1762,12 @@ def main():
                                 "unfused_step_ms": fused_step_ms["unfused"],
                                 "fused_peak_mb": fused_peak_mb["fused"],
                                 "unfused_peak_mb": fused_peak_mb["unfused"]}
-                         for case, t in joint_timings[k].items()}})
+                         for case, t in joint_timings[k].items()} | {
+                # with K = 2 big-blank columns (k2) and the D = 4 duration
+                # head (d4), beside K = 0 (k0) taken in the same phase
+                case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                       "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                for case, t in variant_kernel_ms[k].items()}})
     head = duration_kernel_ms["window_stream"]["multiblank_headline"]
     kernels.append({
         "name": "window_stream", "route": "cuda",
@@ -1396,6 +1781,22 @@ def main():
                             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                             "step_ms": duration_step_ms[case]}
                      for case, t in duration_kernel_ms["window_stream"].items()}})
+    head = variant_kernel_ms["dur_head"]["fused_prep"]
+    kernels.append({
+        "name": "dur_head", "route": "cuda",
+        "source": "warp_transducer_tpu_torch/csrc/dur_head.cu",
+        "replaces": "warp_transducer_tpu/ops/pallas/joint_fused.py:824",
+        "also_replaces": "warp_transducer_tpu/ops/pallas/joint_fused.py:837",
+        "launches": totals["dur_head"], "max_abs_err": errs["dur_head"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+        "bound_by": head["bound"][1], "library_ms": head["library_ms"],
+        "shape": "the prep kernel at fused B=64 T=150 L=20 H=256 D=4 f32",
+        "by_shape": {case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                            "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                     for case, t in variant_kernel_ms["dur_head"].items()}})
+    print(json.dumps({"fused_duration_arc": {
+        "steps": {name: {"ms": ms, "peak_mb": mb} for name, (ms, mb) in variant_step.items()},
+        "tdt_routes_ms": variant_routes}}))
     print(json.dumps({"pruned_fused": {
         "full_sweep_step_ms": pf_full_ms, "cut_batch": PRUNED_FUSED_CUT_B,
         "cut_sweep_step_ms": min(route_ms["sweep"]),

@@ -28,7 +28,8 @@ def _imported_roots(path):
 def test_sources_found():
     assert len(SOURCES) >= 10
     for module in ("rnnt", "simple", "pruned", "band", "cuda/band", "cuda/ranges", "fused_joint",
-                   "pruned_fused", "cuda/joint", "window", "multiblank", "tdt", "cuda/window"):
+                   "pruned_fused", "cuda/joint", "window", "multiblank", "tdt", "cuda/window",
+                   "multiblank_fused", "tdt_fused"):
         assert (PKG / "ops" / f"{module}.py") in SOURCES, module
     for module in ("models/transducer", "utils/convert"):
         assert (PKG / f"{module}.py") in SOURCES, module
@@ -132,3 +133,53 @@ _DURATION_ARC_CASES = {
 @pytest.mark.parametrize("case", _DURATION_ARC_CASES)
 def test_duration_arc_losses_with_jax_blocked(case):
     _run_with_jax_blocked(_DURATION_ARC_SETUP + _DURATION_ARC_CASES[case])
+
+
+_FUSED_DURATION_SETUP = (
+    "import torch\n"
+    "import warp_transducer_tpu_torch as W\n"
+    "g = torch.Generator().manual_seed(0)\n"
+    "leaves = [torch.randn(s, generator=g).mul(0.5).requires_grad_(True) for s in\n"
+    "          ((2, 6, 5), (2, 3, 5), (5, 7), (7,), (5, 3), (3,))]\n"
+    "lab, il, ll = torch.tensor([[1, 2], [3, 1]], dtype=torch.int32), torch.tensor([6, 4]), "
+    "torch.tensor([2, 1])\n"
+)
+_FUSED_DURATION_CASES = {
+    "multiblank_fused_joint": (
+        "c = W.rnnt_loss_multiblank_fused_joint(*leaves[:4], lab, il, ll, (2, 4), sigma=0.05,\n"
+        "                                       reduction='none')\n"
+        "c.sum().backward()\n"
+        "assert torch.isfinite(c).all()\n"
+        "assert all(torch.isfinite(x.grad).all() and x.grad.any() for x in leaves[:4])\n"
+        "e, p, Wt, b = (x.detach() for x in leaves[:4])\n"
+        "acts = torch.tanh(e[:, :, None] + p[:, None]) @ Wt + b\n"
+        "u = W.rnnt_loss_multiblank(acts, lab, il, ll, (2, 4), sigma=0.05, reduction='none')\n"
+        "assert torch.allclose(c, u, rtol=1e-5)\n"),
+    "tdt_fused_joint": (
+        "c = W.rnnt_loss_tdt_fused_joint(*leaves, lab, il, ll, (0, 1, 2), fastemit_lambda=0.1,\n"
+        "                                reduction='none')\n"
+        "c.sum().backward()\n"
+        "assert torch.isfinite(c).all()\n"
+        "assert all(torch.isfinite(x.grad).all() and x.grad.any() for x in leaves)\n"
+        "e, p, Wt, b, Wd, bd = (x.detach() for x in leaves)\n"
+        "h = torch.tanh(e[:, :, None] + p[:, None])\n"
+        "u = W.rnnt_loss_tdt(h @ Wt + b, h @ Wd + bd, lab, il, ll, (0, 1, 2),\n"
+        "                    fastemit_lambda=0.1, reduction='none')\n"
+        "assert torch.allclose(c, u, rtol=1e-5)\n"),
+    "joint_with_duration_head": (
+        "from warp_transducer_tpu_torch.models import Joint, TransducerConfig\n"
+        "from warp_transducer_tpu_torch.ops.cuda import launches\n"
+        "j = Joint(TransducerConfig(vocab_size=7, encoder_dim=5, prediction_dim=5, joint_dim=5,\n"
+        "                           dtype=torch.float32, tdt_durations=(0, 1, 2)))\n"
+        "e, p = leaves[0].detach(), leaves[1].detach()\n"
+        "a = j.tdt_fused_loss(e, p, lab, il, ll)\n"
+        "m = j.multiblank_fused_loss(e, p, lab, il, ll, (2, 4))\n"
+        "(a + m).backward()\n"
+        "assert torch.isfinite(a) and torch.isfinite(m) and j.dur_proj.weight.grad.any()\n"
+        "assert not any(launches.values())\n"),
+}
+
+
+@pytest.mark.parametrize("case", _FUSED_DURATION_CASES)
+def test_fused_duration_arc_losses_with_jax_blocked(case):
+    _run_with_jax_blocked(_FUSED_DURATION_SETUP + _FUSED_DURATION_CASES[case])

@@ -7,7 +7,8 @@ A Flax parameter tree is made with numpy from a seed; it goes into
 ``joint_state_dict_from_flax`` into the port's ``Joint``. Outputs and losses
 agree (rtol 1e-5 / atol 1e-5), and so does the gradient of every parameter,
 mapped back through the transpose (rtol 1e-4 / atol 1e-4, as the fused-joint
-tests).
+tests). With ``tdt_durations`` the tree also holds the duration head
+``DurHead_0`` and the module ``dur_proj``.
 """
 import jax
 import jax.numpy as jnp
@@ -18,20 +19,24 @@ import torch
 from warp_transducer_tpu.models import transducer as JM
 from warp_transducer_tpu_torch import rnnt_loss
 from warp_transducer_tpu_torch.models import Joint, TransducerConfig
-from warp_transducer_tpu_torch.ops import pruned_fused
+from warp_transducer_tpu_torch.ops import pruned_fused, tdt_fused
 from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax
 
 OUT = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)
 DIMS = dict(vocab_size=11, encoder_dim=6, prediction_dim=5, joint_dim=8)
 LAYERS = {"Dense_0": "enc_proj", "Dense_1": "pred_proj", "Dense_2": "out_proj"}
+DURATIONS = (0, 1, 2, 4)
+TDT_LAYERS = LAYERS | {"DurHead_0": "dur_proj"}
 
 
-def _tree(seed=0):
+def _tree(seed=0, durations=()):
     rng = np.random.default_rng(seed)
     shapes = {"Dense_0": (DIMS["encoder_dim"], DIMS["joint_dim"]),
               "Dense_1": (DIMS["prediction_dim"], DIMS["joint_dim"]),
               "Dense_2": (DIMS["joint_dim"], DIMS["vocab_size"])}
+    if durations:
+        shapes["DurHead_0"] = (DIMS["joint_dim"], len(durations))
     return {name: {"kernel": (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32),
                    "bias": (rng.standard_normal(s[1]) * 0.1).astype(np.float32)}
             for name, s in shapes.items()}
@@ -67,8 +72,17 @@ def _flax_value_and_grads(flax_joint, tree, method, *args, **kw):
     return float(value), jax.tree.map(np.asarray, grads)
 
 
-def _assert_param_grads(joint, flax_grads):
-    for flax_name, name in LAYERS.items():
+@pytest.fixture
+def tdt_models():
+    tree = _tree(durations=DURATIONS)
+    flax_joint = JM.Joint(JM.TransducerConfig(dtype=jnp.float32, tdt_durations=DURATIONS, **DIMS))
+    joint = Joint(TransducerConfig(dtype=torch.float32, tdt_durations=DURATIONS, **DIMS))
+    joint.load_state_dict(joint_state_dict_from_flax(tree))
+    return tree, flax_joint, joint
+
+
+def _assert_param_grads(joint, flax_grads, layers=LAYERS):
+    for flax_name, name in layers.items():
         layer = getattr(joint, name)
         np.testing.assert_allclose(layer.weight.grad.numpy().T, flax_grads[flax_name]["kernel"],
                                    err_msg=f"{name}.weight", **GRAD)
@@ -95,8 +109,12 @@ def test_state_dict_from_flax():
 
 def test_state_dict_from_flax_refuses_what_it_does_not_know():
     tree = _tree()
-    with pytest.raises(KeyError, match="DurHead_0"):
-        joint_state_dict_from_flax({**tree, "DurHead_0": tree["Dense_2"]})
+    with pytest.raises(KeyError, match="DurHead_1"):
+        joint_state_dict_from_flax({**tree, "DurHead_1": tree["Dense_2"]})
+    with pytest.raises(KeyError, match="DurHead_1"):
+        joint_state_dict_from_flax({**_tree(durations=DURATIONS), "DurHead_1": tree["Dense_2"]})
+    with pytest.raises(KeyError, match="kernel"):
+        joint_state_dict_from_flax({**tree, "DurHead_0": {"bias": tree["Dense_2"]["bias"]}})
     with pytest.raises(KeyError, match="lack"):
         joint_state_dict_from_flax({k: v for k, v in tree.items() if k != "Dense_1"})
     with pytest.raises(KeyError, match="kernel"):
@@ -186,5 +204,103 @@ def test_bf16_activations_keep_f32_parameters():
 
 
 def test_duration_head_is_refused():
-    with pytest.raises(NotImplementedError, match="duration head"):
-        Joint(TransducerConfig(tdt_durations=(0, 1, 2), **DIMS))
+    """A ``Joint`` without durations has no ``dur_proj``, and its TDT
+    methods say so; its state dict refuses a duration head's weights."""
+    joint = Joint(TransducerConfig(dtype=torch.float32, **DIMS))
+    assert not hasattr(joint, "dur_proj")
+    assert sorted(n for n, _ in joint.named_children()) == ["enc_proj", "out_proj", "pred_proj"]
+    enc, pred, labels, il, ll, _ = map(torch.tensor, _batch())
+    with pytest.raises(ValueError, match="no duration head"):
+        joint.tdt(enc, pred)
+    with pytest.raises(ValueError, match="no duration head"):
+        joint.tdt_step(enc[:, 0], pred[:, 0])
+    with pytest.raises(ValueError, match="no duration head"):
+        joint.tdt_fused_loss(enc, pred, labels, il, ll)
+    with pytest.raises(RuntimeError, match="dur_proj"):
+        joint.load_state_dict(joint_state_dict_from_flax(_tree(durations=DURATIONS)))
+
+
+def test_state_dict_from_flax_carries_the_duration_head():
+    tree = _tree(durations=DURATIONS)
+    state = joint_state_dict_from_flax(tree)
+    assert sorted(state) == sorted(f"{n}.{leaf}" for n in TDT_LAYERS.values()
+                                   for leaf in ("weight", "bias"))
+    assert state["dur_proj.weight"].shape == (len(DURATIONS), DIMS["joint_dim"])
+    np.testing.assert_array_equal(state["dur_proj.weight"].numpy(), tree["DurHead_0"]["kernel"].T)
+    np.testing.assert_array_equal(state["dur_proj.bias"].numpy(), tree["DurHead_0"]["bias"])
+    joint = Joint(TransducerConfig(dtype=torch.float32, tdt_durations=DURATIONS, **DIMS))
+    joint.load_state_dict(state, strict=True)
+    # the tree Flax itself initialises, through the method that touches both heads
+    cfg = JM.TransducerConfig(dtype=jnp.float32, tdt_durations=DURATIONS, **DIMS)
+    params = JM.Joint(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 2, DIMS["encoder_dim"])),
+                                jnp.zeros((1, 2, DIMS["prediction_dim"])), method=JM.Joint.tdt)
+    joint.load_state_dict(joint_state_dict_from_flax(jax.tree.map(np.asarray, params)),
+                          strict=True)
+
+
+def test_tdt_heads_and_steps_match_flax(tdt_models):
+    tree, flax_joint, joint = tdt_models
+    enc, pred, *_ = _batch()
+    apply = lambda method, *a: flax_joint.apply({"params": tree}, *map(jnp.asarray, a),  # noqa: E731
+                                                method=method)
+    tok, dur = joint.tdt(torch.tensor(enc), torch.tensor(pred))
+    want_tok, want_dur = apply(JM.Joint.tdt, enc, pred)
+    assert tok.shape == (3, 7, 5, DIMS["vocab_size"]) and dur.shape == (3, 7, 5, len(DURATIONS))
+    np.testing.assert_allclose(tok.detach().numpy(), np.asarray(want_tok), **OUT)
+    np.testing.assert_allclose(dur.detach().numpy(), np.asarray(want_dur), **OUT)
+    np.testing.assert_allclose(tok.detach().numpy(),
+                               joint(torch.tensor(enc), torch.tensor(pred)).detach().numpy())
+    # decode time: one frame against one prediction state, and against a beam of 4
+    rng = np.random.default_rng(3)
+    beam = rng.standard_normal((3, 4, DIMS["prediction_dim"])).astype(np.float32)
+    for pred_out in (pred[:, 0], beam):
+        got = joint.step(torch.tensor(enc[:, 0]), torch.tensor(pred_out))
+        want = apply(JM.Joint.step, enc[:, 0], pred_out)
+        assert got.shape == pred_out.shape[:-1] + (DIMS["vocab_size"],)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **OUT)
+        got = joint.tdt_step(torch.tensor(enc[:, 0]), torch.tensor(pred_out))
+        want = apply(JM.Joint.tdt_step, enc[:, 0], pred_out)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **OUT)
+
+
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+def test_multiblank_fused_loss_matches_flax(models, reduction):
+    tree, flax_joint, joint = models
+    enc, pred, labels, il, ll, _ = _batch()
+    labels = np.minimum(labels, DIMS["vocab_size"] - 3)  # off the two big-blank columns
+    kw = dict(reduction=reduction, sigma=0.05, fastemit_lambda=0.1, delay_penalty=0.02)
+    want, flax_grads = _flax_value_and_grads(
+        flax_joint, tree, JM.Joint.multiblank_fused_loss,
+        *map(jnp.asarray, (enc, pred, labels, il, ll)), (2, 3), **kw)
+    loss = joint.multiblank_fused_loss(*map(torch.tensor, (enc, pred, labels, il, ll)), (2, 3),
+                                       **kw)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), want, **OUT)
+    _assert_param_grads(joint, flax_grads)
+
+
+@pytest.mark.parametrize("route", ["integrated", "composed"])
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+def test_tdt_fused_loss_matches_flax(tdt_models, reduction, route, monkeypatch):
+    tree, flax_joint, joint = tdt_models
+    monkeypatch.setattr(tdt_fused, "_tdt_single_chunk", lambda *a: route == "integrated")
+    enc, pred, labels, il, ll, _ = _batch()
+    kw = dict(reduction=reduction, sigma=0.05, fastemit_lambda=0.1, delay_penalty=0.02)
+    want, flax_grads = _flax_value_and_grads(
+        flax_joint, tree, JM.Joint.tdt_fused_loss, *map(jnp.asarray, (enc, pred, labels, il, ll)),
+        **kw)
+    loss = joint.tdt_fused_loss(*map(torch.tensor, (enc, pred, labels, il, ll)), **kw)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), want, **OUT)
+    _assert_param_grads(joint, flax_grads, TDT_LAYERS)
+    # and the port's own identity: the TDT loss of the module's two heads
+    from warp_transducer_tpu_torch import rnnt_loss_tdt
+    fused = [q.grad.clone() for q in joint.parameters()]
+    joint.zero_grad()
+    dense = rnnt_loss_tdt(*joint.tdt(torch.tensor(enc), torch.tensor(pred)),
+                          *map(torch.tensor, (labels, il, ll)), DURATIONS, **kw)
+    dense.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(dense.detach()), **OUT)
+    for a, q in zip(fused, joint.parameters()):
+        np.testing.assert_allclose(a.numpy(), q.grad.numpy(), **GRAD)

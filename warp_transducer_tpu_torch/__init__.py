@@ -21,7 +21,15 @@ The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
 * the duration-arc losses on logits: ``rnnt_loss_multiblank``
   (arXiv:2211.03541, big blanks that advance several frames) and
   ``rnnt_loss_tdt`` (arXiv:2304.06795, a token head and a duration head),
-  both over one pending-window lattice.
+  both over one pending-window lattice;
+* the same two fused into the joint: ``rnnt_loss_multiblank_fused_joint``
+  (the fused prep and gradient with K big-blank columns; the counterpart of
+  the JAX package's ``fused_prep_mb`` / ``fused_grad_mb`` kernels) and
+  ``rnnt_loss_tdt_fused_joint`` (with the duration head inside the fused
+  kernels, ``fused_prep_tdt`` / ``fused_grad_tdt``, or beside them,
+  ``dur_head_prep`` / ``dur_head_grad``), with gradients to every joint
+  input; ``Joint.multiblank_fused_loss`` and ``Joint.tdt_fused_loss`` call
+  them.
 
 A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
 use); a CPU tensor runs their plain PyTorch versions.
@@ -30,15 +38,17 @@ use); a CPU tensor runs their plain PyTorch versions.
 from .ops.fused_joint import rnnt_loss_fused_joint
 from .ops.lattice import LatticeResult
 from .ops.multiblank import rnnt_loss_multiblank
+from .ops.multiblank_fused import rnnt_loss_multiblank_fused_joint
 from .ops.pruned import gather_banded, rnnt_loss_pruned, rnnt_prune_ranges
 from .ops.pruned_fused import rnnt_loss_pruned_fused
 from .ops.rnnt import (RNNTLoss, forward_backward_mismatch, rnnt_forward_backward,
                        rnnt_loss, rnnt_loss_and_grad, rnnt_score)
 from .ops.simple import rnnt_loss_simple
 from .ops.tdt import rnnt_loss_tdt
+from .ops.tdt_fused import rnnt_loss_tdt_fused_joint
 from .utils.options import RNNTOptions
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "LatticeResult",
@@ -51,10 +61,12 @@ __all__ = [
     "rnnt_loss_and_grad",
     "rnnt_loss_fused_joint",
     "rnnt_loss_multiblank",
+    "rnnt_loss_multiblank_fused_joint",
     "rnnt_loss_pruned",
     "rnnt_loss_pruned_fused",
     "rnnt_loss_simple",
     "rnnt_loss_tdt",
+    "rnnt_loss_tdt_fused_joint",
     "rnnt_prune_ranges",
     "rnnt_score",
     "__version__",

@@ -3,21 +3,28 @@
 // (B, T, U, V) logits or their gradient ever reaching device memory.
 //
 // Replaces: warp_transducer_tpu/ops/pallas/joint_fused.py::_grad_kernel
-// (called through fused_grad and fused_grad_chunked).
+// (called through fused_grad and fused_grad_chunked; with its extra_cols
+// through fused_grad_mb, the multi-blank loss; with its with_dur through
+// fused_grad_tdt, the TDT loss).
 //
 // Per valid row r = (b, t, u), recomputing h = tanh(e[b,t] + p[b,u]) and each
 // tile of logits = h·W + bias:
 //   g = coef·exp(logits + denom) − cb·[v = blank] − ce·[v = label]
-// in f32, both subtractions before any rounding of g (coef·p_label − ce is
+//       − Σ_k cx[r, k]·[v = col_k]
+// in f32, every subtraction before any rounding of g (coef·p_label − ce is
 // a difference of two O(1) terms). Then dh = g·Wᵀ, dW = hᵀ·g, db = Σ_rows g,
-// and with d = dh·(1 − h²): de[b,t] = Σ_u d, dp[b,u] = Σ_t d. Rows outside
-// (t < T_b) & (u < U_b) have zero coefficients and are never visited
-// (joint.cuh numbers the valid rows only).
+// and with d = dh·(1 − h²): de[b,t] = Σ_u d, dp[b,u] = Σ_t d. With a duration
+// head, its cotangent g_dur (B, T, U, D) joins dh as g_dur·Wdᵀ before the
+// (1 − h²), and dWd = hᵀ·g_dur. Rows outside (t < T_b) & (u < U_b) have zero
+// coefficients and are never visited (joint.cuh numbers the valid rows only).
+// K and D are run-time numbers (0: none), at most 8 each; the rows' K fields
+// and D cotangents sit in shared memory beside cb and ce.
 //
 // Types as joint_prep.cu: e, p, bias and the fields in f32; W f32 or bf16.
 // With bf16 W, h and g are rounded to bf16 before the three products (db
 // sums the unrounded g, tanh' uses the unrounded h), each product exact in
-// f32 and summed in f32.
+// f32 and summed in f32. The duration head's two products take the unrounded
+// h, f32 Wd and f32 g_dur in both cases.
 //
 // Bound on this card: operations, 3 · 2·R·H·V over the float32 rate.
 //
@@ -44,7 +51,17 @@
 //   registers. It walks every `nsplit`-th row tile, recomputes h and the
 //   logits of its stripe, forms g and accumulates hᵀ·g. Slices are written
 //   once, with no atomics, into one of `nsplit` partial buffers, which
-//   joint_grad_sum_kernel adds in a fixed order: dW and db are deterministic.
+//   sum_parts_kernel adds in a fixed order: dW and db are deterministic.
+// * joint_grad_dwd_kernel — dWd (H, D), with a duration head only. It is a sum
+//   over every valid row, like dW, but of the unrounded h, which neither
+//   kernel above holds when W is bf16, and H·D is 1,024 addresses: an
+//   atomicAdd a block would be thousands of blocks contending for them, in an
+//   order that changes from run to run. So a third, light kernel
+//   (joint.cuh::dur_grad_tiles) walks the row tiles once more with the
+//   unrounded h tile, a few hundred blocks each owning one partial of dWd in
+//   registers, and sum_parts_kernel adds the partials in a fixed order: dWd is
+//   deterministic too, at the price of R·H more tanh (the products are 2·R·H·D
+//   operations beside the token head's 8·R·H·V).
 #include "joint.cuh"
 
 namespace {
@@ -64,7 +81,8 @@ size_t rows_smem_bytes(int H) {
   const int Hp = (H + kBK - 1) / kBK * kBK;
   const size_t wchunk = (size_t)kBK * (kRowsBN + 1) > (size_t)Hp * (kNB + 1)
                             ? (size_t)kBK * (kRowsBN + 1) : (size_t)Hp * (kNB + 1);
-  return sizeof(float) * ((size_t)Hp * (BM + 1) + wchunk + (size_t)kRowsBN * (BM + 1) + 4 * BM) +
+  return sizeof(float) * ((size_t)Hp * (BM + 1) + wchunk + (size_t)kRowsBN * (BM + 1) +
+                          (4 + 2 * kPanel) * BM) +
          sizeof(int) * 4 * BM;
 }
 
@@ -75,6 +93,8 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
                        const int* __restrict__ lab_full, Rows rows,
                        const float* __restrict__ denom, const float* __restrict__ coef,
                        const float* __restrict__ cb, const float* __restrict__ ce,
+                       const float* __restrict__ cx, const wtt::ExtraCols cols,
+                       const float* __restrict__ Wd, const float* __restrict__ g_dur, int D,
                        float* __restrict__ de, float* __restrict__ dp, int H, int V, int blank) {
   constexpr int BM = kDim * TM;
   constexpr int KJ = 64 / TM;  // dh columns a thread: k = tx + 16·j
@@ -92,7 +112,9 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
   float* s_coef = s_den + BM;
   float* s_cb = s_coef + BM;
   float* s_ce = s_cb + BM;
-  int* s_b = reinterpret_cast<int*>(s_ce + BM);
+  float* s_cx = s_ce + BM;           // BM × kPanel extra fields
+  float* s_gd = s_cx + BM * kPanel;  // BM × kPanel duration cotangents
+  int* s_b = reinterpret_cast<int*>(s_gd + BM * kPanel);
   int* s_t = s_b + BM;
   int* s_u = s_t + BM;
   int* s_lab = s_u + BM;
@@ -100,6 +122,8 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
   const int tid = threadIdx.x, tx = tid % kDim, ty = tid / kDim;
   place_rows<BM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
+  load_panel<BM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
+  load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
   if (tid < BM) {
     const int b = s_b[tid];
     const bool on = b >= 0;
@@ -122,17 +146,19 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
       mma_tile<TM, kRowsTN>(acc, hs + k0 * ldh, ldh, ws, kRowsBN + 1, kBK, ty, tx);
       __syncthreads();
     }
+    const bool extras_here = has_extra(cols, v0, kRowsBN);
 #pragma unroll
     for (int j = 0; j < kRowsTN; ++j) {
       const int n = tx + kDim * j, v = v0 + n;
       const float bv = v < V ? bias[v] : 0.f;
+      const int xk = extras_here ? extra_index(cols, v) : -1;
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const int m = ty + kDim * i;
         float g = 0.f;
         if (v < V) {
           g = grad_element(acc[i][j] + bv, s_den[m], s_coef[m], s_cb[m], s_ce[m], v, blank,
-                           s_lab[m]);
+                           s_lab[m], s_cx + m * kPanel, xk);
           if (kRound) g = round_bf16(g);
         }
         gs[n * ldh + m] = g;
@@ -168,7 +194,8 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
     __syncthreads();  // before the next tile overwrites ws and gs
   }
 
-  // d = dh · (1 − h²) with the unrounded h, staged over hs as d[k·ldh + m].
+  // d = (dh + g_dur·Wdᵀ) · (1 − h²) with the unrounded h, staged over hs as
+  // d[k·ldh + m].
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = ty + kDim * i, b = s_b[m];
@@ -180,27 +207,15 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
       if (b >= 0 && k < H) {
         const float h = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
                               p[((long long)b * rows.U + s_u[m]) * H + k]);
-        d = dh[i][j] * (1.f - h * h);
+        float dh_k = dh[i][j];
+        for (int c = 0; c < D; ++c) dh_k = fmaf(s_gd[m * kPanel + c], Wd[k * D + c], dh_k);
+        d = dh_k * (1.f - h * h);
       }
       hs[k * ldh + m] = d;
     }
   }
   __syncthreads();
-  for (int k = tid; k < H; k += kThreads) {
-    float run = 0.f;
-    for (int m = 0; m < BM; ++m) {
-      const int b = s_b[m];
-      if (b < 0) break;
-      const float d = hs[k * ldh + m];
-      atomicAdd(dp + ((long long)b * rows.U + s_u[m]) * H + k, d);
-      run += d;
-      const bool last = m + 1 == BM || s_b[m + 1] != b || s_t[m + 1] != s_t[m];
-      if (last) {
-        atomicAdd(de + ((long long)b * rows.T + s_t[m]) * H + k, run);
-        run = 0.f;
-      }
-    }
-  }
+  scatter_de_dp<BM>(hs, ldh, s_b, s_t, s_u, rows, H, de, dp);
 }
 
 // ---- columns: dW, db --------------------------------------------------------
@@ -210,7 +225,7 @@ size_t cols_smem_bytes(int H) {
   constexpr int BM = kDim * TN, BN = kDim * TN;
   const int Hp = (H + kBK - 1) / kBK * kBK;
   return sizeof(float) * ((size_t)Hp * (BN + 1) + (size_t)Hp * (BM + 1) + (size_t)BM * (BN + 1) +
-                          4 * BM + kDim * BN) +
+                          (4 + kPanel) * BM + kDim * BN) +
          sizeof(int) * 4 * BM;
 }
 
@@ -221,6 +236,7 @@ joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
                        const int* __restrict__ lab_full, Rows rows,
                        const float* __restrict__ denom, const float* __restrict__ coef,
                        const float* __restrict__ cb, const float* __restrict__ ce,
+                       const float* __restrict__ cx, const wtt::ExtraCols cols,
                        float* __restrict__ dW_part, float* __restrict__ db_part, int H, int V,
                        int blank) {
   constexpr int TM = TN;
@@ -236,7 +252,8 @@ joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
   float* s_coef = s_den + BM;
   float* s_cb = s_coef + BM;
   float* s_ce = s_cb + BM;
-  float* s_red = s_ce + BM;                 // kDim × BN, for db
+  float* s_cx = s_ce + BM;                  // BM × kPanel extra fields
+  float* s_red = s_cx + BM * kPanel;        // kDim × BN, for db
   int* s_b = reinterpret_cast<int*>(s_red + kDim * BN);
   int* s_t = s_b + BM;
   int* s_u = s_t + BM;
@@ -250,10 +267,12 @@ joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
     wst[k * ldw + n] = (k < H && v < V) ? float(wtt::to_acc(W[(long long)k * V + v])) : 0.f;
   }
   float bv[TN];
+  int xk[TN];  // the extra column this thread's column j is, or -1
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
     const int v = v0 + tx + kDim * j;
     bv[j] = v < V ? bias[v] : 0.f;
+    xk[j] = extra_index(cols, v);
   }
 
   float dW[KI][TN] = {};
@@ -263,6 +282,7 @@ joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
     __syncthreads();  // the last tile's hs and gs consumed; wst complete
     place_rows<BM>(rows, first, s_b, s_t, s_u);
     __syncthreads();
+    load_panel<BM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
     if (tid < BM) {
       const int b = s_b[tid];
       const bool on = b >= 0;
@@ -286,7 +306,7 @@ joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
         float g = 0.f;
         if (v < V) {  // rows beyond the end have zero coefficients
           g = grad_element(acc[i][j] + bv[j], s_den[m], s_coef[m], s_cb[m], s_ce[m], v, blank,
-                           s_lab[m]);
+                           s_lab[m], s_cx + m * kPanel, xk[j]);
           db[j] += g;
           if (kRound) g = round_bf16(g);
         }
@@ -333,14 +353,16 @@ joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
   }
 }
 
-// out[i] = Σ_s part[s·n + i], added in the order of s.
-__global__ void joint_grad_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                      long long n, int nsplit) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < nsplit; ++k) s += part[(size_t)k * n + i];
-  out[i] = s;
+// ---- dWd ---------------------------------------------------------------------
+
+template <int TM>
+__global__ void __launch_bounds__(kThreads)
+joint_grad_dwd_kernel(const float* __restrict__ e, const float* __restrict__ p,
+                      const float* __restrict__ g_dur, Rows rows, float* __restrict__ dWd_part,
+                      int H, int D) {
+  extern __shared__ float smem[];
+  dur_grad_tiles<kDim * TM, false>(e, p, nullptr, g_dur, rows, nullptr, nullptr, dWd_part, H, D,
+                                   smem);
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -351,13 +373,14 @@ struct Args {
   const float* bias;
   const int* lab_full;
   Rows rows;
-  const float *denom, *coef, *cb, *ce;
+  const float *denom, *coef, *cb, *ce, *cx;
+  wtt::ExtraCols cols;
   int H, V, blank;
   cudaStream_t stream;
 };
 
 template <typename TW, bool kRound, int TM>
-int launch_rows(const Args& a, float* de, float* dp) {
+int launch_rows(const Args& a, const float* Wd, const float* g_dur, int D, float* de, float* dp) {
   auto kernel = joint_grad_rows_kernel<TW, kRound, TM>;
   const size_t bytes = rows_smem_bytes<TM>(a.H);
   cudaError_t err =
@@ -367,7 +390,7 @@ int launch_rows(const Args& a, float* de, float* dp) {
   const long long blocks = (cells + kDim * TM - 1) / (kDim * TM);
   kernel<<<(unsigned)blocks, kThreads, bytes, a.stream>>>(
       a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.denom, a.coef, a.cb,
-      a.ce, de, dp, a.H, a.V, a.blank);
+      a.ce, a.cx, a.cols, Wd, g_dur, D, de, dp, a.H, a.V, a.blank);
   return (int)cudaGetLastError();
 }
 
@@ -383,26 +406,44 @@ int launch_cols(const Args& a, float* dW, float* db, float* dW_part, float* db_p
   // With one split the slices are the results themselves.
   kernel<<<dim3(stripes, nsplit), kThreads, bytes, a.stream>>>(
       a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.denom, a.coef, a.cb,
-      a.ce, nsplit > 1 ? dW_part : dW, nsplit > 1 ? db_part : db, a.H, a.V, a.blank);
+      a.ce, a.cx, a.cols, nsplit > 1 ? dW_part : dW, nsplit > 1 ? db_part : db, a.H, a.V,
+      a.blank);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  const long long n = (long long)a.H * a.V;
-  joint_grad_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, a.stream>>>(dW_part, dW, n, nsplit);
-  joint_grad_sum_kernel<<<(unsigned)((a.V + 255) / 256), 256, 0, a.stream>>>(db_part, db, a.V,
-                                                                            nsplit);
-  return (int)cudaGetLastError();
+  err = sum_parts(dW_part, dW, (long long)a.H * a.V, nsplit, a.stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_parts(db_part, db, a.V, nsplit, a.stream);
 }
 
-Args make_args(const void* e, const void* p, const void* W, const void* bias,
+template <int TM>
+int launch_dwd(const float* e, const float* p, const float* g_dur, Rows rows, float* dWd,
+               float* dWd_part, int nsplit, int H, int D, cudaStream_t stream) {
+  auto kernel = joint_grad_dwd_kernel<TM>;
+  const size_t bytes = dur_grad_smem_bytes(H, kDim * TM);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<nsplit, kThreads, bytes, stream>>>(e, p, g_dur, rows, dWd_part, H, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)sum_parts(dWd_part, dWd, (long long)H * D, nsplit, stream);
+}
+
+// False when the extra columns are not K <= 8 indices inside [0, V) with
+// their fields.
+bool make_args(Args* a, const void* e, const void* p, const void* W, const void* bias,
                const int* lab_full, const void* offsets, const int* label_lengths,
-               const void* denom, const void* coef, const void* cb, const void* ce, int B, int T,
-               int U, int H, int V, int blank, void* stream) {
-  return Args{static_cast<const float*>(e), static_cast<const float*>(p), W,
-              static_cast<const float*>(bias), lab_full,
-              Rows{static_cast<const long long*>(offsets), label_lengths, B, T, U},
-              static_cast<const float*>(denom), static_cast<const float*>(coef),
-              static_cast<const float*>(cb), static_cast<const float*>(ce), H, V, blank,
-              static_cast<cudaStream_t>(stream)};
+               const void* denom, const void* coef, const void* cb, const void* ce,
+               const void* cx, const int* extra_cols, int K, int B, int T, int U, int H, int V,
+               int blank, void* stream) {
+  *a = Args{static_cast<const float*>(e), static_cast<const float*>(p), W,
+            static_cast<const float*>(bias), lab_full,
+            Rows{static_cast<const long long*>(offsets), label_lengths, B, T, U},
+            static_cast<const float*>(denom), static_cast<const float*>(coef),
+            static_cast<const float*>(cb), static_cast<const float*>(ce),
+            static_cast<const float*>(cx), wtt::ExtraCols{}, H, V, blank,
+            static_cast<cudaStream_t>(stream)};
+  return wtt::extra_cols(extra_cols, K, V, &a->cols) && (K == 0 || cx != nullptr);
 }
 
 }  // namespace
@@ -426,30 +467,38 @@ long long wtt_joint_grad_smem(int H) {
 // Columns of V one block of the column kernel owns at this H.
 int wtt_joint_grad_stripe(int H) { return kDim * tile_param(H); }
 
-// The inputs of wtt_joint_prep plus denom, coef, cb, ce: (B,T,U) f32.
-// de: (B,T,H) f32 and dp: (B,U,H) f32, both zeroed by the caller (the kernel
-// adds into them). Returns the launch's cudaError_t.
+// The inputs of wtt_joint_prep plus denom, coef, cb, ce: (B,T,U) f32, and
+// cx: (B,T,U,K) f32 for the K columns extra_cols (a host array; K = 0: cx
+// unused). Wd: (H,D) f32 and g_dur: (B,T,U,D) f32, zero outside the lattice
+// (D = 0: both unused). de: (B,T,H) f32 and dp: (B,U,H) f32, both zeroed by
+// the caller (the kernel adds into them). Returns the launch's cudaError_t.
 int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype,
                         const void* bias, const int* lab_full, const void* offsets,
                         const int* label_lengths, const void* denom, const void* coef,
-                        const void* cb, const void* ce, void* de, void* dp, int B, int T, int U,
-                        int H, int V, int blank, void* stream) {
+                        const void* cb, const void* ce, const void* cx, const int* extra_cols,
+                        int K, const void* Wd, const void* g_dur, int D, void* de, void* dp,
+                        int B, int T, int U, int H, int V, int blank, void* stream) {
   if ((long long)B * T * U == 0 || V == 0 || H == 0) return 0;
-  if (H > kMaxH) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce,
-                           B, T, U, H, V, blank, stream);
+  if (H > kMaxH || D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  if (!make_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce, cx,
+                 extra_cols, K, B, T, U, H, V, blank, stream))
+    return (int)cudaErrorInvalidValue;
+  const float* wd = static_cast<const float*>(Wd);
+  const float* gd = static_cast<const float*>(g_dur);
   float* o1 = static_cast<float*>(de);
   float* o2 = static_cast<float*>(dp);
   const int tm = tile_param(H);
   if (w_dtype == wtt::kF32) {
-    return tm == 4 ? launch_rows<float, false, 4>(a, o1, o2)
-         : tm == 2 ? launch_rows<float, false, 2>(a, o1, o2)
-                   : launch_rows<float, false, 1>(a, o1, o2);
+    return tm == 4 ? launch_rows<float, false, 4>(a, wd, gd, D, o1, o2)
+         : tm == 2 ? launch_rows<float, false, 2>(a, wd, gd, D, o1, o2)
+                   : launch_rows<float, false, 1>(a, wd, gd, D, o1, o2);
   }
   if (w_dtype == wtt::kBF16) {
-    return tm == 4 ? launch_rows<__nv_bfloat16, true, 4>(a, o1, o2)
-         : tm == 2 ? launch_rows<__nv_bfloat16, true, 2>(a, o1, o2)
-                   : launch_rows<__nv_bfloat16, true, 1>(a, o1, o2);
+    return tm == 4 ? launch_rows<__nv_bfloat16, true, 4>(a, wd, gd, D, o1, o2)
+         : tm == 2 ? launch_rows<__nv_bfloat16, true, 2>(a, wd, gd, D, o1, o2)
+                   : launch_rows<__nv_bfloat16, true, 1>(a, wd, gd, D, o1, o2);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -460,13 +509,15 @@ int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype
 int wtt_joint_grad_cols(const void* e, const void* p, const void* W, int w_dtype,
                         const void* bias, const int* lab_full, const void* offsets,
                         const int* label_lengths, const void* denom, const void* coef,
-                        const void* cb, const void* ce, void* dW, void* db, void* dW_part,
-                        void* db_part, int nsplit, int B, int T, int U, int H, int V, int blank,
-                        void* stream) {
+                        const void* cb, const void* ce, const void* cx, const int* extra_cols,
+                        int K, void* dW, void* db, void* dW_part, void* db_part, int nsplit,
+                        int B, int T, int U, int H, int V, int blank, void* stream) {
   if (V == 0 || H == 0) return 0;
   if (H > kMaxH || nsplit < 1) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce,
-                           B, T, U, H, V, blank, stream);
+  Args a;
+  if (!make_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce, cx,
+                 extra_cols, K, B, T, U, H, V, blank, stream))
+    return (int)cudaErrorInvalidValue;
   float* o1 = static_cast<float*>(dW);
   float* o2 = static_cast<float*>(db);
   float* s1 = static_cast<float*>(dW_part);
@@ -483,6 +534,29 @@ int wtt_joint_grad_cols(const void* e, const void* p, const void* W, int w_dtype
                    : launch_cols<__nv_bfloat16, true, 1>(a, o1, o2, s1, s2, nsplit);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// dWd: (H,D) f32 = hᵀ·g_dur with the unrounded h, written whole. e, p,
+// offsets, label_lengths as above; g_dur: (B,T,U,D) f32, zero outside the
+// lattice; dWd_part: (nsplit,H,D) f32 scratch, one partial a block. Returns
+// the launches' cudaError_t.
+int wtt_joint_grad_dwd(const void* e, const void* p, const void* offsets,
+                       const int* label_lengths, const void* g_dur, void* dWd, void* dWd_part,
+                       int nsplit, int B, int T, int U, int H, int D, void* stream) {
+  if (H == 0 || D == 0) return 0;
+  if (H > kMaxH || D < 0 || D > kPanel || nsplit < 1) return (int)cudaErrorInvalidValue;
+  const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
+  const float* ef = static_cast<const float*>(e);
+  const float* pf = static_cast<const float*>(p);
+  const float* gd = static_cast<const float*>(g_dur);
+  float* o = static_cast<float*>(dWd);
+  float* part = static_cast<float*>(dWd_part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_param(H)) {
+    case 4: return launch_dwd<4>(ef, pf, gd, rows, o, part, nsplit, H, D, s);
+    case 2: return launch_dwd<2>(ef, pf, gd, rows, o, part, nsplit, H, D, s);
+    default: return launch_dwd<1>(ef, pf, gd, rows, o, part, nsplit, H, D, s);
+  }
 }
 
 }  // extern "C"

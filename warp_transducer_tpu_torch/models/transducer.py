@@ -3,10 +3,13 @@
 Counterpart of the ``Joint`` module and the ``TransducerConfig`` of
 ``warp_transducer_tpu/models/transducer.py``: ``enc_proj`` and ``pred_proj``
 bring the encoder and prediction outputs to ``joint_dim``, the joint is
-``tanh(e ⊕ p)``, and ``out_proj`` maps it to the vocabulary. ``fused_loss``
-and ``pruned_fused_loss`` hand ``out_proj``'s weight and bias to the fused
-losses, so the (B, T, U, V) or (B, T, S, V) logits are never formed.
-Parameters stay f32; ``cfg.dtype`` is the type of the activations.
+``tanh(e ⊕ p)``, and ``out_proj`` maps it to the vocabulary; with
+``cfg.tdt_durations`` a second head, ``dur_proj``, maps the same features to
+the duration logits (``tdt``, ``tdt_step``). ``fused_loss``,
+``pruned_fused_loss``, ``multiblank_fused_loss`` and ``tdt_fused_loss`` hand
+the heads' weights and biases to the fused losses, so the (B, T, U, V) or
+(B, T, S, V) logits are never formed. Parameters stay f32; ``cfg.dtype`` is
+the type of the activations.
 ``utils/convert.py`` carries the weights of the Flax module across.
 """
 from __future__ import annotations
@@ -17,7 +20,9 @@ import torch
 from torch import nn
 
 from ..ops.fused_joint import rnnt_loss_fused_joint
+from ..ops.multiblank_fused import rnnt_loss_multiblank_fused_joint
 from ..ops.pruned_fused import rnnt_loss_pruned_fused
+from ..ops.tdt_fused import rnnt_loss_tdt_fused_joint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +46,13 @@ class TransducerConfig:
 class Joint(nn.Module):
     def __init__(self, cfg: TransducerConfig, device=None):
         super().__init__()
-        if cfg.tdt_durations:
-            raise NotImplementedError("the duration head of the joint is not ported yet")
         self.cfg = cfg
         kw = dict(device=device, dtype=torch.float32)
         self.enc_proj = nn.Linear(cfg.encoder_dim, cfg.joint_dim, **kw)
         self.pred_proj = nn.Linear(cfg.prediction_dim, cfg.joint_dim, **kw)
         self.out_proj = nn.Linear(cfg.joint_dim, cfg.vocab_size, **kw)
+        if cfg.tdt_durations:
+            self.dur_proj = nn.Linear(cfg.joint_dim, len(cfg.tdt_durations), **kw)
 
     def _linear(self, layer, x):
         """``layer`` applied in ``cfg.dtype`` (inputs and parameters cast, as
@@ -68,6 +73,38 @@ class Joint(nn.Module):
         e = self._linear(self.enc_proj, enc)  # (B, T, H)
         p = self._linear(self.pred_proj, pred_banded)  # (B, T, S, H)
         return self._linear(self.out_proj, torch.tanh(e[:, :, None, :] + p))
+
+    def step(self, enc_frame, pred_out):
+        """Decode-time joint: enc_frame (B, H_enc), pred_out (B, ..., H_pred)
+        -> logits (B, ..., V); enc broadcasts over any beam dims."""
+        return self._linear(self.out_proj, self._step_features(enc_frame, pred_out))
+
+    def _step_features(self, enc_frame, pred_out):
+        e = self._linear(self.enc_proj, enc_frame)
+        p = self._linear(self.pred_proj, pred_out)
+        while e.dim() < p.dim():
+            e = e.unsqueeze(-2)
+        return torch.tanh(e + p)
+
+    def _dur_proj(self):
+        if not self.cfg.tdt_durations:
+            raise ValueError("this Joint has no duration head: cfg.tdt_durations is empty")
+        return self.dur_proj
+
+    def tdt(self, enc, pred):
+        """(token_logits (B, T, U, V), duration_logits (B, T, U, D)): the two
+        TDT heads share the tanh joint features (arXiv:2304.06795)."""
+        dur_proj = self._dur_proj()
+        e = self._linear(self.enc_proj, enc)
+        p = self._linear(self.pred_proj, pred)
+        joint = torch.tanh(e[:, :, None, :] + p[:, None, :, :])
+        return self._linear(self.out_proj, joint), self._linear(dur_proj, joint)
+
+    def tdt_step(self, enc_frame, pred_out):
+        """Decode-time TDT joint -> (token logits, duration logits)."""
+        dur_proj = self._dur_proj()
+        joint = self._step_features(enc_frame, pred_out)
+        return self._linear(self.out_proj, joint), self._linear(dur_proj, joint)
 
     def _fused_inputs(self, enc, pred):
         """e, p, and out_proj's weight as (H, V) in ``cfg.dtype``, its bias
@@ -96,3 +133,32 @@ class Joint(nn.Module):
         return rnnt_loss_pruned_fused(e, p, W, b, ranges, labels, input_lengths, label_lengths,
                                       s_range=s_range, blank=self.cfg.blank,
                                       reduction=reduction, implementation=implementation)
+
+    def multiblank_fused_loss(self, enc, pred, labels, input_lengths, label_lengths,
+                              big_blank_durations, reduction="mean", sigma=0.0,
+                              fastemit_lambda=0.0, delay_penalty=0.0, implementation="auto"):
+        """Multi-blank loss with the output projection fused in; the big
+        blanks live on the last K vocabulary columns of the standard joint
+        (``ops/multiblank_fused.py``)."""
+        e, p, W, b = self._fused_inputs(enc, pred)
+        return rnnt_loss_multiblank_fused_joint(
+            e, p, W, b, labels, input_lengths, label_lengths, big_blank_durations,
+            blank=self.cfg.blank, reduction=reduction, sigma=sigma,
+            fastemit_lambda=fastemit_lambda, delay_penalty=delay_penalty,
+            implementation=implementation)
+
+    def tdt_fused_loss(self, enc, pred, labels, input_lengths, label_lengths, reduction="mean",
+                       sigma=0.0, fastemit_lambda=0.0, delay_penalty=0.0,
+                       implementation="auto"):
+        """TDT loss with both heads fused in: the (B, T, U, V) token logits
+        and the (B, T, U, H) joint features are never formed
+        (``ops/tdt_fused.py``). The duration head's weight and bias go in as
+        f32. Needs ``cfg.tdt_durations``."""
+        dur_proj = self._dur_proj()
+        e, p, W, b = self._fused_inputs(enc, pred)
+        return rnnt_loss_tdt_fused_joint(
+            e, p, W, b, dur_proj.weight.float().t().contiguous(), dur_proj.bias.float(),
+            labels, input_lengths, label_lengths, durations=self.cfg.tdt_durations,
+            blank=self.cfg.blank, reduction=reduction, sigma=sigma,
+            fastemit_lambda=fastemit_lambda, delay_penalty=delay_penalty,
+            implementation=implementation)

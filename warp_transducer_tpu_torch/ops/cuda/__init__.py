@@ -9,7 +9,10 @@ signature of the plain version it stands for:
 * the pruned path: ``band.band_prep``, ``band.forward_backward``,
   ``band.band_grad`` and ``ranges.band_starts``;
 * the fused joint+loss: ``joint.fused_prep`` and ``joint.fused_grad`` (two
-  kernels, both counted under ``joint_grad``);
+  kernels, three with a duration head, all counted under ``joint_grad``),
+  both also with K big-blank columns and with the duration head of the TDT
+  loss, and ``joint.dur_head_prep`` / ``joint.dur_head_grad``, that head
+  alone (counted under ``dur_head``);
 * the duration-arc losses (multi-blank, TDT): ``window.forward_backward``,
   with ``prep.prepare`` and ``grad.dense_grad`` taking the extra columns.
 
@@ -26,7 +29,8 @@ from .build import library as lib
 
 # One counter per kernel, raised by one right after each successful launch.
 launches = {"prep": 0, "wavefront": 0, "grad": 0, "band_prep": 0, "band_stream": 0,
-            "band_grad": 0, "ranges": 0, "joint_prep": 0, "joint_grad": 0, "window_stream": 0}
+            "band_grad": 0, "ranges": 0, "joint_prep": 0, "joint_grad": 0, "window_stream": 0,
+            "dur_head": 0}
 
 # Type codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}

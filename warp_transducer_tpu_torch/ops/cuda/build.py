@@ -106,20 +106,27 @@ def library() -> ctypes.CDLL:
     lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
     lib.wtt_band_starts.argtypes = [p, p, p, p, i, i, i, p]
     joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
-    lib.wtt_joint_prep.argtypes = joint + [p, p, p, i, i, i, i, i, i, p]
-    lib.wtt_joint_grad_rows.argtypes = joint + [p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.wtt_joint_grad_cols.argtypes = joint + [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    dims = [i, i, i, i, i, i, p]  # B, T, U, H, V, blank, stream
+    # lpb, lpe, denom; lpx, its columns, K; Wd, bias_d, dlog, D
+    lib.wtt_joint_prep.argtypes = joint + [p, p, p, p, p, i, p, p, p, i] + dims
+    fields = [p, p, p, p, p, p, i]  # denom, coef, cb, ce; cx, its columns, K
+    lib.wtt_joint_grad_rows.argtypes = joint + fields + [p, p, i, p, p] + dims
+    lib.wtt_joint_grad_cols.argtypes = joint + fields + [p, p, p, p, i] + dims
+    lib.wtt_joint_grad_dwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_window_stream, lib.wtt_grad,
                lib.wtt_band_prep,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
-               lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols):
+               lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols, lib.wtt_joint_grad_dwd,
+               lib.wtt_dur_head_prep, lib.wtt_dur_head_grad):
         fn.restype = ctypes.c_int
     # What the joint kernels' tiling needs at a given H, for the wrapper's checks.
     lib.wtt_joint_max_h.argtypes = []
     lib.wtt_joint_max_h.restype = i
     lib.wtt_joint_grad_stripe.argtypes = [i]
     lib.wtt_joint_grad_stripe.restype = i
-    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_smem):
+    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_smem, lib.wtt_dur_head_smem):
         fn.argtypes = [i]
         fn.restype = ll
     lib.wtt_error_string.argtypes = [i]

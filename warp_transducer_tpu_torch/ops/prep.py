@@ -31,6 +31,8 @@ class PreparedInputs(NamedTuple):
     denom: Optional[torch.Tensor]  # (B, T, U) -logsumexp(acts), or None
     # (B, T, U, K) log-probs of the extra columns (K = 0: an empty last axis)
     extras: Optional[torch.Tensor] = None
+    # (B, T, U, D) raw logits of the duration head (the fused joint's prep only)
+    dur: Optional[torch.Tensor] = None
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:

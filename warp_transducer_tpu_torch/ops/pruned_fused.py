@@ -103,7 +103,7 @@ def _sweep_grad(e, p, W, bias, ranges, lab_row, denom, fields, blank):
         flat, h, hm, logits = _chunk(e, p32, W32, bias32, ranges, sl.start, sl.stop, S, mm)
         g = _row_grads(logits, denom[:, sl], fields.coef[:, sl], fields.cb[:, sl],
                        fields.ce[:, sl], has[:, sl], idx[:, sl], blank)
-        d, dW_c, db_c = _contract(g, h, hm, W32, mm)
+        d, dW_c, db_c, _ = _contract(g, h, hm, W32, mm)
         de[:, sl] = d.sum(dim=2)
         dp.index_add_(0, flat, d.reshape(-1, H))
         dW += dW_c

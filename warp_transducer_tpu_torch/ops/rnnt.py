@@ -49,7 +49,8 @@ _IMPLEMENTATIONS = ("auto", "torch", "cuda")
 # The stages of the dense loss, of the pruned path (ops/simple.py,
 # ops/pruned.py), of the fused joint (ops/fused_joint.py,
 # ops/pruned_fused.py) and of the duration-arc losses (ops/multiblank.py,
-# ops/tdt.py), as plain PyTorch and as kernel wrappers. A wrapper given a
+# ops/tdt.py, and fused into the joint: ops/multiblank_fused.py,
+# ops/tdt_fused.py), as plain PyTorch and as kernel wrappers. A wrapper given a
 # CPU tensor runs the plain version, so "auto" needs no branch of its own.
 _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          forward_backward=_lattice.forward_backward,
@@ -61,6 +62,8 @@ _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          band_starts=_band.band_starts,
                          fused_prep=_fused.fused_prep,
                          fused_grad=_fused.fused_grad,
+                         dur_head_prep=_fused.dur_head_prep,
+                         dur_head_grad=_fused.dur_head_grad,
                          window_forward_backward=_window.forward_backward)
 _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            forward_backward=_cuda_wavefront.forward_backward,
@@ -72,6 +75,8 @@ _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            band_starts=_cuda_ranges.band_starts,
                            fused_prep=_cuda_joint.fused_prep,
                            fused_grad=_cuda_joint.fused_grad,
+                           dur_head_prep=_cuda_joint.dur_head_prep,
+                           dur_head_grad=_cuda_joint.dur_head_grad,
                            window_forward_backward=_cuda_window.forward_backward)
 
 
