@@ -12,7 +12,11 @@ with ``prune_range`` → ``gather_banded`` → ``rnnt_loss_pruned``, backward
 through both) at the JAX package's two published pruned shapes, the fused
 joint+loss step (``Joint.fused_loss`` forward and backward, weights loaded
 through ``joint_state_dict_from_flax``) at the JAX package's published
-fused shape, held against the unfused composition, and the pruned fused
+fused shape with f32 and with bf16 activations and W (bf16 is the config's
+default), held against the plain path and, in f32, the unfused composition,
+with the device time of each of the gradient's launches, the registers of
+each fused kernel and a check that two calls give bit-equal dW and db, and
+the pruned fused
 step (``rnnt_loss_simple`` → ``Joint.pruned_fused_loss``) at the shape whose
 band would not fit, and the two duration-arc steps
 (``rnnt_loss_multiblank`` with big blanks of 2 and 4 frames,
@@ -159,6 +163,24 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
           f"{busy - port:.4f} ms/call in {len(rows)} kinds")
     for ms, key in rows[:top]:
         print(f"profile {tag}:   {ms:.4f} ms  {key[:90]}")
+
+
+def kernel_ms(fn, iters=3):
+    """Device time one call of ``fn`` spends in each of the port's kernels,
+    {kernel name: ms}, from torch.profiler; {} where it records none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+)[<(]", e.key)
+            if m and m.group(1) in PORT_KERNELS:
+                out[m.group(1)] = out.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / iters
+    return out
 
 
 def bound(bytes_moved, ops, ops_rate):
@@ -533,6 +555,13 @@ def joint_kernels_vs_plain(dev, errs):
         _, fields = joint_fields(problem, blank)
         g_k = kjoint.fused_grad(e, p, W, bias, labels, il, ll, p_p.denom, fields, blank)
         torch.cuda.synchronize()
+        if tag == "fused":  # dW and db are sums of partials in a fixed order
+            again = kjoint.fused_grad(e, p, W, bias, labels, il, ll, p_p.denom, fields, blank)
+            same = [bool(torch.equal(a, b)) for a, b in zip(g_k[2:], again[2:])]
+            print(f"determinism joint_grad {name}: two calls give bit-equal dW {same[0]}, "
+                  f"db {same[1]}")
+            fail_unless(all(same), f"joint_grad {name}: dW or db differs between two calls")
+            del again
         g_p = fused_joint.fused_grad(e, p, W, bias, labels, il, ll, p_p.denom, fields, blank)
         for f, got, want in zip(("de", "dp", "dW", "db"), g_k, g_p):
             rel = rel_norm(got, want)
@@ -594,14 +623,15 @@ def joint_step(joint, loss_fn, enc, pred):
     return loss.detach(), grads
 
 
-def check_step(tag, got, want, what):
+def check_step(tag, got, want, what, grad_rel=1e-3):
     """Costs rtol 1e-5 and every gradient within a relative norm error of
-    1e-3, as the other end-to-end checks."""
+    ``grad_rel``: 1e-3 as the other end-to-end checks, or the bf16 kernels'
+    2e-2 (FUSED_GRAD_REL) where the products take bf16 inputs."""
     compare(f"{tag} loss vs {what}", got[0], want[0], "f32")
     for n in got[1]:
         rel = rel_norm(got[1][n], want[1][n])
-        print(f"{tag} d{n} vs {what}: relative norm error {rel:.3e} (tol 1e-3)")
-        fail_unless(rel <= 1e-3 and bool(torch.isfinite(got[1][n]).all()),
+        print(f"{tag} d{n} vs {what}: relative norm error {rel:.3e} (tol {grad_rel:g})")
+        fail_unless(rel <= grad_rel and bool(torch.isfinite(got[1][n].float()).all()),
                     f"{tag}: d{n} differs from {what}")
 
 
@@ -617,16 +647,21 @@ def peak_mb(fn):
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
-def fused_main_path(dev, totals):
-    """``Joint.fused_loss`` forward and backward at the fused shape under
-    the launch counters, with no host sync allowed, held against
-    implementation="torch" and against the unfused composition
-    (``Joint.forward`` → ``rnnt_loss``: 4.0 GB of logits). Returns what the
-    timings need."""
+def fused_main_path(dev, totals, dtype):
+    """``Joint.fused_loss`` forward and backward at the fused shape, with the
+    Joint's activations and W in ``dtype`` (bf16 is TransducerConfig's
+    default), under the launch counters, with no host sync allowed, held
+    against implementation="torch" and, in f32, against the unfused
+    composition (``Joint.forward`` → ``rnnt_loss``: 4.0 GB of logits). In
+    bf16 the unfused composition rounds the logits themselves to bf16, so it
+    is a different function: its distance is printed, not held. Returns what
+    the timings need."""
     from warp_transducer_tpu_torch import rnnt_loss
     from warp_transducer_tpu_torch.ops import cuda as K
     tag, B, T, L, V, H = FUSED_SHAPE
-    joint = make_joint_module(V, H, seed=8, dev=dev)
+    f32 = dtype == torch.float32
+    tag = f"{tag} {'f32' if f32 else 'bf16'}"
+    joint = make_joint_module(V, H, seed=8, dev=dev, dtype=dtype)
     enc, pred, labels, il, ll = make_model_problem(B, T, L, V, seed=9, dev=dev, cfg=joint.cfg)
 
     def fused(implementation="auto"):
@@ -649,8 +684,15 @@ def fused_main_path(dev, totals):
     for k, n in counts.items():
         totals[k] += n
     got = (got[0], {n: g.clone() for n, g in got[1].items()})
-    check_step(tag, got, fused("torch"), "the plain path")
-    check_step(tag, got, unfused(), "the unfused composition")
+    check_step(tag, got, fused("torch"), "the plain path", 1e-3 if f32 else FUSED_GRAD_REL[dtype])
+    if f32:
+        check_step(tag, got, unfused(), "the unfused composition")
+    else:
+        want = unfused()
+        print(f"{tag}: the unfused bf16 composition (bf16 logits) differs by "
+              f"{abs(float(got[0]) - float(want[0])) / abs(float(want[0])):.3e} in the loss and "
+              f"{max(rel_norm(got[1][n], want[1][n]) for n in got[1]):.3e} at most in a gradient "
+              f"(relative; not held)")
     return fused, unfused
 
 
@@ -763,24 +805,30 @@ def time_routes(step, ranges):
     return out, ms
 
 
-def fused_timings(dev, fused, unfused):
-    """The fused and the unfused step (time, peak memory, device breakdown)
-    and the two fused kernels at the fused shape in f32 and bf16: ms, plain
-    ms, library ms, bound. Returns ({kernel: {case: timing}}, step times)."""
+def fused_timings(dev, steps_by_dtype):
+    """The fused and the unfused step in f32 and in bf16 (time, peak memory,
+    device breakdown) and the two fused kernels at the fused shape with f32
+    and with bf16 W: ms, plain ms, library ms, bound, the device time of each
+    of K6b's launches and the registers ptxas gave each kernel. Returns
+    ({kernel: {case: timing}}, {step: [(ms, MB)]})."""
     from warp_transducer_tpu_torch.ops import fused_joint
     from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
     tag, B, T, L, V, H = FUSED_SHAPE
     steps = {}
-    for name, fn in (("fused", fused), ("unfused", unfused), ("unfused", unfused),
-                     ("fused", fused)):
-        ms = time_ms(fn, 3, 1)
-        mem = peak_mb(fn)
-        steps.setdefault(name, []).append((ms, mem))
-        print(f"time {tag} B={B} T={T} L={L} V={V} H={H}: {name} step {ms:.4f} ms, "
-              f"peak {mem:.1f} MB")
-    device_breakdown(f"{tag} fused step", fused, steps["fused"][0][0], iters=3, top=10)
-    device_breakdown(f"{tag} unfused step", unfused, steps["unfused"][0][0], iters=3, top=10)
-    torch.cuda.empty_cache()
+    for dtype, (fused, unfused) in steps_by_dtype.items():
+        suffix = "f32" if dtype == torch.float32 else "bf16"
+        for name, fn in (("fused", fused), ("unfused", unfused), ("unfused", unfused),
+                         ("fused", fused)):
+            ms = time_ms(fn, 3, 1)
+            mem = peak_mb(fn)
+            steps.setdefault(f"{name}_{suffix}", []).append((ms, mem))
+            print(f"time {tag} B={B} T={T} L={L} V={V} H={H} {suffix}: {name} step {ms:.4f} ms, "
+                  f"peak {mem:.1f} MB")
+        device_breakdown(f"{tag} {suffix} fused step", fused, steps[f"fused_{suffix}"][0][0],
+                         iters=3, top=10)
+        device_breakdown(f"{tag} {suffix} unfused step", unfused,
+                         steps[f"unfused_{suffix}"][0][0], iters=3, top=10)
+        torch.cuda.empty_cache()
 
     out = {"joint_prep": {}, "joint_grad": {}}
     U = L + 1
@@ -805,22 +853,29 @@ def fused_timings(dev, fused, unfused):
 
         prep_args = (e, p, W, bias, labels, il, ll, 0)
         grad_args = (e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
+        regs = kjoint.kernel_registers(H, dtype)
         out["joint_prep"][case] = dict(
             ms=time_ms(lambda: kjoint.fused_prep(*prep_args), 5),
             plain_ms=time_ms(lambda: fused_joint.fused_prep(*prep_args), 2, 1),
             library_ms=time_ms(lambda: torch.matmul(h, W), 5),
-            bound=bound(in_bytes + 3 * small, 2 * rows * H * V, rate))
+            bound=bound(in_bytes + 3 * small, 2 * rows * H * V, rate),
+            registers={k: regs[k] for k in ("joint_prep_kernel",)})
         out["joint_grad"][case] = dict(
             ms=time_ms(lambda: kjoint.fused_grad(*grad_args), 3),
             plain_ms=time_ms(lambda: fused_joint.fused_grad(*grad_args), 2, 1),
             library_ms=time_ms(three_products, 3),
-            bound=bound(2 * in_bytes + 4 * small, 3 * 2 * rows * H * V, rate))
+            bound=bound(2 * in_bytes + 4 * small, 3 * 2 * rows * H * V, rate),
+            launch_ms=kernel_ms(lambda: kjoint.fused_grad(*grad_args)),
+            registers={k: regs[k] for k in ("joint_grad_rows_kernel", "joint_grad_cols_kernel")})
         print(f"time {case}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
         for k in out:
             v = out[k][case]
             print(f"time {case} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
                   f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library "
                   f"{v['library_ms']:.4f} ms")
+            print(f"time {case} {k}: registers, local bytes a thread {v['registers']}"
+                  + (f"; device ms a launch {v['launch_ms'] or 'not measured'}"
+                     if "launch_ms" in v else ""))
         del h, g, pr, fields, problem, prep_args, grad_args
         torch.cuda.empty_cache()
     return out, steps
@@ -1433,7 +1488,8 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                 plain_ms=time_ms(lambda: fused_joint.fused_grad(*g_args, fields, 0, **gkw), 2, 1),
                 library_ms=time_ms(lambda: grad_library(n_d > 0), 3),
                 bound=bound(2 * in_bytes + 4 * small + per_row + (head_bytes if n_d else 0),
-                            3 * 2 * rows * H * V + 2 * 2 * rows * H * n_d, rate))
+                            3 * 2 * rows * H * V + 2 * 2 * rows * H * n_d, rate),
+                launch_ms=kernel_ms(lambda: kjoint.fused_grad(*g_args, fields, 0, **gkw)))
         if f32:
             ep_bytes = (e.numel() + p.numel()) * 4
             out["dur_head"][f"{tag}_prep"] = dict(
@@ -1458,7 +1514,9 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                     continue
                 print(f"time {key} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
                       f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library "
-                      f"{v['library_ms']:.4f} ms")
+                      f"{v['library_ms']:.4f} ms"
+                      + (f" | device ms a launch {v['launch_ms'] or 'not measured'}"
+                         if "launch_ms" in v else ""))
         del h32, h, g, gd2, denom, mb_fields, cX, td_fields, g_dur, problem, args, g_args, cases
         torch.cuda.empty_cache()
     return out, steps, routes
@@ -1485,7 +1543,7 @@ def main():
     started = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - started:.2f} s (nvcc, csrc/*.cu -> "
-          f"{build.BUILD_ROOT.name}/{build.LIB_NAME})")
+          f"{build.build_root()}/{build.LIB_NAME})")
 
     errs = dict.fromkeys(K.launches, 0.0)
 
@@ -1659,9 +1717,10 @@ def main():
     # versions, the fused step against the unfused composition, the pruned
     # fused step on both routes, the timings and peak memories
     joint_kernels_vs_plain(dev, errs)
-    fused, unfused = fused_main_path(dev, totals)
-    joint_timings, fused_steps = fused_timings(dev, fused, unfused)
-    del fused, unfused
+    fused_steps_by_dtype = {dtype: fused_main_path(dev, totals, dtype)
+                            for dtype in (torch.float32, torch.bfloat16)}
+    joint_timings, fused_steps = fused_timings(dev, fused_steps_by_dtype)
+    del fused_steps_by_dtype
     torch.cuda.empty_cache()
     pf_step, pf_ranges = pruned_fused_path(dev, totals)
     route_ms, pf_full_ms = time_routes(pf_step, pf_ranges)
@@ -1745,8 +1804,16 @@ def main():
         "joint_grad": ("warp_transducer_tpu_torch/csrc/joint_grad.cu",
                        "warp_transducer_tpu/ops/pallas/joint_fused.py:283"),
     }
+    # The gradient's column kernel has a source of its own.
+    also_source = {"joint_grad": "warp_transducer_tpu_torch/csrc/joint_grad_cols.cu"}
     fused_step_ms = {name: min(ms for ms, _ in runs) for name, runs in fused_steps.items()}
     fused_peak_mb = {name: max(mb for _, mb in runs) for name, runs in fused_steps.items()}
+
+    def step_fields(suffix):  # the fused and unfused steps with W of this type
+        return {f"{name}_{what}": table[f"{name}_{suffix}"]
+                for name in ("fused", "unfused")
+                for what, table in (("step_ms", fused_step_ms), ("peak_mb", fused_peak_mb))}
+
     for k, (source, replaces) in joint_sources.items():
         head = joint_timings[k]["fused_f32"]
         kernels.append({
@@ -1755,18 +1822,19 @@ def main():
             "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
             "bound_by": head["bound"][1], "library_ms": head["library_ms"],
             "shape": "fused B=64 T=150 L=20 V=5000 H=256 f32",
+            **({"also_source": also_source[k]} if k in also_source else {}),
             "by_shape": {case: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                                 "library_ms": t["library_ms"],
-                                "fused_step_ms": fused_step_ms["fused"],
-                                "unfused_step_ms": fused_step_ms["unfused"],
-                                "fused_peak_mb": fused_peak_mb["fused"],
-                                "unfused_peak_mb": fused_peak_mb["unfused"]}
+                                "registers": t["registers"],
+                                "launch_ms": t.get("launch_ms"),
+                                **step_fields(case.rsplit("_", 1)[1])}
                          for case, t in joint_timings[k].items()} | {
                 # with K = 2 big-blank columns (k2) and the D = 4 duration
                 # head (d4), beside K = 0 (k0) taken in the same phase
                 case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                       "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                       "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                       "launch_ms": t.get("launch_ms")}
                 for case, t in variant_kernel_ms[k].items()}})
     head = duration_kernel_ms["window_stream"]["multiblank_headline"]
     kernels.append({

@@ -57,9 +57,15 @@ def _rel(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
 
 
+# The tile edges of the tensor-core kernels: row tiles of 16·TM (TM = 4, 2, 1
+# for H <= 256, 512, 1024) that the valid rows do not fill, V tiles of 64 (or
+# 16·TM with f32 W) and 8-column mma tiles that V does not fill, H padded to
+# a multiple of 128; V a multiple of 8 (W's rows 16-byte aligned: the
+# cp.async ring) or not (plain loads).
 SHAPES = [(3, 37, 9, 1003, 200, 1002), (2, 5, 3, 7, 8, 0), (2, 9, 70, 40, 16, 3),
-          (2, 6, 4, 130, 300, 129), (1, 5, 3, 20, 600, 0)]
-IDS = ["awkward", "tiny", "long_labels", "H300", "H600"]
+          (2, 6, 4, 130, 300, 129), (1, 5, 3, 20, 600, 0), (2, 7, 5, 67, 520, 66),
+          (1, 3, 5, 61, 1024, 0), (3, 11, 3, 72, 64, 71), (2, 13, 6, 200, 256, 5)]
+IDS = ["awkward", "tiny", "long_labels", "H300", "H600", "H520", "H1024", "V72", "V200_H256"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -202,6 +208,101 @@ def test_joint_module_on_card(dev):
     torch.testing.assert_close(loss.detach(), dense.detach(), **F32)
     for n, q in joint.named_parameters():
         assert _rel(fused[n], q.grad) <= 1e-4, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dW_db_bit_equal_across_calls(dev, dtype):
+    """dW and db are sums of partials in a fixed order: two calls give the
+    same bits (de and dp go through atomics and need not)."""
+    B, T, U, V, H, blank = 4, 23, 7, 333, 256, 0
+    e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=6, dtype=dtype, device=dev)
+    pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, blank)
+    res = lattice.forward_backward(pr.lpb, pr.lpe, il, ll)
+    fields = gradients.coefficients(pr.lpb, pr.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
+    runs = [kjoint.fused_grad(e, p, W, bias, labels, il, ll, pr.denom, fields, blank)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][2], runs[1][2]) and torch.equal(runs[0][3], runs[1][3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_joint_grad_chunk_by_chunk(dev, dtype, monkeypatch):
+    """The gradient runs a chunk of rows at a time (the row kernel writes the
+    chunk's h, the column kernel adds the chunk into its partial slices).
+    With the chunk cut to one row tile, many chunks give what one chunk
+    gives, within the kernels' tolerance of the plain version."""
+    B, T, U, V, H, blank = 3, 19, 6, 300, 200, 0
+    e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=10, dtype=dtype, device=dev)
+    pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, blank)
+    res = lattice.forward_backward(pr.lpb, pr.lpe, il, ll)
+    fields = gradients.coefficients(pr.lpb, pr.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
+    args = (e, p, W, bias, labels, il, ll, pr.denom, fields, blank)
+    K.reset_launches()
+    whole = kjoint.fused_grad(*args)
+    assert K.launches["joint_grad"] == 2
+    monkeypatch.setattr(kjoint, "_H_CHUNK_MB", 0)  # one row tile a chunk
+    K.reset_launches()
+    chunked = kjoint.fused_grad(*args)
+    torch.cuda.synchronize()
+    assert K.launches["joint_grad"] == 2 * -(-(B * T * U) // 64)
+    want = fused_joint.fused_grad(*args)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b, w in zip(("de", "dp", "dW", "db"), chunked, whole, want):
+        assert _rel(a, b) <= tol and _rel(a, w) <= tol, (name, _rel(a, b), _rel(a, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_label_term_subtracted_before_rounding(dev, dtype):
+    """Fields with coef = 1 and ce = exp(lpe), the label's own probability,
+    on the rows that have a label (zero elsewhere), on logits where the
+    label takes almost all of it: g at the label column is a cancellation,
+    ~0 in f32, while every other g is ~3e-4. A kernel that rounded
+    coef·exp(logit + denom) to bf16 before subtracting ce would leave up to
+    2^-9 of it there, larger than the rest of g, and miss the plain
+    version's de, dp and dW by 0.12–0.23 in relative norm (the plain
+    version so changed, on the CPU), far beyond the bf16 tolerance."""
+    B, T, U, V, H = 2, 9, 4, 24, 64
+    e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=8, dtype=dtype, device=dev)
+    W = (W.float() * 0.1).to(dtype)
+    labels = torch.full_like(labels, 3)
+    bias = bias.clone()
+    bias[3] = 8.0
+    pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, 0)
+    valid = gradients._valid_cells((B, T, U), il, ll, dev)
+    has_label = valid & (pr.lpe > -1e29)
+    one = has_label.float()
+    fields = gradients.Coefficients(one, torch.zeros_like(one),
+                                    torch.where(has_label, pr.lpe.exp(), 0.0).contiguous())
+    got = kjoint.fused_grad(e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
+    torch.cuda.synchronize()
+    want = fused_joint.fused_grad(e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("de", "dp", "dW", "db"), got, want):
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
+def test_misaligned_W_takes_plain_loads(dev):
+    """W whose rows are not 16-byte aligned (a view at an odd offset) cannot
+    go through cp.async; the kernels load it plainly and agree all the
+    same."""
+    B, T, U, V, H = 2, 9, 4, 64, 128
+    e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=9, device=dev)
+    flat = torch.empty(H * V + 1, device=dev)
+    Wm = flat[1:].view(H, V)
+    Wm.copy_(W)
+    assert Wm.is_contiguous() and Wm.data_ptr() % 16 != 0
+    got = kjoint.fused_prep(e, p, Wm, bias, labels, il, ll, 0)
+    want = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, 0)
+    for name in ("lpb", "lpe", "denom"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), **F32)
+    res = lattice.forward_backward(want.lpb, want.lpe, il, ll)
+    fields = gradients.coefficients(want.lpb, want.lpe, res.alphas, res.betas, res.ll_forward,
+                                    il, ll)
+    g_k = kjoint.fused_grad(e, p, Wm, bias, labels, il, ll, want.denom, fields, 0)
+    torch.cuda.synchronize()
+    g_p = fused_joint.fused_grad(e, p, W, bias, labels, il, ll, want.denom, fields, 0)
+    for name, g, w in zip(("de", "dp", "dW", "db"), g_k, g_p):
+        assert _rel(g, w) <= 1e-4, (name, _rel(g, w))
 
 
 def test_wrapper_refusals(dev):

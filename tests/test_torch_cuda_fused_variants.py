@@ -85,8 +85,9 @@ def _cols(V, n_cols):
 # B, T, U, V, H, K, D, with empty utterances
 CASES = [(3, 37, 9, 1003, 200, 2, 4, False), (2, 5, 3, 5, 8, 1, 1, False),
          (2, 9, 20, 128, 256, 8, 8, False), (2, 6, 4, 128, 512, 2, 4, False),
-         (4, 11, 5, 40, 16, 2, 4, True), (1, 5, 3, 20, 600, 1, 8, False)]
-IDS = ["awkward", "tiny", "H256_K8_D8", "H512", "empty_utterances", "H600"]
+         (4, 11, 5, 40, 16, 2, 4, True), (1, 5, 3, 20, 600, 1, 8, False),
+         (2, 5, 4, 72, 1024, 2, 4, False)]
+IDS = ["awkward", "tiny", "H256_K8_D8", "H512", "empty_utterances", "H600", "H1024"]
 SHAPES = pytest.mark.parametrize("B,T,U,V,H,n_cols,D,empty", CASES, ids=IDS)
 
 

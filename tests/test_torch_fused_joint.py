@@ -252,3 +252,54 @@ def test_validation():
         rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll, implementation="pallas")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll, implementation="cuda")
+
+
+@pytest.fixture
+def global_tf32(monkeypatch):
+    """``torch.set_float32_matmul_precision("high")`` for the test, and every
+    ``torch.matmul`` call's CUDA switch recorded: the plain stages must run
+    their products in IEEE f32 all the same and leave the setting as found."""
+    seen = []
+    matmul = torch.matmul
+
+    def recording(*a, **kw):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        return matmul(*a, **kw)
+
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    monkeypatch.setattr(torch, "matmul", recording)
+    try:
+        yield seen
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def _plain_stage_outputs(e, p, W, bias, labels, il, ll):
+    """Every plain stage of ops/fused_joint.py with both hooks, flattened."""
+    Wd = (W[:, :3] * 0.7).contiguous()
+    bias_d = bias[:3].clone()
+    pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, 0, extra_cols=(1,),
+                                dur_head=(Wd, bias_d))
+    res = lattice.forward_backward(pr.lpb, pr.lpe, il, ll)
+    fields = gradients.coefficients(pr.lpb, pr.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
+    g_dur = pr.dur * 0.1
+    grads = fused_joint.fused_grad(e, p, W, bias, labels, il, ll, pr.denom, fields, 0,
+                                   extra=((1,), pr.extras.clamp_min(-1.0).exp()),
+                                   dur_head=(Wd, g_dur))
+    return (list(pr) + list(grads) + [fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll)]
+            + list(fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll)))
+
+
+def test_plain_stages_are_ieee_f32_under_a_global_tf32_setting(global_tf32):
+    e, p, W, bias, labels, il, ll = _t(*_problem(21, 2, 6, 4, 13, 8))
+    got = _plain_stage_outputs(e, p, W, bias, labels, il, ll)
+    assert global_tf32 and set(global_tf32) == {"ieee"}, set(global_tf32)
+    torch.set_float32_matmul_precision("highest")
+    want = _plain_stage_outputs(e, p, W, bias, labels, il, ll)
+    torch.set_float32_matmul_precision("high")
+    for a, b in zip(got, want):
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

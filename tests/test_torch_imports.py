@@ -183,3 +183,35 @@ _FUSED_DURATION_CASES = {
 @pytest.mark.parametrize("case", _FUSED_DURATION_CASES)
 def test_fused_duration_arc_losses_with_jax_blocked(case):
     _run_with_jax_blocked(_FUSED_DURATION_SETUP + _FUSED_DURATION_CASES[case])
+
+
+@pytest.mark.parametrize("tree", ["checkout", "installed", "installed_xdg"])
+def test_kernel_build_directory(tree, tmp_path, monkeypatch):
+    """Where the CUDA library is built, decided without a compiler: a
+    checkout (the package's parent holds pyproject.toml) builds into its own
+    build/torch_kernels; an installed copy (the parent is site-packages)
+    into the per-user cache, $XDG_CACHE_HOME or ~/.cache."""
+    from warp_transducer_tpu_torch.ops.cuda import build
+
+    parent = tmp_path / ("repo" if tree == "checkout" else "site-packages")
+    pkg = parent / "warp_transducer_tpu_torch"
+    pkg.mkdir(parents=True)
+    if tree == "checkout":
+        (parent / "pyproject.toml").write_text("[project]\nname = 'x'\n")
+    home, xdg = tmp_path / "home", tmp_path / "xdg"
+    monkeypatch.setattr(build, "_PKG", pkg)
+    monkeypatch.setenv("HOME", str(home))
+    if tree == "installed_xdg":
+        monkeypatch.setenv("XDG_CACHE_HOME", str(xdg))
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+    want = {"checkout": parent / "build" / "torch_kernels",
+            "installed": home / ".cache" / "warp_transducer_tpu_torch" / "torch_kernels",
+            "installed_xdg": xdg / "warp_transducer_tpu_torch" / "torch_kernels"}[tree]
+    assert build.build_root() == want
+    assert not (parent / "build").exists() or tree == "checkout"
+
+
+def test_repository_builds_into_its_own_build_directory():
+    from warp_transducer_tpu_torch.ops.cuda import build
+    assert build.build_root() == REPO / "build" / "torch_kernels"

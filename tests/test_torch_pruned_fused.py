@@ -227,3 +227,33 @@ def test_reductions_and_validation():
         rnnt_loss_pruned_fused(*ten, args[0], args[1][:, :1], *args[2:], S)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rnnt_loss_pruned_fused(*ten, *args, S, implementation="cuda")
+
+
+def test_products_are_ieee_f32_under_a_global_tf32_setting(route, monkeypatch):
+    """``torch.set_float32_matmul_precision("high")`` reaches neither route:
+    every ``torch.matmul`` of the sweeps and of the materialised band, its
+    backward included, runs with the CUDA switch at "ieee", the results do
+    not move, and the caller's setting is what it was afterwards."""
+    seen = []
+    matmul = torch.matmul
+
+    def recording(*a, **kw):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        return matmul(*a, **kw)
+
+    floats, ints, S = _problem(seed=7)
+    want = _torch(floats, ints, S)
+    old = torch.get_float32_matmul_precision()
+    monkeypatch.setattr(torch, "matmul", recording)
+    try:
+        torch.set_float32_matmul_precision("high")
+        got = _torch(floats, ints, S)
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+    finally:
+        torch.set_float32_matmul_precision(old)
+    # the sweep: two prep and grad products a chunk; the band: forward and backward
+    assert len(seen) >= 3 and set(seen) == {"ieee"}, seen
+    np.testing.assert_array_equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)

@@ -21,6 +21,7 @@ import torch
 
 import golden as G
 from warp_transducer_tpu.ops import rnnt as JR
+from warp_transducer_tpu.utils.options import RNNTOptions as JaxOptions
 from warp_transducer_tpu_torch import (LatticeResult, RNNTLoss, RNNTOptions,
                                        forward_backward_mismatch, rnnt_forward_backward,
                                        rnnt_loss, rnnt_loss_and_grad, rnnt_score)
@@ -286,3 +287,20 @@ def test_bad_options_raise(kwargs, match):
 def test_cuda_implementation_on_cpu_raises(entry):
     with pytest.raises(ValueError, match="CUDA"):
         entry(*_golden_torch(), implementation="cuda")
+
+
+@pytest.mark.parametrize("how", ["kwargs", "options"])
+def test_module_attributes_match_jax(how):
+    """``RNNTLoss`` carries the JAX class's plain attributes beside
+    ``.options``, read from the options as the JAX class reads them."""
+    kw = dict(blank=3, reduction="sum", log_probs_input=True, implementation="torch")
+    if how == "kwargs":
+        mod, ref = RNNTLoss(**kw), JR.RNNTLoss(**kw)
+    else:
+        mod = RNNTLoss(options=RNNTOptions(**kw))
+        ref = JR.RNNTLoss(options=JaxOptions(**kw))
+    for name in ("blank", "reduction", "log_probs_input", "implementation"):
+        assert getattr(mod, name) == getattr(ref, name) == kw[name], name
+    assert mod.options.blank == 3
+    # plain attributes, not parameters or buffers
+    assert not list(mod.parameters()) and not list(mod.buffers())

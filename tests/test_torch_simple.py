@@ -171,3 +171,26 @@ def test_validation(case):
               "implementation": dict(implementation="cuda")}[case]
     with pytest.raises(ValueError):
         rnnt_loss_simple(*args, **kw)
+
+
+def test_new_tf32_switch_set_by_the_caller():
+    """A caller that has used PyTorch's new TF32 switch
+    (``torch.backends.cuda.matmul.fp32_precision``) can still call the simple
+    loss and the range search: reading the legacy ``allow_tf32`` after it
+    raises, so the port's precision helper must not. The switch holds what
+    the caller set after each call."""
+    flags = torch.backends.cuda.matmul
+    old = flags.fp32_precision
+    args = [torch.tensor(x) for x in _problem(5)]
+    want = rnnt_loss_simple(*args, reduction="none")
+    want_ranges = rnnt_prune_ranges(*args, 3)
+    try:
+        flags.fp32_precision = "tf32"
+        for precision in ("highest", "default"):
+            got = rnnt_loss_simple(*args, reduction="none", precision=precision)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            assert flags.fp32_precision == "tf32"
+        torch.testing.assert_close(rnnt_prune_ranges(*args, 3), want_ranges, rtol=0, atol=0)
+        assert flags.fp32_precision == "tf32"
+    finally:
+        flags.fp32_precision = old

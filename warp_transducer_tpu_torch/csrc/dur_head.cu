@@ -39,8 +39,6 @@ namespace {
 
 using namespace wtt::joint;
 
-constexpr int kWarps = kThreads / wtt::kWarp;
-
 __global__ void __launch_bounds__(kThreads)
 dur_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
                 const float* __restrict__ Wd, const float* __restrict__ bias_d, Rows rows,

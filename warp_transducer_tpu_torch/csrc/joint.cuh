@@ -1,10 +1,11 @@
 // Shared pieces of the fused joint+loss kernels (joint_prep.cu,
-// joint_grad.cu, dur_head.cu): the compacted list of valid lattice rows, the
-// tile of joint features h = tanh(e ⊕ p) in shared memory, the
-// register-tiled f32 product on shared-memory operands, the per-row panels
-// of the extra coefficient fields and of the duration head's cotangent, and
-// the duration head's own products (D <= 8 columns: a warp's dot products
-// going in, one thread per k coming back).
+// joint_grad.cu, joint_grad_cols.cu, dur_head.cu): the compacted list of
+// valid lattice rows, the h = tanh(e ⊕ p) tiles in shared memory, the
+// tensor-core tiles of the token head's products (Mma, warp_product, the W
+// tile loads by cp.async), the per-row panels of the extra coefficient
+// fields and of the duration head's cotangent, and the duration head's own
+// products (D <= 8 columns: a warp's dot products going in, one thread per
+// k coming back).
 //
 // Rows. A row is a lattice cell (b, t, u); only the cells inside each
 // utterance's lattice, t < T_b and u < U_b, carry work. They are numbered
@@ -14,12 +15,12 @@
 // host never reads the lengths; blocks beyond the last valid tile leave at
 // once.
 //
-// Threads. 256 threads as a 16 × 16 grid (ty, tx). A thread's micro-tile is
-// strided, rows ty + 16·i and columns tx + 16·j, so that its scalar reads of
-// shared memory are free of bank conflicts with odd leading dimensions: the
-// 16 tx lanes read 16 neighbouring words, the 2 ty values of a warp
-// broadcast.
+// Threads. 256 threads a block, 8 warps. The token head's kernels give each
+// warp m16 × n8 mma tiles (see the tensor-core section); the duration
+// head's gradient (dur_grad_tiles) gives each thread its k = tid + 256·q.
 #pragma once
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -27,8 +28,8 @@ namespace wtt {
 namespace joint {
 
 constexpr int kThreads = 256;
-constexpr int kDim = 16;  // the thread grid is kDim × kDim
-constexpr int kBK = 16;   // depth of one streamed W chunk
+constexpr int kDim = 16;  // rows of a row tile (and columns of a stripe) per unit of TM
+constexpr int kBK = 16;   // H is padded to a multiple of this in dur_grad_tiles
 constexpr int kMaxH = 1024;
 // Width of a per-row panel in shared memory: the K extra coefficient fields
 // or the D duration columns of a row, padded with zeros.
@@ -45,10 +46,6 @@ struct Rows {
   const int* label_lengths;  // (B,)
   int B, T, U;
 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Row number r -> (b, t, u); false when r is beyond the last valid row.
 __device__ __forceinline__ bool locate(const Rows& rows, long long r, int& b, int& t, int& u) {
@@ -79,54 +76,370 @@ __device__ __forceinline__ void place_rows(const Rows& rows, long long first, in
   }
 }
 
-// hs[k·ldh + m] = tanh(e[b,t,k] + p[b,u,k]) for the tile's rows, zero for
-// k >= H and for rows beyond the end; rounded to bf16 when `round`. The
-// lanes run along k, so the reads of e and p are contiguous.
+// hs[k·ldh + m] = tanh(e[b,t,k] + p[b,u,k]) in f32 for the tile's rows
+// (the duration head's unrounded h), zero for k >= H and for rows beyond
+// the end. The lanes run along k, so the reads of e and p are contiguous.
 template <int BM>
 __device__ __forceinline__ void fill_h(float* hs, int ldh, const float* __restrict__ e,
                                        const float* __restrict__ p, const int* s_b,
                                        const int* s_t, const int* s_u, int T, int U, int H,
-                                       int Hp, bool round) {
+                                       int Hp) {
   for (int idx = threadIdx.x; idx < BM * Hp; idx += kThreads) {
     const int m = idx / Hp, k = idx % Hp;
     float h = 0.f;
     const int b = s_b[m];
     if (b >= 0 && k < H) {
       h = tanhf(e[((long long)b * T + s_t[m]) * H + k] + p[((long long)b * U + s_u[m]) * H + k]);
-      if (round) h = round_bf16(h);
     }
     hs[k * ldh + m] = h;
   }
 }
 
-// acc[i][j] += Σ_kk A[kk·lda + ty + 16·i] · Bs[kk·ldb + tx + 16·j].
-template <int TM, int TN>
-__device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const float* A, int lda,
-                                         const float* Bs, int ldb, int kcount, int ty, int tx) {
-#pragma unroll 4
-  for (int kk = 0; kk < kcount; ++kk) {
-    float a[TM], b[TN];
+// ---- tensor-core tiles of the token head (joint_prep.cu, joint_grad.cu) ----
+//
+// The three products of the token head (logits = h·W, dh = g·Wᵀ, dW = hᵀ·g)
+// run on the tensor cores through mma.sync, a warp at a time, from tiles in
+// shared memory:
+// * bf16 W: the tiles hold bf16 (h rounded, g rounded after its
+//   subtractions), m16n8k16 with f32 accumulators, fragments by ldmatrix
+//   (.trans where the tile is stored the other way round);
+// * f32 W: the tiles hold f32 and each product is split in three TF32
+//   products, x = hi + lo with hi = tf32(x), lo = tf32(x − hi), and
+//   a·b ≈ lo·hi + hi·lo + hi·hi (m16n8k8, the small terms first), which
+//   keeps about 22 bits of each product: f32 accuracy, where plain TF32 keeps
+//   11. Fragments by 32-bit loads (ldmatrix moves 16-bit elements).
+// Accumulator fragment of a m16 × n8 tile at (m0, n0), lane = 4·gr + tq:
+// c[0], c[1] at row m0 + gr, columns n0 + 2·tq, +1; c[2], c[3] at row
+// m0 + gr + 8, the same columns.
+//
+// What wgmma would add (sm_90a): a 64-row product of a warpgroup issued
+// asynchronously from shared memory with no fragment loads in the warps
+// (here ldmatrix traffic bounds the small warp tiles), and TMA loads of W
+// into an mbarrier ring; later work.
+
+constexpr int kWarps = kThreads / wtt::kWarp;
+// H is padded to a multiple of this in the products' tiles (zeros), so that
+// every warp's share of an H-wide result is a whole number of 16-wide tiles.
+constexpr int kHAlign = 128;
+inline __host__ __device__ int padded_h(int H) { return (H + kHAlign - 1) / kHAlign * kHAlign; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Operand traits by the type of W: the tile element, the depth of one mma,
+// the padding of a tile row (elements; keeps the fragment loads free of or
+// low in bank conflicts), the fragments, their loads and the product.
+// Tile storage: "mk" rows along the product's M (or N) with K contiguous,
+// "km" rows along K.
+template <typename TW> struct Mma;
+
+template <> struct Mma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int kK = 16;
+  static constexpr int kPadH = 8, kPadW = 8, kPadG = 8;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+  static __device__ __forceinline__ T cast(float x) { return __float2bfloat16(x); }
+  static __device__ __forceinline__ float value(T x) { return __bfloat162float(x); }
+  // A (m16 × k16) at (m0, k0) of a tile stored [m][k] / [k][m].
+  static __device__ __forceinline__ void load_a_mk(A& a, const T* t, int ld,
+                                                   int m0, int k0, int lane) {
+    ldsm_x4(a.r, t + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+  }
+  static __device__ __forceinline__ void load_a_km(A& a, const T* t, int ld,
+                                                   int m0, int k0, int lane) {
+    const int j = lane >> 3;
+    ldsm_x4_t(a.r, t + (k0 + (lane & 7) + 8 * (j >> 1)) * ld + m0 + 8 * (j & 1));
+  }
+  // B (k16 × n8) at (k0, n0) of a tile stored [k][n] / [n][k].
+  static __device__ __forceinline__ void load_b_kn(B& b, const T* t, int ld,
+                                                   int k0, int n0, int lane) {
+    ldsm_x2_t(b.r, t + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0);
+  }
+  static __device__ __forceinline__ void load_b_nk(B& b, const T* t, int ld,
+                                                   int k0, int n0, int lane) {
+    ldsm_x2(b.r, t + (n0 + (lane & 7)) * ld + k0 + 8 * ((lane >> 3) & 1));
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
+  }
+};
+
+template <> struct Mma<float> {
+  using T = float;
+  static constexpr int kK = 8;
+  // h and g tiles read as A along rows (gr·ld + tq): ld ≡ 4 mod 32; W tiles
+  // read as B along rows (tq·ld + gr): ld ≡ 8 or 24 mod 32.
+  static constexpr int kPadH = 4, kPadW = 8, kPadG = 4;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  static __device__ __forceinline__ T cast(float x) { return x; }
+  static __device__ __forceinline__ float value(T x) { return x; }
+  static __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
+  // A fragment of m16n8k8: (gr, tq), (gr + 8, tq), (gr, tq + 4), (gr + 8, tq + 4).
+  static __device__ __forceinline__ void load_a_mk(A& a, const T* t, int ld,
+                                                   int m0, int k0, int lane) {
+    const T* p = t + (m0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    split(p[0], a.hi[0], a.lo[0]);
+    split(p[8 * ld], a.hi[1], a.lo[1]);
+    split(p[4], a.hi[2], a.lo[2]);
+    split(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void load_a_km(A& a, const T* t, int ld,
+                                                   int m0, int k0, int lane) {
+    const T* p = t + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+    split(p[0], a.hi[0], a.lo[0]);
+    split(p[8], a.hi[1], a.lo[1]);
+    split(p[4 * ld], a.hi[2], a.lo[2]);
+    split(p[4 * ld + 8], a.hi[3], a.lo[3]);
+  }
+  // B fragment: (k = tq, n = gr), (k = tq + 4, n = gr).
+  static __device__ __forceinline__ void load_b_kn(B& b, const T* t, int ld,
+                                                   int k0, int n0, int lane) {
+    const T* p = t + (k0 + (lane & 3)) * ld + n0 + (lane >> 2);
+    split(p[0], b.hi[0], b.lo[0]);
+    split(p[4 * ld], b.hi[1], b.lo[1]);
+  }
+  static __device__ __forceinline__ void load_b_nk(B& b, const T* t, int ld,
+                                                   int k0, int n0, int lane) {
+    const T* p = t + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    split(p[0], b.hi[0], b.lo[0]);
+    split(p[4], b.hi[1], b.lo[1]);
+  }
+  static __device__ __forceinline__ void mma1(float (&c)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
+    mma1(c, a.lo, b.hi);
+    mma1(c, a.hi, b.lo);
+    mma1(c, a.hi, b.hi);
+  }
+};
+
+// acc[i][j] += Σ_k A(m0 + 16i + ·, k) · B(k, n0 + 8j + ·) over k in [0, K), a
+// warp's m16 × n8 tiles i < MI, j < NI (those with i < mi_count, j <
+// nj_count: the tiles beyond them would read past the operands). kAkm /
+// kBkn: how A and B are stored (see Mma).
+template <typename TW, int MI, int NI, bool kAkm, bool kBkn>
+__device__ __forceinline__ void warp_product(float (&acc)[MI][NI][4],
+                                             const typename Mma<TW>::T* As, int lda, int m0,
+                                             const typename Mma<TW>::T* Bs, int ldb, int n0, int K,
+                                             int lane, int mi_count = MI, int nj_count = NI) {
+  using M = Mma<TW>;
+  for (int k0 = 0; k0 < K; k0 += M::kK) {
+    typename M::A a[MI];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = A[kk * lda + ty + kDim * i];
+    for (int i = 0; i < MI; ++i) {
+      if (i >= mi_count) break;
+      if (kAkm) M::load_a_km(a[i], As, lda, m0 + 16 * i, k0, lane);
+      else M::load_a_mk(a[i], As, lda, m0 + 16 * i, k0, lane);
+    }
 #pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = Bs[kk * ldb + tx + kDim * j];
+    for (int j = 0; j < NI; ++j) {
+      if (j >= nj_count) break;
+      typename M::B b;
+      if (kBkn) M::load_b_kn(b, Bs, ldb, k0, n0 + 8 * j, lane);
+      else M::load_b_nk(b, Bs, ldb, k0, n0 + 8 * j, lane);
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int i = 0; i < MI; ++i)
+        if (i < mi_count) M::mma(acc[i][j], a[i], b);
+    }
   }
 }
 
-// Stage W[k0 : k0+kBK, v0 : v0+BN] as ws[kk·(BN+1) + n], zero outside (H, V).
+// ---- the W tile ring ---------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage W[0 : Hp, v0 : v0 + BN] as ws[k·ldw + n], zero for k >= H and
+// v >= V. With `async` (W's rows 16-byte aligned: the wrapper checks the
+// base, the kernel V) by cp.async in 16-byte pieces, which the caller
+// commits and waits for; else by plain loads and stores.
 template <int BN, typename TW>
-__device__ __forceinline__ void load_w_chunk(float* ws, const TW* __restrict__ W, int H, int V,
-                                             int k0, int v0) {
-  for (int idx = threadIdx.x; idx < kBK * BN; idx += kThreads) {
-    const int kk = idx / BN, n = idx % BN;
-    const int k = k0 + kk, v = v0 + n;
-    ws[kk * (BN + 1) + n] = (k < H && v < V) ? float(to_acc(W[(long long)k * V + v])) : 0.f;
+__device__ __forceinline__ void load_w_tile(TW* ws, int ldw, const TW* __restrict__ W, int H,
+                                            int Hp, int V, int v0, bool async) {
+  constexpr int kVec = 16 / sizeof(TW);  // elements of a 16-byte piece
+  constexpr int kPieces = BN / kVec;
+  if (async) {
+    for (int idx = threadIdx.x; idx < Hp * kPieces; idx += kThreads) {
+      const int k = idx / kPieces, n = (idx % kPieces) * kVec;
+      const bool in = k < H && v0 + n < V;  // V % kVec == 0: a piece is all in or all out
+      cp_async16(ws + k * ldw + n, in ? W + (long long)k * V + v0 + n : W, in);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < Hp * BN; idx += kThreads) {
+      const int k = idx / BN, n = idx % BN;
+      ws[k * ldw + n] = (k < H && v0 + n < V) ? W[(long long)k * V + v0 + n] : Mma<TW>::cast(0.f);
+    }
   }
 }
+
+// hs[m·ldh + k] = tanh(e[b,t,k] + p[b,u,k]) in the tile's type (bf16: the
+// rounded h), zero for k >= H and for rows beyond the end. A thread takes
+// four neighbouring k a step (16-byte loads where H and the bases allow),
+// and issues the loads of kBatch steps before any tanh: the fill is bound
+// by the latency of those loads, not by their bytes.
+template <int BM, typename T>
+__device__ __forceinline__ void fill_h_rows(T* hs, int ldh, const float* __restrict__ e,
+                                            const float* __restrict__ p, const int* s_b,
+                                            const int* s_t, const int* s_u, int T_, int U, int H,
+                                            int Hp) {
+  constexpr int kBatch = 4;
+  const bool vec =
+      H % 4 == 0 && (reinterpret_cast<uintptr_t>(e) | reinterpret_cast<uintptr_t>(p)) % 16 == 0;
+  const int q4 = Hp / 4, n = BM * q4;
+  for (int base = threadIdx.x; base < n; base += kThreads * kBatch) {
+    float4 ev[kBatch], pv[kBatch];
+#pragma unroll
+    for (int s = 0; s < kBatch; ++s) {
+      const int idx = base + s * kThreads;
+      ev[s] = pv[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx >= n) continue;
+      const int m = idx / q4, k = (idx % q4) * 4, b = s_b[m];
+      if (b < 0 || k >= H) continue;
+      const float* er = e + ((long long)b * T_ + s_t[m]) * H + k;
+      const float* pr = p + ((long long)b * U + s_u[m]) * H + k;
+      if (vec) {
+        ev[s] = *reinterpret_cast<const float4*>(er);
+        pv[s] = *reinterpret_cast<const float4*>(pr);
+      } else {
+        float ea[4] = {0.f, 0.f, 0.f, 0.f}, pa[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int x = 0; x < 4 && k + x < H; ++x) {
+          ea[x] = er[x];
+          pa[x] = pr[x];
+        }
+        ev[s] = make_float4(ea[0], ea[1], ea[2], ea[3]);
+        pv[s] = make_float4(pa[0], pa[1], pa[2], pa[3]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kBatch; ++s) {
+      const int idx = base + s * kThreads;
+      if (idx >= n) continue;
+      // Outside the lattice or beyond H both are zero, and tanh(0) = 0.
+      T* dst = hs + (idx / q4) * ldh + (idx % q4) * 4;
+      dst[0] = Mma<T>::cast(tanhf(ev[s].x + pv[s].x));
+      dst[1] = Mma<T>::cast(tanhf(ev[s].y + pv[s].y));
+      dst[2] = Mma<T>::cast(tanhf(ev[s].z + pv[s].z));
+      dst[3] = Mma<T>::cast(tanhf(ev[s].w + pv[s].w));
+    }
+  }
+}
+
+// The h tile's BM rows, each Hp wide, to rows h0 .. h0 + BM - 1 of a chunk
+// buffer in device memory (16-byte stores; Hp·sizeof(T) is a multiple of 16).
+template <int BM, typename T>
+__device__ __forceinline__ void store_h_rows(const T* hs, int ldh, T* __restrict__ out,
+                                             long long h0, int Hp) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int pieces = Hp / kVec;
+  for (int idx = threadIdx.x; idx < BM * pieces; idx += kThreads) {
+    const int m = idx / pieces, k = (idx % pieces) * kVec;
+    *reinterpret_cast<uint4*>(out + (h0 + m) * Hp + k) =
+        *reinterpret_cast<const uint4*>(hs + m * ldh + k);
+  }
+}
+
+// The h tile of rows first .. first + BM - 1 from a chunk buffer whose row 0
+// is valid row `base`, by cp.async (the caller commits and waits); rows at
+// or beyond `end` (past the last valid row: never written) are zeros.
+template <int BM, typename T>
+__device__ __forceinline__ void load_h_rows(T* hs, int ldh, const T* __restrict__ in,
+                                            long long first, long long base, long long end,
+                                            int Hp) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int pieces = Hp / kVec;
+  for (int idx = threadIdx.x; idx < BM * pieces; idx += kThreads) {
+    const int m = idx / pieces, k = (idx % pieces) * kVec;
+    const bool on = first + m < end;
+    cp_async16(hs + m * ldh + k, on ? in + (first + m - base) * Hp + k : in, on);
+  }
+}
+
+// The tiling of the kernels that walk V for a tile of rows (joint_prep.cu,
+// the row kernel of joint_grad.cu), by W's type and TM = tile_param(H):
+// BM = 16·TM rows; V in tiles of BN columns, each W tile held whole (Hp ×
+// BN) in shared memory, where both the logits product and the dh product
+// read it. The warps stand WM × WN over the BM × BN logits tile, NI n8
+// tiles each (with f32 W at TM = 1 only two of the eight warps have a
+// share), and TM × 8/TM over the BM × Hp dh (16 n8 tiles each at most).
+template <typename TW, int TM>
+struct RowTiles {
+  using T = typename Mma<TW>::T;
+  static constexpr int BM = kDim * TM;
+  static constexpr int HMAX = kMaxH / TM;
+  static constexpr int BN = sizeof(TW) == 2 ? 64 : kDim * TM;
+  static constexpr int WM = TM;
+  static constexpr int WN = kWarps / TM < BN / 8 ? kWarps / TM : BN / 8;
+  static constexpr int NI = BN / (8 * WN);
+  static constexpr int WH = kWarps / TM;              // warps along H in the dh product
+  static constexpr int NIH = HMAX / (8 * WH);         // their n8 tiles at most (16)
+  static constexpr int LDW = BN + Mma<TW>::kPadW;
+  static constexpr int LDG = BN + Mma<TW>::kPadG;
+  static __host__ __device__ int ldh(int Hp) { return Hp + Mma<TW>::kPadH; }
+};
+
+__host__ __device__ constexpr size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// Consecutive 16-byte aligned regions of dynamic shared memory; the host's
+// size functions add the same round16 terms.
+struct Carve {
+  unsigned char* p;
+  template <typename X>
+  __device__ X* take(size_t n) {
+    X* r = reinterpret_cast<X*>(p);
+    p += round16(n * sizeof(X));
+    return r;
+  }
+};
 
 // The extra column that equals v, as its index k, or -1. Unrolled over the
 // by-value table with constant indices, so the table stays in the
@@ -277,7 +590,7 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
     place_rows<BM>(rows, first, s_b, s_t, s_u);
     __syncthreads();
     load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
-    fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp, false);
+    fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < KQ; ++q) {
@@ -333,6 +646,44 @@ inline cudaError_t sum_parts(const float* part, float* out, long long n, int nsp
                              cudaStream_t stream) {
   sum_parts_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, n, nsplit);
   return cudaGetLastError();
+}
+
+// ---- what the gradient kernels' launches share (joint_grad.cu,
+// joint_grad_cols.cu) ----------------------------------------------------------
+
+// W's rows are 16-byte aligned, so the tiles can take them by cp.async.
+template <typename TW>
+inline bool w_aligned(const void* W, int V) {
+  return reinterpret_cast<uintptr_t>(W) % 16 == 0 && (V * sizeof(TW)) % 16 == 0;
+}
+
+struct GradArgs {
+  const float *e, *p;
+  const void* W;
+  const float* bias;
+  const int* lab_full;
+  Rows rows;
+  const float *denom, *coef, *cb, *ce, *cx;
+  wtt::ExtraCols cols;
+  int H, V, blank;
+  cudaStream_t stream;
+};
+
+// The common arguments of the gradient kernels' entries; false when the
+// extra columns are not K <= 8 indices inside [0, V) with their fields.
+inline bool make_grad_args(GradArgs* a, const void* e, const void* p, const void* W,
+                           const void* bias, const int* lab_full, const void* offsets,
+                           const int* label_lengths, const void* denom, const void* coef,
+                           const void* cb, const void* ce, const void* cx, const int* extra_cols,
+                           int K, int B, int T, int U, int H, int V, int blank, void* stream) {
+  *a = GradArgs{static_cast<const float*>(e), static_cast<const float*>(p), W,
+                static_cast<const float*>(bias), lab_full,
+                Rows{static_cast<const long long*>(offsets), label_lengths, B, T, U},
+                static_cast<const float*>(denom), static_cast<const float*>(coef),
+                static_cast<const float*>(cb), static_cast<const float*>(ce),
+                static_cast<const float*>(cx), wtt::ExtraCols{}, H, V, blank,
+                static_cast<cudaStream_t>(stream)};
+  return wtt::extra_cols(extra_cols, K, V, &a->cols) && (K == 0 || cx != nullptr);
 }
 
 }  // namespace joint

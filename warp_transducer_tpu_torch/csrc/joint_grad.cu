@@ -22,36 +22,57 @@
 //
 // Types as joint_prep.cu: e, p, bias and the fields in f32; W f32 or bf16.
 // With bf16 W, h and g are rounded to bf16 before the three products (db
-// sums the unrounded g, tanh' uses the unrounded h), each product exact in
-// f32 and summed in f32. The duration head's two products take the unrounded
-// h, f32 Wd and f32 g_dur in both cases.
+// sums the unrounded g, tanh' uses the unrounded h), which run on the
+// tensor cores with f32 accumulators; g is formed in f32 from the f32
+// accumulator and rounded only after every subtraction. With f32 W each
+// product is the three-TF32 split of joint.cuh (Mma<float>): f32 accuracy on
+// the tensor cores. The duration head's two products take the unrounded h,
+// f32 Wd and f32 g_dur in both cases.
 //
-// Bound on this card: operations, 3 · 2·R·H·V over the float32 rate.
+// Bound on this card: operations, 3 · 2·R·H·V over the tensor cores' rate.
+// The kernels do four such products (the logits twice).
 //
 // Design. The TPU kernel's grid runs in order on one core and carries dW and
 // db across every step and dp across the T tiles of one b. Here blocks run in
 // parallel and nothing carries over, and one H × V partial of dW per row
 // tile would be billions of atomics. So the work is split into two kernels
 // that each own what they sum, at the price of computing the logits twice
-// (four products in place of three):
+// (four products in place of three); neither writes a (R, V) tensor of g or
+// logits to device memory:
 //
-// * joint_grad_rows_kernel — row-parallel. A block owns a tile of valid rows,
-//   walks all of V, forms each g tile in registers, stages it in shared
-//   memory and accumulates dh for its rows in registers (64 accumulators a
-//   thread: 16·TM rows × H columns, TM = 4, 2, 1 for H ≤ 256, 512, 1024). At
-//   the end d = dh·(1 − h²) goes through shared memory; one thread per k
-//   sums the runs of rows that share (b, t) and adds each run to de with one
+// Both run a chunk of the valid rows at a time (the wrapper's loop): the row
+// kernel fills each row tile's h once and writes it to a buffer of the chunk
+// (bf16 rounded, or f32; a few tens of MB), which the column kernel copies
+// where it would otherwise compute h again for each of its V/BN stripes.
+//
+// * joint_grad_rows_kernel — row-parallel. A block owns a tile of 16·TM
+//   valid rows (TM = 4, 2, 1 for H ≤ 256, 512, 1024) with its h tile in
+//   shared memory, and walks V in tiles of BN columns (joint.cuh::RowTiles).
+//   Each W tile (Hp × BN, H padded to a multiple of 128) comes whole into
+//   shared memory by cp.async, one at a time so that two blocks share a
+//   multiprocessor (with bf16 W); the warps multiply h by it once, form g in f32 on the
+//   accumulator fragments and store it (rounded with bf16 W) as a BM × BN
+//   tile, and then every warp multiplies that g tile by the same W tile,
+//   read the other way round, into its share of dh (16 rows × Hp/(8/TM)
+//   columns, at most 64 accumulators a lane). At the end d = dh·(1 − h²)
+//   goes through shared memory (over the W tile); one thread per k sums the
+//   runs of rows that share (b, t) and adds each run to de with one
 //   atomicAdd (a run is cut only at a tile edge, so with U_b ≤ the tile's
 //   rows at most two blocks add to an element and the sum does not depend on
 //   their order), and adds every row to dp with an atomicAdd (T_b terms per
 //   element, in an order that varies from run to run).
-// * joint_grad_cols_kernel — column-parallel. A block owns a stripe of V
-//   (16·TN columns, TN = 4, 2, 1 by H as above) and keeps W's stripe in
-//   shared memory and its H × stripe slice of dW and its slice of db in
-//   registers. It walks every `nsplit`-th row tile, recomputes h and the
-//   logits of its stripe, forms g and accumulates hᵀ·g. Slices are written
-//   once, with no atomics, into one of `nsplit` partial buffers, which
-//   sum_parts_kernel adds in a fixed order: dW and db are deterministic.
+// * joint_grad_cols_kernel (joint_grad_cols.cu, a source of its own so that
+//   the two compile side by side) — column-parallel. A block owns a stripe of V
+//   (16·TM columns) and keeps W's stripe in shared memory and its Hp ×
+//   stripe slice of dW (mma accumulators, 64 a lane) and its slice of db in
+//   registers. It walks every `nsplit`-th row tile (16·TM rows) of the
+//   chunk, copies its h, recomputes the logits of its stripe, forms g and
+//   accumulates hᵀ·g with the h tile read transposed by ldmatrix.trans.
+//   Slices go, with no atomics, into one of `nsplit` partial buffers (written
+//   by the first chunk, added to by the later ones, one launch after
+//   another), which sum_parts_kernel adds in a fixed order: dW and db are
+//   deterministic. The wrapper takes nsplit so that the grid is one wave of
+//   the kernel's occupancy.
 // * joint_grad_dwd_kernel — dWd (H, D), with a duration head only. It is a sum
 //   over every valid row, like dW, but of the unrounded h, which neither
 //   kernel above holds when W is bf16, and H·D is 1,024 addresses: an
@@ -68,26 +89,34 @@ namespace {
 
 using namespace wtt::joint;
 
-constexpr int kNB = 16;  // columns of one W chunk of the dh product
-
 // ---- rows: dh, de, dp -------------------------------------------------------
 
-constexpr int kRowsTN = 8;
-constexpr int kRowsBN = kDim * kRowsTN;  // 128 columns a V tile
+// One W tile at a time (no ring): the block then fits a multiprocessor
+// twice beside another (with bf16 W; f32 tiles fill it alone), and the
+// other block's products hide this one's loads. At the end the f32 d tile
+// (Hp × (BM+1)) takes the place of the ring and, with bf16 W, of the h tile
+// too (the epilogue recomputes the unrounded h; with f32 W it reads it).
+template <typename TW, int TM>
+struct GradRows : RowTiles<TW, TM> {
+  using R = RowTiles<TW, TM>;
+  using T = typename R::T;
+  static __host__ __device__ size_t h_bytes(int Hp) {
+    return round16(sizeof(T) * R::BM * R::ldh(Hp));
+  }
+  static __host__ __device__ size_t ring_bytes(int Hp) {
+    const size_t ring = sizeof(T) * Hp * R::LDW;
+    const size_t d = sizeof(float) * Hp * (R::BM + 1);
+    const size_t need = sizeof(T) == 2 ? (d > h_bytes(Hp) ? d - h_bytes(Hp) : 0) : d;
+    return ring > need ? ring : need;
+  }
+  static size_t bytes(int Hp) {
+    return h_bytes(Hp) + round16(ring_bytes(Hp)) + round16(sizeof(T) * R::BM * R::LDG) +
+           round16(sizeof(float) * (4 + 2 * kPanel) * R::BM) + round16(sizeof(int) * 4 * R::BM);
+  }
+};
 
-template <int TM>
-size_t rows_smem_bytes(int H) {
-  constexpr int BM = kDim * TM;
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  const size_t wchunk = (size_t)kBK * (kRowsBN + 1) > (size_t)Hp * (kNB + 1)
-                            ? (size_t)kBK * (kRowsBN + 1) : (size_t)Hp * (kNB + 1);
-  return sizeof(float) * ((size_t)Hp * (BM + 1) + wchunk + (size_t)kRowsBN * (BM + 1) +
-                          (4 + 2 * kPanel) * BM) +
-         sizeof(int) * 4 * BM;
-}
-
-template <typename TW, bool kRound, int TM>
-__global__ void __launch_bounds__(kThreads)
+template <typename TW, int TM>
+__global__ void __launch_bounds__(kThreads, 2)
 joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
                        const TW* __restrict__ W, const float* __restrict__ bias,
                        const int* __restrict__ lab_full, Rows rows,
@@ -95,31 +124,42 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
                        const float* __restrict__ cb, const float* __restrict__ ce,
                        const float* __restrict__ cx, const wtt::ExtraCols cols,
                        const float* __restrict__ Wd, const float* __restrict__ g_dur, int D,
-                       float* __restrict__ de, float* __restrict__ dp, int H, int V, int blank) {
-  constexpr int BM = kDim * TM;
-  constexpr int KJ = 64 / TM;  // dh columns a thread: k = tx + 16·j
-  const long long first = (long long)blockIdx.x * BM;
+                       float* __restrict__ de, float* __restrict__ dp, long long row_begin,
+                       TW* __restrict__ h_out, int H, int V, int blank, bool w_async) {
+  using G = GradRows<TW, TM>;
+  using M = Mma<TW>;
+  using T = typename G::T;
+  constexpr int BM = G::BM, BN = G::BN, NI = G::NI, WM = G::WM, WN = G::WN;
+  constexpr int WH = G::WH, NIH = G::NIH;
+  const long long first = row_begin + (long long)blockIdx.x * BM;
   if (first >= rows.offsets[rows.B]) return;
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  const int ldh = BM + 1;
-  extern __shared__ float smem[];
-  float* hs = smem;  // Hp × ldh; at the end it holds d
-  const size_t wchunk = (size_t)kBK * (kRowsBN + 1) > (size_t)Hp * (kNB + 1)
-                            ? (size_t)kBK * (kRowsBN + 1) : (size_t)Hp * (kNB + 1);
-  float* ws = hs + (size_t)Hp * ldh;  // a chunk of W for either product
-  float* gs = ws + wchunk;            // kRowsBN × ldh, gs[n·ldh + m]
-  float* s_den = gs + (size_t)kRowsBN * ldh;
+  const int Hp = padded_h(H), ldh = G::ldh(Hp);
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  Carve c{tile_smem};
+  T* hs = c.take<T>((size_t)BM * ldh);
+  unsigned char* ring_raw = c.take<unsigned char>(G::ring_bytes(Hp));
+  T* ring = reinterpret_cast<T*>(ring_raw);
+  // At the end: d[k·(BM+1) + m], over the ring (and with bf16 W the h tile).
+  float* ds = reinterpret_cast<float*>(sizeof(T) == 2 ? static_cast<void*>(hs)
+                                                      : static_cast<void*>(ring_raw));
+  T* gs = c.take<T>((size_t)BM * G::LDG);          // g[m·LDG + n] of the V tile
+  float* s_den = c.take<float>((4 + 2 * kPanel) * BM);
   float* s_coef = s_den + BM;
   float* s_cb = s_coef + BM;
   float* s_ce = s_cb + BM;
   float* s_cx = s_ce + BM;           // BM × kPanel extra fields
   float* s_gd = s_cx + BM * kPanel;  // BM × kPanel duration cotangents
-  int* s_b = reinterpret_cast<int*>(s_gd + BM * kPanel);
+  int* s_b = c.take<int>(4 * BM);
   int* s_t = s_b + BM;
   int* s_u = s_t + BM;
   int* s_lab = s_u + BM;
 
-  const int tid = threadIdx.x, tx = tid % kDim, ty = tid / kDim;
+  const int tid = threadIdx.x, lane = tid % wtt::kWarp, warp = tid / wtt::kWarp;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;  // also (rows, H share) of the dh product
+  const int ntiles = (V + BN - 1) / BN;
+  load_w_tile<BN>(ring, G::LDW, W, H, Hp, V, 0, w_async);
+  cp_async_commit();
   place_rows<BM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
   load_panel<BM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
@@ -134,223 +174,101 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
     s_cb[tid] = on ? cb[cell] : 0.f;
     s_ce[tid] = on ? ce[cell] : 0.f;
   }
-  fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp, kRound);
+  fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp);
   __syncthreads();
+  // The tile's h for the column kernel, which reads it instead of filling
+  // its own for every stripe of V.
+  store_h_rows<BM>(hs, ldh, h_out, first - row_begin, Hp);
 
-  float dh[TM][KJ] = {};
-  for (int v0 = 0; v0 < V; v0 += kRowsBN) {
-    float acc[TM][kRowsTN] = {};
-    for (int k0 = 0; k0 < Hp; k0 += kBK) {
-      load_w_chunk<kRowsBN>(ws, W, H, V, k0, v0);
-      __syncthreads();
-      mma_tile<TM, kRowsTN>(acc, hs + k0 * ldh, ldh, ws, kRowsBN + 1, kBK, ty, tx);
-      __syncthreads();
+  const bool active = warp < WM * WN;  // has a share of the logits tile
+  const int row0 = 16 * wm + gr;       // this lane's rows: row0, row0 + 8
+  const int n0 = wn * NI * 8;          // its columns in the V tile: n0 + 8j + 2tq + q
+  const int h0 = wn * (Hp / WH);       // its columns of dh
+  const int nih = Hp / WH / 8;
+  float dh[1][NIH][4] = {};
+  for (int it = 0; it < ntiles; ++it) {
+    const int v0 = it * BN;
+    const T* wt = ring;
+    if (it > 0) {  // the first tile was asked for before the rows were placed
+      load_w_tile<BN>(ring, G::LDW, W, H, Hp, V, v0, w_async);
+      cp_async_commit();
     }
-    const bool extras_here = has_extra(cols, v0, kRowsBN);
+    cp_async_wait<0>();
+    __syncthreads();  // the W tile in; on the first pass also h and the fields
+    if (active) {
+      float acc[1][NI][4] = {};
+      warp_product<TW, 1, NI, false, true>(acc, hs, ldh, 16 * wm, wt, G::LDW, n0, Hp, lane);
+      const bool extras_here = has_extra(cols, v0 + n0, NI * 8);
 #pragma unroll
-    for (int j = 0; j < kRowsTN; ++j) {
-      const int n = tx + kDim * j, v = v0 + n;
-      const float bv = v < V ? bias[v] : 0.f;
-      const int xk = extras_here ? extra_index(cols, v) : -1;
+      for (int j = 0; j < NI; ++j)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int m = ty + kDim * i;
-        float g = 0.f;
-        if (v < V) {
-          g = grad_element(acc[i][j] + bv, s_den[m], s_coef[m], s_cb[m], s_ce[m], v, blank,
-                           s_lab[m], s_cx + m * kPanel, xk);
-          if (kRound) g = round_bf16(g);
+        for (int q = 0; q < 2; ++q) {
+          const int n = n0 + 8 * j + 2 * tq + q, v = v0 + n;
+          const float bv = v < V ? bias[v] : 0.f;
+          const int xk = extras_here ? extra_index(cols, v) : -1;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int m = row0 + 8 * r;
+            float g = 0.f;
+            if (v < V)  // rows beyond the end have zero coefficients
+              g = grad_element(acc[0][j][2 * r + q] + bv, s_den[m], s_coef[m], s_cb[m], s_ce[m],
+                               v, blank, s_lab[m], s_cx + m * kPanel, xk);
+            gs[m * G::LDG + n] = M::cast(g);  // bf16: rounded after every subtraction
+          }
         }
-        gs[n * ldh + m] = g;
-      }
     }
-    // dh[m][k] += Σ_n g[m][n] · W[k][v0 + n], W staged kNB columns at a time
-    // as ws[k·(kNB+1) + nn].
-    const int n_end = min(kRowsBN, V - v0);
-    for (int nc = 0; nc < n_end; nc += kNB) {
-      __syncthreads();  // gs complete (first pass); the last chunk consumed
-      for (int idx = tid; idx < Hp * kNB; idx += kThreads) {
-        const int k = idx / kNB, nn = idx % kNB, v = v0 + nc + nn;
-        ws[k * (kNB + 1) + nn] =
-            (k < H && v < V) ? float(wtt::to_acc(W[(long long)k * V + v])) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int nn = 0; nn < kNB; ++nn) {
-        float a[TM], w[KJ];
+    __syncthreads();  // the g tile complete
+    // dh[m][k] += Σ_n g[m][n] · W[k][v0 + n], W read from the tile in place,
+    // four n8 tiles of dh a pass. Each pass sums the V tile in the mma
+    // accumulators and adds it to dh by a rounded f32 add (the tensor cores'
+    // accumulator truncates; over all of V it would drift, see the column
+    // kernel).
+    constexpr int kGroup = 4;
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = gs[(nc + nn) * ldh + ty + kDim * i];
+    for (int j0 = 0; j0 < NIH; j0 += kGroup) {
+      if (j0 >= nih) break;
+      float part[1][kGroup][4] = {};
+      warp_product<TW, 1, kGroup, false, false>(part, gs, G::LDG, 16 * wm, wt, G::LDW,
+                                                h0 + 8 * j0, BN, lane, 1, nih - j0);
 #pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          const int k = tx + kDim * j;
-          w[j] = k < Hp ? ws[k * (kNB + 1) + nn] : 0.f;
+      for (int jj = 0; jj < kGroup; ++jj)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) dh[0][j0 + jj][x] += part[0][jj][x];
+    }
+    __syncthreads();  // the W tile and g consumed before they are refilled
+  }
+
+  // d = (dh + g_dur·Wdᵀ) · (1 − h²) with the unrounded h (the f32 tile, or
+  // tanh recomputed where the tile holds bf16), staged over the ring as
+  // d[k·(BM+1) + m].
+#pragma unroll
+  for (int j = 0; j < NIH; ++j) {
+    if (j >= nih) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = row0 + 8 * r, b = s_b[m];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = h0 + 8 * j + 2 * tq + q;
+        float d = 0.f;
+        if (b >= 0 && k < H) {
+          float h;
+          if constexpr (sizeof(T) == 4) {
+            h = M::value(hs[m * ldh + k]);
+          } else {
+            h = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
+                      p[((long long)b * rows.U + s_u[m]) * H + k]);
+          }
+          float dh_k = dh[0][j][2 * r + q];
+          for (int cc = 0; cc < D; ++cc) dh_k = fmaf(s_gd[m * kPanel + cc], Wd[k * D + cc], dh_k);
+          d = dh_k * (1.f - h * h);
         }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < KJ; ++j) dh[i][j] = fmaf(a[i], w[j], dh[i][j]);
+        ds[k * (BM + 1) + m] = d;
       }
-    }
-    __syncthreads();  // before the next tile overwrites ws and gs
-  }
-
-  // d = (dh + g_dur·Wdᵀ) · (1 − h²) with the unrounded h, staged over hs as
-  // d[k·ldh + m].
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = ty + kDim * i, b = s_b[m];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      const int k = tx + kDim * j;
-      if (k >= Hp) continue;
-      float d = 0.f;
-      if (b >= 0 && k < H) {
-        const float h = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
-                              p[((long long)b * rows.U + s_u[m]) * H + k]);
-        float dh_k = dh[i][j];
-        for (int c = 0; c < D; ++c) dh_k = fmaf(s_gd[m * kPanel + c], Wd[k * D + c], dh_k);
-        d = dh_k * (1.f - h * h);
-      }
-      hs[k * ldh + m] = d;
     }
   }
   __syncthreads();
-  scatter_de_dp<BM>(hs, ldh, s_b, s_t, s_u, rows, H, de, dp);
-}
-
-// ---- columns: dW, db --------------------------------------------------------
-
-template <int TN>
-size_t cols_smem_bytes(int H) {
-  constexpr int BM = kDim * TN, BN = kDim * TN;
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  return sizeof(float) * ((size_t)Hp * (BN + 1) + (size_t)Hp * (BM + 1) + (size_t)BM * (BN + 1) +
-                          (4 + kPanel) * BM + kDim * BN) +
-         sizeof(int) * 4 * BM;
-}
-
-template <typename TW, bool kRound, int TN>
-__global__ void __launch_bounds__(kThreads)
-joint_grad_cols_kernel(const float* __restrict__ e, const float* __restrict__ p,
-                       const TW* __restrict__ W, const float* __restrict__ bias,
-                       const int* __restrict__ lab_full, Rows rows,
-                       const float* __restrict__ denom, const float* __restrict__ coef,
-                       const float* __restrict__ cb, const float* __restrict__ ce,
-                       const float* __restrict__ cx, const wtt::ExtraCols cols,
-                       float* __restrict__ dW_part, float* __restrict__ db_part, int H, int V,
-                       int blank) {
-  constexpr int TM = TN;
-  constexpr int BM = kDim * TM, BN = kDim * TN;
-  constexpr int KI = 64 / TN;  // dW rows a thread: k = ty + 16·i
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  const int ldh = BM + 1, ldw = BN + 1;
-  extern __shared__ float smem[];
-  float* wst = smem;                        // Hp × ldw, W's stripe
-  float* hs = wst + (size_t)Hp * ldw;       // Hp × ldh
-  float* gs = hs + (size_t)Hp * ldh;        // BM × ldw, gs[m·ldw + n]
-  float* s_den = gs + (size_t)BM * ldw;
-  float* s_coef = s_den + BM;
-  float* s_cb = s_coef + BM;
-  float* s_ce = s_cb + BM;
-  float* s_cx = s_ce + BM;                  // BM × kPanel extra fields
-  float* s_red = s_cx + BM * kPanel;        // kDim × BN, for db
-  int* s_b = reinterpret_cast<int*>(s_red + kDim * BN);
-  int* s_t = s_b + BM;
-  int* s_u = s_t + BM;
-  int* s_lab = s_u + BM;
-
-  const int tid = threadIdx.x, tx = tid % kDim, ty = tid / kDim;
-  const int v0 = blockIdx.x * BN;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  for (int idx = tid; idx < Hp * BN; idx += kThreads) {
-    const int k = idx / BN, n = idx % BN, v = v0 + n;
-    wst[k * ldw + n] = (k < H && v < V) ? float(wtt::to_acc(W[(long long)k * V + v])) : 0.f;
-  }
-  float bv[TN];
-  int xk[TN];  // the extra column this thread's column j is, or -1
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int v = v0 + tx + kDim * j;
-    bv[j] = v < V ? bias[v] : 0.f;
-    xk[j] = extra_index(cols, v);
-  }
-
-  float dW[KI][TN] = {};
-  float db[TN] = {};
-  const long long total = rows.offsets[rows.B];
-  for (long long first = (long long)split * BM; first < total; first += (long long)nsplit * BM) {
-    __syncthreads();  // the last tile's hs and gs consumed; wst complete
-    place_rows<BM>(rows, first, s_b, s_t, s_u);
-    __syncthreads();
-    load_panel<BM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
-    if (tid < BM) {
-      const int b = s_b[tid];
-      const bool on = b >= 0;
-      const long long cell = on ? ((long long)b * rows.T + s_t[tid]) * rows.U + s_u[tid] : 0;
-      s_lab[tid] = on ? lab_full[(long long)b * rows.U + s_u[tid]] : -1;
-      s_den[tid] = on ? denom[cell] : 0.f;
-      s_coef[tid] = on ? coef[cell] : 0.f;
-      s_cb[tid] = on ? cb[cell] : 0.f;
-      s_ce[tid] = on ? ce[cell] : 0.f;
-    }
-    fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp, kRound);
-    __syncthreads();
-    float acc[TM][TN] = {};
-    mma_tile<TM, TN>(acc, hs, ldh, wst, ldw, Hp, ty, tx);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = tx + kDim * j, v = v0 + n;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int m = ty + kDim * i;
-        float g = 0.f;
-        if (v < V) {  // rows beyond the end have zero coefficients
-          g = grad_element(acc[i][j] + bv[j], s_den[m], s_coef[m], s_cb[m], s_ce[m], v, blank,
-                           s_lab[m], s_cx + m * kPanel, xk[j]);
-          db[j] += g;
-          if (kRound) g = round_bf16(g);
-        }
-        gs[m * ldw + n] = g;
-      }
-    }
-    __syncthreads();
-    // dW[k][n] += Σ_m h[m][k] · g[m][n]
-#pragma unroll 2
-    for (int m = 0; m < BM; ++m) {
-      float a[KI], g[TN];
-#pragma unroll
-      for (int i = 0; i < KI; ++i) {
-        const int k = ty + kDim * i;
-        a[i] = k < Hp ? hs[k * ldh + m] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) g[j] = gs[m * ldw + tx + kDim * j];
-#pragma unroll
-      for (int i = 0; i < KI; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) dW[i][j] = fmaf(a[i], g[j], dW[i][j]);
-    }
-  }
-
-  float* out = dW_part + (size_t)split * H * V;
-#pragma unroll
-  for (int i = 0; i < KI; ++i) {
-    const int k = ty + kDim * i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int v = v0 + tx + kDim * j;
-      if (k < H && v < V) out[(long long)k * V + v] = dW[i][j];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < TN; ++j) s_red[ty * BN + tx + kDim * j] = db[j];
-  __syncthreads();
-  if (tid < BN && v0 + tid < V) {
-    float s = 0.f;
-    for (int r = 0; r < kDim; ++r) s += s_red[r * BN + tid];
-    db_part[(size_t)split * V + v0 + tid] = s;
-  }
+  scatter_de_dp<BM>(ds, BM + 1, s_b, s_t, s_u, rows, H, de, dp);
 }
 
 // ---- dWd ---------------------------------------------------------------------
@@ -367,52 +285,62 @@ joint_grad_dwd_kernel(const float* __restrict__ e, const float* __restrict__ p,
 
 // ---- launches ---------------------------------------------------------------
 
-struct Args {
-  const float *e, *p;
-  const void* W;
-  const float* bias;
-  const int* lab_full;
-  Rows rows;
-  const float *denom, *coef, *cb, *ce, *cx;
-  wtt::ExtraCols cols;
-  int H, V, blank;
-  cudaStream_t stream;
+template <typename TW, int TM>
+size_t smem_bytes_tm(int H) {
+  return GradRows<TW, TM>::bytes(padded_h(H));
+}
+
+// The larger of the two W types at this H.
+size_t smem_bytes(int H) {
+  size_t f, b;
+  switch (tile_param(H)) {
+    case 4: f = smem_bytes_tm<float, 4>(H); b = smem_bytes_tm<__nv_bfloat16, 4>(H); break;
+    case 2: f = smem_bytes_tm<float, 2>(H); b = smem_bytes_tm<__nv_bfloat16, 2>(H); break;
+    default: f = smem_bytes_tm<float, 1>(H); b = smem_bytes_tm<__nv_bfloat16, 1>(H); break;
+  }
+  return f > b ? f : b;
+}
+
+// What the row kernel takes beside GradArgs.
+struct RowsArgs {
+  const float *Wd, *g_dur;
+  int D;
+  float *de, *dp;
+  long long row_begin, row_end;
+  void* h_out;
 };
 
-template <typename TW, bool kRound, int TM>
-int launch_rows(const Args& a, const float* Wd, const float* g_dur, int D, float* de, float* dp) {
-  auto kernel = joint_grad_rows_kernel<TW, kRound, TM>;
-  const size_t bytes = rows_smem_bytes<TM>(a.H);
+template <typename TW, int TM>
+int launch_rows(const GradArgs& a, const RowsArgs& r) {
+  auto kernel = joint_grad_rows_kernel<TW, TM>;
+  const size_t bytes = smem_bytes_tm<TW, TM>(a.H);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long cells = (long long)a.rows.B * a.rows.T * a.rows.U;
-  const long long blocks = (cells + kDim * TM - 1) / (kDim * TM);
+  const long long blocks = (r.row_end - r.row_begin + kDim * TM - 1) / (kDim * TM);
   kernel<<<(unsigned)blocks, kThreads, bytes, a.stream>>>(
       a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.denom, a.coef, a.cb,
-      a.ce, a.cx, a.cols, Wd, g_dur, D, de, dp, a.H, a.V, a.blank);
+      a.ce, a.cx, a.cols, r.Wd, r.g_dur, r.D, r.de, r.dp, r.row_begin, static_cast<TW*>(r.h_out),
+      a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V));
   return (int)cudaGetLastError();
 }
 
-template <typename TW, bool kRound, int TN>
-int launch_cols(const Args& a, float* dW, float* db, float* dW_part, float* db_part,
-                int nsplit) {
-  auto kernel = joint_grad_cols_kernel<TW, kRound, TN>;
-  const size_t bytes = cols_smem_bytes<TN>(a.H);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int stripes = (a.V + kDim * TN - 1) / (kDim * TN);
-  // With one split the slices are the results themselves.
-  kernel<<<dim3(stripes, nsplit), kThreads, bytes, a.stream>>>(
-      a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.denom, a.coef, a.cb,
-      a.ce, a.cx, a.cols, nsplit > 1 ? dW_part : dW, nsplit > 1 ? db_part : db, a.H, a.V,
-      a.blank);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return (int)err;
-  err = sum_parts(dW_part, dW, (long long)a.H * a.V, nsplit, a.stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)sum_parts(db_part, db, a.V, nsplit, a.stream);
+template <typename TW, int TM>
+int attrs_tm(int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_grad_rows_kernel<TW, TM>);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)err;
+}
+
+template <typename TW>
+int attrs(int H, int* regs, int* local_bytes) {
+  switch (tile_param(H)) {
+    case 4: return attrs_tm<TW, 4>(regs, local_bytes);
+    case 2: return attrs_tm<TW, 2>(regs, local_bytes);
+    default: return attrs_tm<TW, 1>(regs, local_bytes);
+  }
 }
 
 template <int TM>
@@ -429,23 +357,6 @@ int launch_dwd(const float* e, const float* p, const float* g_dur, Rows rows, fl
   return (int)sum_parts(dWd_part, dWd, (long long)H * D, nsplit, stream);
 }
 
-// False when the extra columns are not K <= 8 indices inside [0, V) with
-// their fields.
-bool make_args(Args* a, const void* e, const void* p, const void* W, const void* bias,
-               const int* lab_full, const void* offsets, const int* label_lengths,
-               const void* denom, const void* coef, const void* cb, const void* ce,
-               const void* cx, const int* extra_cols, int K, int B, int T, int U, int H, int V,
-               int blank, void* stream) {
-  *a = Args{static_cast<const float*>(e), static_cast<const float*>(p), W,
-            static_cast<const float*>(bias), lab_full,
-            Rows{static_cast<const long long*>(offsets), label_lengths, B, T, U},
-            static_cast<const float*>(denom), static_cast<const float*>(coef),
-            static_cast<const float*>(cb), static_cast<const float*>(ce),
-            static_cast<const float*>(cx), wtt::ExtraCols{}, H, V, blank,
-            static_cast<cudaStream_t>(stream)};
-  return wtt::extra_cols(extra_cols, K, V, &a->cols) && (K == 0 || cx != nullptr);
-}
-
 }  // namespace
 
 extern "C" {
@@ -453,85 +364,56 @@ extern "C" {
 // The largest H the joint kernels' register tiling covers.
 int wtt_joint_max_h() { return kMaxH; }
 
-// Dynamic shared memory the two kernels ask for at this H (the larger).
-long long wtt_joint_grad_smem(int H) {
-  size_t r, c;
-  switch (tile_param(H)) {
-    case 4: r = rows_smem_bytes<4>(H); c = cols_smem_bytes<4>(H); break;
-    case 2: r = rows_smem_bytes<2>(H); c = cols_smem_bytes<2>(H); break;
-    default: r = rows_smem_bytes<1>(H); c = cols_smem_bytes<1>(H); break;
-  }
-  return (long long)(r > c ? r : c);
-}
+// Dynamic shared memory the row kernel asks for at this H (the larger of
+// the two W types).
+long long wtt_joint_grad_rows_smem(int H) { return (long long)smem_bytes(H); }
 
-// Columns of V one block of the column kernel owns at this H.
-int wtt_joint_grad_stripe(int H) { return kDim * tile_param(H); }
+// Registers a thread and local (spill) bytes of the row kernel the wrapper
+// launches at this H and W type, as ptxas compiled it. Returns the
+// cudaError_t of the query.
+int wtt_joint_grad_rows_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
+  if (H < 1 || H > kMaxH) return (int)cudaErrorInvalidValue;
+  switch (w_dtype) {
+    case wtt::kF32: return attrs<float>(H, regs, local_bytes);
+    case wtt::kBF16: return attrs<__nv_bfloat16>(H, regs, local_bytes);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // The inputs of wtt_joint_prep plus denom, coef, cb, ce: (B,T,U) f32, and
 // cx: (B,T,U,K) f32 for the K columns extra_cols (a host array; K = 0: cx
 // unused). Wd: (H,D) f32 and g_dur: (B,T,U,D) f32, zero outside the lattice
 // (D = 0: both unused). de: (B,T,H) f32 and dp: (B,U,H) f32, both zeroed by
-// the caller (the kernel adds into them). Returns the launch's cudaError_t.
+// the caller (the kernel adds into them). The launch covers the valid rows
+// row_begin .. row_end - 1 (row_begin a multiple of the row tile, 16 ·
+// tile_param(H)) and writes their h, in W's type and H padded to a multiple
+// of 128 with zeros, to h_out: (row_end - row_begin, Hp), 16-byte aligned.
+// Returns the launch's cudaError_t.
 int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype,
                         const void* bias, const int* lab_full, const void* offsets,
                         const int* label_lengths, const void* denom, const void* coef,
                         const void* cb, const void* ce, const void* cx, const int* extra_cols,
                         int K, const void* Wd, const void* g_dur, int D, void* de, void* dp,
-                        int B, int T, int U, int H, int V, int blank, void* stream) {
-  if ((long long)B * T * U == 0 || V == 0 || H == 0) return 0;
-  if (H > kMaxH || D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)))
+                        long long row_begin, long long row_end, void* h_out, int B, int T,
+                        int U, int H, int V, int blank, void* stream) {
+  if ((long long)B * T * U == 0 || V == 0 || H == 0 || row_end <= row_begin) return 0;
+  if (H > kMaxH || D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)) ||
+      h_out == nullptr || row_begin % (kDim * tile_param(H)) != 0)
     return (int)cudaErrorInvalidValue;
-  Args a;
-  if (!make_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce, cx,
-                 extra_cols, K, B, T, U, H, V, blank, stream))
+  GradArgs a;
+  if (!make_grad_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce,
+                      cx, extra_cols, K, B, T, U, H, V, blank, stream))
     return (int)cudaErrorInvalidValue;
-  const float* wd = static_cast<const float*>(Wd);
-  const float* gd = static_cast<const float*>(g_dur);
-  float* o1 = static_cast<float*>(de);
-  float* o2 = static_cast<float*>(dp);
+  const RowsArgs r{static_cast<const float*>(Wd), static_cast<const float*>(g_dur), D,
+                   static_cast<float*>(de), static_cast<float*>(dp), row_begin, row_end, h_out};
   const int tm = tile_param(H);
   if (w_dtype == wtt::kF32) {
-    return tm == 4 ? launch_rows<float, false, 4>(a, wd, gd, D, o1, o2)
-         : tm == 2 ? launch_rows<float, false, 2>(a, wd, gd, D, o1, o2)
-                   : launch_rows<float, false, 1>(a, wd, gd, D, o1, o2);
+    return tm == 4 ? launch_rows<float, 4>(a, r)
+         : tm == 2 ? launch_rows<float, 2>(a, r) : launch_rows<float, 1>(a, r);
   }
   if (w_dtype == wtt::kBF16) {
-    return tm == 4 ? launch_rows<__nv_bfloat16, true, 4>(a, wd, gd, D, o1, o2)
-         : tm == 2 ? launch_rows<__nv_bfloat16, true, 2>(a, wd, gd, D, o1, o2)
-                   : launch_rows<__nv_bfloat16, true, 1>(a, wd, gd, D, o1, o2);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// dW: (H,V) f32 and db: (V,) f32, written whole. dW_part: (nsplit,H,V) f32
-// and db_part: (nsplit,V) f32 scratch, unused when nsplit == 1. Returns the
-// launches' cudaError_t.
-int wtt_joint_grad_cols(const void* e, const void* p, const void* W, int w_dtype,
-                        const void* bias, const int* lab_full, const void* offsets,
-                        const int* label_lengths, const void* denom, const void* coef,
-                        const void* cb, const void* ce, const void* cx, const int* extra_cols,
-                        int K, void* dW, void* db, void* dW_part, void* db_part, int nsplit,
-                        int B, int T, int U, int H, int V, int blank, void* stream) {
-  if (V == 0 || H == 0) return 0;
-  if (H > kMaxH || nsplit < 1) return (int)cudaErrorInvalidValue;
-  Args a;
-  if (!make_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce, cx,
-                 extra_cols, K, B, T, U, H, V, blank, stream))
-    return (int)cudaErrorInvalidValue;
-  float* o1 = static_cast<float*>(dW);
-  float* o2 = static_cast<float*>(db);
-  float* s1 = static_cast<float*>(dW_part);
-  float* s2 = static_cast<float*>(db_part);
-  const int tn = tile_param(H);
-  if (w_dtype == wtt::kF32) {
-    return tn == 4 ? launch_cols<float, false, 4>(a, o1, o2, s1, s2, nsplit)
-         : tn == 2 ? launch_cols<float, false, 2>(a, o1, o2, s1, s2, nsplit)
-                   : launch_cols<float, false, 1>(a, o1, o2, s1, s2, nsplit);
-  }
-  if (w_dtype == wtt::kBF16) {
-    return tn == 4 ? launch_cols<__nv_bfloat16, true, 4>(a, o1, o2, s1, s2, nsplit)
-         : tn == 2 ? launch_cols<__nv_bfloat16, true, 2>(a, o1, o2, s1, s2, nsplit)
-                   : launch_cols<__nv_bfloat16, true, 1>(a, o1, o2, s1, s2, nsplit);
+    return tm == 4 ? launch_rows<__nv_bfloat16, 4>(a, r)
+         : tm == 2 ? launch_rows<__nv_bfloat16, 2>(a, r) : launch_rows<__nv_bfloat16, 1>(a, r);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,88 +19,104 @@
 // (ops/fused_joint.py::fused_prep) writes them. K and D are run-time numbers
 // (0: none), at most 8 each: the kernel is not instantiated per K or D.
 //
-// Types: e, p and bias arrive in f32. W is f32 or bf16. With f32 W every
-// product is a full-f32 FMA. With bf16 W, h is rounded to bf16 before the
-// product, as the JAX package rounds it; a product of two bf16 values is
-// exact in f32 and the sum is kept in f32, which is what a bf16 tensor-core
-// product with f32 accumulation computes, in another order. The duration
-// head takes the unrounded h and f32 Wd in both cases: a warp per row
-// recomputes tanh from e and p (joint.cuh::dur_row; H·D FMAs a row beside
-// the token head's H·V), which keeps a second, unrounded h tile out of
-// shared memory.
+// Types: e, p and bias arrive in f32. W is f32 or bf16. With bf16 W, h is
+// rounded to bf16 before the product, as the JAX package rounds it, and the
+// product runs on the tensor cores with f32 accumulators (joint.cuh, Mma).
+// With f32 W the product is the three-TF32 split, f32 accuracy on the
+// tensor cores. The duration head takes the unrounded h and f32 Wd in both
+// cases: a warp per row recomputes tanh from e and p (joint.cuh::dur_row;
+// H·D FMAs a row beside the token head's H·V), which keeps a second,
+// unrounded h tile out of shared memory.
 //
-// Bound on this card: operations, 2·R·H·V over the float32 rate (R = valid
-// rows). The bytes are e, p, W and three (B, T, U) fields, far less.
+// Bound on this card: operations, 2·R·H·V over the tensor cores' rate
+// (R = valid rows). The bytes are e, p, W and three (B, T, U) fields, far
+// less.
 //
-// Design: a block owns a tile of 64 consecutive valid rows (joint.cuh; 32
-// or 16 rows for H above 256 or 512) and builds its h tile once in dynamic
-// shared memory (64 × H f32: 65 KB at H = 256; the wrapper checks the size
-// against the card's limit and H against 1024). It then walks V in tiles
-// of 128 columns, streaming W through shared memory in chunks of 16 × 128,
-// each thread holding a 4 × 8 micro-tile of logits in registers, and folds
-// each tile into a per-thread running (max, sum-exp) for its rows; the 16
-// threads that share a row combine once, at the end, with shuffles. The
-// blank and the label logits are picked up as the V loop passes their
-// columns, so the label logit is the very value the loop produced and no
-// gathered W[:, labels] tensor exists. The K extra logits go the same way
-// but through lpx itself: the thread that meets column col_k writes the bare
-// logit there, and the row's lane k adds denom at the end. Shared memory and
-// registers are spent on nothing that K = 0 and D = 0 do not need: at H = 256
-// three blocks fit a multiprocessor only just (3 × 75 KB, at most 85
-// registers a thread: the launch bounds below). W streams from device memory for any
-// H·V (it stays in the 50 MB L2 at these sizes), so one launch covers all
-// of V: there are no V chunks and no partial outputs to merge.
+// Design: a block owns a tile of 16·TM consecutive valid rows (TM = 4, 2, 1
+// for H ≤ 256, 512, 1024) and builds its h tile once in shared memory,
+// H padded with zeros to a multiple of 128. It then walks V in tiles of BN
+// columns (joint.cuh::RowTiles), each W tile copied whole by cp.async into
+// a two-stage ring where shared memory allows (the next tile loads while
+// this one is multiplied), each warp holding a 16 × (8·NI) piece of the
+// logits in mma accumulators. The online (max, sum-exp) runs on the
+// accumulator fragments: a lane holds two rows and two columns of each n8
+// tile; the four lanes of a quad combine with shuffles at the end, the
+// warps of a row through shared memory. The blank and the label logits are
+// picked up as the V loop passes their columns, so the label logit is the
+// very value the loop produced and no gathered W[:, labels] tensor exists.
+// The K extra logits go the same way but through lpx itself: the lane that
+// meets column col_k writes the bare logit there, and the row's thread adds
+// denom at the end. W streams from device memory for any H·V (it stays in
+// the 50 MB L2 at these sizes), so one launch covers all of V.
 #include "joint.cuh"
 
 namespace {
 
 using namespace wtt::joint;
 
-constexpr int kTN = 8;
-constexpr int kBN = kDim * kTN;  // 128 columns
+template <typename TW, int TM>
+struct Prep : RowTiles<TW, TM> {
+  using R = RowTiles<TW, TM>;
+  using T = typename R::T;
+  static size_t bytes(int Hp, int stages) {
+    return round16(sizeof(T) * R::BM * R::ldh(Hp)) +
+           round16(sizeof(T) * stages * Hp * R::LDW) +
+           round16(sizeof(float) * 2 * R::BM) +             // blank, label logit a row
+           round16(sizeof(float) * 2 * R::WN * R::BM) +     // (max, sum) a warp column and row
+           round16(sizeof(int) * 4 * R::BM);
+  }
+  // Two stages where they fit at the largest H of this TM.
+  static constexpr int kStages =
+      round16(sizeof(T) * R::BM * (R::HMAX + Mma<TW>::kPadH)) +
+                  round16(sizeof(T) * 2 * R::HMAX * R::LDW) + 4096 <= (size_t)232448
+          ? 2 : 1;
+};
 
-// kTM = 4, 2, 1 (tiles of 64, 32, 16 rows) for H <= 256, 512, 1024, so that
-// the h tile stays near 64 KB. Three blocks a multiprocessor fit by shared
-// memory at each of them, so the registers are held to three blocks too (85
-// a thread): left alone, the duration head's and the extra columns' code
-// takes the kTM = 4 kernel to 118, two blocks, and K = 0, D = 0 pays for it.
-template <typename TW, bool kRound, int kTM>
-__global__ void __launch_bounds__(kThreads, 3)
+template <typename TW, int TM>
+__global__ void __launch_bounds__(kThreads)
 joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
                   const TW* __restrict__ W, const float* __restrict__ bias,
                   const int* __restrict__ lab_full, Rows rows, float* __restrict__ lpb,
                   float* __restrict__ lpe, float* __restrict__ denom, float* __restrict__ lpx,
                   const wtt::ExtraCols cols, const float* __restrict__ Wd,
                   const float* __restrict__ bias_d, float* __restrict__ dlog, int D, int H, int V,
-                  int blank) {
-  constexpr int kBM = kDim * kTM;
-  const long long first = (long long)blockIdx.x * kBM;
+                  int blank, bool w_async) {
+  using P = Prep<TW, TM>;
+  using T = typename P::T;
+  constexpr int BM = P::BM, BN = P::BN, NI = P::NI, WM = P::WM, WN = P::WN;
+  constexpr int S = P::kStages;
+  const long long first = (long long)blockIdx.x * BM;
   if (first >= rows.offsets[rows.B]) return;
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  const int ldh = kBM + 1;
-  extern __shared__ float smem[];
-  float* hs = smem;                     // Hp × ldh
-  float* ws = hs + Hp * ldh;            // kBK × (kBN + 1)
-  float* s_bl = ws + kBK * (kBN + 1);   // blank logit per row
-  float* s_le = s_bl + kBM;             // label logit per row
-  int* s_b = reinterpret_cast<int*>(s_le + kBM);
-  int* s_t = s_b + kBM;
-  int* s_u = s_t + kBM;
-  int* s_lab = s_u + kBM;
+  const int Hp = padded_h(H), ldh = P::ldh(Hp);
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  Carve c{tile_smem};
+  T* hs = c.take<T>((size_t)BM * ldh);
+  T* ring = c.take<T>((size_t)S * Hp * P::LDW);
+  float* s_bl = c.take<float>(2 * BM);  // blank logit per row
+  float* s_le = s_bl + BM;              // label logit per row
+  float* s_red = c.take<float>(2 * WN * BM);
+  int* s_b = c.take<int>(4 * BM);
+  int* s_t = s_b + BM;
+  int* s_u = s_t + BM;
+  int* s_lab = s_u + BM;
 
-  const int tid = threadIdx.x, tx = tid % kDim, ty = tid / kDim;
-  place_rows<kBM>(rows, first, s_b, s_t, s_u);
+  const int tid = threadIdx.x, lane = tid % wtt::kWarp, warp = tid / wtt::kWarp;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  const int ntiles = (V + BN - 1) / BN;
+  load_w_tile<BN>(ring, P::LDW, W, H, Hp, V, 0, w_async);
+  cp_async_commit();
+  place_rows<BM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
-  if (tid < kBM) {
+  if (tid < BM) {
     const int b = s_b[tid];
     s_lab[tid] = b >= 0 ? lab_full[(long long)b * rows.U + s_u[tid]] : -1;
     s_bl[tid] = float(wtt::kNeg);
     s_le[tid] = float(wtt::kNeg);
   }
-  fill_h<kBM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp, kRound);
+  fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp);
   if (D > 0) {  // the duration head: a warp a row, the rows dealt round robin
-    const int warp = tid / wtt::kWarp, lane = tid % wtt::kWarp;
-    for (int m = warp; m < kBM; m += kThreads / wtt::kWarp) {
+    for (int m = warp; m < BM; m += kWarps) {
       const int b = s_b[m];
       if (b < 0) break;
       float out[kPanel];
@@ -112,88 +128,101 @@ joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
   }
   __syncthreads();
 
-  int lab[kTM];
-  float run_m[kTM], run_s[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    lab[i] = s_lab[ty + kDim * i];
-    run_m[i] = -FLT_MAX;
-    run_s[i] = 0.f;
-  }
-
-  for (int v0 = 0; v0 < V; v0 += kBN) {
-    float acc[kTM][kTN] = {};
-    for (int k0 = 0; k0 < Hp; k0 += kBK) {
-      load_w_chunk<kBN>(ws, W, H, V, k0, v0);
-      __syncthreads();
-      mma_tile<kTM, kTN>(acc, hs + k0 * ldh, ldh, ws, kBN + 1, kBK, ty, tx);
-      __syncthreads();
+  // This lane's two rows of the warp's 16 (r = 0: row gr, r = 1: gr + 8).
+  const bool active = warp < WM * WN;
+  const int row0 = 16 * wm + gr;
+  const int lab[2] = {s_lab[row0], s_lab[row0 + 8]};
+  float run_m[2] = {-FLT_MAX, -FLT_MAX}, run_s[2] = {0.f, 0.f};
+  for (int it = 0; it < ntiles; ++it) {
+    const int v0 = it * BN;
+    const T* wt = ring + (size_t)(S == 2 ? (it & 1) : 0) * Hp * P::LDW;
+    if (S == 2 && it + 1 < ntiles) {
+      load_w_tile<BN>(ring + (size_t)((it + 1) & 1) * Hp * P::LDW, P::LDW, W, H, Hp, V, v0 + BN,
+                      w_async);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      if (S == 1 && it > 0) {
+        load_w_tile<BN>(ring, P::LDW, W, H, Hp, V, v0, w_async);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
     }
-    float bv[kTN];
+    __syncthreads();
+    if (active) {
+      float acc[1][NI][4] = {};
+      const int n0 = wn * NI * 8;
+      warp_product<TW, 1, NI, false, true>(acc, hs, ldh, 16 * wm, wt, P::LDW, n0, Hp, lane);
+      const bool extras_here = has_extra(cols, v0 + n0, NI * 8);
+      float tile_max[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int v = v0 + tx + kDim * j;
-      bv[j] = v < V ? bias[v] : 0.f;
-    }
-    const bool extras_here = has_extra(cols, v0, kBN);
+      for (int j = 0; j < NI; ++j)
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      float tile_max = -FLT_MAX;
+        for (int q = 0; q < 2; ++q) {
+          const int v = v0 + n0 + 8 * j + 2 * tq + q;
+          const float bv = v < V ? bias[v] : 0.f;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int v = v0 + tx + kDim * j;
-        acc[i][j] += bv[j];
-        if (v < V) {
-          tile_max = fmaxf(tile_max, acc[i][j]);
-          if (v == blank) s_bl[ty + kDim * i] = acc[i][j];
-          if (v == lab[i]) s_le[ty + kDim * i] = acc[i][j];
-          if (extras_here) {
-            const int row = ty + kDim * i, xk = extra_index(cols, v);
-            if (xk >= 0 && s_b[row] >= 0)
-              lpx[(((long long)s_b[row] * rows.T + s_t[row]) * rows.U + s_u[row]) * cols.n + xk] =
-                  acc[i][j];
+          for (int r = 0; r < 2; ++r) {
+            float& x = acc[0][j][2 * r + q];
+            x += bv;
+            if (v < V) {
+              const int m = row0 + 8 * r;
+              tile_max[r] = fmaxf(tile_max[r], x);
+              if (v == blank) s_bl[m] = x;
+              if (v == lab[r]) s_le[m] = x;
+              if (extras_here) {
+                const int xk = extra_index(cols, v);
+                if (xk >= 0 && s_b[m] >= 0)
+                  lpx[(((long long)s_b[m] * rows.T + s_t[m]) * rows.U + s_u[m]) * cols.n + xk] = x;
+              }
+            }
           }
         }
-      }
-      const float m_new = fmaxf(run_m[i], tile_max);
-      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        if (v0 + tx + kDim * j < V) sum += expf(acc[i][j] - m_new);
-      run_s[i] = run_s[i] * expf(run_m[i] - m_new) + sum;
-      run_m[i] = m_new;
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(run_m[r], tile_max[r]);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (v0 + n0 + 8 * j + 2 * tq + q < V) sum += expf(acc[0][j][2 * r + q] - m_new);
+        run_s[r] = run_s[r] * expf(run_m[r] - m_new) + sum;
+        run_m[r] = m_new;
+      }
     }
+    __syncthreads();  // the W tile consumed before its slot is refilled
   }
 
-  __syncthreads();  // s_bl, s_le, lpx written by the threads that met the columns
+  // The four lanes of a quad share a row: combine them, then the WN warps
+  // of a row through shared memory.
+  if (active) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    // The 16 tx lanes of one row sit in one half of a warp.
-    float m = run_m[i];
-    for (int o = kDim / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float s = run_s[i] * expf(run_m[i] - m);
-    for (int o = kDim / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const int row = ty + kDim * i;
-    // Every lane of the row holds m and s; lane 0 writes the three fields,
-    // lane k < K extra column k.
-    if (s_b[row] >= 0 && (tx == 0 || tx < cols.n)) {
-      const long long cell = ((long long)s_b[row] * rows.T + s_t[row]) * rows.U + s_u[row];
-      const float d = -(m + logf(s));
-      if (tx == 0) {
-        denom[cell] = d;
-        lpb[cell] = s_bl[row] + d;
-        lpe[cell] = s_le[row] > float(wtt::kNeg) / 2 ? s_le[row] + d : float(wtt::kNeg);
+    for (int r = 0; r < 2; ++r) {
+      float m = run_m[r];
+      for (int o = 1; o < 4; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      float s = run_s[r] * expf(run_m[r] - m);
+      for (int o = 1; o < 4; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (tq == 0) {
+        s_red[(wn * BM + row0 + 8 * r) * 2] = m;
+        s_red[(wn * BM + row0 + 8 * r) * 2 + 1] = s;
       }
-      if (tx < cols.n) lpx[cell * cols.n + tx] += d;
     }
   }
-}
-
-size_t smem_bytes(int H) {
-  const int kBM = kDim * tile_param(H);
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  return sizeof(float) * ((size_t)Hp * (kBM + 1) + kBK * (kBN + 1) + 2 * kBM) +
-         sizeof(int) * 4 * kBM;
+  __syncthreads();  // s_red, s_bl, s_le and lpx written
+  if (tid < BM && s_b[tid] >= 0) {
+    float m = -FLT_MAX;
+    for (int w = 0; w < WN; ++w) m = fmaxf(m, s_red[(w * BM + tid) * 2]);
+    float s = 0.f;
+    for (int w = 0; w < WN; ++w)
+      s += s_red[(w * BM + tid) * 2 + 1] * expf(s_red[(w * BM + tid) * 2] - m);
+    const long long cell = ((long long)s_b[tid] * rows.T + s_t[tid]) * rows.U + s_u[tid];
+    const float d = -(m + logf(s));
+    denom[cell] = d;
+    lpb[cell] = s_bl[tid] + d;
+    lpe[cell] = s_le[tid] > float(wtt::kNeg) / 2 ? s_le[tid] + d : float(wtt::kNeg);
+    for (int k = 0; k < cols.n; ++k) lpx[cell * cols.n + k] += d;
+  }
 }
 
 // What a launch takes beside the kernel's type parameters.
@@ -211,28 +240,60 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TW, bool kRound, int kTM>
+template <typename TW, int TM>
+size_t smem_bytes_tm(int H) {
+  return Prep<TW, TM>::bytes(padded_h(H), Prep<TW, TM>::kStages);
+}
+
+template <typename TW>
+size_t smem_bytes(int H) {
+  switch (tile_param(H)) {
+    case 4: return smem_bytes_tm<TW, 4>(H);
+    case 2: return smem_bytes_tm<TW, 2>(H);
+    default: return smem_bytes_tm<TW, 1>(H);
+  }
+}
+
+template <typename TW, int TM>
 int launch_tm(const Args& a) {
-  constexpr int kBM = kDim * kTM;
-  auto kernel = joint_prep_kernel<TW, kRound, kTM>;
-  const size_t bytes = smem_bytes(a.H);
+  constexpr int BM = Prep<TW, TM>::BM;
+  auto kernel = joint_prep_kernel<TW, TM>;
+  const size_t bytes = smem_bytes_tm<TW, TM>(a.H);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long cells = (long long)a.rows.B * a.rows.T * a.rows.U;
-  const long long blocks = (cells + kBM - 1) / kBM;
+  const long long blocks = (cells + BM - 1) / BM;
   kernel<<<(unsigned)blocks, kThreads, bytes, a.stream>>>(
       a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.lpb, a.lpe, a.denom,
-      a.lpx, a.cols, a.Wd, a.bias_d, a.dlog, a.D, a.H, a.V, a.blank);
+      a.lpx, a.cols, a.Wd, a.bias_d, a.dlog, a.D, a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V));
   return (int)cudaGetLastError();
 }
 
-template <typename TW, bool kRound>
+template <typename TW>
 int launch(const Args& a) {
   switch (tile_param(a.H)) {
-    case 4: return launch_tm<TW, kRound, 4>(a);
-    case 2: return launch_tm<TW, kRound, 2>(a);
-    default: return launch_tm<TW, kRound, 1>(a);
+    case 4: return launch_tm<TW, 4>(a);
+    case 2: return launch_tm<TW, 2>(a);
+    default: return launch_tm<TW, 1>(a);
+  }
+}
+
+template <typename TW, int TM>
+int attrs_tm(int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_prep_kernel<TW, TM>);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)err;
+}
+
+template <typename TW>
+int attrs(int H, int* regs, int* local_bytes) {
+  switch (tile_param(H)) {
+    case 4: return attrs_tm<TW, 4>(regs, local_bytes);
+    case 2: return attrs_tm<TW, 2>(regs, local_bytes);
+    default: return attrs_tm<TW, 1>(regs, local_bytes);
   }
 }
 
@@ -240,9 +301,24 @@ int launch(const Args& a) {
 
 extern "C" {
 
-// Dynamic shared memory the kernel asks for at this H, for the wrapper's
-// check against the card's limit.
-long long wtt_joint_prep_smem(int H) { return (long long)smem_bytes(H); }
+// Registers a thread and local (spill) bytes of the kernel the wrapper
+// launches at this H and W type, as ptxas compiled it. Returns the
+// cudaError_t of the query.
+int wtt_joint_prep_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
+  if (H < 1 || H > kMaxH) return (int)cudaErrorInvalidValue;
+  switch (w_dtype) {
+    case wtt::kF32: return attrs<float>(H, regs, local_bytes);
+    case wtt::kBF16: return attrs<__nv_bfloat16>(H, regs, local_bytes);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory the kernel asks for at this H and W type (the
+// larger of the two: the wrapper checks it against the card's limit).
+long long wtt_joint_prep_smem(int H) {
+  const size_t f = smem_bytes<float>(H), b = smem_bytes<__nv_bfloat16>(H);
+  return (long long)(f > b ? f : b);
+}
 
 // e: (B,T,H) f32; p: (B,U,H) f32; W: (H,V) f32 (w_dtype 0) or bf16 (2);
 // bias: (V,) f32; lab_full: (B,U) int32, -1 where the row has no label;
@@ -271,8 +347,8 @@ int wtt_joint_prep(const void* e, const void* p, const void* W, int w_dtype, con
          static_cast<cudaStream_t>(stream)};
   if (!wtt::extra_cols(extra_cols, K, V, &a.cols)) return (int)cudaErrorInvalidValue;
   switch (w_dtype) {
-    case wtt::kF32: return launch<float, false>(a);
-    case wtt::kBF16: return launch<__nv_bfloat16, true>(a);
+    case wtt::kF32: return launch<float>(a);
+    case wtt::kBF16: return launch<__nv_bfloat16>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

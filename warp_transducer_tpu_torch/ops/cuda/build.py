@@ -3,9 +3,13 @@
 Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` per source compiles in seconds; all of them start together, and
 their objects are linked into one shared library that ``ctypes`` loads.
-The library goes to ``build/torch_kernels/<hash>/`` at the repository
-root, keyed by a hash of the sources and flags, on the first CUDA call.
-A missing ``nvcc`` or a failed compile raises with the compiler's output.
+The library goes to ``<build root>/<hash>/``, keyed by a hash of the
+sources and flags, on the first CUDA call, and the time of each ``nvcc``
+is printed once. The build root is ``build/torch_kernels/`` of the
+repository for a checkout (the package's parent holds ``pyproject.toml``)
+and the per-user cache (``$XDG_CACHE_HOME`` or ``~/.cache``, then
+``warp_transducer_tpu_torch/torch_kernels``) for an installed copy. A
+missing ``nvcc`` or a failed compile raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -16,11 +20,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libwtt_kernels.so"
@@ -28,6 +33,16 @@ LIB_NAME = "libwtt_kernels.so"
 
 class NvccError(RuntimeError):
     pass
+
+
+def build_root() -> Path:
+    """Where the library is built: the repository's ``build/torch_kernels``
+    for a checkout, else the per-user cache directory (an installed copy's
+    parent is ``site-packages``, no place for build outputs)."""
+    if (_PKG.parent / "pyproject.toml").is_file():
+        return _PKG.parent / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(cache) / "warp_transducer_tpu_torch" / "torch_kernels"
 
 
 def _nvcc() -> str:
@@ -58,22 +73,34 @@ def _digest() -> str:
 
 
 def _run_parallel(commands):
-    """Start every command at once; raise with the output of any failure."""
+    """Start every command at once; raise with the output of any failure.
+    Returns each command's wall time in seconds, from the common start to
+    its end (a thread a command drains its output as it comes)."""
+    started = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in commands]
-    failed = []
-    for cmd, proc in zip(commands, procs):
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"$ {' '.join(cmd)}\n{out}")
+    outs, seconds = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()[0]
+        seconds[i] = time.perf_counter() - started
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    failed = [f"$ {' '.join(cmd)}\n{out}" for cmd, proc, out in zip(commands, procs, outs)
+              if proc.returncode != 0]
     if failed:
         raise NvccError("nvcc failed:\n" + "\n".join(failed))
+    return seconds
 
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library, unless a library of
     the same sources is already built; return its path."""
-    out_dir = BUILD_ROOT / _digest()
+    out_dir = build_root() / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -82,12 +109,16 @@ def build() -> Path:
     cus, _ = _sources()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / (cu.stem + ".o") for cu in cus]
-        _run_parallel([
+        seconds = _run_parallel([
             [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
             for cu, obj in zip(cus, objs)
         ])
         staged = Path(tmp) / LIB_NAME
-        _run_parallel([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(staged)]])
+        (link,) = _run_parallel([[nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o",
+                                  str(staged)]])
+        print("nvcc seconds (all started together): "
+              + ", ".join(f"{cu.name} {t:.2f}" for cu, t in zip(cus, seconds))
+              + f"; link {link:.2f}", flush=True)
         os.replace(staged, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
@@ -110,8 +141,9 @@ def library() -> ctypes.CDLL:
     # lpb, lpe, denom; lpx, its columns, K; Wd, bias_d, dlog, D
     lib.wtt_joint_prep.argtypes = joint + [p, p, p, p, p, i, p, p, p, i] + dims
     fields = [p, p, p, p, p, p, i]  # denom, coef, cb, ce; cx, its columns, K
-    lib.wtt_joint_grad_rows.argtypes = joint + fields + [p, p, i, p, p] + dims
-    lib.wtt_joint_grad_cols.argtypes = joint + fields + [p, p, p, p, i] + dims
+    chunk = [ll, ll, p]  # the rows row_begin .. row_end - 1, their h buffer
+    lib.wtt_joint_grad_rows.argtypes = joint + fields + [p, p, i, p, p] + chunk + dims
+    lib.wtt_joint_grad_cols.argtypes = joint[2:] + fields + [p, p, p, p, i] + chunk + [i] + dims
     lib.wtt_joint_grad_dwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -126,7 +158,15 @@ def library() -> ctypes.CDLL:
     lib.wtt_joint_max_h.restype = i
     lib.wtt_joint_grad_stripe.argtypes = [i]
     lib.wtt_joint_grad_stripe.restype = i
-    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_smem, lib.wtt_dur_head_smem):
+    lib.wtt_joint_grad_cols_occupancy.argtypes = [i, i]
+    lib.wtt_joint_grad_cols_occupancy.restype = i
+    ip = ctypes.POINTER(ctypes.c_int)
+    for fn in (lib.wtt_joint_prep_attrs, lib.wtt_joint_grad_rows_attrs,
+               lib.wtt_joint_grad_cols_attrs):
+        fn.argtypes = [i, i, ip, ip]
+        fn.restype = i
+    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem,
+               lib.wtt_dur_head_smem):
         fn.argtypes = [i]
         fn.restype = ll
     lib.wtt_error_string.argtypes = [i]

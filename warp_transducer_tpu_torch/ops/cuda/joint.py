@@ -1,5 +1,6 @@
 """Wrappers of the fused joint kernels: ``csrc/joint_prep.cu``,
-``csrc/joint_grad.cu`` and ``csrc/dur_head.cu``. They stand for the JAX
+``csrc/joint_grad.cu`` with ``csrc/joint_grad_cols.cu``, and
+``csrc/dur_head.cu``. They stand for the JAX
 package's ``pallas/joint_fused.py``: ``fused_prep`` for its ``fused_prep``,
 ``fused_prep_mb`` (``extra_cols``) and ``fused_prep_tdt`` (``dur_head``);
 ``fused_grad`` for ``fused_grad``, ``fused_grad_mb`` (``extra``) and
@@ -27,10 +28,13 @@ from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
 
 _F32 = (torch.float32,)
 _IN = (torch.float32, torch.bfloat16)
-# The column kernel's row splits: about three blocks a multiprocessor.
-_BLOCKS_PER_SM = 3
 # The duration-head gradient's row splits: two blocks a multiprocessor.
 _DUR_BLOCKS_PER_SM = 2
+# The fused gradient's chunk of rows: the buffer of their h (joint_grad.cu's
+# row kernel writes it, the column kernel reads it) takes at most this, and
+# H is padded to a multiple of _H_ALIGN in it (csrc/joint.cuh, kHAlign).
+_H_CHUNK_MB = 32
+_H_ALIGN = 128
 
 
 def _rows(e, p, input_lengths, label_lengths):
@@ -49,20 +53,21 @@ def _rows(e, p, input_lengths, label_lengths):
     return offsets, label_lengths.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def _check_h(H, smem_entry):
-    """Raise unless the kernels' tiling covers this H; ``smem_entry`` names
-    the C entry that gives the kernel's shared memory at this H."""
+def _check_h(H, smem_entries):
+    """Raise unless the kernels' tiling covers this H; ``smem_entries``
+    name the C entries that give the kernels' shared memory at this H
+    (their h, W and g tiles)."""
     max_h = lib().wtt_joint_max_h()
     if H > max_h:
-        raise ValueError(f"H={H} exceeds the fused joint kernels' limit of {max_h}: a thread "
+        raise ValueError(f"H={H} exceeds the fused joint kernels' limit of {max_h}: a lane "
                          "keeps 64 accumulators of an H-wide result in registers")
-    need = getattr(lib(), smem_entry)(H)
+    need = max(getattr(lib(), entry)(H) for entry in smem_entries)
     if need > SMEM_BYTES:
-        raise ValueError(f"H={H} needs {need} bytes of shared memory for the h tile; a block "
-                         f"may use {SMEM_BYTES} (227 KB)")
+        raise ValueError(f"H={H} needs {need} bytes of shared memory for the kernel's tiles; a "
+                         f"block may use {SMEM_BYTES} (227 KB)")
 
 
-def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_entry):
+def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_entries):
     """Check what the kernels take and bring it to their types: (e32, p32,
     W, bias32, lab_full, offsets, label_lengths32)."""
     dev = e.device
@@ -77,7 +82,7 @@ def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_ent
                          f"W {tuple(W.shape)}, bias {tuple(bias.shape)}")
     if not 0 <= blank < V:
         raise ValueError(f"blank {blank} is outside [0, V={V})")
-    _check_h(H, smem_entry)
+    _check_h(H, smem_entries)
     offsets, ll = _rows(e, p, input_lengths, label_lengths)
     lab = _plain.lab_full(labels.to(dev), U)
     return e.float(), p.float(), W, bias.float(), lab, offsets, ll
@@ -105,7 +110,7 @@ def _dur_inputs(e, p, Wd, other, what, per_cell):
     B, T, H = e.shape
     if p.shape[0] != B or p.shape[2] != H:
         raise ValueError(f"shapes disagree: e {tuple(e.shape)}, p {tuple(p.shape)}")
-    _check_h(H, "wtt_dur_head_smem")
+    _check_h(H, ("wtt_dur_head_smem",))
     shape = (B, T, p.shape[1]) if per_cell else ()
     return (e.float(), p.float()) + _dur_head(dev, H, Wd, other, what, shape)
 
@@ -128,7 +133,7 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
                                  extra_cols, dur_head)
     dev = e.device
     e32, p32, W, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
-                                                 label_lengths, blank, "wtt_joint_prep_smem")
+                                                 label_lengths, blank, ("wtt_joint_prep_smem",))
     B, T, H = e.shape
     U, V = p.shape[1], W.shape[1]
     cols = _prep.check_extra_cols(extra_cols, V)
@@ -161,19 +166,30 @@ def _dur_splits(B, T, U, H, dev):
     return max(1, min(_DUR_BLOCKS_PER_SM * sms, tiles))
 
 
+def _chunk_rows(Hp, W, tile):
+    """Rows of one chunk of the gradient: the row kernel writes their h to a
+    buffer of at most ``_H_CHUNK_MB`` that the column kernel reads; a whole
+    number of row tiles."""
+    rows = (_H_CHUNK_MB << 20) // (Hp * W.element_size())
+    return max(tile, rows // tile * tile)
+
+
 def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
                fields: _gradients.Coefficients, blank: int, extra=None, dur_head=None):
-    """``fused_joint.fused_grad`` on the card: the row kernel (de, dp; the
-    duration head's cotangent joins dh there) and the column kernel (dW,
-    db), and with a duration head a third for dWd: two or three launches
-    counted under ``joint_grad``. On a CPU tensor this is the plain
-    version."""
+    """``fused_joint.fused_grad`` on the card, a chunk of the B·T·U cells at
+    a time: the row kernel (de, dp, the duration head's cotangent joining
+    dh there; it also writes the chunk's h) and the column kernel (dW, db,
+    from that h), each counted under ``joint_grad`` at every launch, and
+    with a duration head one more for dWd. On a CPU tensor this is the
+    plain version."""
     if e.device.type != "cuda":
         return _plain.fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
                                  fields, blank, extra, dur_head)
     dev = e.device
     e32, p32, W, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
-                                                 label_lengths, blank, "wtt_joint_grad_smem")
+                                                 label_lengths, blank,
+                                                 ("wtt_joint_grad_rows_smem",
+                                                  "wtt_joint_grad_cols_smem"))
     B, T, H = e.shape
     U, V = p.shape[1], W.shape[1]
     for name, t in (("denom", denom),) + tuple(zip(fields._fields, fields)):
@@ -199,24 +215,34 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
     db = torch.empty((V,), dtype=torch.float32, device=dev)
     stripe = lib().wtt_joint_grad_stripe(H)
     stripes = -(-V // stripe)
-    tiles = -(-(B * T * U) // stripe)  # row tiles are as tall as a stripe is wide
+    cells = B * T * U
+    Hp = -(-H // _H_ALIGN) * _H_ALIGN
+    chunk = min(_chunk_rows(Hp, W, stripe), -(-cells // stripe) * stripe)
+    tiles = chunk // stripe  # row tiles are as tall as a stripe is wide
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(_BLOCKS_PER_SM * sms // stripes, tiles))
+    # One wave of the column kernel: as many row splits as its resident
+    # blocks leave room for beside the stripes.
+    per_sm = max(1, lib().wtt_joint_grad_cols_occupancy(H, DTYPE_CODES[W.dtype]))
+    nsplit = max(1, min(per_sm * sms // stripes, tiles))
     dW_part = torch.empty((nsplit, H, V), dtype=torch.float32, device=dev) if nsplit > 1 else dW
     db_part = torch.empty((nsplit, V), dtype=torch.float32, device=dev) if nsplit > 1 else db
-    common = (e32.data_ptr(), p32.data_ptr(), W.data_ptr(), DTYPE_CODES[W.dtype], b32.data_ptr(),
-              lab.data_ptr(), offsets.data_ptr(), ll.data_ptr(), denom.data_ptr(),
-              fields.coef.data_ptr(), fields.cb.data_ptr(), fields.ce.data_ptr(), _ptr(cX),
-              _host_cols(cols), K)
+    h_chunk = torch.empty((chunk, Hp), dtype=W.dtype, device=dev)
+    inputs = (W.data_ptr(), DTYPE_CODES[W.dtype], b32.data_ptr(), lab.data_ptr(),
+              offsets.data_ptr(), ll.data_ptr(), denom.data_ptr(), fields.coef.data_ptr(),
+              fields.cb.data_ptr(), fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K)
     dims = (B, T, U, H, V, int(blank), stream(dev))
     out = ()
     with torch.cuda.device(dev):
-        err = lib().wtt_joint_grad_rows(*common, _ptr(Wd32), _ptr(gd), D, de.data_ptr(),
-                                        dp.data_ptr(), *dims)
-        check(err, "joint_grad")
-        err = lib().wtt_joint_grad_cols(*common, dW.data_ptr(), db.data_ptr(), dW_part.data_ptr(),
-                                        db_part.data_ptr(), nsplit, *dims)
-        check(err, "joint_grad")
+        for r0 in range(0, cells, chunk):
+            window = (r0, r0 + chunk, h_chunk.data_ptr())
+            err = lib().wtt_joint_grad_rows(e32.data_ptr(), p32.data_ptr(), *inputs, _ptr(Wd32),
+                                            _ptr(gd), D, de.data_ptr(), dp.data_ptr(), *window,
+                                            *dims)
+            check(err, "joint_grad")
+            err = lib().wtt_joint_grad_cols(*inputs, dW.data_ptr(), db.data_ptr(),
+                                            dW_part.data_ptr(), db_part.data_ptr(), nsplit,
+                                            *window, int(r0 > 0), *dims)
+            check(err, "joint_grad")
         if dur_head is not None:
             nd = _dur_splits(B, T, U, H, dev)
             dWd = torch.empty((H, D), dtype=torch.float32, device=dev)
@@ -271,3 +297,20 @@ def dur_head_grad(e, p, Wd, g_dur, input_lengths=None, label_lengths=None):
                                       dWd_part.data_ptr(), nd, B, T, U, H, D, stream(dev))
     check(err, "dur_head")
     return de.to(e.dtype), dp.to(p.dtype), dWd.to(Wd.dtype)
+
+
+def kernel_registers(H: int, dtype: torch.dtype) -> dict:
+    """{kernel: (registers a thread, local bytes a thread)} of the prep, row
+    and column kernels launched at this H with W of ``dtype``, as ptxas
+    compiled them (``cudaFuncGetAttributes``); for the measurement scripts."""
+    code = DTYPE_CODES[dtype]
+    out = {}
+    for name, entry in (("joint_prep_kernel", "wtt_joint_prep_attrs"),
+                        ("joint_grad_rows_kernel", "wtt_joint_grad_rows_attrs"),
+                        ("joint_grad_cols_kernel", "wtt_joint_grad_cols_attrs")):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        err = getattr(lib(), entry)(H, code, ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"{name}: cudaFuncGetAttributes failed: cudaError {err}")
+        out[name] = (regs.value, local.value)
+    return out

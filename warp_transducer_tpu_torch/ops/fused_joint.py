@@ -32,15 +32,17 @@ plain versions of ``csrc/dur_head.cu``.
 Types, as the JAX package: the products take bf16 inputs when ``W`` is
 bf16 (h, and g after its subtractions, are rounded to bf16) and f32 inputs
 otherwise; e, p, bias and every reduction are f32, the products accumulate
-in f32, and de, dp, dW, db come back in the types of e, p, W, bias. f32
-products are full f32: PyTorch's default keeps TF32 off for ``matmul``
-(``torch.backends.cuda.matmul.allow_tf32`` is False), and nothing here
-turns it on.
+in f32, and de, dp, dW, db come back in the types of e, p, W, bias. Every
+product here is IEEE f32 (``_mm``, ``utils.options.matmul_precision`` at
+"highest"), whatever the caller has set globally: a script that calls
+``torch.set_float32_matmul_precision("high")`` still gets the plain
+stages the kernels are held against.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils.options import matmul_precision
 from . import gradients as _gradients
 from . import prep as _prep
 from .prep import NEG
@@ -60,6 +62,36 @@ def lab_full(labels: torch.Tensor, U: int) -> torch.Tensor:
     return torch.nn.functional.pad(lab, (0, 1), value=-1).contiguous()
 
 
+def _mm(a, b):
+    """``torch.matmul(a, b)`` in IEEE f32, whatever the global TF32 switch."""
+    with matmul_precision("highest"):
+        return torch.matmul(a, b)
+
+
+class _ExactMatmul(torch.autograd.Function):
+    """x (..., H) @ W (H, V) in IEEE f32, forward and backward: autograd's own
+    backward of ``torch.matmul`` would run under whatever switch holds when
+    the caller calls ``backward``."""
+
+    @staticmethod
+    def forward(ctx, x, W):
+        ctx.save_for_backward(x, W)
+        return _mm(x, W)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, W = ctx.saved_tensors
+        dx = _mm(g, W.t()) if ctx.needs_input_grad[0] else None
+        dW = (_mm(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+              if ctx.needs_input_grad[1] else None)
+        return dx, dW
+
+
+def exact_matmul(x, W):
+    """Differentiable x (..., H) @ W (H, V) in IEEE f32."""
+    return _ExactMatmul.apply(x, W)
+
+
 def _mm_dtype(W):
     return torch.bfloat16 if W.dtype == torch.bfloat16 else torch.float32
 
@@ -76,7 +108,7 @@ def _chunk_logits(e_c, p32, W32, bias32, mm):
     logits (B, Tc, U, V), all f32."""
     h = torch.tanh(e_c.float()[:, :, None, :] + p32[:, None, :, :])
     hm = _rounded(h, mm)
-    return h, hm, torch.matmul(hm, W32) + bias32
+    return h, hm, _mm(hm, W32) + bias32
 
 
 def _label_index(lab, V):
@@ -116,14 +148,14 @@ def _contract(g, h, hm, W32, mm, Wd32=None, g_dur=None):
     head, g_dur·Wdᵀ joins g·Wᵀ before the (1 − h²), and the chunk's share of
     dWd = hᵀ·g_dur comes back too (else None), both with the unrounded h."""
     gm = _rounded(g, mm)
-    dh = torch.matmul(gm, W32.t())
+    dh = _mm(gm, W32.t())
     H, V = W32.shape
     dWd = None
     if Wd32 is not None:
-        dh = dh + torch.matmul(g_dur, Wd32.t())
-        dWd = torch.matmul(h.reshape(-1, H).t(), g_dur.reshape(-1, Wd32.shape[1]))
+        dh = dh + _mm(g_dur, Wd32.t())
+        dWd = _mm(h.reshape(-1, H).t(), g_dur.reshape(-1, Wd32.shape[1]))
     d = dh * (1.0 - h * h)
-    return d, torch.matmul(hm.reshape(-1, H).t(), gm.reshape(-1, V)), g.sum(dim=(0, 1, 2)), dWd
+    return d, _mm(hm.reshape(-1, H).t(), gm.reshape(-1, V)), g.sum(dim=(0, 1, 2)), dWd
 
 
 def _check_dur_head(Wd, other, H, what):
@@ -170,7 +202,7 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
         if cols:
             lpX[:, sl] = logits[..., cols] + denom[:, sl, :, None]
         if dlog is not None:
-            dlog[:, sl] = torch.matmul(h, Wd32) + bias_d32
+            dlog[:, sl] = _mm(h, Wd32) + bias_d32
     valid = _gradients._valid_cells((B, T, U), input_lengths, label_lengths, e.device)
     return _prep.PreparedInputs(
         lpb=torch.where(valid, lpb, NEG), lpe=torch.where(valid, lpe, NEG),
@@ -250,7 +282,7 @@ def dur_head_prep(e, p, Wd, bias_d, input_lengths=None, label_lengths=None):
     for t0 in range(0, T, Tc):
         sl = slice(t0, t0 + Tc)
         h = torch.tanh(e[:, sl].float()[:, :, None, :] + p32[:, None, :, :])
-        dlog[:, sl] = torch.matmul(h, Wd32) + bias_d32
+        dlog[:, sl] = _mm(h, Wd32) + bias_d32
     if input_lengths is None:
         return dlog
     valid = _gradients._valid_cells((B, T, U), input_lengths, label_lengths, e.device)
@@ -273,10 +305,10 @@ def dur_head_grad(e, p, Wd, g_dur, input_lengths=None, label_lengths=None):
     for t0 in range(0, T, Tc):
         sl = slice(t0, t0 + Tc)
         h = torch.tanh(e[:, sl].float()[:, :, None, :] + p32[:, None, :, :])
-        d = torch.matmul(g32[:, sl], Wd32.t()) * (1.0 - h * h)
+        d = _mm(g32[:, sl], Wd32.t()) * (1.0 - h * h)
         de[:, sl] = d.sum(dim=2)
         dp += d.sum(dim=1)
-        dWd += torch.matmul(h.reshape(-1, H).t(), g32[:, sl].reshape(-1, Wd32.shape[1]))
+        dWd += _mm(h.reshape(-1, H).t(), g32[:, sl].reshape(-1, Wd32.shape[1]))
     return de.to(e.dtype), dp.to(p.dtype), dWd.to(Wd.dtype)
 
 

@@ -22,7 +22,8 @@ a time:
 
 Counterpart of ``warp_transducer_tpu/ops/pruned_fused.py``, where the two
 sweeps are XLA chunk loops outside any Pallas kernel; here they are torch
-loops with ``torch.matmul`` on every device. Below a working-set threshold
+loops of IEEE-f32 ``torch.matmul`` on every device (``fused_joint._mm``,
+whatever the global TF32 switch). Below a working-set threshold
 the banded joint is simply formed and handed to ``rnnt_loss_pruned`` (the
 band prep and gradient kernels), which is the faster route when it fits.
 Types as ``ops/fused_joint.py``.
@@ -34,8 +35,8 @@ import torch
 from . import band as _band
 from . import fused_joint as _fused
 from . import prep as _prep
-from .fused_joint import (_check_joint_inputs, _contract, _label_index, _mm_dtype, _rounded,
-                          _row_fields, _row_grads)
+from .fused_joint import (_check_joint_inputs, _contract, _label_index, _mm, _mm_dtype, _rounded,
+                          _row_fields, _row_grads, exact_matmul)
 from .pruned import gather_banded, rnnt_loss_pruned
 from .rnnt import _engine, _on_device, _reduce
 from .simple import _check_lengths
@@ -65,7 +66,7 @@ def _chunk(e, p32, W32, bias32, ranges, t0, t1, S, mm):
     p_band = p32.reshape(B * U, H).index_select(0, flat).reshape(B, t1 - t0, S, H)
     h = torch.tanh(e[:, t0:t1].float()[:, :, None, :] + p_band)
     hm = _rounded(h, mm)
-    return flat, h, hm, torch.matmul(hm, W32) + bias32
+    return flat, h, hm, _mm(hm, W32) + bias32
 
 
 def _sweep_prep(e, p, W, bias, ranges, lab_row, blank) -> _band.BandPrep:
@@ -193,7 +194,7 @@ def rnnt_loss_pruned_fused(e, p, W, bias, ranges, labels, input_lengths, label_l
         # the band prep and gradient kernels; the same objective by this
         # function's defining identity.
         p_band = gather_banded(p.float(), ranges, S)
-        acts = torch.matmul(torch.tanh(e.float()[:, :, None, :] + p_band), W.float()) \
+        acts = exact_matmul(torch.tanh(e.float()[:, :, None, :] + p_band), W.float()) \
             + bias.float()
         return rnnt_loss_pruned(acts, ranges, labels, input_lengths, label_lengths, blank=blank,
                                 reduction=reduction, implementation=implementation,

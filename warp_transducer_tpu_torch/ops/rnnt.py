@@ -320,6 +320,11 @@ class RNNTLoss(torch.nn.Module):
                                   implementation=implementation,
                                   fastemit_lambda=fastemit_lambda)
         self.options = options
+        # The JAX class's attributes, read from the options as it reads them.
+        self.blank = options.blank
+        self.reduction = options.reduction
+        self.log_probs_input = options.log_probs_input
+        self.implementation = options.implementation
 
     def forward(self, acts, labels, input_lengths, label_lengths):
         return rnnt_loss(acts, labels, input_lengths, label_lengths, options=self.options)

@@ -24,11 +24,11 @@ for every input type.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 
+from ..utils.options import PRECISIONS, matmul_precision
 from . import band as _band
 from . import gradients as _gradients
 from . import prep as _prep
@@ -37,22 +37,6 @@ from .rnnt import _engine, _on_device, _reduce
 # Floor of the normaliser product: it underflows only when am and lm rows
 # are both peaked (> ~85 nats of range) on different labels.
 _S_FLOOR = 1e-30
-PRECISIONS = ("highest", "default")
-
-
-@contextlib.contextmanager
-def matmul_precision(precision: str):
-    """``"highest"``: IEEE f32 products; ``"default"``: TF32 allowed on the
-    card (no effect on the CPU). The flag is restored on exit."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    flags = torch.backends.cuda.matmul
-    old = flags.allow_tf32
-    flags.allow_tf32 = precision == "default"
-    try:
-        yield
-    finally:
-        flags.allow_tf32 = old
 
 
 class FactorisedInputs(NamedTuple):

@@ -8,7 +8,54 @@ configuration: blank index, gradient convention, reduction, implementation.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+
+import torch
+
+PRECISIONS = ("highest", "default")
+
+
+def _precision_switches(precision: str):
+    """(backend flags, value) pairs that ``precision`` sets: the CUDA
+    matmul's to "ieee" or "tf32"; at "highest" also oneDNN's (the CPU's
+    matmul), which ``torch.set_float32_matmul_precision`` moves too."""
+    backends = torch.backends
+    if precision == "highest":
+        return [(backends.cuda.matmul, "ieee")] + (
+            [(backends.mkldnn.matmul, "ieee")] if hasattr(backends.mkldnn, "matmul") else [])
+    return [(backends.cuda.matmul, "tf32")]
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """The precision of the f32 matrix products inside the block:
+    ``"highest"`` IEEE f32, ``"default"`` TF32 allowed on the card (no effect
+    on the CPU), whatever the caller has set globally
+    (``torch.set_float32_matmul_precision``, ``fp32_precision``). Uses
+    ``fp32_precision`` where this PyTorch has it and the legacy
+    ``allow_tf32`` otherwise (reading the legacy flag after the new one was
+    set raises); on exit every switch holds what it held before."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    cuda = torch.backends.cuda.matmul
+    if not hasattr(cuda, "fp32_precision"):
+        old = cuda.allow_tf32
+        cuda.allow_tf32 = precision == "default"
+        try:
+            yield
+        finally:
+            cuda.allow_tf32 = old
+        return
+    switches = _precision_switches(precision)
+    olds = [flags.fp32_precision for flags, _ in switches]
+    try:
+        for flags, value in switches:
+            flags.fp32_precision = value
+        yield
+    finally:
+        for (flags, _), old in zip(switches, olds):
+            flags.fp32_precision = old
 
 
 @dataclasses.dataclass(frozen=True)
