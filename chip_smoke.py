@@ -7,7 +7,10 @@ Builds the CUDA kernels of warp_transducer_tpu_torch/csrc from this
 checkout, holds each kernel against its plain PyTorch version on the card,
 drives the main paths with every launch counter read — the dense loss
 (``rnnt_loss(...).backward()`` and ``rnnt_loss_and_grad``) at the
-reference's published shapes, the pruned step (``rnnt_loss_simple``
+reference's published shapes, its gradient in the lattice mode of
+csrc/grad.cu with ``gradients.coefficients`` shown not to run, the same step
+timed and profiled without that fold (the coefficient passes, then the
+fields mode) beside it, the pruned step (``rnnt_loss_simple``
 with ``prune_range`` → ``gather_banded`` → ``rnnt_loss_pruned``, backward
 through both) at the JAX package's two published pruned shapes, the fused
 joint+loss step (``Joint.fused_loss`` forward and backward, weights loaded
@@ -30,7 +33,8 @@ and the unfused steps, and prints:
 
   card line, build line, one line per comparison, per shape, per timing;
   the card's name and power limit as nvidia-smi gives them;
-  {"kernels": [...]} — one entry per kernel (eleven);
+  {"kernels": [...]} — one entry per kernel (twelve; grad.cu's two modes
+  apart);
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}} last.
 
 Every check raises, so any failure ends the run with a non-zero exit and
@@ -122,17 +126,21 @@ def time_ms(fn, iters, warmup=2):
 
 
 # Kernel names of csrc/*.cu as the profiler shows them.
-PORT_KERNELS = ("prep_kernel", "wavefront_kernel", "grad_kernel", "band_prep_kernel",
-                "band_kernel", "band_grad_kernel", "band_starts_kernel", "joint_prep_kernel",
+PORT_KERNELS = ("prep_kernel", "wavefront_kernel", "grad_lattice_tile_kernel",
+                "grad_lattice_warp_kernel", "grad_fields_tile_kernel", "grad_fields_warp_kernel",
+                "band_prep_kernel", "band_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
+                "band_starts_kernel", "joint_prep_kernel",
                 "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "window_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
     """Device time by kernel over a few calls (torch.profiler), the share of
-    it in the port's own kernels, and the device's idle share:
-    1 - busy / ``event_ms``, the CUDA-event time of one call taken without
-    the profiler (whose own cost inflates wall)."""
+    it in the port's own kernels, the device kernels a call launches, and the
+    device's idle share: 1 - busy / ``event_ms``, the CUDA-event time of one
+    call taken without the profiler (whose own cost inflates wall). Returns
+    (busy ms, idle share, kernels a call), or None where the profiler
+    recorded no device time."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -144,17 +152,18 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
         wall_ms = (time.perf_counter() - started) * 1e3 / iters
     # Kernel rows only: an aten op's row repeats the time of the kernels
     # it launched.
-    rows = sorted(((e.self_device_time_total / 1e3 / iters, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = sorted(((e.self_device_time_total / 1e3 / iters, e.key) for e in device), reverse=True)
     if not rows:
         print(f"profile {tag}: the profiler recorded no device time (not measured)")
-        return
+        return None
     busy = sum(r[0] for r in rows)
+    idle = max(0.0, 1 - busy / event_ms)
+    n_kernels = sum(e.count for e in device) / iters
     print(f"profile {tag}: device busy {busy:.4f} ms/call of {event_ms:.4f} ms "
-          f"(idle share {max(0.0, 1 - busy / event_ms):.3f}); wall under the profiler "
-          f"{wall_ms:.4f} ms/call")
+          f"(idle share {idle:.3f}); {n_kernels:g} device kernels a call; wall under the "
+          f"profiler {wall_ms:.4f} ms/call")
     # A kernel's own name: the first identifier that a '<' or '(' follows
     # ("void (anonymous namespace)::prep_kernel<float, float>(float const*, …").
     port = sum(ms for ms, key in rows
@@ -163,6 +172,7 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
           f"{busy - port:.4f} ms/call in {len(rows)} kinds")
     for ms, key in rows[:top]:
         print(f"profile {tag}:   {ms:.4f} ms  {key[:90]}")
+    return busy, idle, n_kernels
 
 
 def kernel_ms(fn, iters=3):
@@ -181,6 +191,22 @@ def kernel_ms(fn, iters=3):
             if m and m.group(1) in PORT_KERNELS:
                 out[m.group(1)] = out.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / iters
     return out
+
+
+def device_ms(fn, iters=5):
+    """Device time of one call of ``fn``, all its kernels summed, from
+    torch.profiler (CUDA events time the host's launches as well where they
+    take longer than the kernels); None where the profiler records none."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / iters if total > 0 else None
 
 
 def bound(bytes_moved, ops, ops_rate):
@@ -969,7 +995,7 @@ def duration_kernels_vs_plain(dev, errs):
         g_p = gradients.dense_grad(*args, extra_cols=cols, extra_fields=extra)
         e = compare(f"grad K=2 {tag} {dtype}", g_k, g_p, grad_tol(g_p, "f32" if f32 else "bf16_out"))
         if f32:
-            errs["grad"] = max(errs["grad"], e)
+            errs["grad_fields"] = max(errs["grad_fields"], e)
         return p, torch.log_softmax(dur.float(), -1), il, ll
 
     def lattice_case(name, arcs, lpb, lpe, extra, il, ll, chain_weight, want=None):
@@ -1047,7 +1073,7 @@ def duration_main_path(dev, totals):
             torch.cuda.synchronize()
             counts = dict(K.launches)
             print(f"main path {loss} {tag} B={B} T={T} L={L} V={V}: launches {counts}")
-            for k in ("prep", "window_stream", "grad"):
+            for k in ("prep", "window_stream", "grad_fields"):
                 fail_unless(counts[k] > 0, f"{k} kernel was not launched on the {loss} path ({tag})")
             fail_unless(counts["wavefront"] == 0, f"the {loss} path ran the dense lattice ({tag})")
             for k, n in counts.items():
@@ -1084,7 +1110,7 @@ def duration_timings(problems):
     from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
     from warp_transducer_tpu_torch.ops.cuda import prep as kprep
     from warp_transducer_tpu_torch.ops.cuda import window as kwindow
-    out, step_ms = {"window_stream": {}, "prep": {}, "grad": {}}, {}
+    out, step_ms = {"window_stream": {}, "prep": {}, "grad_fields": {}}, {}
     for tag, B, T, L, V in DURATION_SHAPES:
         acts, dur, labels, il, ll = problems[tag]
         U = L + 1
@@ -1130,7 +1156,7 @@ def duration_timings(problems):
                                                      MB_DURATIONS, il, ll)
             fields, extra_f = gradients.Coefficients(coef, cb, ce), torch.stack(cBs, dim=-1)
             g_args = (a, p.denom, fields, prep.label_rows(labels, U), il, ll, 0, a.dtype)
-            out["grad"][f"{tag}_k2"] = dict(
+            out["grad_fields"][f"multiblank_{tag}_k2"] = dict(
                 ms=time_ms(lambda: kgrad.dense_grad(*g_args, extra_cols=cols, extra_fields=extra_f),
                            iters),
                 plain_ms=time_ms(lambda: gradients.dense_grad(*g_args, extra_cols=cols,
@@ -1492,17 +1518,22 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                 launch_ms=kernel_ms(lambda: kjoint.fused_grad(*g_args, fields, 0, **gkw)))
         if f32:
             ep_bytes = (e.numel() + p.numel()) * 4
+            # Event times and the profiler's device times (the kernels alone,
+            # without the host's launch work) of the kernel and the library.
+            prep_k = lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll)  # noqa: E731
+            prep_lib = lambda: torch.matmul(h32, Wd)  # noqa: E731
+            grad_k = lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll)  # noqa: E731
+            grad_lib = lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2))  # noqa: E731
             out["dur_head"][f"{tag}_prep"] = dict(
-                ms=time_ms(lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll), 10),
+                ms=time_ms(prep_k, 10), device_ms=device_ms(prep_k),
                 plain_ms=time_ms(lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), 2, 1),
-                library_ms=time_ms(lambda: torch.matmul(h32, Wd), 10),
+                library_ms=time_ms(prep_lib, 10), library_device_ms=device_ms(prep_lib),
                 bound=bound(ep_bytes + head_bytes + rows * D * 4 + 2 * B * 4, 2 * rows * H * D,
                             F32_OPS_PER_S))
             out["dur_head"][f"{tag}_grad"] = dict(
-                ms=time_ms(lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll), 10),
+                ms=time_ms(grad_k, 10), device_ms=device_ms(grad_k),
                 plain_ms=time_ms(lambda: fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll), 2, 1),
-                library_ms=time_ms(lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2)),
-                                   10),
+                library_ms=time_ms(grad_lib, 10), library_device_ms=device_ms(grad_lib),
                 bound=bound(2 * ep_bytes + 2 * Wd.numel() * 4 + rows * D * 4 + 2 * B * 4,
                             4 * rows * H * D, F32_OPS_PER_S))
         print(f"time {tag} {suffix}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
@@ -1516,7 +1547,9 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                       f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library "
                       f"{v['library_ms']:.4f} ms"
                       + (f" | device ms a launch {v['launch_ms'] or 'not measured'}"
-                         if "launch_ms" in v else ""))
+                         if "launch_ms" in v else "")
+                      + (f" | device ms {v['device_ms']}, library device ms "
+                         f"{v['library_device_ms']} (profiler)" if "device_ms" in v else ""))
         del h32, h, g, gd2, denom, mb_fields, cX, td_fields, g_dur, problem, args, g_args, cases
         torch.cuda.empty_cache()
     return out, steps, routes
@@ -1580,22 +1613,46 @@ def main():
                     errs["wavefront"] = max(errs["wavefront"], e)
         if dtype == torch.float64:
             return
-        fields = gradients.coefficients(p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
         labels_u = prep.label_rows(labels, L + 1)
-        g_k = kgrad.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0, dtype)
-        torch.cuda.synchronize()
-        g_p = gradients.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0, dtype)
         tol_key = "f32" if dtype == torch.float32 else "bf16_out"
-        e = compare(f"grad {tag} {dtype}", g_k, g_p, grad_tol(g_p, tol_key))
+        # The lattice mode, with a cotangent scale and FastEmit, as the
+        # backward calls it; dense, and sparse on the same lattice.
+        scale = torch.linspace(0.5, 1.5, B, device=dev)
+        lat = (p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, labels_u, il, ll, 0)
+        g_k = kgrad.grad_wrt_acts(acts, p.denom, *lat, dtype, scale, 0.1)
+        torch.cuda.synchronize()
+        g_p = gradients.grad_wrt_acts(acts, p.denom, *lat, dtype, scale, 0.1)
+        e = compare(f"grad lattice mode {tag} {dtype}", g_k, g_p, grad_tol(g_p, tol_key))
         del g_k, g_p
-        if full:  # the sparse (log_probs_input) convention of the same kernel
-            g_k = kgrad.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
+        if full:
+            g_k = kgrad.grad_wrt_log_probs(*lat, V, dtype, scale, 0.1)
             torch.cuda.synchronize()
-            g_p = gradients.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
-            e = max(e, compare(f"grad {tag} {dtype} sparse", g_k, g_p, grad_tol(g_p, tol_key)))
+            g_p = gradients.grad_wrt_log_probs(*lat, V, dtype, scale, 0.1)
+            e = max(e, compare(f"grad lattice mode {tag} {dtype} sparse", g_k, g_p,
+                               grad_tol(g_p, tol_key)))
             del g_k, g_p
         if dtype == torch.float32:
             errs["grad"] = max(errs["grad"], e)
+        # The fields mode, K = 0 (and sparse) and K = 2 extra columns.
+        fields = gradients.coefficients(p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
+        extra = torch.stack((fields.cb, fields.ce), -1)
+        cols = (V - 2, V - 1)
+        for K_cols in (0, 2):
+            kw = dict(extra_cols=cols, extra_fields=extra) if K_cols else {}
+            g_k = kgrad.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0, dtype, **kw)
+            torch.cuda.synchronize()
+            g_p = gradients.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0, dtype, **kw)
+            e = compare(f"grad fields mode K={K_cols} {tag} {dtype}", g_k, g_p,
+                        grad_tol(g_p, tol_key))
+            del g_k, g_p
+            if dtype == torch.float32:
+                errs["grad_fields"] = max(errs["grad_fields"], e)
+        if full:
+            g_k = kgrad.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
+            torch.cuda.synchronize()
+            g_p = gradients.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
+            compare(f"grad fields mode {tag} {dtype} sparse", g_k, g_p, grad_tol(g_p, tol_key))
+            del g_k, g_p
 
     for tag, B, T, L, V in SHAPES:
         kernel_vs_plain(tag, B, T, L, V, torch.float32, full=(tag == "headline"))
@@ -1617,20 +1674,37 @@ def main():
 
     totals = {k: 0 for k in K.launches}
     problems = {}
+    # The dense backward computes its coefficients inside the lattice mode of
+    # grad.cu: gradients.coefficients, the plain (B, T, U) passes, must not run.
+    coefficient_calls = []
+    plain_coefficients = gradients.coefficients
+
+    def counted_coefficients(*args, **kwargs):
+        coefficient_calls.append(1)
+        return plain_coefficients(*args, **kwargs)
+
     for tag, B, T, L, V in SHAPES:
         acts, labels, il, ll = make_problem(B, T, L, V, seed=2, dev=dev)
         a = acts.clone().requires_grad_(True)
         K.reset_launches()
+        coefficient_calls.clear()
+        gradients.coefficients = counted_coefficients
         torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
-        loss = rnnt_loss(a, labels, il, ll, reduction="sum")
-        loss.backward()
-        costs, grads = rnnt_loss_and_grad(acts, labels, il, ll)
-        torch.cuda.set_sync_debug_mode("default")
+        try:
+            loss = rnnt_loss(a, labels, il, ll, reduction="sum")
+            loss.backward()
+            costs, grads = rnnt_loss_and_grad(acts, labels, il, ll)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            gradients.coefficients = plain_coefficients
         torch.cuda.synchronize()
         counts = dict(K.launches)
-        print(f"main path {tag} B={B} T={T} L={L} V={V}: launches {counts}")
+        print(f"main path {tag} B={B} T={T} L={L} V={V}: launches {counts}; "
+              f"gradients.coefficients called {len(coefficient_calls)} times")
         for k in ("prep", "wavefront", "grad"):
             fail_unless(counts[k] > 0, f"{k} kernel was not launched on the main path ({tag})")
+        fail_unless(counts["grad_fields"] == 0 and not coefficient_calls,
+                    f"the dense path ran the coefficient passes or the fields mode ({tag})")
         for k, n in counts.items():
             totals[k] += n
         fail_unless(bool(torch.isfinite(costs).all()) and costs.shape == (B,), "costs not finite")
@@ -1653,6 +1727,27 @@ def main():
         torch.cuda.empty_cache()
 
     # ---- 5. timings, CUDA events after warm-up
+    from warp_transducer_tpu_torch.ops import rnnt as rnnt_module
+    folded_grads = rnnt_module._grads
+
+    def fields_grads(eng, acts, prepped, res, labels, il, ll, blank, log_probs_input, scale,
+                     fastemit_lambda):
+        """The dense backward without the fold (the parent's ``_grads``): the
+        plain (B, T, U) coefficient passes, then the fields mode."""
+        fields = gradients.coefficients(prepped.lpb, prepped.lpe, res.alphas, res.betas,
+                                        res.ll_forward, il, ll, scale, fastemit_lambda)
+        return eng.dense_grad(acts, prepped.denom, fields, prep.label_rows(labels, acts.shape[2]),
+                              il, ll, blank, acts.dtype)
+
+    def unfolded(fn):
+        def run():
+            rnnt_module._grads = fields_grads
+            try:
+                return fn()
+            finally:
+                rnnt_module._grads = folded_grads
+        return run
+
     def per_shape(tag, B, T, L, V):
         acts, labels, il, ll = problems[tag]
         U = L + 1
@@ -1661,16 +1756,22 @@ def main():
         p = kprep.prepare(acts, labels, 0, False)
         res = kwave.forward_backward(p.lpb, p.lpe, il, ll)
         fields = gradients.coefficients(p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
+        extra, cols = torch.stack((fields.cb, fields.ce), -1), (V - 2, V - 1)
         labels_u = prep.label_rows(labels, U)
+        lat = (p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, labels_u, il, ll, 0)
         # Data-dependent work: the lattice reads lpb/lpe and updates only at
-        # valid cells (it writes NEG elsewhere), and the gradient reads acts
-        # and its four (B,T,U) fields only in valid rows (it writes zeros
-        # elsewhere).
+        # valid cells (it writes NEG elsewhere), and the gradients read acts
+        # only in valid rows (they write zeros elsewhere).
         valid_cells = int((il.long() * (ll.long() + 1)).sum())
         iters = 20 if tag == "headline" else 5
         plain_iters = 2 if tag == "long_t" else 5
         out = {}
-        loss_grad = time_ms(lambda: rnnt_loss_and_grad(acts, labels, il, ll), iters)
+        step = lambda: rnnt_loss_and_grad(acts, labels, il, ll)  # noqa: E731
+        # The step with the fold and without it, in turns.
+        loss_grad, old_a, loss_grad_b, old_b = (time_ms(fn, iters)
+                                                for fn in (step, unfolded(step)) * 2)
+        print(f"time {tag}: loss+grad {loss_grad:.4f} / {loss_grad_b:.4f} ms; without the fold "
+              f"(gradients.coefficients, then the fields mode) {old_a:.4f} / {old_b:.4f} ms")
         out["prep"] = dict(
             ms=time_ms(lambda: kprep.prepare(acts, labels, 0, False), iters),
             plain_ms=time_ms(lambda: prep.prepare(acts, labels, 0, False), plain_iters, 1),
@@ -1683,22 +1784,45 @@ def main():
             library_ms=None,
             bound=bound((2 * valid_cells + 2 * n_small) * 4 + 4 * B * 4, 2 * 8 * valid_cells,
                         F32_OPS_PER_S))
+        softmax_ms = time_ms(lambda: torch.softmax(acts, -1), iters)
+        # Each gradient reads acts in valid rows and writes every element,
+        # reads the labels and lengths, and per valid row its own scalars:
+        # the lattice mode α, β, lpb, lpe and denom (β's shifted reads are
+        # of the same tensor) and ll a row of the batch; the fields mode
+        # coef, cb, ce, denom and the K extra fields.
+        grad_bytes = (n_big + valid_cells * V) * elt + B * U * 4 + 2 * B * 4
         out["grad"] = dict(
-            ms=time_ms(lambda: kgrad.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0,
-                                                acts.dtype), iters),
-            plain_ms=time_ms(lambda: gradients.dense_grad(acts, p.denom, fields, labels_u, il,
-                                                          ll, 0, acts.dtype), plain_iters, 1),
-            library_ms=time_ms(lambda: torch.softmax(acts, -1), iters),
-            bound=bound((n_big + valid_cells * V) * elt + 4 * valid_cells * 4 + B * U * 4 + 2 * B * 4,
-                        4 * valid_cells * V, F32_OPS_PER_S))
+            ms=time_ms(lambda: kgrad.grad_wrt_acts(acts, p.denom, *lat, acts.dtype), iters),
+            plain_ms=time_ms(lambda: gradients.grad_wrt_acts(acts, p.denom, *lat, acts.dtype),
+                             plain_iters, 1),
+            library_ms=softmax_ms,
+            bound=bound(grad_bytes + 5 * valid_cells * 4 + B * 4, 4 * valid_cells * V,
+                        F32_OPS_PER_S))
+        for K_cols in (0, 2):
+            kw = dict(extra_cols=cols, extra_fields=extra) if K_cols else {}
+            g_args = (acts, p.denom, fields, labels_u, il, ll, 0, acts.dtype)
+            out["grad_fields" + ("_k2" if K_cols else "")] = dict(
+                ms=time_ms(lambda: kgrad.dense_grad(*g_args, **kw), iters),
+                plain_ms=time_ms(lambda: gradients.dense_grad(*g_args, **kw), plain_iters, 1),
+                library_ms=softmax_ms,
+                bound=bound(grad_bytes + (4 + K_cols) * valid_cells * 4, 4 * valid_cells * V,
+                            F32_OPS_PER_S))
         print(f"time {tag} B={B} T={T} L={L} V={V}: loss+grad {loss_grad:.4f} ms "
               f"(valid cells {valid_cells / n_small:.3f} of B·T·U)")
-        device_breakdown(tag, lambda: rnnt_loss_and_grad(acts, labels, il, ll), loss_grad)
+        prof = device_breakdown(tag, step, loss_grad)
+        prof_old = device_breakdown(f"{tag} without the fold", unfolded(step), old_a)
+        if prof and prof_old:
+            fail_unless(prof[2] < prof_old[2], f"the folded step launches no fewer device kernels "
+                        f"than the unfolded one ({tag})")
         for k, v in out.items():
             lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
             print(f"time {tag} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
                   f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}")
-        return loss_grad, out
+        step_info = dict(ms=loss_grad, ms_again=loss_grad_b, unfolded_ms=[old_a, old_b],
+                         idle_share=prof and prof[1], device_kernels=prof and prof[2],
+                         unfolded_idle_share=prof_old and prof_old[1],
+                         unfolded_device_kernels=prof_old and prof_old[2])
+        return step_info, out
 
     timings = {tag: per_shape(tag, B, T, L, V) for tag, B, T, L, V in SHAPES}
     del problems
@@ -1751,9 +1875,18 @@ def main():
                  "warp_transducer_tpu/ops/pallas/prep_fused.py:31"),
         "wavefront": ("warp_transducer_tpu_torch/csrc/wavefront.cu",
                       "warp_transducer_tpu/ops/pallas/wavefront_stream.py:49"),
+        # the lattice mode (the dense backward) and the fields mode (the
+        # multi-blank loss and the TDT token head) of one source
         "grad": ("warp_transducer_tpu_torch/csrc/grad.cu",
                  "warp_transducer_tpu/ops/gradients.py:60"),
+        "grad_fields": ("warp_transducer_tpu_torch/csrc/grad.cu",
+                        "warp_transducer_tpu/ops/multiblank.py:268"),
     }
+
+    def timing(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+
     kernels = []
     for k, (source, replaces) in sources.items():
         head = timings["headline"][1][k]
@@ -1762,19 +1895,16 @@ def main():
                  "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
                  "bound_by": head["bound"][1], "library_ms": head["library_ms"],
                  "shape": "headline B=128 T=150 L=40 V=28 f32",
-                 "by_shape": {tag: {"ms": t[1][k]["ms"], "plain_ms": t[1][k]["plain_ms"],
-                                    "bound_ms": t[1][k]["bound"][0],
-                                    "bound_by": t[1][k]["bound"][1],
-                                    "library_ms": t[1][k]["library_ms"],
-                                    "loss_grad_ms": t[0]}
+                 "by_shape": {tag: timing(t[1][k]) | {"loss_grad": t[0]}
                               for tag, t in timings.items()}}
         if k == "wavefront":
             entry["also_replaces"] = "warp_transducer_tpu/ops/pallas/wavefront.py:72"
-        else:  # with the two big-blank columns of the multi-blank step
-            entry["by_shape"].update({
-                case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                       "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
-                for case, t in duration_kernel_ms[k].items()})
+        elif k != "grad":  # with two extra columns; and those of the multi-blank step
+            entry["by_shape"].update({f"{tag}_k2": timing(t[1][f"{k}_k2"])
+                                      for tag, t in timings.items() if f"{k}_k2" in t[1]})
+            entry["by_shape"].update({case: timing(t) for case, t in duration_kernel_ms[k].items()})
+        if k == "grad_fields":
+            entry["also_replaces"] = "warp_transducer_tpu/ops/tdt.py:296"
         kernels.append(entry)
     pruned_sources = {
         "band_prep": ("warp_transducer_tpu_torch/csrc/band_prep.cu",
@@ -1859,8 +1989,8 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
         "bound_by": head["bound"][1], "library_ms": head["library_ms"],
         "shape": "the prep kernel at fused B=64 T=150 L=20 H=256 D=4 f32",
-        "by_shape": {case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                            "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+        "by_shape": {case: timing(t) | {"device_ms": t["device_ms"],
+                                        "library_device_ms": t["library_device_ms"]}
                      for case, t in variant_kernel_ms["dur_head"].items()}})
     print(json.dumps({"fused_duration_arc": {
         "steps": {name: {"ms": ms, "peak_mb": mb} for name, (ms, mb) in variant_step.items()},

@@ -109,6 +109,7 @@ def test_grad_kernel(dev, dtype, sparse):
     fields = gradients.coefficients(p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward,
                                     il, ll, scale=scale, fastemit_lambda=0.1)
     labels_u = prep.label_rows(labels, U)
+    K.reset_launches()
     if sparse:
         got = kgrad.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
         want = gradients.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
@@ -116,7 +117,17 @@ def test_grad_kernel(dev, dtype, sparse):
         got = kgrad.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0, dtype)
         want = gradients.dense_grad(acts, p.denom, fields, labels_u, il, ll, 0, dtype)
     torch.cuda.synchronize()
+    assert K.launches["grad_fields"] == 1 and K.launches["grad"] == 0
     assert got.dtype == dtype
+    _ulp_close(got, want, dtype)
+
+
+# Rows of V across the planner's switch from tiles to a warp a row
+# (ops/cuda/rows.py::TILE_MAX_V), with rows starting off the 16-byte grid.
+GRAD_VS = [1, 2, 7, 28, 31, 32, 33, 50, 64, 65, 127, 128, 129, 1000, 5000]
+
+
+def _ulp_close(got, want, dtype):
     if dtype in (torch.bfloat16, torch.float16):
         # One f32 result rounded once to 16 bits in both versions: within one
         # ulp of each other (2^-8 relative for bf16, 2^-11 for f16).
@@ -124,6 +135,80 @@ def test_grad_kernel(dev, dtype, sparse):
         torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=ulp, atol=1e-6)
     else:
         _close(got, want, dtype)
+
+
+def _lattice_problem(V, dtype, sparse, blank, dev, seed=11):
+    """B·T·U = 585 rows (more than a tile of small V holds, and a multiple of
+    no tile), T_b = 1 in utterance 1 and U_b = 1 in utterance 2, a label
+    equal to blank, the delay penalty in lpe; the prep and the lattice are
+    the plain versions."""
+    B, T, U = 5, 13, 9
+    rng = np.random.default_rng(seed)
+    acts = torch.tensor(rng.standard_normal((B, T, U, V)) * 2.0, dtype=dtype, device=dev)
+    if sparse:
+        acts = torch.log_softmax(acts.float(), -1).to(dtype)
+    labels = torch.tensor(rng.integers(0, V, (B, U - 1)), dtype=torch.int32, device=dev)
+    labels[0, 0] = blank
+    il = torch.tensor([13, 1, 9, 13, 6], dtype=torch.int32, device=dev)
+    ll = torch.tensor([8, 3, 0, 5, 2], dtype=torch.int32, device=dev)
+    p = prep.prepare(acts, labels, blank, sparse)
+    lpe = prep.delay_shift(p.lpe, il, 0.05)
+    res = lattice.forward_backward(p.lpb, lpe, il, ll)
+    lat = (p.lpb, lpe, res.alphas, res.betas, res.ll_forward, prep.label_rows(labels, U), il, ll)
+    return acts, p.denom, lat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+@pytest.mark.parametrize("V", GRAD_VS)
+@pytest.mark.parametrize("sparse", [False, True])
+def test_grad_lattice_kernel(dev, V, dtype, sparse):
+    """The lattice mode (``grad_wrt_acts`` / ``grad_wrt_log_probs``) against
+    the plain versions, blank first and last, with a cotangent scale (once
+    as a stride-0 expanded tensor) and FastEmit."""
+    for blank in sorted({0, V - 1}):
+        acts, denom, lat = _lattice_problem(V, dtype, sparse, blank, dev)
+        cdtype = lat[2].dtype
+        B = acts.shape[0]
+        scale = (torch.linspace(0.5, 1.5, B, device=dev, dtype=cdtype) if blank == 0
+                 else torch.tensor(1.5, device=dev, dtype=cdtype).expand(B))
+        K.reset_launches()
+        if sparse:
+            got = kgrad.grad_wrt_log_probs(*lat, blank, V, dtype, scale, 0.1)
+            want = gradients.grad_wrt_log_probs(*lat, blank, V, dtype, scale, 0.1)
+        else:
+            got = kgrad.grad_wrt_acts(acts, denom, *lat, blank, dtype, scale, 0.1)
+            want = gradients.grad_wrt_acts(acts, denom, *lat, blank, dtype, scale, 0.1)
+        torch.cuda.synchronize()
+        assert K.launches["grad"] == 1 and K.launches["grad_fields"] == 0
+        assert got.dtype == dtype and got.shape == want.shape
+        _ulp_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [28, 33, 1000])
+def test_grad_kernels_unaligned_acts(dev, V, dtype):
+    """Activations one element off the 16-byte grid: both modes fall back
+    to one element a load and agree with the plain versions."""
+    acts, denom, lat = _lattice_problem(V, dtype, False, 0, dev)
+    buf = torch.empty(acts.numel() + 1, dtype=dtype, device=dev)
+    shifted = buf[1:].view(acts.shape)
+    shifted.copy_(acts)
+    assert shifted.data_ptr() % 16
+    got = kgrad.grad_wrt_acts(shifted, denom, *lat, 0, dtype)
+    _ulp_close(got, gradients.grad_wrt_acts(acts, denom, *lat, 0, dtype), dtype)
+    fields = gradients.coefficients(lat[0], lat[1], lat[2], lat[3], lat[4], lat[6], lat[7])
+    args = (denom, fields, lat[5], lat[6], lat[7], 0, dtype)
+    _ulp_close(kgrad.dense_grad(shifted, *args), gradients.dense_grad(acts, *args), dtype)
+
+
+def test_grad_lattice_rejects_bad_input(dev):
+    acts, denom, lat = _lattice_problem(7, torch.float32, False, 0, dev)
+    with pytest.raises(ValueError, match="outside"):
+        kgrad.grad_wrt_acts(acts, denom, *lat, 7)
+    with pytest.raises(ValueError, match="writes acts' dtype"):
+        kgrad.grad_wrt_acts(acts, denom, *lat, 0, torch.float64)
+    with pytest.raises(ValueError, match="scale"):
+        kgrad.grad_wrt_acts(acts, denom, *lat, 0, None, torch.ones(3, device=dev))
 
 
 def test_main_path_launches_each_kernel(dev):

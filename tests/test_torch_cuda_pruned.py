@@ -41,7 +41,7 @@ def dev():
 def _problem(B, T, U, V, S, seed=0, dtype=torch.float32, device="cpu", infeasible=False):
     rng = np.random.default_rng(seed)
     acts = torch.tensor(rng.standard_normal((B, T, S, V)) * 2.0, dtype=dtype, device=device)
-    labels = torch.tensor(rng.integers(1, V, (B, max(U - 1, 1))), dtype=torch.int32,
+    labels = torch.tensor(rng.integers(1, max(V, 2), (B, max(U - 1, 1))) % V, dtype=torch.int32,
                           device=device)
     il = rng.integers(1, T + 1, B)
     ll = rng.integers(0, U, B)
@@ -118,6 +118,39 @@ def test_band_grad_kernel(dev, dtype):
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     assert torch.count_nonzero(got[-1]) == 0  # the infeasible utterance
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+@pytest.mark.parametrize("V", [1, 2, 7, 28, 31, 32, 33, 50, 64, 65, 127, 128, 129, 1000, 5000])
+def test_band_grad_kernel_rows(dev, V, dtype):
+    """K5b across the planner's switch from tiles to a warp a row, with rows
+    off the 16-byte grid: B·T·S = 585 rows (more than a tile of small V
+    holds, a multiple of no tile), an infeasible utterance, T_b = 1 and
+    U_b = 1 among the lengths, blank first and last with a label equal to
+    it, a cotangent scale and FastEmit."""
+    B, T, U, S = 5, 13, 12, 9
+    for blank in sorted({0, V - 1}):
+        acts, labels, il, ll, ranges = _problem(B, T, U, V, S, seed=7, dtype=dtype, device=dev,
+                                                infeasible=True)
+        labels[0, 0] = labels[1, 1] = blank
+        lab_band, has_lab = band.band_labels(labels, ranges, S)
+        lab_row = band.label_rows(lab_band, has_lab)
+        p = band.band_prep(acts, lab_row, blank)
+        lat = band.forward_backward(p.lpb, p.lpe, ranges, il, ll)
+        fields = band.band_coefs(p.lpb, p.lpe, lat, ranges, has_lab, il, ll,
+                                 torch.linspace(0.5, 1.5, B, device=dev), 0.1)
+        K.reset_launches()
+        got = kband.band_grad(acts, p.denom, fields, lab_row, ranges, il, ll, blank, dtype)
+        torch.cuda.synchronize()
+        assert K.launches["band_grad"] == 1
+        want = band.band_grad(acts, p.denom, fields, lab_row, ranges, il, ll, blank, dtype)
+        assert got.dtype == dtype
+        if dtype in (torch.bfloat16, torch.float16):
+            ulp = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -11
+            torch.testing.assert_close(got.float(), want.float(), rtol=ulp, atol=1e-6)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        assert torch.count_nonzero(got[-1]) == 0  # the infeasible utterance
 
 
 @pytest.mark.parametrize("seed,B,T,U,S", [(0, 6, 40, 12, 3), (1, 5, 1, 4, 2), (2, 8, 300, 61, 5),

@@ -280,7 +280,7 @@ def test_multiblank_loss_cuda_vs_torch(dev, durations, sigma, lam, dp, indices, 
     K.reset_launches()
     costs, grads = _no_sync(lambda: run("cuda"))
     torch.cuda.synchronize()
-    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "window_stream": 1, "grad": 1}
+    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "window_stream": 1, "grad_fields": 1}
     K.reset_launches()
     costs_t, grads_t = run("torch")
     assert K.launches == dict.fromkeys(K.launches, 0)
@@ -321,7 +321,7 @@ def test_tdt_loss_cuda_vs_torch(dev, durations, sigma, lam, dp, dtype):
     K.reset_launches()
     costs, gt, gd = _no_sync(lambda: run("cuda"))
     torch.cuda.synchronize()
-    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "window_stream": 1, "grad": 1}
+    assert K.launches == dict.fromkeys(K.launches, 0) | {"prep": 1, "window_stream": 1, "grad_fields": 1}
     costs_t, gt_t, gd_t = run("torch")
     infeasible = costs_t.float() > 1e29
     assert bool(infeasible[0]) == (durations == (2,))  # T_b = 9 is odd
@@ -349,3 +349,69 @@ def test_losses_need_cuda_tensors_for_cuda(dev):
         rnnt_loss_tdt(acts, torch.zeros((1, 3, 2, 2)), *args, (0, 1), implementation="cuda")
     with pytest.raises(ValueError, match="duration_logits is on"):
         rnnt_loss_tdt(acts.to(dev), torch.zeros((1, 3, 2, 2)), *args, (0, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+@pytest.mark.parametrize("V", [3, 28, 33, 50, 129, 1000, 5000])
+def test_grad_fields_kernel_k2_rows(dev, V, dtype):
+    """The gradient kernel's fields mode with K = 2 extra columns (the last
+    two, as the multi-blank loss puts its big blanks) across the planner's
+    switch from tiles to a warp a row; B·T·U = 585 rows, a multiple of no
+    tile; a label equal to blank and one equal to an extra column."""
+    B, T, U = 5, 13, 9
+    acts, labels, il, ll = _acts_problem(B, T, U, V, 12, dtype, dev)
+    cols = (V - 2, V - 1)
+    labels[1, 0], labels[2, 0] = 0, cols[0]
+    p = prep.prepare(acts, labels, 0, False)
+    res = lattice.forward_backward(p.lpb, p.lpe, il, ll)
+    fields = gradients.coefficients(p.lpb, p.lpe, res.alphas, res.betas, res.ll_forward, il, ll,
+                                    fastemit_lambda=0.1)
+    rng = np.random.default_rng(13)
+    extra = torch.tensor(rng.random((B, T, U, 2)), dtype=fields.coef.dtype, device=dev)
+    args = (acts, p.denom, fields, prep.label_rows(labels, U), il, ll, 0, dtype)
+    K.reset_launches()
+    got = kgrad.dense_grad(*args, extra_cols=cols, extra_fields=extra)
+    torch.cuda.synchronize()
+    assert K.launches["grad_fields"] == 1 and K.launches["grad"] == 0
+    want = gradients.dense_grad(*args, extra_cols=cols, extra_fields=extra)
+    if dtype in (torch.bfloat16, torch.float16):
+        ulp = 2 ** -8 if dtype == torch.bfloat16 else 2 ** -11
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=ulp, atol=1e-6)
+    else:
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("loss", ["multiblank", "tdt"])
+@pytest.mark.parametrize("V", [7, 33, 129, 1000])
+def test_duration_losses_rows_cuda_vs_torch(dev, loss, V):
+    """``rnnt_loss_multiblank`` (big blanks of 2 and 4 frames) and
+    ``rnnt_loss_tdt`` (durations 0, 1, 2, 4) through the fields mode of the
+    gradient kernel, across the planner's switch, against their plain
+    versions; f32 tolerances as the tests above."""
+    B, T, U = 5, 13, 9
+    rng = np.random.default_rng(14)
+    acts = torch.tensor(rng.standard_normal((B, T, U, V)) * 2.0, dtype=torch.float32, device=dev)
+    dur = torch.tensor(rng.standard_normal((B, T, U, 4)) * 2.0, dtype=torch.float32, device=dev)
+    labels = torch.tensor(rng.integers(1, V - 2, (B, U - 1)), dtype=torch.int32, device=dev)
+    il, ll = _lengths(rng, B, T, U, dev)
+
+    def run(implementation):
+        a = acts.clone().requires_grad_(True)
+        d = dur.clone().requires_grad_(True)
+        if loss == "multiblank":
+            costs = rnnt_loss_multiblank(a, labels, il, ll, (2, 4), sigma=0.05,
+                                         fastemit_lambda=0.1, reduction="none",
+                                         implementation=implementation)
+        else:
+            costs = rnnt_loss_tdt(a, d, labels, il, ll, (0, 1, 2, 4), fastemit_lambda=0.1,
+                                  reduction="none", implementation=implementation)
+        costs.sum().backward()
+        return costs.detach(), a.grad
+
+    K.reset_launches()
+    costs, grads = _no_sync(lambda: run("cuda"))
+    torch.cuda.synchronize()
+    assert K.launches["grad_fields"] == 1 and K.launches["grad"] == 0
+    costs_t, grads_t = run("torch")
+    _close(costs, costs_t, torch.float32)
+    torch.testing.assert_close(grads, grads_t, rtol=1e-4, atol=1e-6)

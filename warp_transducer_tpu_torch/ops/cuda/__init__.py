@@ -4,8 +4,9 @@ Counterpart of ``warp_transducer_tpu/ops/pallas/``. Each wrapper has the
 signature of the plain version it stands for:
 
 * the dense loss: ``prep.prepare``, ``wavefront.forward_backward`` (also
-  the lattice of the simple loss), ``grad.dense_grad`` /
-  ``grad.sparse_grad``;
+  the lattice of the simple loss), ``grad.grad_wrt_acts`` /
+  ``grad.grad_wrt_log_probs`` (the gradient kernel's lattice mode, counted
+  under ``grad``);
 * the pruned path: ``band.band_prep``, ``band.forward_backward``,
   ``band.band_grad`` and ``ranges.band_starts``;
 * the fused joint+loss: ``joint.fused_prep`` and ``joint.fused_grad`` (two
@@ -14,7 +15,9 @@ signature of the plain version it stands for:
   loss, and ``joint.dur_head_prep`` / ``joint.dur_head_grad``, that head
   alone (counted under ``dur_head``);
 * the duration-arc losses (multi-blank, TDT): ``window.forward_backward``,
-  with ``prep.prepare`` and ``grad.dense_grad`` taking the extra columns.
+  with ``prep.prepare`` and ``grad.dense_grad`` (the gradient kernel's
+  fields mode, counted under ``grad_fields``; also ``grad.sparse_grad``)
+  taking the extra columns.
 
 On a CPU tensor a wrapper runs that plain version; on a CUDA tensor it
 launches its kernel on PyTorch's current stream, or raises. It never falls
@@ -28,9 +31,9 @@ import torch
 from .build import library as lib
 
 # One counter per kernel, raised by one right after each successful launch.
-launches = {"prep": 0, "wavefront": 0, "grad": 0, "band_prep": 0, "band_stream": 0,
-            "band_grad": 0, "ranges": 0, "joint_prep": 0, "joint_grad": 0, "window_stream": 0,
-            "dur_head": 0}
+launches = {"prep": 0, "wavefront": 0, "grad": 0, "grad_fields": 0, "band_prep": 0,
+            "band_stream": 0, "band_grad": 0, "ranges": 0, "joint_prep": 0, "joint_grad": 0,
+            "window_stream": 0, "dur_head": 0}
 
 # Type codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
@@ -55,6 +58,12 @@ def check(err: int, kernel: str) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def int32(device: torch.device, *xs: torch.Tensor) -> tuple:
+    """Each tensor as contiguous int32 on ``device``; no copy where it
+    already is."""
+    return tuple(x.to(device=device, dtype=torch.int32).contiguous() for x in xs)
 
 
 def require(t: torch.Tensor, name: str, device: torch.device, dtypes, ndim: int) -> None:

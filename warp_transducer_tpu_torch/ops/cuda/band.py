@@ -8,14 +8,10 @@ from __future__ import annotations
 import torch
 
 from .. import band as _plain
-from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
+from . import DTYPE_CODES, SMEM_BYTES, check, int32, lib, require, rows, stream
 
 _F32 = (torch.float32,)
 _INT = (torch.int32,)
-
-
-def _int32(dev, *xs):
-    return tuple(x.to(device=dev, dtype=torch.int32).contiguous() for x in xs)
 
 
 def band_prep(acts: torch.Tensor, lab_row: torch.Tensor, blank: int) -> _plain.BandPrep:
@@ -57,7 +53,7 @@ def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor, ranges: torch.Tensor,
     B, T, S = lpb.shape
     if lpe.shape != lpb.shape:
         raise ValueError(f"lpe shape {tuple(lpe.shape)} != lpb shape {tuple(lpb.shape)}")
-    r, il, ll = _int32(dev, ranges, input_lengths, label_lengths)
+    r, il, ll = int32(dev, ranges, input_lengths, label_lengths)
     if tuple(r.shape) != (B, T):
         raise ValueError(f"ranges must be {(B, T)}; got {tuple(r.shape)}")
     if T < 1 or S < 1:
@@ -97,13 +93,16 @@ def band_grad(acts, denom, fields, lab_row, ranges, input_lengths, label_lengths
     require(lab_row, "lab_row", dev, _INT, 3)
     if not 0 <= blank < V:
         raise ValueError(f"blank {blank} is outside [0, V={V})")
-    r, il, ll = _int32(dev, ranges, input_lengths, label_lengths)
+    if B * T * S >= 2 ** 31:
+        raise ValueError(f"B·T·S = {B * T * S} rows exceed the band gradient kernel's 2^31")
+    r, il, ll = int32(dev, ranges, input_lengths, label_lengths)
     grads = torch.empty_like(acts)
+    plan = rows.host_plan(V, acts.element_size(), rows.alignment(acts.data_ptr(), grads.data_ptr()))
     with torch.cuda.device(dev):
         err = lib().wtt_band_grad(
             acts.data_ptr(), DTYPE_CODES[acts.dtype], denom.data_ptr(), fields.coef.data_ptr(),
             fields.cb.data_ptr(), fields.ce.data_ptr(), lab_row.data_ptr(), r.data_ptr(),
             il.data_ptr(), ll.data_ptr(), grads.data_ptr(), B * T * S, T, S, V, int(blank),
-            stream(dev))
+            plan, stream(dev))
     check(err, "band_grad")
     return grads

@@ -131,10 +131,12 @@ def library() -> ctypes.CDLL:
     lib.wtt_prep.argtypes = [p, i, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
-    lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p]
+    lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p, p]
+    lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
+                                     ll, i, i, i, i, i, p, p]
     lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
     lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
-    lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
+    lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.wtt_band_starts.argtypes = [p, p, p, p, i, i, i, p]
     joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
     dims = [i, i, i, i, i, i, p]  # B, T, U, H, V, blank, stream
@@ -148,7 +150,7 @@ def library() -> ctypes.CDLL:
     lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_window_stream, lib.wtt_grad,
-               lib.wtt_band_prep,
+               lib.wtt_grad_lattice, lib.wtt_band_prep,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
                lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols, lib.wtt_joint_grad_dwd,
                lib.wtt_dur_head_prep, lib.wtt_dur_head_grad):

@@ -9,10 +9,14 @@ Two conventions, matching the reference's two backends:
   non-zero only at blank/label entries (the reference CPU convention,
   ``cpu_rnnt.h:253-267``).
 
-Both split into small (B, T, U) coefficient fields (``coefficients``, plain
-torch ops on the lattice outputs, shared with the CUDA path) and one pass
-over (B, T, U, V). The functions here are the plain version of that pass;
-on a CUDA tensor ``csrc/grad.cu`` runs it (``ops/cuda/grad.py``).
+Here both split into small (B, T, U) coefficient fields (``coefficients``,
+plain torch ops on the lattice outputs) and one pass over (B, T, U, V)
+(``dense_grad`` / ``sparse_grad``). On a CUDA tensor ``csrc/grad.cu`` runs
+them (``ops/cuda/grad.py``): ``grad_wrt_acts`` and ``grad_wrt_log_probs`` in
+its lattice mode, which computes the coefficients row by row inside the one
+pass, and ``dense_grad`` / ``sparse_grad`` in its fields mode, for callers
+whose coefficients are not the standard ones (the multi-blank and TDT
+losses).
 Counterpart of ``warp_transducer_tpu/ops/gradients.py``.
 """
 from __future__ import annotations

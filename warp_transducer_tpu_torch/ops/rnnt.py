@@ -54,8 +54,9 @@ _IMPLEMENTATIONS = ("auto", "torch", "cuda")
 # CPU tensor runs the plain version, so "auto" needs no branch of its own.
 _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          forward_backward=_lattice.forward_backward,
+                         grad_wrt_acts=_gradients.grad_wrt_acts,
+                         grad_wrt_log_probs=_gradients.grad_wrt_log_probs,
                          dense_grad=_gradients.dense_grad,
-                         sparse_grad=_gradients.sparse_grad,
                          band_prep=_band.band_prep,
                          band_forward_backward=_band.forward_backward,
                          band_grad=_band.band_grad,
@@ -67,8 +68,9 @@ _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          window_forward_backward=_window.forward_backward)
 _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            forward_backward=_cuda_wavefront.forward_backward,
+                           grad_wrt_acts=_cuda_grad.grad_wrt_acts,
+                           grad_wrt_log_probs=_cuda_grad.grad_wrt_log_probs,
                            dense_grad=_cuda_grad.dense_grad,
-                           sparse_grad=_cuda_grad.sparse_grad,
                            band_prep=_cuda_band.band_prep,
                            band_forward_backward=_cuda_band.forward_backward,
                            band_grad=_cuda_band.band_grad,
@@ -151,18 +153,16 @@ def _prepare(eng, acts, labels, input_lengths, blank, log_probs_input, delay_pen
 
 def _grads(eng, acts, prepped, res, labels, input_lengths, label_lengths, blank,
            log_probs_input, scale, fastemit_lambda):
-    """The gradient (``gradients.grad_wrt_acts`` / ``grad_wrt_log_probs``):
-    the (B, T, U) coefficient fields, then the engine's pass over V."""
-    B, T, U, V = acts.shape
+    """The gradient, one pass over (B, T, U, V) that computes its
+    coefficients from the lattice row by row (``gradients.grad_wrt_acts`` /
+    ``grad_wrt_log_probs``; on the card the lattice mode of ``grad.cu``)."""
+    U, V = acts.shape[2:]
     labels_u = _prep.label_rows(labels, U)
-    fields = _gradients.coefficients(prepped.lpb, prepped.lpe, res.alphas, res.betas,
-                                     res.ll_forward, input_lengths, label_lengths, scale,
-                                     fastemit_lambda)
+    lattice = (prepped.lpb, prepped.lpe, res.alphas, res.betas, res.ll_forward, labels_u,
+               input_lengths, label_lengths, blank)
     if log_probs_input:
-        return eng.sparse_grad(fields, labels_u, input_lengths, label_lengths, blank, V,
-                               acts.dtype)
-    return eng.dense_grad(acts, prepped.denom, fields, labels_u, input_lengths,
-                          label_lengths, blank, acts.dtype)
+        return eng.grad_wrt_log_probs(*lattice, V, acts.dtype, scale, fastemit_lambda)
+    return eng.grad_wrt_acts(acts, prepped.denom, *lattice, acts.dtype, scale, fastemit_lambda)
 
 
 class _RNNTCosts(torch.autograd.Function):
