@@ -126,8 +126,9 @@ def time_ms(fn, iters, warmup=2):
 
 
 # Kernel names of csrc/*.cu as the profiler shows them.
-PORT_KERNELS = ("prep_kernel", "wavefront_kernel", "grad_lattice_tile_kernel",
-                "grad_lattice_warp_kernel", "grad_fields_tile_kernel", "grad_fields_warp_kernel",
+PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_kernel",
+                "grad_lattice_tile_kernel", "grad_lattice_warp_kernel", "grad_fields_tile_kernel",
+                "grad_fields_warp_kernel",
                 "band_prep_kernel", "band_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
                 "band_starts_kernel", "joint_prep_kernel",
                 "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
@@ -165,7 +166,7 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
           f"(idle share {idle:.3f}); {n_kernels:g} device kernels a call; wall under the "
           f"profiler {wall_ms:.4f} ms/call")
     # A kernel's own name: the first identifier that a '<' or '(' follows
-    # ("void (anonymous namespace)::prep_kernel<float, float>(float const*, …").
+    # ("void (anonymous namespace)::prep_tile_kernel<float, float, 4>(…").
     port = sum(ms for ms, key in rows
                if (m := re.search(r"(\w+)[<(]", key)) and m.group(1) in PORT_KERNELS)
     print(f"profile {tag}: the port's kernels {port:.4f} ms/call, other kernels "
@@ -193,6 +194,24 @@ def kernel_ms(fn, iters=3):
     return out
 
 
+def launch_device_ms(fn, iters=10):
+    """Device time of one launch of the port's kernels that ``fn`` makes
+    (for a call that launches one), from torch.profiler: their time over
+    their count, so that a record the profiler drops does not read as a
+    shorter call; None where it records none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and (m := re.search(r"(\w+)[<(]", e.key)) and m.group(1) in PORT_KERNELS]
+    n = sum(e.count for e in ours)
+    return sum(e.self_device_time_total for e in ours) / n / 1e3 if n else None
+
+
 def device_ms(fn, iters=5):
     """Device time of one call of ``fn``, all its kernels summed, from
     torch.profiler (CUDA events time the host's launches as well where they
@@ -207,6 +226,25 @@ def device_ms(fn, iters=5):
     total = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     return total / 1e3 / iters if total > 0 else None
+
+
+def graph_ms(fn, n=100):
+    """Time of one call of ``fn`` on the device without the host's launch
+    work: ``n`` calls captured in one CUDA graph, replayed under CUDA
+    events. For calls whose kernels the profiler does not record."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, 5, 1) / n
+    del graph
+    return ms
 
 
 def bound(bytes_moved, ops, ops_rate):
@@ -1146,8 +1184,10 @@ def duration_timings(problems):
                                 2 * window_cell_ops(arcs, U) * valid_cells, F32_OPS_PER_S))
                 print(f"time {tag} window_stream {loss}: {v['ms'] * 1e3 / T:.3f} us a row of "
                       f"U={U} (both directions side by side, B={B} blocks each)")
+            prep_k = lambda: kprep.prepare(a, labels, 0, False, extra_cols=cols)  # noqa: E731
             out["prep"][f"{tag}_k2"] = dict(
-                ms=time_ms(lambda: kprep.prepare(a, labels, 0, False, extra_cols=cols), iters),
+                ms=time_ms(prep_k, iters), device_ms=device_ms(prep_k),
+                kernel_device_ms=launch_device_ms(prep_k),
                 plain_ms=time_ms(lambda: prep.prepare(a, labels, 0, False, extra_cols=cols),
                                  plain_iters, 1),
                 library_ms=time_ms(lambda: torch.logsumexp(a, -1), iters),
@@ -1178,7 +1218,9 @@ def duration_timings(problems):
                         continue
                     lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
                     print(f"time {case} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
-                          f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}")
+                          f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}"
+                          + (f" | device ms {v['device_ms']}, the kernel alone "
+                             f"{v['kernel_device_ms']} (profiler)" if "device_ms" in v else ""))
             del p, lpd, lats, fields, extra_f, g_args, coef, cb, ce, cBs, a
         torch.cuda.empty_cache()
     return out, step_ms
@@ -1528,12 +1570,14 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                 ms=time_ms(prep_k, 10), device_ms=device_ms(prep_k),
                 plain_ms=time_ms(lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), 2, 1),
                 library_ms=time_ms(prep_lib, 10), library_device_ms=device_ms(prep_lib),
+                library_graph_ms=graph_ms(prep_lib),
                 bound=bound(ep_bytes + head_bytes + rows * D * 4 + 2 * B * 4, 2 * rows * H * D,
                             F32_OPS_PER_S))
             out["dur_head"][f"{tag}_grad"] = dict(
                 ms=time_ms(grad_k, 10), device_ms=device_ms(grad_k),
                 plain_ms=time_ms(lambda: fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll), 2, 1),
                 library_ms=time_ms(grad_lib, 10), library_device_ms=device_ms(grad_lib),
+                library_graph_ms=graph_ms(grad_lib),
                 bound=bound(2 * ep_bytes + 2 * Wd.numel() * 4 + rows * D * 4 + 2 * B * 4,
                             4 * rows * H * D, F32_OPS_PER_S))
         print(f"time {tag} {suffix}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
@@ -1549,7 +1593,8 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                       + (f" | device ms a launch {v['launch_ms'] or 'not measured'}"
                          if "launch_ms" in v else "")
                       + (f" | device ms {v['device_ms']}, library device ms "
-                         f"{v['library_device_ms']} (profiler)" if "device_ms" in v else ""))
+                         f"{v['library_device_ms']} (profiler), {v['library_graph_ms']:.4f} "
+                         f"(100 calls in a CUDA graph)" if "device_ms" in v else ""))
         del h32, h, g, gd2, denom, mb_fields, cX, td_fields, g_dur, problem, args, g_args, cases
         torch.cuda.empty_cache()
     return out, steps, routes
@@ -1772,8 +1817,10 @@ def main():
                                                 for fn in (step, unfolded(step)) * 2)
         print(f"time {tag}: loss+grad {loss_grad:.4f} / {loss_grad_b:.4f} ms; without the fold "
               f"(gradients.coefficients, then the fields mode) {old_a:.4f} / {old_b:.4f} ms")
+        prep_k = lambda: kprep.prepare(acts, labels, 0, False)  # noqa: E731
         out["prep"] = dict(
-            ms=time_ms(lambda: kprep.prepare(acts, labels, 0, False), iters),
+            ms=time_ms(prep_k, iters), device_ms=device_ms(prep_k),
+            kernel_device_ms=launch_device_ms(prep_k),
             plain_ms=time_ms(lambda: prep.prepare(acts, labels, 0, False), plain_iters, 1),
             library_ms=time_ms(lambda: torch.logsumexp(acts, -1), iters),
             bound=bound(n_big * elt + B * U * 4 + 3 * n_small * 4, 4 * n_big, F32_OPS_PER_S))
@@ -1817,7 +1864,9 @@ def main():
         for k, v in out.items():
             lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
             print(f"time {tag} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
-                  f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}")
+                  f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}"
+                  + (f" | device ms {v['device_ms']}, the kernel alone {v['kernel_device_ms']} "
+                     f"(profiler)" if "device_ms" in v else ""))
         step_info = dict(ms=loss_grad, ms_again=loss_grad_b, unfolded_ms=[old_a, old_b],
                          idle_share=prof and prof[1], device_kernels=prof and prof[2],
                          unfolded_idle_share=prof_old and prof_old[1],
@@ -1885,7 +1934,9 @@ def main():
 
     def timing(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"]} | (
+                    {"device_ms": t["device_ms"], "kernel_device_ms": t["kernel_device_ms"]}
+                    if "kernel_device_ms" in t else {})
 
     kernels = []
     for k, (source, replaces) in sources.items():
@@ -1990,7 +2041,8 @@ def main():
         "bound_by": head["bound"][1], "library_ms": head["library_ms"],
         "shape": "the prep kernel at fused B=64 T=150 L=20 H=256 D=4 f32",
         "by_shape": {case: timing(t) | {"device_ms": t["device_ms"],
-                                        "library_device_ms": t["library_device_ms"]}
+                                        "library_device_ms": t["library_device_ms"],
+                                        "library_graph_ms": t["library_graph_ms"]}
                      for case, t in variant_kernel_ms["dur_head"].items()}})
     print(json.dumps({"fused_duration_arc": {
         "steps": {name: {"ms": ms, "peak_mb": mb} for name, (ms, mb) in variant_step.items()},

@@ -10,65 +10,147 @@
 // arithmetic (a compare, a subtract and an exp per element) is far below
 // the 67 TFLOP/s float32 rate at 3.35 TB/s.
 //
-// Design: one warp per row, eight rows per block. The lanes stride over V,
-// so a warp reads its row with consecutive lanes on consecutive addresses
-// and neighbouring warps read neighbouring rows: at V=28 a block reads 8
-// rows = 896 contiguous bytes, at V=5000 each warp loops 157 times over its
-// own contiguous row. Each lane keeps an online (max, sum-exp) pair, the
-// renormalisation online softmax uses, so the row is read once; the warp
-// then combines the 32 pairs with shuffles (wtt::neg_logsumexp_row in
-// common.cuh, shared with band_prep.cu). bf16/f16 are read natively and
-// converted per element; they accumulate in f32, f64 in f64. Lane 0 reads
-// x[blank] and x[y_u] (already in L1 after the pass) and writes the row's
-// three outputs. With log_probs_input the reduction is skipped.
+// Design: the tiled row reductions of reduce.cuh. At small V (the
+// reference's V = 28 and 50) a row is a few hundred bytes and a warp a row
+// spends its time on latency: a lane reads one element, then the warp
+// shuffles ten times and one lane divides and loads the label. So a block
+// takes a tile of rows, rows·V contiguous elements, with 16-byte loads
+// across row boundaries all in flight at once, reduces each row from
+// shared memory with a few threads, and a thread a row emits the row's
+// outputs, coalesced across the tile, reading x[blank], x[y_u] and the
+// extra columns from shared memory. Above reduce.cuh's switch point a
+// warp takes a row, by vectors, kUnroll of them a lane in flight. The
+// label's row (b, u) comes from two multiply-high divisions by magic
+// numbers made on the host. bf16/f16 are read natively and accumulate in
+// f32, f64 in f64. With log_probs_input nothing is reduced and the row is
+// read only at the columns it emits.
 //
-// Extra columns (the big blanks of the multi-blank loss; the JAX package's
-// prep.onepass_stats(extra_cols=...)): lane k < K reads x[cols[k]] and
-// writes extras[row, k] = x + denom. The K <= 8 indices come in by value.
-#include "common.cuh"
+// Outputs per row: lpb = x[blank] + d, lpe = x[y_u] + d (NEG at u = U-1 or
+// for a label outside [0, V)), denom = d = −logsumexp(x), and, for the K
+// <= 8 extra columns (the big blanks of the multi-blank loss; the JAX
+// package's prep.onepass_stats(extra_cols=...)), extras[row, k] =
+// x[cols[k]] + d. Every row is computed; the kernel takes no lengths.
+#include "reduce.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;
+namespace red = wtt::reduce;
 
-template <typename Tin, typename Tacc>
-__global__ void prep_kernel(const Tin* __restrict__ acts, const int* __restrict__ labels,
-                            Tacc* __restrict__ lpb, Tacc* __restrict__ lpe,
-                            Tacc* __restrict__ denom, Tacc* __restrict__ extras,
-                            const wtt::ExtraCols cols, long long rows, int T, int U, int V,
-                            int blank, int log_probs_input) {
-  const int lane = threadIdx.x % wtt::kWarp;
-  const long long row = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / wtt::kWarp;
-  if (row >= rows) return;  // the whole warp leaves together
-  const Tin* x = acts + row * V;
+template <typename TIn, typename TAcc>
+struct PrepOp {
+  using Tin = TIn;
+  using Tacc = TAcc;
+  const Tin* acts;
+  const int* labels;  // (B, U)
+  Tacc *lpb, *lpe, *denom, *extras;
+  wtt::ExtraCols cols;
+  long long rows;
+  int T, U, V, blank;
+  bool reduce;
+  red::Plan plan;
+  unsigned u_mul, tu_mul;  // division by U and by T·U
+  int u_shr, tu_shr;
 
-  const Tacc d = log_probs_input ? Tacc(0) : wtt::neg_logsumexp_row<Tacc>(x, V, lane);
-  if (lane == 0) {
-    const int u = (int)(row % U);
-    const long long b = row / ((long long)T * U);
-    const int lab = labels[b * U + u];
-    const Tacc xe = (lab >= 0 && lab < V) ? wtt::to_acc(x[lab]) : Tacc(wtt::kNeg);
-    lpb[row] = wtt::to_acc(x[blank]) + d;
-    lpe[row] = (u == U - 1) ? Tacc(wtt::kNeg) : xe + d;
-    if (denom != nullptr) denom[row] = d;
+  // A row's label and whether it is in the last column (u = U-1).
+  struct Stage {
+    int lab, last;
+  };
+  __device__ __forceinline__ Stage stage(int row) const {
+    const int bt = red::div_by(row, u_mul, u_shr, U), u = row - bt * U;
+    const int b = red::div_by(row, tu_mul, tu_shr, T * U);
+    return Stage{labels[b * U + u], u == U - 1};
   }
-  int col = -1;  // lane k < K takes extra column k (a select: no indexed copy of `cols`)
+  template <class Read>
+  __device__ __forceinline__ void emit(int row, Tacc d, const Read& x, const Stage& st) const {
+    const int lab = st.lab;
+    const Tacc xe = (lab >= 0 && lab < V) ? x(lab) : Tacc(wtt::kNeg);
+    lpb[row] = x(blank) + d;
+    lpe[row] = st.last ? Tacc(wtt::kNeg) : xe + d;
+    if (denom != nullptr) denom[row] = d;
 #pragma unroll
-  for (int k = 0; k < wtt::kMaxExtraCols; ++k)
-    if (lane == k) col = cols.col[k];
-  if (col >= 0) extras[row * cols.n + lane] = wtt::to_acc(x[col]) + d;
+    for (int k = 0; k < wtt::kMaxExtraCols; ++k)
+      if (k < cols.n) extras[(long long)row * cols.n + k] = x(cols.col[k]) + d;
+  }
+};
+
+template <typename Tin, typename Tacc, int VEC>
+__global__ void __launch_bounds__(red::kThreads) prep_tile_kernel(const PrepOp<Tin, Tacc> op) {
+  red::tile_body<VEC>(op);
+}
+template <typename Tin, typename Tacc, int VEC>
+__global__ void __launch_bounds__(red::kThreads) prep_warp_kernel(const PrepOp<Tin, Tacc> op) {
+  red::warp_body<VEC>(op);
 }
 
 template <typename Tin, typename Tacc>
 int launch(const void* acts, const int* labels, void* lpb, void* lpe, void* denom,
            void* extras, const wtt::ExtraCols& cols, long long rows, int T, int U, int V,
-           int blank, int log_probs_input, cudaStream_t stream) {
-  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  prep_kernel<Tin, Tacc><<<(unsigned)blocks, kRowsPerBlock * wtt::kWarp, 0, stream>>>(
-      static_cast<const Tin*>(acts), labels, static_cast<Tacc*>(lpb),
-      static_cast<Tacc*>(lpe), static_cast<Tacc*>(denom), static_cast<Tacc*>(extras), cols,
-      rows, T, U, V, blank, log_probs_input);
-  return (int)cudaGetLastError();
+           int blank, int log_probs_input, const red::Plan& plan, cudaStream_t stream) {
+  PrepOp<Tin, Tacc> op;
+  op.acts = static_cast<const Tin*>(acts);
+  op.labels = labels;
+  op.lpb = static_cast<Tacc*>(lpb);
+  op.lpe = static_cast<Tacc*>(lpe);
+  op.denom = static_cast<Tacc*>(denom);
+  op.extras = static_cast<Tacc*>(extras);
+  op.cols = cols;
+  op.rows = rows;
+  op.T = T;
+  op.U = U;
+  op.V = V;
+  op.blank = blank;
+  op.reduce = log_probs_input == 0;
+  op.plan = plan;
+  red::division_magic((unsigned)U, &op.u_mul, &op.u_shr);
+  red::division_magic((unsigned)(T * U), &op.tu_mul, &op.tu_shr);
+  constexpr int V16 = 16 / (int)sizeof(Tin);
+  return red::launch(op, prep_tile_kernel<Tin, Tacc, 1>, prep_tile_kernel<Tin, Tacc, V16>,
+                   prep_warp_kernel<Tin, Tacc, 1>, prep_warp_kernel<Tin, Tacc, V16>, stream);
+}
+
+int elt_size(int dtype) {
+  switch (dtype) {
+    case wtt::kF32: return 4;
+    case wtt::kF64: return 8;
+    case wtt::kBF16:
+    case wtt::kF16: return 2;
+    default: return 0;
+  }
+}
+
+// The largest power of two, at most 16, that divides the address.
+int alignment(const void* p) {
+  int a = 16;
+  while ((reinterpret_cast<unsigned long long>(p) % a) != 0) a /= 2;
+  return a;
+}
+
+int prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe, void* denom,
+         void* extras, const int* extra_cols, int K, long long rows, int T, int U, int V,
+         int blank, int log_probs_input, const red::Plan& plan, void* stream) {
+  if (rows == 0) return 0;
+  wtt::ExtraCols cols;
+  // The reductions' row math is 32-bit: every row index below 2^31.
+  if (!wtt::extra_cols(extra_cols, K, V, &cols) || rows >= (1LL << 31) ||
+      !red::plan_ok(plan, V, elt_size(dtype)) || (plan.vec > 1 && alignment(acts) < 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case wtt::kF32:
+      return launch<float, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
+                                  blank, log_probs_input, plan, s);
+    case wtt::kF64:
+      return launch<double, double>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
+                                    blank, log_probs_input, plan, s);
+    case wtt::kBF16:
+      return launch<__nv_bfloat16, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T,
+                                          U, V, blank, log_probs_input, plan, s);
+    case wtt::kF16:
+      return launch<__half, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
+                                   blank, log_probs_input, plan, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -79,30 +161,39 @@ extern "C" {
 // lpb, lpe, denom: (B,T,U) f32, or f64 for f64 acts; denom may be null
 // (log_probs_input); extras: (B,T,U,K) of the same type for the K columns
 // extra_cols (a host array, each inside [0, V); K <= wtt::kMaxExtraCols).
-// Returns the launch's cudaError_t.
+// The plan is reduce.cuh's for V, the type and acts' alignment. Returns
+// the launch's cudaError_t.
 int wtt_prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe,
              void* denom, void* extras, const int* extra_cols, int K, long long rows, int T,
              int U, int V, int blank, int log_probs_input, void* stream) {
-  if (rows == 0) return 0;
-  wtt::ExtraCols cols;
-  if (!wtt::extra_cols(extra_cols, K, V, &cols)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case wtt::kF32:
-      return launch<float, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
-                                  blank, log_probs_input, s);
-    case wtt::kF64:
-      return launch<double, double>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
-                                    blank, log_probs_input, s);
-    case wtt::kBF16:
-      return launch<__nv_bfloat16, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T,
-                                          U, V, blank, log_probs_input, s);
-    case wtt::kF16:
-      return launch<__half, float>(acts, labels, lpb, lpe, denom, extras, cols, rows, T, U, V,
-                                   blank, log_probs_input, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int elt = elt_size(dtype);
+  if (elt == 0 || V < 1) return (int)cudaErrorInvalidValue;
+  return prep(acts, dtype, labels, lpb, lpe, denom, extras, extra_cols, K, rows, T, U, V, blank,
+              log_probs_input, red::plan(V, elt, alignment(acts)), stream);
+}
+
+// wtt_prep with a plan from the caller (seven unsigned, as wtt_reduce_plan
+// gives them): both modes at one V, for the card tests and
+// scripts/tune_prep.py. A plan outside the bodies' limits is refused.
+int wtt_prep_planned(const void* acts, int dtype, const int* labels, void* lpb, void* lpe,
+                     void* denom, void* extras, const int* extra_cols, int K, long long rows,
+                     int T, int U, int V, int blank, int log_probs_input,
+                     const unsigned* plan_host, void* stream) {
+  const unsigned* h = plan_host;
+  red::Plan plan{(int)h[0], (int)h[1], (int)h[2], h[3], (int)h[4], (int)h[5], (int)h[6]};
+  red::division_magic((unsigned)V, &plan.mul, &plan.shr);  // not taken from the caller
+  return prep(acts, dtype, labels, lpb, lpe, denom, extras, extra_cols, K, rows, T, U, V, blank,
+              log_probs_input, plan, stream);
+}
+
+// reduce.cuh's plan for rows of V elements of `elt` bytes at base
+// alignment `align`, into out[7]; the card tests hold it against
+// ops/cuda/rows.py::reduce_plan.
+void wtt_reduce_plan(int V, int elt, int align, unsigned* out) {
+  const red::Plan p = red::plan(V, elt, align);
+  const unsigned v[7] = {(unsigned)p.mode, (unsigned)p.rows, (unsigned)p.vec, p.mul,
+                         (unsigned)p.shr, (unsigned)p.group, (unsigned)p.stride};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 const char* wtt_error_string(int err) {

@@ -129,6 +129,9 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.wtt_prep.argtypes = [p, i, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
+    lib.wtt_prep_planned.argtypes = lib.wtt_prep.argtypes[:-1] + [p, p]
+    lib.wtt_reduce_plan.argtypes = [i, i, i, p]
+    lib.wtt_reduce_plan.restype = None
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p, p]
@@ -149,8 +152,8 @@ def library() -> ctypes.CDLL:
     lib.wtt_joint_grad_dwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.wtt_prep, lib.wtt_wavefront, lib.wtt_window_stream, lib.wtt_grad,
-               lib.wtt_grad_lattice, lib.wtt_band_prep,
+    for fn in (lib.wtt_prep, lib.wtt_prep_planned, lib.wtt_wavefront, lib.wtt_window_stream,
+               lib.wtt_grad, lib.wtt_grad_lattice, lib.wtt_band_prep,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
                lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols, lib.wtt_joint_grad_dwd,
                lib.wtt_dur_head_prep, lib.wtt_dur_head_grad):
