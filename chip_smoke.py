@@ -57,6 +57,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # bf16 inputs in the tensor cores, dense
+# The same card's issue rates at its 1.98 GHz boost clock on 132 SMs: the
+# FP32 pipe retires 128 lane-instructions a clock per SM (67 TFLOP/s counts
+# an FMA as two), the MUFU 16 results (ex2, rcp, ...).
+FP32_INSTR_PER_S = 128 * 132 * 1.98e9
+MUFU_PER_S = 16 * 132 * 1.98e9
+# What one tanhf compiles to for sm_90a (scripts/sass_count.sh, the probe
+# y = tanhf(x)): both of its branches, selected, so every tanh costs 2 MUFU
+# results (EX2, RCP) and 9 FP32-pipe instructions (FFMA, FMUL, FADD), beside
+# 4 on the ALU pipe (FSETP, FSEL, LOP3; at 64 a clock per SM never the
+# binding term).
+TANH_MUFU = 2
+TANH_FP32 = 9
 
 # The reference's published benchmark shapes (BASELINE.md; U = L + 1).
 SHAPES = [("headline", 128, 150, 40, 28), ("large_v", 32, 150, 20, 5000),
@@ -132,7 +144,8 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_kernel",
                 "band_prep_kernel", "band_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
                 "band_starts_kernel", "joint_prep_kernel",
                 "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
-                "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "window_kernel")
+                "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
+                "window_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
@@ -250,6 +263,42 @@ def graph_ms(fn, n=100):
 def bound(bytes_moved, ops, ops_rate):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tanh_bound(bytes_moved, n_tanh, fp32_per_tanh):
+    """(ms, "bytes" or "operations", the term that binds) of a function that
+    takes ``n_tanh`` tanhf, each with ``fp32_per_tanh`` FP32-pipe
+    instructions of its own arithmetic beside the tanh's: bytes over the
+    memory rate, the tanh's MUFU results over the MUFU rate, and the
+    FP32-pipe instructions over that pipe's rate, the largest."""
+    terms = {"bytes": bytes_moved / HBM_BYTES_PER_S,
+             "mufu": n_tanh * TANH_MUFU / MUFU_PER_S,
+             "fp32": n_tanh * (TANH_FP32 + fp32_per_tanh) / FP32_INSTR_PER_S}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
+
+
+def kernels_alone_ms(fn, names, iters=10):
+    """Device ms a call of ``fn`` spends in the named kernels of the port:
+    their profiler time over the launches of the first, which ``fn``
+    launches once (so a dropped record does not read as a shorter call);
+    None where the profiler records one of them nowhere."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rec = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+)[<(]", e.key)
+            if m and m.group(1) in names:
+                ms, n = rec.get(m.group(1), (0.0, 0))
+                rec[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if any(n not in rec for n in names):
+        return None
+    return sum(ms for ms, _ in rec.values()) / rec[names[0]][1]
 
 
 def make_problem(B, T, L, V, seed, dev, dtype=torch.float32):
@@ -1560,26 +1609,33 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                 launch_ms=kernel_ms(lambda: kjoint.fused_grad(*g_args, fields, 0, **gkw)))
         if f32:
             ep_bytes = (e.numel() + p.numel()) * 4
-            # Event times and the profiler's device times (the kernels alone,
-            # without the host's launch work) of the kernel and the library.
+            # Event times, the profiler's device times of every kernel a call
+            # launches and of the kernels alone (without the wrapper's running
+            # sums and zero fills), and the library's.
             prep_k = lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll)  # noqa: E731
             prep_lib = lambda: torch.matmul(h32, Wd)  # noqa: E731
             grad_k = lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll)  # noqa: E731
             grad_lib = lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2))  # noqa: E731
+            # Bounds: e, p (and g_dur, de2, dp2) once, dlog or the D values a
+            # valid row; the R·H tanh with their own FP32 work: an add and D
+            # FMAs (prep); an add, D FMAs to dh, two for (1 − h²)·dh, two adds
+            # to de2 and dp2, D FMAs to dWd (gradient).
             out["dur_head"][f"{tag}_prep"] = dict(
                 ms=time_ms(prep_k, 10), device_ms=device_ms(prep_k),
+                kernel_device_ms=kernels_alone_ms(prep_k, ("dur_prep_kernel",)),
                 plain_ms=time_ms(lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), 2, 1),
                 library_ms=time_ms(prep_lib, 10), library_device_ms=device_ms(prep_lib),
                 library_graph_ms=graph_ms(prep_lib),
-                bound=bound(ep_bytes + head_bytes + rows * D * 4 + 2 * B * 4, 2 * rows * H * D,
-                            F32_OPS_PER_S))
+                bound=tanh_bound(ep_bytes + head_bytes + rows * D * 4 + 2 * B * 4, rows * H,
+                                 1 + D))
             out["dur_head"][f"{tag}_grad"] = dict(
                 ms=time_ms(grad_k, 10), device_ms=device_ms(grad_k),
+                kernel_device_ms=kernels_alone_ms(grad_k, ("dur_grad_kernel", "dur_sums_kernel")),
                 plain_ms=time_ms(lambda: fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll), 2, 1),
                 library_ms=time_ms(grad_lib, 10), library_device_ms=device_ms(grad_lib),
                 library_graph_ms=graph_ms(grad_lib),
-                bound=bound(2 * ep_bytes + 2 * Wd.numel() * 4 + rows * D * 4 + 2 * B * 4,
-                            4 * rows * H * D, F32_OPS_PER_S))
+                bound=tanh_bound(2 * ep_bytes + 2 * Wd.numel() * 4 + rows * D * 4 + 2 * B * 4,
+                                 rows * H, 5 + 2 * D))
         print(f"time {tag} {suffix}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
         for k, cases_k in out.items():
             for key, v in cases_k.items():
@@ -1592,9 +1648,11 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
                       f"{v['library_ms']:.4f} ms"
                       + (f" | device ms a launch {v['launch_ms'] or 'not measured'}"
                          if "launch_ms" in v else "")
-                      + (f" | device ms {v['device_ms']}, library device ms "
+                      + (f" | device ms {v['device_ms']}, the kernels alone "
+                         f"{v['kernel_device_ms']}, library device ms "
                          f"{v['library_device_ms']} (profiler), {v['library_graph_ms']:.4f} "
-                         f"(100 calls in a CUDA graph)" if "device_ms" in v else ""))
+                         f"(100 calls in a CUDA graph); bound by {v['bound'][2]}"
+                         if "device_ms" in v else ""))
         del h32, h, g, gd2, denom, mb_fields, cX, td_fields, g_dur, problem, args, g_args, cases
         torch.cuda.empty_cache()
     return out, steps, routes
@@ -2040,7 +2098,7 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
         "bound_by": head["bound"][1], "library_ms": head["library_ms"],
         "shape": "the prep kernel at fused B=64 T=150 L=20 H=256 D=4 f32",
-        "by_shape": {case: timing(t) | {"device_ms": t["device_ms"],
+        "by_shape": {case: timing(t) | {"bound_term": t["bound"][2],
                                         "library_device_ms": t["library_device_ms"],
                                         "library_graph_ms": t["library_graph_ms"]}
                      for case, t in variant_kernel_ms["dur_head"].items()}})

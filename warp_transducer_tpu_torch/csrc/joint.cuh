@@ -555,27 +555,24 @@ inline size_t dur_grad_smem_bytes(int H, int BM) {
   return sizeof(float) * ((size_t)Hp * (BM + 1) + (size_t)BM * kPanel) + sizeof(int) * 3 * BM;
 }
 
-// The duration head's gradient, the body of a block that walks every
-// gridDim.x-th tile of BM valid rows. With the unrounded h of the tile in
-// shared memory it accumulates its partial of dWd[k][d] = Σ_rows h[k]·g_dur[d]
-// (thread tid owns k = tid + 256·q, in registers across the tiles) and,
-// with kWithDh, adds d = (g_dur·Wdᵀ)·(1 − h²) into de and dp. The block's
-// partial is written whole to dWd_part[blockIdx.x] (H × D), zeros when it met
-// no tile; sum_parts_kernel adds the partials in a fixed order, so dWd does
-// not depend on the order in which blocks ran. e, p: f32; g_dur: (B, T, U, D),
-// zero outside the lattice; Wd: (H, D), read only with kWithDh.
-template <int BM, bool kWithDh>
+// dWd of the duration head (joint_grad.cu's joint_grad_dwd_kernel), the body
+// of a block that walks every gridDim.x-th tile of BM valid rows. With the
+// unrounded h of the tile in shared memory it accumulates its partial of
+// dWd[k][d] = Σ_rows h[k]·g_dur[d] (thread tid owns k = tid + 256·q, in
+// registers across the tiles). The block's partial is written whole to
+// dWd_part[blockIdx.x] (H × D), zeros when it met no tile; sum_parts_kernel
+// adds the partials in a fixed order, so dWd does not depend on the order in
+// which blocks ran. e, p: f32; g_dur: (B, T, U, D), zero outside the lattice.
+template <int BM>
 __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
                                                const float* __restrict__ p,
-                                               const float* __restrict__ Wd,
                                                const float* __restrict__ g_dur, const Rows& rows,
-                                               float* __restrict__ de, float* __restrict__ dp,
                                                float* __restrict__ dWd_part, int H, int D,
                                                float* smem) {
   constexpr int KQ = kMaxH / kThreads;
   const int Hp = (H + kBK - 1) / kBK * kBK;
   const int ldh = BM + 1;
-  float* hs = smem;                                 // Hp × ldh; then d in place
+  float* hs = smem;                                 // Hp × ldh
   float* s_gd = hs + (size_t)Hp * ldh;              // BM × kPanel
   int* s_b = reinterpret_cast<int*>(s_gd + BM * kPanel);
   int* s_t = s_b + BM;
@@ -601,22 +598,6 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
 #pragma unroll
         for (int d = 0; d < kPanel; ++d) acc[q][d] = fmaf(h, s_gd[m * kPanel + d], acc[q][d]);
       }
-    }
-    if (kWithDh) {
-      __syncthreads();  // every h read before d takes its place
-      for (int idx = tid; idx < BM * Hp; idx += kThreads) {
-        const int m = idx / Hp, k = idx % Hp;
-        float d = 0.f;
-        if (k < H) {
-          float dh = 0.f;
-          for (int c = 0; c < D; ++c) dh = fmaf(s_gd[m * kPanel + c], Wd[k * D + c], dh);
-          const float h = hs[k * ldh + m];
-          d = dh * (1.f - h * h);
-        }
-        hs[k * ldh + m] = d;
-      }
-      __syncthreads();
-      scatter_de_dp<BM>(hs, ldh, s_b, s_t, s_u, rows, H, de, dp);
     }
   }
 

@@ -279,8 +279,7 @@ joint_grad_dwd_kernel(const float* __restrict__ e, const float* __restrict__ p,
                       const float* __restrict__ g_dur, Rows rows, float* __restrict__ dWd_part,
                       int H, int D) {
   extern __shared__ float smem[];
-  dur_grad_tiles<kDim * TM, false>(e, p, nullptr, g_dur, rows, nullptr, nullptr, dWd_part, H, D,
-                                   smem);
+  dur_grad_tiles<kDim * TM>(e, p, g_dur, rows, dWd_part, H, D, smem);
 }
 
 // ---- launches ---------------------------------------------------------------

@@ -151,7 +151,9 @@ def library() -> ctypes.CDLL:
     lib.wtt_joint_grad_cols.argtypes = joint[2:] + fields + [p, p, p, p, i] + chunk + [i] + dims
     lib.wtt_joint_grad_dwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.wtt_dur_head_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_dur_head_plan.restype = None
     for fn in (lib.wtt_prep, lib.wtt_prep_planned, lib.wtt_wavefront, lib.wtt_window_stream,
                lib.wtt_grad, lib.wtt_grad_lattice, lib.wtt_band_prep,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
@@ -170,10 +172,11 @@ def library() -> ctypes.CDLL:
                lib.wtt_joint_grad_cols_attrs):
         fn.argtypes = [i, i, ip, ip]
         fn.restype = i
-    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem,
-               lib.wtt_dur_head_smem):
+    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem):
         fn.argtypes = [i]
         fn.restype = ll
+    lib.wtt_dur_head_smem.argtypes = []
+    lib.wtt_dur_head_smem.restype = ll
     lib.wtt_error_string.argtypes = [i]
     lib.wtt_error_string.restype = ctypes.c_char_p
     return lib

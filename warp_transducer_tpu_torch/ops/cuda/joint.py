@@ -28,7 +28,7 @@ from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
 
 _F32 = (torch.float32,)
 _IN = (torch.float32, torch.bfloat16)
-# The duration-head gradient's row splits: two blocks a multiprocessor.
+# The row splits of the fused gradient's dWd kernel: two blocks a multiprocessor.
 _DUR_BLOCKS_PER_SM = 2
 # The fused gradient's chunk of rows: the buffer of their h (joint_grad.cu's
 # row kernel writes it, the column kernel reads it) takes at most this, and
@@ -61,7 +61,7 @@ def _check_h(H, smem_entries):
     if H > max_h:
         raise ValueError(f"H={H} exceeds the fused joint kernels' limit of {max_h}: a lane "
                          "keeps 64 accumulators of an H-wide result in registers")
-    need = max(getattr(lib(), entry)(H) for entry in smem_entries)
+    need = max((getattr(lib(), entry)(H) for entry in smem_entries), default=0)
     if need > SMEM_BYTES:
         raise ValueError(f"H={H} needs {need} bytes of shared memory for the kernel's tiles; a "
                          f"block may use {SMEM_BYTES} (227 KB)")
@@ -110,9 +110,53 @@ def _dur_inputs(e, p, Wd, other, what, per_cell):
     B, T, H = e.shape
     if p.shape[0] != B or p.shape[2] != H:
         raise ValueError(f"shapes disagree: e {tuple(e.shape)}, p {tuple(p.shape)}")
-    _check_h(H, ("wtt_dur_head_smem",))
+    _check_h(H, ())  # the kernels' shared memory does not depend on H (dur_smem_bytes)
     shape = (B, T, p.shape[1]) if per_cell else ()
     return (e.float(), p.float()) + _dur_head(dev, H, Wd, other, what, shape)
+
+
+# The plan of csrc/dur_head.cu (its constants and prep_ut / prep_tt), mirrored
+# for the CPU tests; a card test holds it against wtt_dur_head_plan and
+# wtt_dur_head_smem. The prep: a thread a cell, tiles of tt frames × ut
+# labels, e and p staged a chunk of DUR_PREP_KC columns at a time in rows of
+# DUR_PREP_LD words. The gradient: a block owns DUR_GRAD_KS columns of k of
+# one utterance for a share of its frames (DUR_GRAD_SPLITS blocks share
+# them), DUR_GRAD_WARPS warps a block deal them DUR_GRAD_TF at a time, labels
+# go in chunks of DUR_GRAD_UC, two at a time.
+DUR_PREP_THREADS = 256
+DUR_PREP_KC = 32
+DUR_PREP_LD = DUR_PREP_KC + 4
+DUR_GRAD_WARPS = 4
+DUR_GRAD_KS = 32
+DUR_GRAD_UC = 32
+DUR_GRAD_TF = 2
+DUR_GRAD_SPLITS = 2
+DUR_MAX_D = 8
+
+
+def dur_prep_tile(U: int) -> tuple:
+    """(ut, tt): labels and frames of a prep tile for U >= 1 labels."""
+    ut = min(U, DUR_PREP_THREADS)
+    return ut, DUR_PREP_THREADS // ut
+
+
+def dur_head_plan(T: int, U: int, H: int) -> tuple:
+    """(ut, tt, prep tiles an utterance, gradient blocks an utterance) at
+    T frames, U >= 1 labels and H columns: the prep's grid is (B, tiles),
+    the gradient's (B, column slices, DUR_GRAD_SPLITS)."""
+    ut, tt = dur_prep_tile(U)
+    return ut, tt, -(-T // tt) * -(-U // ut), -(-H // DUR_GRAD_KS) * DUR_GRAD_SPLITS
+
+
+def dur_smem_bytes() -> int:
+    """Static shared memory of a block of the larger of the two kernels:
+    the prep's e and p rows (tt + ut <= 257) and Wd's chunk, the gradient's
+    p chunk, its warps' dp sums and their frames' g_dur (at D = 8); neither
+    depends on H or U."""
+    prep = 4 * ((DUR_PREP_THREADS + 1) * DUR_PREP_LD + DUR_PREP_KC * DUR_MAX_D)
+    grad = 4 * ((1 + DUR_GRAD_WARPS) * DUR_GRAD_UC * DUR_GRAD_KS
+                + DUR_GRAD_WARPS * DUR_GRAD_TF * DUR_GRAD_UC * DUR_MAX_D)
+    return max(prep, grad)
 
 
 def _ptr(t):
@@ -158,8 +202,8 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
 
 
 def _dur_splits(B, T, U, H, dev):
-    """Row splits of the duration-head gradient kernels: each split walks
-    every nsplit-th row tile and owns one partial of dWd."""
+    """Row splits of the fused gradient's dWd kernel: each split walks every
+    nsplit-th row tile and owns one partial of dWd."""
     tile = lib().wtt_joint_grad_stripe(H)  # its row tiles are as tall as the column kernel's
     tiles = -(-(B * T * U) // tile)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -256,8 +300,8 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
 
 
 def dur_head_prep(e, p, Wd, bias_d, input_lengths=None, label_lengths=None):
-    """``fused_joint.dur_head_prep`` on the card: one warp a valid row. On a
-    CPU tensor this is the plain version."""
+    """``fused_joint.dur_head_prep`` on the card: a tile of cells a block,
+    a thread a cell. On a CPU tensor this is the plain version."""
     if e.device.type != "cuda":
         return _plain.dur_head_prep(e, p, Wd, bias_d, input_lengths, label_lengths)
     dev = e.device
@@ -275,26 +319,28 @@ def dur_head_prep(e, p, Wd, bias_d, input_lengths=None, label_lengths=None):
 
 
 def dur_head_grad(e, p, Wd, g_dur, input_lengths=None, label_lengths=None):
-    """``fused_joint.dur_head_grad`` on the card: one launch for de2, dp2
-    and the partials of dWd, and their sum in a fixed order. On a CPU tensor
-    this is the plain version."""
+    """``fused_joint.dur_head_grad`` on the card: one launch for de2
+    (written whole) and the partials of dp2 and dWd, and their sums in a
+    fixed order; no atomics, so the three are the same bits on every call.
+    On a CPU tensor this is the plain version."""
     if e.device.type != "cuda":
         return _plain.dur_head_grad(e, p, Wd, g_dur, input_lengths, label_lengths)
     dev = e.device
     e32, p32, Wd32, gd = _dur_inputs(e, p, Wd, g_dur, "g_dur", True)
+    if gd.data_ptr() % 16:  # the kernel reads a cell's D values as whole vectors
+        gd = gd.clone()
     B, T, H = e.shape
     U, D = p.shape[1], Wd32.shape[1]
     offsets, ll = _rows(e, p, input_lengths, label_lengths)
-    nd = _dur_splits(B, T, U, H, dev)
-    de = torch.zeros((B, T, H), dtype=torch.float32, device=dev)
-    dp = torch.zeros((B, U, H), dtype=torch.float32, device=dev)
+    de = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    dp = torch.empty((B, U, H), dtype=torch.float32, device=dev)
     dWd = torch.empty((H, D), dtype=torch.float32, device=dev)
-    dWd_part = torch.empty((nd, H, D), dtype=torch.float32, device=dev)
+    part = torch.empty(DUR_GRAD_SPLITS * B * (U * H + H * D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib().wtt_dur_head_grad(e32.data_ptr(), p32.data_ptr(), Wd32.data_ptr(),
                                       gd.data_ptr(), offsets.data_ptr(), ll.data_ptr(),
                                       de.data_ptr(), dp.data_ptr(), dWd.data_ptr(),
-                                      dWd_part.data_ptr(), nd, B, T, U, H, D, stream(dev))
+                                      part.data_ptr(), B, T, U, H, D, stream(dev))
     check(err, "dur_head")
     return de.to(e.dtype), dp.to(p.dtype), dWd.to(Wd.dtype)
 

@@ -56,10 +56,11 @@ def _tdt_single_chunk(e, p, W) -> bool:
     any size, so the rule is which route is the faster there. Timed at
     B=64, T=150, L=20, V=5000, H=256, D=4 on an H100 (``chip_smoke.py``,
     its ``route fused`` line; PERF.md has the times): the composed route,
-    by under half a percent of a step and with the lower peak memory. The
-    duration head inside the fused kernels costs a warp's tanh pass a row
-    in the prep and a third kernel for dWd in the gradient, about what the
-    standalone pair costs. One shape was timed, so the rule is a constant."""
+    by 1–2% of a step and with the lower peak memory. The duration head
+    inside the fused kernels costs a warp's tanh pass a row in the prep and
+    a third kernel for dWd in the gradient, more than the standalone pair
+    (about 0.1 ms together there). One shape was timed, so the rule is a
+    constant."""
     return False
 
 
