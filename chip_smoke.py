@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -138,7 +139,8 @@ def time_ms(fn, iters, warmup=2):
 
 
 # Kernel names of csrc/*.cu as the profiler shows them.
-PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_kernel",
+PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
+                "wavefront_block_kernel",
                 "grad_lattice_tile_kernel", "grad_lattice_warp_kernel", "grad_fields_tile_kernel",
                 "grad_fields_warp_kernel",
                 "band_prep_kernel", "band_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
@@ -263,6 +265,72 @@ def graph_ms(fn, n=100):
 def bound(bytes_moved, ops, ops_rate):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def wavefront_bound(lpb, il, ll):
+    """bound() of one forward_backward call: lpb and lpe read at the valid
+    cells, alphas and betas written at every cell, ll_forward, ll_backward
+    written; about eight operations a valid cell and direction (two adds,
+    the clamps, the log-sum-exp's max, subtract, exp, log1p and add)."""
+    B, T, U = lpb.shape
+    valid_cells = int((il.long().clamp(0, T) * (ll.long() + 1).clamp(0, U)).sum())
+    elt = lpb.element_size()
+    return bound((2 * valid_cells + 2 * B * T * U) * elt + 2 * B * elt + 2 * B * 4,
+                 2 * 8 * valid_cells, F32_OPS_PER_S)
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock as nvidia-smi reports it, MHz, or None."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    try:
+        return float(out.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        return None
+
+
+def wavefront_step_instructions(library):
+    """{element bytes: SASS instructions of one diagonal step of the band
+    lattice kernel}, read with cuobjdump from the built library: the
+    innermost loop around the alpha walk's SHFL.UP and the beta walk's
+    SHFL.DOWN over the shuffles in it (the steps the compiler unrolled into
+    it; as scripts/sass_count.sh prints them), the larger of the two. A warp
+    issues at most one instruction a clock, so that count is a step's cycles
+    at the least. {} where cuobjdump is missing."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        return {}
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
+                          text=True).stdout
+    out, elt, shfl, loops = {}, None, {}, []
+
+    def close():
+        if elt and shfl:
+            per_step = []
+            for k in ("UP", "DOWN"):  # the innermost loop around a shuffle of this kind,
+                inner = [(b - a, a, b) for a, b in loops for x in shfl.get(k, []) if a <= x <= b]
+                if inner:  # over the steps the compiler unrolled into it
+                    _, a, b = min(inner)
+                    per_step.append(((b - a) // 16 + 1) / sum(a <= x <= b for x in shfl[k]))
+            if per_step:
+                out[elt] = max(per_step)
+
+    for line in sass.splitlines():
+        if "Function :" in line:
+            close()
+            m = re.search(r"wavefront_band_kernelI([fd])E", line)
+            elt, shfl, loops = (4 if m.group(1) == "f" else 8) if m else None, {}, []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not (elt and m):
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        if k := re.search(r"SHFL\.(UP|DOWN)", ins):
+            shfl.setdefault(k.group(1), []).append(addr)
+        if (b := re.search(r"\bBRA (?:\S+, )?0x([0-9a-f]+)", ins)) and int(b.group(1), 16) < addr:
+            loops.append((int(b.group(1), 16), addr))
+    close()
+    return out
 
 
 def tanh_bound(bytes_moved, n_tanh, fp32_per_tanh):
@@ -1882,13 +1950,18 @@ def main():
             plain_ms=time_ms(lambda: prep.prepare(acts, labels, 0, False), plain_iters, 1),
             library_ms=time_ms(lambda: torch.logsumexp(acts, -1), iters),
             bound=bound(n_big * elt + B * U * 4 + 3 * n_small * 4, 4 * n_big, F32_OPS_PER_S))
+        wave_k = lambda: kwave.forward_backward(p.lpb, p.lpe, il, ll)  # noqa: E731
+        n_max = int((il.long() + ll.long()).max())  # the longest lattice's diagonals
+        wave_step = wave_steps.get(p.lpb.element_size())
         out["wavefront"] = dict(
-            ms=time_ms(lambda: kwave.forward_backward(p.lpb, p.lpe, il, ll), iters),
+            ms=time_ms(wave_k, iters), device_ms=device_ms(wave_k),
+            kernel_device_ms=launch_device_ms(wave_k),
             plain_ms=time_ms(lambda: lattice.forward_backward(p.lpb, p.lpe, il, ll),
                              plain_iters, 1),
-            library_ms=None,
-            bound=bound((2 * valid_cells + 2 * n_small) * 4 + 4 * B * 4, 2 * 8 * valid_cells,
-                        F32_OPS_PER_S))
+            library_ms=None, bound=wavefront_bound(p.lpb, il, ll),
+            registers=kwave.kernel_registers(U, p.lpb.dtype), step_instructions=wave_step,
+            chain_floor_ms=(n_max * wave_step / (clock_mhz * 1e3)
+                            if wave_step and clock_mhz else None))
         softmax_ms = time_ms(lambda: torch.softmax(acts, -1), iters)
         # Each gradient reads acts in valid rows and writes every element,
         # reads the labels and lengths, and per valid row its own scalars:
@@ -1924,13 +1997,22 @@ def main():
             print(f"time {tag} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
                   f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}"
                   + (f" | device ms {v['device_ms']}, the kernel alone {v['kernel_device_ms']} "
-                     f"(profiler)" if "device_ms" in v else ""))
+                     f"(profiler)" if "device_ms" in v else "")
+                  + (f" | chain floor {v['chain_floor_ms']} ms ({v['step_instructions']} SASS "
+                     f"instructions a step), registers, local bytes {v['registers']}"
+                     if "chain_floor_ms" in v else ""))
         step_info = dict(ms=loss_grad, ms_again=loss_grad_b, unfolded_ms=[old_a, old_b],
                          idle_share=prof and prof[1], device_kernels=prof and prof[2],
                          unfolded_idle_share=prof_old and prof_old[1],
                          unfolded_device_kernels=prof_old and prof_old[2])
         return step_info, out
 
+    # The lattice kernel's chain floor: N_max diagonals × the SASS
+    # instructions of one step ÷ the SM clock (a warp issues one a clock).
+    clock_mhz = sm_clock_mhz()
+    wave_steps = wavefront_step_instructions(build.build())
+    print(f"wavefront: SASS instructions a step {wave_steps} (element bytes: count); "
+          f"SM clock {clock_mhz} MHz (nvidia-smi clocks.max.sm)")
     timings = {tag: per_shape(tag, B, T, L, V) for tag, B, T, L, V in SHAPES}
     del problems
     torch.cuda.empty_cache()
@@ -1994,7 +2076,9 @@ def main():
         return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1], "library_ms": t["library_ms"]} | (
                     {"device_ms": t["device_ms"], "kernel_device_ms": t["kernel_device_ms"]}
-                    if "kernel_device_ms" in t else {})
+                    if "kernel_device_ms" in t else {}) | {
+                        k: t[k] for k in ("chain_floor_ms", "step_instructions", "registers")
+                        if k in t}
 
     kernels = []
     for k, (source, replaces) in sources.items():

@@ -2,7 +2,11 @@
 # What the duration-head kernels and tanhf compile to on sm_90a: the SASS
 # of a probe kernel y[i] = tanhf(x[i]) (its MUFU and FP32-pipe instructions
 # give the tanh's share of a bound), then an opcode histogram of each kernel
-# instantiation of csrc/<name>.cu.
+# instantiation of csrc/<name>.cu, and the instructions of the innermost loop
+# around each kind of shuffle over the shuffles of that kind in it (for
+# wavefront.cu a step of the alpha walk, SHFL.UP, and of the beta walk,
+# SHFL.DOWN, however many steps the compiler unrolled: a warp issues at most
+# one instruction a clock, so that count is a step's cycles at the least).
 #
 #   sh scripts/sass_count.sh [name ...]
 #
@@ -33,4 +37,24 @@ for k in "$@"; do
       op = $2; if (op ~ /^@/) op = $3; sub(/\..*/, "", op); sub(/;$/, "", op); n[op]++ }
     function dump(  s, o) { s = fn ":"; for (o in n) s = s " " o "=" n[o]; print s }
     END { if (fn) dump() }' | c++filt
+  echo "== $k.cu: instructions a shuffle in the innermost loop around each kind, a function"
+  $BIN/cuobjdump -sass "$OUT/$k.cubin" | awk '
+    function hex(h,  i, c, v) { v = 0; h = tolower(h)
+      for (i = 1; i <= length(h); i++) { c = index("0123456789abcdef", substr(h, i, 1)); v = v * 16 + c - 1 }
+      return v }
+    function dump(  s, k, i, best, bi, a, m) { if (!fn) return; s = fn ":"
+      for (k in kinds) { best = 0
+        for (i = 1; i <= nb; i++) for (a in at) if (kind[a] == k && at[a] >= lo[i] && at[a] <= hi[i])
+          if (!best || hi[i] - lo[i] < best) { best = hi[i] - lo[i]; bi = i }
+        m = 0
+        if (best) for (a in at) if (kind[a] == k && at[a] >= lo[bi] && at[a] <= hi[bi]) m++
+        s = s " " k "=" (best ? (best / 16 + 1) / m : 0) }
+      print s }
+    /Function :/ { dump(); fn = $3; nb = 0; delete at; delete kind; delete kinds; next }
+    match($0, /\/\*[0-9a-f][0-9a-f][0-9a-f][0-9a-f]+\*\//) {
+      addr = hex(substr($0, RSTART + 2, RLENGTH - 4))
+      if (match($0, /SHFL\.(UP|DOWN)/)) { k = substr($0, RSTART, RLENGTH); at[addr] = addr; kind[addr] = k; kinds[k] = 1 }
+      if (match($0, /BRA 0x[0-9a-f]+/)) { t = hex(substr($0, RSTART + 6, RLENGTH - 6))
+        if (t < addr) { nb++; lo[nb] = t; hi[nb] = addr } } }
+    END { dump() }' | c++filt
 done

@@ -76,12 +76,25 @@ def test_prep_kernel(dev, dtype, V, blank, lpi):
         _close(got.denom, want.denom, cdtype)
 
 
+# The band kernel's band edges (U = 32·bands ± 1), its cap (f32 U <= 512,
+# f64 U <= 352) ± 1, where the block kernel takes over, the block kernel at
+# U = 1100, and batches of two and four lattices a block.
+WAVEFRONT_SHAPES = [(4, 9, 6, True), (1, 9, 4, False), (2, 1, 3, True), (3, 7, 1, True),
+                    (2, 3, 1100, True), (5, 6, 31, True), (5, 6, 32, True), (5, 6, 33, True),
+                    (4, 5, 255, True), (4, 5, 256, True), (4, 5, 257, True), (3, 4, 320, True),
+                    (3, 3, 351, True), (3, 3, 352, True), (3, 3, 353, True),
+                    (3, 4, 321, True), (3, 3, 511, True), (3, 3, 512, True), (3, 3, 513, True),
+                    (6, 40, 41, True), (3, 30, 41, False), (300, 7, 41, True),
+                    (300, 6, 21, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,T,U,ragged", [(4, 9, 6, True), (1, 9, 4, False), (2, 1, 3, True),
-                                          (3, 7, 1, True), (2, 3, 1100, True)])
+@pytest.mark.parametrize("B,T,U,ragged", WAVEFRONT_SHAPES)
 @pytest.mark.parametrize("betas", [True, False])
 def test_wavefront_kernel(dev, dtype, B, T, U, ragged, betas):
     acts, labels, il, ll = _problem(B, T, U, 6, seed=1, ragged=ragged, dtype=dtype, device=dev)
+    if ragged and B >= 5:  # T_b = 1 and U_b = 1 beside the full lattice
+        il[1], ll[2] = 1, 0
     p = prep.prepare(acts, labels, 0, False)
     got = kwave.forward_backward(p.lpb, p.lpe, il, ll, compute_betas=betas)
     torch.cuda.synchronize()
@@ -89,6 +102,41 @@ def test_wavefront_kernel(dev, dtype, B, T, U, ragged, betas):
     # Every cell is written, NEG at invalid ones, in both versions.
     for name in ("alphas", "betas", "ll_forward", "ll_backward"):
         _close(getattr(got, name), getattr(want, name), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("U", [41, 301, 700])
+def test_wavefront_kernel_bit_equal_across_calls(dev, dtype, U):
+    acts, labels, il, ll = _problem(6, 20, U, 6, seed=3, dtype=dtype, device=dev)
+    p = prep.prepare(acts, labels, 0, False)
+    first = kwave.forward_backward(p.lpb, p.lpe, il, ll)
+    second = kwave.forward_backward(p.lpb, p.lpe, il, ll)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_wavefront_plan_matches_kernel(dev):
+    """ops/cuda/wavefront.py::plan (the CPU tests' mirror) against the C
+    plan, on this card's SM count and on an H100's."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        elt = torch.tensor([], dtype=dtype).element_size()
+        for U in (1, 21, 31, 32, 33, 41, 255, 256, 257, 301, 321, 511, 512, 513, 1100):
+            for B in (1, 16, 67, 128, 1000):
+                for betas in (True, False):
+                    for sms in (n_sm, 132):
+                        for T in (1, 1500, 4_000_000):
+                            assert kwave.plan(B, T, U, elt, betas, sms) == \
+                                kwave.kernel_plan(B, T, U, dtype, betas, sms), \
+                                (dtype, T, U, B, betas, sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wavefront_kernels_do_not_spill(dev, dtype):
+    for U in (41, 2000):  # the band kernel, the block kernel
+        regs, local = kwave.kernel_registers(U, dtype)
+        assert local == 0 and regs <= 64, (U, regs, local)  # 1024 threads a block
 
 
 def test_wavefront_kernel_rejects_huge_u(dev):

@@ -325,6 +325,16 @@ def test_wrapper_refusals(dev):
         kjoint.fused_grad(*big, pr.denom, fields, 0)
 
 
+def test_fused_loss_names_the_h_limit(dev):
+    """Above H = 1024 the fused joint kernels refuse, and the error names the
+    limit; the plain version computes."""
+    e, p, W, bias, labels, il, ll = _problem(2, 4, 3, 16, 1280, device=dev)
+    with pytest.raises(ValueError, match="limit of 1024"):
+        rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll)
+    loss = rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll, implementation="torch")
+    assert bool(torch.isfinite(loss))
+
+
 def test_pruned_band_matches_rnnt_loss_pruned_on_card(dev, monkeypatch):
     """The sweep against ``rnnt_loss_pruned`` on a band formed by hand."""
     from warp_transducer_tpu_torch import gather_banded

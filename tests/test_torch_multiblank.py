@@ -32,6 +32,7 @@ from warp_transducer_tpu_torch.ops import multiblank as TM
 from warp_transducer_tpu_torch.ops import prep as TP
 from warp_transducer_tpu_torch.ops import rnnt as TR
 from warp_transducer_tpu_torch.ops.lattice import LatticeResult
+from jax_programs import release_compiled_programs  # noqa: F401
 
 F64 = dict(rtol=1e-9, atol=1e-9)
 F32_COST = dict(rtol=1e-5, atol=1e-5)

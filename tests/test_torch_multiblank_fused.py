@@ -19,6 +19,7 @@ import torch
 from warp_transducer_tpu.ops import multiblank_fused as JMF
 from warp_transducer_tpu_torch import (rnnt_loss_fused_joint, rnnt_loss_multiblank,
                                        rnnt_loss_multiblank_fused_joint)
+from jax_programs import release_compiled_programs  # noqa: F401
 
 COST = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)

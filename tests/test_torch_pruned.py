@@ -35,6 +35,7 @@ from warp_transducer_tpu_torch import (gather_banded, rnnt_loss, rnnt_loss_prune
                                        rnnt_loss_simple, rnnt_prune_ranges)
 from warp_transducer_tpu_torch.ops import band
 from warp_transducer_tpu_torch.ops.pruned import ranges_from_posteriors
+from jax_programs import release_compiled_programs  # noqa: F401
 
 COST = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)

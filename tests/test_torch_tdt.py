@@ -26,6 +26,7 @@ from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_tdt
 from warp_transducer_tpu_torch.ops import rnnt as TR
 from warp_transducer_tpu_torch.ops import tdt as TT
 from warp_transducer_tpu_torch.ops.lattice import LatticeResult
+from jax_programs import release_compiled_programs  # noqa: F401
 
 F64 = dict(rtol=1e-9, atol=1e-9)
 F32_COST = dict(rtol=1e-5, atol=1e-5)

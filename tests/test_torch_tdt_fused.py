@@ -20,6 +20,7 @@ import torch
 from warp_transducer_tpu.ops import tdt_fused as JTF
 from warp_transducer_tpu_torch import rnnt_loss_tdt, rnnt_loss_tdt_fused_joint
 from warp_transducer_tpu_torch.ops import tdt_fused
+from jax_programs import release_compiled_programs  # noqa: F401
 
 COST = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)

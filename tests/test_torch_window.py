@@ -23,6 +23,7 @@ from warp_transducer_tpu.ops.tdt import _tdt_lattice
 from warp_transducer_tpu_torch.ops import lattice as TL
 from warp_transducer_tpu_torch.ops import window as TW
 from warp_transducer_tpu_torch.ops.prep import NEG
+from jax_programs import release_compiled_programs  # noqa: F401
 
 TOL = {np.float64: dict(rtol=1e-9, atol=1e-9), np.float32: dict(rtol=1e-5, atol=2e-5)}
 MULTIBLANK = [(), (2,), (2, 4), (2, 3, 8)]

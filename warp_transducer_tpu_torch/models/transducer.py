@@ -44,6 +44,16 @@ class TransducerConfig:
 
 
 class Joint(nn.Module):
+    """The joint network: ``enc_proj``, ``pred_proj``, tanh, ``out_proj``
+    (and ``dur_proj`` with ``cfg.tdt_durations``).
+
+    Its fused losses (``fused_loss``, ``multiblank_fused_loss``,
+    ``tdt_fused_loss``) run the fused joint kernels on a CUDA tensor, which
+    take ``cfg.joint_dim`` <= 1024 and raise ``ValueError`` above it;
+    ``pruned_fused_loss`` and the plain versions (CPU tensors,
+    ``implementation="torch"``) compute at any width.
+    """
+
     def __init__(self, cfg: TransducerConfig, device=None):
         super().__init__()
         self.cfg = cfg

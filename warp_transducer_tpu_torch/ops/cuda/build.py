@@ -133,6 +133,8 @@ def library() -> ctypes.CDLL:
     lib.wtt_reduce_plan.argtypes = [i, i, i, p]
     lib.wtt_reduce_plan.restype = None
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.wtt_wavefront_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_wavefront_plan.restype = None
     lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p, p]
     lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
@@ -169,7 +171,7 @@ def library() -> ctypes.CDLL:
     lib.wtt_joint_grad_cols_occupancy.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     for fn in (lib.wtt_joint_prep_attrs, lib.wtt_joint_grad_rows_attrs,
-               lib.wtt_joint_grad_cols_attrs):
+               lib.wtt_joint_grad_cols_attrs, lib.wtt_wavefront_attrs):
         fn.argtypes = [i, i, ip, ip]
         fn.restype = i
     for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem):

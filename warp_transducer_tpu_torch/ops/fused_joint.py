@@ -384,6 +384,11 @@ def rnnt_loss_fused_joint(e, p, W, bias, labels, input_lengths, label_lengths,
     Equals ``rnnt_loss(tanh(e ⊕ p) @ W + bias, ...)`` without ever holding
     the (B, T, U, V) logits or their gradient in device memory.
     Differentiable w.r.t. e, p, W and bias.
+
+    On a CUDA tensor the fused kernels take H <= 1024 (a lane keeps 64
+    accumulators of an H-wide row in registers, ``csrc/joint.cuh``); above
+    it the call raises ``ValueError`` under 'auto' and 'cuda'. 'torch' (the
+    plain version) computes at any H.
     """
     # ops/rnnt.py lists this module's stages in its engines and so imports
     # it; the engines are read here, when a loss is called.

@@ -172,6 +172,9 @@ def rnnt_loss_pruned_fused(e, p, W, bias, ranges, labels, input_lengths, label_l
     without holding the (B, T, S, V) banded logits or their gradient in
     device memory above the threshold. Differentiable w.r.t. e, p, W and
     bias.
+
+    Unlike ``rnnt_loss_fused_joint`` it has no limit on H on a CUDA tensor:
+    neither of its routes runs the fused joint kernels (H <= 1024).
     """
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")

@@ -158,6 +158,10 @@ def rnnt_loss_tdt_fused_joint(e, p, W, bias, Wd, bias_d, labels, input_lengths, 
     ``h = tanh(e ⊕ p)``, without holding the (B, T, U, V) token logits or
     the (B, T, U, H) joint features. Differentiable w.r.t. all six joint
     inputs.
+
+    On a CUDA tensor the fused kernels and the duration-head kernels take
+    H <= 1024 and raise ``ValueError`` above it under 'auto' and 'cuda'
+    (``rnnt_loss_fused_joint``); 'torch' computes at any H.
     """
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")
