@@ -147,7 +147,7 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "band_starts_kernel", "joint_prep_kernel",
                 "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
-                "window_kernel")
+                "window_warp_kernel", "window_block_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
@@ -331,6 +331,91 @@ def wavefront_step_instructions(library):
             loops.append((int(b.group(1), 16), addr))
     close()
     return out
+
+
+def window_step_instructions(library):
+    """{(element bytes, cells a lane): (alpha, beta) SASS instructions of
+    one row step of the window warp kernel}, read with cuobjdump from the
+    built library: the innermost loop (a conditional backward branch) around
+    an alpha row's SHFL.UP (the scans; it holds no SHFL.DOWN) and around a
+    beta row's SHFL.DOWN, as scripts/sass_count.sh prints them. Static
+    counts: the loops over arcs and copies inside a row step count once, so
+    a row with several arcs issues more. A warp issues at most one
+    instruction a clock. {} where cuobjdump is missing."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        return {}
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
+                          text=True).stdout
+    out, key, shfl, loops = {}, None, {}, []
+
+    def close():
+        if not (key and shfl):
+            return
+        steps = []
+        for mine, other in (("UP", "DOWN"), ("DOWN", None)):
+            inner = [b - a for a, b in loops
+                     if any(a <= x <= b for x in shfl.get(mine, []))
+                     and not (other and any(a <= x <= b for x in shfl.get(other, [])))]
+            steps.append(min(inner) // 16 + 1 if inner else None)
+        out[key] = tuple(steps)
+
+    for line in sass.splitlines():
+        if "Function :" in line:
+            close()
+            m = re.search(r"window_warp_kernelI([fd])Li(\d+)E", line)
+            key = ((4 if m.group(1) == "f" else 8), int(m.group(2))) if m else None
+            shfl, loops = {}, []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not (key and m):
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        if k := re.search(r"SHFL\.(UP|DOWN)", ins):
+            shfl.setdefault(k.group(1), []).append(addr)
+        # A loop ends in a conditional backward branch; the out-of-line paths
+        # of a shuffle in a diverged warp jump back unconditionally.
+        if ((b := re.match(r"@!?U?P\w+\s+BRA (?:\S+, )?0x([0-9a-f]+)", ins))
+                and int(b.group(1), 16) < addr):
+            loops.append((int(b.group(1), 16), addr))
+    close()
+    return out
+
+
+def window_bound(lpb, extra, arcs, il, ll, betas=True):
+    """bound() of one window forward_backward call: the 2 + C channels read
+    at the valid cells, alphas (and betas) written at every cell, the lls
+    and lengths; the operations of each valid cell and direction
+    (window_cell_ops)."""
+    B, T, U = lpb.shape
+    C = extra.shape[-1]
+    dirs = 2 if betas else 1
+    valid_cells = int((il.long().clamp(0, T) * (ll.long() + 1).clamp(0, U)).sum())
+    elt = lpb.element_size()
+    return bound(((2 + C) * valid_cells + dirs * B * T * U + dirs * B) * elt + 2 * B * 4,
+                 dirs * window_cell_ops(arcs, U) * valid_cells, F32_OPS_PER_S)
+
+
+def window_plan(lpb, extra, arcs, betas=True):
+    """The window kernel's plan for these inputs on this card."""
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    B, T, U = lpb.shape
+    return kwindow.plan(B, T, U, lpb.element_size(), arcs.window,
+                        len(arcs.blank_arcs) + len(arcs.emit_arcs), extra.shape[-1],
+                        arcs.chain is not None, betas,
+                        torch.cuda.get_device_properties(lpb.device).multi_processor_count)
+
+
+def window_chain_floor(steps, elt, plan, il, clock_mhz):
+    """T_max rows × the SASS instructions of the longer row step (alpha or
+    beta) of the warp-kernel instance that ``plan`` runs ÷ the SM clock, ms,
+    and that count; (None, None) where either is unknown (no cuobjdump, the
+    block kernel)."""
+    step = steps.get((elt, plan.cells)) if plan.warp_mode else None
+    if not (step and all(step) and clock_mhz):
+        return None, None
+    n = max(step)
+    return int(il.max()) * n / (clock_mhz * 1e3), n
 
 
 def tanh_bound(bytes_moved, n_tanh, fp32_per_tanh):
@@ -1103,13 +1188,15 @@ def window_tol(chain_weight, dtype):
 
 
 def window_cell_ops(arcs, U):
-    """Operations of one lattice cell in one direction of the window kernel:
-    per arc a weight sum, an add and a log-sum-exp of about six operations;
-    for the chain two block scans of ceil(log2 U) steps (an add, and a
-    log-sum-exp) and four more (the clamp, ne − c, c + z, the select)."""
+    """Operations of one lattice cell in one direction of the window
+    kernel: per arc a weight sum, an add and a log-sum-exp join of about six
+    operations; for the chain the prefix's clamp and add, ne − c, the local
+    join (six), the fix-up join and its log (eight), c + z, and the cell's
+    share of the lane totals' six warp-scan joins (a lane holds ⌈U/32⌉
+    cells)."""
     n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
-    steps = max(1, (U - 1).bit_length())
-    return n_arcs * 8 + (steps * 7 + 4 if arcs.chain is not None else 0)
+    share = -(-36 // max(1, -(-U // 32)))
+    return n_arcs * 8 + (18 + share if arcs.chain is not None else 0)
 
 
 def duration_kernels_vs_plain(dev, errs):
@@ -1265,7 +1352,12 @@ def duration_timings(problems):
     from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
     from warp_transducer_tpu_torch.ops.cuda import prep as kprep
     from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    from warp_transducer_tpu_torch.ops.cuda import build
     out, step_ms = {"window_stream": {}, "prep": {}, "grad_fields": {}}, {}
+    clock_mhz = sm_clock_mhz()
+    window_steps = window_step_instructions(build.build())
+    print(f"window_stream: SASS instructions a row step (alpha, beta) {window_steps} "
+          f"((element bytes, cells a lane): counts); SM clock {clock_mhz} MHz")
     for tag, B, T, L, V in DURATION_SHAPES:
         acts, dur, labels, il, ll = problems[tag]
         U = L + 1
@@ -1289,18 +1381,25 @@ def duration_timings(problems):
             for loss, (arcs, extra) in cases.items():
                 C = extra.shape[-1]
                 lats[loss] = kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)
+                win_k = lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)  # noqa: E731
+                plan = window_plan(p.lpb, extra, arcs)
+                floor, step_n = window_chain_floor(window_steps, 4, plan, il, clock_mhz)
                 v = out["window_stream"][f"{loss}_{tag}"] = dict(
-                    ms=time_ms(lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll),
-                               iters),
+                    ms=time_ms(win_k, iters), kernel_device_ms=launch_device_ms(win_k),
                     plain_ms=time_ms(lambda: window.forward_backward(p.lpb, p.lpe, extra, arcs,
                                                                      il, ll), plain_iters, 0),
                     library_ms=None,
                     # Data-dependent: the channels are read at valid cells only;
                     # every cell of alphas and betas is written.
-                    bound=bound(((2 + C) * valid_cells + 2 * n_small) * 4 + 4 * B * 4,
-                                2 * window_cell_ops(arcs, U) * valid_cells, F32_OPS_PER_S))
-                print(f"time {tag} window_stream {loss}: {v['ms'] * 1e3 / T:.3f} us a row of "
-                      f"U={U} (both directions side by side, B={B} blocks each)")
+                    bound=window_bound(p.lpb, extra, arcs, il, ll),
+                    registers=kwindow.kernel_registers(plan, U, p.lpb.dtype),
+                    step_instructions=step_n, chain_floor_ms=floor)
+                per_row = v["kernel_device_ms"] or v["ms"]
+                print(f"time {tag} window_stream {loss}: {per_row * 1e3 / T:.3f} us a row of "
+                      f"U={U} (both directions side by side; plan {plan._asdict()}); the kernel "
+                      f"a launch {v['kernel_device_ms']} ms (profiler), chain floor {floor} ms "
+                      f"({step_n} SASS instructions a row step), registers, local bytes "
+                      f"{v['registers']}")
             prep_k = lambda: kprep.prepare(a, labels, 0, False, extra_cols=cols)  # noqa: E731
             out["prep"][f"{tag}_k2"] = dict(
                 ms=time_ms(prep_k, iters), device_ms=device_ms(prep_k),
@@ -2074,11 +2173,9 @@ def main():
 
     def timing(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                "bound_by": t["bound"][1], "library_ms": t["library_ms"]} | (
-                    {"device_ms": t["device_ms"], "kernel_device_ms": t["kernel_device_ms"]}
-                    if "kernel_device_ms" in t else {}) | {
-                        k: t[k] for k in ("chain_floor_ms", "step_instructions", "registers")
-                        if k in t}
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"]} | {
+                    k: t[k] for k in ("device_ms", "kernel_device_ms", "chain_floor_ms",
+                                      "step_instructions", "registers") if k in t}
 
     kernels = []
     for k, (source, replaces) in sources.items():
@@ -2168,9 +2265,7 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
         "bound_by": head["bound"][1], "library_ms": head["library_ms"],
         "shape": "multiblank headline B=128 T=150 L=40 V=28 durations (2, 4) f32",
-        "by_shape": {case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-                            "step_ms": duration_step_ms[case]}
+        "by_shape": {case: timing(t) | {"step_ms": duration_step_ms[case]}
                      for case, t in duration_kernel_ms["window_stream"].items()}})
     head = variant_kernel_ms["dur_head"]["fused_prep"]
     kernels.append({

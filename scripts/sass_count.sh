@@ -7,6 +7,12 @@
 # wavefront.cu a step of the alpha walk, SHFL.UP, and of the beta walk,
 # SHFL.DOWN, however many steps the compiler unrolled: a warp issues at most
 # one instruction a clock, so that count is a step's cycles at the least).
+# For window_stream.cu it also prints the instructions of one row step of
+# each warp-kernel instance: alpha's, the innermost loop (a conditional
+# backward branch; a diverged shuffle's out-of-line path jumps back
+# unconditionally) around a SHFL.UP that holds no SHFL.DOWN, and beta's, the
+# innermost loop around a SHFL.DOWN (static counts: the loops over arcs and
+# copies inside a row count once).
 #
 #   sh scripts/sass_count.sh [name ...]
 #
@@ -57,4 +63,25 @@ for k in "$@"; do
       if (match($0, /BRA 0x[0-9a-f]+/)) { t = hex(substr($0, RSTART + 6, RLENGTH - 6))
         if (t < addr) { nb++; lo[nb] = t; hi[nb] = addr } } }
     END { dump() }' | c++filt
+  [ "$k" = window_stream ] || continue
+  echo "== $k.cu: instructions of one row step (alpha, beta), a function"
+  $BIN/cuobjdump -sass "$OUT/$k.cubin" | awk '
+    function hex(h,  i, c, v) { v = 0; h = tolower(h)
+      for (i = 1; i <= length(h); i++) { c = index("0123456789abcdef", substr(h, i, 1)); v = v * 16 + c - 1 }
+      return v }
+    function holds(i, k,  a) { for (a in at) if (kind[a] == k && at[a] >= lo[i] && at[a] <= hi[i]) return 1
+      return 0 }
+    function step(k, other,  i, best) { best = 0
+      for (i = 1; i <= nb; i++) if (holds(i, k) && !(other != "" && holds(i, other)))
+        if (!best || hi[i] - lo[i] < best) best = hi[i] - lo[i]
+      return best ? best / 16 + 1 : 0 }
+    function dump() { if (fn) print fn ": alpha=" step("SHFL.UP", "SHFL.DOWN") " beta=" step("SHFL.DOWN", "") }
+    /Function :/ { dump(); fn = $3; nb = 0; delete at; delete kind; next }
+    match($0, /\/\*[0-9a-f][0-9a-f][0-9a-f][0-9a-f]+\*\//) {
+      addr = hex(substr($0, RSTART + 2, RLENGTH - 4))
+      if (match($0, /SHFL\.(UP|DOWN)/)) { at[addr] = addr; kind[addr] = substr($0, RSTART, RLENGTH) }
+      if (match($0, /@!?U?P[0-9T]+ +BRA 0x[0-9a-f]+/)) { s = substr($0, RSTART, RLENGTH)
+        t = hex(substr(s, index(s, "0x") + 2))
+        if (t < addr) { nb++; lo[nb] = t; hi[nb] = addr } } }
+    END { dump() }' | c++filt | grep window_warp_kernel
 done

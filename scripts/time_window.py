@@ -1,0 +1,158 @@
+"""Time the window lattice kernel (csrc/window_stream.cu) on one GPU, two
+checkouts in turns.
+
+    python scripts/time_window.py [--root DIR] [--iters N]
+
+Times ``ops/cuda/window.py::forward_backward`` (alpha and beta) of the
+package of ``--root`` (a parent commit unpacked beside this checkout) and of
+this checkout, in the order parent, this, this, parent, each in a process of
+its own, for both duration-arc families (multi-blank with big blanks of 2
+and 4 frames, its channels from the prep kernel with the two extra columns;
+TDT with durations 0, 1, 2, 4, its duration log-probs by log_softmax) at
+shapes made by chip_smoke.make_duration_problem (seed 14, the main path's):
+headline (128, 150, 40, 28), long_t (16, 1500, 300, 50), the fused shape's
+lattice (64, 150, 20; the lattice does not depend on V, so V = 28 stands in
+for 5000), and both sides of the switch to the block kernel (100, 150, U =
+544 and 545).
+
+For each: ``kernel_ms``, the profiler's device time of the window kernel
+over its launches (``alpha_kernel_ms``: the same without betas, alpha's
+walk alone; ``one_warp_kernel_ms``: with one warp a lattice forced, where
+the plan takes more); ``ms``, CUDA events over ``--iters`` calls (the
+wrapper's host work too); the bytes bound (chip_smoke.window_bound); T_max;
+for this checkout the plan, the registers of the kernel the shape runs and
+its chain floor: T_max × the SASS instructions of the longer row step
+(chip_smoke.window_step_instructions, read with cuobjdump from the built
+library) ÷ the SM clock that nvidia-smi reports. Prints the card's name and
+power limit and one JSON object. Imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+SHAPES = [("headline", 128, 150, 40, 28), ("long_t", 16, 1500, 300, 50),
+          ("fused", 64, 150, 20, 28),
+          # both sides of the switch to the block kernel: with B = 100 the plan
+          # keeps one warp a lattice, whose cap is 17 cells a lane (U = 544 f32)
+          ("cap_warp", 100, 150, 543, 28), ("cap_block", 100, 150, 544, 28)]
+# The window kernel's names in this checkout and its parents.
+KERNELS = ("window_kernel", "window_warp_kernel", "window_block_kernel")
+
+
+def smoke():
+    """This checkout's chip_smoke.py, loaded by path (the package under
+    test may be another checkout's)."""
+    spec = importlib.util.spec_from_file_location("window_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_ms(fn, iters=20):
+    """Device ms of one launch of the window kernel: the profiler's time of
+    the kernel over its launches, or None where it records none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = 0.0, 0
+    for e in prof.key_averages():
+        m = re.search(r"(\w+)[<(]", e.key)
+        if (e.device_type == torch.autograd.DeviceType.CUDA and m and m.group(1) in KERNELS
+                and e.self_device_time_total > 0):
+            ms, n = ms + e.self_device_time_total / 1e3, n + e.count
+    return ms / n if n else None
+
+
+def one(root, iters):
+    """Time the package of ``root``; print one JSON line."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from warp_transducer_tpu_torch.ops import window
+    from warp_transducer_tpu_torch.ops.cuda import build
+    from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    sm = smoke()
+    dev = torch.device("cuda", 0)
+    clock_mhz = sm.sm_clock_mhz()
+    new = hasattr(kwindow, "plan")
+    steps = sm.window_step_instructions(build.build()) if new else {}
+    out = {"root": str(root), "sm_clock_mhz": clock_mhz, "step_instructions": {
+        f"{elt}_{c}": v for (elt, c), v in steps.items()}}
+    for tag, B, T, L, V in SHAPES:
+        acts, dur, labels, il, ll = sm.make_duration_problem(B, T, L, V, seed=14, dev=dev)
+        p = kprep.prepare(acts, labels, 0, False, extra_cols=(V - 2, V - 1))
+        lpd = torch.log_softmax(dur, -1)
+        del acts, dur
+        for family, arcs, extra in (
+                ("multiblank", window.multiblank_arcs(sm.MB_DURATIONS), p.extras),
+                ("tdt", window.tdt_arcs(sm.TDT_DURATIONS), lpd)):
+            fn = lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)  # noqa: E731
+            U = L + 1
+            alpha = lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll,  # noqa: E731
+                                                     compute_betas=False)
+            r = {"kernel_ms": kernel_ms(fn), "alpha_kernel_ms": kernel_ms(alpha),
+                 "ms": sm.time_ms(fn, iters),
+                 "bound_ms": sm.window_bound(p.lpb, extra, arcs, il, ll)[0],
+                 "t_max": int(il.max())}
+            if new:
+                plan = sm.window_plan(p.lpb, extra, arcs)
+                r["plan"] = plan._asdict()
+                r["registers"] = kwindow.kernel_registers(plan, U, p.lpb.dtype)
+                r["chain_floor_ms"], r["step_instructions"] = sm.window_chain_floor(
+                    steps, 4, plan, il, clock_mhz)
+                if plan.warps > 1:  # the one-warp alternative, in the same process
+                    one_warp = lambda: kwindow.launch(p.lpb, p.lpe, extra, arcs, il, ll,  # noqa: E731
+                                                      warps=1)
+                    r["one_warp_kernel_ms"] = kernel_ms(one_warp)
+            out[f"{family}_{tag}"] = r
+        del p, lpd, il, ll, labels
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=str(HERE / "build" / "parent"),
+                        help="the parent checkout, timed first and last")
+    parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--one", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("time_window.py: no CUDA device is visible")
+    if args.one:
+        one(args.one, args.iters)
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    runs = []
+    for label, root in (("parent", args.root), ("this", str(HERE)), ("this", str(HERE)),
+                        ("parent", args.root)):
+        proc = subprocess.run([sys.executable, __file__, "--one", root, "--iters",
+                               str(args.iters)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.exit(f"time_window.py: the {label} run failed:\n{proc.stdout}\n{proc.stderr}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        r["label"] = label
+        runs.append(r)
+        print(f"{label}: " + " | ".join(
+            f"{case} kernel {v['kernel_ms']} ms, event {v['ms']:.4f} ms"
+            + (f", chain floor {v['chain_floor_ms']} ms, registers {v['registers']}"
+               if "registers" in v else "")
+            for case, v in r.items() if isinstance(v, dict) and "kernel_ms" in v), flush=True)
+    print(json.dumps({"card": smi, "runs": runs}))
+
+
+if __name__ == "__main__":
+    main()

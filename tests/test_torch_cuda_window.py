@@ -9,8 +9,8 @@ fixture decides while the test runs, never at import). On a machine with an
 H100: ``python -m pytest tests/test_torch_cuda_window.py --noconftest``
 (tests/conftest.py imports JAX).
 
-Tolerances: f32 rtol 1e-5 / atol 1e-5, f64 1e-10 — the kernel's block-wide
-scans add and log-sum-exp in another order than ``torch.cumsum`` and
+Tolerances: f32 rtol 1e-5 / atol 1e-5, f64 1e-10 — the kernel's scans add
+and log-sum-exp in another order than ``torch.cumsum`` and
 ``torch.logcumsumexp``; a lattice's atol grows with its row width (see
 ``_close``). 16-bit gradients within one ulp of their type (both versions
 round one f32 value once).
@@ -131,6 +131,110 @@ def test_window_kernel_without_big_blanks_is_the_wavefront_kernel(dev, B, T, U, 
     torch.cuda.synchronize()
     for name in ("alphas", "betas", "ll_forward", "ll_backward"):
         _close(getattr(got, name), getattr(want, name), dtype, U)
+
+
+# The warp kernel's edges: U at 31/32/33 (one to two cells a lane, C odd: 1
+# and 3), the f32 cap 544 ± 1 and the f64 cap 288 ± 1 (above each, the
+# block kernel); ragged lengths with T_b = T, U_b = U in the first lattice.
+EDGE_U = [(torch.float32, U) for U in (31, 32, 33, 543, 544, 545)] + \
+    [(torch.float64, U) for U in (31, 32, 33, 287, 288, 289)]
+
+
+@pytest.mark.parametrize("betas", [True, False], ids=["betas", "alpha_only"])
+@pytest.mark.parametrize("dtype,U", EDGE_U, ids=[f"{str(d)[6:]}_U{U}" for d, U in EDGE_U])
+@pytest.mark.parametrize("family", ["multiblank", "tdt"])
+def test_window_kernel_edge_u(dev, family, dtype, U, betas):
+    arcs = (window.multiblank_arcs(MULTIBLANK[2]) if family == "multiblank"
+            else window.tdt_arcs(TDT[0]))
+    C = len(MULTIBLANK[2]) if family == "multiblank" else len(TDT[0])
+    _check_lattice(arcs, 3, 7, U, C, dtype, dev, betas=betas, seed=U)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("U", [41, 301, 600])
+def test_window_kernel_bit_equal_across_calls(dev, dtype, U):
+    """No atomics: two calls give the same bits (warp kernel; block kernel
+    at U = 600, and in f64 at U = 301)."""
+    lpb, lpe, extra, il, ll = _channels(5, 12, U, 4, 7, dtype, dev)
+    arcs = window.tdt_arcs(TDT[0])
+    first = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    second = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_window_plan_matches_kernel(dev):
+    """ops/cuda/window.py::plan (the CPU tests' mirror) against the C plan,
+    on this card's SM count and on an H100's, with the warps a lattice the
+    rule's and forced."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    arc_sets = [window.multiblank_arcs(()), window.multiblank_arcs((2, 4)),
+                window.tdt_arcs((0, 1, 2, 4)), window.tdt_arcs((1, 2)),
+                window.tdt_arcs(tuple(range(1, 9)))]
+    for dtype in (torch.float32, torch.float64):
+        elt = torch.tensor([], dtype=dtype).element_size()
+        for arcs in arc_sets:
+            W, n_arcs = arcs.window, len(arcs.blank_arcs) + len(arcs.emit_arcs)
+            n_extra = max(0, max(c for _, chs in arcs.blank_arcs + arcs.emit_arcs for c in chs) - 1)
+            chain = arcs.chain is not None
+            for U in (1, 21, 31, 32, 33, 41, 129, 257, 287, 288, 289, 301, 543, 544, 545, 1100):
+                for B in (1, 16, 33, 128, 1000):
+                    for betas in (True, False):
+                        for sms in (n_sm, 132):
+                            for T in (1, 1500, 4_000_000):
+                                for warps in (0, 1, 4):
+                                    args = (W, n_arcs, n_extra, chain, betas, sms, warps)
+                                    assert kwindow.plan(B, T, U, elt, *args) == \
+                                        kwindow.kernel_plan(B, T, U, dtype, *args), (dtype, U, args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_window_kernels_do_not_spill(dev, dtype):
+    """Every instance of the warp kernel (C = 1, 3, … up to the cap) and the
+    block kernel: no local memory."""
+    cap = kwindow.max_cells(torch.tensor([], dtype=dtype).element_size())
+    for C in range(1, cap + 1, 2):
+        regs, local = kwindow.kernel_registers(kwindow.Plan(True, 1, C, 1, 1, 32, 0, 0), 32 * C,
+                                               dtype)
+        assert local == 0, (C, regs, local)
+    block = kwindow.Plan(False, 0, 0, 1, 1, 512, 0, 0)
+    assert kwindow.kernel_registers(block, 1100, dtype)[1] == 0
+
+
+# (U, warps a lattice, dtype): every forced choice the warp kernel takes (f64
+# with one warp stops at U = 288).
+WARPS_CASES = [(U, G, torch.float32) for U in (70, 130, 301) for G in (1, 2, 4)] + \
+    [(U, G, torch.float64) for U in (70, 130) for G in (1, 2, 4)] + \
+    [(301, G, torch.float64) for G in (2, 4)]
+
+
+@pytest.mark.parametrize("U,warps,dtype", WARPS_CASES,
+                         ids=[f"U{U}_G{G}_{str(d)[6:]}" for U, G, d in WARPS_CASES])
+@pytest.mark.parametrize("family", ["multiblank", "tdt"])
+def test_window_kernel_warps_a_lattice(dev, family, U, warps, dtype):
+    """The warp kernel with one, two and four warps a lattice forced (a
+    named barrier a row, two with emit arcs), against the plain lattice; the
+    warps' column boundaries fall inside the lattices and beyond U_b."""
+    arcs = (window.multiblank_arcs(MULTIBLANK[2]) if family == "multiblank"
+            else window.tdt_arcs(TDT[0]))
+    C = len(MULTIBLANK[2]) if family == "multiblank" else len(TDT[0])
+    lpb, lpe, extra, il, ll = _channels(3, 11, U, C, U + warps, dtype, dev)
+    for betas in (True, False):
+        got = kwindow.launch(lpb, lpe, extra, arcs, il, ll, compute_betas=betas, warps=warps)
+        torch.cuda.synchronize()
+        want = window.forward_backward(lpb, lpe, extra, arcs, il, ll, compute_betas=betas)
+        for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+            _close(getattr(got, name), getattr(want, name), dtype, U)
+
+
+def test_window_kernel_three_channel_arcs(dev):
+    """An arc of three channels (no public loss has one) takes the block
+    kernel; the result is the plain lattice's."""
+    arcs = window.WindowArcs(chain=(1, 2), blank_arcs=((1, (0, 2, 3)), (2, (0, 3))),
+                             emit_arcs=((2, (1, 2, 3)),))
+    for B, T, U in ((3, 9, 6), (2, 7, 70)):
+        _check_lattice(arcs, B, T, U, 2, torch.float32, dev)
 
 
 def test_window_kernel_infeasible_tdt(dev):

@@ -136,6 +136,9 @@ def library() -> ctypes.CDLL:
     lib.wtt_wavefront_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_wavefront_plan.restype = None
     lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-1] + [i, p]
+    lib.wtt_window_plan.argtypes = [i, i, i, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_window_plan.restype = None
     lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p, p]
     lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
                                      ll, i, i, i, i, i, p, p]
@@ -157,6 +160,7 @@ def library() -> ctypes.CDLL:
     lib.wtt_dur_head_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_dur_head_plan.restype = None
     for fn in (lib.wtt_prep, lib.wtt_prep_planned, lib.wtt_wavefront, lib.wtt_window_stream,
+               lib.wtt_window_stream_warps,
                lib.wtt_grad, lib.wtt_grad_lattice, lib.wtt_band_prep,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
                lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols, lib.wtt_joint_grad_dwd,
@@ -177,6 +181,8 @@ def library() -> ctypes.CDLL:
     for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem):
         fn.argtypes = [i]
         fn.restype = ll
+    lib.wtt_window_attrs.argtypes = [i, i, i, ip, ip]
+    lib.wtt_window_attrs.restype = i
     lib.wtt_dur_head_smem.argtypes = []
     lib.wtt_dur_head_smem.restype = ll
     lib.wtt_error_string.argtypes = [i]
