@@ -143,7 +143,8 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "wavefront_block_kernel",
                 "grad_lattice_tile_kernel", "grad_lattice_warp_kernel", "grad_fields_tile_kernel",
                 "grad_fields_warp_kernel",
-                "band_prep_kernel", "band_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
+                "band_prep_kernel", "band_row_kernel", "band_chunk_kernel",
+                "band_grad_tile_kernel", "band_grad_warp_kernel",
                 "band_starts_kernel", "joint_prep_kernel",
                 "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
@@ -209,11 +210,13 @@ def kernel_ms(fn, iters=3):
     return out
 
 
-def launch_device_ms(fn, iters=10):
+def launch_device_ms(fn, iters=10, names=None):
     """Device time of one launch of the port's kernels that ``fn`` makes
     (for a call that launches one), from torch.profiler: their time over
     their count, so that a record the profiler drops does not read as a
-    shorter call; None where it records none."""
+    shorter call; None where it records none. ``names``: the kernel names
+    to count, PORT_KERNELS by default."""
+    names = PORT_KERNELS if names is None else names
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -222,7 +225,7 @@ def launch_device_ms(fn, iters=10):
         torch.cuda.synchronize()
     ours = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and (m := re.search(r"(\w+)[<(]", e.key)) and m.group(1) in PORT_KERNELS]
+            and (m := re.search(r"(\w+)[<(]", e.key)) and m.group(1) in names]
     n = sum(e.count for e in ours)
     return sum(e.self_device_time_total for e in ours) / n / 1e3 if n else None
 
@@ -333,53 +336,86 @@ def wavefront_step_instructions(library):
     return out
 
 
-def window_step_instructions(library):
-    """{(element bytes, cells a lane): (alpha, beta) SASS instructions of
-    one row step of the window warp kernel}, read with cuobjdump from the
-    built library: the innermost loop (a conditional backward branch) around
-    an alpha row's SHFL.UP (the scans; it holds no SHFL.DOWN) and around a
-    beta row's SHFL.DOWN, as scripts/sass_count.sh prints them. Static
-    counts: the loops over arcs and copies inside a row step count once, so
-    a row with several arcs issues more. A warp issues at most one
-    instruction a clock. {} where cuobjdump is missing."""
+def sass_loops(library, function, key):
+    """{key: (shuffles {kind: [addresses]}, loops [(start, end)])} of the
+    kernel instances in the built library whose names match the regex
+    ``function`` (``key`` maps its match to the key), read with cuobjdump: a
+    loop ends in a conditional backward branch (the out-of-line paths of a
+    shuffle in a diverged warp jump back unconditionally). {} where cuobjdump
+    is missing."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         return {}
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
                           text=True).stdout
-    out, key, shfl, loops = {}, None, {}, []
+    out, k = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(function, line)
+            k = key(m) if m else None
+            if k is not None:
+                out[k] = ({}, [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if k is None or not m:
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        if kind := re.search(r"SHFL\.(UP|DOWN|IDX)", ins):
+            out[k][0].setdefault(kind.group(1), []).append(addr)
+        if ((b := re.match(r"@!?U?P\w+\s+BRA (?:\S+, )?0x([0-9a-f]+)", ins))
+                and int(b.group(1), 16) < addr):
+            out[k][1].append((int(b.group(1), 16), addr))
+    return out
 
-    def close():
-        if not (key and shfl):
-            return
+
+def window_step_instructions(library):
+    """{(element bytes, cells a lane): (alpha, beta) SASS instructions of
+    one row step of the window warp kernel}: the innermost loop around an
+    alpha row's SHFL.UP that holds no SHFL.DOWN, and around a beta row's
+    SHFL.DOWN, as scripts/sass_count.sh prints them. Static counts: the
+    loops over arcs and copies inside a row step count once, so a row with
+    several arcs issues more. A warp issues at most one instruction a
+    clock."""
+    out = {}
+    for k, (shfl, loops) in sass_loops(
+            library, r"window_warp_kernelI([fd])Li(\d+)E",
+            lambda m: ((4 if m.group(1) == "f" else 8), int(m.group(2)))).items():
         steps = []
         for mine, other in (("UP", "DOWN"), ("DOWN", None)):
             inner = [b - a for a, b in loops
                      if any(a <= x <= b for x in shfl.get(mine, []))
                      and not (other and any(a <= x <= b for x in shfl.get(other, [])))]
             steps.append(min(inner) // 16 + 1 if inner else None)
-        out[key] = tuple(steps)
-
-    for line in sass.splitlines():
-        if "Function :" in line:
-            close()
-            m = re.search(r"window_warp_kernelI([fd])Li(\d+)E", line)
-            key = ((4 if m.group(1) == "f" else 8), int(m.group(2))) if m else None
-            shfl, loops = {}, []
-            continue
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if not (key and m):
-            continue
-        addr, ins = int(m.group(1), 16), m.group(2)
-        if k := re.search(r"SHFL\.(UP|DOWN)", ins):
-            shfl.setdefault(k.group(1), []).append(addr)
-        # A loop ends in a conditional backward branch; the out-of-line paths
-        # of a shuffle in a diverged warp jump back unconditionally.
-        if ((b := re.match(r"@!?U?P\w+\s+BRA (?:\S+, )?0x([0-9a-f]+)", ins))
-                and int(b.group(1), 16) < addr):
-            loops.append((int(b.group(1), 16), addr))
-    close()
+        if shfl:
+            out[k] = tuple(steps)
     return out
+
+
+def band_step_instructions(library):
+    """{ceil(log2 S): SASS instructions of the row walk's two row steps}:
+    the innermost loops around a SHFL.IDX (the shuffles by δ), alpha's and
+    beta's, in the order of their code. Static counts; a warp issues at most
+    one instruction a clock."""
+    out = {}
+    for k, (shfl, loops) in sass_loops(library, r"band_row_kernelILi(\d+)E",
+                                       lambda m: int(m.group(1))).items():
+        rows = [(a, b) for a, b in loops if any(a <= x <= b for x in shfl.get("IDX", []))]
+        inner = sorted((a, b) for a, b in rows
+                       if not any((c, d) != (a, b) and a <= c and d <= b for c, d in rows))
+        out[k] = tuple((b - a) // 16 + 1 for a, b in inner)
+    return out
+
+
+def band_chain_floor(steps, S, il, clock_mhz):
+    """T_max rows × the SASS instructions of the longer row step of the row
+    walk's instance for a band of S ÷ the SM clock, ms, and that count;
+    (None, None) where either is unknown (no cuobjdump, the chunk
+    kernel)."""
+    step = steps.get(max(0, (S - 1).bit_length())) if S <= 32 else None
+    if not (step and all(step) and clock_mhz):
+        return None, None
+    n = max(step)
+    return int(il.max()) * n / (clock_mhz * 1e3), n
 
 
 def window_bound(lpb, extra, arcs, il, ll, betas=True):
@@ -481,6 +517,18 @@ def band_cell_ops(S):
     more (the clamp, ne - c, c + z and + lpb)."""
     steps = max(1, (S - 1).bit_length())
     return steps * 7 + 4
+
+
+def band_lattice_bound(ranges, il, ll, S):
+    """bound() of one band forward_backward call on this run's data: lpb
+    and lpe read at the valid band cells, alphas and betas written in full,
+    ranges read and the lengths and both log-likelihoods; the cell
+    operations of both directions at the valid cells."""
+    from warp_transducer_tpu_torch.ops import band
+    B, T = ranges.shape
+    n_valid = int(band.band_valid(ranges, il, ll, S).sum())
+    return bound((2 * n_valid + 2 * B * T * S) * 4 + B * T * 4 + 4 * B * 4,
+                 2 * band_cell_ops(S) * n_valid, F32_OPS_PER_S)
 
 
 def make_pruned_problem(B, T, L, V, seed, dev):
@@ -656,29 +704,59 @@ def pruned_main_path(dev, totals):
     return problems
 
 
-def full_band_check(dev):
+def full_band_check(dev, errs):
     """A band over the whole headline lattice (S = U = 41, ranges = 0, the
-    lattice kernel in two 32-lane chunks): rnnt_loss_pruned equals the dense
-    rnnt_loss, costs and gradients."""
+    chunk kernel): rnnt_loss_pruned equals the dense rnnt_loss, costs and
+    gradients; the lattice kernel equals its plain version on that band's
+    lpb and lpe. Returns the lattice kernel's launches in the pruned loss's
+    call, its max abs error and its timing."""
     from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_pruned
+    from warp_transducer_tpu_torch.ops import band
     from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops.cuda import band as kband
     tag, B, T, L, V = SHAPES[0]
+    S = L + 1
+    fail_unless(not kband.plan(B, T, S).row_mode, "the full band is not planned on the chunk kernel")
     acts, labels, il, ll = make_problem(B, T, L, V, seed=6, dev=dev)
+    ranges = torch.zeros((B, T), dtype=torch.int32, device=dev)
     a = acts.requires_grad_(True)
     dense = rnnt_loss(a, labels, il, ll, reduction="none")
     (gd,) = torch.autograd.grad(dense.sum(), a)
     K.reset_launches()
-    pruned = rnnt_loss_pruned(a, torch.zeros((B, T), dtype=torch.int32, device=dev), labels, il,
-                              ll, reduction="none")
+    pruned = rnnt_loss_pruned(a, ranges, labels, il, ll, reduction="none")
     (gp,) = torch.autograd.grad(pruned.sum(), a)
     torch.cuda.synchronize()
-    fail_unless(K.launches["band_stream"] > 0, "the full band did not run the band kernels")
-    compare(f"full band S=U={L + 1} {tag}: pruned vs dense costs", pruned.detach(),
+    launches = K.launches["band_stream"]
+    fail_unless(launches > 0, "the full band did not run the band kernels")
+    compare(f"full band S=U={S} {tag}: pruned vs dense costs", pruned.detach(),
             dense.detach(), "f32")
     rel = float((gp - gd).norm() / gd.norm())
-    print(f"full band S=U={L + 1} {tag}: pruned vs dense gradient relative norm error {rel:.3e} "
+    print(f"full band S=U={S} {tag}: pruned vs dense gradient relative norm error {rel:.3e} "
           "(tol 1e-3)")
     fail_unless(rel <= 1e-3, "the full-band pruned gradient differs from the dense one")
+    # The chunk kernel against its plain version at the shape its path gives it.
+    del a, gd, gp
+    with torch.no_grad():
+        p = band.band_prep(acts.detach(), band.label_rows(*band.band_labels(labels, ranges, S)), 0)
+    lattice = lambda: kband.forward_backward(p.lpb, p.lpe, ranges, il, ll)  # noqa: E731
+    lat_k = lattice()
+    torch.cuda.synchronize()
+    lat = band.forward_backward(p.lpb, p.lpe, ranges, il, ll)
+    err = max(compare(f"band_stream full_band {name}", getattr(lat_k, name), getattr(lat, name),
+                      "f32") for name in lat._fields)
+    errs["band_stream"] = max(errs["band_stream"], err)
+    event_ms, device_ms = time_ms(lattice, 10), launch_device_ms(lattice)
+    timing = dict(
+        ms=device_ms if device_ms is not None else event_ms, kernel_device_ms=device_ms,
+        event_ms=event_ms,
+        plain_ms=time_ms(lambda: band.forward_backward(p.lpb, p.lpe, ranges, il, ll), 1, 1),
+        library_ms=None, bound=band_lattice_bound(ranges, il, ll, S),
+        registers=kband.kernel_registers(S), plan=kband.plan(B, T, S)._asdict())
+    print(f"time full_band B={B} T={T} S={S} band_stream: {timing['ms']:.4f} ms (a launch, "
+          f"profiler; event {event_ms:.4f} ms) | plain {timing['plain_ms']:.4f} ms | bound "
+          f"{timing['bound'][0]:.4f} ms ({timing['bound'][1]}) | registers, local bytes "
+          f"{timing['registers']}")
+    return launches, err, timing
 
 
 def pruned_timings(problems):
@@ -687,8 +765,13 @@ def pruned_timings(problems):
     Returns ({kernel: {shape: timing}}, {shape: step ms})."""
     from warp_transducer_tpu_torch.ops import band
     from warp_transducer_tpu_torch.ops.cuda import band as kband
+    from warp_transducer_tpu_torch.ops.cuda import build
     from warp_transducer_tpu_torch.ops.cuda import ranges as kranges
     out, step_ms = {k: {} for k in PRUNED_KERNELS}, {}
+    clock_mhz = sm_clock_mhz()
+    band_steps = band_step_instructions(build.build())
+    print(f"band_stream: SASS instructions of the two row steps {band_steps} "
+          f"(ceil(log2 S): counts); SM clock {clock_mhz} MHz (nvidia-smi clocks.max.sm)")
     for tag, B, T, L, V, S in PRUNED_SHAPES:
         am, lm, labels, il, ll = problems[tag]
         step_ms[tag] = time_ms(lambda: pruned_step(am, lm, labels, il, ll, S), 5)
@@ -708,12 +791,18 @@ def pruned_timings(problems):
             plain_ms=time_ms(lambda: band.band_prep(acts, lab_row, 0), 2, 1),
             library_ms=time_ms(lambda: torch.logsumexp(acts, -1), 10),
             bound=bound(rows * V * elt + rows * 4 + 3 * rows * 4, 4 * rows * V, F32_OPS_PER_S))
+        # K4 a launch by the profiler's device time (CUDA events time the
+        # wrapper's host work as well at pruned_large_v); events beside it.
+        lattice = lambda: kband.forward_backward(p.lpb, p.lpe, ranges, il, ll)  # noqa: E731
+        event_ms, device_ms = time_ms(lattice, 10), launch_device_ms(lattice)
+        floor, step_n = band_chain_floor(band_steps, S, il, clock_mhz)
         out["band_stream"][tag] = dict(
-            ms=time_ms(lambda: kband.forward_backward(p.lpb, p.lpe, ranges, il, ll), 10),
+            ms=device_ms if device_ms is not None else event_ms, kernel_device_ms=device_ms,
+            event_ms=event_ms,
             plain_ms=time_ms(lambda: band.forward_backward(p.lpb, p.lpe, ranges, il, ll), 1, 1),
-            library_ms=None,
-            bound=bound((2 * n_valid + 2 * rows) * 4 + B * T * 4 + 4 * B * 4,
-                        2 * band_cell_ops(S) * n_valid, F32_OPS_PER_S))
+            library_ms=None, bound=band_lattice_bound(ranges, il, ll, S),
+            chain_floor_ms=floor, step_instructions=step_n,
+            registers=kband.kernel_registers(S), plan=kband.plan(B, T, S)._asdict())
         grad_args = (acts, p.denom, x["fields"], lab_row, ranges, il, ll, 0, acts.dtype)
         out["band_grad"][tag] = dict(
             ms=time_ms(lambda: kband.band_grad(*grad_args), 10),
@@ -730,8 +819,12 @@ def pruned_timings(problems):
             v = out[k][tag]
             lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
             print(f"time {tag} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
-                  f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}")
-        del x, acts, p, grad_args
+                  f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}"
+                  + (f" | a launch {v['kernel_device_ms']} ms (profiler), event "
+                     f"{v['event_ms']:.4f} ms | chain floor {v['chain_floor_ms']} ms "
+                     f"({v['step_instructions']} SASS instructions a row step), registers, "
+                     f"local bytes {v['registers']}" if "chain_floor_ms" in v else ""))
+        del x, acts, p, grad_args, lattice
         torch.cuda.empty_cache()
     return out, step_ms
 
@@ -1832,6 +1925,7 @@ def main():
     from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_and_grad, rnnt_score
     from warp_transducer_tpu_torch.ops import cuda as K
     from warp_transducer_tpu_torch.ops import gradients, lattice, prep
+    from warp_transducer_tpu_torch.ops.cuda import band as kband
     from warp_transducer_tpu_torch.ops.cuda import build
     from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
     from warp_transducer_tpu_torch.ops.cuda import prep as kprep
@@ -2120,7 +2214,8 @@ def main():
     # pruned step under the launch counters, the full band, the timings
     pruned_kernels_vs_plain(dev, errs)
     pruned_problems = pruned_main_path(dev, totals)
-    full_band_check(dev)
+    row_err = errs["band_stream"]  # the row walk's, at the pruned shapes
+    chunk_launches, chunk_err, chunk_timing = full_band_check(dev, errs)
     band_timings, step_ms = pruned_timings(pruned_problems)
     del pruned_problems
     torch.cuda.empty_cache()
@@ -2206,9 +2301,11 @@ def main():
         "ranges": ("warp_transducer_tpu_torch/csrc/ranges.cu",
                    "warp_transducer_tpu/ops/pruned.py:94"),
     }
+    band_extra = ("kernel_device_ms", "event_ms", "chain_floor_ms", "step_instructions",
+                  "registers", "plan")
     for k, (source, replaces) in pruned_sources.items():
         head = band_timings[k]["pruned_long"]
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": totals[k], "max_abs_err": errs[k], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
@@ -2217,7 +2314,26 @@ def main():
             "by_shape": {tag: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                                "library_ms": t["library_ms"], "pruned_step_ms": step_ms[tag]}
-                         for tag, t in band_timings[k].items()}})
+                         | {x: t[x] for x in band_extra if x in t}
+                         for tag, t in band_timings[k].items()}}
+        if k == "band_stream":  # the row walk (S <= 32), the chunk kernel above
+            entry["chain_floor_ms"] = head["chain_floor_ms"]
+            entry["by_shape"]["full_band"] = timing(chunk_timing) | {"plan": chunk_timing["plan"]}
+            # One wrapper and counter; the plan picks the kernel by S, and
+            # every band of the main paths (S = 5) takes the row walk.
+            fail_unless(all(kband.plan(B, T, S).row_mode for _, B, T, _, _, S in PRUNED_SHAPES)
+                        and kband.plan(*PRUNED_FUSED_SHAPE[1:3], PRUNED_FUSED_SHAPE[-1]).row_mode,
+                        "a band of the main paths is not planned on the row walk")
+            entry["kernels"] = {
+                "band_row_kernel": {"shapes": [tag for tag, *_ in PRUNED_SHAPES]
+                                    + [PRUNED_FUSED_SHAPE[0]],
+                                    "launches": totals[k], "max_abs_err": row_err},
+                "band_chunk_kernel": {"shapes": ["full_band B=128 T=150 S=41"],
+                                      "launches_full_band": chunk_launches,
+                                      "max_abs_err": chunk_err, "ms": chunk_timing["ms"],
+                                      "plain_ms": chunk_timing["plain_ms"],
+                                      "bound_ms": chunk_timing["bound"][0]}}
+        kernels.append(entry)
     joint_sources = {
         "joint_prep": ("warp_transducer_tpu_torch/csrc/joint_prep.cu",
                        "warp_transducer_tpu/ops/pallas/joint_fused.py:123"),

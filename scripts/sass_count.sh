@@ -12,7 +12,10 @@
 # backward branch; a diverged shuffle's out-of-line path jumps back
 # unconditionally) around a SHFL.UP that holds no SHFL.DOWN, and beta's, the
 # innermost loop around a SHFL.DOWN (static counts: the loops over arcs and
-# copies inside a row count once).
+# copies inside a row count once). For band_stream.cu, the two row steps of
+# each row-walk instance as chip_smoke.band_step_instructions reads them:
+# the innermost loops around a SHFL.IDX (the shuffles by δ), in the order of
+# their code.
 #
 #   sh scripts/sass_count.sh [name ...]
 #
@@ -63,6 +66,12 @@ for k in "$@"; do
       if (match($0, /BRA 0x[0-9a-f]+/)) { t = hex(substr($0, RSTART + 6, RLENGTH - 6))
         if (t < addr) { nb++; lo[nb] = t; hi[nb] = addr } } }
     END { dump() }' | c++filt
+  if [ "$k" = band_stream ]; then
+    echo "== $k.cu: instructions of the two row steps (ceil(log2 S): alpha, beta)"
+    python3 -c 'import sys; sys.path.insert(0, "."); import chip_smoke
+print(chip_smoke.band_step_instructions(sys.argv[1]))' "$OUT/$k.cubin"
+    continue
+  fi
   [ "$k" = window_stream ] || continue
   echo "== $k.cu: instructions of one row step (alpha, beta), a function"
   $BIN/cuobjdump -sass "$OUT/$k.cubin" | awk '

@@ -10,10 +10,13 @@ H100: ``python -m pytest tests/test_torch_cuda_pruned.py --noconftest``
 
 Tolerances: f32 rtol 1e-5 / atol 1e-5 — the prep kernel's online
 (max, sum-exp) and the plain two-pass logsumexp round differently (~1e-7
-relative); the lattice for S > 32 carries its prefixes across 32-lane
-chunks, another association than the plain full-row scan. 16-bit
-gradients within one ulp of their type (both round one f32 value once).
-Ranges exactly.
+relative); the lattice's row walk (S <= 32) takes its log-sum-exp's exp
+and log on the SFU (ex2/lg2.approx, about 1e-7 absolute a step; its adds
+follow the plain version's order), and the chunk kernel (S > 32) carries
+its prefixes across 32-lane chunks, another association than the plain
+full-row scan; neither is bit-equal to the plain version, each is
+bit-reproducible (no atomics). 16-bit gradients within one ulp of
+their type (both round one f32 value once). Ranges exactly.
 """
 import numpy as np
 import pytest
@@ -94,6 +97,84 @@ def test_band_stream_kernel(dev, B, T, U, S, infeasible):
     torch.testing.assert_close(got.ll_backward[feasible], want.ll_backward[feasible], **F32)
     if infeasible:
         assert got.ll_forward[-1] < -1e29
+
+
+def _lattice_case(dev, B, T, U, S, seed, infeasible=False):
+    acts, labels, il, ll, ranges = _problem(B, T, U, 6, S, seed=seed, device=dev,
+                                            infeasible=infeasible)
+    p = band.band_prep(acts, _lab_row(labels, ranges, S), 0)
+    return p.lpb, p.lpe, ranges, il, ll
+
+
+def _check_lattice(got, want, ranges, il, ll, S):
+    valid = band.band_valid(ranges, il, ll, S)
+    feasible = want.ll_forward > -1e29
+    for name in ("alphas", "betas"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert torch.all(g[~valid] == w[~valid]), name  # NEG in both
+        keep = valid & feasible[:, None, None]  # an infeasible β is NEG-level
+        torch.testing.assert_close(g[keep], w[keep], **F32)
+    torch.testing.assert_close(got.ll_forward, want.ll_forward, **F32)
+    torch.testing.assert_close(got.ll_backward[feasible], want.ll_backward[feasible], **F32)
+
+
+@pytest.mark.parametrize("B,T,S", [(3, 70, 5), (2, 1500, 5), (1, 1, 1), (4, 33, 32), (2, 9, 33),
+                                   (300, 150, 5)])
+def test_band_plan_matches_kernel(dev, B, T, S):
+    assert kband.kernel_plan(B, T, S) == kband.plan(B, T, S)
+
+
+@pytest.mark.parametrize("S", [1, 2, 5, 31, 32])
+def test_band_row_walk_registers(dev, S):
+    """Every instance of the row walk: registers reported, no spills."""
+    regs, local = kband.kernel_registers(S)
+    assert 0 < regs <= 255 and local == 0, (regs, local)
+
+
+@pytest.mark.parametrize("B,T,U,S,infeasible", [
+    (3, 40, 3, 1, False), (4, 45, 9, 2, True), (3, 70, 60, 31, False), (3, 64, 70, 32, True),
+    (3, 47, 70, 33, False), (3, 1, 6, 5, True), (3, 1, 40, 32, False), (5, 97, 30, 5, True),
+    (3, 32, 12, 5, False), (3, 33, 12, 5, False)],
+    ids=["S1", "S2_infeasible", "S31", "S32_infeasible", "S33_chunks", "T1", "T1_S32",
+         "T97", "T32", "T33"])
+def test_band_row_walk_kernel(dev, B, T, U, S, infeasible):
+    """The row walk (S <= 32) and the chunk kernel (S = 33) against the plain
+    version, at the edges of the plan: S = 1, 2, 31, 32, 33, T = 1, T on and
+    off the tile of 32 rows, T_b = 1, U_b = 1 and infeasible bands."""
+    lpb, lpe, ranges, il, ll = _lattice_case(dev, B, T, U, S, seed=S + T, infeasible=infeasible)
+    assert kband.plan(B, T, S).row_mode == (S <= 32)
+    got = kband.forward_backward(lpb, lpe, ranges, il, ll)
+    torch.cuda.synchronize()
+    _check_lattice(got, band.forward_backward(lpb, lpe, ranges, il, ll), ranges, il, ll, S)
+
+
+def test_band_row_walk_long_ragged(dev):
+    """A T = 1500 band with ragged lengths, δ up to S - 1 (the pruned_long
+    lattice's shape at B = 6), and input tensors off the 16-byte grid (views
+    one value into a larger buffer), which the copies take a word at a time."""
+    B, T, U, S = 6, 1500, 301, 5
+    lpb, lpe, ranges, il, ll = _lattice_case(dev, B, T, U, S, seed=11, infeasible=True)
+    want = band.forward_backward(lpb, lpe, ranges, il, ll)
+    got = kband.forward_backward(lpb, lpe, ranges, il, ll)
+    _check_lattice(got, want, ranges, il, ll, S)
+    off = [torch.empty(lpb.numel() + 1, device=dev)[1:].view_as(lpb) for _ in range(2)]
+    off[0].copy_(lpb)
+    off[1].copy_(lpe)
+    r_off = torch.empty(ranges.numel() + 1, dtype=torch.int32, device=dev)[1:].view_as(ranges)
+    r_off.copy_(ranges)
+    shifted = kband.forward_backward(off[0], off[1], r_off, il, ll)
+    for a, b in zip(shifted, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [5, 32, 40])
+def test_band_stream_kernel_is_reproducible(dev, S):
+    """Two calls give the same bits (no atomics, a fixed order of sums)."""
+    lpb, lpe, ranges, il, ll = _lattice_case(dev, 4, 100, 60, S, seed=3)
+    one = kband.forward_backward(lpb, lpe, ranges, il, ll)
+    two = kband.forward_backward(lpb, lpe, ranges, il, ll)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])

@@ -1,4 +1,4 @@
-// Band lattice kernel: the pruned RNN-T alpha and beta recursions over the
+// Band lattice kernels: the pruned RNN-T alpha and beta recursions over the
 // T rows of each utterance's (T, S) band, t-major.
 //
 // Replaces: warp_transducer_tpu/ops/pallas/band_stream.py:115
@@ -6,7 +6,7 @@
 // panels of the whole batch, streamed through VMEM in double-buffered
 // chunks, with the per-utterance row shift as an unrolled S-way roll
 // select. None of that TPU layout is carried over: here one warp walks one
-// utterance's rows.
+// utterance's rows in one direction.
 //
 // Mathematics (ops/band.py::forward_backward; the JAX package's
 // ops/pruned.py:247-336). Band cell (t, s) is lattice cell
@@ -20,23 +20,65 @@
 // s* = U_b-1-ranges[T_b-1], and NEG when s* falls outside [0, S) (the
 // infeasible band); ll_backward = β(0, 0).
 //
-// Bound on this card: the chain of T dependent rows, not bytes. The kernel
-// moves about 4·B·T·S values, which the card would stream in microseconds,
-// but row t needs row t-1 (alpha) or t+1 (beta), and each row is two warp
-// scans of ceil(log2 S) shuffle steps plus a shared-memory exchange. What
-// the design does about it: alpha and beta run side by side (grid (B, 2),
-// one warp each); the neighbour row stays in shared memory, so a row reads
-// device memory only for its lpb, lpe and band start, and those of row t+1
-// (alpha) or t-1 (beta) are loaded before row t's chain starts, as they do
-// not depend on it.
+// Bound on this card: the chain of T_b dependent rows, not bytes. The
+// kernel moves about 4·B·T·S values, which the card streams in
+// microseconds, but row t needs row t-1 (alpha) or t+1 (beta).
 //
-// Layout: lane s holds band cell s. The two prefix scans are Hillis–Steele
-// warp scans (shuffles), the order in which the plain version adds, so for
-// S <= 32 the two agree bit for bit. For S > 32 the warp walks the row in
-// 32-lane chunks and carries the prefix (sum and log-sum-exp) from one
-// chunk to the next; beta first writes the row's exclusive prefix to
-// shared memory in ascending chunks, then runs the suffix scan in
-// descending chunks. Shared memory: three rows of S floats.
+// The row walk (band_row_kernel, S <= 32): a warp a lattice and direction,
+// lane s holding band cell s, alpha and beta of one utterance in one block.
+// A row step is only its dependent chain; everything else is off it:
+// * Inputs two tiles ahead. The rows of lpb, lpe and ranges are
+//   contiguous, so a tile of kTileRows rows is one run of R·S floats (R
+//   ints). The warp copies each tile by coalesced cp.async (16 bytes where
+//   both ends are aligned, 4 at the edges; a tile's words keep their
+//   address modulo 16 in shared memory) into a ring of kSlots tiles, as the
+//   walk enters the tile kAheadTiles before it; cp.async.wait_group and one
+//   __syncwarp a tile are the only synchronisation. No row waits on device
+//   memory.
+// * What depends only on the inputs is computed ahead, in the row step's
+//   one basic block, where it fills the chain's stalls: each step reads the
+//   next step's inputs (its lpb, the next range, the lpe of the row after
+//   next) and scans that lpe into the exclusive prefix c, by a Hillis–
+//   Steele warp scan shifted by one lane (never cumsum - x); δ; the clamps.
+//   Beta needs no second pass through shared memory.
+// * The chain of a row, in the plain version's order of adds (so that the
+//   two round alike where |α| runs into thousands): alpha, the prefix
+//   log-sum-exp scan from its second level (z), α = c + z, + lpb, two
+//   __shfl_sync by δ that bring cells s and s-1 of the next row's ne (NEG
+//   outside the band), - c, and their log-sum-exp, the next row's first
+//   scan level; beta the mirror (suffix scan, β = z - c, cells s and s+1 by
+//   δ, + lpb, + c). The log-sum-exp is max + log1p(exp(-|a - b|)) with
+//   exp2 and log2 on the SFU (ex2/lg2.approx). The scan's steps are
+//   unrolled (a kernel instance per ceil(log2 S)), every lane computes each
+//   step and a select keeps it, and nothing in the row step branches.
+// * Outputs a tile behind. A row parks its results over the lpb words it
+//   has consumed (one predicated store); as the walk enters the next tile
+//   the warp writes the finished one out with coalesced stores, before its
+//   ring slot takes a new copy.
+// * Each lattice walks its own T_b rows: alpha stops at T_b - 1, beta
+//   starts there; the rows beyond are filled with NEG by coalesced stores.
+// What bounds it now is the chain's latency: three shuffles and three
+// log-sum-exps of two SFU round trips each, in series, at S = 5
+// (scripts/sass_count.sh band_stream: the row steps' instructions).
+// The plan (tile rows, ring slots, copy distance, the switch to the chunk
+// kernel) is `plan` below, mirrored by ops/cuda/band.py::plan;
+// wtt_band_plan lets a card test hold the two equal, and
+// tests/test_torch_band_plan.py replays the row walk's schedule in numpy.
+//
+// Numerics: the SFU's log-sum-exp differs from the plain version's
+// log1p(exp()) by about 1e-7 absolute a step, below the rounding of |α| >=
+// 1, so the two agree to f32 rounding, not bit for bit.
+//
+// The chunk kernel (band_chunk_kernel, S > 32): one warp per lattice and
+// direction walks each row in 32-lane chunks and carries the prefix (sum
+// and log-sum-exp) from one chunk to the next; beta first writes the row's
+// exclusive prefix to shared memory in ascending chunks, then runs the
+// suffix scan in descending chunks. Its scans are the plain version's
+// Hillis–Steele order and precise log-sum-exp (wtt::lse); the neighbour row
+// stays in shared memory (three rows of S floats), and a row's inputs are
+// loaded one row ahead. The full band (S = U) takes it.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -47,6 +89,434 @@ constexpr float kClamp = -1.0e4f;
 
 // max(x, kClamp) that keeps a NaN, as torch.clamp_min does.
 __device__ __forceinline__ float clamp_chain(float x) { return x < kClamp ? kClamp : x; }
+
+// ---------------------------------------------------------------------------
+// The row walk.
+
+constexpr int kMaxRowS = 32;    // the row walk's widest band: a lane a cell
+constexpr int kTileRows = 32;   // R, rows a tile (a power of two, a multiple of 4)
+constexpr int kAheadTiles = 2;  // tile k + kAheadTiles is copied as the walk enters tile k
+constexpr int kSlots = kAheadTiles + 1;
+constexpr int kRowLattices = 2;  // a block: alpha and beta of one utterance
+// The walk indexes a lattice with 32-bit offsets.
+constexpr long long kMaxOffset = 0x7fffffffLL;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Words of one array of a ring slot: n values at a shift of up to 3 words
+// (the source's address modulo 16), rounded up to 16 bytes.
+__host__ __device__ constexpr int arr_words(int n) { return (n + 6) / 4 * 4; }
+// A slot: one tile's lpb (then its results), lpe and ranges.
+__host__ __device__ constexpr int slot_words(int S) {
+  return 2 * arr_words(kTileRows * S) + arr_words(kTileRows);
+}
+__host__ __device__ constexpr int lattice_words(int S) { return kSlots * slot_words(S); }
+
+struct Plan {
+  int row_mode;   // 1: the row walk; 0: the chunk kernel
+  int tile_rows;  // rows a tile (row mode)
+  int slots;      // ring slots, tiles (row mode)
+  int ahead;      // copy distance, tiles (row mode)
+  int per_block;  // lattices (warps) a block
+  int blocks;
+  int threads;
+  int smem;       // dynamic shared memory a block, bytes
+};
+
+Plan plan(int B, int T, int S) {
+  Plan p{};
+  if (S <= kMaxRowS && (long long)(T + 2 * kTileRows) * S <= kMaxOffset) {
+    p.row_mode = 1;
+    p.tile_rows = kTileRows;
+    p.slots = kSlots;
+    p.ahead = kAheadTiles;
+    p.per_block = kRowLattices;
+    p.blocks = B;
+    p.threads = kRowLattices * wtt::kWarp;
+    p.smem = kRowLattices * lattice_words(S) * (int)sizeof(float);
+  } else {
+    p.per_block = 1;
+    p.blocks = 2 * B;
+    p.threads = wtt::kWarp;
+    p.smem = 3 * S * (int)sizeof(float);
+  }
+  return p;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void copy4(const void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void copy16(const void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Every copy but those of the newest kAheadTiles - 1 tiles has landed.
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAheadTiles - 1) : "memory");
+}
+__device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Words from the start of p to its next 16-byte boundary, at most n.
+__device__ __forceinline__ int head_words(const void* p, int n) {
+  return min(n, (int)(((16u - ((unsigned)(uintptr_t)p & 15u)) & 15u) >> 2));
+}
+__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// The warp copies n 4-byte words src[0, n) (device) to dst[0, n) (shared):
+// 16 bytes a lane where both sides are aligned, else a word.
+template <typename W>
+__device__ __forceinline__ void copy_words(W* dst, const W* src, int n, int lane) {
+  int head = head_words(src, n);
+  if (!aligned16(dst + head)) head = n;
+  const int body = (n - head) & ~3;
+#pragma unroll 1
+  for (int i = lane; i < head; i += wtt::kWarp) copy4(dst + i, src + i);
+#pragma unroll 1
+  for (int i = head + 4 * lane; i < head + body; i += 4 * wtt::kWarp) copy16(dst + i, src + i);
+#pragma unroll 1
+  for (int i = head + body + lane; i < n; i += wtt::kWarp) copy4(dst + i, src + i);
+}
+
+// The warp stores n words src[0, n) (shared) to dst[0, n) (device), 16
+// bytes a lane where both sides are aligned.
+__device__ __forceinline__ void store_words(float* dst, const float* src, int n, int lane) {
+  int head = head_words(dst, n);
+  if (!aligned16(src + head)) head = n;
+  const int body = (n - head) & ~3;
+#pragma unroll 1
+  for (int i = lane; i < head; i += wtt::kWarp) dst[i] = src[i];
+#pragma unroll 1
+  for (int i = head + 4 * lane; i < head + body; i += 4 * wtt::kWarp)
+    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(src + i);
+#pragma unroll 1
+  for (int i = head + body + lane; i < n; i += wtt::kWarp) dst[i] = src[i];
+}
+
+// The warp fills dst[0, n) (device) with NEG.
+__device__ __forceinline__ void fill_neg(float* dst, int n, int lane) {
+  const float neg = float(wtt::kNeg);
+  const int head = head_words(dst, n);
+  const int body = (n - head) & ~3;
+#pragma unroll 1
+  for (int i = lane; i < head; i += wtt::kWarp) dst[i] = neg;
+#pragma unroll 1
+  for (int i = head + 4 * lane; i < head + body; i += 4 * wtt::kWarp)
+    *reinterpret_cast<float4*>(dst + i) = make_float4(neg, neg, neg, neg);
+#pragma unroll 1
+  for (int i = head + body + lane; i < n; i += wtt::kWarp) dst[i] = neg;
+}
+
+// log(exp(a) + exp(b)) for finite inputs (NEG-level ones included) in the
+// plain version's form, max + log1p(exp(-|a - b|)), with exp2 and log2 on
+// the SFU (ex2.approx, lg2.approx), branch-free.
+__device__ __forceinline__ float lse(float a, float b) {
+  float e, l;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fabsf(a - b) * -kLog2e));
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(1.0f + e));
+  return fmaf(l, kLn2, fmaxf(a, b));
+}
+
+// Inclusive prefix (lanes < S) and suffix (lanes < S) log-sum-exp scans,
+// Hillis–Steele: steps first .. L2 - 1 of the ceil(log2 S).
+// Every lane computes each step's log-sum-exp, and a select keeps it: a
+// conditional around the SFU calls would be a divergent branch a step.
+template <int L2, int first = 0>
+__device__ __forceinline__ float scan_up(float y, int lane) {
+#pragma unroll
+  for (int i = first; i < L2; ++i) {
+    const float z = lse(y, __shfl_up_sync(kFull, y, 1 << i));
+    y = lane >= (1 << i) ? z : y;
+  }
+  return y;
+}
+template <int L2, int first = 0>
+__device__ __forceinline__ float scan_down(float y, int lane, int S) {
+#pragma unroll
+  for (int i = first; i < L2; ++i) {
+    const float z = lse(y, __shfl_down_sync(kFull, y, 1 << i));
+    y = lane + (1 << i) < S ? z : y;
+  }
+  return y;
+}
+
+// Exclusive prefix sum over the lanes (x = 0 beyond the band): the
+// inclusive Hillis–Steele scan shifted by one lane, 0 at lane 0.
+template <int L2>
+__device__ __forceinline__ float excl_sum(float x, int lane) {
+#pragma unroll
+  for (int i = 0; i < L2; ++i) {
+    const float z = x + __shfl_up_sync(kFull, x, 1 << i);
+    x = lane >= (1 << i) ? z : x;
+  }
+  const float c = __shfl_up_sync(kFull, x, 1);
+  return lane == 0 ? 0.f : c;
+}
+
+// A store to shared memory by the lanes where `on`, as one predicated
+// instruction (a conditional store would be a branch in the row step). The
+// "memory" clobber keeps the compiler from moving loads of the ring across
+// it (write_tile reads these words after a __syncwarp).
+__device__ __forceinline__ void store_if(float* p, float v, bool on) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n @p st.shared.f32 [%0], %1;\n}\n" ::"r"(
+          smem_addr(p)),
+      "f"(v), "r"((int)on)
+      : "memory");
+}
+
+// One lattice (utterance and direction) and its ring of tiles.
+struct Walk {
+  const float* pb;  // the lattice's lpb, lpe (T, S), ranges (T,)
+  const float* pe;
+  const int* pr;
+  float* out;       // its alphas or betas
+  float* ring;      // kSlots slots of slot_words(S)
+  int T, S, Tb, Ub, Tw;  // Tw = min(max(T_b, 0), T), the rows walked
+  int shb, she, shr;     // the sources' word offsets modulo 16 bytes
+
+  __device__ int slot(int tile) const { return (int)((unsigned)tile % kSlots) * slot_words(S); }
+  // Word offsets in the ring of tile `tile`'s lpb (then results), lpe and ranges.
+  __device__ int b_base(int tile) const { return slot(tile) + shb; }
+  __device__ int e_base(int tile) const { return slot(tile) + arr_words(kTileRows * S) + she; }
+  __device__ int r_base(int tile) const {
+    return slot(tile) + 2 * arr_words(kTileRows * S) + shr;
+  }
+  __device__ int tile_rows(int tile) const { return min(kTileRows, Tw - tile * kTileRows); }
+  // Copy tile `tile`'s rows below Tw into its slot (one commit group).
+  __device__ void copy_tile(int tile, int lane) const {
+    const int t0 = tile * kTileRows, n = tile_rows(tile);
+    copy_words(ring + b_base(tile), pb + t0 * S, n * S, lane);
+    copy_words(ring + e_base(tile), pe + t0 * S, n * S, lane);
+    copy_words(reinterpret_cast<int*>(ring) + r_base(tile), pr + t0, n, lane);
+  }
+  // Write out the results parked in tile `tile`'s slot.
+  __device__ void write_tile(int tile, int lane) const {
+    store_words(out + tile * kTileRows * S, ring + b_base(tile), tile_rows(tile) * S, lane);
+  }
+};
+
+// Alpha over rows 0 .. Tw-1; ll_forward at the terminal cell. Row t's
+// inputs (its lpb, ranges[t+1], the lpe of row t+2) are read in the step
+// before, so that no shared-memory latency stands before the chain. The
+// chain adds in the plain version's order (α = c + z, α + lpb, shifted,
+// - c), so that the two round alike at the magnitudes of long bands.
+template <int L2>
+__device__ void alpha_walk(const Walk& w, int lane, float* __restrict__ llf) {
+  const int S = w.S, sc = min(lane, S - 1);
+  const bool cell = lane < S;
+  const float neg = float(wtt::kNeg);
+  const int tiles = (w.Tw + kTileRows - 1) / kTileRows;
+  float* const ring = w.ring;
+  const int* const iring = reinterpret_cast<const int*>(w.ring);
+  w.copy_tile(0, lane);
+  copy_commit();
+  w.copy_tile(1, lane);
+  copy_commit();
+  float y = 0.f;             // the chain: row t's ne - c after the scan's first level
+  float c0 = 0.f, c1 = 0.f;  // c of rows t and t+1
+  int r0 = 0, r1 = 0;        // ranges[t], ranges[t+1]
+  float b = 0.f, e2 = 0.f;   // lpb of row t, lpe of row t+2, as read
+  float a_last = neg, b_last = 0.f;
+  int r_last = 0;
+  for (int k = 0; k < tiles; ++k) {
+    if (k > 0) {
+      __syncwarp();
+      w.write_tile(k - 1, lane);
+      __syncwarp();
+    }
+    if (k + kAheadTiles < tiles) w.copy_tile(k + kAheadTiles, lane);
+    copy_commit();
+    copy_wait();  // tiles k and k+1 have landed
+    __syncwarp();
+    // Row kR + i of tile k, or of tile k+1 for i >= R.
+    const int bk = w.b_base(k), bn = w.b_base(k + 1) - kTileRows * S;
+    const int ek = w.e_base(k), en = w.e_base(k + 1) - kTileRows * S;
+    const int qk = w.r_base(k), qn = w.r_base(k + 1) - kTileRows;
+    auto lpb_at = [&](int i) { return (i < kTileRows ? bk : bn) + i * S; };
+    auto lpe_at = [&](int i) { return (i < kTileRows ? ek : en) + i * S; };
+    auto range_at = [&](int i) { return iring[(i < kTileRows ? qk : qn) + i]; };
+    if (k == 0) {
+      r0 = range_at(0);
+      r1 = range_at(1);
+      c0 = excl_sum<L2>(cell ? clamp_chain(ring[lpe_at(0) + sc]) : 0.f, lane);
+      c1 = excl_sum<L2>(cell ? clamp_chain(ring[lpe_at(1) + sc]) : 0.f, lane);
+      b = ring[lpb_at(0) + sc];
+      e2 = ring[lpe_at(2) + sc];
+      // Row 0: ne = 0 at s = 0, NEG elsewhere; its first scan level.
+      y = scan_up<(L2 > 0 ? 1 : 0)>((lane == 0 ? 0.f : neg) - c0, lane);
+    }
+    const int n = w.tile_rows(k);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      // Off the chain: the neighbour's c of row t+1 (its first scan level
+      // takes cells s and s-1).
+      const float c1m = __shfl_up_sync(kFull, c1, 1);
+      const float bc = wtt::clamp_neg(b);
+      const int d1 = r1 - r0;  // δ(t+1)
+      // The chain: the scan's levels from 1, α = c + z, + lpb, the shuffle
+      // by δ of cells s and s-1 of row t+1, - c, their log-sum-exp.
+      const float a = c0 + scan_up<L2, 1>(y, lane);
+      const float p = a + bc;
+      const float n0 = __shfl_sync(kFull, p, lane + d1);
+      const float n1 = __shfl_sync(kFull, p, lane + d1 - 1);
+      // Off the chain: the cell's alpha, parked over its lpb; the prefix of
+      // row t+2; the next step's inputs.
+      store_if(ring + lpb_at(i) + lane, r0 + lane < w.Ub ? a : neg, cell);
+      a_last = r0 + lane < w.Ub ? a : neg;
+      b_last = bc;
+      r_last = r0;
+      const float c2 = excl_sum<L2>(cell ? clamp_chain(e2) : 0.f, lane);
+      b = ring[lpb_at(i + 1) + sc];
+      const int r2 = range_at(i + 2);
+      e2 = ring[lpe_at(i + 3) + sc];
+      y = (lane + d1 < S ? n0 : neg) - c1;
+      if (L2 > 0) y = lse(y, (lane >= 1 && lane + d1 - 1 < S ? n1 : neg) - c1m);
+      c0 = c1;
+      c1 = c2;
+      r0 = r1;
+      r1 = r2;
+    }
+  }
+  __syncwarp();
+  if (tiles > 0) w.write_tile(tiles - 1, lane);
+  fill_neg(w.out + w.Tw * S, (w.T - w.Tw) * S, lane);
+  // ll_forward: alpha + lpb at s* of row T_b - 1, NEG for an infeasible band.
+  const int s_star = w.Ub - 1 - r_last;
+  const bool feasible = w.Tw > 0 && w.Tb == w.Tw && s_star >= 0 && s_star < S;
+  const float ll = __shfl_sync(kFull, a_last + b_last, s_star & (wtt::kWarp - 1));
+  if (lane == 0) *llf = feasible ? ll : neg;
+  copy_wait_all();
+}
+
+// Beta over rows Tw-1 .. 0, seeded at the terminal cell; ll_backward =
+// β(0, 0). Row t's inputs (the lpb and range of row t-1, the lpe of row
+// t-2) are read in the step before; the chain adds in the plain version's
+// order (β = z - c, shifted, + lpb, + c).
+template <int L2>
+__device__ void beta_walk(const Walk& w, int lane, float* __restrict__ llb) {
+  const int S = w.S, sc = min(lane, S - 1);
+  const bool cell = lane < S;
+  const float neg = float(wtt::kNeg);
+  const int tiles = (w.Tw + kTileRows - 1) / kTileRows, top = tiles - 1;
+  float* const ring = w.ring;
+  const int* const iring = reinterpret_cast<const int*>(w.ring);
+  if (tiles > 0) w.copy_tile(top, lane);
+  copy_commit();
+  if (top >= 1) w.copy_tile(top - 1, lane);
+  copy_commit();
+  float y = 0.f;             // the chain: row t's ne + c after the scan's first level
+  float c0 = 0.f, c1 = 0.f;  // c of rows t and t-1
+  int r0 = 0, r1 = 0;        // ranges[t], ranges[t-1]
+  float b1 = 0.f, e2 = 0.f;  // lpb of row t-1, lpe of row t-2, as read
+  float b00 = neg;
+  for (int k = top; k >= 0; --k) {
+    if (k < top) {
+      __syncwarp();
+      w.write_tile(k + 1, lane);
+      __syncwarp();
+    }
+    if (k - kAheadTiles >= 0) w.copy_tile(k - kAheadTiles, lane);
+    copy_commit();
+    copy_wait();  // tiles k and k-1 have landed
+    __syncwarp();
+    // Row kR + i of tile k, or of tile k-1 for i < 0 (row 0 below tile 0).
+    const int bk = w.b_base(k), bp = k > 0 ? w.b_base(k - 1) + kTileRows * S : bk;
+    const int ek = w.e_base(k), ep = k > 0 ? w.e_base(k - 1) + kTileRows * S : ek;
+    const int qk = w.r_base(k), qp = k > 0 ? w.r_base(k - 1) + kTileRows : qk;
+    const int lo = k > 0 ? -kTileRows : 0;
+    auto lpb_at = [&](int i) { return i >= 0 ? bk + i * S : bp + max(i, lo) * S; };
+    auto lpe_at = [&](int i) { return i >= 0 ? ek + i * S : ep + max(i, lo) * S; };
+    auto range_at = [&](int i) { return iring[i >= 0 ? qk + i : qp + max(i, lo)]; };
+    const int n = w.tile_rows(k);
+    if (k == top) {
+      const int i = n - 1;  // row Tw - 1
+      r0 = range_at(i);
+      r1 = range_at(i - 1);
+      c0 = excl_sum<L2>(cell ? clamp_chain(ring[lpe_at(i) + sc]) : 0.f, lane);
+      c1 = excl_sum<L2>(cell ? clamp_chain(ring[lpe_at(i - 1) + sc]) : 0.f, lane);
+      // No row below the walk: ne = NEG + lpb, and lpb at the terminal cell,
+      // if it lies in this row; then the first scan level.
+      const float bt = wtt::clamp_neg(ring[lpb_at(i) + sc]);
+      const bool seed = w.Tb == w.Tw && lane == w.Ub - 1 - r0;
+      y = scan_down<(L2 > 0 ? 1 : 0)>((seed ? bt : neg + bt) + c0, lane, S);
+      b1 = ring[lpb_at(i - 1) + sc];
+      e2 = ring[lpe_at(i - 2) + sc];
+    }
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i) {
+      // Off the chain: row t-1's lpb and c, and those of the cell to the
+      // right (its first scan level takes cells s and s+1).
+      const float bc1 = wtt::clamp_neg(b1);
+      const float bc1n = __shfl_down_sync(kFull, bc1, 1);
+      const float c1n = __shfl_down_sync(kFull, c1, 1);
+      const int d = r0 - r1;  // δ(t)
+      // The chain: the scan's levels from 1, β = z - c, the shuffle by δ
+      // of cells s and s+1 of row t-1, + lpb, + c, their log-sum-exp.
+      const float bv = scan_down<L2, 1>(y, lane, S) - c0;
+      const float n0 = __shfl_sync(kFull, bv, lane - d);
+      const float n1 = __shfl_sync(kFull, bv, lane + 1 - d);
+      // Off the chain: the cell's beta, parked over its lpb (read two steps
+      // ago); the prefix of row t-2; the next step's inputs.
+      const float out = r0 + lane < w.Ub ? bv : neg;
+      store_if(ring + lpb_at(i) + lane, out, cell);
+      b00 = out;
+      const float c2 = excl_sum<L2>(cell ? clamp_chain(e2) : 0.f, lane);
+      b1 = ring[lpb_at(i - 2) + sc];
+      const int r2 = range_at(i - 2);
+      e2 = ring[lpe_at(i - 3) + sc];
+      y = ((lane - d >= 0 ? n0 : neg) + bc1) + c1;
+      if (L2 > 0) y = lse(y, ((lane + 1 < S && lane + 1 - d >= 0 ? n1 : neg) + bc1n) + c1n);
+      c0 = c1;
+      c1 = c2;
+      r0 = r1;
+      r1 = r2;
+    }
+  }
+  __syncwarp();
+  if (tiles > 0) w.write_tile(0, lane);
+  fill_neg(w.out + w.Tw * S, (w.T - w.Tw) * S, lane);
+  if (lane == 0) *llb = b00;  // row 0's cell 0, NEG where invalid or nothing walked
+  copy_wait_all();
+}
+
+// Grid: a block per utterance, warp 0 alpha, warp 1 beta.
+template <int L2>
+__global__ void __launch_bounds__(kRowLattices * wtt::kWarp, 1)
+    band_row_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
+                    const int* __restrict__ ranges, const int* __restrict__ input_lengths,
+                    const int* __restrict__ label_lengths, float* __restrict__ alphas,
+                    float* __restrict__ betas, float* __restrict__ ll_forward,
+                    float* __restrict__ ll_backward, int T, int S) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / wtt::kWarp, lane = threadIdx.x % wtt::kWarp;
+  const int b = blockIdx.x;
+  const long long base = (long long)b * T * S;
+  Walk w;
+  w.pb = lpb + base;
+  w.pe = lpe + base;
+  w.pr = ranges + (long long)b * T;
+  w.out = (warp == 0 ? alphas : betas) + base;
+  w.ring = smem + warp * lattice_words(S);
+  w.T = T;
+  w.S = S;
+  w.Tb = input_lengths[b];
+  w.Ub = label_lengths[b] + 1;
+  w.Tw = min(max(w.Tb, 0), T);
+  w.shb = (int)(((uintptr_t)w.pb >> 2) & 3);
+  w.she = (int)(((uintptr_t)w.pe >> 2) & 3);
+  w.shr = (int)(((uintptr_t)w.pr >> 2) & 3);
+  if (warp == 0)
+    alpha_walk<L2>(w, lane, ll_forward + b);
+  else
+    beta_walk<L2>(w, lane, ll_backward + b);
+}
+
+// ---------------------------------------------------------------------------
+// The chunk kernel, for S > 32: grid (B, 2), blockIdx.y choosing alpha or
+// beta, one warp each (the earlier design; the file's header says how it walks).
 
 // Inclusive prefix sum over lanes [0, width), Hillis–Steele.
 __device__ __forceinline__ float scan_sum(float x, int lane, int width) {
@@ -79,7 +549,7 @@ __device__ __forceinline__ float scan_lse_rev(float x, int lane, int width) {
 // inclusive scan shifted by one lane, never the inclusive sum minus the
 // element. `carry` holds the sum of the earlier chunks and is advanced.
 __device__ __forceinline__ float excl_prefix(float x, int lane, int width, int k,
-                                             float& carry) {
+                                                   float& carry) {
   float incl = scan_sum(x, lane, width);
   if (k > 0) incl = carry + incl;
   float c = __shfl_up_sync(kFull, incl, 1);
@@ -88,11 +558,11 @@ __device__ __forceinline__ float excl_prefix(float x, int lane, int width, int k
   return c;
 }
 
-__global__ void band_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
-                            const int* __restrict__ ranges, const int* __restrict__ input_lengths,
-                            const int* __restrict__ label_lengths, float* __restrict__ alphas,
-                            float* __restrict__ betas, float* __restrict__ ll_forward,
-                            float* __restrict__ ll_backward, int T, int S) {
+__global__ void band_chunk_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
+                                  const int* __restrict__ ranges, const int* __restrict__ input_lengths,
+                                  const int* __restrict__ label_lengths, float* __restrict__ alphas,
+                                  float* __restrict__ betas, float* __restrict__ ll_forward,
+                                  float* __restrict__ ll_backward, int T, int S) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
@@ -220,6 +690,26 @@ __global__ void band_kernel(const float* __restrict__ lpb, const float* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launch.
+
+using RowKernel = void (*)(const float*, const float*, const int*, const int*, const int*,
+                          float*, float*, float*, float*, int, int);
+
+// The row walk's instance for a band of S <= kMaxRowS: ceil(log2 S) scan steps.
+RowKernel row_kernel(int S) {
+  int steps = 0;
+  while ((1 << steps) < S) ++steps;
+  switch (steps) {
+    case 0: return band_row_kernel<0>;
+    case 1: return band_row_kernel<1>;
+    case 2: return band_row_kernel<2>;
+    case 3: return band_row_kernel<3>;
+    case 4: return band_row_kernel<4>;
+    default: return band_row_kernel<5>;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -233,18 +723,57 @@ int wtt_band_stream(const void* lpb, const void* lpe, const int* ranges,
                     void* stream) {
   if (B == 0) return 0;
   if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const Plan p = plan(B, T, S);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pb = static_cast<const float*>(lpb);
+  const float* pe = static_cast<const float*>(lpe);
+  float* al = static_cast<float*>(alphas);
+  float* be = static_cast<float*>(betas);
+  float* lf = static_cast<float*>(ll_forward);
+  float* lb = static_cast<float*>(ll_backward);
+  if (p.row_mode) {
+    const RowKernel k = row_kernel(S);
+    if (p.smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    k<<<p.blocks, p.threads, p.smem, st>>>(pb, pe, ranges, input_lengths, label_lengths, al, be,
+                                           lf, lb, T, S);
+    return (int)cudaGetLastError();
+  }
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        band_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid(B, 2);
-  band_kernel<<<grid, wtt::kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lpb), static_cast<const float*>(lpe), ranges, input_lengths,
-      label_lengths, static_cast<float*>(alphas), static_cast<float*>(betas),
-      static_cast<float*>(ll_forward), static_cast<float*>(ll_backward), T, S);
+  band_chunk_kernel<<<dim3(B, 2), p.threads, p.smem, st>>>(
+      pb, pe, ranges, input_lengths, label_lengths, al, be, lf, lb, T, S);
   return (int)cudaGetLastError();
+}
+
+// The launch plan for B utterances of T frames and a band of S: out =
+// {row walk (1) or chunk kernel (0), tile rows, ring slots, copy distance
+// (tiles), lattices a block, blocks, threads a block, dynamic shared memory
+// a block}.
+void wtt_band_plan(int B, int T, int S, int* out) {
+  const Plan p = plan(B, T, S);
+  const int v[8] = {p.row_mode, p.tile_rows, p.slots, p.ahead,
+                    p.per_block, p.blocks, p.threads, p.smem};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+}
+
+// Registers and local (spill) bytes a thread of the kernel that a band of
+// S runs, as ptxas compiled it.
+int wtt_band_attrs(int S, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = S > kMaxRowS
+                              ? cudaFuncGetAttributes(&a, band_chunk_kernel)
+                              : cudaFuncGetAttributes(&a, row_kernel(S));
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

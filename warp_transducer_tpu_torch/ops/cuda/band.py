@@ -2,13 +2,92 @@
 ``warp_transducer_tpu/ops/pallas/band_pipeline.py::_prep_kernel``),
 ``csrc/band_stream.cu`` (``pallas/band_stream.py::_band_kernel``) and
 ``csrc/band_grad.cu`` (``pallas/band_pipeline.py::_grad_kernel``). The
-plain versions are in ``ops/band.py``."""
+plain versions are in ``ops/band.py``.
+
+The band lattice kernel plans its launch itself; ``plan`` mirrors that plan
+for the CPU tests (``tests/test_torch_band_plan.py``), and a card test holds
+it against the C entry ``wtt_band_plan``. Two kernels:
+
+* the row walk (S <= MAX_ROW_S): a warp per utterance and direction, lane s
+  holding band cell s, alpha and beta of an utterance in one block; tiles of
+  TILE_ROWS rows of lpb, lpe and ranges copied AHEAD_TILES tiles ahead into
+  a ring of SLOTS tiles, results parked in the ring and written out a tile
+  at a time;
+* the chunk kernel (S > MAX_ROW_S): a warp per utterance and direction
+  walking each row in 32-lane chunks, three rows of S values in shared
+  memory.
+"""
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import band as _plain
 from . import DTYPE_CODES, SMEM_BYTES, check, int32, lib, require, rows, stream
+
+WARP = 32
+MAX_ROW_S = 32  # the row walk's widest band
+TILE_ROWS = 32
+AHEAD_TILES = 2  # tile k + AHEAD_TILES is copied as the walk enters tile k
+SLOTS = AHEAD_TILES + 1
+ROW_LATTICES = 2  # a block of the row walk: alpha and beta of one utterance
+# The row walk indexes a lattice with 32-bit offsets, up to (T + 2·TILE_ROWS)·S.
+MAX_OFFSET = 2 ** 31 - 1
+
+
+class Plan(NamedTuple):
+    row_mode: bool  # the row walk; else the chunk kernel
+    tile_rows: int  # rows a tile (0 in chunk mode)
+    slots: int  # ring slots, tiles (0 in chunk mode)
+    ahead: int  # copy distance, tiles (0 in chunk mode)
+    per_block: int  # lattices (warps) a block
+    blocks: int
+    threads: int  # a block
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def arr_words(n: int) -> int:
+    """Words of one array of a ring slot: n values at a shift of up to three
+    words (the source's address modulo 16 bytes), rounded up to 16 bytes."""
+    return (n + 6) // 4 * 4
+
+
+def slot_words(S: int) -> int:
+    """A ring slot: one tile's lpb (then its results), lpe and ranges."""
+    return 2 * arr_words(TILE_ROWS * S) + arr_words(TILE_ROWS)
+
+
+def lattice_words(S: int) -> int:
+    """Shared memory of one lattice (warp) of the row walk, words."""
+    return SLOTS * slot_words(S)
+
+
+def plan(B: int, T: int, S: int) -> Plan:
+    """The band lattice kernel's launch plan for B utterances of T frames and
+    a band of S (``csrc/band_stream.cu::plan``)."""
+    if S <= MAX_ROW_S and (T + 2 * TILE_ROWS) * S <= MAX_OFFSET:
+        return Plan(True, TILE_ROWS, SLOTS, AHEAD_TILES, ROW_LATTICES, B, ROW_LATTICES * WARP,
+                    ROW_LATTICES * lattice_words(S) * 4)
+    return Plan(False, 0, 0, 0, 1, 2 * B, WARP, 3 * S * 4)
+
+
+def kernel_plan(B: int, T: int, S: int) -> Plan:
+    """The plan as the C entry ``wtt_band_plan`` computes it."""
+    out = (ctypes.c_int * 8)()
+    lib().wtt_band_plan(B, T, S, out)
+    return Plan(bool(out[0]), *out[1:])
+
+
+def kernel_registers(S: int) -> tuple:
+    """(registers a thread, local bytes a thread) of the kernel that a band
+    of S runs, as ptxas compiled it; for the measurement scripts."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib().wtt_band_attrs(S, ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"band_stream: cudaFuncGetAttributes failed: cudaError {err}")
+    return regs.value, local.value
 
 _F32 = (torch.float32,)
 _INT = (torch.int32,)
@@ -42,9 +121,9 @@ def band_prep(acts: torch.Tensor, lab_row: torch.Tensor, blank: int) -> _plain.B
 def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor, ranges: torch.Tensor,
                      input_lengths: torch.Tensor,
                      label_lengths: torch.Tensor) -> _plain.BandLattice:
-    """``band.forward_backward`` on the card: grid (B, 2), one warp for α
-    and one for β of each utterance. On a CPU tensor this is the plain
-    version."""
+    """``band.forward_backward`` on the card: one warp for α and one for β
+    of each utterance, the row walk for S <= 32 and the chunk kernel above
+    (``plan``). On a CPU tensor this is the plain version."""
     if lpb.device.type != "cuda":
         return _plain.forward_backward(lpb, lpe, ranges, input_lengths, label_lengths)
     dev = lpb.device
@@ -58,7 +137,7 @@ def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor, ranges: torch.Tensor,
         raise ValueError(f"ranges must be {(B, T)}; got {tuple(r.shape)}")
     if T < 1 or S < 1:
         raise ValueError(f"the band needs T >= 1 and S >= 1; got T={T}, S={S}")
-    if 3 * S * 4 > SMEM_BYTES:
+    if plan(B, T, S).smem > SMEM_BYTES:
         raise ValueError(f"S={S} exceeds the band kernel's limit of {SMEM_BYTES // 12}: three "
                          "rows of S f32 values must fit the 227 KB of shared memory a block "
                          "may use")

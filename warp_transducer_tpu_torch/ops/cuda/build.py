@@ -144,6 +144,8 @@ def library() -> ctypes.CDLL:
                                      ll, i, i, i, i, i, p, p]
     lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
     lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.wtt_band_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_band_plan.restype = None
     lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.wtt_band_starts.argtypes = [p, p, p, p, i, i, i, p]
     joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
@@ -183,6 +185,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ll
     lib.wtt_window_attrs.argtypes = [i, i, i, ip, ip]
     lib.wtt_window_attrs.restype = i
+    lib.wtt_band_attrs.argtypes = [i, ip, ip]
+    lib.wtt_band_attrs.restype = i
     lib.wtt_dur_head_smem.argtypes = []
     lib.wtt_dur_head_smem.restype = ll
     lib.wtt_error_string.argtypes = [i]
