@@ -143,9 +143,9 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "wavefront_block_kernel",
                 "grad_lattice_tile_kernel", "grad_lattice_warp_kernel", "grad_fields_tile_kernel",
                 "grad_fields_warp_kernel",
-                "band_prep_kernel", "band_row_kernel", "band_chunk_kernel",
-                "band_grad_tile_kernel", "band_grad_warp_kernel",
-                "band_starts_kernel", "joint_prep_kernel",
+                "band_prep_tile_kernel", "band_prep_warp_kernel", "band_row_kernel",
+                "band_chunk_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
+                "ranges_kernel", "joint_prep_kernel",
                 "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
                 "window_warp_kernel", "window_block_kernel")
@@ -336,13 +336,14 @@ def wavefront_step_instructions(library):
     return out
 
 
-def sass_loops(library, function, key):
-    """{key: (shuffles {kind: [addresses]}, loops [(start, end)])} of the
-    kernel instances in the built library whose names match the regex
+def sass_loops(library, function, key, marks=r"SHFL\.(UP|DOWN|IDX)"):
+    """{key: (marked instructions {kind: [addresses]}, loops [(start, end)])}
+    of the kernel instances in the built library whose names match the regex
     ``function`` (``key`` maps its match to the key), read with cuobjdump: a
     loop ends in a conditional backward branch (the out-of-line paths of a
-    shuffle in a diverged warp jump back unconditionally). {} where cuobjdump
-    is missing."""
+    shuffle in a diverged warp jump back unconditionally). ``marks`` is the
+    regex of the instructions to mark, its group the kind (the shuffles by
+    default). {} where cuobjdump is missing."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         return {}
@@ -360,7 +361,7 @@ def sass_loops(library, function, key):
         if k is None or not m:
             continue
         addr, ins = int(m.group(1), 16), m.group(2)
-        if kind := re.search(r"SHFL\.(UP|DOWN|IDX)", ins):
+        if kind := re.search(marks, ins):
             out[k][0].setdefault(kind.group(1), []).append(addr)
         if ((b := re.match(r"@!?U?P\w+\s+BRA (?:\S+, )?0x([0-9a-f]+)", ins))
                 and int(b.group(1), 16) < addr):
@@ -502,6 +503,49 @@ def make_problem(B, T, L, V, seed, dev, dtype=torch.float32):
     return acts, labels, il, ll
 
 
+def ranges_step_instructions(library):
+    """{(element bytes, lanes a row): (forward clamp, backward raise, forward
+    fix) SASS instructions a step} of the range kernel's three scans: the
+    innermost loops around a 16-byte shared-memory store (STS.128, four
+    steps each), in the order of their code. Static counts; one thread walks
+    them, a warp issuing at most one instruction a clock."""
+    out = {}
+    for k, (sts, loops) in sass_loops(library, r"ranges_kernelI([fd])Li(\d+)E",
+                                      lambda m: (4 if m.group(1) == "f" else 8, int(m.group(2))),
+                                      marks=r"(STS)\.128").items():
+        rows = [(a, b, sum(a <= x <= b for x in sts.get("STS", []))) for a, b in loops]
+        rows = [(a, b, n) for a, b, n in rows if n]
+        inner = sorted((a, b, n) for a, b, n in rows
+                       if not any((c, d) != (a, b) and a <= c and d <= b for c, d, _ in rows))
+        out[k] = tuple(((b - a) // 16 + 1) / (4 * n) for a, b, n in inner)
+    return out
+
+
+def ranges_chain_floor(steps, il, T, U, elt, clock_mhz):
+    """T_max frames × the SASS instructions a step of the three scans, for
+    the range kernel instance of this element size and U (its lanes a row),
+    ÷ the SM clock, ms, and the instructions a frame; (None, None) where
+    either is unknown."""
+    from warp_transducer_tpu_torch.ops.cuda import ranges as kranges
+    scan = steps.get((elt, kranges.plan(T, U).group))
+    if not (scan and len(scan) == 3 and clock_mhz):
+        return None, None
+    n = sum(scan)
+    return min(int(il.max()), T) * n / (clock_mhz * 1e3), n
+
+
+def ranges_bound(il, T, U, elt):
+    """bound() of one ranges_from_posteriors call on this run's lengths: α
+    and β read once at the frames whose peak counts (0 .. T_b−2 of each
+    utterance; none where T_b <= 0, all T where T_b > T), ll and the
+    lengths read and the (B, T) starts written; three operations an element
+    (two adds and a compare)."""
+    tb = il.long()
+    frames = int(torch.where(tb > T, T, (tb - 1).clamp_min(0)).sum())
+    B = il.numel()
+    return bound(2 * frames * U * elt + B * (elt + 8) + B * T * 4, 3 * frames * U, F32_OPS_PER_S)
+
+
 # The JAX package's two published pruned shapes (README.md:233 and :258;
 # B, T, L, V, S): the long-utterance configuration and the large-vocabulary
 # one. Full size, f32, the additive joiner on the band.
@@ -562,21 +606,21 @@ def pruned_step(am, lm, labels, il, ll, S, implementation="auto"):
 
 
 def band_inputs(am, lm, labels, il, ll, S):
-    """What the pruned step hands its kernels: the posterior peaks of the
-    simple lattice, the band starts, the band, its per-row labels, and the
-    band prep, lattice and coefficient fields (kernels, unit cotangent)."""
+    """What the pruned step hands its kernels: the simple lattice (its
+    alphas, betas and ll_forward), the band starts from its posteriors, the
+    band, its per-row labels, and the band prep, lattice and coefficient
+    fields (kernels, unit cotangent)."""
     from warp_transducer_tpu_torch import gather_banded
-    from warp_transducer_tpu_torch.ops import band, prep, simple
+    from warp_transducer_tpu_torch.ops import band, prep, pruned, simple
     from warp_transducer_tpu_torch.ops.cuda import band as kband
-    from warp_transducer_tpu_torch.ops.cuda import ranges as kranges
     from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
     with torch.no_grad():
         f = simple._factorised_lattice_inputs(am, lm, prep.label_rows(labels, lm.shape[1]), 0,
                                               "highest")
-        res = kwave.forward_backward(f.lpb, f.lpe, il, ll)
-        best_u = band.posterior_peaks(res.alphas, res.betas, res.ll_forward)
-        del f, res
-        ranges = kranges.band_starts(best_u, il, ll, S)
+        simple_lat = kwave.forward_backward(f.lpb, f.lpe, il, ll)
+        del f
+        ranges = pruned.ranges_from_posteriors(simple_lat.alphas, simple_lat.betas,
+                                               simple_lat.ll_forward, il, ll, S)
         band_acts = am[:, :, None, :] + gather_banded(lm, ranges, S)
         lab_band, has_lab = band.band_labels(labels, ranges, S)
         lab_row = band.label_rows(lab_band, has_lab)
@@ -584,8 +628,8 @@ def band_inputs(am, lm, labels, il, ll, S):
         lat = kband.forward_backward(p.lpb, p.lpe, ranges, il, ll)
         fields = band.band_coefs(p.lpb, p.lpe, lat, ranges, has_lab, il, ll,
                                  torch.ones(am.shape[0], device=am.device), 0.0)
-    return dict(best_u=best_u, ranges=ranges, band=band_acts, has_lab=has_lab, lab_row=lab_row,
-                prep=p, lat=lat, fields=fields)
+    return dict(simple_lat=simple_lat, ranges=ranges, band=band_acts, has_lab=has_lab,
+                lab_row=lab_row, prep=p, lat=lat, fields=fields)
 
 
 def pruned_kernels_vs_plain(dev, errs):
@@ -600,10 +644,12 @@ def pruned_kernels_vs_plain(dev, errs):
     for tag, B, T, L, V, S in PRUNED_SHAPES:
         am, lm, labels, il, ll = make_pruned_problem(B, T, L, V, seed=3, dev=dev)
         x = band_inputs(am, lm, labels, il, ll, S)
-        r_k = kranges.band_starts(x["best_u"], il, ll, S)
+        lat = x["simple_lat"][:3]  # alphas, betas, ll_forward
+        r_k = kranges.ranges_from_posteriors(*lat, il, ll, S)
         torch.cuda.synchronize()
-        r_p = band.band_starts(x["best_u"], il, ll, S)
+        r_p = band.band_starts(band.posterior_peaks(*lat), il, ll, S)
         errs["ranges"] = max(errs["ranges"], compare(f"ranges {tag}", r_k, r_p, (0.0, 0.0)))
+        del lat
         ranges, lab_row = x["ranges"], x["lab_row"]
         dtypes = (torch.float32, torch.bfloat16) if tag == "pruned_long" else (torch.float32,)
         for dtype in dtypes:  # f32 first: its lattice feeds the bf16 gradient check too
@@ -760,21 +806,29 @@ def full_band_check(dev, errs):
 
 
 def pruned_timings(problems):
-    """The pruned step (CUDA events, and its device breakdown) and each
-    pruned kernel at both shapes: ms, plain ms, library ms, bound.
-    Returns ({kernel: {shape: timing}}, {shape: step ms})."""
+    """The pruned step (CUDA events, its device breakdown and its peak
+    memory) and each pruned kernel at both shapes: ms, plain ms, library
+    ms, bound. Returns ({kernel: {shape: timing}}, {shape: step ms},
+    {shape: step peak MB})."""
     from warp_transducer_tpu_torch.ops import band
     from warp_transducer_tpu_torch.ops.cuda import band as kband
     from warp_transducer_tpu_torch.ops.cuda import build
     from warp_transducer_tpu_torch.ops.cuda import ranges as kranges
-    out, step_ms = {k: {} for k in PRUNED_KERNELS}, {}
+    from warp_transducer_tpu_torch.ops.cuda import rows as R
+    out, step_ms, step_mb = {k: {} for k in PRUNED_KERNELS}, {}, {}
     clock_mhz = sm_clock_mhz()
-    band_steps = band_step_instructions(build.build())
+    library = build.build()
+    band_steps = band_step_instructions(library)
+    range_steps = ranges_step_instructions(library)
     print(f"band_stream: SASS instructions of the two row steps {band_steps} "
-          f"(ceil(log2 S): counts); SM clock {clock_mhz} MHz (nvidia-smi clocks.max.sm)")
+          f"(ceil(log2 S): counts); ranges: SASS instructions a step of the three scans "
+          f"{range_steps} ((element bytes, lanes a row): counts); SM clock {clock_mhz} MHz (nvidia-smi "
+          "clocks.max.sm)")
     for tag, B, T, L, V, S in PRUNED_SHAPES:
         am, lm, labels, il, ll = problems[tag]
-        step_ms[tag] = time_ms(lambda: pruned_step(am, lm, labels, il, ll, S), 5)
+        step = lambda: pruned_step(am, lm, labels, il, ll, S)  # noqa: E731
+        step_ms[tag] = time_ms(step, 5)
+        step_mb[tag] = peak_mb(step)
         x = band_inputs(am.detach(), lm.detach(), labels, il, ll, S)
         ranges, acts, lab_row, p = x["ranges"], x["band"], x["lab_row"], x["prep"]
         # Data-dependent work: the lattice reads lpb/lpe and updates only at
@@ -782,22 +836,28 @@ def pruned_timings(problems):
         # in valid rows (both write NEG or zeros elsewhere).
         n_valid = int(band.band_valid(ranges, il, ll, S).sum())
         rows, elt = B * T * S, acts.element_size()
-        print(f"time {tag} B={B} T={T} L={L} V={V} S={S}: pruned step {step_ms[tag]:.4f} ms "
-              f"(valid band cells {n_valid / rows:.3f} of B·T·S)")
-        device_breakdown(f"{tag} pruned step", lambda: pruned_step(am, lm, labels, il, ll, S),
-                         step_ms[tag], top=12)
+        print(f"time {tag} B={B} T={T} L={L} V={V} S={S}: pruned step {step_ms[tag]:.4f} ms, "
+              f"peak {step_mb[tag]:.1f} MB (valid band cells {n_valid / rows:.3f} of B·T·S)")
+        device_breakdown(f"{tag} pruned step", step, step_ms[tag], top=12)
+        # K5a a launch and the ranges call by the profiler's device time
+        # (CUDA events time the wrappers' host work as well); events beside.
+        prep_k = lambda: kband.band_prep(acts, lab_row, 0)  # noqa: E731
+        event_ms, dev_ms = time_ms(prep_k, 10), launch_device_ms(prep_k)
+        plan = R.reduce_plan(V, elt, R.alignment(acts.data_ptr()))
         out["band_prep"][tag] = dict(
-            ms=time_ms(lambda: kband.band_prep(acts, lab_row, 0), 10),
+            ms=dev_ms if dev_ms is not None else event_ms, kernel_device_ms=dev_ms,
+            event_ms=event_ms,
             plain_ms=time_ms(lambda: band.band_prep(acts, lab_row, 0), 2, 1),
             library_ms=time_ms(lambda: torch.logsumexp(acts, -1), 10),
-            bound=bound(rows * V * elt + rows * 4 + 3 * rows * 4, 4 * rows * V, F32_OPS_PER_S))
+            bound=bound(rows * V * elt + rows * 4 + 3 * rows * 4, 4 * rows * V, F32_OPS_PER_S),
+            registers=kband.band_prep_registers(acts.dtype, plan), plan=plan._asdict())
         # K4 a launch by the profiler's device time (CUDA events time the
         # wrapper's host work as well at pruned_large_v); events beside it.
         lattice = lambda: kband.forward_backward(p.lpb, p.lpe, ranges, il, ll)  # noqa: E731
-        event_ms, device_ms = time_ms(lattice, 10), launch_device_ms(lattice)
+        event_ms, dev_ms = time_ms(lattice, 10), launch_device_ms(lattice)
         floor, step_n = band_chain_floor(band_steps, S, il, clock_mhz)
         out["band_stream"][tag] = dict(
-            ms=device_ms if device_ms is not None else event_ms, kernel_device_ms=device_ms,
+            ms=dev_ms if dev_ms is not None else event_ms, kernel_device_ms=dev_ms,
             event_ms=event_ms,
             plain_ms=time_ms(lambda: band.forward_backward(p.lpb, p.lpe, ranges, il, ll), 1, 1),
             library_ms=None, bound=band_lattice_bound(ranges, il, ll, S),
@@ -810,23 +870,36 @@ def pruned_timings(problems):
             library_ms=time_ms(lambda: torch.softmax(acts, -1), 10),
             bound=bound((n_valid + rows) * V * elt + 5 * n_valid * 4 + B * T * 4 + 2 * B * 4,
                         4 * n_valid * V, F32_OPS_PER_S))
+        # The ranges call: every kernel of it (one launch), the whole of
+        # ranges_from_posteriors against posterior_peaks + band_starts.
+        alphas, betas, llf = x["simple_lat"][:3]
+        U = alphas.shape[2]
+        ranges_k = lambda: kranges.ranges_from_posteriors(alphas, betas, llf, il, ll, S)  # noqa: E731
+        event_ms, dev_ms = time_ms(ranges_k, 20), device_ms(ranges_k)
+        floor, step_n = ranges_chain_floor(range_steps, il, T, U, alphas.element_size(),
+                                           clock_mhz)
         out["ranges"][tag] = dict(
-            ms=time_ms(lambda: kranges.band_starts(x["best_u"], il, ll, S), 20),
-            plain_ms=time_ms(lambda: band.band_starts(x["best_u"], il, ll, S), 1, 1),
-            library_ms=None,
-            bound=bound(2 * B * T * 4 + 2 * B * 4, 4 * 3 * B * T, F32_OPS_PER_S))
+            ms=dev_ms if dev_ms is not None else event_ms, kernel_device_ms=dev_ms,
+            event_ms=event_ms,
+            plain_ms=time_ms(lambda: band.ranges_from_posteriors(alphas, betas, llf, il, ll, S),
+                             1, 1),
+            library_ms=None, bound=ranges_bound(il, T, U, alphas.element_size()),
+            chain_floor_ms=floor, step_instructions=step_n,
+            registers=kranges.kernel_registers(alphas.dtype, U), plan=kranges.plan(T, U)._asdict())
         for k in PRUNED_KERNELS:
             v = out[k][tag]
             lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+            unit = "a frame of the three scans" if k == "ranges" else "a row step"
             print(f"time {tag} {k}: {v['ms']:.4f} ms | plain {v['plain_ms']:.4f} ms | "
                   f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}"
-                  + (f" | a launch {v['kernel_device_ms']} ms (profiler), event "
-                     f"{v['event_ms']:.4f} ms | chain floor {v['chain_floor_ms']} ms "
-                     f"({v['step_instructions']} SASS instructions a row step), registers, "
-                     f"local bytes {v['registers']}" if "chain_floor_ms" in v else ""))
-        del x, acts, p, grad_args, lattice
+                  + (f" | profiler {v['kernel_device_ms']} ms, event {v['event_ms']:.4f} ms"
+                     if "event_ms" in v else "")
+                  + (f" | chain floor {v['chain_floor_ms']} ms ({v['step_instructions']} SASS "
+                     f"instructions {unit})" if "chain_floor_ms" in v else "")
+                  + (f" | registers, local bytes {v['registers']}" if "registers" in v else ""))
+        del x, acts, p, grad_args, lattice, alphas, betas, llf
         torch.cuda.empty_cache()
-    return out, step_ms
+    return out, step_ms, step_mb
 
 
 # The JAX package's published fused shape (README.md, "Fused joint + loss";
@@ -2216,7 +2289,7 @@ def main():
     pruned_problems = pruned_main_path(dev, totals)
     row_err = errs["band_stream"]  # the row walk's, at the pruned shapes
     chunk_launches, chunk_err, chunk_timing = full_band_check(dev, errs)
-    band_timings, step_ms = pruned_timings(pruned_problems)
+    band_timings, step_ms, step_mb = pruned_timings(pruned_problems)
     del pruned_problems
     torch.cuda.empty_cache()
 
@@ -2313,9 +2386,12 @@ def main():
             "shape": "pruned_long B=128 T=1500 L=300 V=50 S=5 f32",
             "by_shape": {tag: {"ms": t["ms"], "plain_ms": t["plain_ms"],
                                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-                               "library_ms": t["library_ms"], "pruned_step_ms": step_ms[tag]}
+                               "library_ms": t["library_ms"], "pruned_step_ms": step_ms[tag],
+                               "pruned_step_peak_mb": step_mb[tag]}
                          | {x: t[x] for x in band_extra if x in t}
                          for tag, t in band_timings[k].items()}}
+        if k == "ranges":  # the whole of ranges_from_posteriors: argmax and scans
+            entry["chain_floor_ms"] = head["chain_floor_ms"]
         if k == "band_stream":  # the row walk (S <= 32), the chunk kernel above
             entry["chain_floor_ms"] = head["chain_floor_ms"]
             entry["by_shape"]["full_band"] = timing(chunk_timing) | {"plan": chunk_timing["plan"]}

@@ -15,7 +15,9 @@
 # copies inside a row count once). For band_stream.cu, the two row steps of
 # each row-walk instance as chip_smoke.band_step_instructions reads them:
 # the innermost loops around a SHFL.IDX (the shuffles by δ), in the order of
-# their code.
+# their code. For ranges.cu, the instructions a step of the three scans as
+# chip_smoke.ranges_step_instructions reads them, and the SASS of each scan
+# loop of the f32 kernel with 32 lanes a row.
 #
 #   sh scripts/sass_count.sh [name ...]
 #
@@ -70,6 +72,28 @@ for k in "$@"; do
     echo "== $k.cu: instructions of the two row steps (ceil(log2 S): alpha, beta)"
     python3 -c 'import sys; sys.path.insert(0, "."); import chip_smoke
 print(chip_smoke.band_step_instructions(sys.argv[1]))' "$OUT/$k.cubin"
+    continue
+  fi
+  if [ "$k" = ranges ]; then
+    echo "== $k.cu: instructions a step of the three scans ((element bytes, G): forward clamp,"
+    echo "   backward raise, forward fix), then the SASS of each scan loop of the f32 kernel, G = 32"
+    python3 - "$OUT/$k.cubin" "$BIN/cuobjdump" <<'EOF'
+import re, subprocess, sys
+sys.path.insert(0, ".")
+import chip_smoke
+print(chip_smoke.ranges_step_instructions(sys.argv[1]))
+sts, loops = chip_smoke.sass_loops(sys.argv[1], r"ranges_kernelIfLi32E", lambda m: 4,
+                                   marks=r"(STS)\.128")[4]
+sass = subprocess.run([sys.argv[2], "-sass", sys.argv[1]], capture_output=True, text=True).stdout
+body = sass[sass.index("ranges_kernelIfLi32E"):].split("Function :")[0]
+for a, b in sorted(loops):
+    if any(a <= x <= b for x in sts.get("STS", [])):
+        print(f"-- loop {a:#x}..{b:#x}")
+        for line in body.splitlines():
+            m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m and a <= int(m.group(1), 16) <= b:
+                print("  ", m.group(2))
+EOF
     continue
   fi
   [ "$k" = window_stream ] || continue

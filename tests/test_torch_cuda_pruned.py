@@ -8,15 +8,18 @@ fixture decides while the test runs, never at import). On a machine with an
 H100: ``python -m pytest tests/test_torch_cuda_pruned.py --noconftest``
 (tests/conftest.py imports JAX).
 
-Tolerances: f32 rtol 1e-5 / atol 1e-5 — the prep kernel's online
-(max, sum-exp) and the plain two-pass logsumexp round differently (~1e-7
-relative); the lattice's row walk (S <= 32) takes its log-sum-exp's exp
+Tolerances: f32 rtol 1e-5 / atol 1e-5 — the band prep's warp mode
+(V > 256) keeps an online (max, sum-exp) that rounds otherwise than the
+plain two-pass logsumexp (~1e-7 relative; its tile mode takes two passes
+too, but sums in another order); the lattice's row walk (S <= 32) takes its log-sum-exp's exp
 and log on the SFU (ex2/lg2.approx, about 1e-7 absolute a step; its adds
 follow the plain version's order), and the chunk kernel (S > 32) carries
 its prefixes across 32-lane chunks, another association than the plain
 full-row scan; neither is bit-equal to the plain version, each is
 bit-reproducible (no atomics). 16-bit gradients within one ulp of
-their type (both round one f32 value once). Ranges exactly.
+their type (both round one f32 value once). Ranges exactly: the range
+kernel forms (α + β) − ll in the plain version's order and type and takes
+the first maximum, as torch.argmax.
 """
 import numpy as np
 import pytest
@@ -27,7 +30,10 @@ from warp_transducer_tpu_torch import (gather_banded, rnnt_loss, rnnt_loss_prune
 from warp_transducer_tpu_torch.ops import band
 from warp_transducer_tpu_torch.ops import cuda as K
 from warp_transducer_tpu_torch.ops.cuda import band as kband
+from warp_transducer_tpu_torch.ops.cuda import prep as kprep
 from warp_transducer_tpu_torch.ops.cuda import ranges as kranges
+from warp_transducer_tpu_torch.ops.cuda import rows as R
+from test_torch_cuda_prep import _forced
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +79,111 @@ def test_band_prep_kernel(dev, dtype, V, blank):
     for name in ("lpb", "lpe", "denom"):
         assert getattr(got, name).dtype == torch.float32
         torch.testing.assert_close(getattr(got, name), getattr(want, name), **F32)
+
+
+BAND_PREP_V = [1, 2, 28, 50, 255, 256, 257, 600, 1003, 5000]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
+
+
+def _band_prep_case(V, dtype, dev, seed, offset=0):
+    """A (3, 37, 5, V) band of ``dtype`` on the card, ``offset`` elements
+    into a larger buffer: 555 rows, a multiple of no tile (512 rows at V = 1,
+    80 at V = 50 f32), and its lab_row with rows without a label."""
+    B, T, U, S = 3, 37, 9, 5
+    acts, labels, _, _, ranges = _problem(B, T, U, V, S, seed=seed, dtype=dtype, device=dev)
+    buf = torch.empty(acts.numel() + offset, dtype=dtype, device=dev)
+    band_acts = buf[offset:].view_as(acts)
+    band_acts.copy_(acts)
+    return band_acts, _lab_row(labels, ranges, S)
+
+
+def _check_band_prep(got, want):
+    for name in ("lpb", "lpe", "denom"):
+        assert getattr(got, name).dtype == torch.float32
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), **F32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("V", BAND_PREP_V)
+def test_band_prep_kernel_every_v(dev, V, dtype):
+    """K5a on the tiled row reductions against the plain band_prep, across
+    the switch from tiles to a warp a row, blank first or last."""
+    acts, lab_row = _band_prep_case(V, dtype, dev, seed=V)
+    for blank in sorted({0, V - 1}):
+        K.reset_launches()
+        got = kband.band_prep(acts, lab_row, blank)
+        torch.cuda.synchronize()
+        assert K.launches["band_prep"] == 1
+        _check_band_prep(got, band.band_prep(acts, lab_row, blank))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("V", [1, 28, 50, 257, 5000])
+def test_band_prep_kernel_unaligned(dev, V, dtype):
+    """A band one element into a buffer, off the 16-byte grid: the kernel
+    plans one-element loads from the actual pointer."""
+    acts, lab_row = _band_prep_case(V, dtype, dev, seed=V + 1, offset=1)
+    assert acts.data_ptr() % 16 != 0
+    assert kprep.library_plan(V, acts.element_size(), R.alignment(acts.data_ptr()))[2] == 1
+    got = kband.band_prep(acts, lab_row, 0)
+    torch.cuda.synchronize()
+    _check_band_prep(got, band.band_prep(acts, lab_row, 0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("mode", [R.TILE, R.WARP], ids=["tile", "warp"])
+@pytest.mark.parametrize("V", [2, 28, 50, 600, 1000])
+def test_band_prep_kernel_both_modes(dev, V, mode, dtype):
+    """Each mode at V on both sides of the switch point, through the planned
+    entry."""
+    acts, lab_row = _band_prep_case(V, dtype, dev, seed=V + 2)
+    p = _forced(V, acts.element_size(), mode)
+    assert p is not None, f"no tile at V={V}"
+    K.reset_launches()
+    got = kband.band_prep_planned(acts, lab_row, 1, p)
+    torch.cuda.synchronize()
+    assert K.launches["band_prep"] == 1
+    _check_band_prep(got, band.band_prep(acts, lab_row, 1))
+
+
+def test_band_prep_kernel_refuses_bad_plans(dev):
+    acts, lab_row = _band_prep_case(28, torch.float32, dev, seed=0)
+    p = R.reduce_plan(28, 4)
+    for bad in (p._replace(group=3), p._replace(stride=32), p._replace(rows=1000),
+                p._replace(vec=2), p._replace(mode=7)):
+        with pytest.raises(RuntimeError, match="band_prep kernel launch failed"):
+            kband.band_prep_planned(acts, lab_row, 0, bad)
+    odd, lab = _band_prep_case(28, torch.float32, dev, seed=0, offset=1)
+    with pytest.raises(RuntimeError, match="band_prep kernel launch failed"):  # vectors, unaligned
+        kband.band_prep_planned(odd, lab, 0, p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("mode", [R.TILE, R.WARP], ids=["tile", "warp"])
+@pytest.mark.parametrize("vec", [1, 2], ids=["scalar", "vectors"])
+def test_band_prep_kernel_registers(dev, dtype, mode, vec):
+    """Every instance of the band prep: registers reported, no spills."""
+    p = R.reduce_plan(28, torch.empty((), dtype=dtype).element_size())._replace(mode=mode, vec=vec)
+    regs, local = kband.band_prep_registers(dtype, p)
+    assert 0 < regs <= 255 and local == 0, (regs, local)
+
+
+def test_band_prep_plan_matches_python(dev):
+    """The plan the band prep applies (csrc/reduce.cuh::plan) is
+    rows.reduce_plan at every V it runs and every element size."""
+    for elt in (2, 4, 8):
+        for align in (16, 8, 4, 2):
+            for V in BAND_PREP_V + list(range(1, 300)):
+                assert kprep.library_plan(V, elt, align) == tuple(R.reduce_plan(V, elt, align)), \
+                    (V, elt, align)
+
+
+@pytest.mark.parametrize("V", [50, 5000])
+def test_band_prep_kernel_is_reproducible(dev, V):
+    acts, lab_row = _band_prep_case(V, torch.float32, dev, seed=5)
+    one, two = kband.band_prep(acts, lab_row, 0), kband.band_prep(acts, lab_row, 0)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,T,U,S,infeasible", [
@@ -234,22 +345,76 @@ def test_band_grad_kernel_rows(dev, V, dtype):
         assert torch.count_nonzero(got[-1]) == 0  # the infeasible utterance
 
 
+def _posteriors(rng, B, T, U, dtype, dev, ties):
+    """alphas, betas (B, T, U) and ll (B,): integer-valued (every row full
+    of equal maxima) or random ones whose peaks jump about."""
+    if ties:
+        a, b = (rng.integers(-3, 1, (B, T, U)) for _ in range(2))
+    else:
+        a, b = rng.standard_normal((B, T, U)) * 5, np.zeros((B, T, U))
+    to = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return to(a), to(b), to(rng.standard_normal(B).round())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("ties", [True, False], ids=["ties", "random"])
 @pytest.mark.parametrize("seed,B,T,U,S", [(0, 6, 40, 12, 3), (1, 5, 1, 4, 2), (2, 8, 300, 61, 5),
                                           (3, 4, 20, 30, 7)])
-def test_ranges_kernel(dev, seed, B, T, U, S):
-    """Random peaks that jump about drive every clamp; lengths include
-    T_b = 1, U_b = 1 and utterances no width-S band can align."""
+def test_ranges_kernel(dev, seed, B, T, U, S, ties, dtype):
+    """The range kernel (argmax and scans) against posterior_peaks +
+    band_starts, exactly: posteriors with ties or with peaks that jump about
+    and drive every clamp; lengths include T_b = 1, U_b = 1 and utterances
+    no width-S band can align."""
     rng = np.random.default_rng(seed)
-    best_u = torch.tensor(rng.integers(0, U, (B, T)), dtype=torch.int32, device=dev)
+    alphas, betas, llf = _posteriors(rng, B, T, U, dtype, dev, ties)
     il = torch.tensor(rng.integers(1, T + 1, B), dtype=torch.int32, device=dev)
     ll = torch.tensor(rng.integers(0, U, B), dtype=torch.int32, device=dev)
     il[0], ll[0] = T, U - 1
     ll[-1] = 0
-    got = kranges.band_starts(best_u, il, ll, S)
+    K.reset_launches()
+    got = kranges.ranges_from_posteriors(alphas, betas, llf, il, ll, S)
     torch.cuda.synchronize()
-    want = band.band_starts(best_u, il, ll, S)
+    assert K.launches["ranges"] == 1
+    want = band.band_starts(band.posterior_peaks(alphas, betas, llf), il, ll, S)
     assert got.dtype == torch.int32
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ties", [True, False], ids=["ties", "random"])
+def test_ranges_kernel_long(dev, ties):
+    """pruned_long's lattice shape (T = 1500, U = 301) at B = 6, lengths
+    from T_b = 0 to beyond T, and two calls bit-equal."""
+    B, T, U, S = 6, 1500, 301, 5
+    rng = np.random.default_rng(8)
+    alphas, betas, llf = _posteriors(rng, B, T, U, torch.float32, dev, ties)
+    il = torch.tensor([T, 1, 0, 977, T + 2, 2], dtype=torch.int32, device=dev)
+    ll = torch.tensor([U - 1, 300, 17, 150, 0, 60], dtype=torch.int32, device=dev)
+    got = kranges.ranges_from_posteriors(alphas, betas, llf, il, ll, S)
+    again = kranges.ranges_from_posteriors(alphas, betas, llf, il, ll, S)
+    torch.cuda.synchronize()
+    want = band.ranges_from_posteriors(alphas, betas, llf, il, ll, S)
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("T,U", [(1, 1), (40, 12), (150, 21), (1500, 301), (33, 2), (7, 5000)])
+def test_ranges_plan_matches_kernel(dev, T, U):
+    assert kranges.kernel_plan(T, U) == kranges.plan(T, U)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("U", [1, 8, 16, 32, 64, 301])  # G = 1, 2, 4, 8, 16, 32 lanes a row
+def test_ranges_kernel_registers(dev, dtype, U):
+    """Every instance of the range kernel: registers reported, no spills."""
+    regs, local = kranges.kernel_registers(dtype, U)
+    assert 0 < regs <= 64 and local == 0, (regs, local)
+
+
+def test_ranges_kernel_refuses_other_types(dev):
+    a = torch.zeros((2, 3, 4), dtype=torch.bfloat16, device=dev)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        kranges.ranges_from_posteriors(a, a, torch.zeros(2, dtype=torch.bfloat16, device=dev),
+                                       lengths, lengths, 3)
 
 
 def _pruned_step(am, lm, labels, il, ll, S, **kw):

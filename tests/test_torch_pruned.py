@@ -110,6 +110,31 @@ def test_ranges_equal_jax_given_same_posteriors(seed, S):
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("tied", [(0, 4), (4, 8), (0, 8), (0, 4, 8)],
+                         ids=["first_middle", "middle_last", "first_last", "all_three"])
+def test_ranges_ties_equal_jax(tied, dtype):
+    """Integer-valued alphas and betas with equal maxima planted at the
+    first, middle and last u of every frame (U = 9), the peak moving
+    between the tied positions from frame to frame: the port's
+    ranges_from_posteriors equals the JAX one exactly (both take the first
+    maximum)."""
+    B, T, U, S = 4, 12, 9, 3
+    rng = np.random.default_rng(sum(tied))
+    alphas = rng.integers(-6, 0, (B, T, U)).astype(dtype)
+    betas = rng.integers(-6, 0, (B, T, U)).astype(dtype)
+    for t in range(T):  # the tie, and at odd frames one tied u raised above it
+        alphas[:, t, list(tied)] = 2
+        betas[:, t, list(tied)] = 1
+        if t % 2:
+            alphas[:, t, tied[t // 2 % len(tied)]] = 3
+    llf = rng.integers(-5, 0, B).astype(dtype)
+    il, ll = _lengths(rng, B, T, U)
+    ref = JPR.ranges_from_posteriors(*_j(alphas, betas, llf, il, ll), S)  # x64: conftest
+    got = ranges_from_posteriors(*_t(alphas, betas, llf, il, ll), S)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_prune_ranges_contract_fuzz(seed):
     """The ranges contract holds unconditionally (test_pruned.py:213-260):

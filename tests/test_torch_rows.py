@@ -14,8 +14,8 @@ memory, a group of threads a row; ``warp_body``) are mirrored the same way:
 every element is loaded once and lands in its own slot of its row, every
 element of every row falls in exactly one group's reduction, the vectors
 are aligned, the reads of one warp's step are free of bank conflicts, and
-the group and shared memory stay within the kernel's limits. Exact checks,
-no tolerance.
+the group and shared memory stay within the kernel's limits, also for f64
+rows reduced in f32 (the band prep). Exact checks, no tolerance.
 """
 import numpy as np
 import pytest
@@ -189,6 +189,21 @@ def test_reduce_plan_covers_every_element_once(elt, align):
         if V <= R.TILE_MAX_V:
             assert p.rows == R.plan(V, elt, align).rows, V
         _check_reduce_tile(p, V, acc)
+
+
+@pytest.mark.parametrize("align", [16, 8])
+def test_reduce_plan_f64_input_f32_accumulator(align):
+    """The band prep (csrc/band_prep.cu) reduces f64 rows in f32: the plan
+    made for 8-byte elements, with a tile of 4-byte values in shared memory,
+    still loads every element once into its own slot, reads free of bank
+    conflicts and stays within the shared memory it is given."""
+    for V in REDUCE_V:
+        p = R.reduce_plan(V, 8, align)
+        if p.mode == R.TILE:
+            assert R.reduce_smem_bytes(p, 4) * 2 == R.reduce_smem_bytes(p, 8), V
+            _check_reduce_tile(p, V, 4)
+        else:
+            assert V > R.REDUCE_TILE_MAX_V and R.reduce_smem_bytes(p, 4) == 0, V
 
 
 def test_reduce_plan_groups():

@@ -108,23 +108,6 @@ int launch(const void* acts, const int* labels, void* lpb, void* lpe, void* deno
                    prep_warp_kernel<Tin, Tacc, 1>, prep_warp_kernel<Tin, Tacc, V16>, stream);
 }
 
-int elt_size(int dtype) {
-  switch (dtype) {
-    case wtt::kF32: return 4;
-    case wtt::kF64: return 8;
-    case wtt::kBF16:
-    case wtt::kF16: return 2;
-    default: return 0;
-  }
-}
-
-// The largest power of two, at most 16, that divides the address.
-int alignment(const void* p) {
-  int a = 16;
-  while ((reinterpret_cast<unsigned long long>(p) % a) != 0) a /= 2;
-  return a;
-}
-
 int prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe, void* denom,
          void* extras, const int* extra_cols, int K, long long rows, int T, int U, int V,
          int blank, int log_probs_input, const red::Plan& plan, void* stream) {
@@ -132,7 +115,8 @@ int prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe, v
   wtt::ExtraCols cols;
   // The reductions' row math is 32-bit: every row index below 2^31.
   if (!wtt::extra_cols(extra_cols, K, V, &cols) || rows >= (1LL << 31) ||
-      !red::plan_ok(plan, V, elt_size(dtype)) || (plan.vec > 1 && alignment(acts) < 16))
+      !red::plan_ok(plan, V, red::elt_size(dtype)) ||
+      (plan.vec > 1 && red::alignment(acts) < 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -166,10 +150,10 @@ extern "C" {
 int wtt_prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe,
              void* denom, void* extras, const int* extra_cols, int K, long long rows, int T,
              int U, int V, int blank, int log_probs_input, void* stream) {
-  const int elt = elt_size(dtype);
+  const int elt = red::elt_size(dtype);
   if (elt == 0 || V < 1) return (int)cudaErrorInvalidValue;
   return prep(acts, dtype, labels, lpb, lpe, denom, extras, extra_cols, K, rows, T, U, V, blank,
-              log_probs_input, red::plan(V, elt, alignment(acts)), stream);
+              log_probs_input, red::plan(V, elt, red::alignment(acts)), stream);
 }
 
 // wtt_prep with a plan from the caller (seven unsigned, as wtt_reduce_plan

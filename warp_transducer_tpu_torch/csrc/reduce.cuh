@@ -1,6 +1,6 @@
 // Tiled row reductions: the loops of the kernels that reduce each row of a
 // (rows, V) tensor to its −logsumexp and then emit a few values of the row
-// (prep.cu; the band prep can take the same bodies).
+// (prep.cu, band_prep.cu).
 //
 // Two modes, chosen per call by `plan` below, the mirror of
 // ops/cuda/rows.py::reduce_plan (tests/test_torch_rows.py checks the Python
@@ -118,6 +118,25 @@ inline Plan plan(int V, int elt, int align) {
   int m = (V + g - 1) / g;
   if (g < kWarp && m % 2 == 0) ++m;
   return Plan{kTile, r, p.vec, p.mul, p.shr, g, m * g};
+}
+
+// Element bytes of a type code of common.cuh, 0 for an unknown code.
+inline int elt_size(int dtype) {
+  switch (dtype) {
+    case kF32: return 4;
+    case kF64: return 8;
+    case kBF16:
+    case kF16: return 2;
+    default: return 0;
+  }
+}
+
+// The largest power of two, at most 16, that divides the address: the
+// `align` of plan().
+inline int alignment(const void* p) {
+  int a = 16;
+  while ((reinterpret_cast<unsigned long long>(p) % a) != 0) a /= 2;
+  return a;
 }
 
 // True when `p` fits the bodies' limits for rows of V elements of `elt`

@@ -17,8 +17,9 @@ tensor the same functions are the kernels (``ops/cuda/band.py``,
   with lpe clamped at ``CLAMP`` so the prefix sums keep their precision.
   β is the mirror (suffix scan), seeded with lpb at the terminal cell;
 * ``band_grad`` — the gradient pass over the band (``csrc/band_grad.cu``);
-* ``band_starts`` — the three scans that turn per-frame posterior peaks
-  into band starts (``csrc/ranges.cu``).
+* ``ranges_from_posteriors`` — the band starts from a lattice's
+  posteriors: ``posterior_peaks`` (the argmax over u of α + β − ll), then
+  ``band_starts`` (three scans over T) (``csrc/ranges.cu``).
 
 The scans here are Hillis–Steele scans (log2 S shifted adds or log-sum-exps
 over the whole row), the order the kernel's warp scans add in, so for
@@ -256,9 +257,16 @@ def posterior_peaks(alphas, betas, ll):
     return torch.argmax(gamma, dim=2).to(torch.int32)
 
 
+def ranges_from_posteriors(alphas, betas, ll, input_lengths, label_lengths, s_range: int):
+    """Plain version of ``csrc/ranges.cu``: the band starts (B, T) int32 of
+    ``band_starts`` from the ``posterior_peaks`` of one lattice's alphas,
+    betas and ll (the JAX package's ``ranges_from_posteriors``)."""
+    return band_starts(posterior_peaks(alphas, betas, ll), input_lengths, label_lengths, s_range)
+
+
 def band_starts(best_u, input_lengths, label_lengths, s_range: int):
-    """Plain version of ``csrc/ranges.cu``: band starts (B, T) int32 from
-    the posterior peaks ``best_u`` (B, T), in three scans over T —
+    """Band starts (B, T) int32 from the posterior peaks ``best_u`` (B, T),
+    in three scans over T (the second half of ``csrc/ranges.cu``) —
 
     1. forward clamp: start at 0, monotone, steps <= S-1, at most
        max(U_b - S, 0); then the last frame T_b-1 is forced to that maximum

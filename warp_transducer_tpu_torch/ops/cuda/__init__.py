@@ -8,7 +8,7 @@ signature of the plain version it stands for:
   ``grad.grad_wrt_log_probs`` (the gradient kernel's lattice mode, counted
   under ``grad``);
 * the pruned path: ``band.band_prep``, ``band.forward_backward``,
-  ``band.band_grad`` and ``ranges.band_starts``;
+  ``band.band_grad`` and ``ranges.ranges_from_posteriors``;
 * the fused joint+loss: ``joint.fused_prep`` and ``joint.fused_grad`` (two
   kernels, three with a duration head, all counted under ``joint_grad``),
   both also with K big-blank columns and with the duration head of the TDT

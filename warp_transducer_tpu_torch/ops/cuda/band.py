@@ -1,5 +1,6 @@
 """Wrappers of the band kernels: ``csrc/band_prep.cu`` (the counterpart of
-``warp_transducer_tpu/ops/pallas/band_pipeline.py::_prep_kernel``),
+``warp_transducer_tpu/ops/pallas/band_pipeline.py::_prep_kernel``, on the
+tiled row reductions of ``csrc/reduce.cuh``),
 ``csrc/band_stream.cu`` (``pallas/band_stream.py::_band_kernel``) and
 ``csrc/band_grad.cu`` (``pallas/band_pipeline.py::_grad_kernel``). The
 plain versions are in ``ops/band.py``.
@@ -89,16 +90,41 @@ def kernel_registers(S: int) -> tuple:
         raise RuntimeError(f"band_stream: cudaFuncGetAttributes failed: cudaError {err}")
     return regs.value, local.value
 
+def band_prep_registers(dtype: torch.dtype, plan) -> tuple:
+    """(registers a thread, local bytes a thread) of the band prep kernel
+    instance that ``plan`` (a ``rows.ReducePlan``) runs for ``dtype``."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = lib().wtt_band_prep_attrs(DTYPE_CODES[dtype], plan.mode, plan.vec,
+                                    ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"band_prep: cudaFuncGetAttributes failed: cudaError {err}")
+    return regs.value, local.value
+
+
 _F32 = (torch.float32,)
 _INT = (torch.int32,)
 
 
 def band_prep(acts: torch.Tensor, lab_row: torch.Tensor, blank: int) -> _plain.BandPrep:
     """``band.band_prep`` on the card: one read of the (B, T, S, V) band
-    (f32, bf16, f16 or f64) gives lpb, lpe and denom in f32. On a CPU
-    tensor this is the plain version."""
+    (f32, bf16, f16 or f64) gives lpb, lpe and denom in f32, by the tiled
+    row reductions of ``csrc/reduce.cuh`` (the kernel plans itself as
+    ``rows.reduce_plan`` does). On a CPU tensor this is the plain version."""
     if acts.device.type != "cuda":
         return _plain.band_prep(acts, lab_row, blank)
+    return _band_prep(acts, lab_row, blank, None)
+
+
+def band_prep_planned(acts: torch.Tensor, lab_row: torch.Tensor, blank: int,
+                      plan) -> _plain.BandPrep:
+    """``band_prep`` on a CUDA tensor with ``plan`` (a ``rows.ReducePlan``)
+    in place of the kernel's own: the tile and the warp mode at one V, for
+    the card tests and ``scripts/time_band.py``. The kernel refuses a plan
+    outside its limits."""
+    return _band_prep(acts, lab_row, blank, (ctypes.c_uint * 7)(*plan))
+
+
+def _band_prep(acts, lab_row, blank, plan):
     dev = acts.device
     require(acts, "acts", dev, DTYPE_CODES, 4)
     require(lab_row, "lab_row", dev, _INT, 3)
@@ -107,13 +133,18 @@ def band_prep(acts: torch.Tensor, lab_row: torch.Tensor, blank: int) -> _plain.B
         raise ValueError(f"lab_row must be {(B, T, S)}; got {tuple(lab_row.shape)}")
     if not 0 <= blank < V:
         raise ValueError(f"blank {blank} is outside [0, V={V})")
+    if B * T * S >= 2 ** 31:
+        raise ValueError(f"B·T·S = {B * T * S} rows exceed the band prep kernel's 2^31")
     lpb = torch.empty((B, T, S), dtype=torch.float32, device=dev)
     lpe = torch.empty_like(lpb)
     denom = torch.empty_like(lpb)
+    args = (acts.data_ptr(), DTYPE_CODES[acts.dtype], lab_row.data_ptr(), lpb.data_ptr(),
+            lpe.data_ptr(), denom.data_ptr(), B * T * S, V, int(blank))
     with torch.cuda.device(dev):
-        err = lib().wtt_band_prep(
-            acts.data_ptr(), DTYPE_CODES[acts.dtype], lab_row.data_ptr(), lpb.data_ptr(),
-            lpe.data_ptr(), denom.data_ptr(), B * T * S, V, int(blank), stream(dev))
+        if plan is None:
+            err = lib().wtt_band_prep(*args, stream(dev))
+        else:
+            err = lib().wtt_band_prep_planned(*args, plan, stream(dev))
     check(err, "band_prep")
     return _plain.BandPrep(lpb, lpe, denom)
 

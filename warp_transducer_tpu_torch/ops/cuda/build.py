@@ -143,11 +143,14 @@ def library() -> ctypes.CDLL:
     lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
                                      ll, i, i, i, i, i, p, p]
     lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
+    lib.wtt_band_prep_planned.argtypes = lib.wtt_band_prep.argtypes[:-1] + [p, p]
     lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.wtt_band_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_band_plan.restype = None
     lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p, p]
-    lib.wtt_band_starts.argtypes = [p, p, p, p, i, i, i, p]
+    lib.wtt_ranges.argtypes = [p, p, p, i, p, p, p, i, i, i, i, p]
+    lib.wtt_ranges_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_ranges_plan.restype = None
     joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
     dims = [i, i, i, i, i, i, p]  # B, T, U, H, V, blank, stream
     # lpb, lpe, denom; lpx, its columns, K; Wd, bias_d, dlog, D
@@ -163,8 +166,8 @@ def library() -> ctypes.CDLL:
     lib.wtt_dur_head_plan.restype = None
     for fn in (lib.wtt_prep, lib.wtt_prep_planned, lib.wtt_wavefront, lib.wtt_window_stream,
                lib.wtt_window_stream_warps,
-               lib.wtt_grad, lib.wtt_grad_lattice, lib.wtt_band_prep,
-               lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_band_starts, lib.wtt_joint_prep,
+               lib.wtt_grad, lib.wtt_grad_lattice, lib.wtt_band_prep, lib.wtt_band_prep_planned,
+               lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_ranges, lib.wtt_joint_prep,
                lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols, lib.wtt_joint_grad_dwd,
                lib.wtt_dur_head_prep, lib.wtt_dur_head_grad):
         fn.restype = ctypes.c_int
@@ -187,6 +190,10 @@ def library() -> ctypes.CDLL:
     lib.wtt_window_attrs.restype = i
     lib.wtt_band_attrs.argtypes = [i, ip, ip]
     lib.wtt_band_attrs.restype = i
+    lib.wtt_band_prep_attrs.argtypes = [i, i, i, ip, ip]
+    lib.wtt_band_prep_attrs.restype = i
+    lib.wtt_ranges_attrs.argtypes = [i, i, ip, ip]
+    lib.wtt_ranges_attrs.restype = i
     lib.wtt_dur_head_smem.argtypes = []
     lib.wtt_dur_head_smem.restype = ll
     lib.wtt_error_string.argtypes = [i]

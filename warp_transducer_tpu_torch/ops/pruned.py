@@ -31,8 +31,8 @@ def ranges_from_posteriors(alphas, betas, ll, input_lengths, label_lengths, s_ra
     if int(s_range) < 2:
         raise ValueError(f"s_range must be >= 2, got {s_range}")
     il, lbl = (x.to(device=alphas.device, dtype=torch.int32) for x in (input_lengths, label_lengths))
-    return _engine("auto", alphas).band_starts(_band.posterior_peaks(alphas, betas, ll), il, lbl,
-                                               int(s_range))
+    return _engine("auto", alphas).ranges_from_posteriors(
+        alphas.contiguous(), betas.contiguous(), ll.contiguous(), il, lbl, int(s_range))
 
 
 @torch.no_grad()
@@ -59,8 +59,8 @@ def rnnt_prune_ranges(am, lm, labels, input_lengths, label_lengths, s_range: int
     f = _factorised_lattice_inputs(am, lm, _prep.label_rows(labels, lm.shape[1]), int(blank),
                                    "default")
     res = eng.forward_backward(f.lpb, f.lpe, input_lengths, label_lengths)
-    best_u = _band.posterior_peaks(res.alphas, res.betas, res.ll_forward)
-    return eng.band_starts(best_u, input_lengths, label_lengths, int(s_range))
+    return eng.ranges_from_posteriors(res.alphas, res.betas, res.ll_forward, input_lengths,
+                                      label_lengths, int(s_range))
 
 
 class _GatherBanded(torch.autograd.Function):

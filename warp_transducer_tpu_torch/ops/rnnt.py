@@ -60,7 +60,7 @@ _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          band_prep=_band.band_prep,
                          band_forward_backward=_band.forward_backward,
                          band_grad=_band.band_grad,
-                         band_starts=_band.band_starts,
+                         ranges_from_posteriors=_band.ranges_from_posteriors,
                          fused_prep=_fused.fused_prep,
                          fused_grad=_fused.fused_grad,
                          dur_head_prep=_fused.dur_head_prep,
@@ -74,7 +74,7 @@ _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            band_prep=_cuda_band.band_prep,
                            band_forward_backward=_cuda_band.forward_backward,
                            band_grad=_cuda_band.band_grad,
-                           band_starts=_cuda_ranges.band_starts,
+                           ranges_from_posteriors=_cuda_ranges.ranges_from_posteriors,
                            fused_prep=_cuda_joint.fused_prep,
                            fused_grad=_cuda_joint.fused_grad,
                            dur_head_prep=_cuda_joint.dur_head_prep,

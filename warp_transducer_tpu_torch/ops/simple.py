@@ -29,7 +29,6 @@ from typing import NamedTuple
 import torch
 
 from ..utils.options import PRECISIONS, matmul_precision
-from . import band as _band
 from . import gradients as _gradients
 from . import prep as _prep
 from .rnnt import _engine, _on_device, _reduce
@@ -100,8 +99,8 @@ class _SimpleCosts(torch.autograd.Function):
             ctx.config = (blank, precision, fastemit_lambda)
         if prune_range is None:
             return costs
-        best_u = _band.posterior_peaks(res.alphas, res.betas, res.ll_forward)
-        ranges = eng.band_starts(best_u, input_lengths, label_lengths, prune_range)
+        ranges = eng.ranges_from_posteriors(res.alphas, res.betas, res.ll_forward, input_lengths,
+                                            label_lengths, prune_range)
         ctx.mark_non_differentiable(ranges)
         return costs, ranges
 
