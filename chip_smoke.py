@@ -27,9 +27,14 @@ band would not fit, and the two duration-arc steps
 JAX package's two published shapes for them, and the same two losses fused
 into the joint (``Joint.multiblank_fused_loss``, ``Joint.tdt_fused_loss`` on
 both of its routes) at the fused shape, held against their unfused
-compositions — checks that a full band equals the dense loss, times each
-path and each kernel with CUDA events, reads the peak memory of the fused
-and the unfused steps, and prints:
+compositions, and the training surface: the eight train steps of
+``models/transducer.py`` on the whole model at ``TransducerConfig()``'s
+widths (B=64 T=150 L=20; vocabulary 128, or 5000 for the fused and pruned
+steps), each held against its plain twin and run ten Adam steps, and the
+``warprnnt_pytorch`` binding on CUDA tensors — checks that a full band
+equals the dense loss, times each path and each kernel with CUDA events,
+reads the peak memory of the fused and the unfused steps and of each train
+step, and prints:
 
   card line, build line, one line per comparison, per shape, per timing;
   the card's name and power limit as nvidia-smi gives them;
@@ -43,6 +48,7 @@ Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -156,8 +162,8 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
     it in the port's own kernels, the device kernels a call launches, and the
     device's idle share: 1 - busy / ``event_ms``, the CUDA-event time of one
     call taken without the profiler (whose own cost inflates wall). Returns
-    (busy ms, idle share, kernels a call), or None where the profiler
-    recorded no device time."""
+    (busy ms, idle share, kernels a call, the port's kernels' ms), or None
+    where the profiler recorded no device time."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -168,9 +174,12 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - started) * 1e3 / iters
     # Kernel rows only: an aten op's row repeats the time of the kernels
-    # it launched.
+    # it launched, and so does a user annotation's on the device (the
+    # optimiser's "Optimizer.step#Adam.step" range).
     device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
     rows = sorted(((e.self_device_time_total / 1e3 / iters, e.key) for e in device), reverse=True)
     if not rows:
         print(f"profile {tag}: the profiler recorded no device time (not measured)")
@@ -189,7 +198,7 @@ def device_breakdown(tag, fn, event_ms, iters=5, top=6):
           f"{busy - port:.4f} ms/call in {len(rows)} kinds")
     for ms, key in rows[:top]:
         print(f"profile {tag}:   {ms:.4f} ms  {key[:90]}")
-    return busy, idle, n_kernels
+    return busy, idle, n_kernels, port
 
 
 def kernel_ms(fn, iters=3):
@@ -1991,6 +2000,291 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
     return out, steps, routes
 
 
+# The training surface at the repo's own model width: TransducerConfig()
+# (encoder 256 wide, 4 blocks, 4 heads, conv kernel 15; prediction and joint
+# 256; 80 input features; bf16 activations, f32 parameters), B = 64 utterances
+# of T = 150 frames and L = 20 labels. Vocabularies: 128 (the config's) for the
+# steps on the dense logits, 5000 (the published fused shape's) for the fused
+# and pruned ones.
+TRAIN_SHAPE = ("train", 64, 150, 20)
+TRAIN_S = 5
+TRAIN_BIG_BLANKS = (2, 4)
+# step: (make_* of models/transducer.py, its arguments, vocabulary, the
+# counters it must raise).
+TRAIN_STEPS = {
+    "dense": ("make_train_step", {}, 128, ("prep", "wavefront", "grad")),
+    "fused": ("make_fused_train_step", {}, 5000, ("joint_prep", "wavefront", "joint_grad")),
+    "pruned": ("make_pruned_train_step", dict(s_range=TRAIN_S), 5000,
+               ("wavefront", "ranges", "band_prep", "band_stream", "band_grad")),
+    "pruned_fused": ("make_pruned_fused_train_step", dict(s_range=TRAIN_S), 5000,
+                     ("wavefront", "ranges", "band_stream")),
+    "tdt": ("make_tdt_train_step", {}, 128, ("prep", "window_stream", "grad_fields")),
+    "tdt_fused": ("make_tdt_fused_train_step", {}, 5000,
+                  ("joint_prep", "joint_grad", "window_stream")),
+    "multiblank": ("make_multiblank_train_step", dict(big_blank_durations=TRAIN_BIG_BLANKS), 128,
+                   ("prep", "window_stream", "grad_fields")),
+    "multiblank_fused": ("make_multiblank_fused_train_step",
+                         dict(big_blank_durations=TRAIN_BIG_BLANKS), 5000,
+                         ("joint_prep", "joint_grad", "window_stream")),
+}
+# Tolerances of a train step against its plain twin, relative norm errors.
+# What the loss hands back to the model (the gradient of each tensor that
+# enters a loss entry point): FUSED_GRAD_REL[bf16] for the three fused-joint
+# losses (their kernels take bf16 products) and for any bf16 tensor, 1e-3
+# for the rest (the f32 logits of the dense, pruned and duration-arc losses,
+# as the end-to-end checks above). Every parameter: FUSED_GRAD_REL[bf16],
+# since the model's bf16 activations round every product of the backward: a
+# twin whose loss gradient differs in the last f32 bits (on an H100, 2.7e-5
+# at the dense step's logits) reaches the deepest layers about a bf16 ulp
+# away (3.45e-3 at encoder.input_proj.weight; 8e-6 in an f32 model; PERF.md).
+TRAIN_LOSS_INPUT_REL = 1e-3
+TRAIN_BF16_REL = FUSED_GRAD_REL[torch.bfloat16]
+TRAIN_FUSED_ENTRIES = ("rnnt_loss_fused_joint", "rnnt_loss_multiblank_fused_joint",
+                       "rnnt_loss_tdt_fused_joint")
+# The loss entry points models/transducer.py calls, whose inputs are watched.
+TRAIN_LOSS_ENTRIES = ("rnnt_loss", "rnnt_loss_tdt", "rnnt_loss_multiblank", "rnnt_loss_simple",
+                      "rnnt_loss_pruned", "rnnt_loss_fused_joint", "rnnt_loss_pruned_fused",
+                      "rnnt_loss_multiblank_fused_joint", "rnnt_loss_tdt_fused_joint")
+TRAIN_ADAM_STEPS = 10
+
+
+def make_train_batch(B, T, L, V, seed, dev, input_dim, n_cols=0):
+    """Features from a seeded generator on the card, labels off the blank 0
+    and the last ``n_cols`` columns, ragged lengths (T_b in [T/2, T], L_b in
+    [L/2, L], the first utterance at both maxima)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    il[0], ll[0] = T, L
+    return {"feats": torch.randn((B, T, input_dim), generator=g, device=dev),
+            "feat_lengths": il,
+            "labels": torch.randint(1, V - n_cols, (B, L), generator=g, device=dev,
+                                    dtype=torch.int32),
+            "label_lengths": ll}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of every plain stage of the losses
+    (``ops/rnnt.py::_PLAIN``) while entered: a step on the kernels must make
+    none. Yields the list of the stages called."""
+    from warp_transducer_tpu_torch.ops import rnnt as rnnt_module
+    space, saved, calls = rnnt_module._PLAIN, dict(vars(rnnt_module._PLAIN)), []
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(space, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(space, name, fn)
+
+
+@contextlib.contextmanager
+def loss_inputs():
+    """While entered, every floating tensor that requires grad and enters
+    one of TRAIN_LOSS_ENTRIES from ``models/transducer.py`` keeps its
+    gradient (``retain_grad``); yields the list of (entry, position,
+    tensor)."""
+    from warp_transducer_tpu_torch.models import transducer as tm
+    saved, seen = {name: getattr(tm, name) for name in TRAIN_LOSS_ENTRIES}, []
+
+    def watched(name, fn):
+        def call(*args, **kwargs):
+            for i, a in enumerate(args):
+                if isinstance(a, torch.Tensor) and a.is_floating_point() and a.requires_grad:
+                    a.retain_grad()
+                    seen.append((name, i, a))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(tm, name, watched(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(tm, name, fn)
+
+
+def check_loss_inputs(tag, got, want):
+    """The gradient of each tensor the step handed to a loss entry point,
+    against the plain twin's: TRAIN_BF16_REL for a bf16 tensor or a fused
+    joint's input, else TRAIN_LOSS_INPUT_REL. Returns the largest error."""
+    fail_unless(len(got) == len(want) and got, f"{tag}: the twins' losses took other inputs")
+    worst = 0.0
+    for (name, i, a), (_, _, b) in zip(got, want):
+        err = rel_norm(a.grad, b.grad)
+        tol = (TRAIN_BF16_REL if a.dtype == torch.bfloat16 or name in TRAIN_FUSED_ENTRIES
+               else TRAIN_LOSS_INPUT_REL)
+        print(f"{tag} d(input {i} of {name}) {tuple(a.shape)} {a.dtype} vs the plain twin: "
+              f"relative norm error {err:.3e} (tol {tol:g})")
+        fail_unless(err <= tol and bool(torch.isfinite(a.grad).all()),
+                    f"{tag}: the gradient of input {i} of {name} differs from the plain twin's")
+        worst = max(worst, err)
+    return worst
+
+
+def param_grads(model):
+    return {n: None if q.grad is None else q.grad.clone() for n, q in model.named_parameters()}
+
+
+def check_param_grads(tag, got, want, tol):
+    """Every parameter's gradient within a relative norm error of ``tol``,
+    each error measured against at least 1e-3 of the norm of the whole
+    gradient (a gradient that is zero in exact arithmetic, the attention's
+    key bias, holds rounding noise on both sides). A parameter the loss does
+    not reach has no gradient on either side. Returns the largest error."""
+    reached = [w for w in want.values() if w is not None]
+    floor = 1e-3 * float(torch.stack([w.float().norm() for w in reached]).norm())
+    worst, worst_name = 0.0, None
+    for n, w in want.items():
+        fail_unless((got[n] is None) == (w is None), f"{tag}: d{n} reached on one side only")
+        if w is None:
+            continue
+        fail_unless(bool(torch.isfinite(got[n]).all()), f"{tag}: d{n} is not finite")
+        err = float((got[n].float() - w.float()).norm()) / max(float(w.float().norm()), floor)
+        if err > worst:
+            worst, worst_name = err, n
+    whole = rel_norm(torch.cat([g.float().ravel() for g in got.values() if g is not None]),
+                     torch.cat([w.float().ravel() for w in reached]))
+    print(f"{tag} parameter gradients vs the plain twin: {len(reached)} reached, largest "
+          f"relative norm error {worst:.3e} (d{worst_name}; tol {tol:g}); all as one vector "
+          f"{whole:.3e}")
+    fail_unless(worst <= tol, f"{tag}: d{worst_name} differs from the plain twin's")
+    return worst
+
+
+def train_phase(dev, totals):
+    """Each of the eight train steps of ``models/transducer.py`` on the whole
+    model at TRAIN_SHAPE: one step (forward, loss, backward, Adam) under the
+    launch counters with no host sync allowed, which must launch the kernels
+    TRAIN_STEPS names and call no plain stage; the same step through the
+    plain versions on a twin with the same weights and batch (loss at f32
+    rtol 1e-5, the gradients of the losses' inputs by ``check_loss_inputs``,
+    every parameter's by ``check_param_grads``); then
+    TRAIN_ADAM_STEPS more steps on the same batch, each timed by CUDA events,
+    after which the loss must be lower; the device breakdown (idle share,
+    the port's kernels' share of busy time) and the peak memory of a step.
+    Returns {step: numbers}."""
+    from warp_transducer_tpu_torch.models import transducer as tm
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import tdt_fused
+    tag, B, T, L = TRAIN_SHAPE
+    integrated = bool(tdt_fused._tdt_single_chunk(None, None, None))
+    results = {}
+    for seed, (name, (maker, kw, V, kernels)) in enumerate(TRAIN_STEPS.items(), start=40):
+        if name == "tdt_fused" and not integrated:
+            kernels = kernels + ("dur_head",)  # the module's rule: the composed route
+        cfg = tm.TransducerConfig(vocab_size=V,
+                                  tdt_durations=TDT_DURATIONS if "tdt" in name else ())
+        model = tm.Transducer(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+        twin = tm.Transducer(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+        n_params = sum(q.numel() for q in model.parameters())
+        batch = make_train_batch(B, T, L, V, seed, dev, cfg.input_dim,
+                                 n_cols=len(TRAIN_BIG_BLANKS) if "multiblank" in name else 0)
+        step = getattr(tm, maker)(model, torch.optim.Adam(model.parameters(), lr=1e-3), **kw)
+        twin_step = getattr(tm, maker)(twin, torch.optim.Adam(twin.parameters(), lr=1e-3),
+                                       implementation="torch", **kw)
+        K.reset_launches()
+        with plain_calls() as calls, loss_inputs() as inputs:
+            torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+            try:
+                loss = step(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in K.launches.items() if n}
+        print(f"train {name} {tag} B={B} T={T} L={L} V={V} ({n_params} parameters): launches "
+              f"{counts}; plain stages called {len(calls)}")
+        for k in kernels:
+            fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched by the {name} step")
+        fail_unless(not calls, f"the {name} step ran plain stages: {sorted(set(calls))}")
+        for k, n in counts.items():
+            totals[k] += n
+        grads = param_grads(model)
+        K.reset_launches()
+        started = time.perf_counter()
+        with loss_inputs() as twin_inputs:
+            twin_loss = twin_step(batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - started
+        fail_unless(not any(K.launches.values()), f"the plain {name} step launched a kernel")
+        compare(f"train {name} loss vs the plain twin", loss, twin_loss, "f32")
+        input_err = check_loss_inputs(f"train {name}", inputs, twin_inputs)
+        grad_err = check_param_grads(f"train {name}", grads, param_grads(twin), TRAIN_BF16_REL)
+        del twin, twin_step, grads, inputs, twin_inputs
+        torch.cuda.empty_cache()
+        # TRAIN_ADAM_STEPS more steps on the same batch, each between two events
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(TRAIN_ADAM_STEPS)]
+        losses = []
+        for start, end in events:
+            start.record()
+            losses.append(step(batch))
+            end.record()
+        torch.cuda.synchronize()
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+        before, after = float(loss), float(losses[-1])
+        print(f"train {name}: loss {before:.4f} -> {after:.4f} after {TRAIN_ADAM_STEPS} Adam "
+              f"steps (lr 1e-3); step {step_ms:.4f} ms (median of {TRAIN_ADAM_STEPS}, CUDA "
+              f"events); the plain twin's step {plain_s * 1e3:.1f} ms once (host clock)")
+        fail_unless(after < before, f"{name}: {TRAIN_ADAM_STEPS} Adam steps did not lower the loss")
+        prof = device_breakdown(f"train {name} step", lambda: step(batch), step_ms, top=8)
+        mb = peak_mb(lambda: step(batch))
+        print(f"train {name}: peak {mb:.1f} MB above the model, its optimiser state and the batch")
+        results[name] = {
+            "vocab": V, "params": n_params, "launches": counts, "loss_before": before,
+            "loss_after": after, "loss_input_grad_rel_err": input_err,
+            "param_grad_rel_err": grad_err, "step_ms": step_ms,
+            "idle_share": prof and prof[1], "busy_ms": prof and prof[0],
+            "port_kernels_ms": prof and prof[3],
+            "port_share_of_busy": prof and prof[3] / prof[0], "peak_mb": mb,
+            "plain_step_ms_once": plain_s * 1e3}
+        del model, step, batch, losses
+        torch.cuda.empty_cache()
+    return results
+
+
+def binding_check(dev, totals):
+    """``bindings.torch_binding.RNNTLoss`` on CUDA tensors at the headline
+    shape: its launches (prep, wavefront, grad) with no host sync allowed,
+    and its value and gradient against the port's ``rnnt_loss`` under the
+    binding's conventions (shape (1,), "mean" over B)."""
+    from warp_transducer_tpu_torch import rnnt_loss
+    from warp_transducer_tpu_torch.bindings import torch_binding
+    from warp_transducer_tpu_torch.ops import cuda as K
+    tag, B, T, L, V = SHAPES[0]
+    acts, labels, il, ll = make_problem(B, T, L, V, seed=50, dev=dev)
+    a = acts.clone().requires_grad_(True)
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = torch_binding.RNNTLoss(reduction="mean")(a, labels, il, ll)
+        got.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in K.launches.items() if n}
+    print(f"binding RNNTLoss {tag} B={B} T={T} L={L} V={V} on CUDA tensors: launches {counts}")
+    for k in ("prep", "wavefront", "grad"):
+        fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched by the binding")
+    for k, n in counts.items():
+        totals[k] += n
+    fail_unless(got.shape == (1,) and got.device == a.device, "the binding's mean is not shape (1,)")
+    r = acts.clone().requires_grad_(True)
+    want = rnnt_loss(r, labels, il, ll, reduction="sum") / B
+    want.backward()
+    compare(f"binding {tag} mean vs rnnt_loss sum / B", got.detach()[0], want.detach(), "f32")
+    compare(f"binding {tag} gradient vs rnnt_loss's", a.grad, r.grad, grad_tol(r.grad, "f32"))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
@@ -2325,6 +2619,13 @@ def main():
     variant_steps = variant_main_path(dev, totals)
     variant_kernel_ms, variant_step, variant_routes = variant_timings(dev, *variant_steps)
     del variant_steps
+    torch.cuda.empty_cache()
+
+    # ---- 10. the training surface: the eight train steps of the whole model
+    # at its own width, each under the launch counters against its plain
+    # twin, ten Adam steps, the timings; the binding on CUDA tensors
+    train = train_phase(dev, totals)
+    binding_check(dev, totals)
 
     sources = {
         "prep": ("warp_transducer_tpu_torch/csrc/prep.cu",
@@ -2480,6 +2781,8 @@ def main():
         "full_sweep_step_ms": pf_full_ms, "cut_batch": PRUNED_FUSED_CUT_B,
         "cut_sweep_step_ms": min(route_ms["sweep"]),
         "cut_materialised_step_ms": min(route_ms["materialised"])}}))
+    print(json.dumps({"train": {"shape": dict(zip(("B", "T", "L"), TRAIN_SHAPE[1:])),
+                                "steps": train}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,7 +31,7 @@ def test_sources_found():
                    "pruned_fused", "cuda/joint", "window", "multiblank", "tdt", "cuda/window",
                    "multiblank_fused", "tdt_fused"):
         assert (PKG / "ops" / f"{module}.py") in SOURCES, module
-    for module in ("models/transducer", "utils/convert"):
+    for module in ("models/transducer", "utils/convert", "bindings/torch_binding"):
         assert (PKG / f"{module}.py") in SOURCES, module
 
 
@@ -80,7 +80,7 @@ def test_imports_with_jax_blocked():
         "f = W.rnnt_loss_fused_joint(e, q, Wt, b, lab, il, ll)\n"
         "pf = W.rnnt_loss_pruned_fused(e, q, Wt, b, r, lab, il, ll, 2)\n"
         "j = Joint(TransducerConfig(vocab_size=4, encoder_dim=5, prediction_dim=5, joint_dim=5,\n"
-        "                           dtype=torch.float32))\n"
+        "                           dtype=torch.float32), device='cpu')\n"
         "j.load_state_dict(joint_state_dict_from_flax(\n"
         "    {n: {'kernel': w.detach().numpy().T, 'bias': c.detach().numpy()} for n, (w, c) in\n"
         "     zip(('Dense_0', 'Dense_1', 'Dense_2'), ((l.weight, l.bias) for l in\n"
@@ -170,7 +170,8 @@ _FUSED_DURATION_CASES = {
         "from warp_transducer_tpu_torch.models import Joint, TransducerConfig\n"
         "from warp_transducer_tpu_torch.ops.cuda import launches\n"
         "j = Joint(TransducerConfig(vocab_size=7, encoder_dim=5, prediction_dim=5, joint_dim=5,\n"
-        "                           dtype=torch.float32, tdt_durations=(0, 1, 2)))\n"
+        "                           dtype=torch.float32, tdt_durations=(0, 1, 2)),\n"
+        "          device='cpu')\n"
         "e, p = leaves[0].detach(), leaves[1].detach()\n"
         "a = j.tdt_fused_loss(e, p, lab, il, ll)\n"
         "m = j.multiblank_fused_loss(e, p, lab, il, ll, (2, 4))\n"
@@ -183,6 +184,28 @@ _FUSED_DURATION_CASES = {
 @pytest.mark.parametrize("case", _FUSED_DURATION_CASES)
 def test_fused_duration_arc_losses_with_jax_blocked(case):
     _run_with_jax_blocked(_FUSED_DURATION_SETUP + _FUSED_DURATION_CASES[case])
+
+
+def test_model_and_binding_with_jax_blocked():
+    code = (
+        "import torch\n"
+        "from warp_transducer_tpu_torch.bindings import torch_binding as tb\n"
+        "from warp_transducer_tpu_torch.models import transducer as tm\n"
+        "from warp_transducer_tpu_torch.utils.convert import transducer_state_dict_from_flax\n"
+        "cfg = tm.TransducerConfig(vocab_size=6, encoder_dim=8, encoder_layers=1, encoder_heads=2,\n"
+        "                          conv_kernel=2, prediction_dim=8, joint_dim=8, input_dim=3,\n"
+        "                          dtype=torch.float32)\n"
+        "model = tm.Transducer(cfg, device='cpu')\n"
+        "opt = torch.optim.Adam(model.parameters(), lr=1e-3)\n"
+        "batch = {'feats': torch.randn(2, 5, 3), 'feat_lengths': torch.tensor([5, 4]),\n"
+        "         'labels': torch.tensor([[1, 2], [3, 0]]), 'label_lengths': torch.tensor([2, 1])}\n"
+        "loss = tm.make_fused_train_step(model, opt)(batch)\n"
+        "acts = model(batch['feats'], batch['feat_lengths'], batch['labels']).detach()\n"
+        "i32 = [batch[k].int() for k in ('labels', 'feat_lengths', 'label_lengths')]\n"
+        "b = tb.RNNTLoss(reduction='sum')(acts.contiguous(), *i32)\n"
+        "assert torch.isfinite(loss) and b.shape == (1,)\n"
+    )
+    _run_with_jax_blocked(code)
 
 
 @pytest.mark.parametrize("tree", ["checkout", "installed", "installed_xdg"])

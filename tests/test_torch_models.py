@@ -59,7 +59,7 @@ def _batch(seed=1, B=3, T=7, U=5, S=3):
 def models():
     tree = _tree()
     flax_joint = JM.Joint(JM.TransducerConfig(dtype=jnp.float32, **DIMS))
-    joint = Joint(TransducerConfig(dtype=torch.float32, **DIMS))
+    joint = Joint(TransducerConfig(dtype=torch.float32, **DIMS), device="cpu")
     joint.load_state_dict(joint_state_dict_from_flax(tree))
     return tree, flax_joint, joint
 
@@ -76,7 +76,8 @@ def _flax_value_and_grads(flax_joint, tree, method, *args, **kw):
 def tdt_models():
     tree = _tree(durations=DURATIONS)
     flax_joint = JM.Joint(JM.TransducerConfig(dtype=jnp.float32, tdt_durations=DURATIONS, **DIMS))
-    joint = Joint(TransducerConfig(dtype=torch.float32, tdt_durations=DURATIONS, **DIMS))
+    joint = Joint(TransducerConfig(dtype=torch.float32, tdt_durations=DURATIONS, **DIMS),
+                  device="cpu")
     joint.load_state_dict(joint_state_dict_from_flax(tree))
     return tree, flax_joint, joint
 
@@ -104,7 +105,8 @@ def test_state_dict_from_flax():
                     {"Joint_0": tree}):
         again = joint_state_dict_from_flax(wrapped)
         assert all(torch.equal(again[k], state[k]) for k in state)
-    Joint(TransducerConfig(dtype=torch.float32, **DIMS)).load_state_dict(state, strict=True)
+    Joint(TransducerConfig(dtype=torch.float32, **DIMS), device="cpu").load_state_dict(
+        state, strict=True)
 
 
 def test_state_dict_from_flax_refuses_what_it_does_not_know():
@@ -130,7 +132,8 @@ def test_flax_init_tree_loads():
     params = JM.Joint(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 2, DIMS["encoder_dim"])),
                                 jnp.zeros((1, 2, DIMS["prediction_dim"])))
     state = joint_state_dict_from_flax(jax.tree.map(np.asarray, params))
-    Joint(TransducerConfig(dtype=torch.float32, **DIMS)).load_state_dict(state, strict=True)
+    Joint(TransducerConfig(dtype=torch.float32, **DIMS), device="cpu").load_state_dict(
+        state, strict=True)
 
 
 def test_forward_and_banded_match_flax(models):
@@ -188,13 +191,13 @@ def test_pruned_fused_loss_matches_flax(models, route_mb, monkeypatch):
 
 
 def test_bf16_activations_keep_f32_parameters():
-    joint = Joint(TransducerConfig(dtype=torch.bfloat16, **DIMS))
+    joint = Joint(TransducerConfig(dtype=torch.bfloat16, **DIMS), device="cpu")
     joint.load_state_dict(joint_state_dict_from_flax(_tree()))
     enc, pred, labels, il, ll, _ = _batch()
     assert joint(torch.tensor(enc), torch.tensor(pred)).dtype == torch.bfloat16
     loss = joint.fused_loss(*map(torch.tensor, (enc, pred, labels, il, ll)), reduction="sum")
     loss.backward()
-    f32 = Joint(TransducerConfig(dtype=torch.float32, **DIMS))
+    f32 = Joint(TransducerConfig(dtype=torch.float32, **DIMS), device="cpu")
     f32.load_state_dict(joint.state_dict())
     ref = f32.fused_loss(*map(torch.tensor, (enc, pred, labels, il, ll)), reduction="sum")
     np.testing.assert_allclose(float(loss.detach()), float(ref.detach()), rtol=3e-2)
@@ -206,7 +209,7 @@ def test_bf16_activations_keep_f32_parameters():
 def test_duration_head_is_refused():
     """A ``Joint`` without durations has no ``dur_proj``, and its TDT
     methods say so; its state dict refuses a duration head's weights."""
-    joint = Joint(TransducerConfig(dtype=torch.float32, **DIMS))
+    joint = Joint(TransducerConfig(dtype=torch.float32, **DIMS), device="cpu")
     assert not hasattr(joint, "dur_proj")
     assert sorted(n for n, _ in joint.named_children()) == ["enc_proj", "out_proj", "pred_proj"]
     enc, pred, labels, il, ll, _ = map(torch.tensor, _batch())
@@ -228,7 +231,8 @@ def test_state_dict_from_flax_carries_the_duration_head():
     assert state["dur_proj.weight"].shape == (len(DURATIONS), DIMS["joint_dim"])
     np.testing.assert_array_equal(state["dur_proj.weight"].numpy(), tree["DurHead_0"]["kernel"].T)
     np.testing.assert_array_equal(state["dur_proj.bias"].numpy(), tree["DurHead_0"]["bias"])
-    joint = Joint(TransducerConfig(dtype=torch.float32, tdt_durations=DURATIONS, **DIMS))
+    joint = Joint(TransducerConfig(dtype=torch.float32, tdt_durations=DURATIONS, **DIMS),
+                  device="cpu")
     joint.load_state_dict(state, strict=True)
     # the tree Flax itself initialises, through the method that touches both heads
     cfg = JM.TransducerConfig(dtype=jnp.float32, tdt_durations=DURATIONS, **DIMS)

@@ -30,6 +30,12 @@ The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
   ``dur_head_prep`` / ``dur_head_grad``), with gradients to every joint
   input; ``Joint.multiblank_fused_loss`` and ``Joint.tdt_fused_loss`` call
   them.
+* the model around the losses (``models.transducer``): the conformer
+  encoder, the LSTM prediction network, the joint, ``Transducer``, the five
+  loss functions and the eight train steps, with
+  ``utils.convert.transducer_state_dict_from_flax`` for a Flax tree; and
+  ``bindings.torch_binding``, the ``warprnnt_pytorch`` surface on CPU and
+  CUDA tensors.
 
 A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
 use); a CPU tensor runs their plain PyTorch versions.

@@ -1,5 +1,19 @@
-"""Model parts around the losses. So far the joint network only
-(``transducer.Joint``), through which a model reaches the fused losses."""
-from .transducer import Joint, TransducerConfig
+"""The RNN-Transducer model around the losses (``transducer``): the
+encoder, the prediction network, the joint network through which a model
+reaches the fused losses, the loss functions and the train steps."""
+from .transducer import (ConformerBlock, ConvModule, Encoder, FeedForward, Joint, LSTMCell,
+                         MultiHeadAttention, Prediction, Transducer, TransducerConfig, loss_fn,
+                         make_fused_train_step, make_multiblank_fused_train_step,
+                         make_multiblank_train_step, make_pruned_fused_train_step,
+                         make_pruned_train_step, make_tdt_fused_train_step, make_tdt_train_step,
+                         make_train_step, multiblank_loss_fn, pruned_fused_loss_fn, pruned_loss_fn,
+                         tdt_loss_fn)
 
-__all__ = ["Joint", "TransducerConfig"]
+__all__ = [
+    "ConformerBlock", "ConvModule", "Encoder", "FeedForward", "Joint", "LSTMCell",
+    "MultiHeadAttention", "Prediction", "Transducer", "TransducerConfig", "loss_fn",
+    "make_fused_train_step", "make_multiblank_fused_train_step", "make_multiblank_train_step",
+    "make_pruned_fused_train_step", "make_pruned_train_step", "make_tdt_fused_train_step",
+    "make_tdt_train_step", "make_train_step", "multiblank_loss_fn", "pruned_fused_loss_fn",
+    "pruned_loss_fn", "tdt_loss_fn",
+]
