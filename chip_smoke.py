@@ -31,7 +31,12 @@ compositions, and the training surface: the eight train steps of
 ``models/transducer.py`` on the whole model at ``TransducerConfig()``'s
 widths (B=64 T=150 L=20; vocabulary 128, or 5000 for the fused and pruned
 steps), each held against its plain twin and run ten Adam steps, and the
-``warprnnt_pytorch`` binding on CUDA tensors — checks that a full band
+``warprnnt_pytorch`` binding on CUDA tensors, and the inference side: the
+five decoders of ``models/decoding.py`` on the same model (bf16, and f32
+with TF32 off) with no host sync, their best hypotheses rescored through
+the Viterbi alignments and the losses' kernels, and the three alignments of
+``ops/alignment.py`` at the duration-arc shapes against their plain route
+and their own paths — checks that a full band
 equals the dense loss, times each path and each kernel with CUDA events,
 reads the peak memory of the fused and the unfused steps and of each train
 step, and prints:
@@ -2285,6 +2290,431 @@ def binding_check(dev, totals):
     compare(f"binding {tag} gradient vs rnnt_loss's", a.grad, r.grad, grad_tol(r.grad, "f32"))
 
 
+# The inference side (models/decoding.py, ops/alignment.py), at the train
+# phase's width and batch: the five decoders on the whole model of
+# TransducerConfig() (vocabulary 128; the multi-blank family's big blanks on
+# its last two columns, the TDT family's duration head TDT_DURATIONS), beam
+# 4 and 3 expansions (the JAX package's defaults), max_symbols = 2·L; and the
+# three Viterbi alignments at DURATION_SHAPES. The duration-arc families pass
+# SERVE_SIGMA to the decoder, the alignment and the loss alike.
+SERVE_BEAM, SERVE_EXPANSIONS, SERVE_SIGMA = 4, 3, MB_SIGMA
+SERVE_ITERS = 3  # CUDA-event readings of a decode call (the median is kept)
+# Rescoring tolerance: the decode step and the full lattice take their
+# products in other shapes, so a path's log-prob differs in the last f32 bits
+# of each of its T+U arcs.
+SERVE_ATOL, SERVE_RTOL = 1e-3, 1e-5
+
+
+def serve_tol(score):
+    return SERVE_ATOL + SERVE_RTOL * score.abs()
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """f32 matrix products and convolutions in IEEE f32 (TF32 off) inside
+    the block."""
+    from warp_transducer_tpu_torch.utils.options import matmul_precision
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        flags, name, value = conv, "fp32_precision", "ieee"
+    else:
+        flags, name, value = torch.backends.cudnn, "allow_tf32", False
+    old = getattr(flags, name)
+    setattr(flags, name, value)
+    try:
+        with matmul_precision("highest"):
+            yield
+    finally:
+        setattr(flags, name, old)
+
+
+def device_busy(tag, fn, event_ms, top=4):
+    """Device time of one call of ``fn`` from the profiler's raw kernel
+    records (CUDA activity alone): busy ms, the idle share 1 - busy /
+    ``event_ms`` and the device kernels of the call. ``device_breakdown``'s
+    parsed event tree costs the host seconds for every 10k events, and a
+    decode or an alignment launches 10k-200k kernels. None where the
+    profiler records no device time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0
+               and not getattr(e, "is_user_annotation", lambda: False)()]
+    if not kernels:
+        print(f"profile {tag}: the profiler recorded no device time (not measured)")
+        return None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e6
+    busy = sum(by_name.values())
+    idle = max(0.0, 1 - busy / event_ms)
+    print(f"profile {tag}: device busy {busy:.4f} ms of {event_ms:.4f} ms (idle share "
+          f"{idle:.3f}); {len(kernels)} device kernels a call in {len(by_name)} kinds")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"profile {tag}:   {ms:.4f} ms  {name[:90]}")
+    return busy, idle, len(kernels)
+
+
+def serve_decoders(std, tdt, feats, fl, max_symbols, merge=True):
+    """{decoder: (lattice family, call)} for the five decoders (greedy_decode
+    with and without the big blanks)."""
+    from warp_transducer_tpu_torch.models import decoding as D
+    beam = dict(beam=SERVE_BEAM, merge=merge)
+    return {
+        "greedy": ("dense", lambda: D.greedy_decode(std, feats, fl, max_symbols)),
+        "greedy_big_blanks": ("multiblank", lambda: D.greedy_decode(
+            std, feats, fl, max_symbols, big_blank_durations=TRAIN_BIG_BLANKS)),
+        "greedy_tdt": ("tdt", lambda: D.greedy_decode_tdt(tdt, feats, fl, max_symbols)),
+        "beam": ("dense", lambda: D.beam_search_decode(std, feats, fl, max_symbols,
+                                                       expansions=SERVE_EXPANSIONS, **beam)),
+        "beam_multiblank": ("multiblank", lambda: D.beam_search_decode_multiblank(
+            std, feats, fl, max_symbols, big_blank_durations=TRAIN_BIG_BLANKS,
+            sigma=SERVE_SIGMA, **beam)),
+        "beam_tdt": ("tdt", lambda: D.beam_search_decode_tdt(tdt, feats, fl, max_symbols,
+                                                             sigma=SERVE_SIGMA, **beam)),
+    }
+
+
+def rescore(family, model, feats, fl, tokens, n):
+    """(Viterbi score, marginal log-likelihood) of each utterance's ``tokens``
+    (B, L) with ``n`` (B,) labels, the whole batch in one call each, on the
+    full-lattice logits of the model: the dense family through
+    ``rnnt_viterbi_align`` and ``rnnt_score`` (prep, wavefront), the
+    duration-arc ones through their alignment and loss (prep, window)."""
+    import warp_transducer_tpu_torch as W
+    labels = tokens.contiguous()
+    with torch.no_grad():
+        if family == "tdt":
+            tok, dur = (x.float().contiguous() for x in model.tdt_logits(feats, fl, labels))
+            vit = W.tdt_viterbi_align(tok, dur, labels, fl, n, TDT_DURATIONS, sigma=SERVE_SIGMA)
+            return vit.score, -W.rnnt_loss_tdt(tok, dur, labels, fl, n, TDT_DURATIONS,
+                                               sigma=SERVE_SIGMA, reduction="none")
+        acts = model(feats, fl, labels).float().contiguous()
+    if family == "multiblank":
+        vit = W.multiblank_viterbi_align(acts, labels, fl, n, TRAIN_BIG_BLANKS, sigma=SERVE_SIGMA)
+        return vit.score, -W.rnnt_loss_multiblank(acts, labels, fl, n, TRAIN_BIG_BLANKS,
+                                                  sigma=SERVE_SIGMA, reduction="none")
+    return W.rnnt_viterbi_align(acts, labels, fl, n).score, -W.rnnt_score(acts, labels, fl, n)
+
+
+def check_hypotheses(name, family, out, V, max_symbols):
+    """Tokens in [0, V) with no blank (nor big blank for the multi-blank
+    family) among the first n, n <= max_symbols; beams sorted best-first
+    with a finite best score. Returns the best hypothesis (tokens, n,
+    score or None)."""
+    tokens, n = out[0], out[1]
+    if len(out) == 3:
+        scores = out[2]
+        fail_unless(bool((scores[:, 1:] <= scores[:, :-1]).all()), f"{name}: beams not sorted")
+        fail_unless(bool(torch.isfinite(scores[:, 0]).all() and (scores[:, 0] > -1e29).all()),
+                    f"{name}: a best hypothesis did not finish")
+        tokens, n, best = tokens[:, 0], n[:, 0], scores[:, 0]
+    else:
+        best = None
+    used = torch.arange(max_symbols, device=tokens.device)[None] < n[:, None]
+    banned = [0] + ([V - 2, V - 1] if family == "multiblank" else [])
+    fail_unless(bool(((n >= 0) & (n <= max_symbols)).all()), f"{name}: a count above max_symbols")
+    fail_unless(bool(((tokens >= 0) & (tokens < V)).all()), f"{name}: a token outside [0, V)")
+    fail_unless(not bool((torch.isin(tokens, torch.tensor(banned, device=tokens.device))
+                          & used).any()), f"{name}: a blank or big blank among the tokens")
+    return tokens, n, best
+
+
+def decode_phase(dev, totals):
+    """The five decoders at TRAIN_SHAPE on the whole model, in bf16 (the
+    config's default) and in f32 with TF32 off: each call with no host sync
+    allowed, timed (median of SERVE_ITERS CUDA-event readings) and profiled.
+    On the f32 outputs: the hypotheses' checks, each family's best
+    hypotheses rescored in one batched call (launch counters on), held at
+    Viterbi <= marginal and beam score <= marginal (merged beams), and with
+    merge=False at beam score <= Viterbi (one path's score is at most the
+    best path's); the share of Viterbi - tol <= pooled score is printed,
+    and so is the share of greedy sequences equal to the CPU's."""
+    import copy
+
+    from warp_transducer_tpu_torch.models import transducer as tm
+    from warp_transducer_tpu_torch.ops import cuda as K
+    tag, B, T, L = TRAIN_SHAPE
+    V, max_symbols = 128, 2 * L
+    batch = make_train_batch(B, T, L, V, 70, dev, tm.TransducerConfig().input_dim,
+                             n_cols=len(TRAIN_BIG_BLANKS))
+    feats, fl = batch["feats"], batch["feat_lengths"]
+    results, f32_out, models = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        std = tm.Transducer(tm.TransducerConfig(vocab_size=V, dtype=dtype), device=dev,
+                            generator=torch.Generator().manual_seed(71))
+        tdt = tm.Transducer(tm.TransducerConfig(vocab_size=V, dtype=dtype,
+                                                tdt_durations=TDT_DURATIONS),
+                            device=dev, generator=torch.Generator().manual_seed(72))
+        with ieee_f32() if dtype == torch.float32 else contextlib.nullcontext():
+            for name, (family, run) in serve_decoders(std, tdt, feats, fl,
+                                                      max_symbols).items():
+                torch.cuda.set_sync_debug_mode("error")  # any host sync in the decode raises
+                try:
+                    out = run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                events = [(torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)) for _ in range(SERVE_ITERS)]
+                for start, end in events:
+                    start.record()
+                    run()
+                    end.record()
+                torch.cuda.synchronize()
+                ms = statistics.median(s.elapsed_time(e) for s, e in events)
+                prof = device_busy(f"serve {name} {dname}", run, ms)
+                print(f"serve {name} {dname} B={B} T={T} V={V} max_symbols={max_symbols}: "
+                      f"{ms:.4f} ms a call (median of {SERVE_ITERS}, CUDA events); no host sync")
+                results[f"{name}_{dname}"] = {
+                    "ms": ms, "busy_ms": prof and prof[0], "idle_share": prof and prof[1],
+                    "device_kernels": prof and prof[2], "no_host_sync": True}
+                if dtype == torch.float32:
+                    f32_out[name] = (family, out)
+            if dtype == torch.float32:
+                models = {"std": std, "tdt": tdt}
+                unmerged = {f"{name}_unmerged": (family, run()) for name, (family, run) in
+                            serve_decoders(std, tdt, feats, fl, max_symbols, merge=False).items()
+                            if name.startswith("beam")}
+        del std, tdt
+        torch.cuda.empty_cache()
+
+    # ---- the checks, in f32 with TF32 off
+    checks, lower = {}, {}
+    K.reset_launches()
+    with ieee_f32():
+        for name, (family, out) in (f32_out | unmerged).items():
+            tokens, n, best = check_hypotheses(name, family, out, V, max_symbols)
+            model = models["tdt" if family == "tdt" else "std"]
+            vit, ll = rescore(family, model, feats, fl, tokens, n)
+            has = n > 0
+            fail_unless(bool(torch.isfinite(vit[has]).all() and torch.isfinite(ll[has]).all()),
+                        f"{name}: a decoded hypothesis has no path in its lattice")
+            tol = serve_tol(ll)
+            fail_unless(bool((vit <= ll + tol)[has].all()), f"{name}: Viterbi above the marginal")
+            worst = {"viterbi_minus_marginal": float((vit - ll)[has].max())}
+            if best is not None and name.endswith("_unmerged"):
+                # one path's score: at most the best path's
+                fail_unless(bool((best <= vit + serve_tol(vit))[has].all()),
+                            f"{name}: the beam's path scores above the Viterbi path")
+                worst["beam_minus_viterbi"] = float((best - vit)[has].max())
+            elif best is not None:
+                # a pooled score sums distinct paths of its hypothesis
+                fail_unless(bool((best <= ll + tol)[has].all()),
+                            f"{name}: the pooled beam score is above the marginal")
+                worst["beam_minus_marginal"] = float((best - ll)[has].max())
+                held = (vit - serve_tol(vit) <= best)[has]
+                lower[name] = {"share": float(held.float().mean()),
+                               "largest_viterbi_minus_beam": float((vit - best)[has].max())}
+            checks[name] = {"rescored": int(has.sum())} | worst
+            print(f"serve check {name} (f32, TF32 off): {int(has.sum())} of {B} hypotheses with "
+                  f"n > 0 rescored; Viterbi <= marginal held; {worst} (tol {SERVE_ATOL:g} + "
+                  f"{SERVE_RTOL:g}·|score|)"
+                  + (f"; Viterbi - tol <= beam score in {lower[name]['share']:.3f} of them "
+                     f"(largest Viterbi - beam {lower[name]['largest_viterbi_minus_beam']:.4f}; "
+                     "printed, not held: a beam may drop its best hypothesis's best path)"
+                     if name in lower else ""))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launches.items() if v}
+    print(f"serve rescoring launches {counts}")
+    for k in ("prep", "wavefront", "window_stream"):
+        fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched by the serve rescoring")
+    for k, v in counts.items():
+        totals[k] += v
+
+    # ---- the greedy sequences against the CPU's (f32, printed)
+    same = {}
+    with ieee_f32():
+        cpu = {k: copy.deepcopy(m).cpu() for k, m in models.items()}
+        decoders = serve_decoders(cpu["std"], cpu["tdt"], feats.cpu(), fl.cpu(), max_symbols)
+        for name in ("greedy", "greedy_big_blanks", "greedy_tdt"):
+            tokens, n = decoders[name][1]()
+            got_t, got_n = (x.cpu() for x in f32_out[name][1][:2])
+            same[name] = float(((got_t == tokens).all(1) & (got_n == n)).float().mean())
+    print(f"serve greedy sequences equal to the CPU's (f32, TF32 off): {same} (printed, not held)")
+    return {"shape": {"B": B, "T": T, "L": L, "V": V, "max_symbols": max_symbols,
+                      "beam": SERVE_BEAM, "expansions": SERVE_EXPANSIONS, "sigma": SERVE_SIGMA},
+            "decoders": results, "checks": checks, "viterbi_below_pooled": lower,
+            "greedy_equal_to_cpu": same, "launches": counts}
+
+
+def resum_path(lpb, lpe, arcs, codes, il, ll, dense):
+    """The log-prob of each utterance's path re-summed from its weights,
+    and the emit frames the path implies, after checking that it is a path:
+    its steps a prefix of ``codes``, L_b emits, and frames adding up to T_b
+    (dense: T_b - 1 advances, the terminal blank in the score). ``codes``:
+    the dense encoding (1 emit, 0 advance) or the multi-blank one (0 emit,
+    m frames), ``arcs`` (B, T, U, A) and the lookup m -> family for the
+    latter."""
+    B, T, U = lpb.shape
+    valid = codes >= 0
+    emit = valid & (codes == (1 if dense else 0))
+    frames = (valid & ~emit).long() if dense else torch.where(emit | ~valid, 0, codes).long()
+    shift = lambda x: torch.nn.functional.pad(x.cumsum(1)[:, :-1], (1, 0))  # noqa: E731
+    u, t = shift(emit.long()), shift(frames)
+    n_steps = valid.sum(1)
+    fail_unless(bool((valid == (torch.arange(codes.shape[1], device=codes.device)
+                                 < n_steps[:, None])).all()), "a path has a gap")
+    fail_unless(bool((emit.sum(1) == ll).all()), "a path emits another number of labels")
+    want_frames = il.long() - 1 if dense else il.long()
+    fail_unless(bool((frames.sum(1) == want_frames).all()), "a path consumes other frames")
+    b = torch.arange(B, device=codes.device)[:, None].expand_as(codes)
+    tc, uc = t.clamp(0, T - 1), u.clamp(0, U - 1)
+    if dense:
+        w = torch.where(emit, lpe[b, tc, uc], lpb[b, tc, uc])
+    else:
+        fam, lookup = arcs
+        w = torch.where(emit, lpe[b, tc, uc], fam[b, tc, uc, lookup[codes.long().clamp_min(0)]])
+    total = torch.where(valid, w, 0.0).sum(1)
+    if dense:
+        total = total + lpb[b[:, 0], il.long() - 1, ll.long()]
+    ef = torch.full((B, U), -1, dtype=torch.long, device=codes.device)
+    ef.scatter_(1, torch.where(emit, u, U - 1), torch.where(emit, t, -1))
+    return total, ef[:, :U - 1]
+
+
+def check_tdt_emits(out, il, ll):
+    """Each label's frame and duration: a duration of the model, the next
+    label at or after the frame this one lands on, the last landing inside
+    the utterance, -1 beyond the labels."""
+    ef, ed = out.emit_frames.long(), out.emit_durations.long()
+    U1 = ef.shape[1]
+    inside = torch.arange(U1, device=ef.device)[None] < ll[:, None]
+    durs = torch.tensor(TDT_DURATIONS, device=ef.device)
+    fail_unless(bool(((ef >= 0) & torch.isin(ed, durs))[inside].all()),
+                "tdt: an emission without a frame or with another duration")
+    fail_unless(bool(((ef == -1) & (ed == -1))[~inside].all()), "tdt: padding is not -1")
+    land = ef + ed
+    nxt = torch.nn.functional.pad(ef[:, 1:], (0, 1), value=-1)
+    both = inside & torch.nn.functional.pad(inside[:, 1:], (0, 1), value=False)
+    fail_unless(bool((nxt >= land)[both].all()), "tdt: a label before the previous one landed")
+    last = (ll.long() - 1).clamp_min(0)
+    has = ll > 0
+    fail_unless(bool((land.gather(1, last[:, None])[:, 0] < il.long())[has].all()),
+                "tdt: the last label lands past the utterance")
+
+
+def align_phase(dev, totals):
+    """The three alignments at DURATION_SHAPES, f32 (and the headline shape
+    in f64), from seeded inputs on the card: the kernel route (prep.cu)
+    under the launch counters with no host sync allowed, against
+    implementation="torch" on the card (scores rtol 1e-5; f64 paths equal;
+    the f32 path agreement printed); the path re-summed from its lpb / lpe
+    (and big-blank) weights, rtol 1e-5 atol 1e-3; score <= -loss + tol
+    through rnnt_score (K1) or the duration-arc loss (K7); each call timed
+    at long_t."""
+    import warp_transducer_tpu_torch as W
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import multiblank, rnnt, tdt
+    kw = {"dense": {}, "multiblank": dict(sigma=SERVE_SIGMA), "tdt": dict(sigma=SERVE_SIGMA)}
+    results, counts = {}, dict.fromkeys(K.launches, 0)
+
+    def align(family, acts, dur, labels, il, ll, **extra):
+        if family == "dense":
+            return W.rnnt_viterbi_align(acts, labels, il, ll, **extra)
+        if family == "tdt":
+            return W.tdt_viterbi_align(acts, dur, labels, il, ll, TDT_DURATIONS,
+                                       **kw["tdt"], **extra)
+        return W.multiblank_viterbi_align(acts, labels, il, ll, MB_DURATIONS,
+                                          **kw["multiblank"], **extra)
+
+    def marginal(family, acts, dur, labels, il, ll):
+        if family == "dense":
+            return -W.rnnt_score(acts, labels, il, ll)
+        if family == "tdt":
+            return -W.rnnt_loss_tdt(acts, dur, labels, il, ll, TDT_DURATIONS, reduction="none",
+                                    **kw["tdt"])
+        return -W.rnnt_loss_multiblank(acts, labels, il, ll, MB_DURATIONS, reduction="none",
+                                       **kw["multiblank"])
+
+    cases = [(tag, B, T, L, V, torch.float32) for tag, B, T, L, V in DURATION_SHAPES]
+    cases.append(DURATION_SHAPES[0] + (torch.float64,))
+    for tag, B, T, L, V, dtype in cases:
+        acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=80, dev=dev)
+        acts, dur = acts.to(dtype), dur.to(dtype)
+        dname = "f64" if dtype == torch.float64 else "f32"
+        for family in ("dense", "multiblank", "tdt"):
+            case = f"{family}_{tag}_{dname}"
+            K.reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                out = align(family, acts, dur, labels, il, ll)
+                end.record()
+                ll_all = marginal(family, acts, dur, labels, il, ll)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            fail_unless(K.launches["prep"] > 0, f"{case}: the prep kernel was not launched")
+            fail_unless(K.launches["wavefront" if family == "dense" else "window_stream"] > 0,
+                        f"{case}: the loss's lattice kernel was not launched")
+            for k, v in K.launches.items():
+                counts[k] += v
+            plain = align(family, acts, dur, labels, il, ll, implementation="torch")
+            tol_key = "f64" if dtype == torch.float64 else (1e-5, 1e-5)
+            compare(f"align {case} score kernel route vs plain", out.score, plain.score, tol_key)
+            fail_unless(bool((out.score <= ll_all + serve_tol(ll_all)).all()),
+                        f"{case}: the Viterbi score is above -loss")
+            fields = out._fields[1:]
+            agree = torch.stack([(getattr(out, f) == getattr(plain, f)).all(1)
+                                 for f in fields]).all(0)
+            share = float(agree.float().mean())
+            if dtype == torch.float64:
+                fail_unless(share == 1.0, f"{case}: the f64 paths differ from the plain route's")
+            # the path against its weights, from the kernel route's prep
+            eng = rnnt._KERNELS
+            if family == "dense":
+                p = eng.prepare(acts, labels, 0, False)
+                total, ef = resum_path(p.lpb, p.lpe, None, out.path, il, ll, dense=True)
+            elif family == "multiblank":
+                idx = multiblank._resolve_indices(V, 0, MB_DURATIONS, None)[1]
+                lpb, lpe, lpB, _ = multiblank._multiblank_prep(eng, acts, labels, 0, idx,
+                                                               SERVE_SIGMA)
+                lookup = torch.zeros(max(MB_DURATIONS) + 1, dtype=torch.long, device=dev)
+                for j, m in enumerate(MB_DURATIONS, start=1):
+                    lookup[m] = j
+                fam = torch.cat((lpb[..., None], lpB), -1)
+                total, ef = resum_path(lpb, lpe, (fam, lookup), out.path, il, ll, dense=False)
+            else:
+                check_tdt_emits(out, il, ll)
+                total = ef = None
+            if total is not None:
+                compare(f"align {case} path re-summed vs score", total, out.score, (1e-5, 1e-3))
+                fail_unless(bool((ef == out.emit_frames.long()).all()),
+                            f"{case}: emit_frames disagree with the path")
+            entry = {"path_agreement_with_plain": share}
+            if tag == "long_t":
+                ms = start.elapsed_time(end)  # the checked call (the headline shape warmed up)
+                prof = device_busy(f"align {case}", lambda: align(family, acts, dur, labels, il,
+                                                                  ll), ms, top=3)
+                entry |= {"ms": ms, "busy_ms": prof and prof[0], "idle_share": prof and prof[1],
+                          "device_kernels": prof and prof[2]}
+                print(f"time align {case} B={B} T={T} L={L} V={V}: {ms:.2f} ms a call (CUDA "
+                      f"events); path agreement with the plain route {share:.3f} (printed)")
+            results[case] = entry
+        del acts, dur
+        torch.cuda.empty_cache()
+    counts = {k: v for k, v in counts.items() if v}
+    print(f"align launches {counts}")
+    for k, v in counts.items():
+        totals[k] += v
+    return {"cases": results, "launches": counts}
+
+
+def serve_phase(dev, totals):
+    """The inference side: the decoders (``decode_phase``), then the
+    alignments (``align_phase``)."""
+    started = time.perf_counter()
+    out = {"decode": decode_phase(dev, totals), "align": align_phase(dev, totals)}
+    out["seconds"] = time.perf_counter() - started
+    print(f"serve phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
@@ -2627,6 +3057,12 @@ def main():
     train = train_phase(dev, totals)
     binding_check(dev, totals)
 
+    # ---- 11. the inference side: the five decoders at the train phase's
+    # width and batch, with no host sync, their best hypotheses rescored
+    # through the alignments and the losses' kernels; the three alignments
+    # at the duration-arc shapes against the plain route and their own paths
+    serve = serve_phase(dev, totals)
+
     sources = {
         "prep": ("warp_transducer_tpu_torch/csrc/prep.cu",
                  "warp_transducer_tpu/ops/pallas/prep_fused.py:31"),
@@ -2783,6 +3219,7 @@ def main():
         "cut_materialised_step_ms": min(route_ms["materialised"])}}))
     print(json.dumps({"train": {"shape": dict(zip(("B", "T", "L"), TRAIN_SHAPE[1:])),
                                 "steps": train}}))
+    print(json.dumps({"serve": serve}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

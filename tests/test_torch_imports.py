@@ -29,9 +29,10 @@ def test_sources_found():
     assert len(SOURCES) >= 10
     for module in ("rnnt", "simple", "pruned", "band", "cuda/band", "cuda/ranges", "fused_joint",
                    "pruned_fused", "cuda/joint", "window", "multiblank", "tdt", "cuda/window",
-                   "multiblank_fused", "tdt_fused"):
+                   "multiblank_fused", "tdt_fused", "alignment"):
         assert (PKG / "ops" / f"{module}.py") in SOURCES, module
-    for module in ("models/transducer", "utils/convert", "bindings/torch_binding"):
+    for module in ("models/transducer", "models/decoding", "utils/convert",
+                   "bindings/torch_binding"):
         assert (PKG / f"{module}.py") in SOURCES, module
 
 
@@ -204,6 +205,28 @@ def test_model_and_binding_with_jax_blocked():
         "i32 = [batch[k].int() for k in ('labels', 'feat_lengths', 'label_lengths')]\n"
         "b = tb.RNNTLoss(reduction='sum')(acts.contiguous(), *i32)\n"
         "assert torch.isfinite(loss) and b.shape == (1,)\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_decoders_and_alignments_with_jax_blocked():
+    code = (
+        "import torch\n"
+        "import warp_transducer_tpu_torch as W\n"
+        "from warp_transducer_tpu_torch.models import (TransducerConfig, Transducer,\n"
+        "                                              beam_search_decode, greedy_decode)\n"
+        "cfg = TransducerConfig(vocab_size=6, encoder_dim=8, encoder_layers=1, encoder_heads=2,\n"
+        "                       conv_kernel=2, prediction_dim=8, joint_dim=8, input_dim=3,\n"
+        "                       dtype=torch.float32)\n"
+        "model = Transducer(cfg, device='cpu')\n"
+        "feats, fl = torch.randn(2, 5, 3), torch.tensor([5, 4])\n"
+        "tokens, n = greedy_decode(model, feats, fl, max_symbols=4)\n"
+        "bt, bn, bs = beam_search_decode(model, feats, fl, max_symbols=4, beam=2)\n"
+        "labels = bt[:, 0, :4].contiguous()\n"
+        "acts = model(feats, fl, labels).detach().contiguous()\n"
+        "out = W.rnnt_viterbi_align(acts, labels, fl, bn[:, 0])\n"
+        "assert tokens.shape == (2, 4) and bs.shape == (2, 2)\n"
+        "assert (out.score <= -W.rnnt_score(acts, labels, fl, bn[:, 0]) + 1e-4).all()\n"
     )
     _run_with_jax_blocked(code)
 

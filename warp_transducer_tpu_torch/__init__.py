@@ -35,12 +35,19 @@ The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
   loss functions and the eight train steps, with
   ``utils.convert.transducer_state_dict_from_flax`` for a Flax tree; and
   ``bindings.torch_binding``, the ``warprnnt_pytorch`` surface on CPU and
-  CUDA tensors.
+  CUDA tensors;
+* the inference side: Viterbi forced alignment over the dense, TDT and
+  multi-blank lattices (``rnnt_viterbi_align``, ``tdt_viterbi_align``,
+  ``multiblank_viterbi_align``), and the greedy and beam-search decoders
+  of ``models.decoding``.
 
 A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
 use); a CPU tensor runs their plain PyTorch versions.
 """
 
+from .ops.alignment import (MultiblankViterbiAlignment, TDTViterbiAlignment,
+                            ViterbiAlignment, multiblank_viterbi_align,
+                            rnnt_viterbi_align, tdt_viterbi_align)
 from .ops.fused_joint import rnnt_loss_fused_joint
 from .ops.lattice import LatticeResult
 from .ops.multiblank import rnnt_loss_multiblank
@@ -54,14 +61,18 @@ from .ops.tdt import rnnt_loss_tdt
 from .ops.tdt_fused import rnnt_loss_tdt_fused_joint
 from .utils.options import RNNTOptions
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "LatticeResult",
+    "MultiblankViterbiAlignment",
     "RNNTLoss",
     "RNNTOptions",
+    "TDTViterbiAlignment",
+    "ViterbiAlignment",
     "forward_backward_mismatch",
     "gather_banded",
+    "multiblank_viterbi_align",
     "rnnt_forward_backward",
     "rnnt_loss",
     "rnnt_loss_and_grad",
@@ -75,5 +86,7 @@ __all__ = [
     "rnnt_loss_tdt_fused_joint",
     "rnnt_prune_ranges",
     "rnnt_score",
+    "rnnt_viterbi_align",
+    "tdt_viterbi_align",
     "__version__",
 ]

@@ -60,6 +60,17 @@ def label_rows(labels: torch.Tensor, U: int) -> torch.Tensor:
 MAX_EXTRA_COLS = 8
 
 
+def device_ints(values, device, dtype=torch.int64) -> torch.Tensor:
+    """A short integer tensor made on ``device`` by one ``fill_`` an entry:
+    unlike ``torch.tensor(values, device=...)`` or ``out[i] = v`` (a copy
+    into a 0-dim view), it copies nothing from the host, so it does not wait
+    for the card."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(int(v))
+    return out
+
+
 def check_extra_cols(extra_cols, V: int) -> tuple:
     """The extra columns as a tuple of ints, each inside [0, V), at most
     ``MAX_EXTRA_COLS`` of them."""
