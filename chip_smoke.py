@@ -36,7 +36,12 @@ five decoders of ``models/decoding.py`` on the same model (bf16, and f32
 with TF32 off) with no host sync, their best hypotheses rescored through
 the Viterbi alignments and the losses' kernels, and the three alignments of
 ``ops/alignment.py`` at the duration-arc shapes against their plain route
-and their own paths — checks that a full band
+and their own paths, and the data-parallel wrappers of ``parallel/sharding.py``:
+all eight on an NCCL group of this process alone at the shapes above, bit-equal
+to the local calls (where those are reproducible) and timed beside them, with
+the batch check's and the all_reduces' own cost, and two gloo ranks sharing
+the card (two processes of this script, ``--parallel-worker``) at the
+headline and the fused bf16 shape against the single-process call — checks that a full band
 equals the dense loss, times each path and each kernel with CUDA events,
 reads the peak memory of the fused and the unfused steps and of each train
 step, and prints:
@@ -54,6 +59,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import shutil
@@ -2715,10 +2721,388 @@ def serve_phase(dev, totals):
     return out
 
 
+# The data-parallel wrappers of parallel/sharding.py: NCCL at world size 1 in
+# this process at the shapes above (the "mean" each wrapper defaults to), and
+# two gloo ranks sharing the card (NCCL refuses two ranks on one GPU), each a
+# process of this script with half of the batch.
+PARALLEL_READINGS = 5  # CUDA-event readings of a call (the median is kept)
+PARALLEL_RANKS = 2
+PARALLEL_WORKER_TIMEOUT_S = 300
+PARALLEL_GLOO_SEEDS = {"rnnt": 40, "fused": 41}
+
+
+def grad_step(fn, leaves):
+    """``fn(*leaves)`` (a scalar) and its gradients w.r.t. fresh leaves."""
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    loss = fn(*leaves)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def parallel_cases(dev):
+    """Each wrapper at full width, one at a time: (name, leaves, wrapper(mesh,
+    *leaves), local(*leaves), kernels the wrapper must launch, the relative
+    norm error allowed where two local calls differ, a route context)."""
+    from warp_transducer_tpu_torch import (rnnt_loss, rnnt_loss_fused_joint, rnnt_loss_multiblank,
+                                           rnnt_loss_multiblank_fused_joint,
+                                           rnnt_loss_pruned_fused, rnnt_loss_simple,
+                                           rnnt_loss_tdt, rnnt_loss_tdt_fused_joint)
+    from warp_transducer_tpu_torch.ops import pruned_fused
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    none = contextlib.nullcontext
+    tag, B, T, L, V = SHAPES[0]
+    acts, labels, il, ll = make_problem(B, T, L, V, seed=30, dev=dev)
+    lens = (labels, il, ll)
+    yield (f"data_parallel_rnnt_loss {tag}", [acts],
+           lambda m, a: S.data_parallel_rnnt_loss(a, *lens, m),
+           lambda a: rnnt_loss(a, *lens), ("prep", "wavefront", "grad"), 1e-3, none)
+    yield (f"auto_sharded_rnnt_loss {tag}", [acts],
+           lambda m, a: S.auto_sharded_rnnt_loss(a, *lens, m).to_local(),
+           lambda a: rnnt_loss(a, *lens), ("prep", "wavefront", "grad"), 1e-3, none)
+    del acts
+    acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=31, dev=dev)
+    lens = (labels, il, ll)
+    yield (f"data_parallel_multiblank_loss {tag}", [acts],
+           lambda m, a: S.data_parallel_multiblank_loss(a, *lens, MB_DURATIONS, m, sigma=MB_SIGMA),
+           lambda a: rnnt_loss_multiblank(a, *lens, MB_DURATIONS, sigma=MB_SIGMA),
+           ("prep", "window_stream", "grad_fields"), 1e-3, none)
+    yield (f"data_parallel_tdt_loss {tag}", [acts, dur],
+           lambda m, a, d: S.data_parallel_tdt_loss(a, d, *lens, TDT_DURATIONS, m),
+           lambda a, d: rnnt_loss_tdt(a, d, *lens, TDT_DURATIONS),
+           ("prep", "window_stream", "grad_fields"), 1e-3, none)
+    del acts, dur
+    tag, B, T, L, V, H = FUSED_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        e, p, W, bias, labels, il, ll = make_joint_problem(B, T, L, V, H, seed=32, dev=dev,
+                                                           dtype=dtype)
+        lens = (labels, il, ll)
+        yield (f"data_parallel_fused_joint_loss {tag} {str(dtype)[6:]}", [e, p, W, bias],
+               lambda m, *x: S.data_parallel_fused_joint_loss(*x, *lens, m),
+               lambda *x: rnnt_loss_fused_joint(*x, *lens),
+               ("joint_prep", "wavefront", "joint_grad"), FUSED_GRAD_REL[dtype], none)
+    e, p, W, bias, labels, il, ll = make_joint_problem(B, T, L, V, H, seed=33, dev=dev, n_cols=2)
+    Wd, bias_d = make_dur_head(H, seed=34, dev=dev)
+    lens = (labels, il, ll)
+    yield (f"data_parallel_tdt_fused_loss {tag} f32", [e, p, W, bias, Wd, bias_d],
+           lambda m, *x: S.data_parallel_tdt_fused_loss(*x, *lens, TDT_DURATIONS, m,
+                                                        sigma=VARIANT_SIGMA),
+           lambda *x: rnnt_loss_tdt_fused_joint(*x, *lens, TDT_DURATIONS, sigma=VARIANT_SIGMA),
+           ("joint_prep", "joint_grad", "window_stream"), FUSED_GRAD_REL[torch.float32], none)
+    yield (f"data_parallel_multiblank_fused_loss {tag} f32", [e, p, W, bias],
+           lambda m, *x: S.data_parallel_multiblank_fused_loss(*x, *lens, MB_DURATIONS, m,
+                                                               sigma=VARIANT_SIGMA),
+           lambda *x: rnnt_loss_multiblank_fused_joint(*x, *lens, MB_DURATIONS,
+                                                      sigma=VARIANT_SIGMA),
+           ("joint_prep", "joint_grad", "window_stream"), FUSED_GRAD_REL[torch.float32], none)
+    del e, p, W, bias, Wd, bias_d
+    tag, _, T, L, V, H, S_range = PRUNED_FUSED_SHAPE
+    B = PRUNED_FUSED_CUT_B
+    e, p, W, bias, labels, il, ll = make_joint_problem(B, T, L, V, H, seed=35, dev=dev)
+    g = torch.Generator(device=dev).manual_seed(36)
+    with torch.no_grad():
+        _, ranges = rnnt_loss_simple(torch.randn((B, T, V), generator=g, device=dev),
+                                     torch.randn((B, L + 1, V), generator=g, device=dev),
+                                     labels, il, ll, prune_range=S_range)
+    lens = (ranges, labels, il, ll)
+
+    @contextlib.contextmanager
+    def route(mb):
+        old = pruned_fused._MATERIALIZE_MB
+        pruned_fused._MATERIALIZE_MB = mb
+        try:
+            yield
+        finally:
+            pruned_fused._MATERIALIZE_MB = old
+
+    for name, mb, must in (("sweep", 0, ("band_stream",)),
+                           ("materialised", 1 << 20, ("band_prep", "band_stream", "band_grad"))):
+        yield (f"data_parallel_pruned_fused_loss {tag} B={B} {name}", [e, p, W, bias],
+               lambda m, *x: S.data_parallel_pruned_fused_loss(*x, *lens, S_range, m),
+               lambda *x: rnnt_loss_pruned_fused(*x, *lens, S_range), must,
+               FUSED_GRAD_REL[torch.float32], functools.partial(route, mb))
+
+
+def same_or_close(name, got, want, again, rel_tol):
+    """Bit for bit where two local calls (``want``, ``again``) are; else,
+    where a kernel adds with atomics (K6b's de and dp), within ``rel_tol``
+    by relative norm. Returns whether it was held bit for bit."""
+    if torch.equal(want, again):
+        fail_unless(torch.equal(got, want), f"{name}: the wrapper is not bit-equal to the local "
+                    f"call (relative norm error {rel_norm(got, want):.3e})")
+        return True
+    rel, noise = rel_norm(got, want), rel_norm(again, want)
+    print(f"{name}: two local calls differ by {noise:.3e} (atomics); the wrapper by {rel:.3e} "
+          f"(tol {rel_tol:g})")
+    fail_unless(rel <= rel_tol, f"{name}: the wrapper differs from the local call")
+    return False
+
+
+def event_readings(fn, n=PARALLEL_READINGS):
+    """``n`` CUDA-event readings of one call each, after a warm-up call, ms."""
+    fn()
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def collectives_ms(mesh, dev, loss_dtype, replicated, iters=10):
+    """The wrapper's communication alone, on ``mesh``'s data axis: the batch
+    check (an all_reduce of two integers and a host sync; CUDA events) and
+    the all_reduces of the total and of each replicated gradient (CUDA
+    events, and the device time of what the profiler records for them,
+    kernels or copies, with their names; None where it records nothing)."""
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    group = mesh.get_group(S.DATA_AXIS)
+    bufs = [torch.zeros((), dtype=loss_dtype, device=dev)] + [torch.zeros_like(x)
+                                                              for x in replicated]
+
+    def all_reduces():
+        for b in bufs:
+            torch.distributed.all_reduce(b, group=group)
+
+    out = {"batch_check_event_ms": time_ms(lambda: S._axis_group(mesh, S.DATA_AXIS, "mean", 1,
+                                                                 dev), iters),
+           "all_reduce_event_ms": time_ms(all_reduces, iters), "all_reduces": len(bufs)}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            all_reduces()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    out["all_reduce_device_ms"] = (sum(e.self_device_time_total for e in rows) / 1e3 / iters
+                                   if rows else None)
+    out["all_reduce_records"] = sorted({e.key[:60] for e in rows})
+    return out
+
+
+# About 10 ms of device work at 1.98 GHz, queued ahead of a call whose host
+# time is read: a call that waits for the device takes about that long.
+PARALLEL_SLEEP_CYCLES = 20_000_000
+
+
+def host_ms_behind(fn):
+    """Host ms of ``fn()`` issued behind PARALLEL_SLEEP_CYCLES of queued
+    device work (``torch.cuda._sleep``)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(PARALLEL_SLEEP_CYCLES)
+    started = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - started) * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+@contextlib.contextmanager
+def without_batch_check(mesh):
+    """The wrappers with their batch check (an all_reduce and a host sync)
+    taken out: ``_axis_group`` hands back the axis's group as it is."""
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    real_check, group = S._axis_group, mesh.get_group(S.DATA_AXIS)
+    S._axis_group = lambda *args: group
+    try:
+        yield
+    finally:
+        S._axis_group = real_check
+
+
+def blocking_probe(mesh, dev, wrapper, local, leaves):
+    """Which part of a wrapper's call waits for the device: the host ms of
+    the local step, the wrapper's step with and without its batch check, and
+    a bare all_reduce, each behind the queued sleep (its own ms beside)."""
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    group = mesh.get_group(S.DATA_AXIS)
+    buf = torch.zeros((), device=dev)
+    out = {"sleep_ms": time_ms(lambda: torch.cuda._sleep(PARALLEL_SLEEP_CYCLES), 3, 1),
+           "local_step": host_ms_behind(lambda: grad_step(local, leaves)),
+           "wrapper_step": host_ms_behind(lambda: grad_step(lambda *x: wrapper(mesh, *x),
+                                                            leaves)),
+           "all_reduce": host_ms_behind(lambda: torch.distributed.all_reduce(buf, group=group))}
+    with without_batch_check(mesh):
+        out["wrapper_step_without_check"] = host_ms_behind(
+            lambda: grad_step(lambda *x: wrapper(mesh, *x), leaves))
+    return out
+
+
+def parallel_nccl(dev, totals):
+    """Every wrapper at full width on an NCCL group of this process alone:
+    under the launch counters, held against the local call (bit for bit
+    where that is reproducible), again with the batch check taken out under
+    set_sync_debug_mode("error"), and timed beside the local call."""
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    mesh = S.make_mesh()
+    fail_unless(torch.distributed.get_backend() == "nccl" and mesh.shape == (1,)
+                and mesh.device_type == "cuda", "make_mesh() did not build an NCCL mesh on the card")
+    out = {}
+    for name, leaves, wrapper, local, must, rel_tol, route in parallel_cases(dev):
+        with route():
+            want, again = grad_step(local, leaves), grad_step(local, leaves)
+            K.reset_launches()
+            got = grad_step(lambda *x: wrapper(mesh, *x), leaves)
+            torch.cuda.synchronize()
+            counts = dict(K.launches)
+            print(f"main path parallel {name}: launches {counts}")
+            for k in must:
+                fail_unless(counts[k] > 0, f"{k} kernel was not launched by {name}")
+            for k, n in counts.items():
+                totals[k] += n
+            with without_batch_check(mesh):
+                torch.cuda.set_sync_debug_mode("error")  # any host sync after the check raises
+                try:
+                    unchecked = grad_step(lambda *x: wrapper(mesh, *x), leaves)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            loss_dtype = want[0].dtype
+            exact = []
+            for run in (got, unchecked):
+                exact.append(same_or_close(f"{name} loss", run[0], want[0], again[0], rel_tol))
+                exact += [same_or_close(f"{name} grad {i}", g, w, a, rel_tol)
+                          for i, (g, w, a) in enumerate(zip(run[1], want[1], again[1]))]
+            del got, unchecked, want, again
+            readings = {"local": [], "wrapper": []}
+            for who in ("local", "wrapper", "wrapper", "local"):
+                fn = local if who == "local" else (lambda *x: wrapper(mesh, *x))
+                readings[who] += event_readings(lambda: grad_step(fn, leaves))
+            comm = collectives_ms(mesh, dev, loss_dtype, [x for x in leaves if x.dim() < 3])
+            comm["host_ms_behind_sleep"] = blocking_probe(mesh, dev, wrapper, local, leaves)
+        ms = {who: statistics.median(r) for who, r in readings.items()}
+        print(f"time parallel {name}: wrapper {ms['wrapper']:.4f} ms | local {ms['local']:.4f} ms "
+              f"(median of {len(readings['local'])} CUDA-event readings, forward and backward) | "
+              f"batch check {comm['batch_check_event_ms']:.4f} ms (events) | "
+              f"{comm['all_reduces']} all_reduces {comm['all_reduce_event_ms']:.4f} ms (events), "
+              f"device {comm['all_reduce_device_ms']} ms (profiler: {comm['all_reduce_records']}) "
+              f"| bit-equal {sum(exact)} of {len(exact)} outputs | host ms behind a queued "
+              f"sleep: {comm['host_ms_behind_sleep']}")
+        out[name] = {"wrapper_ms": ms["wrapper"], "local_ms": ms["local"],
+                     "readings": readings, **comm, "bit_equal": [sum(exact), len(exact)],
+                     "launches": {k: n for k, n in counts.items() if n}}
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_gloo_problems(dev):
+    """The two gloo cases' global problems, from seeds: (name, leaves,
+    labels and lengths, wrapper's name, local call)."""
+    from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_fused_joint
+    tag, B, T, L, V = SHAPES[0]
+    acts, labels, il, ll = make_problem(B, T, L, V, seed=PARALLEL_GLOO_SEEDS["rnnt"], dev=dev)
+    yield f"rnnt {tag}", [acts], (labels, il, ll), "data_parallel_rnnt_loss", rnnt_loss
+    tag, B, T, L, V, H = FUSED_SHAPE
+    e, p, W, bias, labels, il, ll = make_joint_problem(
+        B, T, L, V, H, seed=PARALLEL_GLOO_SEEDS["fused"], dev=dev, dtype=torch.bfloat16)
+    yield (f"fused {tag} bf16", [e, p, W, bias], (labels, il, ll),
+           "data_parallel_fused_joint_loss", rnnt_loss_fused_joint)
+
+
+def parallel_worker(rank, store, out_dir):
+    """One of the gloo ranks: its half of each problem through the wrapper
+    ("mean"), the loss and the gradients saved for the parent."""
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    torch.cuda.set_device(0)
+    S.initialize_distributed(backend="gloo", init_method=f"file://{store}",
+                             world_size=PARALLEL_RANKS, rank=rank)
+    try:
+        mesh = S.make_mesh()
+        dev = torch.device("cuda", 0)
+        results = {}
+        for name, leaves, lens, wrapper, _ in parallel_gloo_problems(dev):
+            b = leaves[0].shape[0] // PARALLEL_RANKS
+            rows = slice(rank * b, (rank + 1) * b)
+            shard = [x if x.dim() < 3 else x[rows] for x in leaves]  # W and bias whole
+            fn = getattr(S, wrapper)
+            loss, grads = grad_step(lambda *x: fn(*x, *(t[rows] for t in lens), mesh), shard)
+            results[name] = {"loss": loss.cpu(), "grads": [g.cpu() for g in grads]}
+        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parallel_gloo(dev, tmp):
+    """Two gloo ranks on the one card, each a process of this script,
+    against the single-process call: the loss rtol 1e-5 (2^-7, one bf16 ulp,
+    where the costs are bf16); the sharded inputs'
+    gradients at the train phase's relative norm (1e-3; 2e-2 with bf16
+    products); every rank's W and bias gradients at 1e-4 (f32) / 2e-2
+    (bf16), so a world-size factor fails."""
+    script = str(Path(__file__).resolve())
+    procs = []
+    started = time.perf_counter()
+    try:
+        for rank in range(PARALLEL_RANKS):
+            log = open(Path(tmp) / f"worker{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, script, "--parallel-worker", str(rank), str(Path(tmp) / "gloo"),
+                 tmp], stdout=log, stderr=subprocess.STDOUT), log))
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, started + PARALLEL_WORKER_TIMEOUT_S - time.perf_counter()))
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, (proc, _) in enumerate(procs):
+        fail_unless(proc.returncode == 0, f"gloo rank {rank} failed:\n"
+                    + (Path(tmp) / f"worker{rank}.log").read_text()[-4000:])
+    seconds = time.perf_counter() - started
+    ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(PARALLEL_RANKS)]
+    out = {"seconds": seconds}
+    for name, leaves, lens, _, local in parallel_gloo_problems(dev):
+        bf16 = leaves[0].dtype == torch.bfloat16
+        loss, grads = grad_step(lambda *x: local(*x, *lens), leaves)
+        rels = {}
+        for r in ranks:  # bf16 costs: each path rounds its sum to bf16 once or twice
+            compare(f"parallel gloo {name} loss", r[name]["loss"], loss.cpu(),
+                    (2 ** -7, 0.0) if loss.dtype == torch.bfloat16 else "f32")
+        for i, (x, g) in enumerate(zip(leaves, grads)):
+            if x.dim() < 3:  # replicated: every rank holds the whole gradient
+                tol = 2e-2 if bf16 else 1e-4
+                got = [r[name]["grads"][i] for r in ranks]
+            else:
+                tol = 2e-2 if bf16 else 1e-3
+                got = [torch.cat([r[name]["grads"][i] for r in ranks])]
+            rels[i] = max(rel_norm(x_.to(dev), g) for x_ in got)
+            print(f"parallel gloo {name} grad {i}: relative norm error {rels[i]:.3e} (tol {tol:g})")
+            fail_unless(rels[i] <= tol, f"parallel gloo {name}: gradient {i} differs from the "
+                        "single-process call")
+        out[name] = {"grad_rel_norm": rels}
+    print(f"parallel gloo: {PARALLEL_RANKS} ranks on one card, {seconds:.1f} s with their start")
+    return out
+
+
+def parallel_phase(dev, totals):
+    """The data-parallel wrappers: NCCL at world size 1 in this process
+    (``parallel_nccl``), then two gloo ranks on the card (``parallel_gloo``);
+    the process group is destroyed before the phase returns."""
+    import tempfile
+
+    from warp_transducer_tpu_torch.parallel import sharding as S
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(dev)
+        S.initialize_distributed(init_method=f"file://{tmp}/nccl", world_size=1, rank=0)
+        try:
+            out = {"nccl": parallel_nccl(dev, totals)}
+        finally:
+            torch.distributed.destroy_process_group()
+        out["gloo"] = parallel_gloo(dev, tmp)
+    out["seconds"] = time.perf_counter() - started
+    print(f"parallel phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_and_grad, rnnt_score
     from warp_transducer_tpu_torch.ops import cuda as K
     from warp_transducer_tpu_torch.ops import gradients, lattice, prep
@@ -3063,6 +3447,11 @@ def main():
     # at the duration-arc shapes against the plain route and their own paths
     serve = serve_phase(dev, totals)
 
+    # ---- 12. the data-parallel wrappers of parallel/sharding.py: NCCL at
+    # world size 1 at the shapes above, bit-equal to the local calls and
+    # timed beside them; two gloo ranks sharing the card
+    parallel = parallel_phase(dev, totals)
+
     sources = {
         "prep": ("warp_transducer_tpu_torch/csrc/prep.cu",
                  "warp_transducer_tpu/ops/pallas/prep_fused.py:31"),
@@ -3220,6 +3609,7 @@ def main():
     print(json.dumps({"train": {"shape": dict(zip(("B", "T", "L"), TRAIN_SHAPE[1:])),
                                 "steps": train}}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"parallel": parallel}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

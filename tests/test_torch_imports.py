@@ -32,7 +32,7 @@ def test_sources_found():
                    "multiblank_fused", "tdt_fused", "alignment"):
         assert (PKG / "ops" / f"{module}.py") in SOURCES, module
     for module in ("models/transducer", "models/decoding", "utils/convert",
-                   "bindings/torch_binding"):
+                   "bindings/torch_binding", "parallel/sharding"):
         assert (PKG / f"{module}.py") in SOURCES, module
 
 
@@ -227,6 +227,23 @@ def test_decoders_and_alignments_with_jax_blocked():
         "out = W.rnnt_viterbi_align(acts, labels, fl, bn[:, 0])\n"
         "assert tokens.shape == (2, 4) and bs.shape == (2, 2)\n"
         "assert (out.score <= -W.rnnt_score(acts, labels, fl, bn[:, 0]) + 1e-4).all()\n"
+    )
+    _run_with_jax_blocked(code)
+
+
+def test_parallel_with_jax_blocked(tmp_path):
+    code = (
+        "import torch, torch.distributed as dist\n"
+        "import warp_transducer_tpu_torch as W\n"
+        "from warp_transducer_tpu_torch import parallel as P\n"
+        f"P.initialize_distributed(init_method='file://{tmp_path / 'store'}', world_size=1, rank=0)\n"
+        "mesh = P.make_mesh('cpu')\n"
+        "a = torch.randn(2, 4, 3, 5, requires_grad=True)\n"
+        "lab, il, ll = torch.ones(2, 2, dtype=torch.int32), torch.tensor([4, 3]), torch.tensor([2, 1])\n"
+        "c = P.data_parallel_rnnt_loss(a, lab, il, ll, mesh)\n"
+        "c.backward()\n"
+        "assert torch.equal(c, W.rnnt_loss(a, lab, il, ll)) and a.grad.any()\n"
+        "dist.destroy_process_group()\n"
     )
     _run_with_jax_blocked(code)
 

@@ -39,7 +39,11 @@ The PyTorch/CUDA counterpart of ``warp_transducer_tpu``:
 * the inference side: Viterbi forced alignment over the dense, TDT and
   multi-blank lattices (``rnnt_viterbi_align``, ``tdt_viterbi_align``,
   ``multiblank_viterbi_align``), and the greedy and beam-search decoders
-  of ``models.decoding``.
+  of ``models.decoding``;
+* the data-parallel losses of ``parallel`` (``parallel.sharding``): each
+  rank of a ``torch.distributed`` device mesh computes its shard of the
+  batch with the losses above, and one ``all_reduce`` over the mesh axis
+  reduces the costs (and the gradients of a replicated joint's weights).
 
 A CUDA tensor runs the kernels of ``csrc/`` (built with ``nvcc`` on first
 use); a CPU tensor runs their plain PyTorch versions.
@@ -61,7 +65,7 @@ from .ops.tdt import rnnt_loss_tdt
 from .ops.tdt_fused import rnnt_loss_tdt_fused_joint
 from .utils.options import RNNTOptions
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 __all__ = [
     "LatticeResult",
