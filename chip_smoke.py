@@ -2174,20 +2174,10 @@ def check_param_grads(tag, got, want, tol):
 
 def train_phase(dev, totals):
     """Each of the eight train steps of ``models/transducer.py`` on the whole
-    model at TRAIN_SHAPE: one step (forward, loss, backward, Adam) under the
-    launch counters with no host sync allowed, which must launch the kernels
-    TRAIN_STEPS names and call no plain stage; the same step through the
-    plain versions on a twin with the same weights and batch (loss at f32
-    rtol 1e-5, the gradients of the losses' inputs by ``check_loss_inputs``,
-    every parameter's by ``check_param_grads``); then
-    TRAIN_ADAM_STEPS more steps on the same batch, each timed by CUDA events,
-    after which the loss must be lower; the device breakdown (idle share,
-    the port's kernels' share of busy time) and the peak memory of a step.
-    Returns {step: numbers}."""
+    model at TRAIN_SHAPE, through ``train_step_check``. Returns {step:
+    numbers}."""
     from warp_transducer_tpu_torch.models import transducer as tm
-    from warp_transducer_tpu_torch.ops import cuda as K
     from warp_transducer_tpu_torch.ops import tdt_fused
-    tag, B, T, L = TRAIN_SHAPE
     integrated = bool(tdt_fused._tdt_single_chunk(None, None, None))
     results = {}
     for seed, (name, (maker, kw, V, kernels)) in enumerate(TRAIN_STEPS.items(), start=40):
@@ -2195,72 +2185,361 @@ def train_phase(dev, totals):
             kernels = kernels + ("dur_head",)  # the module's rule: the composed route
         cfg = tm.TransducerConfig(vocab_size=V,
                                   tdt_durations=TDT_DURATIONS if "tdt" in name else ())
-        model = tm.Transducer(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
-        twin = tm.Transducer(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
-        n_params = sum(q.numel() for q in model.parameters())
-        batch = make_train_batch(B, T, L, V, seed, dev, cfg.input_dim,
-                                 n_cols=len(TRAIN_BIG_BLANKS) if "multiblank" in name else 0)
-        step = getattr(tm, maker)(model, torch.optim.Adam(model.parameters(), lr=1e-3), **kw)
-        twin_step = getattr(tm, maker)(twin, torch.optim.Adam(twin.parameters(), lr=1e-3),
-                                       implementation="torch", **kw)
-        K.reset_launches()
-        with plain_calls() as calls, loss_inputs() as inputs:
-            torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
-            try:
-                loss = step(batch)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        counts = {k: n for k, n in K.launches.items() if n}
-        print(f"train {name} {tag} B={B} T={T} L={L} V={V} ({n_params} parameters): launches "
-              f"{counts}; plain stages called {len(calls)}")
-        for k in kernels:
-            fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched by the {name} step")
-        fail_unless(not calls, f"the {name} step ran plain stages: {sorted(set(calls))}")
-        for k, n in counts.items():
-            totals[k] += n
-        grads = param_grads(model)
-        K.reset_launches()
-        started = time.perf_counter()
-        with loss_inputs() as twin_inputs:
-            twin_loss = twin_step(batch)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - started
-        fail_unless(not any(K.launches.values()), f"the plain {name} step launched a kernel")
-        compare(f"train {name} loss vs the plain twin", loss, twin_loss, "f32")
-        input_err = check_loss_inputs(f"train {name}", inputs, twin_inputs)
-        grad_err = check_param_grads(f"train {name}", grads, param_grads(twin), TRAIN_BF16_REL)
-        del twin, twin_step, grads, inputs, twin_inputs
-        torch.cuda.empty_cache()
-        # TRAIN_ADAM_STEPS more steps on the same batch, each between two events
-        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                  for _ in range(TRAIN_ADAM_STEPS)]
-        losses = []
-        for start, end in events:
-            start.record()
-            losses.append(step(batch))
-            end.record()
-        torch.cuda.synchronize()
-        step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
-        before, after = float(loss), float(losses[-1])
-        print(f"train {name}: loss {before:.4f} -> {after:.4f} after {TRAIN_ADAM_STEPS} Adam "
-              f"steps (lr 1e-3); step {step_ms:.4f} ms (median of {TRAIN_ADAM_STEPS}, CUDA "
-              f"events); the plain twin's step {plain_s * 1e3:.1f} ms once (host clock)")
-        fail_unless(after < before, f"{name}: {TRAIN_ADAM_STEPS} Adam steps did not lower the loss")
-        prof = device_breakdown(f"train {name} step", lambda: step(batch), step_ms, top=8)
-        mb = peak_mb(lambda: step(batch))
-        print(f"train {name}: peak {mb:.1f} MB above the model, its optimiser state and the batch")
-        results[name] = {
-            "vocab": V, "params": n_params, "launches": counts, "loss_before": before,
-            "loss_after": after, "loss_input_grad_rel_err": input_err,
-            "param_grad_rel_err": grad_err, "step_ms": step_ms,
-            "idle_share": prof and prof[1], "busy_ms": prof and prof[0],
-            "port_kernels_ms": prof and prof[3],
-            "port_share_of_busy": prof and prof[3] / prof[0], "peak_mb": mb,
-            "plain_step_ms_once": plain_s * 1e3}
-        del model, step, batch, losses
-        torch.cuda.empty_cache()
+        results[name] = train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed,
+                                         TRAIN_ADAM_STEPS)
     return results
+
+
+def train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed, adam_steps):
+    """One train step of ``models/transducer.py`` (``maker`` with ``kw``) on
+    the whole model of ``cfg`` at TRAIN_SHAPE: one step (forward, loss,
+    backward, Adam) under the launch counters with no host sync allowed,
+    which must launch ``kernels`` and call no plain stage; the same step
+    through the plain versions on a twin with the same weights and batch
+    (loss at f32 rtol 1e-5, the gradients of the losses' inputs by
+    ``check_loss_inputs``, every parameter's by ``check_param_grads``); then
+    ``adam_steps`` more steps on the same batch, each timed by CUDA events,
+    after which the loss must be lower; the device breakdown (idle share,
+    the port's kernels' share of busy time) and the peak memory of a step.
+    Returns its numbers."""
+    from warp_transducer_tpu_torch.models import transducer as tm
+    from warp_transducer_tpu_torch.ops import cuda as K
+    tag, B, T, L = TRAIN_SHAPE
+    V = cfg.vocab_size
+    model = tm.Transducer(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    twin = tm.Transducer(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    n_params = sum(q.numel() for q in model.parameters())
+    batch = make_train_batch(B, T, L, V, seed, dev, cfg.input_dim,
+                             n_cols=len(TRAIN_BIG_BLANKS) if "multiblank" in name else 0)
+    step = getattr(tm, maker)(model, torch.optim.Adam(model.parameters(), lr=1e-3), **kw)
+    twin_step = getattr(tm, maker)(twin, torch.optim.Adam(twin.parameters(), lr=1e-3),
+                                   implementation="torch", **kw)
+    K.reset_launches()
+    with plain_calls() as calls, loss_inputs() as inputs:
+        torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+        try:
+            loss = step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in K.launches.items() if n}
+    print(f"train {name} {tag} B={B} T={T} L={L} V={V} joint {cfg.joint_dim} ({n_params} "
+          f"parameters): launches {counts}; plain stages called {len(calls)}")
+    for k in kernels:
+        fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched by the {name} step")
+    fail_unless(not calls, f"the {name} step ran plain stages: {sorted(set(calls))}")
+    for k, n in counts.items():
+        totals[k] += n
+    grads = param_grads(model)
+    K.reset_launches()
+    started = time.perf_counter()
+    with loss_inputs() as twin_inputs:
+        twin_loss = twin_step(batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - started
+    fail_unless(not any(K.launches.values()), f"the plain {name} step launched a kernel")
+    compare(f"train {name} loss vs the plain twin", loss, twin_loss, "f32")
+    input_err = check_loss_inputs(f"train {name}", inputs, twin_inputs)
+    grad_err = check_param_grads(f"train {name}", grads, param_grads(twin), TRAIN_BF16_REL)
+    del twin, twin_step, grads, inputs, twin_inputs
+    torch.cuda.empty_cache()
+    # adam_steps more steps on the same batch, each between two events
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(adam_steps)]
+    losses = []
+    for start, end in events:
+        start.record()
+        losses.append(step(batch))
+        end.record()
+    torch.cuda.synchronize()
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    before, after = float(loss), float(losses[-1])
+    print(f"train {name}: loss {before:.4f} -> {after:.4f} after {adam_steps} Adam "
+          f"steps (lr 1e-3); step {step_ms:.4f} ms (median of {adam_steps}, CUDA "
+          f"events); the plain twin's step {plain_s * 1e3:.1f} ms once (host clock)")
+    fail_unless(after < before, f"{name}: {adam_steps} Adam steps did not lower the loss")
+    prof = device_breakdown(f"train {name} step", lambda: step(batch), step_ms, top=8)
+    mb = peak_mb(lambda: step(batch))
+    print(f"train {name}: peak {mb:.1f} MB above the model, its optimiser state and the batch")
+    out = {
+        "vocab": V, "joint_dim": cfg.joint_dim, "params": n_params, "launches": counts,
+        "loss_before": before, "loss_after": after, "loss_input_grad_rel_err": input_err,
+        "param_grad_rel_err": grad_err, "step_ms": step_ms,
+        "idle_share": prof and prof[1], "busy_ms": prof and prof[0],
+        "port_kernels_ms": prof and prof[3],
+        "port_share_of_busy": prof and prof[3] / prof[0], "peak_mb": mb,
+        "plain_step_ms_once": plain_s * 1e3}
+    del model, step, batch, losses
+    torch.cuda.empty_cache()
+    return out
+
+
+# The fused shape at joint width 2048: above the widest configuration of the
+# JAX package's own (H = 1024, README.md's large-vocabulary shape), where the
+# fused joint kernels stream W in k-slices of 256 rows and take dh and dW in
+# passes of 1024 columns (csrc/joint.cuh, the plan). The train step runs the
+# whole model of TransducerConfig(vocab_size=5000, joint_dim=2048), bf16.
+WIDE_SHAPE = ("wide", 64, 150, 20, 5000, 2048)
+WIDE_TRAIN_CFG = dict(vocab_size=5000, joint_dim=2048)
+WIDE_ADAM_STEPS = 3
+
+
+def wide_kernels_vs_plain(dev, errs):
+    """At WIDE_SHAPE, f32 and bf16: joint_prep with K = 2 big-blank columns
+    and the D = 4 duration head against its plain version; joint_grad with
+    neither hook, with the K = 2 fields and with the duration head, each
+    against its plain version, dW, db and dWd bit-equal over two calls; in
+    f32 the standalone duration-head pair against theirs."""
+    from warp_transducer_tpu_torch.ops import fused_joint
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    tag, B, T, L, V, H = WIDE_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"{tag} {'f32' if dtype == torch.float32 else 'bf16'}"
+        problem = make_joint_problem(B, T, L, V, H, seed=27, dev=dev, dtype=dtype, n_cols=2)
+        e, p, W, bias, labels, il, ll = problem
+        Wd, bias_d = make_dur_head(H, seed=28, dev=dev)
+        denom, cols, mb, td = variant_fields(problem, 0, Wd, bias_d)
+        hooks = dict(extra_cols=cols, dur_head=(Wd, bias_d))
+        p_k = kjoint.fused_prep(e, p, W, bias, labels, il, ll, 0, **hooks)
+        torch.cuda.synchronize()
+        p_p = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, 0, **hooks)
+        err = max(compare(f"joint_prep {name} K=2 D=4 {f}", getattr(p_k, f), getattr(p_p, f),
+                          FUSED_PREP_TOL[dtype]) for f in ("lpb", "lpe", "denom", "extras"))
+        err_d = compare(f"joint_prep {name} dlog", p_k.dur, p_p.dur, "f32")
+        if dtype == torch.float32:
+            errs["joint_prep"] = max(errs["joint_prep"], err, err_d)
+        del p_k, p_p
+        for hook, fields, kw in (("K=0", mb[0], {}), ("K=2", mb[0], {"extra": (cols, mb[1])}),
+                                 ("D=4", td[0], {"dur_head": (Wd, td[1])})):
+            args = (e, p, W, bias, labels, il, ll, denom, fields, 0)
+            g_k = kjoint.fused_grad(*args, **kw)
+            again = kjoint.fused_grad(*args, **kw)
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, b)) for a, b in zip(g_k[2:], again[2:])]
+            print(f"determinism joint_grad {name} {hook}: two calls give bit-equal dW, db"
+                  f"{', dWd' if len(same) == 3 else ''} {same}")
+            fail_unless(all(same), f"joint_grad {name} {hook}: dW, db or dWd differs")
+            del again
+            check_fused_grads(f"joint_grad {name} {hook}", g_k,
+                              fused_joint.fused_grad(*args, **kw), dtype, errs)
+            del g_k
+            torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            g_dur = td[1]
+            got = kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll)
+            torch.cuda.synchronize()
+            errs["dur_head"] = max(errs["dur_head"], compare(
+                f"dur_head_prep {name}", got,
+                fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), "f32"))
+            got = kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll)
+            again = kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll)
+            torch.cuda.synchronize()
+            fail_unless(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                        f"dur_head_grad {name}: two calls differ")
+            check_fused_grads(f"dur_head_grad {name}", got,
+                              fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll), dtype, errs)
+        del problem, denom, mb, td
+        torch.cuda.empty_cache()
+
+
+def wide_main_path(dev, totals):
+    """``Joint.fused_loss``, ``Joint.multiblank_fused_loss`` (K = 2) and
+    ``Joint.tdt_fused_loss`` on both routes (D = 4) at WIDE_SHAPE, f32 and
+    bf16, each under the launch counters with no host sync allowed, held
+    against implementation="torch" (costs rtol 1e-5, gradients 1e-3 in f32
+    and FUSED_GRAD_REL in bf16). Returns {dtype: the fused step's functions}
+    for the timings."""
+    from warp_transducer_tpu_torch import rnnt_loss
+    from warp_transducer_tpu_torch.ops import cuda as K
+    tag, B, T, L, V, H = WIDE_SHAPE
+    steps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        name = f"{tag} {'f32' if f32 else 'bf16'}"
+        joint = make_joint_module(V, H, seed=29, dev=dev, dtype=dtype, durations=TDT_DURATIONS)
+        enc, pred, labels, il, ll = make_model_problem(B, T, L, V, seed=30, dev=dev,
+                                                       cfg=joint.cfg, n_cols=2)
+
+        def loss_step(method, implementation="auto", joint=joint, enc=enc, pred=pred,
+                      labels=labels, il=il, ll=ll, **kw):
+            return joint_step(joint, lambda a, b: getattr(joint, method)(
+                a, b, labels, il, ll, reduction="sum", implementation=implementation, **kw),
+                enc, pred)
+
+        cases = [("fused", "fused_loss", {}, None,
+                  ("joint_prep", "wavefront", "joint_grad")),
+                 ("multiblank_fused", "multiblank_fused_loss",
+                  dict(big_blank_durations=MB_DURATIONS, sigma=VARIANT_SIGMA), None,
+                  ("joint_prep", "window_stream", "joint_grad")),
+                 ("tdt_fused integrated", "tdt_fused_loss", dict(sigma=VARIANT_SIGMA), True,
+                  ("joint_prep", "window_stream", "joint_grad")),
+                 ("tdt_fused composed", "tdt_fused_loss", dict(sigma=VARIANT_SIGMA), False,
+                  ("joint_prep", "window_stream", "joint_grad", "dur_head"))]
+        for case, method, kw, integrated, kernels in cases:
+            old = set_tdt_route(integrated) if integrated is not None else None
+            try:
+                K.reset_launches()
+                torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+                got = loss_step(method, **kw)
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                counts = dict(K.launches)
+                print(f"main path {case} {name} B={B} T={T} L={L} V={V} H={H}: launches "
+                      f"{counts}")
+                for k in kernels:
+                    fail_unless(counts[k] > 0, f"{k} kernel was not launched on the {case} "
+                                f"path at H={H}")
+                for k, n in counts.items():
+                    totals[k] += n
+                got = (got[0], {n: g.clone() for n, g in got[1].items() if g is not None})
+                want = loss_step(method, "torch", **kw)
+                want = (want[0], {n: g for n, g in want[1].items() if g is not None})
+                check_step(f"{case} {name}", got, want, "the plain path",
+                           1e-3 if f32 else FUSED_GRAD_REL[dtype])
+            finally:
+                if old is not None:
+                    from warp_transducer_tpu_torch.ops import tdt_fused
+                    tdt_fused._tdt_single_chunk = old
+            del got, want
+            torch.cuda.empty_cache()
+        steps[dtype] = (lambda f=loss_step: f("fused_loss"),
+                        lambda f=loss_step: f("fused_loss", "torch"),
+                        lambda joint=joint, enc=enc, pred=pred, labels=labels, il=il, ll=ll:
+                        joint_step(joint, lambda a, b: rnnt_loss(
+                            joint(a, b), labels, il, ll, blank=joint.cfg.blank, reduction="sum"),
+                            enc, pred))
+    return steps
+
+
+def wide_timings(dev, steps):
+    """At WIDE_SHAPE, f32 and bf16: the fused step beside the plain route
+    and the unfused composition (ms, peak MB), and the kernels: K6a, K6b (a
+    launch of its row and its column kernel apart), the dWd kernel, K6c and
+    K6d, each beside its plain version, the library's products and its
+    bound, with the registers ptxas gave them and the plan's shared memory.
+    Returns ({kernel: {case: timing}}, {step: (ms, MB)})."""
+    from warp_transducer_tpu_torch.ops import fused_joint
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    tag, B, T, L, V, H = WIDE_SHAPE
+    U = L + 1
+    step_out = {}
+    for dtype, (fused, plain, unfused) in steps.items():
+        suffix = "f32" if dtype == torch.float32 else "bf16"
+        for name, fn in (("fused", fused), ("plain", plain), ("unfused", unfused)):
+            ms = time_ms(fn, 1, 1)
+            step_out[f"{name}_{suffix}"] = (ms, peak_mb(fn))
+            print(f"time {tag} B={B} T={T} L={L} V={V} H={H} {suffix}: {name} step {ms:.4f} ms, "
+                  f"peak {step_out[f'{name}_{suffix}'][1]:.1f} MB")
+        torch.cuda.empty_cache()
+    out = {"joint_prep": {}, "joint_grad": {}, "dur_head": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        suffix = "f32" if dtype == torch.float32 else "bf16"
+        case = f"{tag}_{suffix}"
+        problem = make_joint_problem(B, T, L, V, H, seed=7, dev=dev, dtype=dtype)
+        e, p, W, bias, labels, il, ll = problem
+        pr, fields = joint_fields(problem, 0)
+        rows = int((il.long() * (ll.long() + 1)).sum())
+        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias)) + B * L * 4 + 2 * B * 4
+        small = B * T * U * 4
+        prep_args = (e, p, W, bias, labels, il, ll, 0)
+        grad_args = (e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
+        prep_k = lambda: kjoint.fused_prep(*prep_args)  # noqa: E731
+        grad_k = lambda: kjoint.fused_grad(*grad_args)  # noqa: E731
+        regs = kjoint.kernel_registers(H, dtype)
+        plan = kjoint.kernel_plan(H, dtype)
+        h = torch.tanh(e.float()[:, :, None] + p.float()[:, None]).reshape(-1, H).to(dtype)
+        out["joint_prep"][case] = dict(
+            ms=launch_device_ms(prep_k, 3, ("joint_prep_kernel",)) or time_ms(prep_k, 3, 1),
+            event_ms=time_ms(prep_k, 3, 1),
+            plain_ms=time_ms(lambda: fused_joint.fused_prep(*prep_args), 1, 1),
+            library_ms=time_ms(lambda: torch.matmul(h, W), 3),
+            bound=bound(in_bytes + 3 * small, 2 * rows * H * V, rate),
+            registers={"joint_prep_kernel": regs["joint_prep_kernel"]},
+            smem=plan.prep_smem, plan=plan._asdict())
+        g = torch.randn((h.shape[0], V), device=dev).to(dtype)
+        launches = kernel_ms(grad_k, 2)
+        out["joint_grad"][case] = dict(
+            ms=time_ms(grad_k, 2, 1),
+            plain_ms=time_ms(lambda: fused_joint.fused_grad(*grad_args), 1, 1),
+            library_ms=time_ms(lambda: (torch.matmul(h, W), torch.matmul(g, W.t()),
+                                        torch.matmul(h.t(), g)), 2),
+            bound=bound(2 * in_bytes + 4 * small, 3 * 2 * rows * H * V, rate),
+            launch_ms=launches,
+            registers={k: regs[k] for k in ("joint_grad_rows_kernel", "joint_grad_cols_kernel")},
+            smem={"rows": plan.rows_smem, "cols": plan.cols_smem})
+        del g, h
+        torch.cuda.empty_cache()
+        if dtype == torch.float32:  # the duration head: Wd, g_dur in f32 whatever W's type
+            Wd, bias_d = make_dur_head(H, seed=16, dev=dev)
+            valid = ((torch.arange(T, device=dev)[None, :, None] < il[:, None, None])
+                     & (torch.arange(U, device=dev)[None, None, :] <= ll[:, None, None]))
+            g_dur = (torch.randn((B, T, U, len(TDT_DURATIONS)), device=dev)
+                     * valid[..., None]).contiguous()
+            D = Wd.shape[1]
+            h32 = torch.tanh(e[:, :, None] + p[:, None]).reshape(-1, H)
+            gd2 = g_dur.reshape(-1, D)
+            ep_bytes = (e.numel() + p.numel()) * 4
+            prep_d = lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll)  # noqa: E731
+            grad_d = lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll)  # noqa: E731
+            tdt_grad = lambda: kjoint.fused_grad(*grad_args, dur_head=(Wd, g_dur))  # noqa: E731
+            out["dur_head"][f"{case}_prep"] = dict(
+                ms=kernels_alone_ms(prep_d, ("dur_prep_kernel",)) or time_ms(prep_d, 5),
+                event_ms=time_ms(prep_d, 5),
+                plain_ms=time_ms(lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), 1, 1),
+                library_ms=time_ms(lambda: torch.matmul(h32, Wd), 5),
+                bound=tanh_bound(ep_bytes + rows * D * 4 + 2 * B * 4, rows * H, 1 + D))
+            out["dur_head"][f"{case}_grad"] = dict(
+                ms=kernels_alone_ms(grad_d, ("dur_grad_kernel", "dur_sums_kernel"))
+                or time_ms(grad_d, 5),
+                event_ms=time_ms(grad_d, 5),
+                plain_ms=time_ms(lambda: fused_joint.dur_head_grad(e, p, Wd, g_dur, il, ll), 1, 1),
+                library_ms=time_ms(lambda: (torch.matmul(gd2, Wd.t()),
+                                            torch.matmul(h32.t(), gd2)), 5),
+                bound=tanh_bound(2 * ep_bytes + 2 * Wd.numel() * 4 + rows * D * 4 + 2 * B * 4,
+                                 rows * H, 5 + 2 * D))
+            # The dWd kernel inside K6b with the duration head: its R·H tanh
+            # and the 2·R·H·D FMAs of hᵀ·g_dur.
+            out["dur_head"][f"{case}_dwd"] = dict(
+                ms=launch_device_ms(tdt_grad, 2, ("joint_grad_dwd_kernel",)),
+                plain_ms=time_ms(lambda: torch.matmul(
+                    torch.tanh(e[:, :, None] + p[:, None]).reshape(-1, H).t(), gd2), 2, 1),
+                library_ms=time_ms(lambda: torch.matmul(h32.t(), gd2), 5),
+                bound=tanh_bound(ep_bytes + rows * D * 4 + H * D * 4, rows * H, 2 * D))
+            del h32, gd2, g_dur, valid
+        print(f"time {case}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U); plan {plan}")
+        for k in out:
+            for key, v in out[k].items():
+                if not key.startswith(case):
+                    continue
+                print(f"time {key} {k}: {v['ms']} ms | plain {v['plain_ms']:.4f} ms | bound "
+                      f"{v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {v['library_ms']:.4f} ms"
+                      + (f" | registers {v['registers']}" if "registers" in v else "")
+                      + (f" | device ms a launch {v['launch_ms'] or 'not measured'}"
+                         if "launch_ms" in v else ""))
+        del pr, fields, problem, prep_args, grad_args
+        torch.cuda.empty_cache()
+    return out, step_out
+
+
+def wide_phase(dev, totals, errs):
+    """The fused joint at WIDE_SHAPE: its kernels against their plain
+    versions, its losses under the launch counters against the plain path,
+    the fused train step of TransducerConfig(**WIDE_TRAIN_CFG) against its
+    plain twin over WIDE_ADAM_STEPS Adam steps, the timings. Returns
+    (kernel timings, step timings, the train step's numbers)."""
+    from warp_transducer_tpu_torch.models import transducer as tm
+    started = time.perf_counter()
+    wide_kernels_vs_plain(dev, errs)
+    steps = wide_main_path(dev, totals)
+    kernel_t, step_t = wide_timings(dev, steps)
+    del steps
+    torch.cuda.empty_cache()
+    maker, kw, _, kernels = TRAIN_STEPS["fused"]
+    train = train_step_check(dev, totals, "fused_wide", maker, kw,
+                             tm.TransducerConfig(**WIDE_TRAIN_CFG), kernels, 47, WIDE_ADAM_STEPS)
+    print(f"wide phase: {time.perf_counter() - started:.1f} s")
+    return kernel_t, step_t, train
 
 
 def binding_check(dev, totals):
@@ -3435,6 +3714,12 @@ def main():
     del variant_steps
     torch.cuda.empty_cache()
 
+    # ---- 9b. the fused joint at joint width 2048 (k-slices and passes): its
+    # kernels with and without the hooks against their plain versions, the
+    # four fused losses under the launch counters against the plain path, the
+    # fused train step of the whole model at joint_dim 2048, the timings
+    wide_kernel_ms, wide_step, wide_train = wide_phase(dev, totals, errs)
+
     # ---- 10. the training surface: the eight train steps of the whole model
     # at its own width, each under the launch counters against its plain
     # twin, ten Adam steps, the timings; the binding on CUDA tensors
@@ -3573,7 +3858,16 @@ def main():
                 case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                        "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                        "launch_ms": t.get("launch_ms")}
-                for case, t in variant_kernel_ms[k].items()}})
+                for case, t in variant_kernel_ms[k].items()} | {
+                # at joint width 2048: the k-slices and the passes
+                case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                       "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                       "registers": t["registers"], "smem": t["smem"],
+                       "launch_ms": t.get("launch_ms"),
+                       **{f"{name}_{what}": wide_step[f"{name}_{case.rsplit('_', 1)[1]}"][i]
+                          for name in ("fused", "plain", "unfused")
+                          for i, what in enumerate(("step_ms", "peak_mb"))}}
+                for case, t in wide_kernel_ms[k].items()}})
     head = duration_kernel_ms["window_stream"]["multiblank_headline"]
     kernels.append({
         "name": "window_stream", "route": "cuda",
@@ -3598,7 +3892,9 @@ def main():
         "by_shape": {case: timing(t) | {"bound_term": t["bound"][2],
                                         "library_device_ms": t["library_device_ms"],
                                         "library_graph_ms": t["library_graph_ms"]}
-                     for case, t in variant_kernel_ms["dur_head"].items()}})
+                     for case, t in variant_kernel_ms["dur_head"].items()} | {
+                         case: timing(t) | {"bound_term": t["bound"][2]}
+                         for case, t in wide_kernel_ms["dur_head"].items()}})
     print(json.dumps({"fused_duration_arc": {
         "steps": {name: {"ms": ms, "peak_mb": mb} for name, (ms, mb) in variant_step.items()},
         "tdt_routes_ms": variant_routes}}))
@@ -3608,6 +3904,10 @@ def main():
         "cut_materialised_step_ms": min(route_ms["materialised"])}}))
     print(json.dumps({"train": {"shape": dict(zip(("B", "T", "L"), TRAIN_SHAPE[1:])),
                                 "steps": train}}))
+    print(json.dumps({"wide": {"shape": dict(zip(("B", "T", "L", "V", "H"), WIDE_SHAPE[1:])),
+                               "steps": {name: {"ms": ms, "peak_mb": mb}
+                                         for name, (ms, mb) in wide_step.items()},
+                               "train_step": wide_train}}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"parallel": parallel}))
     print(smi)

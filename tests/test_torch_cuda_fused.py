@@ -58,14 +58,20 @@ def _rel(got, want):
 
 
 # The tile edges of the tensor-core kernels: row tiles of 16·TM (TM = 4, 2, 1
-# for H <= 256, 512, 1024) that the valid rows do not fill, V tiles of 64 (or
+# for H <= 256, 512, above) that the valid rows do not fill, V tiles of 64 (or
 # 16·TM with f32 W) and 8-column mma tiles that V does not fill, H padded to
 # a multiple of 128; V a multiple of 8 (W's rows 16-byte aligned: the
-# cp.async ring) or not (plain loads).
+# cp.async ring) or not (plain loads). Above H = 1024 the k-slices of 256
+# rows and the passes of 1024 columns: 1100 and 2000 (no slice or pass
+# divides them), 1280, 2048 (the wide phase's width), 4096 (f32: the h tile
+# in slices too) and 6000 (bf16 as well).
 SHAPES = [(3, 37, 9, 1003, 200, 1002), (2, 5, 3, 7, 8, 0), (2, 9, 70, 40, 16, 3),
           (2, 6, 4, 130, 300, 129), (1, 5, 3, 20, 600, 0), (2, 7, 5, 67, 520, 66),
-          (1, 3, 5, 61, 1024, 0), (3, 11, 3, 72, 64, 71), (2, 13, 6, 200, 256, 5)]
-IDS = ["awkward", "tiny", "long_labels", "H300", "H600", "H520", "H1024", "V72", "V200_H256"]
+          (1, 3, 5, 61, 1024, 0), (3, 11, 3, 72, 64, 71), (2, 13, 6, 200, 256, 5),
+          (2, 5, 3, 130, 1100, 129), (1, 4, 3, 61, 1280, 0), (2, 5, 4, 200, 2000, 5),
+          (2, 7, 5, 300, 2048, 0), (1, 3, 3, 72, 4096, 71), (1, 3, 3, 40, 6000, 0)]
+IDS = ["awkward", "tiny", "long_labels", "H300", "H600", "H520", "H1024", "V72", "V200_H256",
+       "H1100", "H1280", "H2000", "H2048", "H4096", "H6000"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -226,12 +232,30 @@ def test_dW_db_bit_equal_across_calls(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_joint_grad_chunk_by_chunk(dev, dtype, monkeypatch):
+@pytest.mark.parametrize("H", [256, 2048])
+def test_dW_db_bit_equal_across_calls_at_any_h(dev, H, dtype):
+    """The same at the fused shape's width and above 1024, where the column
+    kernel's blocks own passes of dW and the first pass's db."""
+    B, T, U, V, blank = 3, 9, 5, 300, 0
+    e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=11, dtype=dtype, device=dev)
+    pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, blank)
+    res = lattice.forward_backward(pr.lpb, pr.lpe, il, ll)
+    fields = gradients.coefficients(pr.lpb, pr.lpe, res.alphas, res.betas, res.ll_forward, il, ll)
+    runs = [kjoint.fused_grad(e, p, W, bias, labels, il, ll, pr.denom, fields, blank)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][2], runs[1][2]) and torch.equal(runs[0][3], runs[1][3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [200, 1100])
+def test_joint_grad_chunk_by_chunk(dev, H, dtype, monkeypatch):
     """The gradient runs a chunk of rows at a time (the row kernel writes the
     chunk's h, the column kernel adds the chunk into its partial slices).
     With the chunk cut to one row tile, many chunks give what one chunk
-    gives, within the kernels' tolerance of the plain version."""
-    B, T, U, V, H, blank = 3, 19, 6, 300, 200, 0
+    gives, within the kernels' tolerance of the plain version; also above
+    1024, where each chunk's kernels take dh and dW in passes."""
+    B, T, U, V, blank = 3, 19, 6, 300, 0
     e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=10, dtype=dtype, device=dev)
     pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, blank)
     res = lattice.forward_backward(pr.lpb, pr.lpe, il, ll)
@@ -244,7 +268,7 @@ def test_joint_grad_chunk_by_chunk(dev, dtype, monkeypatch):
     K.reset_launches()
     chunked = kjoint.fused_grad(*args)
     torch.cuda.synchronize()
-    assert K.launches["joint_grad"] == 2 * -(-(B * T * U) // 64)
+    assert K.launches["joint_grad"] == 2 * -(-(B * T * U) // (16 * kjoint.tile_param(H)))
     want = fused_joint.fused_grad(*args)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, a, b, w in zip(("de", "dp", "dW", "db"), chunked, whole, want):
@@ -316,23 +340,56 @@ def test_wrapper_refusals(dev):
         kjoint.fused_prep(e.double(), p, W, bias, labels, il, ll, 0)
     with pytest.raises(ValueError, match="blank"):
         kjoint.fused_prep(e, p, W, bias, labels, il, ll, 7)
+    # Above H = 1024 the kernels compute (they refused there before the
+    # k-slices and passes), and agree with the plain versions.
     big = _problem(1, 2, 2, 4, 1100, device=dev)
-    with pytest.raises(ValueError, match="H=1100 exceeds"):
-        kjoint.fused_prep(*big, 0)
+    got = kjoint.fused_prep(*big, 0)
     pr = fused_joint.fused_prep(*big, 0)
+    for name in ("lpb", "lpe", "denom"):
+        torch.testing.assert_close(getattr(got, name), getattr(pr, name), **F32)
     fields = gradients.Coefficients(pr.lpb, pr.lpb, pr.lpb)
-    with pytest.raises(ValueError, match="H=1100 exceeds"):
-        kjoint.fused_grad(*big, pr.denom, fields, 0)
+    g_k = kjoint.fused_grad(*big, pr.denom, fields, 0)
+    g_p = fused_joint.fused_grad(*big, pr.denom, fields, 0)
+    for name, g, w in zip(("de", "dp", "dW", "db"), g_k, g_p):
+        assert _rel(g, w) <= 1e-4, (name, _rel(g, w))
 
 
-def test_fused_loss_names_the_h_limit(dev):
-    """Above H = 1024 the fused joint kernels refuse, and the error names the
-    limit; the plain version computes."""
-    e, p, W, bias, labels, il, ll = _problem(2, 4, 3, 16, 1280, device=dev)
-    with pytest.raises(ValueError, match="limit of 1024"):
-        rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll)
-    loss = rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll, implementation="torch")
-    assert bool(torch.isfinite(loss))
+@pytest.mark.parametrize("H", [1100, 1280])
+def test_fused_loss_above_1024(dev, H):
+    """Above H = 1024 the fused loss runs its kernels under "auto" (it
+    raised there before) and matches the plain version."""
+    e, p, W, bias, labels, il, ll = _problem(2, 4, 3, 16, H, device=dev)
+    K.reset_launches()
+    costs, grads = _fused_step(e, p, W, bias, labels, il, ll)
+    torch.cuda.synchronize()
+    assert K.launches["joint_prep"] == 1 and K.launches["joint_grad"] == 2
+    ref_costs, ref_grads = _fused_step(e, p, W, bias, labels, il, ll, implementation="torch")
+    torch.testing.assert_close(costs, ref_costs, **F32)
+    for g, w in zip(grads, ref_grads):
+        assert _rel(g, w) <= 1e-4
+
+
+def test_joint_smem_fits_a_block_at_every_h(dev):
+    """Each kernel's dynamic shared memory, as its C entry gives it (the
+    larger of the two W types), is within a block's 227 KB at every H from 1
+    to 8192: the plan slices what does not fit."""
+    entries = ("wtt_joint_prep_smem", "wtt_joint_grad_rows_smem", "wtt_joint_grad_cols_smem",
+               "wtt_joint_grad_dwd_smem")
+    for H in range(1, 8193):
+        for entry in entries:
+            assert 0 < getattr(K.lib(), entry)(H) <= K.SMEM_BYTES, (entry, H)
+
+
+def test_joint_plan_matches_its_mirror(dev):
+    """csrc/joint.cuh plans the kernels (tiles, k-slices, passes, shared
+    memory, the gradient's chunk of rows); ops/cuda/joint.py mirrors the plan
+    for the CPU tests and the wrapper takes its chunk from the mirror."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in range(1, 8193):
+            assert kjoint.kernel_plan(H, dtype) == kjoint.joint_plan(H, dtype), (H, dtype)
+        for H in (1, 256, 1100, 2048, 8192):
+            for mb in (0, 1, 32, 100):
+                assert kjoint.kernel_plan(H, dtype, mb) == kjoint.joint_plan(H, dtype, mb)
 
 
 def test_pruned_band_matches_rnnt_loss_pruned_on_card(dev, monkeypatch):

@@ -23,8 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from warp_transducer_tpu_torch import (rnnt_loss_multiblank, rnnt_loss_multiblank_fused_joint,
-                                       rnnt_loss_tdt, rnnt_loss_tdt_fused_joint)
+from warp_transducer_tpu_torch import (rnnt_loss_fused_joint, rnnt_loss_multiblank,
+                                       rnnt_loss_multiblank_fused_joint, rnnt_loss_tdt,
+                                       rnnt_loss_tdt_fused_joint)
 from warp_transducer_tpu_torch.models import Joint, TransducerConfig
 from warp_transducer_tpu_torch.ops import cuda as K
 from warp_transducer_tpu_torch.ops import fused_joint, gradients, tdt_fused
@@ -83,12 +84,17 @@ def _cols(V, n_cols):
     return tuple(range(V - n_cols, V))
 
 
-# B, T, U, V, H, K, D, with empty utterances
+# B, T, U, V, H, K, D, with empty utterances; above H = 1024 the k-slices
+# and the passes (1100 and 2000: none divides them; 4096: the f32 h tile in
+# slices too), and the dWd kernel's passes of 1024 columns of k.
 CASES = [(3, 37, 9, 1003, 200, 2, 4, False), (2, 5, 3, 5, 8, 1, 1, False),
          (2, 9, 20, 128, 256, 8, 8, False), (2, 6, 4, 128, 512, 2, 4, False),
          (4, 11, 5, 40, 16, 2, 4, True), (1, 5, 3, 20, 600, 1, 8, False),
-         (2, 5, 4, 72, 1024, 2, 4, False)]
-IDS = ["awkward", "tiny", "H256_K8_D8", "H512", "empty_utterances", "H600", "H1024"]
+         (2, 5, 4, 72, 1024, 2, 4, False), (2, 5, 3, 130, 1100, 2, 4, False),
+         (3, 4, 3, 61, 1280, 2, 4, True), (2, 5, 4, 200, 2000, 2, 4, False),
+         (2, 6, 5, 300, 2048, 2, 4, False), (1, 3, 3, 72, 4096, 2, 4, False)]
+IDS = ["awkward", "tiny", "H256_K8_D8", "H512", "empty_utterances", "H600", "H1024", "H1100",
+       "H1280", "H2000", "H2048", "H4096"]
 SHAPES = pytest.mark.parametrize("B,T,U,V,H,n_cols,D,empty", CASES, ids=IDS)
 
 
@@ -231,6 +237,8 @@ DUR_EDGES = {
     "U301": (2, 4, 301, 64, 4, [4, 3], [300, 170]),  # u chunks of 32, prep tiles of 256 labels
     "U301_short": (3, 3, 301, 36, 2, [3, 2, 3], [300, 31, 64]),  # a chunk exactly; an odd last one
     "H1024": (2, 5, 4, 1024, 4, [5, 4], [3, 1]),
+    "H2048": (2, 5, 4, 2048, 4, [5, 4], [3, 1]),
+    "H4096": (1, 3, 3, 4096, 4, [3], [2]),
     "H200": (3, 7, 9, 200, 3, [7, 2, 5], [8, 4, 0]),
     "H33": (2, 6, 5, 33, 5, [6, 4], [4, 2]),  # H neither a multiple of 4 nor of 32
     "D1": (2, 6, 5, 40, 1, [6, 3], [4, 1]),
@@ -291,7 +299,7 @@ def test_dur_head_plan_matches_its_mirror(dev):
     out = (ctypes.c_int * 4)()
     for T in (1, 5, 150, 1500):
         for U in (1, 2, 11, 21, 255, 256, 257, 301, 1000):
-            for H in (1, 32, 33, 200, 256, 1024):
+            for H in (1, 32, 33, 200, 256, 1024, 2048, 4096):
                 lib().wtt_dur_head_plan(T, U, H, out)
                 assert tuple(out) == kjoint.dur_head_plan(T, U, H), (T, U, H)
     assert lib().wtt_dur_head_smem() == kjoint.dur_smem_bytes() <= SMEM_BYTES
@@ -385,6 +393,51 @@ def test_tdt_fused_step_both_routes(dev, kw, monkeypatch):
     torch.testing.assert_close(costs, dense.detach(), **F32)
     for g, x in zip(grads, leaves):
         assert _rel(g, x.grad) <= 1e-4
+
+
+WIDE = [1100, 1280, 2000, 2048, 4096]
+# The losses against their plain versions with e, p, W in the type: costs
+# rtol 1e-5 in f32, 2e-2 in bf16 (the costs come back in bf16); gradients by
+# relative norm, 1e-4 in f32, 2e-2 in bf16.
+COST_TOL = {torch.float32: F32, torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@DTYPES
+@pytest.mark.parametrize("H", WIDE)
+def test_fused_losses_above_1024(dev, H, dtype, monkeypatch):
+    """The fused, multi-blank fused (K = 2) and TDT fused (D = 4, both
+    routes) losses at joint widths above 1024 under "auto": the fused joint
+    kernels with their k-slices and passes, against implementation="torch";
+    dW, db and dWd the same bits on a second call."""
+    B, T, U, V = 2, 9, 4, 150
+    e, p, W, bias, Wd, bias_d, labels, il, ll = _problem(B, T, U, V, H, 2, 4, seed=13,
+                                                         dtype=dtype, device=dev)
+    token = (e, p, W, bias)
+    runs = {
+        "fused": (rnnt_loss_fused_joint, token, (), {},
+                  _counts(joint_prep=1, wavefront=1, joint_grad=2)),
+        "multiblank": (rnnt_loss_multiblank_fused_joint, token, ((2, 4),), {},
+                       _counts(joint_prep=1, window_stream=1, joint_grad=2)),
+        "tdt_integrated": (rnnt_loss_tdt_fused_joint, token + (Wd, bias_d), (),
+                           {"durations": (0, 1, 2, 4)},
+                           _counts(joint_prep=1, window_stream=1, joint_grad=3)),
+        "tdt_composed": (rnnt_loss_tdt_fused_joint, token + (Wd, bias_d), (),
+                         {"durations": (0, 1, 2, 4)},
+                         _counts(joint_prep=1, window_stream=1, joint_grad=2, dur_head=2)),
+    }
+    for name, (fn, leaves, args, kw, launches) in runs.items():
+        monkeypatch.setattr(tdt_fused, "_tdt_single_chunk", lambda *a: name != "tdt_composed")
+        (costs, grads), counts = _counted(lambda: _step(fn, leaves, labels, il, ll, *args, **kw))
+        assert counts == launches, name
+        again = _step(fn, leaves, labels, il, ll, *args, **kw)[1]
+        for i in range(2, len(grads)):  # dW, db (and dWd, dbd): fixed-order sums
+            assert torch.equal(grads[i], again[i]), (name, i)
+        ref_costs, ref_grads = _step(fn, leaves, labels, il, ll, *args, implementation="torch",
+                                     **kw)
+        torch.testing.assert_close(costs.float(), ref_costs.float(), **COST_TOL[dtype])
+        for i, (g, w) in enumerate(zip(grads, ref_grads)):
+            assert torch.isfinite(g.float()).all(), (name, i)
+            assert _rel(g, w) <= GRAD_REL[dtype], (name, i, _rel(g, w))
 
 
 def test_tdt_fused_infeasible_utterance_on_card(dev):

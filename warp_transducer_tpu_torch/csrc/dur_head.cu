@@ -424,10 +424,10 @@ int by_d(int D, A... a) {
     default: return (int)cudaErrorInvalidValue;
   }
 }
-template <int D> struct Prep {
+template <int D> struct PrepByD {
   template <typename... A> static int run(A... a) { return launch_prep<D>(a...); }
 };
-template <int D> struct Grad {
+template <int D> struct GradByD {
   template <typename... A> static int run(A... a) { return launch_grad<D>(a...); }
 };
 
@@ -462,7 +462,7 @@ int wtt_dur_head_prep(const void* e, const void* p, const void* Wd, const void* 
   if ((long long)B * T * U == 0) return 0;
   if (D < 1 || D > kPanel) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
-  return by_d<Prep>(D, static_cast<const float*>(e), static_cast<const float*>(p),
+  return by_d<PrepByD>(D, static_cast<const float*>(e), static_cast<const float*>(p),
                     static_cast<const float*>(Wd), static_cast<const float*>(bias_d), rows,
                     static_cast<float*>(dlog), H, static_cast<cudaStream_t>(stream));
 }
@@ -478,9 +478,9 @@ int wtt_dur_head_grad(const void* e, const void* p, const void* Wd, const void* 
                       void* dWd, void* part, int B, int T, int U, int H, int D,
                       void* stream) {
   if (H == 0) return 0;
-  if (H > kMaxH || D < 1 || D > kPanel) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > kPanel) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
-  return by_d<Grad>(D, static_cast<const float*>(e), static_cast<const float*>(p),
+  return by_d<GradByD>(D, static_cast<const float*>(e), static_cast<const float*>(p),
                     static_cast<const float*>(Wd), static_cast<const float*>(g_dur), rows,
                     static_cast<float*>(de), static_cast<float*>(dp), static_cast<float*>(dWd),
                     static_cast<float*>(part), H, static_cast<cudaStream_t>(stream));

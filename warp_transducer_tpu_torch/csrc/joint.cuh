@@ -17,7 +17,14 @@
 //
 // Threads. 256 threads a block, 8 warps. The token head's kernels give each
 // warp m16 × n8 mma tiles (see the tensor-core section); the duration
-// head's gradient (dur_grad_tiles) gives each thread its k = tid + 256·q.
+// head's gradient (dur_grad_tiles) gives each thread its k = k0 + tid + 256·q
+// of a pass.
+//
+// Any H. Up to kPassH (H padded to a multiple of 128) a kernel holds the
+// whole W tile in shared memory and a thread keeps its share of an H-wide
+// result (dh, dW, dWd) in registers. Above it the same templates, with
+// kSliced, stream W through shared memory in k-slices of kSliceRows rows and
+// take the H-wide results in passes of kPassH columns (see the plan below).
 #pragma once
 
 #include <cstdint>
@@ -30,7 +37,19 @@ namespace joint {
 constexpr int kThreads = 256;
 constexpr int kDim = 16;  // rows of a row tile (and columns of a stripe) per unit of TM
 constexpr int kBK = 16;   // H is padded to a multiple of this in dur_grad_tiles
-constexpr int kMaxH = 1024;
+// Columns of dh (the row kernel), rows of dW (the column kernel) and k of
+// dWd (the dWd kernel) that one pass owns: a thread keeps 64 accumulators of
+// it in registers at TM = 1.
+constexpr int kPassH = 1024;
+// Rows of W (and columns of h) of a k-slice above kPassH: 256 with bf16 W,
+// 128 with f32 (whose tiles take twice the bytes), so that two stages fit
+// beside the whole h tile at H = 2048. A slice holds kSliceRows / (8 · 8) of
+// every warp's n8 tiles of dh (row kernel) and kSliceRows / (16 · 8) of its
+// m16 tiles of dW (column kernel).
+template <typename TW>
+constexpr int kSliceRows = sizeof(TW) == 2 ? 256 : 128;
+// Dynamic shared memory a block may use on sm_90 (227 KB).
+constexpr size_t kSmemMax = 232448;
 // Width of a per-row panel in shared memory: the K extra coefficient fields
 // or the D duration columns of a row, padded with zeros.
 constexpr int kPanel = wtt::kMaxExtraCols;
@@ -39,7 +58,7 @@ constexpr int kPanel = wtt::kMaxExtraCols;
 // rows (or of columns, for the column kernel) a block, so that a thread
 // keeps 64 accumulators of an H-wide result in registers and the h tile
 // stays near 64 KB of shared memory.
-inline int tile_param(int H) { return H <= 256 ? 4 : H <= 512 ? 2 : 1; }
+inline __host__ __device__ int tile_param(int H) { return H <= 256 ? 4 : H <= 512 ? 2 : 1; }
 
 struct Rows {
   const long long* offsets;  // (B+1) running sums of valid cells
@@ -76,22 +95,23 @@ __device__ __forceinline__ void place_rows(const Rows& rows, long long first, in
   }
 }
 
-// hs[k·ldh + m] = tanh(e[b,t,k] + p[b,u,k]) in f32 for the tile's rows
-// (the duration head's unrounded h), zero for k >= H and for rows beyond
-// the end. The lanes run along k, so the reads of e and p are contiguous.
+// hs[(k − k0)·ldh + m] = tanh(e[b,t,k] + p[b,u,k]) in f32 for the tile's
+// rows and k0 <= k < k0 + nk (the duration head's unrounded h), zero for
+// k >= H and for rows beyond the end. The lanes run along k, so the reads of
+// e and p are contiguous.
 template <int BM>
 __device__ __forceinline__ void fill_h(float* hs, int ldh, const float* __restrict__ e,
                                        const float* __restrict__ p, const int* s_b,
                                        const int* s_t, const int* s_u, int T, int U, int H,
-                                       int Hp) {
-  for (int idx = threadIdx.x; idx < BM * Hp; idx += kThreads) {
-    const int m = idx / Hp, k = idx % Hp;
+                                       int k0, int nk) {
+  for (int idx = threadIdx.x; idx < BM * nk; idx += kThreads) {
+    const int m = idx / nk, kl = idx % nk, k = k0 + kl;
     float h = 0.f;
     const int b = s_b[m];
     if (b >= 0 && k < H) {
       h = tanhf(e[((long long)b * T + s_t[m]) * H + k] + p[((long long)b * U + s_u[m]) * H + k]);
     }
-    hs[k * ldh + m] = h;
+    hs[kl * ldh + m] = h;
   }
 }
 
@@ -256,11 +276,12 @@ template <> struct Mma<float> {
   }
 };
 
-// acc[i][j] += Σ_k A(m0 + 16i + ·, k) · B(k, n0 + 8j + ·) over k in [0, K), a
-// warp's m16 × n8 tiles i < MI, j < NI (those with i < mi_count, j <
+// acc[i][j] += Σ_k A(m0 + MS·i + ·, k) · B(k, n0 + NS·j + ·) over k in [0, K),
+// a warp's m16 × n8 tiles i < MI, j < NI (those with i < mi_count, j <
 // nj_count: the tiles beyond them would read past the operands). kAkm /
-// kBkn: how A and B are stored (see Mma).
-template <typename TW, int MI, int NI, bool kAkm, bool kBkn>
+// kBkn: how A and B are stored (see Mma). MS, NS: the strides of the tiles
+// (16, 8: side by side; wider where the warps' tiles interleave).
+template <typename TW, int MI, int NI, bool kAkm, bool kBkn, int MS = 16, int NS = 8>
 __device__ __forceinline__ void warp_product(float (&acc)[MI][NI][4],
                                              const typename Mma<TW>::T* As, int lda, int m0,
                                              const typename Mma<TW>::T* Bs, int ldb, int n0, int K,
@@ -271,15 +292,15 @@ __device__ __forceinline__ void warp_product(float (&acc)[MI][NI][4],
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
       if (i >= mi_count) break;
-      if (kAkm) M::load_a_km(a[i], As, lda, m0 + 16 * i, k0, lane);
-      else M::load_a_mk(a[i], As, lda, m0 + 16 * i, k0, lane);
+      if (kAkm) M::load_a_km(a[i], As, lda, m0 + MS * i, k0, lane);
+      else M::load_a_mk(a[i], As, lda, m0 + MS * i, k0, lane);
     }
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
       if (j >= nj_count) break;
       typename M::B b;
-      if (kBkn) M::load_b_kn(b, Bs, ldb, k0, n0 + 8 * j, lane);
-      else M::load_b_nk(b, Bs, ldb, k0, n0 + 8 * j, lane);
+      if (kBkn) M::load_b_kn(b, Bs, ldb, k0, n0 + NS * j, lane);
+      else M::load_b_nk(b, Bs, ldb, k0, n0 + NS * j, lane);
 #pragma unroll
       for (int i = 0; i < MI; ++i)
         if (i < mi_count) M::mma(acc[i][j], a[i], b);
@@ -299,43 +320,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage W[0 : Hp, v0 : v0 + BN] as ws[k·ldw + n], zero for k >= H and
-// v >= V. With `async` (W's rows 16-byte aligned: the wrapper checks the
-// base, the kernel V) by cp.async in 16-byte pieces, which the caller
-// commits and waits for; else by plain loads and stores.
+// Stage W[k0 : k0 + nk, v0 : v0 + BN] as ws[(k − k0)·ldw + n], zero for
+// k >= H and v >= V. With `async` (W's rows 16-byte aligned: the wrapper
+// checks the base, the kernel V) by cp.async in 16-byte pieces, which the
+// caller commits and waits for; else by plain loads and stores.
 template <int BN, typename TW>
-__device__ __forceinline__ void load_w_tile(TW* ws, int ldw, const TW* __restrict__ W, int H,
-                                            int Hp, int V, int v0, bool async) {
+__device__ __forceinline__ void load_w_rows(TW* ws, int ldw, const TW* __restrict__ W, int k0,
+                                            int nk, int H, int V, int v0, bool async) {
   constexpr int kVec = 16 / sizeof(TW);  // elements of a 16-byte piece
   constexpr int kPieces = BN / kVec;
   if (async) {
-    for (int idx = threadIdx.x; idx < Hp * kPieces; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < nk * kPieces; idx += kThreads) {
       const int k = idx / kPieces, n = (idx % kPieces) * kVec;
-      const bool in = k < H && v0 + n < V;  // V % kVec == 0: a piece is all in or all out
-      cp_async16(ws + k * ldw + n, in ? W + (long long)k * V + v0 + n : W, in);
+      const bool in = k0 + k < H && v0 + n < V;  // V % kVec == 0: a piece is all in or all out
+      cp_async16(ws + k * ldw + n, in ? W + (long long)(k0 + k) * V + v0 + n : W, in);
     }
   } else {
-    for (int idx = threadIdx.x; idx < Hp * BN; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < nk * BN; idx += kThreads) {
       const int k = idx / BN, n = idx % BN;
-      ws[k * ldw + n] = (k < H && v0 + n < V) ? W[(long long)k * V + v0 + n] : Mma<TW>::cast(0.f);
+      ws[k * ldw + n] = (k0 + k < H && v0 + n < V) ? W[(long long)(k0 + k) * V + v0 + n]
+                                                   : Mma<TW>::cast(0.f);
     }
   }
 }
 
-// hs[m·ldh + k] = tanh(e[b,t,k] + p[b,u,k]) in the tile's type (bf16: the
-// rounded h), zero for k >= H and for rows beyond the end. A thread takes
-// four neighbouring k a step (16-byte loads where H and the bases allow),
-// and issues the loads of kBatch steps before any tanh: the fill is bound
-// by the latency of those loads, not by their bytes.
+// hs[m·ldh + k − k0] = tanh(e[b,t,k] + p[b,u,k]) in the tile's type (bf16:
+// the rounded h) for k0 <= k < k0 + nk (nk a multiple of 4: all of Hp, or a
+// k-slice), zero for k >= H and for rows beyond the end. A thread takes four
+// neighbouring k a step (16-byte loads where H and the bases allow), and
+// issues the loads of kBatch steps before any tanh: the fill is bound by the
+// latency of those loads, not by their bytes.
 template <int BM, typename T>
 __device__ __forceinline__ void fill_h_rows(T* hs, int ldh, const float* __restrict__ e,
                                             const float* __restrict__ p, const int* s_b,
                                             const int* s_t, const int* s_u, int T_, int U, int H,
-                                            int Hp) {
+                                            int k0, int nk) {
   constexpr int kBatch = 4;
   const bool vec =
       H % 4 == 0 && (reinterpret_cast<uintptr_t>(e) | reinterpret_cast<uintptr_t>(p)) % 16 == 0;
-  const int q4 = Hp / 4, n = BM * q4;
+  const int q4 = nk / 4, n = BM * q4;
   for (int base = threadIdx.x; base < n; base += kThreads * kBatch) {
     float4 ev[kBatch], pv[kBatch];
 #pragma unroll
@@ -343,7 +366,7 @@ __device__ __forceinline__ void fill_h_rows(T* hs, int ldh, const float* __restr
       const int idx = base + s * kThreads;
       ev[s] = pv[s] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (idx >= n) continue;
-      const int m = idx / q4, k = (idx % q4) * 4, b = s_b[m];
+      const int m = idx / q4, k = k0 + (idx % q4) * 4, b = s_b[m];
       if (b < 0 || k >= H) continue;
       const float* er = e + ((long long)b * T_ + s_t[m]) * H + k;
       const float* pr = p + ((long long)b * U + s_u[m]) * H + k;
@@ -374,49 +397,54 @@ __device__ __forceinline__ void fill_h_rows(T* hs, int ldh, const float* __restr
   }
 }
 
-// The h tile's BM rows, each Hp wide, to rows h0 .. h0 + BM - 1 of a chunk
-// buffer in device memory (16-byte stores; Hp·sizeof(T) is a multiple of 16).
+// Columns k0 .. k0 + nk − 1 of the h tile's BM rows (held from column k0)
+// to rows h0 .. h0 + BM - 1 of a chunk buffer in device memory, Hp wide
+// (16-byte stores; Hp, k0 and nk are multiples of 128).
 template <int BM, typename T>
 __device__ __forceinline__ void store_h_rows(const T* hs, int ldh, T* __restrict__ out,
-                                             long long h0, int Hp) {
+                                             long long h0, int Hp, int k0, int nk) {
   constexpr int kVec = 16 / sizeof(T);
-  const int pieces = Hp / kVec;
+  const int pieces = nk / kVec;
   for (int idx = threadIdx.x; idx < BM * pieces; idx += kThreads) {
     const int m = idx / pieces, k = (idx % pieces) * kVec;
-    *reinterpret_cast<uint4*>(out + (h0 + m) * Hp + k) =
+    *reinterpret_cast<uint4*>(out + (h0 + m) * Hp + k0 + k) =
         *reinterpret_cast<const uint4*>(hs + m * ldh + k);
   }
 }
 
-// The h tile of rows first .. first + BM - 1 from a chunk buffer whose row 0
-// is valid row `base`, by cp.async (the caller commits and waits); rows at
-// or beyond `end` (past the last valid row: never written) are zeros.
+// Columns k0 .. k0 + nk − 1 of the h tile of rows first .. first + BM - 1
+// from a chunk buffer (Hp wide) whose row 0 is valid row `base`, to
+// hs[m·ldh + k − k0], by cp.async (the caller commits and waits); rows at or
+// beyond `end` (past the last valid row: never written) are zeros.
 template <int BM, typename T>
 __device__ __forceinline__ void load_h_rows(T* hs, int ldh, const T* __restrict__ in,
                                             long long first, long long base, long long end,
-                                            int Hp) {
+                                            int Hp, int k0, int nk) {
   constexpr int kVec = 16 / sizeof(T);
-  const int pieces = Hp / kVec;
+  const int pieces = nk / kVec;
   for (int idx = threadIdx.x; idx < BM * pieces; idx += kThreads) {
     const int m = idx / pieces, k = (idx % pieces) * kVec;
     const bool on = first + m < end;
-    cp_async16(hs + m * ldh + k, on ? in + (first + m - base) * Hp + k : in, on);
+    cp_async16(hs + m * ldh + k, on ? in + (first + m - base) * Hp + k0 + k : in, on);
   }
 }
 
 // The tiling of the kernels that walk V for a tile of rows (joint_prep.cu,
 // the row kernel of joint_grad.cu), by W's type and TM = tile_param(H):
 // BM = 16·TM rows; V in tiles of BN columns, each W tile held whole (Hp ×
-// BN) in shared memory, where both the logits product and the dh product
-// read it. The warps stand WM × WN over the BM × BN logits tile, NI n8
-// tiles each (with f32 W at TM = 1 only two of the eight warps have a
-// share), and TM × 8/TM over the BM × Hp dh (16 n8 tiles each at most).
-template <typename TW, int TM>
+// BN) in shared memory up to kPassH, where both the logits product and the
+// dh product read it, and in k-slices above (kSliced; there BN is 128 with
+// bf16 W, so that a warp's two n8 tiles share each A fragment, and 64 with
+// f32). The warps stand WM × WN over the BM × BN logits tile, NI n8 tiles
+// each (with f32 W at TM = 1 and one slice only two of the eight warps have
+// a share: a whole f32 W tile 64 wide would not fit), and TM × 8/TM over
+// the BM × Hp dh (a pass of it above kPassH; 16 n8 tiles each at most).
+template <typename TW, int TM, bool kSliced = false>
 struct RowTiles {
   using T = typename Mma<TW>::T;
   static constexpr int BM = kDim * TM;
-  static constexpr int HMAX = kMaxH / TM;
-  static constexpr int BN = sizeof(TW) == 2 ? 64 : kDim * TM;
+  static constexpr int HMAX = kPassH / TM;
+  static constexpr int BN = sizeof(TW) == 2 ? (kSliced ? 128 : 64) : kSliced ? 64 : kDim * TM;
   static constexpr int WM = TM;
   static constexpr int WN = kWarps / TM < BN / 8 ? kWarps / TM : BN / 8;
   static constexpr int NI = BN / (8 * WN);
@@ -440,6 +468,178 @@ struct Carve {
     return r;
   }
 };
+
+// ---- the plan: tiles, k-slices, passes and shared memory by H and W's type
+// (mirrored by ops/cuda/joint.py::joint_plan, held equal on the card) ------
+
+// joint_prep.cu: the h tile (hcols columns: all of Hp, or a k-slice that
+// each step refills), the ring of W stages (wrows rows each), the blank and
+// label logit of each row, the warps' (max, sum) and the rows' (b, t, u,
+// label).
+template <typename TW, int TM, bool kSliced = false>
+struct Prep : RowTiles<TW, TM, kSliced> {
+  using R = RowTiles<TW, TM, kSliced>;
+  using T = typename R::T;
+  static __host__ __device__ size_t bytes(int hcols, int wrows, int stages) {
+    return round16(sizeof(T) * R::BM * R::ldh(hcols)) +
+           round16(sizeof(T) * stages * wrows * R::LDW) +
+           round16(sizeof(float) * 2 * R::BM) +             // blank, label logit a row
+           round16(sizeof(float) * 2 * R::WN * R::BM) +     // (max, sum) a warp column and row
+           round16(sizeof(int) * 4 * R::BM);
+  }
+  // Two stages of a whole W tile where they fit at the largest H of this TM.
+  static constexpr int kStages =
+      round16(sizeof(T) * R::BM * (R::HMAX + Mma<TW>::kPadH)) +
+                  round16(sizeof(T) * 2 * R::HMAX * R::LDW) + 4096 <= kSmemMax
+          ? 2 : 1;
+};
+
+// joint_grad.cu's row kernel: the h tile, the W stages (one whole tile up to
+// kPassH, so that two blocks share a multiprocessor with bf16 W; two
+// k-slices above), the g tile, the rows' fields and (b, t, u, label). At the
+// end of a pass its f32 d tile (dcols × (BM+1)) takes the place of the W
+// stages and, where the epilogue recomputes h (bf16 W, or an h slice), of
+// the h tile too.
+template <typename TW, int TM, bool kSliced = false>
+struct GradRows : RowTiles<TW, TM, kSliced> {
+  using R = RowTiles<TW, TM, kSliced>;
+  using T = typename R::T;
+  static __host__ __device__ size_t h_bytes(int hcols) {
+    return round16(sizeof(T) * R::BM * R::ldh(hcols));
+  }
+  static __host__ __device__ size_t ring_bytes(int hcols, int wrows, int stages, int dcols,
+                                               bool d_over_h) {
+    const size_t ring = sizeof(T) * stages * wrows * R::LDW;
+    const size_t d = sizeof(float) * dcols * (R::BM + 1);
+    const size_t need = d_over_h ? (d > h_bytes(hcols) ? d - h_bytes(hcols) : 0) : d;
+    return ring > need ? ring : need;
+  }
+  static __host__ __device__ size_t bytes(int hcols, int wrows, int stages, int dcols,
+                                          bool d_over_h) {
+    return h_bytes(hcols) + round16(ring_bytes(hcols, wrows, stages, dcols, d_over_h)) +
+           round16(sizeof(T) * R::BM * R::LDG) +
+           round16(sizeof(float) * (4 + 2 * kPanel) * R::BM) + round16(sizeof(int) * 4 * R::BM);
+  }
+};
+
+// Row tiles of the column kernel above kPassH, in sixteens: 128 rows (8 × 1
+// warps over the 128 × 16 logits tile, a warp's two n8 tiles sharing each A
+// fragment), so that all eight warps share each k-slice's logits and one W
+// slice serves 128 rows.
+constexpr int kColsSlicedRM = 8;
+
+// joint_grad_cols.cu: a block owns a stripe of BN = 16·TM columns of V and
+// walks row tiles of BM = 16·RM rows (RM = TM up to kPassH, kColsSlicedRM
+// above). Warps stand WM × WN over the BM × BN logits tile (NI n8 tiles
+// each; at TM = RM = 2 and 1 some warps have no share) and 8 × 1 over the
+// Hp × BN slice of dW (MI m16 tiles at most × BN/8 n8 tiles each, 16), a
+// pass of kPassH rows of it above kPassH.
+template <typename TW, int TM, int RM = TM>
+struct GradCols {
+  using T = typename Mma<TW>::T;
+  static constexpr int BM = kDim * RM, BN = kDim * TM;
+  static constexpr int HMAX = kPassH / TM;
+  static constexpr int WM = RM;
+  static constexpr int WN = kWarps / RM < BN / 8 ? kWarps / RM : BN / 8;
+  static constexpr int NI = BN / (8 * WN);
+  static constexpr int MI = HMAX / (16 * kWarps);  // dW's m16 tiles a warp, at most
+  static constexpr int NJ = BN / 8;
+  static constexpr int LDW = BN + Mma<TW>::kPadW;
+  static constexpr int LDG = BN + Mma<TW>::kPadW;  // g read as B along rows, like W
+  static constexpr int kFields = 4 + kPanel;       // den, coef, cb, ce, the K extra fields
+  static __host__ __device__ constexpr int ldh(int Hp) { return Hp + Mma<TW>::kPadH; }
+  // Besides the tiles: two sets of row fields and of (b, t, u, label), the
+  // db partials, the bias and the extra-column index of each column.
+  static constexpr size_t kSmall = round16(sizeof(float) * 2 * kFields * BM) +
+                                   round16(sizeof(float) * WM * BN) +
+                                   round16(sizeof(int) * 2 * 4 * BM) +
+                                   round16(sizeof(float) * BN) + round16(sizeof(int) * BN);
+  static size_t bytes(int Hp, int hbuf) {
+    return round16(sizeof(T) * Hp * LDW) + round16(sizeof(T) * hbuf * BM * ldh(Hp)) +
+           round16(sizeof(T) * BM * LDG) + kSmall;
+  }
+  // Blocks a multiprocessor: two with bf16 W (the registers held to 128;
+  // one h tile, so that two blocks fit 227 KB), one with f32 W, whose tiles
+  // fill it; then two h tiles where they fit at the largest H of this TM.
+  // Above kPassH (kSliced) the launch bound asks for one block, whose
+  // registers then hold a pass's dW, the slices' partials and the step's
+  // addresses without spilling; the occupancy query says how many fit.
+  static constexpr int kBlocks = sizeof(T) == 2 ? 2 : 1;
+  static constexpr int kHBuf =
+      kBlocks == 1 &&
+              round16(sizeof(T) * HMAX * LDW) +
+                      round16(sizeof(T) * 2 * BM * (HMAX + Mma<TW>::kPadH)) +
+                      round16(sizeof(T) * BM * LDG) + kSmall <=
+                  kSmemMax
+          ? 2 : 1;
+  // Above kPassH: two stages of a W slice (kSliceRows × LDW) and an h slice
+  // (BM × kSliceRows), streamed for every row tile.
+  static constexpr size_t kStage = round16(sizeof(T) * kSliceRows<TW> * LDW) +
+                                   round16(sizeof(T) * BM * ldh(kSliceRows<TW>));
+  static constexpr size_t kSlicedBytes = 2 * kStage + round16(sizeof(T) * BM * LDG) + kSmall;
+};
+
+struct Plan {
+  int tm;           // tile_param(H): a row tile is 16·tm rows
+  int hp;           // H padded to a multiple of kHAlign
+  int sliced;       // 0: one k-slice (all of hp) and one pass; 1: above kPassH
+  int ks;           // rows of W (and columns of h) of a k-slice of the prep and row kernel
+  int slices;       // k-slices of hp
+  int passes;       // passes over H of the row kernel's dh and the column kernel's dW
+  int prep_hcols;   // columns of the prep's h tile: hp (whole) or ks (refilled each step)
+  int prep_stages;  // W stages of the prep's ring
+  int rows_hcols;   // columns of the row kernel's h tile: hp or ks
+  long long prep_smem, rows_smem, cols_smem;  // dynamic shared memory of a block
+};
+
+template <typename TW, int TM>
+inline Plan plan_tm(int H) {
+  using P = Prep<TW, TM>;
+  using G = GradRows<TW, TM>;
+  using C = GradCols<TW, TM>;
+  constexpr bool bf16 = sizeof(typename Mma<TW>::T) == 2;
+  Plan q{};
+  q.tm = TM;
+  q.hp = padded_h(H);
+  if (q.hp <= kPassH) {
+    q.sliced = 0;
+    q.ks = q.hp;
+    q.slices = q.passes = 1;
+    q.prep_hcols = q.rows_hcols = q.hp;
+    q.prep_stages = P::kStages;
+    q.prep_smem = (long long)P::bytes(q.hp, q.hp, P::kStages);
+    q.rows_smem = (long long)G::bytes(q.hp, q.hp, 1, q.hp, bf16);
+    q.cols_smem = (long long)C::bytes(q.hp, C::kHBuf);
+    return q;
+  }
+  using PS = Prep<TW, TM, true>;
+  using GS = GradRows<TW, TM, true>;
+  const int ks = kSliceRows<TW>;
+  q.sliced = 1;
+  q.ks = ks;
+  q.slices = (q.hp + ks - 1) / ks;
+  q.passes = (q.hp + kPassH - 1) / kPassH;
+  q.prep_stages = 2;
+  // The h tile whole where it fits beside the ring, else a k-slice.
+  const size_t prep_whole = PS::bytes(q.hp, ks, 2);
+  q.prep_hcols = prep_whole <= kSmemMax ? q.hp : ks;
+  q.prep_smem = (long long)PS::bytes(q.prep_hcols, ks, 2);
+  const size_t rows_whole = GS::bytes(q.hp, ks, 2, kPassH, bf16);
+  q.rows_hcols = rows_whole <= kSmemMax ? q.hp : ks;
+  q.rows_smem = (long long)GS::bytes(q.rows_hcols, ks, 2, kPassH,
+                                     bf16 || q.rows_hcols != q.hp);
+  q.cols_smem = (long long)GradCols<TW, TM, kColsSlicedRM>::kSlicedBytes;
+  return q;
+}
+
+template <typename TW>
+inline Plan plan(int H) {
+  switch (tile_param(H)) {
+    case 4: return plan_tm<TW, 4>(H);
+    case 2: return plan_tm<TW, 2>(H);
+    default: return plan_tm<TW, 1>(H);
+  }
+}
 
 // The extra column that equals v, as its index k, or -1. Unrolled over the
 // by-value table with constant indices, so the table stays in the
@@ -493,20 +693,21 @@ __device__ __forceinline__ void load_panel(float* panel, const float* __restrict
   }
 }
 
-// d[k·ldh + m] of the tile's rows into de and dp. One thread per k sums the
-// runs of rows that share (b, t) and adds each run to de with one atomicAdd
-// (a run is cut only at a tile edge), and adds every row to dp.
+// d[(k − k0)·ldh + m] of the tile's rows, k0 <= k < k1, into de and dp. One
+// thread per k sums the runs of rows that share (b, t) and adds each run to
+// de with one atomicAdd (a run is cut only at a tile edge), and adds every
+// row to dp.
 template <int BM>
 __device__ __forceinline__ void scatter_de_dp(const float* ds, int ldh, const int* s_b,
                                               const int* s_t, const int* s_u, const Rows& rows,
-                                              int H, float* __restrict__ de,
+                                              int H, int k0, int k1, float* __restrict__ de,
                                               float* __restrict__ dp) {
-  for (int k = threadIdx.x; k < H; k += kThreads) {
+  for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
     float run = 0.f;
     for (int m = 0; m < BM; ++m) {
       const int b = s_b[m];
       if (b < 0) break;
-      const float d = ds[k * ldh + m];
+      const float d = ds[(k - k0) * ldh + m];
       atomicAdd(dp + ((long long)b * rows.U + s_u[m]) * H + k, d);
       run += d;
       const bool last = m + 1 == BM || s_b[m + 1] != b || s_t[m + 1] != s_t[m];
@@ -549,66 +750,76 @@ __device__ __forceinline__ void store_dur_row(float* __restrict__ dst, const flo
     if (lane == d && d < D) dst[d] = out[d] + bias_d[d];
 }
 
+// Columns of dur_grad_tiles' h tile: H padded to a multiple of kBK, at most
+// a pass.
+inline __host__ __device__ int dur_grad_cols(int H) {
+  const int Hp = (H + kBK - 1) / kBK * kBK;
+  return Hp < kPassH ? Hp : kPassH;
+}
+
 // Shared memory of dur_grad_tiles at this H and tile height.
 inline size_t dur_grad_smem_bytes(int H, int BM) {
-  const int Hp = (H + kBK - 1) / kBK * kBK;
-  return sizeof(float) * ((size_t)Hp * (BM + 1) + (size_t)BM * kPanel) + sizeof(int) * 3 * BM;
+  return sizeof(float) * ((size_t)dur_grad_cols(H) * (BM + 1) + (size_t)BM * kPanel) +
+         sizeof(int) * 3 * BM;
 }
 
 // dWd of the duration head (joint_grad.cu's joint_grad_dwd_kernel), the body
-// of a block that walks every gridDim.x-th tile of BM valid rows. With the
-// unrounded h of the tile in shared memory it accumulates its partial of
-// dWd[k][d] = Σ_rows h[k]·g_dur[d] (thread tid owns k = tid + 256·q, in
-// registers across the tiles). The block's partial is written whole to
-// dWd_part[blockIdx.x] (H × D), zeros when it met no tile; sum_parts_kernel
-// adds the partials in a fixed order, so dWd does not depend on the order in
-// which blocks ran. e, p: f32; g_dur: (B, T, U, D), zero outside the lattice.
+// of a block that walks every gridDim.x-th tile of BM valid rows, once for
+// each pass of kPassH columns of k. With the unrounded h of the tile and the
+// pass in shared memory it accumulates its partial of
+// dWd[k][d] = Σ_rows h[k]·g_dur[d] (thread tid owns k = k0 + tid + 256·q of
+// pass k0, in registers across the tiles). The block's partial is written
+// whole to dWd_part[blockIdx.x] (H × D), zeros when it met no tile;
+// sum_parts_kernel adds the partials in a fixed order, so dWd does not
+// depend on the order in which blocks ran. e, p: f32; g_dur: (B, T, U, D),
+// zero outside the lattice.
 template <int BM>
 __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
                                                const float* __restrict__ p,
                                                const float* __restrict__ g_dur, const Rows& rows,
                                                float* __restrict__ dWd_part, int H, int D,
                                                float* smem) {
-  constexpr int KQ = kMaxH / kThreads;
-  const int Hp = (H + kBK - 1) / kBK * kBK;
+  constexpr int KQ = kPassH / kThreads;
+  const int cols = dur_grad_cols(H);
   const int ldh = BM + 1;
-  float* hs = smem;                                 // Hp × ldh
-  float* s_gd = hs + (size_t)Hp * ldh;              // BM × kPanel
+  float* hs = smem;                                 // cols × ldh
+  float* s_gd = hs + (size_t)cols * ldh;            // BM × kPanel
   int* s_b = reinterpret_cast<int*>(s_gd + BM * kPanel);
   int* s_t = s_b + BM;
   int* s_u = s_t + BM;
   const int tid = threadIdx.x;
-
-  float acc[KQ][kPanel] = {};
   const long long total = rows.offsets[rows.B];
-  for (long long first = (long long)blockIdx.x * BM; first < total;
-       first += (long long)gridDim.x * BM) {
-    __syncthreads();  // the last tile consumed
-    place_rows<BM>(rows, first, s_b, s_t, s_u);
-    __syncthreads();
-    load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
-    fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp);
-    __syncthreads();
+  float* out = dWd_part + (size_t)blockIdx.x * H * D;
+
+  for (int k0 = 0; k0 < H; k0 += kPassH) {
+    float acc[KQ][kPanel] = {};
+    for (long long first = (long long)blockIdx.x * BM; first < total;
+         first += (long long)gridDim.x * BM) {
+      __syncthreads();  // the last tile consumed
+      place_rows<BM>(rows, first, s_b, s_t, s_u);
+      __syncthreads();
+      load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
+      fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, cols);
+      __syncthreads();
 #pragma unroll
-    for (int q = 0; q < KQ; ++q) {
-      const int k = tid + q * kThreads;
-      if (k >= H) continue;
-      for (int m = 0; m < BM; ++m) {
-        const float h = hs[k * ldh + m];
+      for (int q = 0; q < KQ; ++q) {
+        const int kl = tid + q * kThreads;
+        if (k0 + kl >= H) continue;
+        for (int m = 0; m < BM; ++m) {
+          const float h = hs[kl * ldh + m];
 #pragma unroll
-        for (int d = 0; d < kPanel; ++d) acc[q][d] = fmaf(h, s_gd[m * kPanel + d], acc[q][d]);
+          for (int d = 0; d < kPanel; ++d) acc[q][d] = fmaf(h, s_gd[m * kPanel + d], acc[q][d]);
+        }
       }
     }
-  }
-
-  float* out = dWd_part + (size_t)blockIdx.x * H * D;
 #pragma unroll
-  for (int q = 0; q < KQ; ++q) {
-    const int k = tid + q * kThreads;
-    if (k >= H) continue;
+    for (int q = 0; q < KQ; ++q) {
+      const int k = k0 + tid + q * kThreads;
+      if (k >= H) continue;
 #pragma unroll
-    for (int d = 0; d < kPanel; ++d)
-      if (d < D) out[k * D + d] = acc[q][d];
+      for (int d = 0; d < kPanel; ++d)
+        if (d < D) out[k * D + d] = acc[q][d];
+    }
   }
 }
 

@@ -46,21 +46,33 @@
 // where it would otherwise compute h again for each of its V/BN stripes.
 //
 // * joint_grad_rows_kernel — row-parallel. A block owns a tile of 16·TM
-//   valid rows (TM = 4, 2, 1 for H ≤ 256, 512, 1024) with its h tile in
+//   valid rows (TM = 4, 2, 1 for H ≤ 256, 512, above) with its h tile in
 //   shared memory, and walks V in tiles of BN columns (joint.cuh::RowTiles).
-//   Each W tile (Hp × BN, H padded to a multiple of 128) comes whole into
-//   shared memory by cp.async, one at a time so that two blocks share a
-//   multiprocessor (with bf16 W); the warps multiply h by it once, form g in f32 on the
-//   accumulator fragments and store it (rounded with bf16 W) as a BM × BN
-//   tile, and then every warp multiplies that g tile by the same W tile,
-//   read the other way round, into its share of dh (16 rows × Hp/(8/TM)
-//   columns, at most 64 accumulators a lane). At the end d = dh·(1 − h²)
-//   goes through shared memory (over the W tile); one thread per k sums the
-//   runs of rows that share (b, t) and adds each run to de with one
-//   atomicAdd (a run is cut only at a tile edge, so with U_b ≤ the tile's
-//   rows at most two blocks add to an element and the sum does not depend on
-//   their order), and adds every row to dp with an atomicAdd (T_b terms per
-//   element, in an order that varies from run to run).
+//   Up to H = kPassH (1024) each W tile (Hp × BN, H padded to a multiple of
+//   128) comes whole into shared memory by cp.async, one at a time so that
+//   two blocks share a multiprocessor (with bf16 W); the warps multiply h by
+//   it once, form g in f32 on the accumulator fragments and store it
+//   (rounded with bf16 W) as a BM × BN tile, and then every warp multiplies
+//   that g tile by the same W tile, read the other way round, into its share
+//   of dh (16 rows × Hp/(8/TM) columns, at most 64 accumulators a lane). At
+//   the end d = dh·(1 − h²) goes through shared memory (over the W tile);
+//   one thread per k sums the runs of rows that share (b, t) and adds each
+//   run to de with one atomicAdd (a run is cut only at a tile edge, so with
+//   U_b ≤ the tile's rows at most two blocks add to an element and the sum
+//   does not depend on their order), and adds every row to dp with an
+//   atomicAdd (T_b terms per element, in an order that varies from run to
+//   run). Above kPassH (kSliced, TM = 1) the block takes dh in passes of
+//   kPassH columns, each of which owns dh, d and the de/dp adds of its
+//   columns only (so the de property holds pass by pass); a pass walks V
+//   again, streaming W through a two-stage ring in k-slices of kSliceRows
+//   rows (256; 128 with f32 W, whose V tiles are then 64 wide as bf16's):
+//   all of Hp for the tile's logits (the accumulators carried across the
+//   slices), then the pass's own rows for its dh product. A warp's n8 tiles
+//   of dh interleave with the other warps' ((j·8 + warp)·8 from the pass's
+//   first column), so that every k-slice of the pass holds four (f32: two)
+//   tiles of every warp. At H = 2048 that is three products where one pass would
+//   take two; the alternative, 16 warps a block so that a lane keeps its 64
+//   accumulators of all of H, was not taken (PERF.md).
 // * joint_grad_cols_kernel (joint_grad_cols.cu, a source of its own so that
 //   the two compile side by side) — column-parallel. A block owns a stripe of V
 //   (16·TM columns) and keeps W's stripe in shared memory and its Hp ×
@@ -91,32 +103,11 @@ using namespace wtt::joint;
 
 // ---- rows: dh, de, dp -------------------------------------------------------
 
-// One W tile at a time (no ring): the block then fits a multiprocessor
-// twice beside another (with bf16 W; f32 tiles fill it alone), and the
-// other block's products hide this one's loads. At the end the f32 d tile
-// (Hp × (BM+1)) takes the place of the ring and, with bf16 W, of the h tile
-// too (the epilogue recomputes the unrounded h; with f32 W it reads it).
-template <typename TW, int TM>
-struct GradRows : RowTiles<TW, TM> {
-  using R = RowTiles<TW, TM>;
-  using T = typename R::T;
-  static __host__ __device__ size_t h_bytes(int Hp) {
-    return round16(sizeof(T) * R::BM * R::ldh(Hp));
-  }
-  static __host__ __device__ size_t ring_bytes(int Hp) {
-    const size_t ring = sizeof(T) * Hp * R::LDW;
-    const size_t d = sizeof(float) * Hp * (R::BM + 1);
-    const size_t need = sizeof(T) == 2 ? (d > h_bytes(Hp) ? d - h_bytes(Hp) : 0) : d;
-    return ring > need ? ring : need;
-  }
-  static size_t bytes(int Hp) {
-    return h_bytes(Hp) + round16(ring_bytes(Hp)) + round16(sizeof(T) * R::BM * R::LDG) +
-           round16(sizeof(float) * (4 + 2 * kPanel) * R::BM) + round16(sizeof(int) * 4 * R::BM);
-  }
-};
-
-template <typename TW, int TM>
-__global__ void __launch_bounds__(kThreads, 2)
+// Two blocks a multiprocessor up to kPassH (with bf16 W their tiles fit
+// twice); above it the h tile and the W stages fill one, which may then
+// spend up to 255 registers a thread.
+template <typename TW, int TM, bool kSliced>
+__global__ void __launch_bounds__(kThreads, kSliced ? 1 : 2)
 joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
                        const TW* __restrict__ W, const float* __restrict__ bias,
                        const int* __restrict__ lab_full, Rows rows,
@@ -125,23 +116,36 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
                        const float* __restrict__ cx, const wtt::ExtraCols cols,
                        const float* __restrict__ Wd, const float* __restrict__ g_dur, int D,
                        float* __restrict__ de, float* __restrict__ dp, long long row_begin,
-                       TW* __restrict__ h_out, int H, int V, int blank, bool w_async) {
-  using G = GradRows<TW, TM>;
+                       TW* __restrict__ h_out, int H, int V, int blank, bool w_async,
+                       int hcols) {
+  using G = GradRows<TW, TM, kSliced>;
   using M = Mma<TW>;
   using T = typename G::T;
   constexpr int BM = G::BM, BN = G::BN, NI = G::NI, WM = G::WM, WN = G::WN;
   constexpr int WH = G::WH, NIH = G::NIH;
+  constexpr int S = kSliced ? 2 : 1;                        // W stages
+  constexpr int kSliceTiles = kSliceRows<TW> / (8 * WH);     // a warp's dh tiles in a k-slice
+  constexpr int kPassSlices = kPassH / kSliceRows<TW>;       // k-slices of a pass
   const long long first = row_begin + (long long)blockIdx.x * BM;
   if (first >= rows.offsets[rows.B]) return;
-  const int Hp = padded_h(H), ldh = G::ldh(Hp);
+  const int Hp = padded_h(H);
+  const int ks = kSliced ? kSliceRows<TW> : Hp;
+  const int nsl = kSliced ? (Hp + ks - 1) / ks : 1;             // k-slices of the logits
+  const int npass = kSliced ? (Hp + kPassH - 1) / kPassH : 1;  // passes over dh
+  const bool h_whole = !kSliced || hcols == Hp;  // else the h tile is the step's slice
+  // The epilogue reads the f32 h tile, or recomputes tanh (bf16: the tile
+  // holds rounded h) and then stages d over the h tile as well.
+  const bool d_over_h = sizeof(T) == 2 || !h_whole;
+  const int hc = kSliced ? hcols : Hp, ldh = G::ldh(hc);
+  const int dcols = kSliced ? kPassH : Hp;
   extern __shared__ __align__(16) unsigned char tile_smem[];
   Carve c{tile_smem};
   T* hs = c.take<T>((size_t)BM * ldh);
-  unsigned char* ring_raw = c.take<unsigned char>(G::ring_bytes(Hp));
+  unsigned char* ring_raw = c.take<unsigned char>(G::ring_bytes(hc, ks, S, dcols, d_over_h));
   T* ring = reinterpret_cast<T*>(ring_raw);
-  // At the end: d[k·(BM+1) + m], over the ring (and with bf16 W the h tile).
-  float* ds = reinterpret_cast<float*>(sizeof(T) == 2 ? static_cast<void*>(hs)
-                                                      : static_cast<void*>(ring_raw));
+  // At the end of a pass: d[kl·(BM+1) + m], over the ring (and the h tile).
+  float* ds = reinterpret_cast<float*>(d_over_h ? static_cast<void*>(hs)
+                                                : static_cast<void*>(ring_raw));
   T* gs = c.take<T>((size_t)BM * G::LDG);          // g[m·LDG + n] of the V tile
   float* s_den = c.take<float>((4 + 2 * kPanel) * BM);
   float* s_coef = s_den + BM;
@@ -158,7 +162,38 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
   const int gr = lane >> 2, tq = lane & 3;
   const int wm = warp % WM, wn = warp / WM;  // also (rows, H share) of the dh product
   const int ntiles = (V + BN - 1) / BN;
-  load_w_tile<BN>(ring, G::LDW, W, H, Hp, V, 0, w_async);
+  // Step i of a pass (spt steps a V tile): the logits' k-slices k < nsl of
+  // all of Hp, then the dh product's slices of the pass's rows hp0 .. hp0 +
+  // hpn − 1 (none up to kPassH: the logits' W tile serves both).
+  auto issue = [&](int i, int spt, int hp0, int hpn, T* dst) {
+    const int k = i % spt;
+    const int k0 = k < nsl ? k * ks : hp0 + (k - nsl) * ks;
+    const int kend = k < nsl ? Hp : hp0 + hpn;
+    load_w_rows<BN>(dst, G::LDW, W, k0, min(ks, kend - k0), H, V, i / spt * BN, w_async);
+  };
+  // Wait for step i's W rows (the next step's asked for first where two
+  // stages hold them); returns them.
+  auto begin = [&](int i, int nsteps, int spt, int hp0, int hpn) -> const T* {
+    if constexpr (S == 2) {
+      if (i + 1 < nsteps) {
+        issue(i + 1, spt, hp0, hpn, ring + (size_t)((i + 1) & 1) * ks * G::LDW);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      return ring + (size_t)(i & 1) * ks * G::LDW;
+    } else {
+      if (i > 0) {  // the first W tile was asked for before the rows were placed
+        issue(i, spt, hp0, hpn, ring);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      return ring;
+    }
+  };
+  const int hpn0 = kSliced ? min(kPassH, Hp) : Hp;
+  issue(0, nsl + (kSliced ? (hpn0 + ks - 1) / ks : 0), 0, hpn0, ring);
   cp_async_commit();
   place_rows<BM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
@@ -174,101 +209,156 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
     s_cb[tid] = on ? cb[cell] : 0.f;
     s_ce[tid] = on ? ce[cell] : 0.f;
   }
-  fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp);
-  __syncthreads();
-  // The tile's h for the column kernel, which reads it instead of filling
-  // its own for every stripe of V.
-  store_h_rows<BM>(hs, ldh, h_out, first - row_begin, Hp);
+  // The tile's h, and the same to the chunk buffer for the column kernel,
+  // which reads it instead of filling its own for every stripe of V.
+  if (h_whole) {
+    fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, 0, Hp);
+    __syncthreads();
+    store_h_rows<BM>(hs, ldh, h_out, first - row_begin, Hp, 0, Hp);
+  } else {
+    for (int k0 = 0; k0 < Hp; k0 += ks) {
+      const int nk = min(ks, Hp - k0);
+      fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, nk);
+      __syncthreads();
+      store_h_rows<BM>(hs, ldh, h_out, first - row_begin, Hp, k0, nk);
+      __syncthreads();
+    }
+  }
 
   const bool active = warp < WM * WN;  // has a share of the logits tile
   const int row0 = 16 * wm + gr;       // this lane's rows: row0, row0 + 8
   const int n0 = wn * NI * 8;          // its columns in the V tile: n0 + 8j + 2tq + q
-  const int h0 = wn * (Hp / WH);       // its columns of dh
-  const int nih = Hp / WH / 8;
-  float dh[1][NIH][4] = {};
-  for (int it = 0; it < ntiles; ++it) {
-    const int v0 = it * BN;
-    const T* wt = ring;
-    if (it > 0) {  // the first tile was asked for before the rows were placed
-      load_w_tile<BN>(ring, G::LDW, W, H, Hp, V, v0, w_async);
+  // Its dh tiles j, from the pass's first column: h0 + 8j up to kPassH,
+  // (j·WH + wn)·8 above.
+  const int h0 = kSliced ? wn * 8 : wn * (Hp / WH);
+  for (int pass = 0; pass < npass; ++pass) {
+    const int hp0 = pass * kPassH, hpn = kSliced ? min(kPassH, Hp - hp0) : Hp;
+    const int nds = kSliced ? (hpn + ks - 1) / ks : 0;
+    const int spt = nsl + nds, nsteps = ntiles * spt;
+    const int nih = hpn / WH / 8;  // this warp's dh tiles in the pass
+    if (pass > 0) {
+      __syncthreads();  // the last pass's d tile scattered
+      issue(0, spt, hp0, hpn, ring);
       cp_async_commit();
+      if (h_whole && d_over_h) fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H,
+                                               0, Hp);
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the W tile in; on the first pass also h and the fields
-    if (active) {
-      float acc[1][NI][4] = {};
-      warp_product<TW, 1, NI, false, true>(acc, hs, ldh, 16 * wm, wt, G::LDW, n0, Hp, lane);
-      const bool extras_here = has_extra(cols, v0 + n0, NI * 8);
+    float dh[1][NIH][4] = {};
+    float acc[1][NI][4];
+    int i = 0;  // the pass's step
+    for (int it = 0; it < ntiles; ++it) {
+      const int v0 = it * BN;
+      for (int k = 0; k < nsl; ++k, ++i) {  // the V tile's logits, a k-slice a step
+        const int k0 = k * ks, nk = min(ks, Hp - k0);
+        const T* wt = begin(i, nsteps, spt, hp0, hpn);
+        if (!h_whole) fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, nk);
+        __syncthreads();  // the W piece in; on the first step also h and the fields
+        if (active) {
+          if (k == 0) {
 #pragma unroll
-      for (int j = 0; j < NI; ++j)
+            for (int j = 0; j < NI; ++j)
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int n = n0 + 8 * j + 2 * tq + q, v = v0 + n;
-          const float bv = v < V ? bias[v] : 0.f;
-          const int xk = extras_here ? extra_index(cols, v) : -1;
+              for (int x = 0; x < 4; ++x) acc[0][j][x] = 0.f;
+          }
+          warp_product<TW, 1, NI, false, true>(acc, hs + (h_whole ? k0 : 0), ldh, 16 * wm, wt,
+                                               G::LDW, n0, nk, lane);
+        }
+        if (active && k == nsl - 1) {  // the logits complete: g
+          const bool extras_here = has_extra(cols, v0 + n0, NI * 8);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int m = row0 + 8 * r;
-            float g = 0.f;
-            if (v < V)  // rows beyond the end have zero coefficients
-              g = grad_element(acc[0][j][2 * r + q] + bv, s_den[m], s_coef[m], s_cb[m], s_ce[m],
-                               v, blank, s_lab[m], s_cx + m * kPanel, xk);
-            gs[m * G::LDG + n] = M::cast(g);  // bf16: rounded after every subtraction
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int n = n0 + 8 * j + 2 * tq + q, v = v0 + n;
+              const float bv = v < V ? bias[v] : 0.f;
+              const int xk = extras_here ? extra_index(cols, v) : -1;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int m = row0 + 8 * r;
+                float g = 0.f;
+                if (v < V)  // rows beyond the end have zero coefficients
+                  g = grad_element(acc[0][j][2 * r + q] + bv, s_den[m], s_coef[m], s_cb[m],
+                                   s_ce[m], v, blank, s_lab[m], s_cx + m * kPanel, xk);
+                gs[m * G::LDG + n] = M::cast(g);  // bf16: rounded after every subtraction
+              }
+            }
+        }
+        if constexpr (!kSliced) {
+          __syncthreads();  // the g tile complete
+          // dh[m][k] += Σ_n g[m][n] · W[k][v0 + n], W read from the tile in
+          // place, four n8 tiles of dh a product. Each sums the V tile in the
+          // mma accumulators and adds it to dh by a rounded f32 add (the
+          // tensor cores' accumulator truncates; over all of V it would
+          // drift, see the column kernel).
+          constexpr int kGroup = 4;
+#pragma unroll
+          for (int j0 = 0; j0 < NIH; j0 += kGroup) {
+            if (j0 >= nih) break;
+            float part[1][kGroup][4] = {};
+            warp_product<TW, 1, kGroup, false, false>(part, gs, G::LDG, 16 * wm, wt, G::LDW,
+                                                      h0 + 8 * j0, BN, lane, 1, nih - j0);
+#pragma unroll
+            for (int jj = 0; jj < kGroup; ++jj)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) dh[0][j0 + jj][x] += part[0][jj][x];
           }
         }
-    }
-    __syncthreads();  // the g tile complete
-    // dh[m][k] += Σ_n g[m][n] · W[k][v0 + n], W read from the tile in place,
-    // four n8 tiles of dh a pass. Each pass sums the V tile in the mma
-    // accumulators and adds it to dh by a rounded f32 add (the tensor cores'
-    // accumulator truncates; over all of V it would drift, see the column
-    // kernel).
-    constexpr int kGroup = 4;
+        __syncthreads();  // the W piece and g consumed before they are refilled
+      }
+      if constexpr (kSliced) {
+        // The pass's rows of W, a k-slice a step: its kSliceTiles tiles of
+        // each warp's dh, summed as above.
 #pragma unroll
-    for (int j0 = 0; j0 < NIH; j0 += kGroup) {
-      if (j0 >= nih) break;
-      float part[1][kGroup][4] = {};
-      warp_product<TW, 1, kGroup, false, false>(part, gs, G::LDG, 16 * wm, wt, G::LDW,
-                                                h0 + 8 * j0, BN, lane, 1, nih - j0);
+        for (int d = 0; d < kPassSlices; ++d) {
+          if (d >= nds) break;
+          const T* wt = begin(i, nsteps, spt, hp0, hpn);
+          __syncthreads();  // the W slice in
+          const int cnt = min(kSliceTiles, nih - d * kSliceTiles);
+          float part[1][kSliceTiles][4] = {};
+          warp_product<TW, 1, kSliceTiles, false, false, 16, 8 * WH>(
+              part, gs, G::LDG, 16 * wm, wt, G::LDW, h0, BN, lane, 1, cnt);
 #pragma unroll
-      for (int jj = 0; jj < kGroup; ++jj)
+          for (int jj = 0; jj < kSliceTiles; ++jj)
 #pragma unroll
-        for (int x = 0; x < 4; ++x) dh[0][j0 + jj][x] += part[0][jj][x];
-    }
-    __syncthreads();  // the W tile and g consumed before they are refilled
-  }
-
-  // d = (dh + g_dur·Wdᵀ) · (1 − h²) with the unrounded h (the f32 tile, or
-  // tanh recomputed where the tile holds bf16), staged over the ring as
-  // d[k·(BM+1) + m].
-#pragma unroll
-  for (int j = 0; j < NIH; ++j) {
-    if (j >= nih) break;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = row0 + 8 * r, b = s_b[m];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int k = h0 + 8 * j + 2 * tq + q;
-        float d = 0.f;
-        if (b >= 0 && k < H) {
-          float h;
-          if constexpr (sizeof(T) == 4) {
-            h = M::value(hs[m * ldh + k]);
-          } else {
-            h = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
-                      p[((long long)b * rows.U + s_u[m]) * H + k]);
-          }
-          float dh_k = dh[0][j][2 * r + q];
-          for (int cc = 0; cc < D; ++cc) dh_k = fmaf(s_gd[m * kPanel + cc], Wd[k * D + cc], dh_k);
-          d = dh_k * (1.f - h * h);
+            for (int x = 0; x < 4; ++x) dh[0][d * kSliceTiles + jj][x] += part[0][jj][x];
+          __syncthreads();  // the W slice consumed before its slot is refilled
+          ++i;
         }
-        ds[k * (BM + 1) + m] = d;
       }
     }
+
+    // d = (dh + g_dur·Wdᵀ) · (1 − h²) with the unrounded h (the f32 tile, or
+    // tanh recomputed where the tile holds bf16 or a slice), staged as
+    // d[kl·(BM+1) + m] for the pass's columns k = hp0 + kl.
+#pragma unroll
+    for (int j = 0; j < NIH; ++j) {
+      if (j >= nih) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = row0 + 8 * r, b = s_b[m];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int kl = (kSliced ? h0 + 8 * WH * j : h0 + 8 * j) + 2 * tq + q, k = hp0 + kl;
+          float d = 0.f;
+          if (b >= 0 && k < H) {
+            float h;
+            if (sizeof(T) == 4 && !d_over_h) {
+              h = M::value(hs[m * ldh + k]);
+            } else {
+              h = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
+                        p[((long long)b * rows.U + s_u[m]) * H + k]);
+            }
+            float dh_k = dh[0][j][2 * r + q];
+            for (int cc = 0; cc < D; ++cc) dh_k = fmaf(s_gd[m * kPanel + cc], Wd[k * D + cc], dh_k);
+            d = dh_k * (1.f - h * h);
+          }
+          ds[kl * (BM + 1) + m] = d;
+        }
+      }
+    }
+    __syncthreads();
+    scatter_de_dp<BM>(ds, BM + 1, s_b, s_t, s_u, rows, H, hp0, min(H, hp0 + hpn), de, dp);
   }
-  __syncthreads();
-  scatter_de_dp<BM>(ds, BM + 1, s_b, s_t, s_u, rows, H, de, dp);
 }
 
 // ---- dWd ---------------------------------------------------------------------
@@ -284,22 +374,6 @@ joint_grad_dwd_kernel(const float* __restrict__ e, const float* __restrict__ p,
 
 // ---- launches ---------------------------------------------------------------
 
-template <typename TW, int TM>
-size_t smem_bytes_tm(int H) {
-  return GradRows<TW, TM>::bytes(padded_h(H));
-}
-
-// The larger of the two W types at this H.
-size_t smem_bytes(int H) {
-  size_t f, b;
-  switch (tile_param(H)) {
-    case 4: f = smem_bytes_tm<float, 4>(H); b = smem_bytes_tm<__nv_bfloat16, 4>(H); break;
-    case 2: f = smem_bytes_tm<float, 2>(H); b = smem_bytes_tm<__nv_bfloat16, 2>(H); break;
-    default: f = smem_bytes_tm<float, 1>(H); b = smem_bytes_tm<__nv_bfloat16, 1>(H); break;
-  }
-  return f > b ? f : b;
-}
-
 // What the row kernel takes beside GradArgs.
 struct RowsArgs {
   const float *Wd, *g_dur;
@@ -309,10 +383,11 @@ struct RowsArgs {
   void* h_out;
 };
 
-template <typename TW, int TM>
-int launch_rows(const GradArgs& a, const RowsArgs& r) {
-  auto kernel = joint_grad_rows_kernel<TW, TM>;
-  const size_t bytes = smem_bytes_tm<TW, TM>(a.H);
+template <typename TW, int TM, bool kSliced>
+int launch_rows_tm(const GradArgs& a, const RowsArgs& r) {
+  auto kernel = joint_grad_rows_kernel<TW, TM, kSliced>;
+  const Plan q = plan<TW>(a.H);
+  const size_t bytes = (size_t)q.rows_smem;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -320,14 +395,25 @@ int launch_rows(const GradArgs& a, const RowsArgs& r) {
   kernel<<<(unsigned)blocks, kThreads, bytes, a.stream>>>(
       a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.denom, a.coef, a.cb,
       a.ce, a.cx, a.cols, r.Wd, r.g_dur, r.D, r.de, r.dp, r.row_begin, static_cast<TW*>(r.h_out),
-      a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V));
+      a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V), q.rows_hcols);
   return (int)cudaGetLastError();
 }
 
-template <typename TW, int TM>
+template <typename TW>
+int launch_rows(const GradArgs& a, const RowsArgs& r) {
+  switch (tile_param(a.H)) {
+    case 4: return launch_rows_tm<TW, 4, false>(a, r);
+    case 2: return launch_rows_tm<TW, 2, false>(a, r);
+    default:
+      return padded_h(a.H) > kPassH ? launch_rows_tm<TW, 1, true>(a, r)
+                                    : launch_rows_tm<TW, 1, false>(a, r);
+  }
+}
+
+template <typename TW, int TM, bool kSliced>
 int attrs_tm(int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_grad_rows_kernel<TW, TM>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_grad_rows_kernel<TW, TM, kSliced>);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return (int)err;
@@ -336,9 +422,11 @@ int attrs_tm(int* regs, int* local_bytes) {
 template <typename TW>
 int attrs(int H, int* regs, int* local_bytes) {
   switch (tile_param(H)) {
-    case 4: return attrs_tm<TW, 4>(regs, local_bytes);
-    case 2: return attrs_tm<TW, 2>(regs, local_bytes);
-    default: return attrs_tm<TW, 1>(regs, local_bytes);
+    case 4: return attrs_tm<TW, 4, false>(regs, local_bytes);
+    case 2: return attrs_tm<TW, 2, false>(regs, local_bytes);
+    default:
+      return padded_h(H) > kPassH ? attrs_tm<TW, 1, true>(regs, local_bytes)
+                                  : attrs_tm<TW, 1, false>(regs, local_bytes);
   }
 }
 
@@ -360,18 +448,47 @@ int launch_dwd(const float* e, const float* p, const float* g_dur, Rows rows, fl
 
 extern "C" {
 
-// The largest H the joint kernels' register tiling covers.
-int wtt_joint_max_h() { return kMaxH; }
+// The plan of the fused joint kernels at this H and W type (w_dtype as
+// below), for the mirror in ops/cuda/joint.py: out = {tm, hp, sliced, ks,
+// slices, passes, prep_hcols, prep_stages, rows_hcols, prep_smem, rows_smem,
+// cols_smem} (joint.cuh::Plan), then the rows of a chunk of the gradient
+// whose h buffer takes at most chunk_bytes (a whole number of row tiles, at
+// least one). Returns the cudaError_t of the query.
+int wtt_joint_plan(int H, int w_dtype, long long chunk_bytes, long long* out) {
+  if (H < 1 || chunk_bytes < 0) return (int)cudaErrorInvalidValue;
+  Plan q;
+  size_t elt;
+  switch (w_dtype) {
+    case wtt::kF32: q = plan<float>(H); elt = sizeof(float); break;
+    case wtt::kBF16: q = plan<__nv_bfloat16>(H); elt = sizeof(__nv_bfloat16); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const long long tile = kDim * q.tm;
+  const long long rows = chunk_bytes / (long long)(q.hp * elt) / tile * tile;
+  const long long v[] = {q.tm, q.hp, q.sliced, q.ks, q.slices, q.passes, q.prep_hcols,
+                         q.prep_stages, q.rows_hcols, q.prep_smem, q.rows_smem, q.cols_smem,
+                         rows > tile ? rows : tile};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return 0;
+}
 
 // Dynamic shared memory the row kernel asks for at this H (the larger of
 // the two W types).
-long long wtt_joint_grad_rows_smem(int H) { return (long long)smem_bytes(H); }
+long long wtt_joint_grad_rows_smem(int H) {
+  const long long f = plan<float>(H).rows_smem, b = plan<__nv_bfloat16>(H).rows_smem;
+  return f > b ? f : b;
+}
+
+// Dynamic shared memory the dWd kernel asks for at this H.
+long long wtt_joint_grad_dwd_smem(int H) {
+  return (long long)dur_grad_smem_bytes(H, kDim * tile_param(H));
+}
 
 // Registers a thread and local (spill) bytes of the row kernel the wrapper
 // launches at this H and W type, as ptxas compiled it. Returns the
 // cudaError_t of the query.
 int wtt_joint_grad_rows_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
-  if (H < 1 || H > kMaxH) return (int)cudaErrorInvalidValue;
+  if (H < 1) return (int)cudaErrorInvalidValue;
   switch (w_dtype) {
     case wtt::kF32: return attrs<float>(H, regs, local_bytes);
     case wtt::kBF16: return attrs<__nv_bfloat16>(H, regs, local_bytes);
@@ -396,7 +513,7 @@ int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype
                         long long row_begin, long long row_end, void* h_out, int B, int T,
                         int U, int H, int V, int blank, void* stream) {
   if ((long long)B * T * U == 0 || V == 0 || H == 0 || row_end <= row_begin) return 0;
-  if (H > kMaxH || D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)) ||
+  if (D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)) ||
       h_out == nullptr || row_begin % (kDim * tile_param(H)) != 0)
     return (int)cudaErrorInvalidValue;
   GradArgs a;
@@ -405,15 +522,8 @@ int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype
     return (int)cudaErrorInvalidValue;
   const RowsArgs r{static_cast<const float*>(Wd), static_cast<const float*>(g_dur), D,
                    static_cast<float*>(de), static_cast<float*>(dp), row_begin, row_end, h_out};
-  const int tm = tile_param(H);
-  if (w_dtype == wtt::kF32) {
-    return tm == 4 ? launch_rows<float, 4>(a, r)
-         : tm == 2 ? launch_rows<float, 2>(a, r) : launch_rows<float, 1>(a, r);
-  }
-  if (w_dtype == wtt::kBF16) {
-    return tm == 4 ? launch_rows<__nv_bfloat16, 4>(a, r)
-         : tm == 2 ? launch_rows<__nv_bfloat16, 2>(a, r) : launch_rows<__nv_bfloat16, 1>(a, r);
-  }
+  if (w_dtype == wtt::kF32) return launch_rows<float>(a, r);
+  if (w_dtype == wtt::kBF16) return launch_rows<__nv_bfloat16>(a, r);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -425,7 +535,7 @@ int wtt_joint_grad_dwd(const void* e, const void* p, const void* offsets,
                        const int* label_lengths, const void* g_dur, void* dWd, void* dWd_part,
                        int nsplit, int B, int T, int U, int H, int D, void* stream) {
   if (H == 0 || D == 0) return 0;
-  if (H > kMaxH || D < 0 || D > kPanel || nsplit < 1) return (int)cudaErrorInvalidValue;
+  if (D < 0 || D > kPanel || nsplit < 1) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
   const float* ef = static_cast<const float*>(e);
   const float* pf = static_cast<const float*>(p);

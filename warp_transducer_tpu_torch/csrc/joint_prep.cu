@@ -33,46 +33,35 @@
 // less.
 //
 // Design: a block owns a tile of 16·TM consecutive valid rows (TM = 4, 2, 1
-// for H ≤ 256, 512, 1024) and builds its h tile once in shared memory,
+// for H ≤ 256, 512, above) and builds its h tile once in shared memory,
 // H padded with zeros to a multiple of 128. It then walks V in tiles of BN
-// columns (joint.cuh::RowTiles), each W tile copied whole by cp.async into
-// a two-stage ring where shared memory allows (the next tile loads while
-// this one is multiplied), each warp holding a 16 × (8·NI) piece of the
-// logits in mma accumulators. The online (max, sum-exp) runs on the
-// accumulator fragments: a lane holds two rows and two columns of each n8
-// tile; the four lanes of a quad combine with shuffles at the end, the
-// warps of a row through shared memory. The blank and the label logits are
-// picked up as the V loop passes their columns, so the label logit is the
-// very value the loop produced and no gathered W[:, labels] tensor exists.
-// The K extra logits go the same way but through lpx itself: the lane that
-// meets column col_k writes the bare logit there, and the row's thread adds
-// denom at the end. W streams from device memory for any H·V (it stays in
-// the 50 MB L2 at these sizes), so one launch covers all of V.
+// columns (joint.cuh::RowTiles), each W tile copied by cp.async into a
+// ring (the next piece loads while this one is multiplied, where two
+// stages fit), each warp holding a 16 × (8·NI) piece of the logits in mma
+// accumulators. Up to H = kPassH (1024) a W tile comes whole, one step a
+// V tile; above it (kSliced) in k-slices of kSliceRows rows (256, or 128 of
+// the f32 W tile, then 64 wide as the bf16 one so that all eight warps
+// share the logits), two stages, a step a slice, the accumulators carried
+// across a tile's slices; where the h tile does not fit whole beside them
+// (f32 W above H = 2304, bf16 above 2688), each step refills the h slice
+// it multiplies from e and p. The
+// online (max, sum-exp) runs on the accumulator fragments after a tile's
+// last slice: a lane holds two rows and two columns of each n8 tile; the
+// four lanes of a quad combine with shuffles at the end, the warps of a row
+// through shared memory. The blank and the label logits are picked up as
+// the V loop passes their columns, so the label logit is the very value the
+// loop produced and no gathered W[:, labels] tensor exists. The K extra
+// logits go the same way but through lpx itself: the lane that meets column
+// col_k writes the bare logit there, and the row's thread adds denom at the
+// end. W streams from device memory for any H·V (it stays in the 50 MB L2
+// at these sizes), so one launch covers all of V.
 #include "joint.cuh"
 
 namespace {
 
 using namespace wtt::joint;
 
-template <typename TW, int TM>
-struct Prep : RowTiles<TW, TM> {
-  using R = RowTiles<TW, TM>;
-  using T = typename R::T;
-  static size_t bytes(int Hp, int stages) {
-    return round16(sizeof(T) * R::BM * R::ldh(Hp)) +
-           round16(sizeof(T) * stages * Hp * R::LDW) +
-           round16(sizeof(float) * 2 * R::BM) +             // blank, label logit a row
-           round16(sizeof(float) * 2 * R::WN * R::BM) +     // (max, sum) a warp column and row
-           round16(sizeof(int) * 4 * R::BM);
-  }
-  // Two stages where they fit at the largest H of this TM.
-  static constexpr int kStages =
-      round16(sizeof(T) * R::BM * (R::HMAX + Mma<TW>::kPadH)) +
-                  round16(sizeof(T) * 2 * R::HMAX * R::LDW) + 4096 <= (size_t)232448
-          ? 2 : 1;
-};
-
-template <typename TW, int TM>
+template <typename TW, int TM, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
                   const TW* __restrict__ W, const float* __restrict__ bias,
@@ -80,18 +69,24 @@ joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
                   float* __restrict__ lpe, float* __restrict__ denom, float* __restrict__ lpx,
                   const wtt::ExtraCols cols, const float* __restrict__ Wd,
                   const float* __restrict__ bias_d, float* __restrict__ dlog, int D, int H, int V,
-                  int blank, bool w_async) {
-  using P = Prep<TW, TM>;
+                  int blank, bool w_async, int hcols) {
+  using P = Prep<TW, TM, kSliced>;
   using T = typename P::T;
   constexpr int BM = P::BM, BN = P::BN, NI = P::NI, WM = P::WM, WN = P::WN;
-  constexpr int S = P::kStages;
+  constexpr int S = kSliced ? 2 : P::kStages;
   const long long first = (long long)blockIdx.x * BM;
   if (first >= rows.offsets[rows.B]) return;
-  const int Hp = padded_h(H), ldh = P::ldh(Hp);
+  const int Hp = padded_h(H);
+  // A step multiplies the h tile by rows k0 .. k0 + ks − 1 of a W tile:
+  // one step a V tile (ks = Hp) up to kPassH, nsl k-slices above.
+  const int ks = kSliced ? kSliceRows<TW> : Hp;
+  const int nsl = kSliced ? (Hp + ks - 1) / ks : 1;
+  const bool h_whole = !kSliced || hcols == Hp;  // else the h tile is the step's slice
+  const int ldh = P::ldh(kSliced ? hcols : Hp);
   extern __shared__ __align__(16) unsigned char tile_smem[];
   Carve c{tile_smem};
   T* hs = c.take<T>((size_t)BM * ldh);
-  T* ring = c.take<T>((size_t)S * Hp * P::LDW);
+  T* ring = c.take<T>((size_t)S * ks * P::LDW);
   float* s_bl = c.take<float>(2 * BM);  // blank logit per row
   float* s_le = s_bl + BM;              // label logit per row
   float* s_red = c.take<float>(2 * WN * BM);
@@ -104,7 +99,12 @@ joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
   const int gr = lane >> 2, tq = lane & 3;
   const int wm = warp % WM, wn = warp / WM;
   const int ntiles = (V + BN - 1) / BN;
-  load_w_tile<BN>(ring, P::LDW, W, H, Hp, V, 0, w_async);
+  const int nsteps = ntiles * nsl;
+  auto issue = [&](int i, T* dst) {  // step i's W rows: V tile i / nsl, k-slice i % nsl
+    const int k0 = i % nsl * ks;
+    load_w_rows<BN>(dst, P::LDW, W, k0, min(ks, Hp - k0), H, V, i / nsl * BN, w_async);
+  };
+  issue(0, ring);
   cp_async_commit();
   place_rows<BM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
@@ -114,7 +114,7 @@ joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
     s_bl[tid] = float(wtt::kNeg);
     s_le[tid] = float(wtt::kNeg);
   }
-  fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, Hp);
+  if (h_whole) fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, 0, Hp);
   if (D > 0) {  // the duration head: a warp a row, the rows dealt round robin
     for (int m = warp; m < BM; m += kWarps) {
       const int b = s_b[m];
@@ -133,26 +133,35 @@ joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
   const int row0 = 16 * wm + gr;
   const int lab[2] = {s_lab[row0], s_lab[row0 + 8]};
   float run_m[2] = {-FLT_MAX, -FLT_MAX}, run_s[2] = {0.f, 0.f};
-  for (int it = 0; it < ntiles; ++it) {
-    const int v0 = it * BN;
-    const T* wt = ring + (size_t)(S == 2 ? (it & 1) : 0) * Hp * P::LDW;
-    if (S == 2 && it + 1 < ntiles) {
-      load_w_tile<BN>(ring + (size_t)((it + 1) & 1) * Hp * P::LDW, P::LDW, W, H, Hp, V, v0 + BN,
-                      w_async);
+  const int n0 = wn * NI * 8;
+  float acc[1][NI][4];
+  for (int i = 0; i < nsteps; ++i) {
+    const int s = i % nsl, v0 = i / nsl * BN, k0 = s * ks, nk = min(ks, Hp - k0);
+    const T* wt = ring + (size_t)(S == 2 ? (i & 1) : 0) * ks * P::LDW;
+    if (S == 2 && i + 1 < nsteps) {
+      issue(i + 1, ring + (size_t)((i + 1) & 1) * ks * P::LDW);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
-      if (S == 1 && it > 0) {
-        load_w_tile<BN>(ring, P::LDW, W, H, Hp, V, v0, w_async);
+      if (S == 1 && i > 0) {
+        issue(i, ring);
         cp_async_commit();
       }
       cp_async_wait<0>();
     }
+    if (!h_whole) fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, nk);
     __syncthreads();
     if (active) {
-      float acc[1][NI][4] = {};
-      const int n0 = wn * NI * 8;
-      warp_product<TW, 1, NI, false, true>(acc, hs, ldh, 16 * wm, wt, P::LDW, n0, Hp, lane);
+      if (s == 0) {
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[0][j][x] = 0.f;
+      }
+      warp_product<TW, 1, NI, false, true>(acc, hs + (h_whole ? k0 : 0), ldh, 16 * wm, wt,
+                                           P::LDW, n0, nk, lane);
+    }
+    if (active && s == nsl - 1) {  // the V tile's logits complete
       const bool extras_here = has_extra(cols, v0 + n0, NI * 8);
       float tile_max[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
@@ -191,7 +200,7 @@ joint_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
         run_m[r] = m_new;
       }
     }
-    __syncthreads();  // the W tile consumed before its slot is refilled
+    __syncthreads();  // the W piece (and an h slice) consumed before its slot is refilled
   }
 
   // The four lanes of a quad share a row: combine them, then the WN warps
@@ -240,25 +249,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TW, int TM>
-size_t smem_bytes_tm(int H) {
-  return Prep<TW, TM>::bytes(padded_h(H), Prep<TW, TM>::kStages);
-}
-
-template <typename TW>
-size_t smem_bytes(int H) {
-  switch (tile_param(H)) {
-    case 4: return smem_bytes_tm<TW, 4>(H);
-    case 2: return smem_bytes_tm<TW, 2>(H);
-    default: return smem_bytes_tm<TW, 1>(H);
-  }
-}
-
-template <typename TW, int TM>
+template <typename TW, int TM, bool kSliced>
 int launch_tm(const Args& a) {
-  constexpr int BM = Prep<TW, TM>::BM;
-  auto kernel = joint_prep_kernel<TW, TM>;
-  const size_t bytes = smem_bytes_tm<TW, TM>(a.H);
+  constexpr int BM = Prep<TW, TM, kSliced>::BM;
+  auto kernel = joint_prep_kernel<TW, TM, kSliced>;
+  const Plan q = plan<TW>(a.H);
+  const size_t bytes = (size_t)q.prep_smem;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -266,23 +262,25 @@ int launch_tm(const Args& a) {
   const long long blocks = (cells + BM - 1) / BM;
   kernel<<<(unsigned)blocks, kThreads, bytes, a.stream>>>(
       a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.lpb, a.lpe, a.denom,
-      a.lpx, a.cols, a.Wd, a.bias_d, a.dlog, a.D, a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V));
+      a.lpx, a.cols, a.Wd, a.bias_d, a.dlog, a.D, a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V),
+      q.prep_hcols);
   return (int)cudaGetLastError();
 }
 
 template <typename TW>
 int launch(const Args& a) {
   switch (tile_param(a.H)) {
-    case 4: return launch_tm<TW, 4>(a);
-    case 2: return launch_tm<TW, 2>(a);
-    default: return launch_tm<TW, 1>(a);
+    case 4: return launch_tm<TW, 4, false>(a);
+    case 2: return launch_tm<TW, 2, false>(a);
+    default:
+      return padded_h(a.H) > kPassH ? launch_tm<TW, 1, true>(a) : launch_tm<TW, 1, false>(a);
   }
 }
 
-template <typename TW, int TM>
+template <typename TW, int TM, bool kSliced>
 int attrs_tm(int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_prep_kernel<TW, TM>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_prep_kernel<TW, TM, kSliced>);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return (int)err;
@@ -291,9 +289,11 @@ int attrs_tm(int* regs, int* local_bytes) {
 template <typename TW>
 int attrs(int H, int* regs, int* local_bytes) {
   switch (tile_param(H)) {
-    case 4: return attrs_tm<TW, 4>(regs, local_bytes);
-    case 2: return attrs_tm<TW, 2>(regs, local_bytes);
-    default: return attrs_tm<TW, 1>(regs, local_bytes);
+    case 4: return attrs_tm<TW, 4, false>(regs, local_bytes);
+    case 2: return attrs_tm<TW, 2, false>(regs, local_bytes);
+    default:
+      return padded_h(H) > kPassH ? attrs_tm<TW, 1, true>(regs, local_bytes)
+                                  : attrs_tm<TW, 1, false>(regs, local_bytes);
   }
 }
 
@@ -305,7 +305,7 @@ extern "C" {
 // launches at this H and W type, as ptxas compiled it. Returns the
 // cudaError_t of the query.
 int wtt_joint_prep_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
-  if (H < 1 || H > kMaxH) return (int)cudaErrorInvalidValue;
+  if (H < 1) return (int)cudaErrorInvalidValue;
   switch (w_dtype) {
     case wtt::kF32: return attrs<float>(H, regs, local_bytes);
     case wtt::kBF16: return attrs<__nv_bfloat16>(H, regs, local_bytes);
@@ -313,11 +313,11 @@ int wtt_joint_prep_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
   }
 }
 
-// Dynamic shared memory the kernel asks for at this H and W type (the
-// larger of the two: the wrapper checks it against the card's limit).
+// Dynamic shared memory the kernel asks for at this H (the larger of the two
+// W types: the wrapper checks it against the card's limit).
 long long wtt_joint_prep_smem(int H) {
-  const size_t f = smem_bytes<float>(H), b = smem_bytes<__nv_bfloat16>(H);
-  return (long long)(f > b ? f : b);
+  const long long f = plan<float>(H).prep_smem, b = plan<__nv_bfloat16>(H).prep_smem;
+  return f > b ? f : b;
 }
 
 // e: (B,T,H) f32; p: (B,U,H) f32; W: (H,V) f32 (w_dtype 0) or bf16 (2);
@@ -334,7 +334,7 @@ int wtt_joint_prep(const void* e, const void* p, const void* W, int w_dtype, con
                    const void* Wd, const void* bias_d, void* dlog, int D, int B, int T, int U,
                    int H, int V, int blank, void* stream) {
   if ((long long)B * T * U == 0 || V == 0) return 0;
-  if (H > kMaxH || D < 0 || D > kPanel) return (int)cudaErrorInvalidValue;
+  if (H < 0 || D < 0 || D > kPanel) return (int)cudaErrorInvalidValue;
   if ((K > 0 && lpx == nullptr) ||
       (D > 0 && (Wd == nullptr || bias_d == nullptr || dlog == nullptr)))
     return (int)cudaErrorInvalidValue;

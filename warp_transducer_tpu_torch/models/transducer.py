@@ -336,10 +336,9 @@ class Joint(nn.Module):
     (and ``dur_proj`` with ``cfg.tdt_durations``).
 
     Its fused losses (``fused_loss``, ``multiblank_fused_loss``,
-    ``tdt_fused_loss``) run the fused joint kernels on a CUDA tensor, which
-    take ``cfg.joint_dim`` <= 1024 and raise ``ValueError`` above it;
-    ``pruned_fused_loss`` and the plain versions (CPU tensors,
-    ``implementation="torch"``) compute at any width.
+    ``tdt_fused_loss``) run the fused joint kernels on a CUDA tensor, at any
+    ``cfg.joint_dim``; ``pruned_fused_loss`` runs its sweeps, and the plain
+    versions (CPU tensors, ``implementation="torch"``) run everywhere.
     """
 
     def __init__(self, cfg: TransducerConfig, device=None, generator=None):

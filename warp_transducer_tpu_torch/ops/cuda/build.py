@@ -172,10 +172,8 @@ def library() -> ctypes.CDLL:
                lib.wtt_dur_head_prep, lib.wtt_dur_head_grad):
         fn.restype = ctypes.c_int
     # What the joint kernels' tiling needs at a given H, for the wrapper's checks.
-    lib.wtt_joint_max_h.argtypes = []
-    lib.wtt_joint_max_h.restype = i
-    lib.wtt_joint_grad_stripe.argtypes = [i]
-    lib.wtt_joint_grad_stripe.restype = i
+    lib.wtt_joint_plan.argtypes = [i, i, ll, ctypes.POINTER(ctypes.c_longlong)]
+    lib.wtt_joint_plan.restype = i
     lib.wtt_joint_grad_cols_occupancy.argtypes = [i, i]
     lib.wtt_joint_grad_cols_occupancy.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
@@ -183,7 +181,8 @@ def library() -> ctypes.CDLL:
                lib.wtt_joint_grad_cols_attrs, lib.wtt_wavefront_attrs):
         fn.argtypes = [i, i, ip, ip]
         fn.restype = i
-    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem):
+    for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem,
+               lib.wtt_joint_grad_dwd_smem):
         fn.argtypes = [i]
         fn.restype = ll
     lib.wtt_window_attrs.argtypes = [i, i, i, ip, ip]

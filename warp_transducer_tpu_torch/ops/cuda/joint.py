@@ -14,10 +14,12 @@ gradients come back in the types of e, p, W, bias, Wd. They visit only the
 cells inside each utterance's lattice, numbered through running sums of
 T_b·U_b that are taken on the card, so nothing here waits for the device;
 what they skip is filled here (NEG, or 0 for denom and the duration
-logits)."""
+logits). They take any joint width H: above 1024 the same kernels stream W
+in k-slices and take dh and dW in passes (``joint_plan``)."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,9 +34,8 @@ _IN = (torch.float32, torch.bfloat16)
 _DUR_BLOCKS_PER_SM = 2
 # The fused gradient's chunk of rows: the buffer of their h (joint_grad.cu's
 # row kernel writes it, the column kernel reads it) takes at most this, and
-# H is padded to a multiple of _H_ALIGN in it (csrc/joint.cuh, kHAlign).
+# H is padded to a multiple of JOINT_H_ALIGN in it (csrc/joint.cuh, kHAlign).
 _H_CHUNK_MB = 32
-_H_ALIGN = 128
 
 
 def _rows(e, p, input_lengths, label_lengths):
@@ -53,18 +54,15 @@ def _rows(e, p, input_lengths, label_lengths):
     return offsets, label_lengths.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def _check_h(H, smem_entries):
-    """Raise unless the kernels' tiling covers this H; ``smem_entries``
-    name the C entries that give the kernels' shared memory at this H
-    (their h, W and g tiles)."""
-    max_h = lib().wtt_joint_max_h()
-    if H > max_h:
-        raise ValueError(f"H={H} exceeds the fused joint kernels' limit of {max_h}: a lane "
-                         "keeps 64 accumulators of an H-wide result in registers")
-    need = max((getattr(lib(), entry)(H) for entry in smem_entries), default=0)
-    if need > SMEM_BYTES:
-        raise ValueError(f"H={H} needs {need} bytes of shared memory for the kernel's tiles; a "
-                         f"block may use {SMEM_BYTES} (227 KB)")
+def _check_smem(H, smem_entries):
+    """Raise unless each kernel's shared memory at this H, as the C entries
+    ``smem_entries`` give it (their h, W and g tiles, or slices of them),
+    fits a block: the plan keeps it within 227 KB at every H."""
+    for entry in smem_entries:
+        need = getattr(lib(), entry)(H)
+        if need > SMEM_BYTES:
+            raise ValueError(f"H={H} needs {need} bytes of shared memory for {entry}'s tiles; a "
+                             f"block may use {SMEM_BYTES} (227 KB)")
 
 
 def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_entries):
@@ -82,7 +80,7 @@ def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_ent
                          f"W {tuple(W.shape)}, bias {tuple(bias.shape)}")
     if not 0 <= blank < V:
         raise ValueError(f"blank {blank} is outside [0, V={V})")
-    _check_h(H, smem_entries)
+    _check_smem(H, smem_entries)
     offsets, ll = _rows(e, p, input_lengths, label_lengths)
     lab = _plain.lab_full(labels.to(dev), U)
     return e.float(), p.float(), W, bias.float(), lab, offsets, ll
@@ -110,9 +108,124 @@ def _dur_inputs(e, p, Wd, other, what, per_cell):
     B, T, H = e.shape
     if p.shape[0] != B or p.shape[2] != H:
         raise ValueError(f"shapes disagree: e {tuple(e.shape)}, p {tuple(p.shape)}")
-    _check_h(H, ())  # the kernels' shared memory does not depend on H (dur_smem_bytes)
+    # The kernels' shared memory does not depend on H (dur_smem_bytes).
     shape = (B, T, p.shape[1]) if per_cell else ()
     return (e.float(), p.float()) + _dur_head(dev, H, Wd, other, what, shape)
+
+
+# The plan of csrc/joint.cuh (Plan, plan_tm and the tilings Prep, GradRows,
+# GradCols), mirrored for the CPU tests; a card test holds it against
+# wtt_joint_plan at every H. Up to JOINT_PASS_H (H padded to a multiple of
+# JOINT_H_ALIGN) one k-slice holds all of H and one pass covers dh and dW;
+# above it W streams in k-slices of ``JointPlan.ks`` rows and the row and
+# column kernels take dh and dW in passes of JOINT_PASS_H columns.
+JOINT_WARPS = 8
+JOINT_DIM = 16
+JOINT_H_ALIGN = 128
+JOINT_PASS_H = 1024
+JOINT_SLICE = 256  # rows of a k-slice above JOINT_PASS_H with bf16 W (f32: half)
+JOINT_PANEL = 8
+JOINT_COLS_SLICED_RM = 8  # the column kernel's row tiles above JOINT_PASS_H: 128 rows
+# Padding of a tile row, elements: (h, W, g) by W's type (joint.cuh, Mma).
+_PADS = {torch.float32: (4, 8, 4), torch.bfloat16: (8, 8, 8)}
+
+
+class JointPlan(NamedTuple):
+    tm: int           # a row tile is 16·tm rows (the column kernel's stripe 16·tm columns)
+    hp: int           # H padded to a multiple of JOINT_H_ALIGN
+    sliced: int       # 0: one k-slice and one pass; 1: above JOINT_PASS_H
+    ks: int           # rows of W (and columns of h) of a k-slice
+    slices: int       # k-slices of hp
+    passes: int       # passes over H of dh (row kernel) and dW (column kernel)
+    prep_hcols: int   # columns of the prep's h tile: hp, or ks (refilled each step)
+    prep_stages: int  # W stages of the prep's ring
+    rows_hcols: int   # columns of the row kernel's h tile: hp, or ks
+    prep_smem: int    # dynamic shared memory of a block, bytes
+    rows_smem: int
+    cols_smem: int
+    chunk_rows: int   # rows of a chunk of the gradient (its h buffer)
+
+
+def _r16(n):
+    return -(-n // 16) * 16
+
+
+def tile_param(H: int) -> int:
+    return 4 if H <= 256 else 2 if H <= 512 else 1
+
+
+def joint_plan(H: int, dtype: torch.dtype, chunk_mb: int | None = None) -> JointPlan:
+    """The fused joint kernels' plan at joint width H >= 1 and W of ``dtype``
+    (f32 or bf16), with the gradient's h buffer at most ``chunk_mb`` MB
+    (``_H_CHUNK_MB`` when None)."""
+    chunk_mb = _H_CHUNK_MB if chunk_mb is None else chunk_mb
+    sz = 2 if dtype == torch.bfloat16 else 4
+    pad_h, pad_w, pad_g = _PADS[dtype]
+    tm = tile_param(H)
+    hp = -(-H // JOINT_H_ALIGN) * JOINT_H_ALIGN
+    bm = JOINT_DIM * tm
+    hmax = JOINT_PASS_H // tm
+    # The row tilings (joint.cuh::RowTiles): the prep and the row kernel, V
+    # tiles of bn columns (64 with bf16 W or above JOINT_PASS_H; 128 with
+    # bf16 W above it).
+    sliced = hp > JOINT_PASS_H
+    bn = (128 if sliced else 64) if sz == 2 else 64 if sliced else JOINT_DIM * tm
+    wn = min(JOINT_WARPS // tm, bn // 8)
+    ldw, ldg = bn + pad_w, bn + pad_g
+
+    def prep_bytes(hcols, wrows, stages):
+        return (_r16(sz * bm * (hcols + pad_h)) + _r16(sz * stages * wrows * ldw)
+                + _r16(4 * 2 * bm) + _r16(4 * 2 * wn * bm) + _r16(4 * 4 * bm))
+
+    def rows_bytes(hcols, wrows, stages, dcols, d_over_h):
+        h = _r16(sz * bm * (hcols + pad_h))
+        d = 4 * dcols * (bm + 1)
+        need = max(d - h, 0) if d_over_h else d
+        ring = max(sz * stages * wrows * ldw, need)
+        return (h + _r16(ring) + _r16(sz * bm * ldg) + _r16(4 * (4 + 2 * JOINT_PANEL) * bm)
+                + _r16(4 * 4 * bm))
+
+    prep_stages = 2 if sliced or (_r16(sz * bm * (hmax + pad_h)) + _r16(sz * 2 * hmax * ldw)
+                                  + 4096 <= SMEM_BYTES) else 1
+    # The column kernel's tiling (joint.cuh::GradCols): stripes of 16·tm, row
+    # tiles of cbm rows.
+    cbn = JOINT_DIM * tm
+    cldw = cbn + pad_w
+
+    def cols_small(cbm):  # row fields and (b, t, u, label) twice, db, bias, extra index
+        return (_r16(4 * 2 * (4 + JOINT_PANEL) * cbm) + _r16(4 * (cbm // JOINT_DIM) * cbn)
+                + _r16(4 * 2 * 4 * cbm) + _r16(4 * cbn) + _r16(4 * cbn))
+
+    chunk = max(bm, (chunk_mb << 20) // (hp * sz) // bm * bm)
+    if not sliced:
+        hbuf = 2 if sz == 4 and (_r16(sz * hmax * cldw) + _r16(sz * 2 * bm * (hmax + pad_h))
+                                 + _r16(sz * bm * cldw) + cols_small(bm)) <= SMEM_BYTES else 1
+        cols = _r16(sz * hp * cldw) + _r16(sz * hbuf * bm * (hp + pad_h)) + _r16(sz * bm * cldw)
+        return JointPlan(tm, hp, 0, hp, 1, 1, hp, prep_stages, hp,
+                         prep_bytes(hp, hp, prep_stages), rows_bytes(hp, hp, 1, hp, sz == 2),
+                         cols + cols_small(bm), chunk)
+    ks = JOINT_SLICE if sz == 2 else JOINT_SLICE // 2  # joint.cuh::kSliceRows
+    whole = prep_bytes(hp, ks, 2)
+    prep_hcols = hp if whole <= SMEM_BYTES else ks
+    whole = rows_bytes(hp, ks, 2, JOINT_PASS_H, sz == 2)
+    rows_hcols = hp if whole <= SMEM_BYTES else ks
+    cbm = JOINT_DIM * JOINT_COLS_SLICED_RM
+    stage = _r16(sz * ks * cldw) + _r16(sz * cbm * (ks + pad_h))
+    return JointPlan(tm, hp, 1, ks, -(-hp // ks), -(-hp // JOINT_PASS_H), prep_hcols, 2,
+                     rows_hcols, prep_bytes(prep_hcols, ks, 2),
+                     rows_bytes(rows_hcols, ks, 2, JOINT_PASS_H, sz == 2 or rows_hcols != hp),
+                     2 * stage + _r16(sz * cbm * cldw) + cols_small(cbm), chunk)
+
+
+def kernel_plan(H: int, dtype: torch.dtype, chunk_mb: int | None = None) -> JointPlan:
+    """The plan the kernels take at this H and W type, from the C entry
+    (``wtt_joint_plan``); for the card tests and the measurement scripts."""
+    chunk_mb = _H_CHUNK_MB if chunk_mb is None else chunk_mb
+    out = (ctypes.c_longlong * len(JointPlan._fields))()
+    err = lib().wtt_joint_plan(H, DTYPE_CODES[dtype], chunk_mb << 20, out)
+    if err != 0:
+        raise RuntimeError(f"wtt_joint_plan({H}, {dtype}) failed: cudaError {err}")
+    return JointPlan(*out)
 
 
 # The plan of csrc/dur_head.cu (its constants and prep_ut / prep_tt), mirrored
@@ -204,18 +317,10 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
 def _dur_splits(B, T, U, H, dev):
     """Row splits of the fused gradient's dWd kernel: each split walks every
     nsplit-th row tile and owns one partial of dWd."""
-    tile = lib().wtt_joint_grad_stripe(H)  # its row tiles are as tall as the column kernel's
+    tile = JOINT_DIM * tile_param(H)  # its row tiles are as tall as the column kernel's
     tiles = -(-(B * T * U) // tile)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(_DUR_BLOCKS_PER_SM * sms, tiles))
-
-
-def _chunk_rows(Hp, W, tile):
-    """Rows of one chunk of the gradient: the row kernel writes their h to a
-    buffer of at most ``_H_CHUNK_MB`` that the column kernel reads; a whole
-    number of row tiles."""
-    rows = (_H_CHUNK_MB << 20) // (Hp * W.element_size())
-    return max(tile, rows // tile * tile)
 
 
 def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
@@ -233,7 +338,9 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
     e32, p32, W, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
                                                  label_lengths, blank,
                                                  ("wtt_joint_grad_rows_smem",
-                                                  "wtt_joint_grad_cols_smem"))
+                                                  "wtt_joint_grad_cols_smem")
+                                                 + (("wtt_joint_grad_dwd_smem",)
+                                                    if dur_head is not None else ()))
     B, T, H = e.shape
     U, V = p.shape[1], W.shape[1]
     for name, t in (("denom", denom),) + tuple(zip(fields._fields, fields)):
@@ -257,20 +364,23 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
     dp = torch.zeros((B, U, H), dtype=torch.float32, device=dev)
     dW = torch.empty((H, V), dtype=torch.float32, device=dev)
     db = torch.empty((V,), dtype=torch.float32, device=dev)
-    stripe = lib().wtt_joint_grad_stripe(H)
+    plan = joint_plan(H, W.dtype)
+    stripe = JOINT_DIM * plan.tm
     stripes = -(-V // stripe)
     cells = B * T * U
-    Hp = -(-H // _H_ALIGN) * _H_ALIGN
-    chunk = min(_chunk_rows(Hp, W, stripe), -(-cells // stripe) * stripe)
-    tiles = chunk // stripe  # row tiles are as tall as a stripe is wide
+    chunk = min(plan.chunk_rows, -(-cells // stripe) * stripe)
+    # the column kernel's row tiles in a chunk: as tall as a stripe is wide
+    # up to JOINT_PASS_H, JOINT_COLS_SLICED_RM sixteens above
+    col_tile = JOINT_DIM * JOINT_COLS_SLICED_RM if plan.sliced else stripe
+    tiles = -(-chunk // col_tile)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # One wave of the column kernel: as many row splits as its resident
-    # blocks leave room for beside the stripes.
+    # blocks leave room for beside the stripes and the passes over dW.
     per_sm = max(1, lib().wtt_joint_grad_cols_occupancy(H, DTYPE_CODES[W.dtype]))
-    nsplit = max(1, min(per_sm * sms // stripes, tiles))
+    nsplit = max(1, min(per_sm * sms // (stripes * plan.passes), tiles))
     dW_part = torch.empty((nsplit, H, V), dtype=torch.float32, device=dev) if nsplit > 1 else dW
     db_part = torch.empty((nsplit, V), dtype=torch.float32, device=dev) if nsplit > 1 else db
-    h_chunk = torch.empty((chunk, Hp), dtype=W.dtype, device=dev)
+    h_chunk = torch.empty((chunk, plan.hp), dtype=W.dtype, device=dev)
     inputs = (W.data_ptr(), DTYPE_CODES[W.dtype], b32.data_ptr(), lab.data_ptr(),
               offsets.data_ptr(), ll.data_ptr(), denom.data_ptr(), fields.coef.data_ptr(),
               fields.cb.data_ptr(), fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K)
@@ -347,8 +457,9 @@ def dur_head_grad(e, p, Wd, g_dur, input_lengths=None, label_lengths=None):
 
 def kernel_registers(H: int, dtype: torch.dtype) -> dict:
     """{kernel: (registers a thread, local bytes a thread)} of the prep, row
-    and column kernels launched at this H with W of ``dtype``, as ptxas
-    compiled them (``cudaFuncGetAttributes``); for the measurement scripts."""
+    and column kernels launched at this H with W of ``dtype`` (their sliced
+    instances above H = 1024), as ptxas compiled them
+    (``cudaFuncGetAttributes``); for the measurement scripts."""
     code = DTYPE_CODES[dtype]
     out = {}
     for name, entry in (("joint_prep_kernel", "wtt_joint_prep_attrs"),

@@ -385,10 +385,9 @@ def rnnt_loss_fused_joint(e, p, W, bias, labels, input_lengths, label_lengths,
     the (B, T, U, V) logits or their gradient in device memory.
     Differentiable w.r.t. e, p, W and bias.
 
-    On a CUDA tensor the fused kernels take H <= 1024 (a lane keeps 64
-    accumulators of an H-wide row in registers, ``csrc/joint.cuh``); above
-    it the call raises ``ValueError`` under 'auto' and 'cuda'. 'torch' (the
-    plain version) computes at any H.
+    On a CUDA tensor the fused kernels take any H: above 1024 they stream W
+    through shared memory in k-slices and take dh and dW in passes of 1024
+    columns (``csrc/joint.cuh``, the plan).
     """
     # ops/rnnt.py lists this module's stages in its engines and so imports
     # it; the engines are read here, when a loss is called.

@@ -93,8 +93,7 @@ def rnnt_loss_multiblank_fused_joint(e, p, W, bias, labels, input_lengths, label
     Arguments as in ``rnnt_loss_fused_joint`` plus the multi-blank ones of
     ``rnnt_loss_multiblank`` (at most ``prep.MAX_EXTRA_COLS`` big blanks);
     ``implementation``: 'auto' | 'torch' | 'cuda' (``ops/rnnt.py``). As
-    there, the fused kernels take H <= 1024 on a CUDA tensor and raise
-    ``ValueError`` above it; 'torch' computes at any H.
+    there, the fused kernels take any H on a CUDA tensor.
     """
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")

@@ -173,8 +173,8 @@ def rnnt_loss_pruned_fused(e, p, W, bias, ranges, labels, input_lengths, label_l
     device memory above the threshold. Differentiable w.r.t. e, p, W and
     bias.
 
-    Unlike ``rnnt_loss_fused_joint`` it has no limit on H on a CUDA tensor:
-    neither of its routes runs the fused joint kernels (H <= 1024).
+    Neither of its routes runs the fused joint kernels; like
+    ``rnnt_loss_fused_joint`` it takes any H on a CUDA tensor.
     """
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")

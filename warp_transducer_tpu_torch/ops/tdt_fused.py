@@ -160,8 +160,7 @@ def rnnt_loss_tdt_fused_joint(e, p, W, bias, Wd, bias_d, labels, input_lengths, 
     inputs.
 
     On a CUDA tensor the fused kernels and the duration-head kernels take
-    H <= 1024 and raise ``ValueError`` above it under 'auto' and 'cuda'
-    (``rnnt_loss_fused_joint``); 'torch' computes at any H.
+    any H (``rnnt_loss_fused_joint``).
     """
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")
