@@ -75,6 +75,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # bf16 inputs in the tensor cores, dense
+# The fused joint's products with f32 W: the least the card can do for them
+# at f32 accuracy is three TF32 products on the tensor cores (495 TFLOP/s
+# dense), so a third of that rate.
+TF32X3_OPS_PER_S = 495e12 / 3
 # The same card's issue rates at its 1.98 GHz boost clock on 132 SMs: the
 # FP32 pipe retires 128 lane-instructions a clock per SM (67 TFLOP/s counts
 # an FMA as two), the MUFU 16 results (ex2, rcp, ...).
@@ -162,10 +166,17 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "grad_fields_warp_kernel",
                 "band_prep_tile_kernel", "band_prep_warp_kernel", "band_row_kernel",
                 "band_chunk_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
-                "ranges_kernel", "joint_prep_kernel",
-                "joint_grad_rows_kernel", "joint_grad_cols_kernel", "joint_grad_dwd_kernel",
+                "ranges_kernel", "joint_w_kernel", "joint_h_kernel", "joint_prep_kernel",
+                "joint_grad_g_kernel", "joint_grad_dh_kernel", "joint_grad_d_kernel",
+                "joint_grad_dw_kernel", "joint_grad_db_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
                 "window_warp_kernel", "window_block_kernel")
+
+
+# The fused joint's kernels by wrapper: K6a (the layout of W, h, the prep)
+# and K6b's engine kernels (the row launch: h, g, dh; the column launch: dW).
+JOINT_PREP_KERNELS = ("joint_w_kernel", "joint_h_kernel", "joint_prep_kernel")
+JOINT_GRAD_KERNELS = ("joint_grad_g_kernel", "joint_grad_dh_kernel", "joint_grad_dw_kernel")
 
 
 def device_breakdown(tag, fn, event_ms, iters=5, top=6):
@@ -1291,7 +1302,7 @@ def fused_timings(dev, steps_by_dtype):
         pr, fields = joint_fields(problem, 0)
         # Data-dependent work: only the rows inside each utterance's lattice.
         rows = int((il.long() * (ll.long() + 1)).sum())
-        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        rate = TF32X3_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
         in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias)) + B * L * 4 + 2 * B * 4
         small = B * T * U * 4
         # The library's products, timed only: on the whole h (B·T·U, H) and g.
@@ -1305,20 +1316,20 @@ def fused_timings(dev, steps_by_dtype):
 
         prep_args = (e, p, W, bias, labels, il, ll, 0)
         grad_args = (e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
-        regs = kjoint.kernel_registers(H, dtype)
+        regs = kjoint.kernel_registers(dtype)
         out["joint_prep"][case] = dict(
             ms=time_ms(lambda: kjoint.fused_prep(*prep_args), 5),
             plain_ms=time_ms(lambda: fused_joint.fused_prep(*prep_args), 2, 1),
             library_ms=time_ms(lambda: torch.matmul(h, W), 5),
             bound=bound(in_bytes + 3 * small, 2 * rows * H * V, rate),
-            registers={k: regs[k] for k in ("joint_prep_kernel",)})
+            registers={k: regs[k] for k in JOINT_PREP_KERNELS})
         out["joint_grad"][case] = dict(
             ms=time_ms(lambda: kjoint.fused_grad(*grad_args), 3),
             plain_ms=time_ms(lambda: fused_joint.fused_grad(*grad_args), 2, 1),
             library_ms=time_ms(three_products, 3),
             bound=bound(2 * in_bytes + 4 * small, 3 * 2 * rows * H * V, rate),
             launch_ms=kernel_ms(lambda: kjoint.fused_grad(*grad_args)),
-            registers={k: regs[k] for k in ("joint_grad_rows_kernel", "joint_grad_cols_kernel")})
+            registers={k: regs[k] for k in JOINT_GRAD_KERNELS})
         print(f"time {case}: valid rows {rows} ({rows / (B * T * U):.3f} of B·T·U)")
         for k in out:
             v = out[k][case]
@@ -1912,7 +1923,7 @@ def variant_timings(dev, mb_fused, mb_unfused, tdt_fused_step, tdt_unfused):
         Wd, bias_d = make_dur_head(H, 16, dev)
         denom, cols, (mb_fields, cX), (td_fields, g_dur) = variant_fields(problem, 0, Wd, bias_d)
         rows = int((il.long() * (ll.long() + 1)).sum())
-        rate = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+        rate = TF32X3_OPS_PER_S if f32 else BF16_OPS_PER_S
         in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias)) + B * L * 4 + 2 * B * 4
         small = B * T * U * 4
         head_bytes = (Wd.numel() + bias_d.numel()) * 4
@@ -2276,9 +2287,9 @@ def train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed, adam_step
 
 # The fused shape at joint width 2048: above the widest configuration of the
 # JAX package's own (H = 1024, README.md's large-vocabulary shape), where the
-# fused joint kernels stream W in k-slices of 256 rows and take dh and dW in
-# passes of 1024 columns (csrc/joint.cuh, the plan). The train step runs the
-# whole model of TransducerConfig(vocab_size=5000, joint_dim=2048), bf16.
+# fused joint's products stream 16 k-slices of h and W (bf16; 64 with f32 W)
+# through each block's ring (csrc/joint.cuh, the plan). The train step runs
+# the whole model of TransducerConfig(vocab_size=5000, joint_dim=2048), bf16.
 WIDE_SHAPE = ("wide", 64, 150, 20, 5000, 2048)
 WIDE_TRAIN_CFG = dict(vocab_size=5000, joint_dim=2048)
 WIDE_ADAM_STEPS = 3
@@ -2413,8 +2424,8 @@ def wide_main_path(dev, totals):
 
 def wide_timings(dev, steps):
     """At WIDE_SHAPE, f32 and bf16: the fused step beside the plain route
-    and the unfused composition (ms, peak MB), and the kernels: K6a, K6b (a
-    launch of its row and its column kernel apart), the dWd kernel, K6c and
+    and the unfused composition (ms, peak MB), and the kernels: K6a, K6b (the
+    device ms of each of its kernels a call apart), the dWd kernel, K6c and
     K6d, each beside its plain version, the library's products and its
     bound, with the registers ptxas gave them and the plan's shared memory.
     Returns ({kernel: {case: timing}}, {step: (ms, MB)})."""
@@ -2439,23 +2450,23 @@ def wide_timings(dev, steps):
         e, p, W, bias, labels, il, ll = problem
         pr, fields = joint_fields(problem, 0)
         rows = int((il.long() * (ll.long() + 1)).sum())
-        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        rate = TF32X3_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
         in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias)) + B * L * 4 + 2 * B * 4
         small = B * T * U * 4
         prep_args = (e, p, W, bias, labels, il, ll, 0)
         grad_args = (e, p, W, bias, labels, il, ll, pr.denom, fields, 0)
         prep_k = lambda: kjoint.fused_prep(*prep_args)  # noqa: E731
         grad_k = lambda: kjoint.fused_grad(*grad_args)  # noqa: E731
-        regs = kjoint.kernel_registers(H, dtype)
-        plan = kjoint.kernel_plan(H, dtype)
+        regs = kjoint.kernel_registers(dtype)
+        plan = kjoint.kernel_plan(H, V, dtype)
         h = torch.tanh(e.float()[:, :, None] + p.float()[:, None]).reshape(-1, H).to(dtype)
         out["joint_prep"][case] = dict(
-            ms=launch_device_ms(prep_k, 3, ("joint_prep_kernel",)) or time_ms(prep_k, 3, 1),
+            ms=sum(kernel_ms(prep_k, 3).values()) or time_ms(prep_k, 3, 1),
             event_ms=time_ms(prep_k, 3, 1),
             plain_ms=time_ms(lambda: fused_joint.fused_prep(*prep_args), 1, 1),
             library_ms=time_ms(lambda: torch.matmul(h, W), 3),
             bound=bound(in_bytes + 3 * small, 2 * rows * H * V, rate),
-            registers={"joint_prep_kernel": regs["joint_prep_kernel"]},
+            registers={k: regs[k] for k in JOINT_PREP_KERNELS},
             smem=plan.prep_smem, plan=plan._asdict())
         g = torch.randn((h.shape[0], V), device=dev).to(dtype)
         launches = kernel_ms(grad_k, 2)
@@ -2466,8 +2477,8 @@ def wide_timings(dev, steps):
                                         torch.matmul(h.t(), g)), 2),
             bound=bound(2 * in_bytes + 4 * small, 3 * 2 * rows * H * V, rate),
             launch_ms=launches,
-            registers={k: regs[k] for k in ("joint_grad_rows_kernel", "joint_grad_cols_kernel")},
-            smem={"rows": plan.rows_smem, "cols": plan.cols_smem})
+            registers={k: regs[k] for k in JOINT_GRAD_KERNELS},
+            smem={"g": plan.g_smem, "dh": plan.dh_smem, "dW": plan.dw_smem})
         del g, h
         torch.cuda.empty_cache()
         if dtype == torch.float32:  # the duration head: Wd, g_dur in f32 whatever W's type
@@ -3714,7 +3725,7 @@ def main():
     del variant_steps
     torch.cuda.empty_cache()
 
-    # ---- 9b. the fused joint at joint width 2048 (k-slices and passes): its
+    # ---- 9b. the fused joint at joint width 2048 (deep k-slice streams): its
     # kernels with and without the hooks against their plain versions, the
     # four fused losses under the launch counters against the plain path, the
     # fused train step of the whole model at joint_dim 2048, the timings
@@ -3827,7 +3838,7 @@ def main():
         "joint_grad": ("warp_transducer_tpu_torch/csrc/joint_grad.cu",
                        "warp_transducer_tpu/ops/pallas/joint_fused.py:283"),
     }
-    # The gradient's column kernel has a source of its own.
+    # The gradient's column launch (dW, db) has a source of its own.
     also_source = {"joint_grad": "warp_transducer_tpu_torch/csrc/joint_grad_cols.cu"}
     fused_step_ms = {name: min(ms for ms, _ in runs) for name, runs in fused_steps.items()}
     fused_peak_mb = {name: max(mb for _, mb in runs) for name, runs in fused_steps.items()}
@@ -3859,7 +3870,7 @@ def main():
                        "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                        "launch_ms": t.get("launch_ms")}
                 for case, t in variant_kernel_ms[k].items()} | {
-                # at joint width 2048: the k-slices and the passes
+                # at joint width 2048
                 case: {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                        "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                        "registers": t["registers"], "smem": t["smem"],

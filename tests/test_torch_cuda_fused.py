@@ -57,14 +57,12 @@ def _rel(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
 
 
-# The tile edges of the tensor-core kernels: row tiles of 16·TM (TM = 4, 2, 1
-# for H <= 256, 512, above) that the valid rows do not fill, V tiles of 64 (or
-# 16·TM with f32 W) and 8-column mma tiles that V does not fill, H padded to
-# a multiple of 128; V a multiple of 8 (W's rows 16-byte aligned: the
-# cp.async ring) or not (plain loads). Above H = 1024 the k-slices of 256
-# rows and the passes of 1024 columns: 1100 and 2000 (no slice or pass
-# divides them), 1280, 2048 (the wide phase's width), 4096 (f32: the h tile
-# in slices too) and 6000 (bf16 as well).
+# The tile edges of the wgmma engine: 128-row tiles that the valid rows do
+# not fill, 128-column tiles of V and of H that V and H do not fill (H and V
+# padded to multiples of 128 in every operand), k-slices of 64 (bf16) or 32
+# (f32) columns, V odd or even (W's layout copies any alignment); the
+# widths across the old engine's passes: 1100 and 2000, 1280, 2048 (the
+# wide phase's width), 4096 and 6000.
 SHAPES = [(3, 37, 9, 1003, 200, 1002), (2, 5, 3, 7, 8, 0), (2, 9, 70, 40, 16, 3),
           (2, 6, 4, 130, 300, 129), (1, 5, 3, 20, 600, 0), (2, 7, 5, 67, 520, 66),
           (1, 3, 5, 61, 1024, 0), (3, 11, 3, 72, 64, 71), (2, 13, 6, 200, 256, 5),
@@ -250,11 +248,11 @@ def test_dW_db_bit_equal_across_calls_at_any_h(dev, H, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("H", [200, 1100])
 def test_joint_grad_chunk_by_chunk(dev, H, dtype, monkeypatch):
-    """The gradient runs a chunk of rows at a time (the row kernel writes the
-    chunk's h, the column kernel adds the chunk into its partial slices).
-    With the chunk cut to one row tile, many chunks give what one chunk
-    gives, within the kernels' tolerance of the plain version; also above
-    1024, where each chunk's kernels take dh and dW in passes."""
+    """The gradient runs a chunk of rows at a time (the row launch writes
+    the chunk's h, hᵀ, g, gᵀ and dh, the column launch adds the chunk into
+    dW and db). With the chunk cut to one 128-row tile, many chunks give
+    what one chunk gives, within the kernels' tolerance of the plain
+    version; also at H = 1100, whose products stream 9 (f32: 36) k-slices."""
     B, T, U, V, blank = 3, 19, 6, 300, 0
     e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=10, dtype=dtype, device=dev)
     pr = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, blank)
@@ -264,11 +262,11 @@ def test_joint_grad_chunk_by_chunk(dev, H, dtype, monkeypatch):
     K.reset_launches()
     whole = kjoint.fused_grad(*args)
     assert K.launches["joint_grad"] == 2
-    monkeypatch.setattr(kjoint, "_H_CHUNK_MB", 0)  # one row tile a chunk
+    monkeypatch.setattr(kjoint, "_CHUNK_MB", 0)  # one row tile a chunk
     K.reset_launches()
     chunked = kjoint.fused_grad(*args)
     torch.cuda.synchronize()
-    assert K.launches["joint_grad"] == 2 * -(-(B * T * U) // (16 * kjoint.tile_param(H)))
+    assert K.launches["joint_grad"] == 2 * -(-(B * T * U) // kjoint.JOINT_TILE)
     want = fused_joint.fused_grad(*args)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, a, b, w in zip(("de", "dp", "dW", "db"), chunked, whole, want):
@@ -306,9 +304,9 @@ def test_label_term_subtracted_before_rounding(dev, dtype):
 
 
 def test_misaligned_W_takes_plain_loads(dev):
-    """W whose rows are not 16-byte aligned (a view at an odd offset) cannot
-    go through cp.async; the kernels load it plainly and agree all the
-    same."""
+    """W whose rows are not 16-byte aligned (a view at an odd offset): the
+    kernel that lays W out for the products reads it with plain loads, so
+    the kernels agree all the same."""
     B, T, U, V, H = 2, 9, 4, 64, 128
     e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=9, device=dev)
     flat = torch.empty(H * V + 1, device=dev)
@@ -381,15 +379,96 @@ def test_joint_smem_fits_a_block_at_every_h(dev):
 
 
 def test_joint_plan_matches_its_mirror(dev):
-    """csrc/joint.cuh plans the kernels (tiles, k-slices, passes, shared
-    memory, the gradient's chunk of rows); ops/cuda/joint.py mirrors the plan
-    for the CPU tests and the wrapper takes its chunk from the mirror."""
+    """csrc/joint.cuh plans the kernels (padded widths, k-slices, stages,
+    shared memory, the chunks of rows); ops/cuda/joint.py mirrors the plan
+    for the CPU tests and the wrappers take their chunks from the mirror."""
     for dtype in (torch.float32, torch.bfloat16):
         for H in range(1, 8193):
-            assert kjoint.kernel_plan(H, dtype) == kjoint.joint_plan(H, dtype), (H, dtype)
+            for V in (5, 1003, 5000):
+                assert kjoint.kernel_plan(H, V, dtype) == kjoint.joint_plan(H, V, dtype), (H, V)
         for H in (1, 256, 1100, 2048, 8192):
             for mb in (0, 1, 32, 100):
-                assert kjoint.kernel_plan(H, dtype, mb) == kjoint.joint_plan(H, dtype, mb)
+                assert kjoint.kernel_plan(H, 333, dtype, mb) == kjoint.joint_plan(H, 333, dtype, mb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_joint_layouts_match_their_mirror(dev, dtype):
+    """W and Wᵀ as the kernel lays them out for the products (padded with
+    zeros, in tiles of wgmma's core-matrix order; f32 as tf32 hi and lo)
+    equal ops/cuda/joint.py::tile_order's placement, which the CPU replay of
+    the schedule reads back."""
+    H, V = 200, 300
+    _, _, W, *_ = _problem(1, 1, 1, V, H, seed=12, dtype=dtype, device=dev)
+    q = kjoint.joint_plan(H, V, dtype)
+    parts = 2 if dtype == torch.float32 else 1
+    wt = torch.empty(parts * q.vp * q.hp, dtype=dtype, device=dev)
+    wp = torch.empty_like(wt)
+    err = K.lib().wtt_joint_weights(W.data_ptr(), K.DTYPE_CODES[dtype], H, V, wt.data_ptr(),
+                                    wp.data_ptr(), K.stream(dev))
+    torch.cuda.synchronize()
+    assert err == 0
+    Wp = torch.zeros((q.hp, q.vp), device=dev)
+    Wp[:H, :V] = W.float()
+    for got, x in ((wt, Wp.t().contiguous()), (wp, Wp)):
+        order = kjoint.tile_order(*x.shape, dtype).to(dev).flatten()
+        if dtype == torch.bfloat16:
+            want = torch.empty_like(got)
+            want[order] = x.flatten().to(dtype)
+        else:  # hi = tf32(x), lo = tf32(x − hi): cvt.rna, ties away from zero
+            tf32 = lambda y: ((y.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)  # noqa
+            hi = tf32(x.flatten().contiguous())
+            lo = tf32((x.flatten() - hi).contiguous())
+            want = torch.empty_like(got)
+            want[order] = hi
+            want[order + x.numel()] = lo
+        assert torch.equal(got, want)
+
+
+# Every width at the engine's boundaries (H padded to 128 around 128, 256,
+# 1024 and 2048; 4096 and 6000 deep streams), both W types and each hook: K
+# = 2 big blanks on the last two columns with the blank just before them,
+# all in V's last, partial 128-column tile; the D = 4 duration head; ragged
+# rows that fill no 128-row tile, and grids small enough that dh and dW
+# split their sums.
+WIDTHS = [1, 8, 127, 128, 129, 200, 256, 257, 1023, 1024, 1025, 1100, 2048, 2049, 4096, 6000]
+GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("hook", ["k0", "k2", "d4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", WIDTHS)
+def test_joint_kernels_at_every_width(dev, H, dtype, hook):
+    B, T, U, V = 3, 11, 6, 300
+    blank, cols = V - 3, (V - 2, V - 1)
+    e, p, W, bias, _, il, ll = _problem(B, T, U, V, H, seed=H, dtype=dtype, device=dev)
+    rng = np.random.default_rng(H)
+    labels = torch.tensor(rng.integers(0, V - 3, (B, U - 1)), dtype=torch.int32, device=dev)
+    Wd = torch.tensor(rng.standard_normal((H, 4)) / np.sqrt(H), dtype=torch.float32, device=dev)
+    bias_d = torch.tensor(rng.standard_normal(4) * 0.1, dtype=torch.float32, device=dev)
+    valid = gradients._valid_cells((B, T, U), il, ll, dev)
+    f = [torch.tensor(rng.random((B, T, U)), dtype=torch.float32, device=dev) * valid
+         for _ in range(9)]
+    prep_kw = {"k0": {}, "k2": {"extra_cols": cols}, "d4": {"dur_head": (Wd, bias_d)}}[hook]
+    grad_kw = {"k0": {}, "k2": {"extra": (cols, torch.stack(f[3:5], -1))},
+               "d4": {"dur_head": (Wd, (torch.stack(f[5:9], -1) - 0.5) * valid[..., None])}}[hook]
+    args = (e, p, W, bias, labels, il, ll)
+    got = kjoint.fused_prep(*args, blank, **prep_kw)
+    torch.cuda.synchronize()
+    want = fused_joint.fused_prep(*args, blank, **prep_kw)
+    for name in ("lpb", "lpe", "denom", "extras", "dur"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            torch.testing.assert_close(a, b, **F32)
+    fields = gradients.Coefficients(*f[:3])
+    g_k = kjoint.fused_grad(*args, want.denom, fields, blank, **grad_kw)
+    torch.cuda.synchronize()
+    g_p = fused_joint.fused_grad(*args, want.denom, fields, blank, **grad_kw)
+    assert len(g_k) == len(g_p) == (5 if hook == "d4" else 4)
+    for name, a, b, like in zip(("de", "dp", "dW", "db", "dWd"), g_k, g_p, (e, p, W, bias, Wd)):
+        assert a.dtype == like.dtype and a.shape == like.shape, name
+        tol = 1e-4 if name == "dWd" else GRAD_REL[dtype]
+        assert torch.isfinite(a.float()).all() and _rel(a, b) <= tol, (name, _rel(a, b))
 
 
 def test_pruned_band_matches_rnnt_loss_pruned_on_card(dev, monkeypatch):

@@ -1,11 +1,10 @@
 // Shared pieces of the fused joint+loss kernels (joint_prep.cu,
 // joint_grad.cu, joint_grad_cols.cu, dur_head.cu): the compacted list of
-// valid lattice rows, the h = tanh(e ⊕ p) tiles in shared memory, the
-// tensor-core tiles of the token head's products (Mma, warp_product, the W
-// tile loads by cp.async), the per-row panels of the extra coefficient
-// fields and of the duration head's cotangent, and the duration head's own
-// products (D <= 8 columns: a warp's dot products going in, one thread per
-// k coming back).
+// valid lattice rows, the product engine of the token head (warpgroup MMA
+// from a ring of bulk copies in shared memory), the layouts of its operands
+// in device memory, the per-row panels of the extra coefficient fields and of
+// the duration head's cotangent, and the duration head's own products (D <= 8
+// columns: a warp's dot products going in, one thread per k coming back).
 //
 // Rows. A row is a lattice cell (b, t, u); only the cells inside each
 // utterance's lattice, t < T_b and u < U_b, carry work. They are numbered
@@ -15,16 +14,30 @@
 // host never reads the lengths; blocks beyond the last valid tile leave at
 // once.
 //
-// Threads. 256 threads a block, 8 warps. The token head's kernels give each
-// warp m16 × n8 mma tiles (see the tensor-core section); the duration
-// head's gradient (dur_grad_tiles) gives each thread its k = k0 + tid + 256·q
-// of a pass.
-//
-// Any H. Up to kPassH (H padded to a multiple of 128) a kernel holds the
-// whole W tile in shared memory and a thread keeps its share of an H-wide
-// result (dh, dW, dWd) in registers. Above it the same templates, with
-// kSliced, stream W through shared memory in k-slices of kSliceRows rows and
-// take the H-wide results in passes of kPassH columns (see the plan below).
+// The product engine. Every product of the token head (logits = h·W,
+// dh = g·Wᵀ, dW = hᵀ·g) is C = A·Bᵀ over a shared depth K, with A (M × K)
+// and B (N × K) both K-major (K contiguous) in device memory: the wrappers
+// lay out W and Wᵀ, and the kernels write h, hᵀ, g and gᵀ of a chunk of rows,
+// in the layout each product reads. A block owns a 128 × 128 tile of C: two
+// consumer warpgroups of 64 rows each issue wgmma (m64n128, sm_90a) from
+// shared memory, with the sums in registers. A and B come through a ring of
+// kStages stages of k-slices (16 KB a 128-row tile a part). The operands are
+// stored in device memory in the very order of wgmma's shared-memory layout
+// (core matrices of 8 rows × 16 bytes, no swizzle, the next core matrix along
+// K 128 bytes on and the next 8 rows kChunks·128 bytes on), so one thread
+// fills a stage with one bulk copy (cp.async.bulk) a tile, which completes on
+// the stage's mbarrier: no thread computes an address a piece, and the
+// copies, like wgmma's reads, go through the async proxy, so no proxy fence
+// waits on the copies in flight.
+// * bf16 W: the operands are bf16 (h rounded, g rounded after its
+//   subtractions), m64n128k16 with f32 sums.
+// * f32 W: each operand is held as two tf32 arrays, x = hi + lo with
+//   hi = tf32(x), lo = tf32(x − hi), split once where the array is written
+//   (never again by the warps that read it), and each product is three
+//   m64n128k8 tf32 products, lo·hi + hi·lo + hi·hi (the small terms first),
+//   which keeps about 22 bits of each product: f32 accuracy, where plain TF32
+//   keeps 11. wgmma takes tf32 operands K-major only, which is why every
+//   operand has its K-major copy.
 #pragma once
 
 #include <cstdint>
@@ -35,30 +48,10 @@ namespace wtt {
 namespace joint {
 
 constexpr int kThreads = 256;
-constexpr int kDim = 16;  // rows of a row tile (and columns of a stripe) per unit of TM
-constexpr int kBK = 16;   // H is padded to a multiple of this in dur_grad_tiles
-// Columns of dh (the row kernel), rows of dW (the column kernel) and k of
-// dWd (the dWd kernel) that one pass owns: a thread keeps 64 accumulators of
-// it in registers at TM = 1.
-constexpr int kPassH = 1024;
-// Rows of W (and columns of h) of a k-slice above kPassH: 256 with bf16 W,
-// 128 with f32 (whose tiles take twice the bytes), so that two stages fit
-// beside the whole h tile at H = 2048. A slice holds kSliceRows / (8 · 8) of
-// every warp's n8 tiles of dh (row kernel) and kSliceRows / (16 · 8) of its
-// m16 tiles of dW (column kernel).
-template <typename TW>
-constexpr int kSliceRows = sizeof(TW) == 2 ? 256 : 128;
-// Dynamic shared memory a block may use on sm_90 (227 KB).
-constexpr size_t kSmemMax = 232448;
+constexpr int kWarps = kThreads / wtt::kWarp;
 // Width of a per-row panel in shared memory: the K extra coefficient fields
 // or the D duration columns of a row, padded with zeros.
 constexpr int kPanel = wtt::kMaxExtraCols;
-
-// Tile parameter by H, shared by the three kernels: 4, 2 or 1 sixteens of
-// rows (or of columns, for the column kernel) a block, so that a thread
-// keeps 64 accumulators of an H-wide result in registers and the h tile
-// stays near 64 KB of shared memory.
-inline __host__ __device__ int tile_param(int H) { return H <= 256 ? 4 : H <= 512 ? 2 : 1; }
 
 struct Rows {
   const long long* offsets;  // (B+1) running sums of valid cells
@@ -95,77 +88,10 @@ __device__ __forceinline__ void place_rows(const Rows& rows, long long first, in
   }
 }
 
-// hs[(k − k0)·ldh + m] = tanh(e[b,t,k] + p[b,u,k]) in f32 for the tile's
-// rows and k0 <= k < k0 + nk (the duration head's unrounded h), zero for
-// k >= H and for rows beyond the end. The lanes run along k, so the reads of
-// e and p are contiguous.
-template <int BM>
-__device__ __forceinline__ void fill_h(float* hs, int ldh, const float* __restrict__ e,
-                                       const float* __restrict__ p, const int* s_b,
-                                       const int* s_t, const int* s_u, int T, int U, int H,
-                                       int k0, int nk) {
-  for (int idx = threadIdx.x; idx < BM * nk; idx += kThreads) {
-    const int m = idx / nk, kl = idx % nk, k = k0 + kl;
-    float h = 0.f;
-    const int b = s_b[m];
-    if (b >= 0 && k < H) {
-      h = tanhf(e[((long long)b * T + s_t[m]) * H + k] + p[((long long)b * U + s_u[m]) * H + k]);
-    }
-    hs[kl * ldh + m] = h;
-  }
-}
-
-// ---- tensor-core tiles of the token head (joint_prep.cu, joint_grad.cu) ----
-//
-// The three products of the token head (logits = h·W, dh = g·Wᵀ, dW = hᵀ·g)
-// run on the tensor cores through mma.sync, a warp at a time, from tiles in
-// shared memory:
-// * bf16 W: the tiles hold bf16 (h rounded, g rounded after its
-//   subtractions), m16n8k16 with f32 accumulators, fragments by ldmatrix
-//   (.trans where the tile is stored the other way round);
-// * f32 W: the tiles hold f32 and each product is split in three TF32
-//   products, x = hi + lo with hi = tf32(x), lo = tf32(x − hi), and
-//   a·b ≈ lo·hi + hi·lo + hi·hi (m16n8k8, the small terms first), which
-//   keeps about 22 bits of each product: f32 accuracy, where plain TF32 keeps
-//   11. Fragments by 32-bit loads (ldmatrix moves 16-bit elements).
-// Accumulator fragment of a m16 × n8 tile at (m0, n0), lane = 4·gr + tq:
-// c[0], c[1] at row m0 + gr, columns n0 + 2·tq, +1; c[2], c[3] at row
-// m0 + gr + 8, the same columns.
-//
-// What wgmma would add (sm_90a): a 64-row product of a warpgroup issued
-// asynchronously from shared memory with no fragment loads in the warps
-// (here ldmatrix traffic bounds the small warp tiles), and TMA loads of W
-// into an mbarrier ring; later work.
-
-constexpr int kWarps = kThreads / wtt::kWarp;
-// H is padded to a multiple of this in the products' tiles (zeros), so that
-// every warp's share of an H-wide result is a whole number of 16-wide tiles.
-constexpr int kHAlign = 128;
-inline __host__ __device__ int padded_h(int H) { return (H + kHAlign - 1) / kHAlign * kHAlign; }
+__host__ __device__ constexpr size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -174,472 +100,320 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// Operand traits by the type of W: the tile element, the depth of one mma,
-// the padding of a tile row (elements; keeps the fragment loads free of or
-// low in bank conflicts), the fragments, their loads and the product.
-// Tile storage: "mk" rows along the product's M (or N) with K contiguous,
-// "km" rows along K.
-template <typename TW> struct Mma;
+// ---- the operands' layouts in device memory ---------------------------------
+//
+// Tiles are 128 rows and 128 columns: H and V are padded with zeros to
+// multiples of 128 in every operand (Hp, Vp), and a chunk of rows is a whole
+// number of 128-row tiles. An operand of R rows and Kp columns is stored as
+// the ring reads it: a sequence of 16 KB tiles of 128 rows × kKS columns
+// (128 bytes of each row), row tile by row tile and along K within a row
+// tile, each tile in the order of wgmma's core matrices (8 rows × 16 bytes,
+// the 8 pieces of a row's 128 bytes one after the other for each 8 rows).
+// A ring stage then fills with one bulk copy a tile.
+constexpr int kBM = 128;  // rows of a block's tile of C (two warpgroups of 64)
+constexpr int kBN = 128;  // columns of a block's tile of C (wgmma n128)
+constexpr int kChunks = 8;                // 16-byte pieces of a tile row
+constexpr size_t kTileBytes = 128 * 128;  // 128 rows × 128 bytes: one part of A or B
+inline __host__ __device__ int pad128(long long n) { return (int)((n + 127) / 128 * 128); }
 
-template <> struct Mma<__nv_bfloat16> {
+// The operand type by the type of W: its element, how many arrays hold an
+// operand (bf16: one; f32: hi and lo, each `n` elements after the other),
+// the depth of a ring stage, and how 16-byte pieces of f32 values are stored.
+template <typename TW> struct Op;
+
+template <> struct Op<__nv_bfloat16> {
   using T = __nv_bfloat16;
-  static constexpr int kK = 16;
-  static constexpr int kPadH = 8, kPadW = 8, kPadG = 8;
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-  static __device__ __forceinline__ T cast(float x) { return __float2bfloat16(x); }
-  static __device__ __forceinline__ float value(T x) { return __bfloat162float(x); }
-  // A (m16 × k16) at (m0, k0) of a tile stored [m][k] / [k][m].
-  static __device__ __forceinline__ void load_a_mk(A& a, const T* t, int ld,
-                                                   int m0, int k0, int lane) {
-    ldsm_x4(a.r, t + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+  static constexpr int kParts = 1;
+  static constexpr int kKS = 64;  // k of a stage: 128 bytes of a row
+  static constexpr int kE = 8;    // elements of a 16-byte piece
+  static __device__ __forceinline__ void put(T* dst, long long n, long long i, float x) {
+    dst[i] = __float2bfloat16(x);
   }
-  static __device__ __forceinline__ void load_a_km(A& a, const T* t, int ld,
-                                                   int m0, int k0, int lane) {
-    const int j = lane >> 3;
-    ldsm_x4_t(a.r, t + (k0 + (lane & 7) + 8 * (j >> 1)) * ld + m0 + 8 * (j & 1));
+  static __device__ __forceinline__ void put_piece(T* dst, long long n, long long i,
+                                                   const float (&x)[kE]) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(x[2 * q], x[2 * q + 1]);
+    *reinterpret_cast<uint4*>(dst + i) = v;
   }
-  // B (k16 × n8) at (k0, n0) of a tile stored [k][n] / [n][k].
-  static __device__ __forceinline__ void load_b_kn(B& b, const T* t, int ld,
-                                                   int k0, int n0, int lane) {
-    ldsm_x2_t(b.r, t + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0);
-  }
-  static __device__ __forceinline__ void load_b_nk(B& b, const T* t, int ld,
-                                                   int k0, int n0, int lane) {
-    ldsm_x2(b.r, t + (n0 + (lane & 7)) * ld + k0 + 8 * ((lane >> 3) & 1));
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
-  }
+  static __device__ __forceinline__ float from(__nv_bfloat16 x) { return __bfloat162float(x); }
 };
 
-template <> struct Mma<float> {
+template <> struct Op<float> {
   using T = float;
-  static constexpr int kK = 8;
-  // h and g tiles read as A along rows (gr·ld + tq): ld ≡ 4 mod 32; W tiles
-  // read as B along rows (tq·ld + gr): ld ≡ 8 or 24 mod 32.
-  static constexpr int kPadH = 4, kPadW = 8, kPadG = 4;
-  struct A { uint32_t hi[4], lo[4]; };
-  struct B { uint32_t hi[2], lo[2]; };
-  static __device__ __forceinline__ T cast(float x) { return x; }
-  static __device__ __forceinline__ float value(T x) { return x; }
-  static __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
+  static constexpr int kParts = 2;
+  static constexpr int kKS = 32;  // k of a stage: 128 bytes of a row
+  static constexpr int kE = 4;
+  static __device__ __forceinline__ void split(float x, float& hi, float& lo) {
+    hi = __uint_as_float(to_tf32(x));
+    lo = __uint_as_float(to_tf32(x - hi));
   }
-  // A fragment of m16n8k8: (gr, tq), (gr + 8, tq), (gr, tq + 4), (gr + 8, tq + 4).
-  static __device__ __forceinline__ void load_a_mk(A& a, const T* t, int ld,
-                                                   int m0, int k0, int lane) {
-    const T* p = t + (m0 + (lane >> 2)) * ld + k0 + (lane & 3);
-    split(p[0], a.hi[0], a.lo[0]);
-    split(p[8 * ld], a.hi[1], a.lo[1]);
-    split(p[4], a.hi[2], a.lo[2]);
-    split(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  static __device__ __forceinline__ void put(T* dst, long long n, long long i, float x) {
+    split(x, dst[i], dst[n + i]);
   }
-  static __device__ __forceinline__ void load_a_km(A& a, const T* t, int ld,
-                                                   int m0, int k0, int lane) {
-    const T* p = t + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
-    split(p[0], a.hi[0], a.lo[0]);
-    split(p[8], a.hi[1], a.lo[1]);
-    split(p[4 * ld], a.hi[2], a.lo[2]);
-    split(p[4 * ld + 8], a.hi[3], a.lo[3]);
-  }
-  // B fragment: (k = tq, n = gr), (k = tq + 4, n = gr).
-  static __device__ __forceinline__ void load_b_kn(B& b, const T* t, int ld,
-                                                   int k0, int n0, int lane) {
-    const T* p = t + (k0 + (lane & 3)) * ld + n0 + (lane >> 2);
-    split(p[0], b.hi[0], b.lo[0]);
-    split(p[4 * ld], b.hi[1], b.lo[1]);
-  }
-  static __device__ __forceinline__ void load_b_nk(B& b, const T* t, int ld,
-                                                   int k0, int n0, int lane) {
-    const T* p = t + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
-    split(p[0], b.hi[0], b.lo[0]);
-    split(p[4], b.hi[1], b.lo[1]);
-  }
-  static __device__ __forceinline__ void mma1(float (&c)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
-    mma1(c, a.lo, b.hi);
-    mma1(c, a.hi, b.lo);
-    mma1(c, a.hi, b.hi);
-  }
-};
-
-// acc[i][j] += Σ_k A(m0 + MS·i + ·, k) · B(k, n0 + NS·j + ·) over k in [0, K),
-// a warp's m16 × n8 tiles i < MI, j < NI (those with i < mi_count, j <
-// nj_count: the tiles beyond them would read past the operands). kAkm /
-// kBkn: how A and B are stored (see Mma). MS, NS: the strides of the tiles
-// (16, 8: side by side; wider where the warps' tiles interleave).
-template <typename TW, int MI, int NI, bool kAkm, bool kBkn, int MS = 16, int NS = 8>
-__device__ __forceinline__ void warp_product(float (&acc)[MI][NI][4],
-                                             const typename Mma<TW>::T* As, int lda, int m0,
-                                             const typename Mma<TW>::T* Bs, int ldb, int n0, int K,
-                                             int lane, int mi_count = MI, int nj_count = NI) {
-  using M = Mma<TW>;
-  for (int k0 = 0; k0 < K; k0 += M::kK) {
-    typename M::A a[MI];
+  static __device__ __forceinline__ void put_piece(T* dst, long long n, long long i,
+                                                   const float (&x)[kE]) {
+    float hi[4], lo[4];
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      if (i >= mi_count) break;
-      if (kAkm) M::load_a_km(a[i], As, lda, m0 + MS * i, k0, lane);
-      else M::load_a_mk(a[i], As, lda, m0 + MS * i, k0, lane);
-    }
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      if (j >= nj_count) break;
-      typename M::B b;
-      if (kBkn) M::load_b_kn(b, Bs, ldb, k0, n0 + NS * j, lane);
-      else M::load_b_nk(b, Bs, ldb, k0, n0 + NS * j, lane);
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        if (i < mi_count) M::mma(acc[i][j], a[i], b);
-    }
+    for (int q = 0; q < 4; ++q) split(x[q], hi[q], lo[q]);
+    *reinterpret_cast<float4*>(dst + i) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<float4*>(dst + n + i) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
-}
-
-// ---- the W tile ring ---------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage W[k0 : k0 + nk, v0 : v0 + BN] as ws[(k − k0)·ldw + n], zero for
-// k >= H and v >= V. With `async` (W's rows 16-byte aligned: the wrapper
-// checks the base, the kernel V) by cp.async in 16-byte pieces, which the
-// caller commits and waits for; else by plain loads and stores.
-template <int BN, typename TW>
-__device__ __forceinline__ void load_w_rows(TW* ws, int ldw, const TW* __restrict__ W, int k0,
-                                            int nk, int H, int V, int v0, bool async) {
-  constexpr int kVec = 16 / sizeof(TW);  // elements of a 16-byte piece
-  constexpr int kPieces = BN / kVec;
-  if (async) {
-    for (int idx = threadIdx.x; idx < nk * kPieces; idx += kThreads) {
-      const int k = idx / kPieces, n = (idx % kPieces) * kVec;
-      const bool in = k0 + k < H && v0 + n < V;  // V % kVec == 0: a piece is all in or all out
-      cp_async16(ws + k * ldw + n, in ? W + (long long)(k0 + k) * V + v0 + n : W, in);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < nk * BN; idx += kThreads) {
-      const int k = idx / BN, n = idx % BN;
-      ws[k * ldw + n] = (k0 + k < H && v0 + n < V) ? W[(long long)(k0 + k) * V + v0 + n]
-                                                   : Mma<TW>::cast(0.f);
-    }
-  }
-}
-
-// hs[m·ldh + k − k0] = tanh(e[b,t,k] + p[b,u,k]) in the tile's type (bf16:
-// the rounded h) for k0 <= k < k0 + nk (nk a multiple of 4: all of Hp, or a
-// k-slice), zero for k >= H and for rows beyond the end. A thread takes four
-// neighbouring k a step (16-byte loads where H and the bases allow), and
-// issues the loads of kBatch steps before any tanh: the fill is bound by the
-// latency of those loads, not by their bytes.
-template <int BM, typename T>
-__device__ __forceinline__ void fill_h_rows(T* hs, int ldh, const float* __restrict__ e,
-                                            const float* __restrict__ p, const int* s_b,
-                                            const int* s_t, const int* s_u, int T_, int U, int H,
-                                            int k0, int nk) {
-  constexpr int kBatch = 4;
-  const bool vec =
-      H % 4 == 0 && (reinterpret_cast<uintptr_t>(e) | reinterpret_cast<uintptr_t>(p)) % 16 == 0;
-  const int q4 = nk / 4, n = BM * q4;
-  for (int base = threadIdx.x; base < n; base += kThreads * kBatch) {
-    float4 ev[kBatch], pv[kBatch];
-#pragma unroll
-    for (int s = 0; s < kBatch; ++s) {
-      const int idx = base + s * kThreads;
-      ev[s] = pv[s] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (idx >= n) continue;
-      const int m = idx / q4, k = k0 + (idx % q4) * 4, b = s_b[m];
-      if (b < 0 || k >= H) continue;
-      const float* er = e + ((long long)b * T_ + s_t[m]) * H + k;
-      const float* pr = p + ((long long)b * U + s_u[m]) * H + k;
-      if (vec) {
-        ev[s] = *reinterpret_cast<const float4*>(er);
-        pv[s] = *reinterpret_cast<const float4*>(pr);
-      } else {
-        float ea[4] = {0.f, 0.f, 0.f, 0.f}, pa[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int x = 0; x < 4 && k + x < H; ++x) {
-          ea[x] = er[x];
-          pa[x] = pr[x];
-        }
-        ev[s] = make_float4(ea[0], ea[1], ea[2], ea[3]);
-        pv[s] = make_float4(pa[0], pa[1], pa[2], pa[3]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kBatch; ++s) {
-      const int idx = base + s * kThreads;
-      if (idx >= n) continue;
-      // Outside the lattice or beyond H both are zero, and tanh(0) = 0.
-      T* dst = hs + (idx / q4) * ldh + (idx % q4) * 4;
-      dst[0] = Mma<T>::cast(tanhf(ev[s].x + pv[s].x));
-      dst[1] = Mma<T>::cast(tanhf(ev[s].y + pv[s].y));
-      dst[2] = Mma<T>::cast(tanhf(ev[s].z + pv[s].z));
-      dst[3] = Mma<T>::cast(tanhf(ev[s].w + pv[s].w));
-    }
-  }
-}
-
-// Columns k0 .. k0 + nk − 1 of the h tile's BM rows (held from column k0)
-// to rows h0 .. h0 + BM - 1 of a chunk buffer in device memory, Hp wide
-// (16-byte stores; Hp, k0 and nk are multiples of 128).
-template <int BM, typename T>
-__device__ __forceinline__ void store_h_rows(const T* hs, int ldh, T* __restrict__ out,
-                                             long long h0, int Hp, int k0, int nk) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int pieces = nk / kVec;
-  for (int idx = threadIdx.x; idx < BM * pieces; idx += kThreads) {
-    const int m = idx / pieces, k = (idx % pieces) * kVec;
-    *reinterpret_cast<uint4*>(out + (h0 + m) * Hp + k0 + k) =
-        *reinterpret_cast<const uint4*>(hs + m * ldh + k);
-  }
-}
-
-// Columns k0 .. k0 + nk − 1 of the h tile of rows first .. first + BM - 1
-// from a chunk buffer (Hp wide) whose row 0 is valid row `base`, to
-// hs[m·ldh + k − k0], by cp.async (the caller commits and waits); rows at or
-// beyond `end` (past the last valid row: never written) are zeros.
-template <int BM, typename T>
-__device__ __forceinline__ void load_h_rows(T* hs, int ldh, const T* __restrict__ in,
-                                            long long first, long long base, long long end,
-                                            int Hp, int k0, int nk) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int pieces = nk / kVec;
-  for (int idx = threadIdx.x; idx < BM * pieces; idx += kThreads) {
-    const int m = idx / pieces, k = (idx % pieces) * kVec;
-    const bool on = first + m < end;
-    cp_async16(hs + m * ldh + k, on ? in + (first + m - base) * Hp + k0 + k : in, on);
-  }
-}
-
-// The tiling of the kernels that walk V for a tile of rows (joint_prep.cu,
-// the row kernel of joint_grad.cu), by W's type and TM = tile_param(H):
-// BM = 16·TM rows; V in tiles of BN columns, each W tile held whole (Hp ×
-// BN) in shared memory up to kPassH, where both the logits product and the
-// dh product read it, and in k-slices above (kSliced; there BN is 128 with
-// bf16 W, so that a warp's two n8 tiles share each A fragment, and 64 with
-// f32). The warps stand WM × WN over the BM × BN logits tile, NI n8 tiles
-// each (with f32 W at TM = 1 and one slice only two of the eight warps have
-// a share: a whole f32 W tile 64 wide would not fit), and TM × 8/TM over
-// the BM × Hp dh (a pass of it above kPassH; 16 n8 tiles each at most).
-template <typename TW, int TM, bool kSliced = false>
-struct RowTiles {
-  using T = typename Mma<TW>::T;
-  static constexpr int BM = kDim * TM;
-  static constexpr int HMAX = kPassH / TM;
-  static constexpr int BN = sizeof(TW) == 2 ? (kSliced ? 128 : 64) : kSliced ? 64 : kDim * TM;
-  static constexpr int WM = TM;
-  static constexpr int WN = kWarps / TM < BN / 8 ? kWarps / TM : BN / 8;
-  static constexpr int NI = BN / (8 * WN);
-  static constexpr int WH = kWarps / TM;              // warps along H in the dh product
-  static constexpr int NIH = HMAX / (8 * WH);         // their n8 tiles at most (16)
-  static constexpr int LDW = BN + Mma<TW>::kPadW;
-  static constexpr int LDG = BN + Mma<TW>::kPadG;
-  static __host__ __device__ int ldh(int Hp) { return Hp + Mma<TW>::kPadH; }
+  static __device__ __forceinline__ float from(float x) { return x; }
 };
 
-__host__ __device__ constexpr size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
-
-// Consecutive 16-byte aligned regions of dynamic shared memory; the host's
-// size functions add the same round16 terms.
-struct Carve {
-  unsigned char* p;
-  template <typename X>
-  __device__ X* take(size_t n) {
-    X* r = reinterpret_cast<X*>(p);
-    p += round16(n * sizeof(X));
-    return r;
-  }
-};
-
-// ---- the plan: tiles, k-slices, passes and shared memory by H and W's type
-// (mirrored by ops/cuda/joint.py::joint_plan, held equal on the card) ------
-
-// joint_prep.cu: the h tile (hcols columns: all of Hp, or a k-slice that
-// each step refills), the ring of W stages (wrows rows each), the blank and
-// label logit of each row, the warps' (max, sum) and the rows' (b, t, u,
-// label).
-template <typename TW, int TM, bool kSliced = false>
-struct Prep : RowTiles<TW, TM, kSliced> {
-  using R = RowTiles<TW, TM, kSliced>;
-  using T = typename R::T;
-  static __host__ __device__ size_t bytes(int hcols, int wrows, int stages) {
-    return round16(sizeof(T) * R::BM * R::ldh(hcols)) +
-           round16(sizeof(T) * stages * wrows * R::LDW) +
-           round16(sizeof(float) * 2 * R::BM) +             // blank, label logit a row
-           round16(sizeof(float) * 2 * R::WN * R::BM) +     // (max, sum) a warp column and row
-           round16(sizeof(int) * 4 * R::BM);
-  }
-  // Two stages of a whole W tile where they fit at the largest H of this TM.
-  static constexpr int kStages =
-      round16(sizeof(T) * R::BM * (R::HMAX + Mma<TW>::kPadH)) +
-                  round16(sizeof(T) * 2 * R::HMAX * R::LDW) + 4096 <= kSmemMax
-          ? 2 : 1;
-};
-
-// joint_grad.cu's row kernel: the h tile, the W stages (one whole tile up to
-// kPassH, so that two blocks share a multiprocessor with bf16 W; two
-// k-slices above), the g tile, the rows' fields and (b, t, u, label). At the
-// end of a pass its f32 d tile (dcols × (BM+1)) takes the place of the W
-// stages and, where the epilogue recomputes h (bf16 W, or an h slice), of
-// the h tile too.
-template <typename TW, int TM, bool kSliced = false>
-struct GradRows : RowTiles<TW, TM, kSliced> {
-  using R = RowTiles<TW, TM, kSliced>;
-  using T = typename R::T;
-  static __host__ __device__ size_t h_bytes(int hcols) {
-    return round16(sizeof(T) * R::BM * R::ldh(hcols));
-  }
-  static __host__ __device__ size_t ring_bytes(int hcols, int wrows, int stages, int dcols,
-                                               bool d_over_h) {
-    const size_t ring = sizeof(T) * stages * wrows * R::LDW;
-    const size_t d = sizeof(float) * dcols * (R::BM + 1);
-    const size_t need = d_over_h ? (d > h_bytes(hcols) ? d - h_bytes(hcols) : 0) : d;
-    return ring > need ? ring : need;
-  }
-  static __host__ __device__ size_t bytes(int hcols, int wrows, int stages, int dcols,
-                                          bool d_over_h) {
-    return h_bytes(hcols) + round16(ring_bytes(hcols, wrows, stages, dcols, d_over_h)) +
-           round16(sizeof(T) * R::BM * R::LDG) +
-           round16(sizeof(float) * (4 + 2 * kPanel) * R::BM) + round16(sizeof(int) * 4 * R::BM);
-  }
-};
-
-// Row tiles of the column kernel above kPassH, in sixteens: 128 rows (8 × 1
-// warps over the 128 × 16 logits tile, a warp's two n8 tiles sharing each A
-// fragment), so that all eight warps share each k-slice's logits and one W
-// slice serves 128 rows.
-constexpr int kColsSlicedRM = 8;
-
-// joint_grad_cols.cu: a block owns a stripe of BN = 16·TM columns of V and
-// walks row tiles of BM = 16·RM rows (RM = TM up to kPassH, kColsSlicedRM
-// above). Warps stand WM × WN over the BM × BN logits tile (NI n8 tiles
-// each; at TM = RM = 2 and 1 some warps have no share) and 8 × 1 over the
-// Hp × BN slice of dW (MI m16 tiles at most × BN/8 n8 tiles each, 16), a
-// pass of kPassH rows of it above kPassH.
-template <typename TW, int TM, int RM = TM>
-struct GradCols {
-  using T = typename Mma<TW>::T;
-  static constexpr int BM = kDim * RM, BN = kDim * TM;
-  static constexpr int HMAX = kPassH / TM;
-  static constexpr int WM = RM;
-  static constexpr int WN = kWarps / RM < BN / 8 ? kWarps / RM : BN / 8;
-  static constexpr int NI = BN / (8 * WN);
-  static constexpr int MI = HMAX / (16 * kWarps);  // dW's m16 tiles a warp, at most
-  static constexpr int NJ = BN / 8;
-  static constexpr int LDW = BN + Mma<TW>::kPadW;
-  static constexpr int LDG = BN + Mma<TW>::kPadW;  // g read as B along rows, like W
-  static constexpr int kFields = 4 + kPanel;       // den, coef, cb, ce, the K extra fields
-  static __host__ __device__ constexpr int ldh(int Hp) { return Hp + Mma<TW>::kPadH; }
-  // Besides the tiles: two sets of row fields and of (b, t, u, label), the
-  // db partials, the bias and the extra-column index of each column.
-  static constexpr size_t kSmall = round16(sizeof(float) * 2 * kFields * BM) +
-                                   round16(sizeof(float) * WM * BN) +
-                                   round16(sizeof(int) * 2 * 4 * BM) +
-                                   round16(sizeof(float) * BN) + round16(sizeof(int) * BN);
-  static size_t bytes(int Hp, int hbuf) {
-    return round16(sizeof(T) * Hp * LDW) + round16(sizeof(T) * hbuf * BM * ldh(Hp)) +
-           round16(sizeof(T) * BM * LDG) + kSmall;
-  }
-  // Blocks a multiprocessor: two with bf16 W (the registers held to 128;
-  // one h tile, so that two blocks fit 227 KB), one with f32 W, whose tiles
-  // fill it; then two h tiles where they fit at the largest H of this TM.
-  // Above kPassH (kSliced) the launch bound asks for one block, whose
-  // registers then hold a pass's dW, the slices' partials and the step's
-  // addresses without spilling; the occupancy query says how many fit.
-  static constexpr int kBlocks = sizeof(T) == 2 ? 2 : 1;
-  static constexpr int kHBuf =
-      kBlocks == 1 &&
-              round16(sizeof(T) * HMAX * LDW) +
-                      round16(sizeof(T) * 2 * BM * (HMAX + Mma<TW>::kPadH)) +
-                      round16(sizeof(T) * BM * LDG) + kSmall <=
-                  kSmemMax
-          ? 2 : 1;
-  // Above kPassH: two stages of a W slice (kSliceRows × LDW) and an h slice
-  // (BM × kSliceRows), streamed for every row tile.
-  static constexpr size_t kStage = round16(sizeof(T) * kSliceRows<TW> * LDW) +
-                                   round16(sizeof(T) * BM * ldh(kSliceRows<TW>));
-  static constexpr size_t kSlicedBytes = 2 * kStage + round16(sizeof(T) * BM * LDG) + kSmall;
-};
-
-struct Plan {
-  int tm;           // tile_param(H): a row tile is 16·tm rows
-  int hp;           // H padded to a multiple of kHAlign
-  int sliced;       // 0: one k-slice (all of hp) and one pass; 1: above kPassH
-  int ks;           // rows of W (and columns of h) of a k-slice of the prep and row kernel
-  int slices;       // k-slices of hp
-  int passes;       // passes over H of the row kernel's dh and the column kernel's dW
-  int prep_hcols;   // columns of the prep's h tile: hp (whole) or ks (refilled each step)
-  int prep_stages;  // W stages of the prep's ring
-  int rows_hcols;   // columns of the row kernel's h tile: hp or ks
-  long long prep_smem, rows_smem, cols_smem;  // dynamic shared memory of a block
-};
-
-template <typename TW, int TM>
-inline Plan plan_tm(int H) {
-  using P = Prep<TW, TM>;
-  using G = GradRows<TW, TM>;
-  using C = GradCols<TW, TM>;
-  constexpr bool bf16 = sizeof(typename Mma<TW>::T) == 2;
-  Plan q{};
-  q.tm = TM;
-  q.hp = padded_h(H);
-  if (q.hp <= kPassH) {
-    q.sliced = 0;
-    q.ks = q.hp;
-    q.slices = q.passes = 1;
-    q.prep_hcols = q.rows_hcols = q.hp;
-    q.prep_stages = P::kStages;
-    q.prep_smem = (long long)P::bytes(q.hp, q.hp, P::kStages);
-    q.rows_smem = (long long)G::bytes(q.hp, q.hp, 1, q.hp, bf16);
-    q.cols_smem = (long long)C::bytes(q.hp, C::kHBuf);
-    return q;
-  }
-  using PS = Prep<TW, TM, true>;
-  using GS = GradRows<TW, TM, true>;
-  const int ks = kSliceRows<TW>;
-  q.sliced = 1;
-  q.ks = ks;
-  q.slices = (q.hp + ks - 1) / ks;
-  q.passes = (q.hp + kPassH - 1) / kPassH;
-  q.prep_stages = 2;
-  // The h tile whole where it fits beside the ring, else a k-slice.
-  const size_t prep_whole = PS::bytes(q.hp, ks, 2);
-  q.prep_hcols = prep_whole <= kSmemMax ? q.hp : ks;
-  q.prep_smem = (long long)PS::bytes(q.prep_hcols, ks, 2);
-  const size_t rows_whole = GS::bytes(q.hp, ks, 2, kPassH, bf16);
-  q.rows_hcols = rows_whole <= kSmemMax ? q.hp : ks;
-  q.rows_smem = (long long)GS::bytes(q.rows_hcols, ks, 2, kPassH,
-                                     bf16 || q.rows_hcols != q.hp);
-  q.cols_smem = (long long)GradCols<TW, TM, kColsSlicedRM>::kSlicedBytes;
-  return q;
-}
-
+// Elements of a 16 KB tile.
 template <typename TW>
-inline Plan plan(int H) {
-  switch (tile_param(H)) {
-    case 4: return plan_tm<TW, 4>(H);
-    case 2: return plan_tm<TW, 2>(H);
-    default: return plan_tm<TW, 1>(H);
+constexpr long long kTileElems = 128LL * Op<TW>::kKS;
+
+// The element index of (r, k) in an operand of Kp columns stored in tiles.
+template <typename TW>
+__host__ __device__ __forceinline__ long long tiled(long long r, int k, int Kp) {
+  constexpr int KS = Op<TW>::kKS, E = Op<TW>::kE;
+  return ((r >> 7) * (Kp / KS) + k / KS) * kTileElems<TW> +
+         ((((r & 127) >> 3) * kChunks + (k % KS) / E) * 8 + (r & 7)) * E + k % E;
+}
+
+// Row tile `rt` of an operand of Kp columns: its first tile, and the offset
+// of an f32 operand's lo array.
+template <typename T>
+struct Src {
+  const T* base;
+  long long n;
+};
+template <typename TW>
+__device__ __forceinline__ Src<typename Op<TW>::T> row_tile(const typename Op<TW>::T* a,
+                                                             long long rt, int Kp, long long n) {
+  return Src<typename Op<TW>::T>{a + rt * (Kp / Op<TW>::kKS) * kTileElems<TW>, n};
+}
+
+// ---- the ring: bulk copies signalled through mbarriers -------------------------
+
+constexpr int kStages = 3;
+template <typename TW>
+constexpr size_t kStageBytes = Op<TW>::kParts * 2 * kTileBytes;  // [A hi][B hi]([A lo][B lo])
+template <typename TW>
+constexpr size_t kRingBytes = kStages * kStageBytes<TW>;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` from global `src` to shared `dst`, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// K-tile kt of the operands' current row tiles into a stage: A's and B's
+// tile, and with f32 their lo tiles 2·kTileBytes further on. Thread 0 only.
+template <typename TW>
+__device__ __forceinline__ void load_stage(unsigned char* stage, uint32_t bar,
+                                           const Src<typename Op<TW>::T>& a, long long a_kt,
+                                           const Src<typename Op<TW>::T>& b, long long b_kt) {
+  mbar_expect(bar, (uint32_t)kStageBytes<TW>);
+#pragma unroll
+  for (int q = 0; q < Op<TW>::kParts; ++q) {
+    bulk_copy(stage + q * 2 * kTileBytes, a.base + q * a.n + a_kt * kTileElems<TW>,
+              (uint32_t)kTileBytes, bar);
+    bulk_copy(stage + q * 2 * kTileBytes + kTileBytes, b.base + q * b.n + b_kt * kTileElems<TW>,
+              (uint32_t)kTileBytes, bar);
   }
 }
+
+// ---- warpgroup MMA ------------------------------------------------------------
+
+// The matrix descriptor of a K-major tile without swizzle at shared address
+// `addr`: LBO (the next core matrix along K) 128 bytes, SBO (the next 8 rows)
+// kChunks·128 bytes.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(kChunks * 128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WTT_F2(i) "+f"(d[i]), "+f"(d[i + 1])
+#define WTT_F8(i) WTT_F2(i), WTT_F2(i + 2), WTT_F2(i + 4), WTT_F2(i + 6)
+#define WTT_F64                                                                             \
+  WTT_F8(0), WTT_F8(8), WTT_F8(16), WTT_F8(24), WTT_F8(32), WTT_F8(40), WTT_F8(48), WTT_F8(56)
+#define WTT_D64                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "    \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "    \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+
+// d (64 × 128 of the warpgroup, f32) = A·Bᵀ (+ d unless `zero`) over k16
+// (bf16) or k8 (tf32). Fragment: warp w of the warpgroup holds rows 16w + gr
+// (d[4j + q]) and 16w + gr + 8 (d[4j + 2 + q]), columns 8j + 2tq + q.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a, uint64_t b, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WTT_D64
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WTT_F64
+      : "l"(a), "l"(b), "r"(scale));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a, uint64_t b, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WTT_D64
+      "%64, %65, p, 1, 1;\n}\n"
+      : WTT_F64
+      : "l"(a), "l"(b), "r"(scale));
+}
+#undef WTT_F2
+#undef WTT_F8
+#undef WTT_F64
+#undef WTT_D64
+
+// The products of one ring stage (kKS of depth; its tiles [A hi][B hi]
+// ([A lo][B lo])) into the accumulators of warpgroup `wg` (its 64 rows of
+// A), issued, not waited for; `zero` starts the sums afresh. With f32 W:
+// lo·hi + hi·lo + hi·hi a k8 step.
+template <typename TW>
+__device__ __forceinline__ void stage_product(float (&d)[64], uint32_t stage, int wg, bool zero) {
+  const uint32_t a = stage + wg * 8 * kChunks * 128, b = stage + (uint32_t)kTileBytes;
+#pragma unroll
+  for (int j = 0; j < kChunks / 2; ++j) {
+    const uint32_t o = j * 2 * 128;  // two core matrices along K a step
+    const int scale = zero && j == 0 ? 0 : 1;
+    if constexpr (Op<TW>::kParts == 1) {
+      wgmma_bf16(d, gmma_desc(a + o), gmma_desc(b + o), scale);
+    } else {
+      constexpr uint32_t lo = 2 * kTileBytes;
+      wgmma_tf32(d, gmma_desc(a + lo + o), gmma_desc(b + o), scale);
+      wgmma_tf32(d, gmma_desc(a + o), gmma_desc(b + lo + o), 1);
+      wgmma_tf32(d, gmma_desc(a + o), gmma_desc(b + o), 1);
+    }
+  }
+}
+
+// One step of a product, waited for. With bf16 W the stage's products go
+// into acc. With f32 W they are summed in `part` and added to acc by an f32
+// add: the tensor cores' accumulator truncates as it aligns its addends, and
+// a sum over thousands of terms kept inside it drifts by more than f32's
+// tolerance (the logits at H = 6000 missed the plain version by more than
+// 1e-5); a stage's 32 terms do not. bf16's tolerance is far above that
+// drift, and its kernels keep `part` out of their registers.
+template <typename TW>
+__device__ __forceinline__ void mma_step(float (&acc)[64], float (&part)[64], uint32_t stage,
+                                         int wg, bool zero) {
+  if constexpr (Op<TW>::kParts == 1) {
+    fence_acc(acc);
+    wgmma_fence();
+    stage_product<TW>(acc, stage, wg, zero);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+  } else {
+    wgmma_fence();
+    stage_product<TW>(part, stage, wg, true);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = zero ? part[i] : acc[i] + part[i];
+  }
+}
+
+// Steps 0 .. n − 1 through the ring of stages of SB bytes, kStages − 1
+// ahead: load(i, stage, bar), run by thread 0, issues step i's bulk copies on mbarrier `bar`
+// (load_stage); step(i, stage address) multiplies them (mma_step) and runs
+// whatever follows the step. A stage is refilled only after every warp has
+// passed the step that read it (the __syncthreads at the top of the next
+// step; each warpgroup waits for its own products inside the step). The
+// copies write shared memory through the async proxy, which wgmma reads, so
+// no proxy fence stands between a stage's arrival and its products. `bars`:
+// kStages mbarriers outside the ring. Shared memory outside the ring is free
+// throughout; the ring itself is free after the return.
+template <size_t SB, typename Load, typename Step>
+__device__ __forceinline__ void run_ring(int n, unsigned char* ring, uint64_t* bars, Load load,
+                                         Step step) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(smem_addr(bars + s));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kStages - 1 && i < n; ++i) load(i, ring + i * SB, smem_addr(bars + i));
+  for (int i = 0; i < n; ++i) {
+    const int slot = i % kStages;
+    if (i > 0) __syncthreads();  // every warp is past step i − 1: its stage is free
+    const int nx = i + kStages - 1;
+    if (threadIdx.x == 0 && nx < n)
+      load(nx, ring + (nx % kStages) * SB, smem_addr(bars + nx % kStages));
+    mbar_wait(smem_addr(bars + slot), (uint32_t)(i / kStages) & 1);
+    step(i, smem_addr(ring + slot * SB));
+  }
+  __syncthreads();
+}
+
+// This thread's place in a block's 128 × 128 tile of C: its warpgroup, and
+// the first of its two rows (row0, row0 + 8) and its column within each n8
+// tile (n = 8j + tq2 + q).
+struct Frag {
+  int wg, row0, tq2;
+  __device__ Frag() {
+    const int tid = threadIdx.x, lane = tid & 31;
+    wg = tid >> 7;
+    row0 = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    tq2 = (lane & 3) * 2;
+  }
+};
+
+// ---- h, and the weights' layouts -------------------------------------------
+
+// h = tanh(e[b,t] + p[b,u]) of 128 consecutive valid rows (a tile of a chunk)
+// and 32 columns k0 .. k0 + 31 (zero at k >= H and beyond the last row) in
+// f32, into tile[m][kk] (33 floats a row). The lanes run along k.
+__device__ __forceinline__ void h_tile(float (*tile)[33], const float* __restrict__ e,
+                                       const float* __restrict__ p, const int* s_b,
+                                       const int* s_t, const int* s_u, int T_, int U, int H,
+                                       int k0) {
+  for (int idx = threadIdx.x; idx < kBM * 32; idx += kThreads) {
+    const int m = idx >> 5, kk = idx & 31, k = k0 + kk, b = s_b[m];
+    float h = 0.f;
+    if (b >= 0 && k < H)
+      h = tanhf(e[((long long)b * T_ + s_t[m]) * H + k] + p[((long long)b * U + s_u[m]) * H + k]);
+    tile[m][kk] = h;
+  }
+}
+
+// ---- the extra columns, the gradient's element, the panels -------------------
 
 // The extra column that equals v, as its index k, or -1. Unrolled over the
 // by-value table with constant indices, so the table stays in the
@@ -693,31 +467,7 @@ __device__ __forceinline__ void load_panel(float* panel, const float* __restrict
   }
 }
 
-// d[(k − k0)·ldh + m] of the tile's rows, k0 <= k < k1, into de and dp. One
-// thread per k sums the runs of rows that share (b, t) and adds each run to
-// de with one atomicAdd (a run is cut only at a tile edge), and adds every
-// row to dp.
-template <int BM>
-__device__ __forceinline__ void scatter_de_dp(const float* ds, int ldh, const int* s_b,
-                                              const int* s_t, const int* s_u, const Rows& rows,
-                                              int H, int k0, int k1, float* __restrict__ de,
-                                              float* __restrict__ dp) {
-  for (int k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    float run = 0.f;
-    for (int m = 0; m < BM; ++m) {
-      const int b = s_b[m];
-      if (b < 0) break;
-      const float d = ds[(k - k0) * ldh + m];
-      atomicAdd(dp + ((long long)b * rows.U + s_u[m]) * H + k, d);
-      run += d;
-      const bool last = m + 1 == BM || s_b[m + 1] != b || s_t[m + 1] != s_t[m];
-      if (last) {
-        atomicAdd(de + ((long long)b * rows.T + s_t[m]) * H + k, run);
-        run = 0.f;
-      }
-    }
-  }
-}
+// ---- the duration head --------------------------------------------------------
 
 // The duration head of one row, by the calling warp:
 // out[d] = Σ_k tanh(e_row[k] + p_row[k]) · Wd[k·D + d] for d < D, with the
@@ -750,11 +500,38 @@ __device__ __forceinline__ void store_dur_row(float* __restrict__ dst, const flo
     if (lane == d && d < D) dst[d] = out[d] + bias_d[d];
 }
 
+// The dWd kernel (joint_grad.cu): row tiles of 16·dwd_tile(H) rows, k in
+// passes of kDwdPass columns, H padded to a multiple of kBK in its h tile.
+constexpr int kDim = 16;
+constexpr int kBK = 16;
+constexpr int kDwdPass = 1024;
+inline __host__ __device__ int dwd_tile(int H) { return H <= 256 ? 4 : H <= 512 ? 2 : 1; }
+
+// hs[(k − k0)·ldh + m] = tanh(e[b,t,k] + p[b,u,k]) in f32 for the tile's
+// rows and k0 <= k < k0 + nk (the duration head's unrounded h), zero for
+// k >= H and for rows beyond the end. The lanes run along k, so the reads of
+// e and p are contiguous.
+template <int BM>
+__device__ __forceinline__ void fill_h(float* hs, int ldh, const float* __restrict__ e,
+                                       const float* __restrict__ p, const int* s_b,
+                                       const int* s_t, const int* s_u, int T, int U, int H,
+                                       int k0, int nk) {
+  for (int idx = threadIdx.x; idx < BM * nk; idx += kThreads) {
+    const int m = idx / nk, kl = idx % nk, k = k0 + kl;
+    float h = 0.f;
+    const int b = s_b[m];
+    if (b >= 0 && k < H) {
+      h = tanhf(e[((long long)b * T + s_t[m]) * H + k] + p[((long long)b * U + s_u[m]) * H + k]);
+    }
+    hs[kl * ldh + m] = h;
+  }
+}
+
 // Columns of dur_grad_tiles' h tile: H padded to a multiple of kBK, at most
 // a pass.
 inline __host__ __device__ int dur_grad_cols(int H) {
   const int Hp = (H + kBK - 1) / kBK * kBK;
-  return Hp < kPassH ? Hp : kPassH;
+  return Hp < kDwdPass ? Hp : kDwdPass;
 }
 
 // Shared memory of dur_grad_tiles at this H and tile height.
@@ -765,8 +542,8 @@ inline size_t dur_grad_smem_bytes(int H, int BM) {
 
 // dWd of the duration head (joint_grad.cu's joint_grad_dwd_kernel), the body
 // of a block that walks every gridDim.x-th tile of BM valid rows, once for
-// each pass of kPassH columns of k. With the unrounded h of the tile and the
-// pass in shared memory it accumulates its partial of
+// each pass of kDwdPass columns of k. With the unrounded h of the tile and
+// the pass in shared memory it accumulates its partial of
 // dWd[k][d] = Σ_rows h[k]·g_dur[d] (thread tid owns k = k0 + tid + 256·q of
 // pass k0, in registers across the tiles). The block's partial is written
 // whole to dWd_part[blockIdx.x] (H × D), zeros when it met no tile;
@@ -779,7 +556,7 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
                                                const float* __restrict__ g_dur, const Rows& rows,
                                                float* __restrict__ dWd_part, int H, int D,
                                                float* smem) {
-  constexpr int KQ = kPassH / kThreads;
+  constexpr int KQ = kDwdPass / kThreads;
   const int cols = dur_grad_cols(H);
   const int ldh = BM + 1;
   float* hs = smem;                                 // cols × ldh
@@ -791,7 +568,7 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
   const long long total = rows.offsets[rows.B];
   float* out = dWd_part + (size_t)blockIdx.x * H * D;
 
-  for (int k0 = 0; k0 < H; k0 += kPassH) {
+  for (int k0 = 0; k0 < H; k0 += kDwdPass) {
     float acc[KQ][kPanel] = {};
     for (long long first = (long long)blockIdx.x * BM; first < total;
          first += (long long)gridDim.x * BM) {
@@ -840,14 +617,57 @@ inline cudaError_t sum_parts(const float* part, float* out, long long n, int nsp
   return cudaGetLastError();
 }
 
-// ---- what the gradient kernels' launches share (joint_grad.cu,
-// joint_grad_cols.cu) ----------------------------------------------------------
+// ---- the plan: layouts, chunks and shared memory by H, V and W's type
+// (mirrored by ops/cuda/joint.py::joint_plan, held equal on the card) ------
 
-// W's rows are 16-byte aligned, so the tiles can take them by cp.async.
+// Besides the ring, each engine kernel keeps its kStages mbarriers, and: the
+// prep its rows' blank and label logit, (max, sum) and (b, t, u, label); the
+// g kernel its rows' (denom, coef, cb, ce), K extra fields and (b, t, u,
+// label) and its columns' bias and extra index. The g kernel's epilogue
+// stages its 128 × 132 f32 tile of g over the ring.
+constexpr size_t kBars = round16(sizeof(uint64_t) * kStages);
+constexpr size_t kPrepSmall = round16(sizeof(float) * 4 * kBM) + round16(sizeof(int) * 4 * kBM);
+constexpr size_t kGSmall = round16(sizeof(float) * (4 + kPanel) * kBM) +
+                           round16(sizeof(int) * 4 * kBM) + round16(sizeof(float) * kBN) +
+                           round16(sizeof(int) * kBN);
+constexpr int kGLd = kBN + 4;  // floats a row of the g kernel's staged tile
+static_assert(sizeof(float) * kBM * kGLd <= kStages * 2 * kTileBytes, "g stage fits the ring");
+
+struct Plan {
+  int hp, vp;               // H and V padded to multiples of 128
+  int ks, stages;           // k of a ring stage (64 bf16, 32 f32), stages
+  long long prep_smem, g_smem, dh_smem, dw_smem;  // dynamic shared memory of a block
+  long long prep_rows;      // rows of a chunk of the prep (its h buffer)
+  long long grad_rows;      // rows of a chunk of the gradient (h, hᵀ, g, gᵀ, dh, db partials)
+};
+
+// The chunks: whole 128-row tiles whose buffers take at most chunk_bytes, at
+// least one tile.
 template <typename TW>
-inline bool w_aligned(const void* W, int V) {
-  return reinterpret_cast<uintptr_t>(W) % 16 == 0 && (V * sizeof(TW)) % 16 == 0;
+inline Plan plan(int H, int V, long long chunk_bytes) {
+  using O = Op<TW>;
+  const long long elt = (long long)sizeof(typename O::T) * O::kParts;
+  Plan q{};
+  q.hp = pad128(H);
+  q.vp = pad128(V);
+  q.ks = O::kKS;
+  q.stages = kStages;
+  const long long ring = (long long)(kRingBytes<TW> + kBars);
+  q.prep_smem = ring + (long long)kPrepSmall;
+  q.g_smem = ring + (long long)kGSmall;
+  q.dh_smem = q.dw_smem = ring;
+  // Bytes a row: the prep's h; the gradient's h, hᵀ, g, gᵀ, one f32 partial
+  // of dh and db's partials (a split of dh's sum over V takes another Hp f32
+  // a row, the wrapper's choice).
+  const long long prep_row = elt * q.hp;
+  const long long grad_row = elt * 2 * (q.hp + q.vp) + 4LL * q.hp + q.vp / 32;
+  const long long pr = chunk_bytes / prep_row / kBM * kBM, gr = chunk_bytes / grad_row / kBM * kBM;
+  q.prep_rows = pr > kBM ? pr : kBM;
+  q.grad_rows = gr > kBM ? gr : kBM;
+  return q;
 }
+
+// ---- what the kernels' launches share -------------------------------------------
 
 struct GradArgs {
   const float *e, *p;
@@ -876,6 +696,27 @@ inline bool make_grad_args(GradArgs* a, const void* e, const void* p, const void
                 static_cast<const float*>(cx), wtt::ExtraCols{}, H, V, blank,
                 static_cast<cudaStream_t>(stream)};
   return wtt::extra_cols(extra_cols, K, V, &a->cols) && (K == 0 || cx != nullptr);
+}
+
+// Set a kernel's dynamic shared memory and launch it; returns the error.
+template <typename Kernel, typename... Args>
+inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                          Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Registers a thread and local (spill) bytes of a kernel, as ptxas compiled it.
+template <typename Kernel>
+inline int kernel_attrs(Kernel kernel, int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)err;
 }
 
 }  // namespace joint

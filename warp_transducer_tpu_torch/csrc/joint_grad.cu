@@ -1,14 +1,14 @@
 // Fused joint gradient kernels: the gradients of the fused joint+loss to e,
 // p, W and bias from the (B, T, U) coefficient fields, without the
-// (B, T, U, V) logits or their gradient ever reaching device memory.
+// (B, T, U, V) logits or their gradient ever reaching device memory whole.
 //
 // Replaces: warp_transducer_tpu/ops/pallas/joint_fused.py::_grad_kernel
 // (called through fused_grad and fused_grad_chunked; with its extra_cols
 // through fused_grad_mb, the multi-blank loss; with its with_dur through
 // fused_grad_tdt, the TDT loss).
 //
-// Per valid row r = (b, t, u), recomputing h = tanh(e[b,t] + p[b,u]) and each
-// tile of logits = h·W + bias:
+// Per valid row r = (b, t, u), recomputing h = tanh(e[b,t] + p[b,u]) and
+// logits = h·W + bias:
 //   g = coef·exp(logits + denom) − cb·[v = blank] − ce·[v = label]
 //       − Σ_k cx[r, k]·[v = col_k]
 // in f32, every subtraction before any rounding of g (coef·p_label − ce is
@@ -17,189 +17,108 @@
 // head, its cotangent g_dur (B, T, U, D) joins dh as g_dur·Wdᵀ before the
 // (1 − h²), and dWd = hᵀ·g_dur. Rows outside (t < T_b) & (u < U_b) have zero
 // coefficients and are never visited (joint.cuh numbers the valid rows only).
-// K and D are run-time numbers (0: none), at most 8 each; the rows' K fields
-// and D cotangents sit in shared memory beside cb and ce.
+// K and D are run-time numbers (0: none), at most 8 each.
 //
 // Types as joint_prep.cu: e, p, bias and the fields in f32; W f32 or bf16.
 // With bf16 W, h and g are rounded to bf16 before the three products (db
-// sums the unrounded g, tanh' uses the unrounded h), which run on the
-// tensor cores with f32 accumulators; g is formed in f32 from the f32
-// accumulator and rounded only after every subtraction. With f32 W each
-// product is the three-TF32 split of joint.cuh (Mma<float>): f32 accuracy on
-// the tensor cores. The duration head's two products take the unrounded h,
-// f32 Wd and f32 g_dur in both cases.
+// sums the unrounded g, tanh' uses the unrounded h, recomputed from e and
+// p), which run on the tensor cores with f32 sums; g is formed in f32 from
+// the f32 accumulators and rounded only after every subtraction. With f32 W
+// each product is three TF32 products of the split operands (joint.cuh,
+// Op<float>): f32 accuracy on the tensor cores. The duration head's two
+// products take the unrounded h, f32 Wd and f32 g_dur in both cases.
 //
-// Bound on this card: operations, 3 · 2·R·H·V over the tensor cores' rate.
-// The kernels do four such products (the logits twice).
+// Bound on this card: operations, 3 · 2·R·H·V over the tensor cores' rate
+// (989 TFLOP/s bf16; 495 / 3 with f32 W). The kernels perform exactly those
+// three products (the logits once, where the design before computed them
+// twice, and twice more for every pass over H above 1024), plus the bytes of
+// g of each chunk of rows, written once in two layouts and read once in each.
 //
-// Design. The TPU kernel's grid runs in order on one core and carries dW and
-// db across every step and dp across the T tiles of one b. Here blocks run in
-// parallel and nothing carries over, and one H × V partial of dW per row
-// tile would be billions of atomics. So the work is split into two kernels
-// that each own what they sum, at the price of computing the logits twice
-// (four products in place of three); neither writes a (R, V) tensor of g or
-// logits to device memory:
-//
-// Both run a chunk of the valid rows at a time (the wrapper's loop): the row
-// kernel fills each row tile's h once and writes it to a buffer of the chunk
-// (bf16 rounded, or f32; a few tens of MB), which the column kernel copies
-// where it would otherwise compute h again for each of its V/BN stripes.
-//
-// * joint_grad_rows_kernel — row-parallel. A block owns a tile of 16·TM
-//   valid rows (TM = 4, 2, 1 for H ≤ 256, 512, above) with its h tile in
-//   shared memory, and walks V in tiles of BN columns (joint.cuh::RowTiles).
-//   Up to H = kPassH (1024) each W tile (Hp × BN, H padded to a multiple of
-//   128) comes whole into shared memory by cp.async, one at a time so that
-//   two blocks share a multiprocessor (with bf16 W); the warps multiply h by
-//   it once, form g in f32 on the accumulator fragments and store it
-//   (rounded with bf16 W) as a BM × BN tile, and then every warp multiplies
-//   that g tile by the same W tile, read the other way round, into its share
-//   of dh (16 rows × Hp/(8/TM) columns, at most 64 accumulators a lane). At
-//   the end d = dh·(1 − h²) goes through shared memory (over the W tile);
-//   one thread per k sums the runs of rows that share (b, t) and adds each
-//   run to de with one atomicAdd (a run is cut only at a tile edge, so with
-//   U_b ≤ the tile's rows at most two blocks add to an element and the sum
-//   does not depend on their order), and adds every row to dp with an
-//   atomicAdd (T_b terms per element, in an order that varies from run to
-//   run). Above kPassH (kSliced, TM = 1) the block takes dh in passes of
-//   kPassH columns, each of which owns dh, d and the de/dp adds of its
-//   columns only (so the de property holds pass by pass); a pass walks V
-//   again, streaming W through a two-stage ring in k-slices of kSliceRows
-//   rows (256; 128 with f32 W, whose V tiles are then 64 wide as bf16's):
-//   all of Hp for the tile's logits (the accumulators carried across the
-//   slices), then the pass's own rows for its dh product. A warp's n8 tiles
-//   of dh interleave with the other warps' ((j·8 + warp)·8 from the pass's
-//   first column), so that every k-slice of the pass holds four (f32: two)
-//   tiles of every warp. At H = 2048 that is three products where one pass would
-//   take two; the alternative, 16 warps a block so that a lane keeps its 64
-//   accumulators of all of H, was not taken (PERF.md).
-// * joint_grad_cols_kernel (joint_grad_cols.cu, a source of its own so that
-//   the two compile side by side) — column-parallel. A block owns a stripe of V
-//   (16·TM columns) and keeps W's stripe in shared memory and its Hp ×
-//   stripe slice of dW (mma accumulators, 64 a lane) and its slice of db in
-//   registers. It walks every `nsplit`-th row tile (16·TM rows) of the
-//   chunk, copies its h, recomputes the logits of its stripe, forms g and
-//   accumulates hᵀ·g with the h tile read transposed by ldmatrix.trans.
-//   Slices go, with no atomics, into one of `nsplit` partial buffers (written
-//   by the first chunk, added to by the later ones, one launch after
-//   another), which sum_parts_kernel adds in a fixed order: dW and db are
-//   deterministic. The wrapper takes nsplit so that the grid is one wave of
-//   the kernel's occupancy.
+// Design. The gradient runs a chunk of rows at a time (the wrapper's loop;
+// the chunk's buffers, joint.cuh::plan, stay within 128 MB), every product on
+// the wgmma engine of joint.cuh with 128 × 128 tiles of two warpgroups:
+// * the row launch (this file): joint_h_kernel (joint_prep.cu) writes the
+//   chunk's h and hᵀ; joint_grad_g_kernel computes the logits of a 128-row,
+//   128-column tile (A = h, B = Wᵀ, over Hp), forms g in f32 in the epilogue
+//   and writes it through shared memory as g (chunk × Vp) and gᵀ (Vp ×
+//   chunk) in the operand type, and the tile's column sums of the unrounded
+//   g to a partial of db; joint_grad_dh_kernel computes a 128 × 128 tile of
+//   dh = g·Wᵀ (A = g, B = W) over its span of V (the sum over V is split
+//   where the chunk's tiles of dh are too few to fill the card) into an f32
+//   partial; joint_grad_d_kernel adds the partials, adds g_dur·Wdᵀ,
+//   multiplies by (1 − h²) with h recomputed unrounded, and adds each row to
+//   dp and each run of rows that share (b, t) to de with atomics (a run is
+//   cut every 8 rows, a thread's share), so de and dp are sums in an order
+//   that varies from run to run.
+// * the column launch (joint_grad_cols.cu): dW += hᵀ·g over the chunk, and
+//   db += the chunk's partials, in a fixed order: dW and db are
+//   bit-reproducible.
+// No kernel holds an H-wide sum, and every operand streams through the ring
+// in k-slices, so the same kernels serve every H.
 // * joint_grad_dwd_kernel — dWd (H, D), with a duration head only. It is a sum
-//   over every valid row, like dW, but of the unrounded h, which neither
-//   kernel above holds when W is bf16, and H·D is 1,024 addresses: an
-//   atomicAdd a block would be thousands of blocks contending for them, in an
-//   order that changes from run to run. So a third, light kernel
+//   over every valid row, like dW, but of the unrounded h, which the products
+//   do not hold when W is bf16, and H·D is few addresses: an atomicAdd a block
+//   would be thousands of blocks contending for them, in an order that
+//   changes from run to run. So a light kernel of its own
 //   (joint.cuh::dur_grad_tiles) walks the row tiles once more with the
 //   unrounded h tile, a few hundred blocks each owning one partial of dWd in
 //   registers, and sum_parts_kernel adds the partials in a fixed order: dWd is
 //   deterministic too, at the price of R·H more tanh (the products are 2·R·H·D
-//   operations beside the token head's 8·R·H·V).
+//   operations beside the token head's 6·R·H·V).
 #include "joint.cuh"
+
+extern "C" int wtt_joint_weights(const void* W, int w_dtype, int H, int V, void* wt, void* wp,
+                                 void* stream);
+extern "C" int wtt_joint_h(const void* e, const void* p, const void* offsets,
+                           const int* label_lengths, int B, int T, int U, int H,
+                           long long row_begin, int chunk, int w_dtype, void* h, void* ht,
+                           void* stream);
 
 namespace {
 
 using namespace wtt::joint;
 
-// ---- rows: dh, de, dp -------------------------------------------------------
+// ---- g ----------------------------------------------------------------------------
 
-// Two blocks a multiprocessor up to kPassH (with bf16 W their tiles fit
-// twice); above it the h tile and the W stages fill one, which may then
-// spend up to 255 registers a thread.
-template <typename TW, int TM, bool kSliced>
-__global__ void __launch_bounds__(kThreads, kSliced ? 1 : 2)
-joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
-                       const TW* __restrict__ W, const float* __restrict__ bias,
-                       const int* __restrict__ lab_full, Rows rows,
-                       const float* __restrict__ denom, const float* __restrict__ coef,
-                       const float* __restrict__ cb, const float* __restrict__ ce,
-                       const float* __restrict__ cx, const wtt::ExtraCols cols,
-                       const float* __restrict__ Wd, const float* __restrict__ g_dur, int D,
-                       float* __restrict__ de, float* __restrict__ dp, long long row_begin,
-                       TW* __restrict__ h_out, int H, int V, int blank, bool w_async,
-                       int hcols) {
-  using G = GradRows<TW, TM, kSliced>;
-  using M = Mma<TW>;
-  using T = typename G::T;
-  constexpr int BM = G::BM, BN = G::BN, NI = G::NI, WM = G::WM, WN = G::WN;
-  constexpr int WH = G::WH, NIH = G::NIH;
-  constexpr int S = kSliced ? 2 : 1;                        // W stages
-  constexpr int kSliceTiles = kSliceRows<TW> / (8 * WH);     // a warp's dh tiles in a k-slice
-  constexpr int kPassSlices = kPassH / kSliceRows<TW>;       // k-slices of a pass
-  const long long first = row_begin + (long long)blockIdx.x * BM;
+// A block: rows first .. first + 127 of the chunk (chunk-local tile
+// blockIdx.x) and columns v0 .. v0 + 127 of Vp (blockIdx.y).
+template <typename TW>
+__global__ void __launch_bounds__(kThreads, 1)
+joint_grad_g_kernel(const typename Op<TW>::T* __restrict__ h,
+                    const typename Op<TW>::T* __restrict__ wt, int chunk,
+                    const float* __restrict__ bias, const int* __restrict__ lab_full, Rows rows,
+                    long long row_begin, const float* __restrict__ denom,
+                    const float* __restrict__ coef, const float* __restrict__ cb,
+                    const float* __restrict__ ce, const float* __restrict__ cx,
+                    const wtt::ExtraCols cols, int H, int V, int blank,
+                    typename Op<TW>::T* __restrict__ g, typename Op<TW>::T* __restrict__ gt,
+                    float* __restrict__ db_part) {
+  using O = Op<TW>;
+  using T = typename O::T;
+  constexpr int KS = O::kKS;
+  const long long first = row_begin + (long long)blockIdx.x * kBM;
   if (first >= rows.offsets[rows.B]) return;
-  const int Hp = padded_h(H);
-  const int ks = kSliced ? kSliceRows<TW> : Hp;
-  const int nsl = kSliced ? (Hp + ks - 1) / ks : 1;             // k-slices of the logits
-  const int npass = kSliced ? (Hp + kPassH - 1) / kPassH : 1;  // passes over dh
-  const bool h_whole = !kSliced || hcols == Hp;  // else the h tile is the step's slice
-  // The epilogue reads the f32 h tile, or recomputes tanh (bf16: the tile
-  // holds rounded h) and then stages d over the h tile as well.
-  const bool d_over_h = sizeof(T) == 2 || !h_whole;
-  const int hc = kSliced ? hcols : Hp, ldh = G::ldh(hc);
-  const int dcols = kSliced ? kPassH : Hp;
-  extern __shared__ __align__(16) unsigned char tile_smem[];
-  Carve c{tile_smem};
-  T* hs = c.take<T>((size_t)BM * ldh);
-  unsigned char* ring_raw = c.take<unsigned char>(G::ring_bytes(hc, ks, S, dcols, d_over_h));
-  T* ring = reinterpret_cast<T*>(ring_raw);
-  // At the end of a pass: d[kl·(BM+1) + m], over the ring (and the h tile).
-  float* ds = reinterpret_cast<float*>(d_over_h ? static_cast<void*>(hs)
-                                                : static_cast<void*>(ring_raw));
-  T* gs = c.take<T>((size_t)BM * G::LDG);          // g[m·LDG + n] of the V tile
-  float* s_den = c.take<float>((4 + 2 * kPanel) * BM);
-  float* s_coef = s_den + BM;
-  float* s_cb = s_coef + BM;
-  float* s_ce = s_cb + BM;
-  float* s_cx = s_ce + BM;           // BM × kPanel extra fields
-  float* s_gd = s_cx + BM * kPanel;  // BM × kPanel duration cotangents
-  int* s_b = c.take<int>(4 * BM);
-  int* s_t = s_b + BM;
-  int* s_u = s_t + BM;
-  int* s_lab = s_u + BM;
+  const int Hp = pad128(H), Vp = pad128(V), v0 = blockIdx.y * kBN;
+  extern __shared__ __align__(128) unsigned char joint_smem[];
+  unsigned char* ring = joint_smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(joint_smem + kRingBytes<TW>);
+  float* s_den = reinterpret_cast<float*>(joint_smem + kRingBytes<TW> + kBars);
+  float* s_coef = s_den + kBM;
+  float* s_cb = s_coef + kBM;
+  float* s_ce = s_cb + kBM;
+  float* s_cx = s_ce + kBM;  // kBM × kPanel extra fields
+  int* s_b = reinterpret_cast<int*>(s_cx + kBM * kPanel);
+  int* s_t = s_b + kBM;
+  int* s_u = s_t + kBM;
+  int* s_lab = s_u + kBM;
+  float* s_bias = reinterpret_cast<float*>(s_lab + kBM);  // of the tile's columns
+  int* s_xk = reinterpret_cast<int*>(s_bias + kBN);       // their extra index, or -1
 
-  const int tid = threadIdx.x, lane = tid % wtt::kWarp, warp = tid / wtt::kWarp;
-  const int gr = lane >> 2, tq = lane & 3;
-  const int wm = warp % WM, wn = warp / WM;  // also (rows, H share) of the dh product
-  const int ntiles = (V + BN - 1) / BN;
-  // Step i of a pass (spt steps a V tile): the logits' k-slices k < nsl of
-  // all of Hp, then the dh product's slices of the pass's rows hp0 .. hp0 +
-  // hpn − 1 (none up to kPassH: the logits' W tile serves both).
-  auto issue = [&](int i, int spt, int hp0, int hpn, T* dst) {
-    const int k = i % spt;
-    const int k0 = k < nsl ? k * ks : hp0 + (k - nsl) * ks;
-    const int kend = k < nsl ? Hp : hp0 + hpn;
-    load_w_rows<BN>(dst, G::LDW, W, k0, min(ks, kend - k0), H, V, i / spt * BN, w_async);
-  };
-  // Wait for step i's W rows (the next step's asked for first where two
-  // stages hold them); returns them.
-  auto begin = [&](int i, int nsteps, int spt, int hp0, int hpn) -> const T* {
-    if constexpr (S == 2) {
-      if (i + 1 < nsteps) {
-        issue(i + 1, spt, hp0, hpn, ring + (size_t)((i + 1) & 1) * ks * G::LDW);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      return ring + (size_t)(i & 1) * ks * G::LDW;
-    } else {
-      if (i > 0) {  // the first W tile was asked for before the rows were placed
-        issue(i, spt, hp0, hpn, ring);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      return ring;
-    }
-  };
-  const int hpn0 = kSliced ? min(kPassH, Hp) : Hp;
-  issue(0, nsl + (kSliced ? (hpn0 + ks - 1) / ks : 0), 0, hpn0, ring);
-  cp_async_commit();
-  place_rows<BM>(rows, first, s_b, s_t, s_u);
+  const int tid = threadIdx.x;
+  place_rows<kBM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
-  load_panel<BM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
-  load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
-  if (tid < BM) {
+  load_panel<kBM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
+  if (tid < kBM) {
     const int b = s_b[tid];
     const bool on = b >= 0;
     const long long cell = on ? ((long long)b * rows.T + s_t[tid]) * rows.U + s_u[tid] : 0;
@@ -208,156 +127,156 @@ joint_grad_rows_kernel(const float* __restrict__ e, const float* __restrict__ p,
     s_coef[tid] = on ? coef[cell] : 0.f;
     s_cb[tid] = on ? cb[cell] : 0.f;
     s_ce[tid] = on ? ce[cell] : 0.f;
-  }
-  // The tile's h, and the same to the chunk buffer for the column kernel,
-  // which reads it instead of filling its own for every stripe of V.
-  if (h_whole) {
-    fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, 0, Hp);
-    __syncthreads();
-    store_h_rows<BM>(hs, ldh, h_out, first - row_begin, Hp, 0, Hp);
   } else {
-    for (int k0 = 0; k0 < Hp; k0 += ks) {
-      const int nk = min(ks, Hp - k0);
-      fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, nk);
-      __syncthreads();
-      store_h_rows<BM>(hs, ldh, h_out, first - row_begin, Hp, k0, nk);
-      __syncthreads();
-    }
+    const int n = tid - kBM, v = v0 + n;
+    s_bias[n] = v < V ? bias[v] : 0.f;
+    s_xk[n] = extra_index(cols, v);
   }
 
-  const bool active = warp < WM * WN;  // has a share of the logits tile
-  const int row0 = 16 * wm + gr;       // this lane's rows: row0, row0 + 8
-  const int n0 = wn * NI * 8;          // its columns in the V tile: n0 + 8j + 2tq + q
-  // Its dh tiles j, from the pass's first column: h0 + 8j up to kPassH,
-  // (j·WH + wn)·8 above.
-  const int h0 = kSliced ? wn * 8 : wn * (Hp / WH);
-  for (int pass = 0; pass < npass; ++pass) {
-    const int hp0 = pass * kPassH, hpn = kSliced ? min(kPassH, Hp - hp0) : Hp;
-    const int nds = kSliced ? (hpn + ks - 1) / ks : 0;
-    const int spt = nsl + nds, nsteps = ntiles * spt;
-    const int nih = hpn / WH / 8;  // this warp's dh tiles in the pass
-    if (pass > 0) {
-      __syncthreads();  // the last pass's d tile scattered
-      issue(0, spt, hp0, hpn, ring);
-      cp_async_commit();
-      if (h_whole && d_over_h) fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H,
-                                               0, Hp);
-    }
-    float dh[1][NIH][4] = {};
-    float acc[1][NI][4];
-    int i = 0;  // the pass's step
-    for (int it = 0; it < ntiles; ++it) {
-      const int v0 = it * BN;
-      for (int k = 0; k < nsl; ++k, ++i) {  // the V tile's logits, a k-slice a step
-        const int k0 = k * ks, nk = min(ks, Hp - k0);
-        const T* wt = begin(i, nsteps, spt, hp0, hpn);
-        if (!h_whole) fill_h_rows<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, nk);
-        __syncthreads();  // the W piece in; on the first step also h and the fields
-        if (active) {
-          if (k == 0) {
-#pragma unroll
-            for (int j = 0; j < NI; ++j)
-#pragma unroll
-              for (int x = 0; x < 4; ++x) acc[0][j][x] = 0.f;
-          }
-          warp_product<TW, 1, NI, false, true>(acc, hs + (h_whole ? k0 : 0), ldh, 16 * wm, wt,
-                                               G::LDW, n0, nk, lane);
-        }
-        if (active && k == nsl - 1) {  // the logits complete: g
-          const bool extras_here = has_extra(cols, v0 + n0, NI * 8);
-#pragma unroll
-          for (int j = 0; j < NI; ++j)
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              const int n = n0 + 8 * j + 2 * tq + q, v = v0 + n;
-              const float bv = v < V ? bias[v] : 0.f;
-              const int xk = extras_here ? extra_index(cols, v) : -1;
-#pragma unroll
-              for (int r = 0; r < 2; ++r) {
-                const int m = row0 + 8 * r;
-                float g = 0.f;
-                if (v < V)  // rows beyond the end have zero coefficients
-                  g = grad_element(acc[0][j][2 * r + q] + bv, s_den[m], s_coef[m], s_cb[m],
-                                   s_ce[m], v, blank, s_lab[m], s_cx + m * kPanel, xk);
-                gs[m * G::LDG + n] = M::cast(g);  // bf16: rounded after every subtraction
-              }
-            }
-        }
-        if constexpr (!kSliced) {
-          __syncthreads();  // the g tile complete
-          // dh[m][k] += Σ_n g[m][n] · W[k][v0 + n], W read from the tile in
-          // place, four n8 tiles of dh a product. Each sums the V tile in the
-          // mma accumulators and adds it to dh by a rounded f32 add (the
-          // tensor cores' accumulator truncates; over all of V it would
-          // drift, see the column kernel).
-          constexpr int kGroup = 4;
-#pragma unroll
-          for (int j0 = 0; j0 < NIH; j0 += kGroup) {
-            if (j0 >= nih) break;
-            float part[1][kGroup][4] = {};
-            warp_product<TW, 1, kGroup, false, false>(part, gs, G::LDG, 16 * wm, wt, G::LDW,
-                                                      h0 + 8 * j0, BN, lane, 1, nih - j0);
-#pragma unroll
-            for (int jj = 0; jj < kGroup; ++jj)
-#pragma unroll
-              for (int x = 0; x < 4; ++x) dh[0][j0 + jj][x] += part[0][jj][x];
-          }
-        }
-        __syncthreads();  // the W piece and g consumed before they are refilled
-      }
-      if constexpr (kSliced) {
-        // The pass's rows of W, a k-slice a step: its kSliceTiles tiles of
-        // each warp's dh, summed as above.
-#pragma unroll
-        for (int d = 0; d < kPassSlices; ++d) {
-          if (d >= nds) break;
-          const T* wt = begin(i, nsteps, spt, hp0, hpn);
-          __syncthreads();  // the W slice in
-          const int cnt = min(kSliceTiles, nih - d * kSliceTiles);
-          float part[1][kSliceTiles][4] = {};
-          warp_product<TW, 1, kSliceTiles, false, false, 16, 8 * WH>(
-              part, gs, G::LDG, 16 * wm, wt, G::LDW, h0, BN, lane, 1, cnt);
-#pragma unroll
-          for (int jj = 0; jj < kSliceTiles; ++jj)
-#pragma unroll
-            for (int x = 0; x < 4; ++x) dh[0][d * kSliceTiles + jj][x] += part[0][jj][x];
-          __syncthreads();  // the W slice consumed before its slot is refilled
-          ++i;
-        }
-      }
-    }
+  const Frag f;
+  float acc[64], part[64];
+  const long long m0 = first - row_begin;
+  const Src<T> a = row_tile<TW>(h, blockIdx.x, Hp, (long long)chunk * Hp);
+  const Src<T> b = row_tile<TW>(wt, blockIdx.y, Hp, (long long)Vp * Hp);
+  run_ring<kStageBytes<TW>>(
+      Hp / KS, ring, bars,
+      [&](int i, unsigned char* stage, uint32_t bar) { load_stage<TW>(stage, bar, a, i, b, i); },
+      [&](int i, uint32_t stage) { mma_step<TW>(acc, part, stage, f.wg, i == 0); });
 
-    // d = (dh + g_dur·Wdᵀ) · (1 − h²) with the unrounded h (the f32 tile, or
-    // tanh recomputed where the tile holds bf16 or a slice), staged as
-    // d[kl·(BM+1) + m] for the pass's columns k = hp0 + kl.
+  // g in f32, staged over the ring (gs[m·kGLd + n]); zero past V and past
+  // the last row (whose coefficients are zero).
+  float* gs = reinterpret_cast<float*>(ring);
 #pragma unroll
-    for (int j = 0; j < NIH; ++j) {
-      if (j >= nih) break;
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = row0 + 8 * r, b = s_b[m];
+    for (int r = 0; r < 2; ++r) {
+      const int m = f.row0 + 8 * r;
+      float out[2];
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int kl = (kSliced ? h0 + 8 * WH * j : h0 + 8 * j) + 2 * tq + q, k = hp0 + kl;
-          float d = 0.f;
-          if (b >= 0 && k < H) {
-            float h;
-            if (sizeof(T) == 4 && !d_over_h) {
-              h = M::value(hs[m * ldh + k]);
-            } else {
-              h = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
-                        p[((long long)b * rows.U + s_u[m]) * H + k]);
-            }
-            float dh_k = dh[0][j][2 * r + q];
-            for (int cc = 0; cc < D; ++cc) dh_k = fmaf(s_gd[m * kPanel + cc], Wd[k * D + cc], dh_k);
-            d = dh_k * (1.f - h * h);
-          }
-          ds[kl * (BM + 1) + m] = d;
-        }
+      for (int q = 0; q < 2; ++q) {
+        const int n = 8 * j + f.tq2 + q, v = v0 + n;
+        out[q] = v < V && s_b[m] >= 0
+                     ? grad_element(acc[4 * j + 2 * r + q] + s_bias[n], s_den[m], s_coef[m],
+                                    s_cb[m], s_ce[m], v, blank, s_lab[m], s_cx + m * kPanel,
+                                    s_xk[n])
+                     : 0.f;
       }
+      *reinterpret_cast<float2*>(gs + m * kGLd + 8 * j + f.tq2) = make_float2(out[0], out[1]);
     }
-    __syncthreads();
-    scatter_de_dp<BM>(ds, BM + 1, s_b, s_t, s_u, rows, H, hp0, min(H, hp0 + hpn), de, dp);
+  __syncthreads();
+  const long long gn = (long long)chunk * Vp;
+  // g (chunk rows, Vp columns) and gᵀ (Vp rows, chunk columns) in tiles, a
+  // warp writing 8 rows × 4 pieces a step.
+  constexpr int E = O::kE, P = kBN / E;
+  for (int idx = tid; idx < kBM * P; idx += kThreads) {
+    const int rr = idx & 7, c = (idx >> 3) % P, m = (idx >> 3) / P * 8 + rr;
+    float x[E];
+#pragma unroll
+    for (int q = 0; q < E; ++q) x[q] = gs[m * kGLd + c * E + q];
+    O::put_piece(g, gn, tiled<TW>(m0 + m, v0 + c * E, Vp), x);
+  }
+  for (int idx = tid; idx < kBN * P; idx += kThreads) {
+    const int rr = idx & 7, c = (idx >> 3) % P, n = (idx >> 3) / P * 8 + rr;
+    float x[E];
+#pragma unroll
+    for (int q = 0; q < E; ++q) x[q] = gs[(c * E + q) * kGLd + n];
+    O::put_piece(gt, gn, tiled<TW>(v0 + n, (int)m0 + c * E, chunk), x);
+  }
+  // db's partial of this tile: the column's 128 unrounded g, in row order.
+  if (tid < kBN) {
+    float s = 0.f;
+    for (int m = 0; m < kBM; ++m) s += gs[m * kGLd + tid];
+    db_part[(long long)blockIdx.x * Vp + v0 + tid] = s;
+  }
+}
+
+// ---- dh, de, dp -------------------------------------------------------------------
+
+// A block: the 128 × 128 tile of dh at rows first .. first + 127 (chunk-local
+// tile blockIdx.x) and columns k0 .. k0 + 127 of Hp (blockIdx.y), summed over
+// the columns of V of its split (blockIdx.z: Vp in gridDim.z spans of whole
+// 128-column tiles), written to its f32 partial dh_part[z] (chunk × Hp, row
+// major).
+template <typename TW>
+__global__ void __launch_bounds__(kThreads, 1)
+joint_grad_dh_kernel(const typename Op<TW>::T* __restrict__ g,
+                     const typename Op<TW>::T* __restrict__ wp, int chunk, Rows rows,
+                     long long row_begin, float* __restrict__ dh_part, int H, int V) {
+  using O = Op<TW>;
+  using T = typename O::T;
+  constexpr int KT = kBN / O::kKS;  // k-slices a 128-column tile of V
+  const long long first = row_begin + (long long)blockIdx.x * kBM;
+  if (first >= rows.offsets[rows.B]) return;
+  const int Hp = pad128(H), Vp = pad128(V), k0 = blockIdx.y * kBN;
+  const int span = (Vp / kBN + gridDim.z - 1) / gridDim.z;  // V tiles a split
+  const int t0 = blockIdx.z * span, t1 = min(Vp / kBN, t0 + span);
+  extern __shared__ __align__(128) unsigned char joint_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(joint_smem + kRingBytes<TW>);
+  const Frag f;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;  // a split with no tiles writes zeros
+  const Src<T> a = row_tile<TW>(g, blockIdx.x, Vp, (long long)chunk * Vp);
+  const Src<T> b = row_tile<TW>(wp, blockIdx.y, Vp, (long long)Hp * Vp);
+  auto load = [&](int i, unsigned char* stage, uint32_t bar) {
+    load_stage<TW>(stage, bar, a, t0 * KT + i, b, t0 * KT + i);
+  };
+  const int n = t1 > t0 ? (t1 - t0) * KT : 0;
+  run_ring<kStageBytes<TW>>(n, joint_smem, bars, load, [&](int i, uint32_t stage) {
+    mma_step<TW>(acc, part, stage, f.wg, i == 0);
+  });
+  float* out = dh_part + (long long)blockIdx.z * chunk * Hp + (first - row_begin) * Hp + k0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + (long long)(f.row0 + 8 * r) * Hp + 8 * j + f.tq2) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+}
+
+// d = (Σ_z dh_part[z] + g_dur·Wdᵀ) · (1 − h²) with the unrounded h, of
+// kDRows·2 rows (blockIdx.x) and 128 columns k0 .. k0 + 127 (blockIdx.y), a
+// thread a column and kDRows rows: each row to dp, each run of rows that
+// share (b, t) to de, one atomicAdd a run (a run is cut every kDRows rows).
+// Short row spans keep the grid wide: a thread's rows are serial.
+constexpr int kDRows = 8;
+constexpr int kDTile = 2 * kDRows;  // rows a block
+
+__global__ void __launch_bounds__(kThreads)
+joint_grad_d_kernel(const float* __restrict__ dh_part, int nsplit, int chunk, Rows rows,
+                    long long row_begin, const float* __restrict__ e,
+                    const float* __restrict__ p, const float* __restrict__ Wd,
+                    const float* __restrict__ g_dur, int D, float* __restrict__ de,
+                    float* __restrict__ dp, int H) {
+  __shared__ float s_gd[kDTile * kPanel];
+  __shared__ int s_b[kDTile], s_t[kDTile], s_u[kDTile];
+  const long long first = row_begin + (long long)blockIdx.x * kDTile;
+  if (first >= rows.offsets[rows.B]) return;
+  const int Hp = pad128(H), tid = threadIdx.x;
+  place_rows<kDTile>(rows, first, s_b, s_t, s_u);
+  __syncthreads();
+  load_panel<kDTile>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
+  __syncthreads();
+  const int k = blockIdx.y * kBN + (tid & 127), m1 = (tid >> 7) * kDRows + kDRows;
+  if (k >= H) return;
+  const long long m0 = first - row_begin;
+  float run = 0.f;
+  for (int m = m1 - kDRows; m < m1; ++m) {
+    const int b = s_b[m];
+    if (b < 0) break;
+    float dh = 0.f;
+    for (int z = 0; z < nsplit; ++z) dh += dh_part[((long long)z * chunk + m0 + m) * Hp + k];
+    for (int c = 0; c < D; ++c) dh = fmaf(s_gd[m * kPanel + c], Wd[k * D + c], dh);
+    const float hv = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
+                           p[((long long)b * rows.U + s_u[m]) * H + k]);
+    const float d = dh * (1.f - hv * hv);
+    atomicAdd(dp + ((long long)b * rows.U + s_u[m]) * H + k, d);
+    run += d;
+    const bool last = m + 1 == m1 || s_b[m + 1] != b || s_t[m + 1] != s_t[m];
+    if (last) {
+      atomicAdd(de + ((long long)b * rows.T + s_t[m]) * H + k, run);
+      run = 0.f;
+    }
   }
 }
 
@@ -374,60 +293,52 @@ joint_grad_dwd_kernel(const float* __restrict__ e, const float* __restrict__ p,
 
 // ---- launches ---------------------------------------------------------------
 
-// What the row kernel takes beside GradArgs.
+// What the row launch takes beside GradArgs: the duration head, de and dp,
+// the chunk, the splits of dh's sum over V and the scratch buffers (joint.py
+// allocates them).
 struct RowsArgs {
   const float *Wd, *g_dur;
   int D;
   float *de, *dp;
-  long long row_begin, row_end;
-  void* h_out;
+  long long row_begin;
+  int chunk, dh_split;
+  void *wt, *wp, *h, *ht, *g, *gt;
+  float *db_part, *dh_part;
 };
 
-template <typename TW, int TM, bool kSliced>
-int launch_rows_tm(const GradArgs& a, const RowsArgs& r) {
-  auto kernel = joint_grad_rows_kernel<TW, TM, kSliced>;
-  const Plan q = plan<TW>(a.H);
-  const size_t bytes = (size_t)q.rows_smem;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (r.row_end - r.row_begin + kDim * TM - 1) / (kDim * TM);
-  kernel<<<(unsigned)blocks, kThreads, bytes, a.stream>>>(
-      a.e, a.p, static_cast<const TW*>(a.W), a.bias, a.lab_full, a.rows, a.denom, a.coef, a.cb,
-      a.ce, a.cx, a.cols, r.Wd, r.g_dur, r.D, r.de, r.dp, r.row_begin, static_cast<TW*>(r.h_out),
-      a.H, a.V, a.blank, w_aligned<TW>(a.W, a.V), q.rows_hcols);
+template <typename TW>
+int launch_rows(const GradArgs& a, const RowsArgs& r, int w_dtype) {
+  using T = typename Op<TW>::T;
+  const Plan q = plan<TW>(a.H, a.V, 0);
+  int err = 0;
+  if (r.row_begin == 0) {  // the first chunk lays W out for the whole call
+    err = wtt_joint_weights(a.W, w_dtype, a.H, a.V, r.wt, r.wp, a.stream);
+    if (err != 0) return err;
+  }
+  err = wtt_joint_h(a.e, a.p, a.rows.offsets, a.rows.label_lengths, a.rows.B, a.rows.T, a.rows.U,
+                    a.H, r.row_begin, r.chunk, w_dtype, r.h, r.ht, a.stream);
+  if (err != 0) return err;
+  err = (int)launch(joint_grad_g_kernel<TW>, dim3(r.chunk / kBM, q.vp / kBN), (size_t)q.g_smem,
+                    a.stream, static_cast<const T*>(r.h), static_cast<const T*>(r.wt), r.chunk,
+                    a.bias, a.lab_full, a.rows, r.row_begin, a.denom, a.coef, a.cb, a.ce, a.cx,
+                    a.cols, a.H, a.V, a.blank, static_cast<T*>(r.g), static_cast<T*>(r.gt),
+                    r.db_part);
+  if (err != 0) return err;
+  err = (int)launch(joint_grad_dh_kernel<TW>, dim3(r.chunk / kBM, q.hp / kBN, r.dh_split),
+                    (size_t)q.dh_smem, a.stream, static_cast<const T*>(r.g),
+                    static_cast<const T*>(r.wp), r.chunk, a.rows, r.row_begin, r.dh_part, a.H,
+                    a.V);
+  if (err != 0) return err;
+  joint_grad_d_kernel<<<dim3(r.chunk / kDTile, q.hp / kBN), kThreads, 0, a.stream>>>(
+      r.dh_part, r.dh_split, r.chunk, a.rows, r.row_begin, a.e, a.p, r.Wd, r.g_dur, r.D, r.de,
+      r.dp, a.H);
   return (int)cudaGetLastError();
 }
 
 template <typename TW>
-int launch_rows(const GradArgs& a, const RowsArgs& r) {
-  switch (tile_param(a.H)) {
-    case 4: return launch_rows_tm<TW, 4, false>(a, r);
-    case 2: return launch_rows_tm<TW, 2, false>(a, r);
-    default:
-      return padded_h(a.H) > kPassH ? launch_rows_tm<TW, 1, true>(a, r)
-                                    : launch_rows_tm<TW, 1, false>(a, r);
-  }
-}
-
-template <typename TW, int TM, bool kSliced>
-int attrs_tm(int* regs, int* local_bytes) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, joint_grad_rows_kernel<TW, TM, kSliced>);
-  *regs = attr.numRegs;
-  *local_bytes = (int)attr.localSizeBytes;
-  return (int)err;
-}
-
-template <typename TW>
-int attrs(int H, int* regs, int* local_bytes) {
-  switch (tile_param(H)) {
-    case 4: return attrs_tm<TW, 4, false>(regs, local_bytes);
-    case 2: return attrs_tm<TW, 2, false>(regs, local_bytes);
-    default:
-      return padded_h(H) > kPassH ? attrs_tm<TW, 1, true>(regs, local_bytes)
-                                  : attrs_tm<TW, 1, false>(regs, local_bytes);
-  }
+int attrs(int which, int* regs, int* local_bytes) {
+  return which == 0 ? kernel_attrs(joint_grad_g_kernel<TW>, regs, local_bytes)
+                    : kernel_attrs(joint_grad_dh_kernel<TW>, regs, local_bytes);
 }
 
 template <int TM>
@@ -448,50 +359,27 @@ int launch_dwd(const float* e, const float* p, const float* g_dur, Rows rows, fl
 
 extern "C" {
 
-// The plan of the fused joint kernels at this H and W type (w_dtype as
-// below), for the mirror in ops/cuda/joint.py: out = {tm, hp, sliced, ks,
-// slices, passes, prep_hcols, prep_stages, rows_hcols, prep_smem, rows_smem,
-// cols_smem} (joint.cuh::Plan), then the rows of a chunk of the gradient
-// whose h buffer takes at most chunk_bytes (a whole number of row tiles, at
-// least one). Returns the cudaError_t of the query.
-int wtt_joint_plan(int H, int w_dtype, long long chunk_bytes, long long* out) {
-  if (H < 1 || chunk_bytes < 0) return (int)cudaErrorInvalidValue;
-  Plan q;
-  size_t elt;
-  switch (w_dtype) {
-    case wtt::kF32: q = plan<float>(H); elt = sizeof(float); break;
-    case wtt::kBF16: q = plan<__nv_bfloat16>(H); elt = sizeof(__nv_bfloat16); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  const long long tile = kDim * q.tm;
-  const long long rows = chunk_bytes / (long long)(q.hp * elt) / tile * tile;
-  const long long v[] = {q.tm, q.hp, q.sliced, q.ks, q.slices, q.passes, q.prep_hcols,
-                         q.prep_stages, q.rows_hcols, q.prep_smem, q.rows_smem, q.cols_smem,
-                         rows > tile ? rows : tile};
-  for (int i = 0; i < 13; ++i) out[i] = v[i];
-  return 0;
-}
-
-// Dynamic shared memory the row kernel asks for at this H (the larger of
-// the two W types).
+// Dynamic shared memory the row launch's engine kernels ask for at this H
+// (the larger of the g and dh kernels and of the two W types).
 long long wtt_joint_grad_rows_smem(int H) {
-  const long long f = plan<float>(H).rows_smem, b = plan<__nv_bfloat16>(H).rows_smem;
-  return f > b ? f : b;
+  const Plan f = plan<float>(H, 1, 0), b = plan<__nv_bfloat16>(H, 1, 0);
+  long long m = f.g_smem > f.dh_smem ? f.g_smem : f.dh_smem;
+  m = b.g_smem > m ? b.g_smem : m;
+  return b.dh_smem > m ? b.dh_smem : m;
 }
 
 // Dynamic shared memory the dWd kernel asks for at this H.
 long long wtt_joint_grad_dwd_smem(int H) {
-  return (long long)dur_grad_smem_bytes(H, kDim * tile_param(H));
+  return (long long)dur_grad_smem_bytes(H, kDim * dwd_tile(H));
 }
 
-// Registers a thread and local (spill) bytes of the row kernel the wrapper
-// launches at this H and W type, as ptxas compiled it. Returns the
-// cudaError_t of the query.
-int wtt_joint_grad_rows_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
-  if (H < 1) return (int)cudaErrorInvalidValue;
+// Registers a thread and local (spill) bytes of joint_grad_g_kernel (which
+// = 0) or joint_grad_dh_kernel (1) with W of this type, as ptxas compiled
+// it. Returns the cudaError_t of the query.
+int wtt_joint_grad_rows_attrs(int which, int w_dtype, int* regs, int* local_bytes) {
   switch (w_dtype) {
-    case wtt::kF32: return attrs<float>(H, regs, local_bytes);
-    case wtt::kBF16: return attrs<__nv_bfloat16>(H, regs, local_bytes);
+    case wtt::kF32: return attrs<float>(which, regs, local_bytes);
+    case wtt::kBF16: return attrs<__nv_bfloat16>(which, regs, local_bytes);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -500,30 +388,37 @@ int wtt_joint_grad_rows_attrs(int H, int w_dtype, int* regs, int* local_bytes) {
 // cx: (B,T,U,K) f32 for the K columns extra_cols (a host array; K = 0: cx
 // unused). Wd: (H,D) f32 and g_dur: (B,T,U,D) f32, zero outside the lattice
 // (D = 0: both unused). de: (B,T,H) f32 and dp: (B,U,H) f32, both zeroed by
-// the caller (the kernel adds into them). The launch covers the valid rows
-// row_begin .. row_end - 1 (row_begin a multiple of the row tile, 16 ·
-// tile_param(H)) and writes their h, in W's type and H padded to a multiple
-// of 128 with zeros, to h_out: (row_end - row_begin, Hp), 16-byte aligned.
-// Returns the launch's cudaError_t.
+// the caller (the kernels add into them). The launches cover the valid rows
+// row_begin .. row_begin + chunk − 1 (row_begin and chunk multiples of 128).
+// Scratch, in W's operand type (bf16, or f32 as tf32 hi then lo): wt (Vp,
+// Hp) and wp (Hp, Vp), laid out here when row_begin is 0 and read by every
+// chunk after; the chunk's h (chunk, Hp), ht (Hp, chunk), g (chunk, Vp) and
+// gt (Vp, chunk), which the column launch reads, all stored in tiles
+// (joint.cuh::tiled); db_part (chunk / 128, Vp) f32; dh_part (dh_split,
+// chunk, Hp) f32, dh's sum over V in dh_split spans of whole 128-column
+// tiles. Returns the launches' cudaError_t.
 int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype,
                         const void* bias, const int* lab_full, const void* offsets,
                         const int* label_lengths, const void* denom, const void* coef,
                         const void* cb, const void* ce, const void* cx, const int* extra_cols,
                         int K, const void* Wd, const void* g_dur, int D, void* de, void* dp,
-                        long long row_begin, long long row_end, void* h_out, int B, int T,
+                        long long row_begin, int chunk, int dh_split, void* wt, void* wp, void* h,
+                        void* ht, void* g, void* gt, void* db_part, void* dh_part, int B, int T,
                         int U, int H, int V, int blank, void* stream) {
-  if ((long long)B * T * U == 0 || V == 0 || H == 0 || row_end <= row_begin) return 0;
-  if (D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)) ||
-      h_out == nullptr || row_begin % (kDim * tile_param(H)) != 0)
+  if ((long long)B * T * U == 0 || V == 0 || H == 0) return 0;
+  if (D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)) || chunk < kBM ||
+      chunk % kBM != 0 || row_begin % kBM != 0 || dh_split < 1)
     return (int)cudaErrorInvalidValue;
   GradArgs a;
   if (!make_grad_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce,
                       cx, extra_cols, K, B, T, U, H, V, blank, stream))
     return (int)cudaErrorInvalidValue;
   const RowsArgs r{static_cast<const float*>(Wd), static_cast<const float*>(g_dur), D,
-                   static_cast<float*>(de), static_cast<float*>(dp), row_begin, row_end, h_out};
-  if (w_dtype == wtt::kF32) return launch_rows<float>(a, r);
-  if (w_dtype == wtt::kBF16) return launch_rows<__nv_bfloat16>(a, r);
+                   static_cast<float*>(de), static_cast<float*>(dp), row_begin, chunk, dh_split,
+                   wt, wp, h, ht, g, gt, static_cast<float*>(db_part),
+                   static_cast<float*>(dh_part)};
+  if (w_dtype == wtt::kF32) return launch_rows<float>(a, r, w_dtype);
+  if (w_dtype == wtt::kBF16) return launch_rows<__nv_bfloat16>(a, r, w_dtype);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -543,7 +438,7 @@ int wtt_joint_grad_dwd(const void* e, const void* p, const void* offsets,
   float* o = static_cast<float*>(dWd);
   float* part = static_cast<float*>(dWd_part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_param(H)) {
+  switch (dwd_tile(H)) {
     case 4: return launch_dwd<4>(ef, pf, gd, rows, o, part, nsplit, H, D, s);
     case 2: return launch_dwd<2>(ef, pf, gd, rows, o, part, nsplit, H, D, s);
     default: return launch_dwd<1>(ef, pf, gd, rows, o, part, nsplit, H, D, s);

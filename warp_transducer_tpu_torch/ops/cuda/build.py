@@ -153,12 +153,18 @@ def library() -> ctypes.CDLL:
     lib.wtt_ranges_plan.restype = None
     joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
     dims = [i, i, i, i, i, i, p]  # B, T, U, H, V, blank, stream
-    # lpb, lpe, denom; lpx, its columns, K; Wd, bias_d, dlog, D
-    lib.wtt_joint_prep.argtypes = joint + [p, p, p, p, p, i, p, p, p, i] + dims
+    # lpb, lpe, denom; lpx, its columns, K; Wd, bias_d, dlog, D; the scratch Wᵀ, h, the chunk
+    lib.wtt_joint_prep.argtypes = joint + [p, p, p, p, p, i, p, p, p, i, p, p, i] + dims
     fields = [p, p, p, p, p, p, i]  # denom, coef, cb, ce; cx, its columns, K
-    chunk = [ll, ll, p]  # the rows row_begin .. row_end - 1, their h buffer
+    # the rows row_begin .. + chunk − 1, dh's splits; the scratch Wᵀ, W, h, hᵀ, g, gᵀ, the
+    # partials of db and dh
+    chunk = [ll, i, i, p, p, p, p, p, p, p, p]
     lib.wtt_joint_grad_rows.argtypes = joint + fields + [p, p, i, p, p] + chunk + dims
-    lib.wtt_joint_grad_cols.argtypes = joint[2:] + fields + [p, p, p, p, i] + chunk + [i] + dims
+    # offsets, label lengths, W's type; hᵀ, gᵀ, db partials; dW, its slices, db; the chunk,
+    # dW's splits, accumulate, finish
+    lib.wtt_joint_grad_cols.argtypes = [p, p, i, p, p, p, p, p, p, ll, i, i, i, i] + dims[:5] + [p]
+    lib.wtt_joint_weights.argtypes = [p, i, i, i, p, p, p]
+    lib.wtt_joint_h.argtypes = [p, p, p, p, i, i, i, i, ll, i, i, p, p, p]
     lib.wtt_joint_grad_dwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
@@ -169,18 +175,18 @@ def library() -> ctypes.CDLL:
                lib.wtt_grad, lib.wtt_grad_lattice, lib.wtt_band_prep, lib.wtt_band_prep_planned,
                lib.wtt_band_stream, lib.wtt_band_grad, lib.wtt_ranges, lib.wtt_joint_prep,
                lib.wtt_joint_grad_rows, lib.wtt_joint_grad_cols, lib.wtt_joint_grad_dwd,
+               lib.wtt_joint_weights, lib.wtt_joint_h,
                lib.wtt_dur_head_prep, lib.wtt_dur_head_grad):
         fn.restype = ctypes.c_int
-    # What the joint kernels' tiling needs at a given H, for the wrapper's checks.
-    lib.wtt_joint_plan.argtypes = [i, i, ll, ctypes.POINTER(ctypes.c_longlong)]
+    # What the joint kernels' tiling needs at a given H (and V), for the wrapper's checks.
+    lib.wtt_joint_plan.argtypes = [i, i, i, ll, ctypes.POINTER(ctypes.c_longlong)]
     lib.wtt_joint_plan.restype = i
-    lib.wtt_joint_grad_cols_occupancy.argtypes = [i, i]
-    lib.wtt_joint_grad_cols_occupancy.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
-    for fn in (lib.wtt_joint_prep_attrs, lib.wtt_joint_grad_rows_attrs,
-               lib.wtt_joint_grad_cols_attrs, lib.wtt_wavefront_attrs):
+    for fn in (lib.wtt_joint_prep_attrs, lib.wtt_joint_grad_rows_attrs, lib.wtt_wavefront_attrs):
         fn.argtypes = [i, i, ip, ip]
         fn.restype = i
+    lib.wtt_joint_grad_cols_attrs.argtypes = [i, ip, ip]
+    lib.wtt_joint_grad_cols_attrs.restype = i
     for fn in (lib.wtt_joint_prep_smem, lib.wtt_joint_grad_rows_smem, lib.wtt_joint_grad_cols_smem,
                lib.wtt_joint_grad_dwd_smem):
         fn.argtypes = [i]

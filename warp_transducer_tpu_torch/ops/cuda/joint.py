@@ -14,8 +14,10 @@ gradients come back in the types of e, p, W, bias, Wd. They visit only the
 cells inside each utterance's lattice, numbered through running sums of
 T_b·U_b that are taken on the card, so nothing here waits for the device;
 what they skip is filled here (NEG, or 0 for denom and the duration
-logits). They take any joint width H: above 1024 the same kernels stream W
-in k-slices and take dh and dW in passes (``joint_plan``)."""
+logits). They take any joint width H: every product streams its operands
+through shared memory in k-slices (``joint_plan``). The scratch the
+kernels read and write (W's layouts, a chunk's h, hᵀ, g, gᵀ and db
+partials) is allocated here, a chunk of rows at a time."""
 from __future__ import annotations
 
 import ctypes
@@ -32,10 +34,10 @@ _F32 = (torch.float32,)
 _IN = (torch.float32, torch.bfloat16)
 # The row splits of the fused gradient's dWd kernel: two blocks a multiprocessor.
 _DUR_BLOCKS_PER_SM = 2
-# The fused gradient's chunk of rows: the buffer of their h (joint_grad.cu's
-# row kernel writes it, the column kernel reads it) takes at most this, and
-# H is padded to a multiple of JOINT_H_ALIGN in it (csrc/joint.cuh, kHAlign).
-_H_CHUNK_MB = 32
+# The chunk of rows of the fused prep and gradient: the buffers of a chunk
+# (the prep's h; the gradient's h, hᵀ, g, gᵀ and db partials, in W's operand
+# type: bf16, or f32 as tf32 hi and lo) take at most this (joint.cuh::plan).
+_CHUNK_MB = 128
 
 
 def _rows(e, p, input_lengths, label_lengths):
@@ -113,119 +115,73 @@ def _dur_inputs(e, p, Wd, other, what, per_cell):
     return (e.float(), p.float()) + _dur_head(dev, H, Wd, other, what, shape)
 
 
-# The plan of csrc/joint.cuh (Plan, plan_tm and the tilings Prep, GradRows,
-# GradCols), mirrored for the CPU tests; a card test holds it against
-# wtt_joint_plan at every H. Up to JOINT_PASS_H (H padded to a multiple of
-# JOINT_H_ALIGN) one k-slice holds all of H and one pass covers dh and dW;
-# above it W streams in k-slices of ``JointPlan.ks`` rows and the row and
-# column kernels take dh and dW in passes of JOINT_PASS_H columns.
-JOINT_WARPS = 8
-JOINT_DIM = 16
-JOINT_H_ALIGN = 128
-JOINT_PASS_H = 1024
-JOINT_SLICE = 256  # rows of a k-slice above JOINT_PASS_H with bf16 W (f32: half)
+# The plan of csrc/joint.cuh (Plan, plan), mirrored for the CPU tests; a card
+# test holds it against wtt_joint_plan. Every product of the token head runs
+# on 128 × 128 tiles of C (two warpgroups of 64 rows, wgmma m64n128) over a
+# depth that streams through a ring of JOINT_STAGES k-slices; H and V are
+# padded to multiples of JOINT_TILE, and a chunk of rows is a whole number
+# of JOINT_TILE-row tiles whose buffers take at most the chunk's megabytes.
+JOINT_TILE = 128
+JOINT_STAGES = 3
 JOINT_PANEL = 8
-JOINT_COLS_SLICED_RM = 8  # the column kernel's row tiles above JOINT_PASS_H: 128 rows
-# Padding of a tile row, elements: (h, W, g) by W's type (joint.cuh, Mma).
-_PADS = {torch.float32: (4, 8, 4), torch.bfloat16: (8, 8, 8)}
+# k of a ring stage by W's type: 128 bytes of a row (bf16 64, f32 32), and
+# the arrays an operand takes (f32: tf32 hi and lo).
+_KS = {torch.bfloat16: 64, torch.float32: 32}
+_PARTS = {torch.bfloat16: 1, torch.float32: 2}
 
 
 class JointPlan(NamedTuple):
-    tm: int           # a row tile is 16·tm rows (the column kernel's stripe 16·tm columns)
-    hp: int           # H padded to a multiple of JOINT_H_ALIGN
-    sliced: int       # 0: one k-slice and one pass; 1: above JOINT_PASS_H
-    ks: int           # rows of W (and columns of h) of a k-slice
-    slices: int       # k-slices of hp
-    passes: int       # passes over H of dh (row kernel) and dW (column kernel)
-    prep_hcols: int   # columns of the prep's h tile: hp, or ks (refilled each step)
-    prep_stages: int  # W stages of the prep's ring
-    rows_hcols: int   # columns of the row kernel's h tile: hp, or ks
-    prep_smem: int    # dynamic shared memory of a block, bytes
-    rows_smem: int
-    cols_smem: int
-    chunk_rows: int   # rows of a chunk of the gradient (its h buffer)
+    hp: int           # H padded to a multiple of JOINT_TILE
+    vp: int           # V padded to a multiple of JOINT_TILE
+    ks: int           # k of a ring stage
+    stages: int       # stages of the ring
+    prep_smem: int    # dynamic shared memory of a block, bytes: the prep kernel,
+    g_smem: int       # the g kernel, the dh kernel and the dW kernel
+    dh_smem: int
+    dw_smem: int
+    prep_rows: int    # rows of a chunk of the prep (its h buffer)
+    grad_rows: int    # rows of a chunk of the gradient (its h, hᵀ, g, gᵀ, dh and db partials)
 
 
 def _r16(n):
     return -(-n // 16) * 16
 
 
-def tile_param(H: int) -> int:
-    return 4 if H <= 256 else 2 if H <= 512 else 1
+def _pad(n):
+    return -(-n // JOINT_TILE) * JOINT_TILE
 
 
-def joint_plan(H: int, dtype: torch.dtype, chunk_mb: int | None = None) -> JointPlan:
-    """The fused joint kernels' plan at joint width H >= 1 and W of ``dtype``
-    (f32 or bf16), with the gradient's h buffer at most ``chunk_mb`` MB
-    (``_H_CHUNK_MB`` when None)."""
-    chunk_mb = _H_CHUNK_MB if chunk_mb is None else chunk_mb
-    sz = 2 if dtype == torch.bfloat16 else 4
-    pad_h, pad_w, pad_g = _PADS[dtype]
-    tm = tile_param(H)
-    hp = -(-H // JOINT_H_ALIGN) * JOINT_H_ALIGN
-    bm = JOINT_DIM * tm
-    hmax = JOINT_PASS_H // tm
-    # The row tilings (joint.cuh::RowTiles): the prep and the row kernel, V
-    # tiles of bn columns (64 with bf16 W or above JOINT_PASS_H; 128 with
-    # bf16 W above it).
-    sliced = hp > JOINT_PASS_H
-    bn = (128 if sliced else 64) if sz == 2 else 64 if sliced else JOINT_DIM * tm
-    wn = min(JOINT_WARPS // tm, bn // 8)
-    ldw, ldg = bn + pad_w, bn + pad_g
-
-    def prep_bytes(hcols, wrows, stages):
-        return (_r16(sz * bm * (hcols + pad_h)) + _r16(sz * stages * wrows * ldw)
-                + _r16(4 * 2 * bm) + _r16(4 * 2 * wn * bm) + _r16(4 * 4 * bm))
-
-    def rows_bytes(hcols, wrows, stages, dcols, d_over_h):
-        h = _r16(sz * bm * (hcols + pad_h))
-        d = 4 * dcols * (bm + 1)
-        need = max(d - h, 0) if d_over_h else d
-        ring = max(sz * stages * wrows * ldw, need)
-        return (h + _r16(ring) + _r16(sz * bm * ldg) + _r16(4 * (4 + 2 * JOINT_PANEL) * bm)
-                + _r16(4 * 4 * bm))
-
-    prep_stages = 2 if sliced or (_r16(sz * bm * (hmax + pad_h)) + _r16(sz * 2 * hmax * ldw)
-                                  + 4096 <= SMEM_BYTES) else 1
-    # The column kernel's tiling (joint.cuh::GradCols): stripes of 16·tm, row
-    # tiles of cbm rows.
-    cbn = JOINT_DIM * tm
-    cldw = cbn + pad_w
-
-    def cols_small(cbm):  # row fields and (b, t, u, label) twice, db, bias, extra index
-        return (_r16(4 * 2 * (4 + JOINT_PANEL) * cbm) + _r16(4 * (cbm // JOINT_DIM) * cbn)
-                + _r16(4 * 2 * 4 * cbm) + _r16(4 * cbn) + _r16(4 * cbn))
-
-    chunk = max(bm, (chunk_mb << 20) // (hp * sz) // bm * bm)
-    if not sliced:
-        hbuf = 2 if sz == 4 and (_r16(sz * hmax * cldw) + _r16(sz * 2 * bm * (hmax + pad_h))
-                                 + _r16(sz * bm * cldw) + cols_small(bm)) <= SMEM_BYTES else 1
-        cols = _r16(sz * hp * cldw) + _r16(sz * hbuf * bm * (hp + pad_h)) + _r16(sz * bm * cldw)
-        return JointPlan(tm, hp, 0, hp, 1, 1, hp, prep_stages, hp,
-                         prep_bytes(hp, hp, prep_stages), rows_bytes(hp, hp, 1, hp, sz == 2),
-                         cols + cols_small(bm), chunk)
-    ks = JOINT_SLICE if sz == 2 else JOINT_SLICE // 2  # joint.cuh::kSliceRows
-    whole = prep_bytes(hp, ks, 2)
-    prep_hcols = hp if whole <= SMEM_BYTES else ks
-    whole = rows_bytes(hp, ks, 2, JOINT_PASS_H, sz == 2)
-    rows_hcols = hp if whole <= SMEM_BYTES else ks
-    cbm = JOINT_DIM * JOINT_COLS_SLICED_RM
-    stage = _r16(sz * ks * cldw) + _r16(sz * cbm * (ks + pad_h))
-    return JointPlan(tm, hp, 1, ks, -(-hp // ks), -(-hp // JOINT_PASS_H), prep_hcols, 2,
-                     rows_hcols, prep_bytes(prep_hcols, ks, 2),
-                     rows_bytes(rows_hcols, ks, 2, JOINT_PASS_H, sz == 2 or rows_hcols != hp),
-                     2 * stage + _r16(sz * cbm * cldw) + cols_small(cbm), chunk)
+def joint_plan(H: int, V: int, dtype: torch.dtype, chunk_mb: int | None = None) -> JointPlan:
+    """The fused joint kernels' plan at joint width H >= 1, V >= 1 columns
+    and W of ``dtype`` (f32 or bf16), with each chunk's buffers at most
+    ``chunk_mb`` MB (``_CHUNK_MB`` when None)."""
+    chunk_mb = _CHUNK_MB if chunk_mb is None else chunk_mb
+    elt = (2 if dtype == torch.bfloat16 else 4) * _PARTS[dtype]
+    hp, vp, t = _pad(H), _pad(V), JOINT_TILE
+    # the ring (A and B tiles of 128 rows × 128 bytes a stage) and its mbarriers
+    ring = JOINT_STAGES * _PARTS[dtype] * 2 * t * 128 + _r16(8 * JOINT_STAGES)
+    prep = ring + _r16(4 * 4 * t) * 2
+    g = ring + _r16(4 * (4 + JOINT_PANEL) * t) + _r16(4 * 4 * t) + _r16(4 * t) + _r16(4 * t)
+    budget = chunk_mb << 20
+    prep_rows = max(t, budget // (elt * hp) // t * t)
+    grad_rows = max(t, budget // (elt * 2 * (hp + vp) + 4 * hp + vp // 32) // t * t)
+    return JointPlan(hp, vp, _KS[dtype], JOINT_STAGES, prep, g, ring, ring, prep_rows, grad_rows)
 
 
-def kernel_plan(H: int, dtype: torch.dtype, chunk_mb: int | None = None) -> JointPlan:
-    """The plan the kernels take at this H and W type, from the C entry
+def kernel_plan(H: int, V: int, dtype: torch.dtype, chunk_mb: int | None = None) -> JointPlan:
+    """The plan the kernels take at this H, V and W type, from the C entry
     (``wtt_joint_plan``); for the card tests and the measurement scripts."""
-    chunk_mb = _H_CHUNK_MB if chunk_mb is None else chunk_mb
+    chunk_mb = _CHUNK_MB if chunk_mb is None else chunk_mb
     out = (ctypes.c_longlong * len(JointPlan._fields))()
-    err = lib().wtt_joint_plan(H, DTYPE_CODES[dtype], chunk_mb << 20, out)
+    err = lib().wtt_joint_plan(H, V, DTYPE_CODES[dtype], chunk_mb << 20, out)
     if err != 0:
-        raise RuntimeError(f"wtt_joint_plan({H}, {dtype}) failed: cudaError {err}")
+        raise RuntimeError(f"wtt_joint_plan({H}, {V}, {dtype}) failed: cudaError {err}")
     return JointPlan(*out)
+
+
+def dwd_tile(H: int) -> int:
+    """Sixteens of rows of a row tile of the dWd kernel (joint.cuh::dwd_tile)."""
+    return 4 if H <= 256 else 2 if H <= 512 else 1
 
 
 # The plan of csrc/dur_head.cu (its constants and prep_ut / prep_tt), mirrored
@@ -280,11 +236,18 @@ def _host_cols(cols):
     return (ctypes.c_int * len(cols))(*cols)
 
 
+def _scratch(n, W):
+    """n elements of W's operand type, by W's type: bf16, or f32 as two
+    arrays (tf32 hi, then lo)."""
+    return torch.empty(n * _PARTS[W.dtype], dtype=W.dtype, device=W.device)
+
+
 def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
                extra_cols=(), dur_head=None) -> _prep.PreparedInputs:
-    """``fused_joint.fused_prep`` on the card: one launch over the valid
-    rows and all of V, whatever the hooks. On a CPU tensor this is the plain
-    version."""
+    """``fused_joint.fused_prep`` on the card: Wᵀ laid out once, then a
+    chunk of rows at a time its h and the prep kernel over all of V, all in
+    one counted launch of the C entry, whatever the hooks. On a CPU tensor
+    this is the plain version."""
     if e.device.type != "cuda":
         return _plain.fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank,
                                  extra_cols, dur_head)
@@ -304,12 +267,17 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
         Wd32, bias_d32 = _dur_head(dev, H, dur_head[0], dur_head[1], "bias_d", ())
         D = Wd32.shape[1]
         dlog = torch.zeros((B, T, U, D), dtype=torch.float32, device=dev)
+    plan = joint_plan(H, V, W.dtype)
+    chunk = min(plan.prep_rows, _pad(B * T * U))
+    wt = _scratch(plan.vp * plan.hp, W)
+    h = _scratch(chunk * plan.hp, W)
     with torch.cuda.device(dev):
         err = lib().wtt_joint_prep(
             e32.data_ptr(), p32.data_ptr(), W.data_ptr(), DTYPE_CODES[W.dtype], b32.data_ptr(),
             lab.data_ptr(), offsets.data_ptr(), ll.data_ptr(), lpb.data_ptr(), lpe.data_ptr(),
             denom.data_ptr(), _ptr(lpX), _host_cols(cols), K, _ptr(Wd32), _ptr(bias_d32),
-            _ptr(dlog), D, B, T, U, H, V, int(blank), stream(dev))
+            _ptr(dlog), D, wt.data_ptr(), h.data_ptr(), chunk, B, T, U, H, V, int(blank),
+            stream(dev))
     check(err, "joint_prep")
     return _prep.PreparedInputs(lpb=lpb, lpe=lpe, denom=denom, extras=lpX, dur=dlog)
 
@@ -317,20 +285,51 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
 def _dur_splits(B, T, U, H, dev):
     """Row splits of the fused gradient's dWd kernel: each split walks every
     nsplit-th row tile and owns one partial of dWd."""
-    tile = JOINT_DIM * tile_param(H)  # its row tiles are as tall as the column kernel's
-    tiles = -(-(B * T * U) // tile)
+    tiles = -(-(B * T * U) // (16 * dwd_tile(H)))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(_DUR_BLOCKS_PER_SM * sms, tiles))
+
+
+# Shared memory of a multiprocessor (228 KB): with a kernel's, it says how
+# many of its blocks a multiprocessor holds.
+_SM_SHARED = 233472
+
+
+def grad_splits(plan: JointPlan, chunk: int, sms: int) -> tuple:
+    """(dh_split, dw_split): the spans of dh's sum over V (whole 128-column
+    tiles) and of dW's sum over a chunk's row tiles, so that each grid fills
+    one wave of the blocks that ``sms`` multiprocessors hold at once (two a
+    multiprocessor with bf16 W's shared memory, one with f32's) where its
+    tiles alone would not; 1 where they do."""
+    target = max(1, _SM_SHARED // (plan.dh_smem + 1024)) * sms  # a block reserves 1 KB
+    row_tiles, h_tiles, v_tiles = chunk // JOINT_TILE, plan.hp // JOINT_TILE, plan.vp // JOINT_TILE
+    dh = max(1, min(v_tiles, -(-target // (row_tiles * h_tiles))))
+    dw = max(1, min(row_tiles, -(-target // (h_tiles * v_tiles))))
+    return dh, dw
+
+
+def tile_order(rows: int, cols: int, dtype: torch.dtype) -> torch.Tensor:
+    """Where each element (r, k) of an operand of ``rows`` (a multiple of
+    JOINT_TILE) × ``cols`` (a multiple of the stage's k) lies in its tiled
+    layout (joint.cuh::tiled): an int64 (rows, cols) tensor of element
+    indices. Tiles of 128 rows × ``ks`` columns, row tile by row tile and
+    along k, each in wgmma's core-matrix order (8 rows × 16 bytes)."""
+    ks = _KS[dtype]
+    E = 16 // (2 if dtype == torch.bfloat16 else 4)
+    r = torch.arange(rows, dtype=torch.int64)[:, None]
+    k = torch.arange(cols, dtype=torch.int64)[None, :]
+    return (((r >> 7) * (cols // ks) + k // ks) * (JOINT_TILE * ks)
+            + ((((r & 127) >> 3) * 8 + (k % ks) // E) * 8 + (r & 7)) * E + k % E)
 
 
 def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
                fields: _gradients.Coefficients, blank: int, extra=None, dur_head=None):
     """``fused_joint.fused_grad`` on the card, a chunk of the B·T·U cells at
-    a time: the row kernel (de, dp, the duration head's cotangent joining
-    dh there; it also writes the chunk's h) and the column kernel (dW, db,
-    from that h), each counted under ``joint_grad`` at every launch, and
-    with a duration head one more for dWd. On a CPU tensor this is the
-    plain version."""
+    a time: the row launch (h and hᵀ, g and gᵀ with db's partials, dh into
+    de and dp, the duration head's cotangent joining dh there; the first
+    chunk's also lays W out) and the column launch (dW and db from them),
+    each counted under ``joint_grad``, and with a duration head one more for
+    dWd. On a CPU tensor this is the plain version."""
     if e.device.type != "cuda":
         return _plain.fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
                                  fields, blank, extra, dur_head)
@@ -364,38 +363,36 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
     dp = torch.zeros((B, U, H), dtype=torch.float32, device=dev)
     dW = torch.empty((H, V), dtype=torch.float32, device=dev)
     db = torch.empty((V,), dtype=torch.float32, device=dev)
-    plan = joint_plan(H, W.dtype)
-    stripe = JOINT_DIM * plan.tm
-    stripes = -(-V // stripe)
+    plan = joint_plan(H, V, W.dtype)
     cells = B * T * U
-    chunk = min(plan.chunk_rows, -(-cells // stripe) * stripe)
-    # the column kernel's row tiles in a chunk: as tall as a stripe is wide
-    # up to JOINT_PASS_H, JOINT_COLS_SLICED_RM sixteens above
-    col_tile = JOINT_DIM * JOINT_COLS_SLICED_RM if plan.sliced else stripe
-    tiles = -(-chunk // col_tile)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # One wave of the column kernel: as many row splits as its resident
-    # blocks leave room for beside the stripes and the passes over dW.
-    per_sm = max(1, lib().wtt_joint_grad_cols_occupancy(H, DTYPE_CODES[W.dtype]))
-    nsplit = max(1, min(per_sm * sms // (stripes * plan.passes), tiles))
-    dW_part = torch.empty((nsplit, H, V), dtype=torch.float32, device=dev) if nsplit > 1 else dW
-    db_part = torch.empty((nsplit, V), dtype=torch.float32, device=dev) if nsplit > 1 else db
-    h_chunk = torch.empty((chunk, plan.hp), dtype=W.dtype, device=dev)
-    inputs = (W.data_ptr(), DTYPE_CODES[W.dtype], b32.data_ptr(), lab.data_ptr(),
-              offsets.data_ptr(), ll.data_ptr(), denom.data_ptr(), fields.coef.data_ptr(),
-              fields.cb.data_ptr(), fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K)
-    dims = (B, T, U, H, V, int(blank), stream(dev))
+    chunk = min(plan.grad_rows, _pad(cells))
+    dh_split, dw_split = grad_splits(
+        plan, chunk, torch.cuda.get_device_properties(dev).multi_processor_count)
+    wt, wp = _scratch(plan.vp * plan.hp, W), _scratch(plan.hp * plan.vp, W)
+    h, ht = _scratch(chunk * plan.hp, W), _scratch(plan.hp * chunk, W)
+    g, gt = _scratch(chunk * plan.vp, W), _scratch(plan.vp * chunk, W)
+    db_part = torch.empty((chunk // JOINT_TILE, plan.vp), dtype=torch.float32, device=dev)
+    dh_part = torch.empty((dh_split, chunk, plan.hp), dtype=torch.float32, device=dev)
+    dW_part = (torch.empty((dw_split, H, V), dtype=torch.float32, device=dev)
+               if dw_split > 1 else None)
+    code = DTYPE_CODES[W.dtype]
+    inputs = (W.data_ptr(), code, b32.data_ptr(), lab.data_ptr(), offsets.data_ptr(),
+              ll.data_ptr(), denom.data_ptr(), fields.coef.data_ptr(), fields.cb.data_ptr(),
+              fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K)
+    scratch = tuple(x.data_ptr() for x in (wt, wp, h, ht, g, gt, db_part, dh_part))
     out = ()
     with torch.cuda.device(dev):
         for r0 in range(0, cells, chunk):
-            window = (r0, r0 + chunk, h_chunk.data_ptr())
             err = lib().wtt_joint_grad_rows(e32.data_ptr(), p32.data_ptr(), *inputs, _ptr(Wd32),
-                                            _ptr(gd), D, de.data_ptr(), dp.data_ptr(), *window,
-                                            *dims)
+                                            _ptr(gd), D, de.data_ptr(), dp.data_ptr(), r0, chunk,
+                                            dh_split, *scratch, B, T, U, H, V, int(blank),
+                                            stream(dev))
             check(err, "joint_grad")
-            err = lib().wtt_joint_grad_cols(*inputs, dW.data_ptr(), db.data_ptr(),
-                                            dW_part.data_ptr(), db_part.data_ptr(), nsplit,
-                                            *window, int(r0 > 0), *dims)
+            err = lib().wtt_joint_grad_cols(offsets.data_ptr(), ll.data_ptr(), code,
+                                            ht.data_ptr(), gt.data_ptr(), db_part.data_ptr(),
+                                            dW.data_ptr(), _ptr(dW_part), db.data_ptr(), r0,
+                                            chunk, dw_split, int(r0 > 0),
+                                            int(r0 + chunk >= cells), B, T, U, H, V, stream(dev))
             check(err, "joint_grad")
         if dur_head is not None:
             nd = _dur_splits(B, T, U, H, dev)
@@ -455,18 +452,27 @@ def dur_head_grad(e, p, Wd, g_dur, input_lengths=None, label_lengths=None):
     return de.to(e.dtype), dp.to(p.dtype), dWd.to(Wd.dtype)
 
 
-def kernel_registers(H: int, dtype: torch.dtype) -> dict:
-    """{kernel: (registers a thread, local bytes a thread)} of the prep, row
-    and column kernels launched at this H with W of ``dtype`` (their sliced
-    instances above H = 1024), as ptxas compiled them
-    (``cudaFuncGetAttributes``); for the measurement scripts."""
+# The kernels of the fused joint by their C entries' attribute queries:
+# (entry, which) → the kernel's name as the profiler shows it.
+_ATTRS = (("joint_w_kernel", "wtt_joint_prep_attrs", 0),
+          ("joint_h_kernel", "wtt_joint_prep_attrs", 1),
+          ("joint_prep_kernel", "wtt_joint_prep_attrs", 2),
+          ("joint_grad_g_kernel", "wtt_joint_grad_rows_attrs", 0),
+          ("joint_grad_dh_kernel", "wtt_joint_grad_rows_attrs", 1),
+          ("joint_grad_dw_kernel", "wtt_joint_grad_cols_attrs", None))
+
+
+def kernel_registers(dtype: torch.dtype) -> dict:
+    """{kernel: (registers a thread, local bytes a thread)} of the fused
+    joint's kernels with W of ``dtype`` (one instance each, whatever H), as
+    ptxas compiled them (``cudaFuncGetAttributes``); for the measurement
+    scripts."""
     code = DTYPE_CODES[dtype]
     out = {}
-    for name, entry in (("joint_prep_kernel", "wtt_joint_prep_attrs"),
-                        ("joint_grad_rows_kernel", "wtt_joint_grad_rows_attrs"),
-                        ("joint_grad_cols_kernel", "wtt_joint_grad_cols_attrs")):
+    for name, entry, which in _ATTRS:
         regs, local = ctypes.c_int(), ctypes.c_int()
-        err = getattr(lib(), entry)(H, code, ctypes.byref(regs), ctypes.byref(local))
+        args = (code,) if which is None else (which, code)
+        err = getattr(lib(), entry)(*args, ctypes.byref(regs), ctypes.byref(local))
         if err != 0:
             raise RuntimeError(f"{name}: cudaFuncGetAttributes failed: cudaError {err}")
         out[name] = (regs.value, local.value)
