@@ -1370,6 +1370,16 @@ def make_duration_problem(B, T, L, V, seed, dev, dtype=torch.float32):
     return acts, dur, labels, il, ll
 
 
+def log_probs_input(acts):
+    """The input of the multi-blank loss on log-probs: log_softmax of the
+    activations in f32, the last big-blank column (4 frames) masked to −inf
+    in a quarter of the utterances (1, 5, 9, ...), as users of log-probs
+    inputs mask a big blank; a leaf that requires grad."""
+    lp = torch.log_softmax(acts.detach().float(), -1)
+    lp[1::4, ..., -1] = -float("inf")
+    return lp.requires_grad_(True)
+
+
 def window_tol(chain_weight, dtype):
     """(rtol, atol) of the window lattice, kernel against plain version. The
     chain's prefix form α = c + LSE(ne − c) cancels against c, the summed
@@ -1400,8 +1410,10 @@ def duration_kernels_vs_plain(dev, errs):
     """The window kernel against the plain lattice for the multi-blank and
     the TDT arcs (with and without d = 0), f32 and f64, at both shapes, and
     at K = 0 against the wavefront kernel; prep and grad with K = 2 extra
-    columns at both shapes and at the large-vocabulary one, f32 and bf16."""
-    from warp_transducer_tpu_torch.ops import gradients, multiblank, prep, window
+    columns at both shapes and at the large-vocabulary one, f32 and bf16, on
+    raw activations and on log-probs (prep's log-probs mode, grad's sparse
+    fields mode)."""
+    from warp_transducer_tpu_torch.ops import gradients, multiblank, prep, rnnt, window
     from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
     from warp_transducer_tpu_torch.ops.cuda import prep as kprep
     from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
@@ -1435,7 +1447,42 @@ def duration_kernels_vs_plain(dev, errs):
         e = compare(f"grad K=2 {tag} {dtype}", g_k, g_p, grad_tol(g_p, "f32" if f32 else "bf16_out"))
         if f32:
             errs["grad_fields"] = max(errs["grad_fields"], e)
+        del g_k, g_p
+        log_probs_case(tag, acts, labels, il, ll, cols, dtype)
         return p, torch.log_softmax(dur.float(), -1), il, ll
+
+    def log_probs_case(tag, acts, labels, il, ll, cols, dtype):
+        """The multi-blank loss on log-probs: prep's log-probs mode with the
+        two big-blank columns (a masked one among them) and grad's sparse
+        fields mode with them, each bit-equal to its plain version (neither
+        does arithmetic: a column read plus 0; a negation, a selection and
+        one rounding)."""
+        lp = log_probs_input(acts).detach().to(dtype)
+        p_k = kprep.prepare(lp, labels, 0, True, extra_cols=cols)
+        torch.cuda.synchronize()
+        p = prep.prepare(lp, labels, 0, True, extra_cols=cols)
+        for f in ("lpb", "lpe", "extras"):
+            fail_unless(torch.equal(getattr(p_k, f), getattr(p, f)),
+                        f"prep log-probs K=2 {tag} {dtype} {f}: the kernel differs from its "
+                        "plain version")
+        print(f"compare prep log-probs K=2 {tag} {dtype}: lpb, lpe, extras bit-equal "
+              f"({int(torch.isneginf(p_k.extras).sum())} -inf entries)")
+        del p_k
+        lpb, lpe, lpB, _ = multiblank._multiblank_prep(rnnt._PLAIN, lp, labels, 0, cols,
+                                                       MB_SIGMA, True)
+        lat = kwindow.forward_backward(lpb, lpe, lpB, window.multiblank_arcs(MB_DURATIONS), il, ll)
+        coef, cb, ce, cBs = multiblank._mb_coefs(lpb, lpe, lpB, lat, MB_DURATIONS, il, ll,
+                                                 fastemit_lambda=0.1)
+        args = (gradients.Coefficients(coef, cb, ce), prep.label_rows(labels, lpb.shape[2]), il,
+                ll, 0, lp.shape[-1], dtype)
+        kw = dict(extra_cols=cols, extra_fields=torch.stack(cBs, dim=-1))
+        g_k = kgrad.sparse_grad(*args, **kw)
+        torch.cuda.synchronize()
+        g_p = gradients.sparse_grad(*args, **kw)
+        e = compare(f"grad sparse K=2 {tag} {dtype}", g_k, g_p, "f32")
+        fail_unless(torch.equal(g_k, g_p), f"grad sparse K=2 {tag} {dtype}: not bit-equal")
+        if dtype == torch.float32:
+            errs["grad_fields"] = max(errs["grad_fields"], e)
 
     def lattice_case(name, arcs, lpb, lpe, extra, il, ll, chain_weight, want=None):
         got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
@@ -1479,22 +1526,37 @@ def duration_kernels_vs_plain(dev, errs):
 def duration_step(loss, acts, dur, labels, il, ll, implementation="auto"):
     """One training step's loss part through a public entry point: forward
     and backward into the logits (leaves that require grad). Returns the
-    costs and the gradients."""
+    costs and the gradients. ``multiblank_lp``: the multi-blank loss on
+    log-probs (``acts`` the log-probs) through the binding's
+    ``rnnt_loss_multiblank(from_log_probs=True)``, its entry point; the
+    plain twin (``implementation="torch"``) through the op route the
+    binding calls."""
     from warp_transducer_tpu_torch import rnnt_loss_multiblank, rnnt_loss_tdt
+    from warp_transducer_tpu_torch.bindings import torch_binding
+    from warp_transducer_tpu_torch.ops import multiblank
     acts.grad = dur.grad = None
     if loss == "multiblank":
         costs = rnnt_loss_multiblank(acts, labels, il, ll, MB_DURATIONS, sigma=MB_SIGMA,
                                      reduction="none", implementation=implementation)
+    elif loss == "multiblank_lp" and implementation == "auto":
+        costs = torch_binding.rnnt_loss_multiblank(acts, labels, il, ll, MB_DURATIONS,
+                                                   sigma=MB_SIGMA, reduction="none",
+                                                   from_log_probs=True)
+    elif loss == "multiblank_lp":
+        costs = multiblank._multiblank_costs(acts, labels, il, ll, MB_DURATIONS, 0, None, "none",
+                                             MB_SIGMA, 0.0, 0.0, True, implementation)
     else:
         costs = rnnt_loss_tdt(acts, dur, labels, il, ll, TDT_DURATIONS, reduction="none",
                               implementation=implementation)
     costs.sum().backward()
-    grads = {"acts": acts.grad} if loss == "multiblank" else {"tok": acts.grad, "dur": dur.grad}
+    grads = ({"tok": acts.grad, "dur": dur.grad} if loss == "tdt"
+             else {"log_probs" if loss == "multiblank_lp" else "acts": acts.grad})
     return costs.detach(), grads
 
 
 def duration_main_path(dev, totals):
-    """Both duration-arc steps at both shapes under the launch counters,
+    """The duration-arc steps at both shapes (the multi-blank loss on raw
+    activations and on log-probs, the TDT loss) under the launch counters,
     with no host sync allowed, held against the same step with
     implementation="torch" (timed once there: its lattice is T steps of torch
     ops). Returns {shape: problem}."""
@@ -1504,10 +1566,12 @@ def duration_main_path(dev, totals):
         acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=14, dev=dev)
         acts.requires_grad_(True)
         dur.requires_grad_(True)
-        for loss in ("multiblank", "tdt"):
+        lp = log_probs_input(acts)
+        for loss in ("multiblank", "multiblank_lp", "tdt"):
+            x = lp if loss == "multiblank_lp" else acts
             K.reset_launches()
             torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
-            costs, grads = duration_step(loss, acts, dur, labels, il, ll)
+            costs, grads = duration_step(loss, x, dur, labels, il, ll)
             torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             counts = dict(K.launches)
@@ -1520,32 +1584,75 @@ def duration_main_path(dev, totals):
             grads = {n: g.clone() for n, g in grads.items()}
             fail_unless(costs.shape == (B,) and bool(torch.isfinite(costs).all())
                         and bool((costs < 1e29).all()), f"{loss} {tag}: costs not finite")
+            if loss == "multiblank_lp":  # a masked big blank has no gradient
+                masked = torch.isneginf(lp)
+                fail_unless(bool((grads["log_probs"][masked] == 0).all()),
+                            f"multiblank_lp {tag}: a gradient at a -inf input is not 0")
+                print(f"multiblank_lp {tag}: the gradient is 0 at all "
+                      f"{int(masked.sum())} -inf inputs")
             started = time.perf_counter()
-            costs_p, grads_p = duration_step(loss, acts, dur, labels, il, ll, "torch")
+            costs_p, grads_p = duration_step(loss, x, dur, labels, il, ll, "torch")
             torch.cuda.synchronize()
             print(f"time {loss} {tag}: the plain step once {(time.perf_counter() - started) * 1e3:.1f} ms")
-            compare(f"{loss} costs {tag} kernels vs plain", costs, costs_p, "f32")
+            ref = "plain"
+            if loss == "multiblank_lp":
+                costs_p, grads_p = log_probs_reference(tag, lp, dur, labels, il, ll, costs, grads,
+                                                       costs_p, grads_p)
+                ref = "plain (f64)"
+            compare(f"{loss} costs {tag} kernels vs {ref}", costs, costs_p, "f32")
             # As for the dense path: the prep's rounding moves α + β − ll, and
             # exp() turns that into a relative error of the gradient.
             for n in grads:
                 fail_unless(grads[n].shape == grads_p[n].shape
                             and bool(torch.isfinite(grads[n]).all()), f"{loss} {tag}: d{n} not finite")
                 rel = rel_norm(grads[n], grads_p[n])
-                print(f"{loss} grads {tag} d{n} kernels vs plain: relative norm error {rel:.3e} "
+                print(f"{loss} grads {tag} d{n} kernels vs {ref}: relative norm error {rel:.3e} "
                       "(tol 1e-3)")
                 fail_unless(rel <= 1e-3, f"d{n} of the kernels and the plain path differ ({loss} {tag})")
             del grads, grads_p
-        acts.grad = dur.grad = None
-        problems[tag] = (acts, dur, labels, il, ll)
+        acts.grad = dur.grad = lp.grad = None
+        problems[tag] = (acts, dur, labels, il, ll, lp)
         torch.cuda.empty_cache()
     return problems
 
 
+def log_probs_reference(tag, lp, dur, labels, il, ll, costs, grads, costs_p, grads_p):
+    """The reference of the multi-blank step on log-probs: the plain route
+    in f64 on the same log-probs. Its f32 gradient is a sparse set of arc
+    posteriors exp(α + β − ll), which the f32 lattice's rounding moves by up
+    to 7.4e-4 of the gradient's norm at long_t in the plain route and 6.1e-4
+    in the kernels' (PERF.md §6), so the two f32 routes are compared
+    here (printed) and each against the f64 route. The kernel route in f64 is
+    held to the f64 plain route at f64 tolerance (costs rtol / atol 1e-10,
+    the gradient's relative norm 1e-9). Returns the f64 plain route's costs
+    and gradients."""
+    rel32 = rel_norm(grads["log_probs"], grads_p["log_probs"])
+    print(f"multiblank_lp {tag}: the kernel and the plain route in f32: costs max abs "
+          f"{float((costs - costs_p).abs().max()):.3e}, gradient relative norm {rel32:.3e} "
+          "(printed)")
+    x64 = lp.detach().double().requires_grad_(True)
+    costs_64, grads_64 = duration_step("multiblank_lp", x64, dur, labels, il, ll, "torch")
+    grads_64 = {n: g.clone() for n, g in grads_64.items()}
+    costs_k64, grads_k64 = duration_step("multiblank_lp", x64, dur, labels, il, ll)
+    torch.cuda.synchronize()
+    compare(f"multiblank_lp costs {tag} kernels vs plain, both f64", costs_k64, costs_64, "f64")
+    g_k, g_p = grads_k64["log_probs"], grads_64["log_probs"]
+    rel64 = float((g_k - g_p).norm() / g_p.norm())
+    print(f"multiblank_lp grads {tag} kernels vs plain, both f64: relative norm error "
+          f"{rel64:.3e} (tol 1e-9)")
+    fail_unless(rel64 <= 1e-9, f"the f64 kernel and plain routes differ (multiblank_lp {tag})")
+    print(f"multiblank_lp grads {tag} plain f32 vs plain f64: relative norm error "
+          f"{rel_norm(grads_p['log_probs'], grads_64['log_probs']):.3e} (printed)")
+    return costs_64, grads_64
+
+
 def duration_timings(problems):
-    """Both steps (CUDA events, device breakdown) and, at both shapes: the
-    window kernel for each family, prep and grad with K = 2, the coefficient
-    passes. Returns ({kernel: {case: timing}}, {case: step ms})."""
-    from warp_transducer_tpu_torch.ops import gradients, multiblank, prep, tdt, window
+    """The three steps (CUDA events, device breakdown) and, at both shapes:
+    the window kernel for each family, prep and grad with K = 2 (on raw
+    activations, and on log-probs: prep's log-probs mode, grad's sparse
+    fields mode), the coefficient passes. Returns ({kernel: {case:
+    timing}}, {case: step ms})."""
+    from warp_transducer_tpu_torch.ops import gradients, multiblank, prep, rnnt, tdt, window
     from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
     from warp_transducer_tpu_torch.ops.cuda import prep as kprep
     from warp_transducer_tpu_torch.ops.cuda import window as kwindow
@@ -1556,12 +1663,13 @@ def duration_timings(problems):
     print(f"window_stream: SASS instructions a row step (alpha, beta) {window_steps} "
           f"((element bytes, cells a lane): counts); SM clock {clock_mhz} MHz")
     for tag, B, T, L, V in DURATION_SHAPES:
-        acts, dur, labels, il, ll = problems[tag]
+        acts, dur, labels, il, ll, lp = problems[tag]
         U = L + 1
         long_t = tag == "long_t"
         iters, plain_iters = (5, 1) if long_t else (20, 2)
-        for loss in ("multiblank", "tdt"):
-            step = lambda: duration_step(loss, acts, dur, labels, il, ll)  # noqa: E731
+        for loss in ("multiblank", "multiblank_lp", "tdt"):
+            x = lp if loss == "multiblank_lp" else acts
+            step = lambda: duration_step(loss, x, dur, labels, il, ll)  # noqa: E731
             step_ms[f"{loss}_{tag}"] = ms = time_ms(step, iters)
             print(f"time {loss} {tag} B={B} T={T} L={L} V={V}: step {ms:.4f} ms")
             device_breakdown(f"{loss} {tag} step", step, ms, top=8)
@@ -1617,6 +1725,37 @@ def duration_timings(problems):
                 library_ms=time_ms(lambda: torch.softmax(a, -1), iters),
                 bound=bound((n_big + valid_cells * V) * elt + 6 * valid_cells * 4 + B * U * 4
                             + 2 * B * 4, 4 * valid_cells * V, F32_OPS_PER_S))
+            # On log-probs: prep reads the blank, label and K columns as given
+            # (no reduction) and writes lpb, lpe and the K extras; the sparse
+            # gradient writes every element and reads cb, ce and the K
+            # posteriors of the valid rows. Neither has a single library call.
+            lp_in = lp.detach()
+            prep_lp = lambda: kprep.prepare(lp_in, labels, 0, True, extra_cols=cols)  # noqa: E731
+            out["prep"][f"{tag}_lp_k2"] = dict(
+                ms=time_ms(prep_lp, iters), device_ms=device_ms(prep_lp),
+                kernel_device_ms=launch_device_ms(prep_lp),
+                plain_ms=time_ms(lambda: prep.prepare(lp_in, labels, 0, True, extra_cols=cols),
+                                 plain_iters, 1),
+                library_ms=None,
+                bound=bound(4 * n_small * lp_in.element_size() + B * U * 4 + 4 * n_small * 4,
+                            4 * n_small, F32_OPS_PER_S))
+            lpb_l, lpe_l, lpB_l, _ = multiblank._multiblank_prep(rnnt._KERNELS, lp_in, labels, 0,
+                                                                cols, MB_SIGMA, True)
+            lat_l = kwindow.forward_backward(lpb_l, lpe_l, lpB_l, mb_arcs, il, ll)
+            coef_l, cb_l, ce_l, cBs_l = multiblank._mb_coefs(lpb_l, lpe_l, lpB_l, lat_l,
+                                                             MB_DURATIONS, il, ll)
+            s_args = (gradients.Coefficients(coef_l, cb_l, ce_l), prep.label_rows(labels, U), il,
+                      ll, 0, V, lp_in.dtype)
+            s_kw = dict(extra_cols=cols, extra_fields=torch.stack(cBs_l, dim=-1))
+            sparse_k = lambda: kgrad.sparse_grad(*s_args, **s_kw)  # noqa: E731
+            out["grad_fields"][f"multiblank_lp_{tag}_k2"] = dict(
+                ms=time_ms(sparse_k, iters), device_ms=device_ms(sparse_k),
+                kernel_device_ms=launch_device_ms(sparse_k),
+                plain_ms=time_ms(lambda: gradients.sparse_grad(*s_args, **s_kw), plain_iters, 1),
+                library_ms=None,
+                bound=bound(n_big * lp_in.element_size() + 4 * valid_cells * 4 + B * U * 4
+                            + 2 * B * 4, 0, F32_OPS_PER_S))
+            del lat_l, coef_l, cb_l, ce_l, cBs_l, s_args, s_kw, lpb_l, lpe_l, lpB_l
             coef_ms = {
                 "multiblank": time_ms(lambda: multiblank._mb_coefs(
                     p.lpb, p.lpe, p.extras, lats["multiblank"], MB_DURATIONS, il, ll), iters),
@@ -1634,7 +1773,7 @@ def duration_timings(problems):
                           f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) | library {lib}"
                           + (f" | device ms {v['device_ms']}, the kernel alone "
                              f"{v['kernel_device_ms']} (profiler)" if "device_ms" in v else ""))
-            del p, lpd, lats, fields, extra_f, g_args, coef, cb, ce, cBs, a
+            del p, lpd, lats, fields, extra_f, g_args, coef, cb, ce, cBs, a, lp_in
         torch.cuda.empty_cache()
     return out, step_ms
 
@@ -2584,6 +2723,49 @@ def binding_check(dev, totals):
     want.backward()
     compare(f"binding {tag} mean vs rnnt_loss sum / B", got.detach()[0], want.detach(), "f32")
     compare(f"binding {tag} gradient vs rnnt_loss's", a.grad, r.grad, grad_tol(r.grad, "f32"))
+    multiblank_log_probs_binding_check(dev, totals)
+
+
+def multiblank_log_probs_binding_check(dev, totals):
+    """``rnnt_loss_multiblank(from_log_probs=True, reduction="mean")`` of the
+    binding on CUDA tensors at the duration-arc headline shape (a masked
+    big blank in a quarter of the utterances): its launches with no host
+    sync allowed, against the port's op route it calls (the sum over B)."""
+    from warp_transducer_tpu_torch.bindings import torch_binding
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import multiblank
+    tag, B, T, L, V = DURATION_SHAPES[0]
+    acts, _, labels, il, ll = make_duration_problem(B, T, L, V, seed=51, dev=dev)
+    lp = log_probs_input(acts).detach()
+    a = lp.clone().requires_grad_(True)
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = torch_binding.rnnt_loss_multiblank(a, labels, il, ll, MB_DURATIONS, sigma=MB_SIGMA,
+                                                 reduction="mean", from_log_probs=True)
+        got.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in K.launches.items() if n}
+    print(f"binding rnnt_loss_multiblank(from_log_probs=True) {tag} B={B} T={T} L={L} V={V} on "
+          f"CUDA tensors: launches {counts}")
+    for k in ("prep", "window_stream", "grad_fields"):
+        fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched by the binding (log-probs)")
+    fail_unless(not counts.get("wavefront"), "the binding's multi-blank loss ran the dense lattice")
+    for k, n in counts.items():
+        totals[k] += n
+    fail_unless(got.shape == (1,) and got.device == a.device, "the binding's mean is not shape (1,)")
+    r = lp.clone().requires_grad_(True)
+    want = multiblank._multiblank_costs(r, labels, il, ll, MB_DURATIONS, 0, None, "sum", MB_SIGMA,
+                                        0.0, 0.0, True, "auto") / B
+    want.backward()
+    compare(f"binding multiblank log-probs {tag} mean vs the op route's sum / B", got.detach()[0],
+            want.detach(), "f32")
+    compare(f"binding multiblank log-probs {tag} gradient vs the op route's", a.grad, r.grad,
+            grad_tol(r.grad, "f32"))
+    fail_unless(bool((a.grad[torch.isneginf(lp)] == 0).all()),
+                "the binding's log-probs gradient is not 0 at a -inf input")
 
 
 # The inference side (models/decoding.py, ops/alignment.py), at the train
@@ -3487,6 +3669,18 @@ def main():
             torch.cuda.synchronize()
             g_p = gradients.sparse_grad(fields, labels_u, il, ll, 0, V, dtype)
             compare(f"grad fields mode {tag} {dtype} sparse", g_k, g_p, grad_tol(g_p, tol_key))
+            del g_k, g_p
+            # sparse with K = 2 extra columns (the multi-blank loss on
+            # log-probs): bit-equal, it does no arithmetic
+            kw = dict(extra_cols=cols, extra_fields=extra)
+            g_k = kgrad.sparse_grad(fields, labels_u, il, ll, 0, V, dtype, **kw)
+            torch.cuda.synchronize()
+            g_p = gradients.sparse_grad(fields, labels_u, il, ll, 0, V, dtype, **kw)
+            e = compare(f"grad fields mode K=2 {tag} {dtype} sparse", g_k, g_p,
+                        grad_tol(g_p, tol_key))
+            fail_unless(torch.equal(g_k, g_p), f"grad sparse K=2 {tag} {dtype}: not bit-equal")
+            if dtype == torch.float32:
+                errs["grad_fields"] = max(errs["grad_fields"], e)
             del g_k, g_p
 
     for tag, B, T, L, V in SHAPES:

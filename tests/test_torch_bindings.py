@@ -3,14 +3,18 @@ CPU tensors: every name against the port's entry point under the binding's
 conventions (shape (1,) for "sum" / "mean", "mean" over B), against the JAX
 package's function of the same family, and ``rnnt_loss`` / ``RNNTLoss``
 against the JAX package's own binding (``backend="jax"``, and
-``backend="native"`` where its C++ library is built); and the binding's
-``TypeError`` / ``ValueError`` cases.
+``backend="native"`` where its C++ library is built); the multi-blank
+loss on log-probs through torch's log_softmax against the JAX package's
+raw-activation loss (and against its binding's native log-probs mode where
+built); and the binding's ``TypeError`` / ``ValueError`` cases.
 
 Inputs are made with numpy from a seed. Tolerances: against the port's
 entry point, equal up to the one division of "mean" (rtol 1e-6); against
 the JAX package, f32 costs rtol 1e-5 and gradients rtol 1e-4 / atol 1e-5
 (sums taken in another order).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,6 +164,56 @@ def test_rnnt_loss_matches_the_jax_binding(reduction, from_log_probs):
             np.testing.assert_allclose(a.grad.numpy(), r.grad.numpy(), **GRAD)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_multiblank_reference():
+    """The JAX package's multi-blank loss on raw activations (XLA engine,
+    jitted): its costs and the gradient of their sum, on ``_problem(2)``."""
+    problem = _problem(2)
+    ints = [jnp.asarray(problem[k]) for k in ("labels", "il", "ll")]
+
+    def total(a):
+        c = J.rnnt_loss_multiblank(a, *ints, BIG_BLANKS, reduction="none",
+                                   implementation="xla", **MB_LOG_PROBS_KW)
+        return jnp.sum(c), c
+
+    (_, costs), grad = jax.jit(jax.value_and_grad(total, has_aux=True))(
+        jnp.asarray(problem["acts"]))
+    return np.asarray(costs), np.asarray(grad)
+
+
+MB_LOG_PROBS_KW = dict(sigma=0.05, fastemit_lambda=0.1, delay_penalty=0.01)
+
+
+@pytest.mark.parametrize("reduction", ["none", "sum", "mean"])
+def test_multiblank_log_probs_matches_the_jax_package(reduction):
+    """``rnnt_loss_multiblank(from_log_probs=True)`` on log_softmax(acts),
+    differentiated back through torch's log_softmax into acts, is the JAX
+    package's raw-activation loss of acts, values and gradients; and the
+    JAX binding's log-probs mode on the same log-probs (its native engine)
+    where that library is built."""
+    problem = _problem(2)
+    ints = [torch.tensor(problem[k]) for k in ("labels", "il", "ll")]
+    kw = dict(reduction=reduction, from_log_probs=True, **MB_LOG_PROBS_KW)
+    x = torch.tensor(problem["acts"], requires_grad=True)
+    got = tb.rnnt_loss_multiblank(torch.log_softmax(x, -1), *ints, BIG_BLANKS, **kw)
+    got.sum().backward()
+    costs, grad = _jax_multiblank_reference()
+    scale = 1.0 / B if reduction == "mean" else 1.0
+    want = costs if reduction == "none" else [costs.sum() * scale]
+    assert got.shape == ((B,) if reduction == "none" else (1,))
+    np.testing.assert_allclose(got.detach().numpy(), want, **COST)
+    np.testing.assert_allclose(x.grad.numpy(), grad * scale, **GRAD)
+    if native.available():
+        lp = torch.log_softmax(torch.tensor(problem["acts"]), -1)
+        a, r = lp.clone().requires_grad_(True), lp.clone().requires_grad_(True)
+        got = tb.rnnt_loss_multiblank(a, *ints, BIG_BLANKS, **kw)
+        want = jax_binding.rnnt_loss_multiblank(r, *ints, BIG_BLANKS, **kw)
+        got.sum().backward()
+        want.sum().backward()
+        np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), **COST)
+        np.testing.assert_allclose(a.grad.numpy(), r.grad.numpy(), **GRAD)
+
+
 def test_rnnt_loss_module_attributes():
     loss = tb.RNNTLoss(blank=2, reduction="sum", from_log_probs=True, fastemit_lambda=0.5,
                        delay_penalty=0.25)
@@ -186,8 +240,10 @@ def _misuse(problem):
             acts, torch.tensor(problem["dur"]), labels.long(), il, ll, DURATIONS)),
         "multiblank_3d": (ValueError, "4-D", lambda: tb.rnnt_loss_multiblank(
             acts[0], labels, il, ll, BIG_BLANKS)),
-        "multiblank_log_probs": (ValueError, "raw activations", lambda: tb.rnnt_loss_multiblank(
-            acts, labels, il, ll, BIG_BLANKS, from_log_probs=True)),
+        # a valid label on a big-blank column (V - 1), refused on CPU tensors
+        "multiblank_log_probs": (ValueError, "big-blank", lambda: tb.rnnt_loss_multiblank(
+            torch.log_softmax(acts, -1), torch.cat((labels[:, :1] * 0 + V - 1, labels[:, 1:]), 1),
+            il, ll, BIG_BLANKS, from_log_probs=True)),
         "fused_none": (ValueError, "sum|mean", lambda: tb.rnnt_loss_fused_joint(
             *(torch.tensor(problem[k]) for k in ("e", "p", "W", "bias")), labels, il, ll,
             reduction="none")),

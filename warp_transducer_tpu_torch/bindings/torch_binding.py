@@ -18,18 +18,17 @@ The binding's own conventions, which differ from the port's entry points:
 * the log-softmax is fused (gradients are w.r.t. raw activations) unless
   ``from_log_probs=True``.
 
-Departures from the JAX module, both deliberate: CUDA tensors are taken
-(the JAX module raises on them); and ``rnnt_loss_multiblank`` takes raw
-activations only (``from_log_probs=True`` raises ``ValueError``), as the
-multi-blank loss of both packages does: only the JAX module's native C++
-engine has a log-probs mode for it.
+One departure from the JAX module, deliberate: CUDA tensors are taken (the
+JAX module raises on them). ``rnnt_loss_multiblank`` refuses labels that
+use a big-blank column with the JAX module's ``ValueError`` on CPU tensors
+only: on a CUDA tensor the check would wait for the card.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.fused_joint import rnnt_loss_fused_joint as _fused_joint
-from ..ops.multiblank import rnnt_loss_multiblank as _multiblank
+from ..ops.multiblank import _multiblank_costs
 from ..ops.multiblank_fused import rnnt_loss_multiblank_fused_joint as _multiblank_fused
 from ..ops.pruned import rnnt_loss_pruned as _pruned
 from ..ops.pruned_fused import rnnt_loss_pruned_fused as _pruned_fused
@@ -142,20 +141,41 @@ def rnnt_loss_pruned_fused(e, p, W, bias, ranges, labels, act_lens, label_lens, 
     return _reduce(costs, reduction, e.size(0))
 
 
+def _check_big_blank_labels(acts, labels, label_lens, big_blank_durations, big_blank_indices):
+    """The JAX module's ``ValueError`` where a valid label uses a big-blank
+    column (the emit and big-blank posteriors would merge there)."""
+    K, U = len(big_blank_durations), acts.shape[2]
+    if not K:
+        return
+    V = acts.shape[-1]
+    idx = range(V - K, V) if big_blank_indices is None else big_blank_indices
+    lab = labels[:, :U - 1].long().cpu()
+    pos = torch.arange(lab.shape[1])[None, :] < label_lens.long().cpu()[:, None]
+    used = torch.isin(lab[pos], torch.tensor([int(i) for i in idx], dtype=torch.int64))
+    if bool(used.any()):
+        raise ValueError(f"labels use big-blank vocab entries {sorted(int(i) for i in idx)}")
+
+
 def rnnt_loss_multiblank(acts, labels, act_lens, label_lens, big_blank_durations, blank=0,
                          big_blank_indices=None, sigma=0.0, reduction="mean",
                          from_log_probs=False, fastemit_lambda=0.0, delay_penalty=0.0):
     """Multi-blank transducer loss (arXiv:2211.03541): big blanks on the last
     K vocabulary columns by default; ``sigma`` is the paper's logit
-    under-normalization. Raw activations only (module docstring)."""
+    under-normalization. With ``from_log_probs`` the inputs are log-probs
+    (read as given, shifted by −sigma) and the gradient is the sparse one
+    w.r.t. them: at blank, at the big blanks and at the label. On a CPU
+    tensor a valid label that uses a big-blank column raises
+    ``ValueError``, as the JAX module's does; on a CUDA tensor it is not
+    checked (that would wait for the card), and the two posteriors meet on
+    that column: both subtracted from raw activations' gradient, the emit
+    one written over the big blank's on log-probs."""
     _check_reduction(reduction)
     _certify(acts, labels, act_lens, label_lens)
-    if from_log_probs:
-        raise ValueError("the multi-blank loss takes raw activations (its log-softmax is fused); "
-                         "from_log_probs=True is not supported")
-    costs = _multiblank(acts, labels, act_lens, label_lens, big_blank_durations, blank=blank,
-                        big_blank_indices=big_blank_indices, sigma=sigma, reduction="none",
-                        fastemit_lambda=fastemit_lambda, delay_penalty=delay_penalty)
+    if acts.device.type == "cpu":
+        _check_big_blank_labels(acts, labels, label_lens, big_blank_durations, big_blank_indices)
+    costs = _multiblank_costs(acts, labels, act_lens, label_lens, big_blank_durations, blank,
+                              big_blank_indices, "none", sigma, fastemit_lambda, delay_penalty,
+                              from_log_probs, "auto")
     return _reduce(costs, reduction, acts.size(0))
 
 

@@ -28,6 +28,14 @@
 // arithmetic is f64 for f64 input and f32 otherwise; each element is
 // rounded once to the output type.
 //
+// The sparse fields mode with K extra columns (the multi-blank loss on
+// log-probs: −cB_k at big-blank column k, written over blank and under the
+// label, as the native engine writes them, rnnt_cpu.cpp:529-533) is an
+// instantiation of its own, so that the dense fields mode compiles as
+// before. Its element is the K = 0 sparse element, and only a column inside
+// [min col_k, max col_k] (one unsigned compare) looks through the K columns
+// (the default big blanks, the last K columns, are contiguous).
+//
 // Bound on this card: bytes. The activations are read in valid rows and the
 // gradient written everywhere, both in the input's type; the lattice mode's
 // scalars (α, β twice, lpb, lpe, denom a row) add about 7·4/V of that.
@@ -117,10 +125,11 @@ struct LatticeOp : Common<TIo, TAcc> {
   }
 };
 
-template <typename TIo, typename TAcc>
+template <typename TIo, typename TAcc, bool SPARSE>
 struct FieldsOp : Common<TIo, TAcc> {
   using Tacc = TAcc;
   const Tacc *coef, *cb, *ce, *extra;
+  int lo, span;  // the extra columns lie in [lo, lo + span]; lo = -1, span = 0 for none
 
   __device__ __forceinline__ GradRow<Tacc> stage(int row, Tacc* ext) const {
     GradRow<Tacc> r{Tacc(0), Tacc(0), Tacc(0), Tacc(0), -1, 0};
@@ -136,6 +145,20 @@ struct FieldsOp : Common<TIo, TAcc> {
     r.valid = 1;
     return r;
   }
+  __device__ __forceinline__ Tacc apply(const GradRow<Tacc>& r, int col, Tacc x,
+                                        const Tacc* ext) const {
+    if (!SPARSE)
+      return wtt::rows::grad_element<Tacc>(r, col, x, this->blank, false, this->n_extra,
+                                           this->cols, ext);
+    Tacc out = wtt::rows::grad_element<Tacc>(r, col, x, this->blank, true, 0, this->cols,
+                                             nullptr);
+    if ((unsigned)(col - lo) <= (unsigned)span && r.valid && col != r.lab) {
+#pragma unroll
+      for (int k = 0; k < wtt::kMaxExtraCols; ++k)
+        if (k < this->n_extra && col == this->cols.col[k]) out = -ext[k];
+    }
+    return out;
+  }
 };
 
 template <typename Tio, typename Tacc, int VEC>
@@ -148,14 +171,14 @@ __global__ void __launch_bounds__(wtt::rows::kThreads)
     grad_lattice_warp_kernel(const LatticeOp<Tio, Tacc> op) {
   wtt::rows::warp_body<VEC>(op);
 }
-template <typename Tio, typename Tacc, int VEC>
+template <typename Tio, typename Tacc, int VEC, bool SPARSE>
 __global__ void __launch_bounds__(wtt::rows::kThreads)
-    grad_fields_tile_kernel(const FieldsOp<Tio, Tacc> op) {
+    grad_fields_tile_kernel(const FieldsOp<Tio, Tacc, SPARSE> op) {
   wtt::rows::tile_body<VEC>(op);
 }
-template <typename Tio, typename Tacc, int VEC>
+template <typename Tio, typename Tacc, int VEC, bool SPARSE>
 __global__ void __launch_bounds__(wtt::rows::kThreads)
-    grad_fields_warp_kernel(const FieldsOp<Tio, Tacc> op) {
+    grad_fields_warp_kernel(const FieldsOp<Tio, Tacc, SPARSE> op) {
   wtt::rows::warp_body<VEC>(op);
 }
 
@@ -169,13 +192,13 @@ int launch_lattice(const LatticeOp<Tio, Tacc>& op, cudaStream_t s) {
                            grad_lattice_warp_kernel<Tio, Tacc, 1>,
                            grad_lattice_warp_kernel<Tio, Tacc, V16>, s);
 }
-template <typename Tio, typename Tacc>
-int launch_fields(const FieldsOp<Tio, Tacc>& op, cudaStream_t s) {
+template <typename Tio, typename Tacc, bool SPARSE>
+int launch_fields(const FieldsOp<Tio, Tacc, SPARSE>& op, cudaStream_t s) {
   constexpr int V16 = kVec(sizeof(Tio));
-  return wtt::rows::launch(op, grad_fields_tile_kernel<Tio, Tacc, 1>,
-                           grad_fields_tile_kernel<Tio, Tacc, V16>,
-                           grad_fields_warp_kernel<Tio, Tacc, 1>,
-                           grad_fields_warp_kernel<Tio, Tacc, V16>, s);
+  return wtt::rows::launch(op, grad_fields_tile_kernel<Tio, Tacc, 1, SPARSE>,
+                           grad_fields_tile_kernel<Tio, Tacc, V16, SPARSE>,
+                           grad_fields_warp_kernel<Tio, Tacc, 1, SPARSE>,
+                           grad_fields_warp_kernel<Tio, Tacc, V16, SPARSE>, s);
 }
 
 template <typename Tio, typename Tacc>
@@ -223,20 +246,44 @@ int lattice(const void* acts, const void* denom, const void* lpb, const void* lp
   return launch_lattice(op, s);
 }
 
+template <typename Tio, typename Tacc, bool SPARSE>
+int fields_mode(const void* acts, const void* denom, const void* coef, const void* cb,
+                const void* ce, const void* extra, const wtt::ExtraCols& cols, const int* labels,
+                const int* input_lengths, const int* label_lengths, void* grads, long long rows,
+                int T, int U, int V, int blank, const wtt::rows::Plan& plan, cudaStream_t s) {
+  FieldsOp<Tio, Tacc, SPARSE> op;
+  fill_common<Tio, Tacc>(op, acts, denom, labels, input_lengths, label_lengths, grads, rows, T,
+                         U, V, blank, SPARSE, cols, plan);
+  op.coef = static_cast<const Tacc*>(coef);
+  op.cb = static_cast<const Tacc*>(cb);
+  op.ce = static_cast<const Tacc*>(ce);
+  op.extra = static_cast<const Tacc*>(extra);
+  op.lo = -1;
+  op.span = 0;
+  if (cols.n) {
+    int hi = cols.col[0];
+    op.lo = cols.col[0];
+    for (int k = 1; k < cols.n; ++k) {
+      op.lo = cols.col[k] < op.lo ? cols.col[k] : op.lo;
+      hi = cols.col[k] > hi ? cols.col[k] : hi;
+    }
+    op.span = hi - op.lo;
+  }
+  return launch_fields(op, s);
+}
+
 template <typename Tio, typename Tacc>
 int fields(const void* acts, const void* denom, const void* coef, const void* cb, const void* ce,
            const void* extra, const wtt::ExtraCols& cols, const int* labels,
            const int* input_lengths, const int* label_lengths, void* grads, long long rows,
            int T, int U, int V, int blank, int sparse, const wtt::rows::Plan& plan,
            cudaStream_t s) {
-  FieldsOp<Tio, Tacc> op;
-  fill_common<Tio, Tacc>(op, acts, denom, labels, input_lengths, label_lengths, grads, rows, T,
-                         U, V, blank, sparse, cols, plan);
-  op.coef = static_cast<const Tacc*>(coef);
-  op.cb = static_cast<const Tacc*>(cb);
-  op.ce = static_cast<const Tacc*>(ce);
-  op.extra = static_cast<const Tacc*>(extra);
-  return launch_fields(op, s);
+  return sparse ? fields_mode<Tio, Tacc, true>(acts, denom, coef, cb, ce, extra, cols, labels,
+                                               input_lengths, label_lengths, grads, rows, T, U,
+                                               V, blank, plan, s)
+                : fields_mode<Tio, Tacc, false>(acts, denom, coef, cb, ce, extra, cols, labels,
+                                                input_lengths, label_lengths, grads, rows, T, U,
+                                                V, blank, plan, s);
 }
 
 int elt_size(int dtype) {
@@ -301,7 +348,7 @@ int wtt_grad_lattice(const void* acts, int dtype, const void* denom, const void*
 // Fields mode. acts, grads: (B,T,U,V) of type `dtype` (acts and denom
 // unused, may be null, when sparse); denom, coef, cb, ce: (B,T,U) f32, or
 // f64 for f64; extra: (B,T,U,K) of the same type for the K columns
-// extra_cols (a host array; dense only, K = 0 when sparse); labels: (B,U)
+// extra_cols (a host array), in both modes; labels: (B,U)
 // int32; lengths: (B,) int32; plan as above. Returns the launch's
 // cudaError_t.
 int wtt_grad(const void* acts, int dtype, const void* denom, const void* coef,
@@ -312,8 +359,7 @@ int wtt_grad(const void* acts, int dtype, const void* denom, const void* coef,
   if (rows == 0) return 0;
   wtt::ExtraCols cols;
   const wtt::rows::Plan plan = wtt::rows::plan_from(plan_host);
-  if (!wtt::extra_cols(extra_cols, K, V, &cols) || (sparse && K > 0) ||
-      !shape_ok(rows, V, dtype, plan))
+  if (!wtt::extra_cols(extra_cols, K, V, &cols) || !shape_ok(rows, V, dtype, plan))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

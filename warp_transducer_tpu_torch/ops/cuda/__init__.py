@@ -16,8 +16,8 @@ signature of the plain version it stands for:
   alone (counted under ``dur_head``);
 * the duration-arc losses (multi-blank, TDT): ``window.forward_backward``,
   with ``prep.prepare`` and ``grad.dense_grad`` (the gradient kernel's
-  fields mode, counted under ``grad_fields``; also ``grad.sparse_grad``)
-  taking the extra columns.
+  fields mode, counted under ``grad_fields``; ``grad.sparse_grad`` for the
+  multi-blank loss on log-probs) taking the extra columns.
 
 On a CPU tensor a wrapper runs that plain version; on a CUDA tensor it
 launches its kernel on PyTorch's current stream, or raises. It never falls

@@ -7,8 +7,9 @@ the XLA pass of ``warp_transducer_tpu/ops/gradients.py``, in two modes:
   backward;
 * fields mode (``dense_grad``, ``sparse_grad``; counted under
   ``grad_fields``): the (B, T, U) coefficient fields come in, with up to 8
-  extra columns — the multi-blank loss and the TDT token head, whose
-  coefficients are not the standard ones.
+  extra columns in both — the multi-blank loss (dense on raw activations,
+  sparse on log-probs) and the TDT token head, whose coefficients are not
+  the standard ones.
 
 Both run on the row passes of ``csrc/rows.cuh``, planned by ``rows.plan``.
 On a CPU tensor each function is its plain version in ``ops/gradients.py``.
@@ -162,10 +163,13 @@ def dense_grad(acts, denom, fields, labels_u, input_lengths, label_lengths, blan
 
 
 def sparse_grad(fields, labels_u, input_lengths, label_lengths, blank, shape_v,
-                out_dtype):
-    """``gradients.sparse_grad`` on the card."""
+                out_dtype, extra_cols=(), extra_fields=None):
+    """``gradients.sparse_grad`` on the card, with the K extra columns'
+    posteriors written in the same pass (the label over them, them over
+    blank)."""
     if fields.cb.device.type != "cuda":
         return _plain.sparse_grad(fields, labels_u, input_lengths, label_lengths,
-                                  blank, shape_v, out_dtype)
+                                  blank, shape_v, out_dtype, extra_cols, extra_fields)
     return _launch(None, None, fields, labels_u, input_lengths, label_lengths, blank,
-                   tuple(fields.cb.shape) + (shape_v,), out_dtype, sparse=True)
+                   tuple(fields.cb.shape) + (shape_v,), out_dtype, sparse=True,
+                   extra_cols=extra_cols, extra_fields=extra_fields)

@@ -20,6 +20,15 @@ tensor (``implementation`` as in ``ops/rnnt.py``):
   (``_mb_coefs``), and the pass over V with the K big-blank corrections
   (``gradients.dense_grad(extra_cols=...)``, ``csrc/grad.cu``).
 
+On log-probs (``_multiblank_costs(log_probs_input=True)``, the way in of
+``bindings/torch_binding.py::rnnt_loss_multiblank(from_log_probs=True)``,
+the JAX package's native engine's mode, rnnt_cpu.cpp:408-575) the prep
+reduces nothing: the inputs' own blank, label and big-blank columns are
+shifted by −σ. The gradient is the sparse one w.r.t. the log-probs: −cb at
+blank, −cB_k at each big-blank column, −ce at the label, written in that
+order (``gradients.sparse_grad(extra_cols=...)``, the sparse fields mode of
+``csrc/grad.cu``, which reads no input).
+
 The loss is a ``torch.autograd.Function`` with the closed-form gradient:
 autograd never runs through the recursion. With K = 0 it is ``rnnt_loss``.
 """
@@ -58,14 +67,15 @@ def _resolve_indices(V, blank, durations, big_blank_indices):
     return durs, idx
 
 
-def _multiblank_prep(eng, acts, labels, blank, bb_indices, sigma):
+def _multiblank_prep(eng, acts, labels, blank, bb_indices, sigma, log_probs_input=False):
     """(lpb, lpe, lpB, denom): the σ-shifted blank, label and big-blank
-    log-probs, (B, T, U) and (B, T, U, K), and the unshifted denominator.
+    log-probs, (B, T, U) and (B, T, U, K), and the unshifted denominator
+    (None on log-probs, where lp_v = acts_v − σ).
 
     lp_v = acts_v + denom − σ: the paper's logit under-normalization (σ > 0
     leaves per-cell mass < 1, so paths with fewer emissions, more big
     blanks, are penalized less)."""
-    p = eng.prepare(acts, labels, blank, False, extra_cols=bb_indices)
+    p = eng.prepare(acts, labels, blank, log_probs_input, extra_cols=bb_indices)
     if not sigma:
         return p.lpb, p.lpe, p.extras, p.denom
     # NEG − σ rounds back to NEG; the clamp keeps the sentinel finite anyhow.
@@ -110,26 +120,47 @@ def _mb_coefs(lpb, lpe, lpB, lat, durations, input_lengths, label_lengths,
     return coef, cb, ce, cBs
 
 
+def _mb_fields(lpb, lpe, lpB, lat, durations, input_lengths, label_lengths, scale,
+               fastemit_lambda):
+    """The gradient pass's inputs: the (B, T, U) fields of ``_mb_coefs`` and
+    the (B, T, U, K) big-blank posteriors."""
+    coef, cb, ce, cBs = _mb_coefs(lpb, lpe, lpB, lat, durations, input_lengths,
+                                  label_lengths, scale=scale, fastemit_lambda=fastemit_lambda)
+    fields = _gradients.Coefficients(coef.contiguous(), cb.contiguous(), ce.contiguous())
+    extra = (torch.stack(cBs, dim=-1) if cBs
+             else torch.zeros(cb.shape + (0,), dtype=cb.dtype, device=cb.device))
+    return fields, extra
+
+
 def _multiblank_grad(eng, acts, denom, lpb, lpe, lpB, lat, labels, durations, bb_indices,
                      input_lengths, label_lengths, blank, scale=None, fastemit_lambda=0.0):
     """Dense d(cost)/d(acts):
     g = p·W − [v==blank]·cb − [v==y_u]·ce − Σ_k [v==idx_k]·cB_k, with
     W = exp(α+β−ll), the sum of all outgoing-arc posteriors (σ is constant
     w.r.t. acts, so the softmax Jacobian is the standard one)."""
-    B, T, U, V = acts.shape
-    coef, cb, ce, cBs = _mb_coefs(lpb, lpe, lpB, lat, durations, input_lengths,
-                                  label_lengths, scale=scale, fastemit_lambda=fastemit_lambda)
-    fields = _gradients.Coefficients(coef.contiguous(), cb.contiguous(), ce.contiguous())
-    extra = (torch.stack(cBs, dim=-1) if cBs
-             else torch.zeros((B, T, U, 0), dtype=coef.dtype, device=coef.device))
-    return eng.dense_grad(acts, denom, fields, _prep.label_rows(labels, U), input_lengths,
-                          label_lengths, blank, acts.dtype, extra_cols=bb_indices,
+    fields, extra = _mb_fields(lpb, lpe, lpB, lat, durations, input_lengths, label_lengths,
+                               scale, fastemit_lambda)
+    return eng.dense_grad(acts, denom, fields, _prep.label_rows(labels, acts.shape[2]),
+                          input_lengths, label_lengths, blank, acts.dtype, extra_cols=bb_indices,
                           extra_fields=extra)
 
 
+def _multiblank_sparse_grad(eng, shape_v, out_dtype, lpb, lpe, lpB, lat, labels, durations,
+                            bb_indices, input_lengths, label_lengths, blank, scale=None,
+                            fastemit_lambda=0.0):
+    """Sparse d(cost)/d(log_probs): −cb at blank, −cB_k at big-blank column
+    k, −ce ((1+λ)-scaled) at the label, zero elsewhere."""
+    fields, extra = _mb_fields(lpb, lpe, lpB, lat, durations, input_lengths, label_lengths,
+                               scale, fastemit_lambda)
+    return eng.sparse_grad(fields, _prep.label_rows(labels, lpb.shape[2]), input_lengths,
+                           label_lengths, blank, shape_v, out_dtype, extra_cols=bb_indices,
+                           extra_fields=extra)
+
+
 def _mb_forward(eng, acts, labels, input_lengths, label_lengths, blank, durations,
-                bb_indices, sigma, delay_penalty, compute_betas=True):
-    lpb, lpe, lpB, denom = _multiblank_prep(eng, acts, labels, blank, bb_indices, sigma)
+                bb_indices, sigma, delay_penalty, compute_betas=True, log_probs_input=False):
+    lpb, lpe, lpB, denom = _multiblank_prep(eng, acts, labels, blank, bb_indices, sigma,
+                                            log_probs_input)
     if delay_penalty:
         lpe = _prep.delay_shift(lpe, input_lengths, delay_penalty)
     lat = eng.window_forward_backward(lpb, lpe, lpB, _window.multiblank_arcs(durations),
@@ -140,31 +171,39 @@ def _mb_forward(eng, acts, labels, input_lengths, label_lengths, blank, duration
 
 class _MultiblankCosts(torch.autograd.Function):
     """(B,) costs; the backward is the closed-form gradient pass with the
-    upstream cotangent folded into its coefficients."""
+    upstream cotangent folded into its coefficients: dense w.r.t. raw
+    activations, or sparse w.r.t. log-probs (``log_probs_input``)."""
 
     @staticmethod
     def forward(ctx, acts, labels, input_lengths, label_lengths, blank, durations,
-                bb_indices, sigma, fastemit_lambda, delay_penalty, eng):
+                bb_indices, sigma, fastemit_lambda, delay_penalty, log_probs_input, eng):
         needs_grad = ctx.needs_input_grad[0]
         lpb, lpe, lpB, denom, lat = _mb_forward(
             eng, acts, labels, input_lengths, label_lengths, blank, durations, bb_indices,
-            sigma, delay_penalty, compute_betas=needs_grad)
+            sigma, delay_penalty, compute_betas=needs_grad, log_probs_input=log_probs_input)
         if needs_grad:
-            ctx.save_for_backward(acts, lpb, lpe, lpB, denom, lat.alphas, lat.betas,
-                                  lat.ll_forward, labels, input_lengths, label_lengths)
-            ctx.config = (eng, blank, durations, bb_indices, fastemit_lambda)
+            # The sparse gradient reads no input: only its width and type.
+            ctx.save_for_backward(None if log_probs_input else acts, lpb, lpe, lpB, denom,
+                                  lat.alphas, lat.betas, lat.ll_forward, labels, input_lengths,
+                                  label_lengths)
+            ctx.config = (eng, blank, durations, bb_indices, fastemit_lambda, log_probs_input,
+                          acts.shape[-1], acts.dtype)
         return (-lat.ll_forward).to(acts.dtype)
 
     @staticmethod
     def backward(ctx, g):
         (acts, lpb, lpe, lpB, denom, alphas, betas, ll, labels, input_lengths,
          label_lengths) = ctx.saved_tensors
-        eng, blank, durations, bb_indices, fastemit_lambda = ctx.config
+        eng, blank, durations, bb_indices, fastemit_lambda, log_probs_input, V, dtype = ctx.config
         lat = LatticeResult(alphas, betas, ll, ll)
-        d_acts = _multiblank_grad(eng, acts, denom, lpb, lpe, lpB, lat, labels, durations,
-                                  bb_indices, input_lengths, label_lengths, blank,
-                                  scale=g.to(alphas.dtype), fastemit_lambda=fastemit_lambda)
-        return (d_acts,) + (None,) * 10
+        args = (lpb, lpe, lpB, lat, labels, durations, bb_indices, input_lengths, label_lengths,
+                blank)
+        kw = dict(scale=g.to(alphas.dtype), fastemit_lambda=fastemit_lambda)
+        if log_probs_input:
+            d_acts = _multiblank_sparse_grad(eng, V, dtype, *args, **kw)
+        else:
+            d_acts = _multiblank_grad(eng, acts, denom, *args, **kw)
+        return (d_acts,) + (None,) * 11
 
 
 def rnnt_loss_multiblank(acts, labels, input_lengths, label_lengths,
@@ -203,6 +242,18 @@ def rnnt_loss_multiblank(acts, labels, input_lengths, label_lengths,
     Returns (B,) costs for reduction='none', a scalar otherwise. With
     K = 0 this is ``rnnt_loss``.
     """
+    return _multiblank_costs(acts, labels, input_lengths, label_lengths, big_blank_durations,
+                             blank, big_blank_indices, reduction, sigma, fastemit_lambda,
+                             delay_penalty, False, implementation)
+
+
+def _multiblank_costs(acts, labels, input_lengths, label_lengths, big_blank_durations, blank,
+                      big_blank_indices, reduction, sigma, fastemit_lambda, delay_penalty,
+                      log_probs_input, implementation):
+    """``rnnt_loss_multiblank``, also on log-probs (``log_probs_input``:
+    ``acts`` already log-softmaxed, the gradient the sparse one w.r.t.
+    them). The binding's way in; the public function keeps the JAX op's
+    signature, which has no log-probs mode."""
     _certify_inputs(acts, labels, input_lengths, label_lengths)
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")
@@ -217,5 +268,5 @@ def rnnt_loss_multiblank(acts, labels, input_lengths, label_lengths,
                                                       label_lengths)
     costs = _MultiblankCosts.apply(acts, labels, input_lengths, label_lengths, int(blank),
                                    durs, idx, float(sigma), float(fastemit_lambda),
-                                   float(delay_penalty), eng)
+                                   float(delay_penalty), bool(log_probs_input), eng)
     return _reduce(costs, reduction)

@@ -57,6 +57,7 @@ _PLAIN = SimpleNamespace(prepare=_prep.prepare,
                          grad_wrt_acts=_gradients.grad_wrt_acts,
                          grad_wrt_log_probs=_gradients.grad_wrt_log_probs,
                          dense_grad=_gradients.dense_grad,
+                         sparse_grad=_gradients.sparse_grad,
                          band_prep=_band.band_prep,
                          band_forward_backward=_band.forward_backward,
                          band_grad=_band.band_grad,
@@ -71,6 +72,7 @@ _KERNELS = SimpleNamespace(prepare=_cuda_prep.prepare,
                            grad_wrt_acts=_cuda_grad.grad_wrt_acts,
                            grad_wrt_log_probs=_cuda_grad.grad_wrt_log_probs,
                            dense_grad=_cuda_grad.dense_grad,
+                           sparse_grad=_cuda_grad.sparse_grad,
                            band_prep=_cuda_band.band_prep,
                            band_forward_backward=_cuda_band.forward_backward,
                            band_grad=_cuda_band.band_grad,
