@@ -41,15 +41,20 @@ all eight on an NCCL group of this process alone at the shapes above, bit-equal
 to the local calls (where those are reproducible) and timed beside them, with
 the batch check's and the all_reduces' own cost, and two gloo ranks sharing
 the card (two processes of this script, ``--parallel-worker``) at the
-headline and the fused bf16 shape against the single-process call — checks that a full band
+headline and the fused bf16 shape against the single-process call, and the char_long path
+(B=32 T=1000 L=600 V=29, a character-level transducer on 40 s utterances: U = 601, every
+lattice on the stripe kernel, two CTAs of a cluster): the stripe kernel against its plain
+version (also f64 past U = 352, and U = 5000, past one cluster's reach), the dense loss,
+the binding's RNNTLoss on log-probs, rnnt_score and the pruned step through it, each
+against its plain route — checks that a full band
 equals the dense loss, times each path and each kernel with CUDA events,
 reads the peak memory of the fused and the unfused steps and of each train
 step, and prints:
 
   card line, build line, one line per comparison, per shape, per timing;
   the card's name and power limit as nvidia-smi gives them;
-  {"kernels": [...]} — one entry per kernel (twelve; grad.cu's two modes
-  apart);
+  {"kernels": [...]} — one entry per kernel (thirteen; grad.cu's two modes
+  apart, and wavefront.cu's two kernels);
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}} last.
 
 Every check raises, so any failure ends the run with a non-zero exit and
@@ -161,7 +166,7 @@ def time_ms(fn, iters, warmup=2):
 
 # Kernel names of csrc/*.cu as the profiler shows them.
 PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
-                "wavefront_block_kernel",
+                "wavefront_stripe_kernel",
                 "grad_lattice_tile_kernel", "grad_lattice_warp_kernel", "grad_fields_tile_kernel",
                 "grad_fields_warp_kernel",
                 "band_prep_tile_kernel", "band_prep_warp_kernel", "band_row_kernel",
@@ -323,9 +328,10 @@ def sm_clock_mhz():
         return None
 
 
-def wavefront_step_instructions(library):
-    """{element bytes: SASS instructions of one diagonal step of the band
-    lattice kernel}, read with cuobjdump from the built library: the
+def wavefront_step_instructions(library, kernel="wavefront_band_kernel"):
+    """{element bytes: SASS instructions of one diagonal step of the lattice
+    kernel ``kernel`` (the band kernel, or the stripe kernel)}, read with
+    cuobjdump from the built library: the
     innermost loop around the alpha walk's SHFL.UP and the beta walk's
     SHFL.DOWN over the shuffles in it (the steps the compiler unrolled into
     it; as scripts/sass_count.sh prints them), the larger of the two. A warp
@@ -352,7 +358,7 @@ def wavefront_step_instructions(library):
     for line in sass.splitlines():
         if "Function :" in line:
             close()
-            m = re.search(r"wavefront_band_kernelI([fd])E", line)
+            m = re.search(kernel + r"I([fd])i?E", line)  # the band kernel's int offsets
             elt, shfl, loops = (4 if m.group(1) == "f" else 8) if m else None, {}, []
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
@@ -620,17 +626,19 @@ def make_pruned_problem(B, T, L, V, seed, dev):
     return am, lm, labels, il, ll
 
 
-def pruned_step(am, lm, labels, il, ll, S, implementation="auto"):
+def pruned_step(am, lm, labels, il, ll, S, implementation="auto", band=None):
     """One pruned training step through the public entry points: the simple
     loss and its band starts, the additive joiner on the band, the pruned
     loss, and the backward through both into am.grad and lm.grad (am, lm:
-    leaves that require grad)."""
+    leaves that require grad). ``band``: band starts to prune with in place
+    of the simple loss's own (which are returned all the same)."""
     from warp_transducer_tpu_torch import gather_banded, rnnt_loss_pruned, rnnt_loss_simple
     am.grad = lm.grad = None
     loss_s, ranges = rnnt_loss_simple(am, lm, labels, il, ll, reduction="sum",
                                       implementation=implementation, prune_range=S)
-    band_acts = am[:, :, None, :] + gather_banded(lm, ranges, S)
-    loss_p = rnnt_loss_pruned(band_acts, ranges, labels, il, ll, reduction="sum",
+    starts = ranges if band is None else band
+    band_acts = am[:, :, None, :] + gather_banded(lm, starts, S)
+    loss_p = rnnt_loss_pruned(band_acts, starts, labels, il, ll, reduction="sum",
                               implementation=implementation)
     (loss_s + loss_p).backward()
     return loss_s.detach(), loss_p.detach(), ranges
@@ -936,6 +944,164 @@ def pruned_timings(problems):
 # The JAX package's published fused shape (README.md, "Fused joint + loss";
 # B, T, L, V, H) and a small one on which no tile divides V, H or the rows,
 # with the blank in the last column.
+# The char_long path: a character-level transducer on long utterances, the
+# dense lattice past one block's width. LibriSpeech's 28 characters and the
+# blank (V = 29); 40 s of speech at 4× subsampled 10 ms frames (T = 1000);
+# about 15 characters a second (L = 600): U = 601 > 512, so every lattice
+# runs on the stripe kernel (two stripes of 10 bands, two CTAs of a cluster,
+# in f32). acts take 2.23 GB in f32.
+CHAR_LONG_SHAPE = ("char_long", 32, 1000, 600, 29)
+CHAR_LONG_S = 5  # the pruned step's band
+# The f64 lattice at the same U (two stripes of 10 bands past f64's 352), at
+# a smaller batch and T; and a lattice past one cluster's reach (f32 4096
+# columns: U = 5000 takes ten stripes, two passes of eight CTAs, the edge
+# column between them through device memory): B, T, L.
+CHAR_LONG_F64 = (4, 300, 600)
+CLUSTER_REACH = (2, 8, 4999)
+
+
+def stripe_lattice_check(tag, B, T, L, dtype, seed, dev, errs):
+    """The lattice kernel against its plain version on the prep's lpb, lpe
+    of random acts (V = 6), both directions and alpha alone; the plan must
+    be the stripe kernel's."""
+    from warp_transducer_tpu_torch.ops import lattice, prep
+    from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
+    acts, labels, il, ll = make_problem(B, T, L, 6, seed=seed, dev=dev, dtype=dtype)
+    p = prep.prepare(acts, labels, 0, False)
+    del acts
+    plan = kwave.plan(B, T, L + 1, p.lpb.element_size(), True,
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"{tag} B={B} T={T} U={L + 1} {dtype}: lattice plan {plan._asdict()}")
+    fail_unless(plan.stripes > 1, f"{tag}: the lattice is not planned on the stripe kernel")
+    key = "f64" if dtype == torch.float64 else "f32"
+    for betas in (True, False):
+        got = kwave.forward_backward(p.lpb, p.lpe, il, ll, compute_betas=betas)
+        torch.cuda.synchronize()
+        want = lattice.forward_backward(p.lpb, p.lpe, il, ll, compute_betas=betas)
+        e = max(compare(f"wavefront_stripe {tag} {dtype} betas={betas} {field}",
+                        getattr(got, field), getattr(want, field), key)
+                for field in ("alphas", "betas", "ll_forward", "ll_backward"))
+        if dtype == torch.float32:
+            errs["wavefront_stripe"] = max(errs["wavefront_stripe"], e)
+    return plan
+
+
+def char_long_phase(dev, totals, errs, clock_mhz, library):
+    """The char_long path: the stripe kernel against its plain version (f32
+    at the full shape, f64 past U = 352, f32 past one cluster's reach); then
+    its main path under the launch counters (reset just before, read just
+    after, no host sync allowed): ``rnnt_loss_and_grad`` on raw activations,
+    the binding's ``RNNTLoss`` on log-probs (the sparse gradient),
+    ``rnnt_score`` (alpha alone) and the pruned step (S = 5, whose simple
+    loss's lattice is K1 at U = 601), each held against its plain route
+    (costs rtol 1e-5, gradients 1e-3 by relative norm); then the timings.
+    Returns the stripe kernel's entry for the kernels line (less launches
+    and error) and the step's times."""
+    from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_and_grad, rnnt_score
+    from warp_transducer_tpu_torch.bindings import torch_binding
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import lattice
+    from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+    from warp_transducer_tpu_torch.ops.cuda import wavefront as kwave
+    tag, B, T, L, V = CHAR_LONG_SHAPE
+    U, S = L + 1, CHAR_LONG_S
+    started = time.perf_counter()
+    plan = stripe_lattice_check(tag, B, T, L, torch.float32, 60, dev, errs)
+    stripe_lattice_check(f"{tag} f64", *CHAR_LONG_F64, torch.float64, 61, dev, errs)
+    for dtype in (torch.float32, torch.float64):
+        reach = stripe_lattice_check("past one cluster's reach", *CLUSTER_REACH, dtype, 62, dev,
+                                     errs)
+        fail_unless(reach.passes > 1, "the lattice past one cluster's reach takes one pass")
+    torch.cuda.empty_cache()
+
+    acts, labels, il, ll = make_problem(B, T, L, V, seed=63, dev=dev)
+    lp = torch.log_softmax(acts, -1).requires_grad_(True)
+    am, lm, labels_p, il_p, ll_p = make_pruned_problem(B, T, L, V, seed=64, dev=dev)
+    am.requires_grad_(True)
+    lm.requires_grad_(True)
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+    try:
+        costs, grads = rnnt_loss_and_grad(acts, labels, il, ll)
+        binding = torch_binding.RNNTLoss(reduction="sum", from_log_probs=True)(lp, labels, il, ll)
+        binding.backward()
+        score = rnnt_score(acts, labels, il, ll)
+        loss_s, loss_p, ranges = pruned_step(am, lm, labels_p, il_p, ll_p, S)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    print(f"main path {tag} B={B} T={T} L={L} V={V}: launches {counts}")
+    fail_unless(counts["wavefront_stripe"] >= 4 and counts["wavefront"] == 0,
+                f"the {tag} lattices did not all run on the stripe kernel")
+    for k in ("prep", "grad") + PRUNED_KERNELS:
+        fail_unless(counts[k] > 0, f"{k} kernel was not launched on the {tag} path")
+    for k, n in counts.items():
+        totals[k] += n
+    dlp, dam, dlm = lp.grad, am.grad.clone(), lm.grad.clone()
+    for name, x in (("costs", costs), ("grads", grads), ("binding", binding), ("score", score),
+                    ("binding grads", dlp), ("am grads", dam), ("lm grads", dlm)):
+        fail_unless(bool(torch.isfinite(x).all()), f"{tag}: {name} not finite")
+    fail_unless(costs.shape == (B,) and grads.shape == acts.shape, f"{tag}: shapes")
+
+    def rel_check(name, got, want):
+        rel = float((got - want).norm() / want.norm())
+        print(f"grads {tag} {name} kernels vs plain: relative norm error {rel:.3e} (tol 1e-3)")
+        fail_unless(rel <= 1e-3, f"{tag}: {name} of the kernels and the plain route differ")
+
+    costs_p, grads_p = rnnt_loss_and_grad(acts, labels, il, ll, implementation="torch")
+    compare(f"costs {tag} kernels vs plain", costs, costs_p, "f32")
+    rel_check("rnnt_loss_and_grad", grads, grads_p)
+    del grads, grads_p
+    lp_p = lp.detach().clone().requires_grad_(True)
+    want = rnnt_loss(lp_p, labels, il, ll, reduction="sum", log_probs_input=True,
+                     implementation="torch")
+    want.backward()
+    compare(f"binding RNNTLoss {tag} from_log_probs vs plain", binding.detach(), want.detach(),
+            "f32")
+    rel_check("binding RNNTLoss from_log_probs", dlp, lp_p.grad)
+    del lp_p, want
+    compare(f"rnnt_score {tag} kernels vs plain", score,
+            rnnt_score(acts, labels, il, ll, implementation="torch"), "f32")
+    ref_s, ref_p, ref_ranges = pruned_step(am, lm, labels_p, il_p, ll_p, S, "torch", band=ranges)
+    n_diff = int((ranges != ref_ranges).sum())
+    print(f"ranges {tag} kernels vs plain path: {n_diff} of {B * T} differ (the plain route "
+          f"prunes with the kernels' band)")
+    compare(f"simple cost {tag} kernels vs plain", loss_s, ref_s, "f32")
+    compare(f"pruned cost {tag} kernels vs plain", loss_p, ref_p, "f32")
+    rel_check("pruned step d_am", dam, am.grad)
+    rel_check("pruned step d_lm", dlm, lm.grad)
+    del lp, dlp, am, lm, dam, dlm
+    torch.cuda.empty_cache()
+
+    # Timings: the stripe kernel alone on the main path's inputs (the kernel
+    # prep's), and the step.
+    pk = kprep.prepare(acts, labels, 0, False)
+    wave_k = lambda: kwave.forward_backward(pk.lpb, pk.lpe, il, ll)  # noqa: E731
+    steps = wavefront_step_instructions(library, "wavefront_stripe_kernel").get(4)
+    n_max = int((il.long() + ll.long()).max())
+    out = dict(
+        ms=time_ms(wave_k, 5),
+        kernel_device_ms=launch_device_ms(wave_k, names=("wavefront_stripe_kernel",)),
+        plain_ms=time_ms(lambda: lattice.forward_backward(pk.lpb, pk.lpe, il, ll), 1, 1),
+        library_ms=None, bound=wavefront_bound(pk.lpb, il, ll),
+        registers=kwave.kernel_registers(U, torch.float32), step_instructions=steps,
+        chain_floor_ms=n_max * steps / (clock_mhz * 1e3) if steps and clock_mhz else None,
+        plan=plan._asdict())
+    step = lambda: rnnt_loss_and_grad(acts, labels, il, ll)  # noqa: E731
+    step_ms = [time_ms(step, 5) for _ in range(2)]
+    prof = device_breakdown(tag, step, step_ms[0])
+    print(f"time {tag} wavefront_stripe: {out['ms']:.4f} ms | the kernel alone "
+          f"{out['kernel_device_ms']} ms (profiler) | plain {out['plain_ms']:.4f} ms | bound "
+          f"{out['bound'][0]:.4f} ms ({out['bound'][1]}) | chain floor {out['chain_floor_ms']} ms "
+          f"({steps} SASS instructions a step, N_max {n_max}) | registers, local bytes "
+          f"{out['registers']}")
+    print(f"time {tag} B={B} T={T} L={L} V={V}: loss+grad {step_ms[0]:.4f} / {step_ms[1]:.4f} ms; "
+          f"phase {time.perf_counter() - started:.1f} s")
+    return out, dict(ms=step_ms, idle_share=prof and prof[1], device_kernels=prof and prof[2],
+                     busy_ms=prof and prof[0])
+
+
 FUSED_SHAPE = ("fused", 64, 150, 20, 5000, 256)
 AWKWARD_SHAPE = ("awkward", 3, 37, 8, 1003, 200)
 # The shape ops/pruned_fused.py names (B, T, L, V, H, S): its band would take
@@ -3875,6 +4041,12 @@ def main():
     del problems
     torch.cuda.empty_cache()
 
+    # ---- 5b. the char_long path: the dense lattice past one block's width on
+    # the stripe kernel (f32; f64 past U = 352; past one cluster's reach), its
+    # main path under the launch counters against the plain routes, timings
+    stripe_timing, char_long_step = char_long_phase(dev, totals, errs, clock_mhz, build.build())
+    torch.cuda.empty_cache()
+
     # ---- 6. the pruned path: its kernels against their plain versions, the
     # pruned step under the launch counters, the full band, the timings
     pruned_kernels_vs_plain(dev, errs)
@@ -3980,6 +4152,21 @@ def main():
         if k == "grad_fields":
             entry["also_replaces"] = "warp_transducer_tpu/ops/tdt.py:296"
         kernels.append(entry)
+    # The lattice past one block's width: the stripe kernel of the same
+    # source, its own counter, at char_long.
+    kernels.append({
+        "name": "wavefront_stripe", "route": "cuda",
+        "source": "warp_transducer_tpu_torch/csrc/wavefront.cu",
+        "replaces": "warp_transducer_tpu/ops/pallas/wavefront_stream.py:49",
+        "also_replaces": "warp_transducer_tpu/ops/pallas/wavefront.py:72",
+        "launches": totals["wavefront_stripe"], "max_abs_err": errs["wavefront_stripe"],
+        "ms": stripe_timing["ms"], "plain_ms": stripe_timing["plain_ms"],
+        "bound_ms": stripe_timing["bound"][0], "bound_by": stripe_timing["bound"][1],
+        "library_ms": None, "shape": "char_long B=32 T=1000 L=600 V=29 f32",
+        "kernel": "wavefront_stripe_kernel"} | {
+            k: stripe_timing[k] for k in ("kernel_device_ms", "chain_floor_ms",
+                                          "step_instructions", "registers", "plan")}
+        | {"loss_grad": char_long_step})
     pruned_sources = {
         "band_prep": ("warp_transducer_tpu_torch/csrc/band_prep.cu",
                       "warp_transducer_tpu/ops/pallas/band_pipeline.py:70"),

@@ -77,8 +77,9 @@ def test_prep_kernel(dev, dtype, V, blank, lpi):
 
 
 # The band kernel's band edges (U = 32·bands ± 1), its cap (f32 U <= 512,
-# f64 U <= 352) ± 1, where the block kernel takes over, the block kernel at
-# U = 1100, and batches of two and four lattices a block.
+# f64 U <= 352) ± 1, where the stripe kernel takes over, the stripe kernel
+# at U = 1100 (f32 three stripes, f64 four), and batches of two and four
+# lattices a block.
 WAVEFRONT_SHAPES = [(4, 9, 6, True), (1, 9, 4, False), (2, 1, 3, True), (3, 7, 1, True),
                     (2, 3, 1100, True), (5, 6, 31, True), (5, 6, 32, True), (5, 6, 33, True),
                     (4, 5, 255, True), (4, 5, 256, True), (4, 5, 257, True), (3, 4, 320, True),
@@ -104,8 +105,46 @@ def test_wavefront_kernel(dev, dtype, B, T, U, ragged, betas):
         _close(getattr(got, name), getattr(want, name), dtype)
 
 
+# The stripe kernel at the widths of tests/test_torch_wavefront_plan.py's
+# emulation: U_b just before, on and just after a stripe's edge (f32 U =
+# 513: 288 columns a stripe; 601: 320; f64 353: 192; 700: 352) and a
+# cluster's (f32 4097: 3840 columns a cluster; 5000: 4096, two passes; f64
+# 2817: 2560), with T_b = 1 and L_b = 0: B, T, U, input lengths, label
+# lengths (U_b = label length + 1), dtype.
+STRIPE_CASES = {
+    "f32_U513": (4, 4, 513, [4, 1, 3, 4], [512, 286, 287, 288], torch.float32),
+    "f32_U601": (5, 5, 601, [5, 3, 1, 5, 4], [600, 318, 319, 320, 0], torch.float32),
+    "f32_U4097": (4, 3, 4097, [3, 1, 2, 3], [4096, 3838, 3839, 3840], torch.float32),
+    "f32_U5000": (3, 8, 5000, [8, 2, 5], [4999, 4095, 4096], torch.float32),
+    "f64_U353": (4, 4, 353, [4, 1, 3, 2], [352, 190, 191, 192], torch.float64),
+    "f64_U700": (3, 4, 700, [4, 2, 1], [699, 351, 352], torch.float64),
+    "f64_U2817": (4, 3, 2817, [3, 1, 2, 3], [2816, 2558, 2559, 2560], torch.float64),
+}
+
+
+@pytest.mark.parametrize("betas", [True, False])
+@pytest.mark.parametrize("case", sorted(STRIPE_CASES))
+def test_stripe_kernel(dev, case, betas):
+    """The stripe kernel against the plain version, every cell; its launch
+    counted under wavefront_stripe; two calls the same bits."""
+    B, T, U, il, ll, dtype = STRIPE_CASES[case]
+    acts, labels, _, _ = _problem(B, T, U, 6, seed=5, dtype=dtype, device=dev)
+    il = torch.tensor(il, dtype=torch.int32, device=dev)
+    ll = torch.tensor(ll, dtype=torch.int32, device=dev)
+    p = prep.prepare(acts, labels, 0, False)
+    K.reset_launches()
+    got = kwave.forward_backward(p.lpb, p.lpe, il, ll, compute_betas=betas)
+    again = kwave.forward_backward(p.lpb, p.lpe, il, ll, compute_betas=betas)
+    torch.cuda.synchronize()
+    assert K.launches["wavefront_stripe"] == 2 and K.launches["wavefront"] == 0
+    want = lattice.forward_backward(p.lpb, p.lpe, il, ll, compute_betas=betas)
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        _close(getattr(got, name), getattr(want, name), dtype)
+        assert torch.equal(getattr(got, name), getattr(again, name)), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("U", [41, 301, 700])
+@pytest.mark.parametrize("U", [41, 301, 601, 700, 5000])
 def test_wavefront_kernel_bit_equal_across_calls(dev, dtype, U):
     acts, labels, il, ll = _problem(6, 20, U, 6, seed=3, dtype=dtype, device=dev)
     p = prep.prepare(acts, labels, 0, False)
@@ -122,11 +161,12 @@ def test_wavefront_plan_matches_kernel(dev):
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in (torch.float32, torch.float64):
         elt = torch.tensor([], dtype=dtype).element_size()
-        for U in (1, 21, 31, 32, 33, 41, 255, 256, 257, 301, 321, 511, 512, 513, 1100):
+        for U in (1, 21, 31, 32, 33, 41, 255, 256, 257, 301, 321, 352, 353, 511, 512, 513, 601,
+                  700, 1100, 2816, 2817, 4096, 4097, 5000, 40000):
             for B in (1, 16, 67, 128, 1000):
                 for betas in (True, False):
                     for sms in (n_sm, 132):
-                        for T in (1, 1500, 4_000_000):
+                        for T in (1, 1500, 4_000_000, 5_000_000):
                             assert kwave.plan(B, T, U, elt, betas, sms) == \
                                 kwave.kernel_plan(B, T, U, dtype, betas, sms), \
                                 (dtype, T, U, B, betas, sms)
@@ -134,15 +174,24 @@ def test_wavefront_plan_matches_kernel(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_wavefront_kernels_do_not_spill(dev, dtype):
-    for U in (41, 2000):  # the band kernel, the block kernel
+    for U in (41, 2000):  # the band kernel, the stripe kernel
         regs, local = kwave.kernel_registers(U, dtype)
-        assert local == 0 and regs <= 64, (U, regs, local)  # 1024 threads a block
+        assert local == 0 and regs <= 128, (U, regs, local)  # 512 threads a block
 
 
-def test_wavefront_kernel_rejects_huge_u(dev):
-    lpb = torch.zeros((1, 2, 40000), device=dev)
-    with pytest.raises(ValueError, match="limit"):
-        kwave.forward_backward(lpb, lpb, torch.tensor([2]), torch.tensor([3]))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wavefront_kernel_at_huge_u(dev, dtype):
+    """No U refuses: U = 20000 is 40 (f32) or 57 (f64) stripes, five or
+    eight passes of a cluster, each pass's edge column through device
+    memory."""
+    acts, labels, il, ll = _problem(2, 3, 20000, 4, seed=6, dtype=dtype, device=dev)
+    ll[1] = 11000
+    p = prep.prepare(acts, labels, 0, False)
+    got = kwave.forward_backward(p.lpb, p.lpe, il, ll)
+    torch.cuda.synchronize()
+    want = lattice.forward_backward(p.lpb, p.lpe, il, ll)
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        _close(getattr(got, name), getattr(want, name), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])

@@ -26,6 +26,8 @@ from warp_transducer_tpu_torch.ops import fused_joint, gradients, lattice, prune
 from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
 from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax
 
+import fused_inputs as FI
+
 pytestmark = pytest.mark.cuda
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -186,6 +188,35 @@ def test_pruned_fused_both_routes_on_card(dev, monkeypatch):
         assert _rel(g, w) <= 1e-4
 
 
+@pytest.mark.parametrize("variant", FI.VARIANTS)
+@pytest.mark.parametrize("loss", ["fused", "pruned_fused"])
+def test_fused_losses_take_every_input(dev, loss, variant):
+    """rnnt_loss_fused_joint and rnnt_loss_pruned_fused (on its sweep, the
+    route that reaches the fused stages' layouts) with f16 and f64 inputs, a
+    transposed W and time-major e and p (tests/fused_inputs.py): the kernel
+    route against the plain route on the same inputs, the gradients in the
+    inputs' types."""
+    B, T, U, V, H, S = 3, 11, 5, 40, 24, 4
+    e, p, W, bias, labels, il, ll = _problem(B, T, U, V, H, seed=21, device=dev)
+    leaves = FI.variant(variant, e, p, W, bias)
+    if loss == "fused":
+        fn, args = rnnt_loss_fused_joint, (labels, il, ll)
+    else:
+        rng = np.random.default_rng(21)
+        am = torch.tensor(rng.standard_normal((B, T, V)), dtype=torch.float32, device=dev)
+        lm = torch.tensor(rng.standard_normal((B, U, V)), dtype=torch.float32, device=dev)
+        _, ranges = rnnt_loss_simple(am, lm, labels, il, ll, prune_range=S)
+        fn, args = rnnt_loss_pruned_fused, (ranges, labels, il, ll, S)
+    K.reset_launches()
+    got = FI.step(fn, leaves, *args)
+    torch.cuda.synchronize()
+    if loss == "fused":
+        assert K.launches["joint_prep"] == 1 and K.launches["joint_grad"] == 2
+    else:
+        assert K.launches["band_stream"] == 1
+    FI.assert_close(f"{loss} {variant}", got, FI.step(fn, leaves, *args, implementation="torch"))
+
+
 def test_joint_module_on_card(dev):
     cfg = TransducerConfig(vocab_size=60, encoder_dim=20, prediction_dim=12, joint_dim=32,
                            dtype=torch.float32)
@@ -332,12 +363,17 @@ def test_wrapper_refusals(dev):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rnnt_loss_fused_joint(e, p, W, bias, labels, il, ll, implementation="cuda")
     e, p, W, bias, labels, il, ll = _problem(2, 5, 3, 7, 8, device=dev)
-    with pytest.raises(ValueError, match="W must be contiguous"):
-        kjoint.fused_prep(e, p, W.t().contiguous().t(), bias, labels, il, ll, 0)
     with pytest.raises(ValueError, match="dtype"):
-        kjoint.fused_prep(e.double(), p, W, bias, labels, il, ll, 0)
+        kjoint.fused_prep(e.int(), p, W, bias, labels, il, ll, 0)
     with pytest.raises(ValueError, match="blank"):
         kjoint.fused_prep(e, p, W, bias, labels, il, ll, 7)
+    # A transposed W and f64 e compute, equal to the plain stage on the
+    # same values.
+    want = fused_joint.fused_prep(e, p, W, bias, labels, il, ll, 0)
+    for args in ((e, p, W.t().contiguous().t()), (e.double(), p, W)):
+        got = kjoint.fused_prep(*args, bias, labels, il, ll, 0)
+        for name in ("lpb", "lpe", "denom"):
+            torch.testing.assert_close(getattr(got, name), getattr(want, name), **F32)
     # Above H = 1024 the kernels compute (they refused there before the
     # k-slices and passes), and agree with the plain versions.
     big = _problem(1, 2, 2, 4, 1100, device=dev)

@@ -32,6 +32,8 @@ from warp_transducer_tpu_torch.ops import fused_joint, gradients, tdt_fused
 from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
 from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax
 
+import fused_inputs as FI
+
 pytestmark = pytest.mark.cuda
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -438,6 +440,34 @@ def test_fused_losses_above_1024(dev, H, dtype, monkeypatch):
         for i, (g, w) in enumerate(zip(grads, ref_grads)):
             assert torch.isfinite(g.float()).all(), (name, i)
             assert _rel(g, w) <= GRAD_REL[dtype], (name, i, _rel(g, w))
+
+
+@pytest.mark.parametrize("variant", FI.VARIANTS)
+@pytest.mark.parametrize("loss", ["multiblank", "tdt_integrated", "tdt_composed"])
+def test_fused_losses_take_every_input(dev, loss, variant, monkeypatch):
+    """The multi-blank and TDT fused losses (the TDT one on both routes, its
+    duration head in the variant's type too) with f16 and f64 inputs, a
+    transposed W and time-major e and p (tests/fused_inputs.py): the kernel
+    route against the plain route on the same inputs, the gradients in the
+    inputs' types."""
+    B, T, U, V, H = 3, 11, 5, 40, 24
+    e, p, W, bias, Wd, bias_d, labels, il, ll = _problem(B, T, U, V, H, 2, 4, seed=22,
+                                                         device=dev)
+    if loss == "multiblank":
+        fn, leaves, args = (rnnt_loss_multiblank_fused_joint, FI.variant(variant, e, p, W, bias),
+                            (labels, il, ll, (2, 4)))
+        kw = {"sigma": 0.05}
+    else:
+        fn, leaves, args = (rnnt_loss_tdt_fused_joint,
+                            FI.variant(variant, e, p, W, bias, Wd, bias_d), (labels, il, ll))
+        kw = {"durations": (0, 1, 2, 4)}
+        monkeypatch.setattr(tdt_fused, "_tdt_single_chunk", lambda *a: loss == "tdt_integrated")
+    K.reset_launches()
+    got = FI.step(fn, leaves, *args, **kw)
+    torch.cuda.synchronize()
+    assert K.launches["joint_prep"] == 1 and K.launches["window_stream"] == 1
+    FI.assert_close(f"{loss} {variant}", got,
+                    FI.step(fn, leaves, *args, implementation="torch", **kw))
 
 
 def test_tdt_fused_infeasible_utterance_on_card(dev):

@@ -4,7 +4,9 @@ Counterpart of ``warp_transducer_tpu/ops/pallas/``. Each wrapper has the
 signature of the plain version it stands for:
 
 * the dense loss: ``prep.prepare``, ``wavefront.forward_backward`` (also
-  the lattice of the simple loss), ``grad.grad_wrt_acts`` /
+  the lattice of the simple loss; counted under ``wavefront``, or under
+  ``wavefront_stripe`` where a lattice wider than one block runs in stripes
+  across a cluster), ``grad.grad_wrt_acts`` /
   ``grad.grad_wrt_log_probs`` (the gradient kernel's lattice mode, counted
   under ``grad``);
 * the pruned path: ``band.band_prep``, ``band.forward_backward``,
@@ -31,9 +33,9 @@ import torch
 from .build import library as lib
 
 # One counter per kernel, raised by one right after each successful launch.
-launches = {"prep": 0, "wavefront": 0, "grad": 0, "grad_fields": 0, "band_prep": 0,
-            "band_stream": 0, "band_grad": 0, "ranges": 0, "joint_prep": 0, "joint_grad": 0,
-            "window_stream": 0, "dur_head": 0}
+launches = {"prep": 0, "wavefront": 0, "wavefront_stripe": 0, "grad": 0, "grad_fields": 0,
+            "band_prep": 0, "band_stream": 0, "band_grad": 0, "ranges": 0, "joint_prep": 0,
+            "joint_grad": 0, "window_stream": 0, "dur_head": 0}
 
 # Type codes of csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}

@@ -132,7 +132,7 @@ def library() -> ctypes.CDLL:
     lib.wtt_prep_planned.argtypes = lib.wtt_prep.argtypes[:-1] + [p, p]
     lib.wtt_reduce_plan.argtypes = [i, i, i, p]
     lib.wtt_reduce_plan.restype = None
-    lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_wavefront_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_wavefront_plan.restype = None
     lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]

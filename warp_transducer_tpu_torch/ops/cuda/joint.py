@@ -9,15 +9,20 @@ for the functions of those names. The plain versions are in
 ``ops/fused_joint.py``.
 
 The kernels take e, p, bias and the duration head in f32 and W in f32 or
-bf16; a bf16 e or p is widened here (exact, and (B, T, H)-sized), and the
-gradients come back in the types of e, p, W, bias, Wd. They visit only the
-cells inside each utterance's lattice, numbered through running sums of
-T_b·U_b that are taken on the card, so nothing here waits for the device;
-what they skip is filled here (NEG, or 0 for denom and the duration
-logits). They take any joint width H: every product streams its operands
-through shared memory in k-slices (``joint_plan``). The scratch the
-kernels read and write (W's layouts, a chunk's h, hᵀ, g, gᵀ and db
-partials) is allocated here, a chunk of rows at a time."""
+bf16. The wrappers take what the JAX package takes: e, p, W, bias and the
+duration head of any floating type and any layout. Each is brought here to
+a contiguous tensor of the kernels' type (``_operands``): W stays bf16 when
+it is bf16 (bf16 products) and is f32 otherwise, as the JAX package takes
+the products in f32 for every other W; e, p and bias are f32 (a 16-bit one
+widened exactly). The gradients come back in the types of e, p, W, bias,
+Wd. The kernels visit only the cells inside each utterance's lattice,
+numbered through running sums of T_b·U_b that are taken on the card, so
+nothing here waits for the device; what they skip is filled here (NEG, or
+0 for denom and the duration logits). They take any joint width H: every
+product streams its operands through shared memory in k-slices
+(``joint_plan``). The scratch the kernels read and write (W's layouts, a
+chunk's h, hᵀ, g, gᵀ and db partials) is allocated here, a chunk of rows
+at a time."""
 from __future__ import annotations
 
 import ctypes
@@ -31,7 +36,7 @@ from .. import prep as _prep
 from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
 
 _F32 = (torch.float32,)
-_IN = (torch.float32, torch.bfloat16)
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 # The row splits of the fused gradient's dWd kernel: two blocks a multiprocessor.
 _DUR_BLOCKS_PER_SM = 2
 # The chunk of rows of the fused prep and gradient: the buffers of a chunk
@@ -67,14 +72,29 @@ def _check_smem(H, smem_entries):
                              f"block may use {SMEM_BYTES} (227 KB)")
 
 
+def _operands(dev, **named):
+    """Each of the named tensors (given as (tensor, ndim)) as the kernels
+    take it: on ``dev``, of a floating type, with ``ndim`` dimensions;
+    then contiguous and f32, W bf16 where it is bf16 (the products' type).
+    The kernels' own buffers are checked by ``require`` after this."""
+    out = []
+    for name, (t, ndim) in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype not in _FLOATS:
+            raise ValueError(f"{name} has dtype {t.dtype}; the kernels take {_FLOATS}")
+        keep = name == "W" and t.dtype == torch.bfloat16
+        t = t.to(torch.bfloat16 if keep else torch.float32).contiguous()
+        require(t, name, dev, (t.dtype,), ndim)
+        out.append(t)
+    return out
+
+
 def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_entries):
     """Check what the kernels take and bring it to their types: (e32, p32,
-    W, bias32, lab_full, offsets, label_lengths32)."""
+    W (bf16 or f32), bias32, lab_full, offsets, label_lengths32)."""
     dev = e.device
-    require(e, "e", dev, _IN, 3)
-    require(p, "p", dev, _IN, 3)
-    require(W, "W", dev, _IN, 2)
-    require(bias, "bias", dev, _IN, 1)
+    e32, p32, Wk, b32 = _operands(dev, e=(e, 3), p=(p, 3), W=(W, 2), bias=(bias, 1))
     B, T, H = e.shape
     U, V = p.shape[1], W.shape[1]
     if p.shape[0] != B or p.shape[2] != H or W.shape[0] != H or bias.shape[0] != V:
@@ -85,16 +105,15 @@ def _inputs(e, p, W, bias, labels, input_lengths, label_lengths, blank, smem_ent
     _check_smem(H, smem_entries)
     offsets, ll = _rows(e, p, input_lengths, label_lengths)
     lab = _plain.lab_full(labels.to(dev), U)
-    return e.float(), p.float(), W, bias.float(), lab, offsets, ll
+    return e32, p32, Wk, b32, lab, offsets, ll
 
 
 def _dur_head(dev, H, Wd, other, what, shape):
     """A duration head as the kernels take it: (Wd32 (H, D), other32), both
-    f32 and contiguous on the card; ``other`` is bias_d or g_dur and must
-    have ``shape`` + (D,)."""
-    Wd32, other32 = _plain._check_dur_head(Wd, other, H, what)
-    require(Wd32, "Wd", dev, _F32, 2)
-    require(other32, what, dev, _F32, len(shape) + 1)
+    f32 and contiguous on the card (``_operands``); ``other`` is bias_d or
+    g_dur and must have ``shape`` + (D,)."""
+    _plain._check_dur_head(Wd, other, H, what)
+    Wd32, other32 = _operands(dev, Wd=(Wd, 2), **{what: (other, len(shape) + 1)})
     if tuple(other32.shape) != tuple(shape) + (Wd32.shape[1],):
         raise ValueError(f"{what} must be {tuple(shape) + (Wd32.shape[1],)}; got "
                          f"{tuple(other32.shape)}")
@@ -105,14 +124,13 @@ def _dur_inputs(e, p, Wd, other, what, per_cell):
     """What the standalone duration-head kernels take: (e32, p32, Wd32,
     other32)."""
     dev = e.device
-    require(e, "e", dev, _IN, 3)
-    require(p, "p", dev, _IN, 3)
+    e32, p32 = _operands(dev, e=(e, 3), p=(p, 3))
     B, T, H = e.shape
     if p.shape[0] != B or p.shape[2] != H:
         raise ValueError(f"shapes disagree: e {tuple(e.shape)}, p {tuple(p.shape)}")
     # The kernels' shared memory does not depend on H (dur_smem_bytes).
     shape = (B, T, p.shape[1]) if per_cell else ()
-    return (e.float(), p.float()) + _dur_head(dev, H, Wd, other, what, shape)
+    return (e32, p32) + _dur_head(dev, H, Wd, other, what, shape)
 
 
 # The plan of csrc/joint.cuh (Plan, plan), mirrored for the CPU tests; a card
@@ -252,8 +270,8 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
         return _plain.fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank,
                                  extra_cols, dur_head)
     dev = e.device
-    e32, p32, W, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
-                                                 label_lengths, blank, ("wtt_joint_prep_smem",))
+    e32, p32, Wk, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
+                                                  label_lengths, blank, ("wtt_joint_prep_smem",))
     B, T, H = e.shape
     U, V = p.shape[1], W.shape[1]
     cols = _prep.check_extra_cols(extra_cols, V)
@@ -267,13 +285,13 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
         Wd32, bias_d32 = _dur_head(dev, H, dur_head[0], dur_head[1], "bias_d", ())
         D = Wd32.shape[1]
         dlog = torch.zeros((B, T, U, D), dtype=torch.float32, device=dev)
-    plan = joint_plan(H, V, W.dtype)
+    plan = joint_plan(H, V, Wk.dtype)
     chunk = min(plan.prep_rows, _pad(B * T * U))
-    wt = _scratch(plan.vp * plan.hp, W)
-    h = _scratch(chunk * plan.hp, W)
+    wt = _scratch(plan.vp * plan.hp, Wk)
+    h = _scratch(chunk * plan.hp, Wk)
     with torch.cuda.device(dev):
         err = lib().wtt_joint_prep(
-            e32.data_ptr(), p32.data_ptr(), W.data_ptr(), DTYPE_CODES[W.dtype], b32.data_ptr(),
+            e32.data_ptr(), p32.data_ptr(), Wk.data_ptr(), DTYPE_CODES[Wk.dtype], b32.data_ptr(),
             lab.data_ptr(), offsets.data_ptr(), ll.data_ptr(), lpb.data_ptr(), lpe.data_ptr(),
             denom.data_ptr(), _ptr(lpX), _host_cols(cols), K, _ptr(Wd32), _ptr(bias_d32),
             _ptr(dlog), D, wt.data_ptr(), h.data_ptr(), chunk, B, T, U, H, V, int(blank),
@@ -334,12 +352,12 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
         return _plain.fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
                                  fields, blank, extra, dur_head)
     dev = e.device
-    e32, p32, W, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
-                                                 label_lengths, blank,
-                                                 ("wtt_joint_grad_rows_smem",
-                                                  "wtt_joint_grad_cols_smem")
-                                                 + (("wtt_joint_grad_dwd_smem",)
-                                                    if dur_head is not None else ()))
+    e32, p32, Wk, b32, lab, offsets, ll = _inputs(e, p, W, bias, labels, input_lengths,
+                                                  label_lengths, blank,
+                                                  ("wtt_joint_grad_rows_smem",
+                                                   "wtt_joint_grad_cols_smem")
+                                                  + (("wtt_joint_grad_dwd_smem",)
+                                                     if dur_head is not None else ()))
     B, T, H = e.shape
     U, V = p.shape[1], W.shape[1]
     for name, t in (("denom", denom),) + tuple(zip(fields._fields, fields)):
@@ -363,20 +381,20 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
     dp = torch.zeros((B, U, H), dtype=torch.float32, device=dev)
     dW = torch.empty((H, V), dtype=torch.float32, device=dev)
     db = torch.empty((V,), dtype=torch.float32, device=dev)
-    plan = joint_plan(H, V, W.dtype)
+    plan = joint_plan(H, V, Wk.dtype)
     cells = B * T * U
     chunk = min(plan.grad_rows, _pad(cells))
     dh_split, dw_split = grad_splits(
         plan, chunk, torch.cuda.get_device_properties(dev).multi_processor_count)
-    wt, wp = _scratch(plan.vp * plan.hp, W), _scratch(plan.hp * plan.vp, W)
-    h, ht = _scratch(chunk * plan.hp, W), _scratch(plan.hp * chunk, W)
-    g, gt = _scratch(chunk * plan.vp, W), _scratch(plan.vp * chunk, W)
+    wt, wp = _scratch(plan.vp * plan.hp, Wk), _scratch(plan.hp * plan.vp, Wk)
+    h, ht = _scratch(chunk * plan.hp, Wk), _scratch(plan.hp * chunk, Wk)
+    g, gt = _scratch(chunk * plan.vp, Wk), _scratch(plan.vp * chunk, Wk)
     db_part = torch.empty((chunk // JOINT_TILE, plan.vp), dtype=torch.float32, device=dev)
     dh_part = torch.empty((dh_split, chunk, plan.hp), dtype=torch.float32, device=dev)
     dW_part = (torch.empty((dw_split, H, V), dtype=torch.float32, device=dev)
                if dw_split > 1 else None)
-    code = DTYPE_CODES[W.dtype]
-    inputs = (W.data_ptr(), code, b32.data_ptr(), lab.data_ptr(), offsets.data_ptr(),
+    code = DTYPE_CODES[Wk.dtype]
+    inputs = (Wk.data_ptr(), code, b32.data_ptr(), lab.data_ptr(), offsets.data_ptr(),
               ll.data_ptr(), denom.data_ptr(), fields.coef.data_ptr(), fields.cb.data_ptr(),
               fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K)
     scratch = tuple(x.data_ptr() for x in (wt, wp, h, ht, g, gt, db_part, dh_part))

@@ -371,7 +371,10 @@ def rnnt_loss_fused_joint(e, p, W, bias, labels, input_lengths, label_lengths,
     Args:
       e: (B, T, H) projected encoder activations (after ``enc_proj``).
       p: (B, U, H) projected prediction activations (after ``pred_proj``).
-      W: (H, V) output-projection weight (f32 or bf16); bias: (V,).
+      W: (H, V) output-projection weight; bias: (V,). e, p, W and bias may
+        be of any floating type and layout: the products take bf16 inputs
+        when W is bf16 and f32 inputs otherwise, the gradients come back in
+        the inputs' types (as the JAX package).
       labels, input_lengths, label_lengths, blank, reduction: as in
         ``rnnt_loss``.
       implementation: 'auto' | 'torch' | 'cuda' (``rnnt_loss``): the fused

@@ -154,7 +154,10 @@ def rnnt_loss_pruned_fused(e, p, W, bias, ranges, labels, input_lengths, label_l
     Args:
       e: (B, T, H) projected encoder activations.
       p: (B, U, H) projected prediction activations, U = L+1.
-      W: (H, V) output-projection weight (f32 or bf16); bias: (V,).
+      W: (H, V) output-projection weight; bias: (V,). e, p, W and bias may
+        be of any floating type and layout: the products take bf16 inputs
+        when W is bf16 and f32 inputs otherwise, the gradients come back in
+        the inputs' types (as the JAX package).
       ranges: (B, T) integer band starts from ``rnnt_prune_ranges`` or
         ``rnnt_loss_simple(..., prune_range=S)``.
       labels, input_lengths, label_lengths, blank, reduction: as in
@@ -201,7 +204,8 @@ def rnnt_loss_pruned_fused(e, p, W, bias, ranges, labels, input_lengths, label_l
             + bias.float()
         return rnnt_loss_pruned(acts, ranges, labels, input_lengths, label_lengths, blank=blank,
                                 reduction=reduction, implementation=implementation,
-                                fastemit_lambda=fastemit_lambda, delay_penalty=delay_penalty)
+                                fastemit_lambda=fastemit_lambda,
+                                delay_penalty=delay_penalty).to(e.dtype)  # as the sweep's
     ranges, labels, input_lengths, label_lengths = _on_device(e, ranges, labels, input_lengths,
                                                               label_lengths)
     costs = _PrunedFusedCosts.apply(e, p, W, bias, ranges.contiguous(), labels, input_lengths,

@@ -146,7 +146,8 @@ def rnnt_loss_tdt_fused_joint(e, p, W, bias, Wd, bias_d, labels, input_lengths, 
     Args:
       e: (B, T, H) projected encoder activations; p: (B, U, H) projected
         prediction activations.
-      W: (H, V) token-head weight (f32 or bf16); bias: (V,).
+      W: (H, V) token-head weight; bias: (V,). Any floating type and
+        layout, as ``rnnt_loss_fused_joint``'s.
       Wd: (H, D) duration-head weight; bias_d: (D,), column j for
         ``durations[j]``. Both are used in f32 whatever their type.
       labels / lengths / durations / blank / reduction / sigma /
