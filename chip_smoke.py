@@ -46,7 +46,9 @@ headline and the fused bf16 shape against the single-process call, and the char_
 lattice on the stripe kernel, two CTAs of a cluster): the stripe kernel against its plain
 version (also f64 past U = 352, and U = 5000, past one cluster's reach), the dense loss,
 the binding's RNNTLoss on log-probs, rnnt_score and the pruned step through it, each
-against its plain route — checks that a full band
+against its plain route, and the window walk at the shapes of its earlier block kernel (both
+duration-arc losses at B=128 T=1000 U=601 and in f64 at B=4 T=300, TDT (1, 2, 4) at B=32, the
+lattice at U = 30,000 in passes), each against its plain version — checks that a full band
 equals the dense loss, times each path and each kernel with CUDA events,
 reads the peak memory of the fused and the unfused steps and of each train
 step, and prints:
@@ -170,12 +172,12 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "grad_lattice_tile_kernel", "grad_lattice_warp_kernel", "grad_fields_tile_kernel",
                 "grad_fields_warp_kernel",
                 "band_prep_tile_kernel", "band_prep_warp_kernel", "band_row_kernel",
-                "band_chunk_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
+                "band_cells_kernel", "band_grad_tile_kernel", "band_grad_warp_kernel",
                 "ranges_kernel", "joint_w_kernel", "joint_h_kernel", "joint_prep_kernel",
                 "joint_grad_g_kernel", "joint_grad_dh_kernel", "joint_grad_d_kernel",
                 "joint_grad_dw_kernel", "joint_grad_db_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
-                "window_warp_kernel", "window_block_kernel")
+                "window_warp_kernel")
 
 
 # The fused joint's kernels by wrapper: K6a (the layout of W, h, the prep)
@@ -373,6 +375,16 @@ def wavefront_step_instructions(library, kernel="wavefront_band_kernel"):
     return out
 
 
+@functools.lru_cache(maxsize=4)
+def library_sass(library):
+    """cuobjdump -sass of the built library, once a run (the phases read
+    it several times); None where cuobjdump is missing."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        return None
+    return subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True).stdout
+
+
 def sass_loops(library, function, key, marks=r"SHFL\.(UP|DOWN|IDX)"):
     """{key: (marked instructions {kind: [addresses]}, loops [(start, end)])}
     of the kernel instances in the built library whose names match the regex
@@ -381,59 +393,67 @@ def sass_loops(library, function, key, marks=r"SHFL\.(UP|DOWN|IDX)"):
     shuffle in a diverged warp jump back unconditionally). ``marks`` is the
     regex of the instructions to mark, its group the kind (the shuffles by
     default). {} where cuobjdump is missing."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(cuobjdump).exists():
+    sass = library_sass(str(library))
+    if sass is None:
         return {}
-    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
-                          text=True).stdout
-    out, k = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            m = re.search(function, line)
-            k = key(m) if m else None
-            if k is not None:
-                out[k] = ({}, [])
+    out = {}
+    for block in sass.split("Function :")[1:]:  # only the matching functions' lines are read
+        name, _, body = block.partition("\n")
+        m = re.search(function, name)
+        k = key(m) if m else None
+        if k is None:
             continue
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if k is None or not m:
-            continue
-        addr, ins = int(m.group(1), 16), m.group(2)
-        if kind := re.search(marks, ins):
-            out[k][0].setdefault(kind.group(1), []).append(addr)
-        if ((b := re.match(r"@!?U?P\w+\s+BRA (?:\S+, )?0x([0-9a-f]+)", ins))
-                and int(b.group(1), 16) < addr):
-            out[k][1].append((int(b.group(1), 16), addr))
+        out[k] = ({}, [])
+        for line in body.splitlines():
+            m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m:
+                continue
+            addr, ins = int(m.group(1), 16), m.group(2)
+            if kind := re.search(marks, ins):
+                out[k][0].setdefault(kind.group(1), []).append(addr)
+            if ((b := re.match(r"@!?U?P\w+\s+BRA (?:\S+, )?0x([0-9a-f]+)", ins))
+                    and int(b.group(1), 16) < addr):
+                out[k][1].append((int(b.group(1), 16), addr))
     return out
 
 
+def _row_steps(shfl, loops):
+    """(alpha, beta) SASS instructions of a walk's row steps: the innermost
+    loop around an alpha row's SHFL.UP that holds no SHFL.DOWN, and around a
+    beta row's SHFL.DOWN; None where there is none."""
+    steps = []
+    for mine, other in (("UP", "DOWN"), ("DOWN", None)):
+        inner = [b - a for a, b in loops
+                 if any(a <= x <= b for x in shfl.get(mine, []))
+                 and not (other and any(a <= x <= b for x in shfl.get(other, [])))]
+        steps.append(min(inner) // 16 + 1 if inner else None)
+    return tuple(steps)
+
+
 def window_step_instructions(library):
-    """{(element bytes, cells a lane): (alpha, beta) SASS instructions of
-    one row step of the window warp kernel}: the innermost loop around an
-    alpha row's SHFL.UP that holds no SHFL.DOWN, and around a beta row's
-    SHFL.DOWN, as scripts/sass_count.sh prints them. Static counts: the
+    """{(element bytes, cells a lane, wide): (alpha, beta) SASS instructions
+    of one row step of the window kernel's instance}, as
+    scripts/sass_count.sh prints them (_row_steps; an earlier checkout's
+    kernel, without the wide instance, keys wide False). Static counts: the
     loops over arcs and copies inside a row step count once, so a row with
     several arcs issues more. A warp issues at most one instruction a
     clock."""
     out = {}
     for k, (shfl, loops) in sass_loops(
-            library, r"window_warp_kernelI([fd])Li(\d+)E",
-            lambda m: ((4 if m.group(1) == "f" else 8), int(m.group(2)))).items():
-        steps = []
-        for mine, other in (("UP", "DOWN"), ("DOWN", None)):
-            inner = [b - a for a, b in loops
-                     if any(a <= x <= b for x in shfl.get(mine, []))
-                     and not (other and any(a <= x <= b for x in shfl.get(other, [])))]
-            steps.append(min(inner) // 16 + 1 if inner else None)
+            library, r"window_warp_kernelI([fd])Li(\d+)E(?:Lb([01])E)?",
+            lambda m: ((4 if m.group(1) == "f" else 8), int(m.group(2)),
+                       m.group(3) == "1")).items():
         if shfl:
-            out[k] = tuple(steps)
+            out[k] = _row_steps(shfl, loops)
     return out
 
 
 def band_step_instructions(library):
     """{ceil(log2 S): SASS instructions of the row walk's two row steps}:
     the innermost loops around a SHFL.IDX (the shuffles by δ), alpha's and
-    beta's, in the order of their code. Static counts; a warp issues at most
-    one instruction a clock."""
+    beta's, in the order of their code; and {("cells", C, 64-bit offsets):
+    (alpha, beta)} of the cells walk's instances (_row_steps). Static
+    counts; a warp issues at most one instruction a clock."""
     out = {}
     for k, (shfl, loops) in sass_loops(library, r"band_row_kernelILi(\d+)E",
                                        lambda m: int(m.group(1))).items():
@@ -441,19 +461,29 @@ def band_step_instructions(library):
         inner = sorted((a, b) for a, b in rows
                        if not any((c, d) != (a, b) and a <= c and d <= b for c, d in rows))
         out[k] = tuple((b - a) // 16 + 1 for a, b in inner)
+    for k, (shfl, loops) in sass_loops(library, r"band_cells_kernelILi(\d+)E([ix])E",
+                                       lambda m: ("cells", int(m.group(1)),
+                                                  m.group(2) == "x")).items():
+        if shfl:
+            out[k] = _row_steps(shfl, loops)
     return out
 
 
-def band_chain_floor(steps, S, il, clock_mhz):
-    """T_max rows × the SASS instructions of the longer row step of the row
-    walk's instance for a band of S ÷ the SM clock, ms, and that count;
-    (None, None) where either is unknown (no cuobjdump, the chunk
-    kernel)."""
-    step = steps.get(max(0, (S - 1).bit_length())) if S <= 32 else None
+def band_chain_floor(steps, S, il, clock_mhz, plan=None):
+    """T_max rows × the SASS instructions of the longer row step of the
+    walk's instance for a band of S (``plan``: the cells walk's, a step a
+    row and chunk) ÷ the SM clock, ms, and that count; (None, None) where
+    either is unknown (no cuobjdump, an earlier checkout's kernel)."""
+    if plan is not None and not plan.row_mode:
+        step = steps.get(("cells", getattr(plan, "cells", 0), getattr(plan, "offsets64", False)))
+        rows = int(il.max()) * getattr(plan, "chunks", 1)
+    else:
+        step = steps.get(max(0, (S - 1).bit_length())) if S <= 32 else None
+        rows = int(il.max())
     if not (step and all(step) and clock_mhz):
         return None, None
     n = max(step)
-    return int(il.max()) * n / (clock_mhz * 1e3), n
+    return rows * n / (clock_mhz * 1e3), n
 
 
 def window_bound(lpb, extra, arcs, il, ll, betas=True):
@@ -470,26 +500,16 @@ def window_bound(lpb, extra, arcs, il, ll, betas=True):
                  dirs * window_cell_ops(arcs, U) * valid_cells, F32_OPS_PER_S)
 
 
-def window_plan(lpb, extra, arcs, betas=True):
-    """The window kernel's plan for these inputs on this card."""
-    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
-    B, T, U = lpb.shape
-    return kwindow.plan(B, T, U, lpb.element_size(), arcs.window,
-                        len(arcs.blank_arcs) + len(arcs.emit_arcs), extra.shape[-1],
-                        arcs.chain is not None, betas,
-                        torch.cuda.get_device_properties(lpb.device).multi_processor_count)
-
-
 def window_chain_floor(steps, elt, plan, il, clock_mhz):
-    """T_max rows × the SASS instructions of the longer row step (alpha or
-    beta) of the warp-kernel instance that ``plan`` runs ÷ the SM clock, ms,
-    and that count; (None, None) where either is unknown (no cuobjdump, the
-    block kernel)."""
-    step = steps.get((elt, plan.cells)) if plan.warp_mode else None
+    """T_max rows × the passes × the SASS instructions of the longer row
+    step (alpha or beta) of the kernel instance that ``plan`` runs ÷ the SM
+    clock, ms, and that count; (None, None) where either is unknown (no
+    cuobjdump)."""
+    step = steps.get((elt, plan.cells, plan.wide))
     if not (step and all(step) and clock_mhz):
         return None, None
     n = max(step)
-    return int(il.max()) * n / (clock_mhz * 1e3), n
+    return int(il.max()) * plan.passes * n / (clock_mhz * 1e3), n
 
 
 def tanh_bound(bytes_moved, n_tanh, fp32_per_tanh):
@@ -789,9 +809,9 @@ def pruned_main_path(dev, totals):
     return problems
 
 
-def full_band_check(dev, errs):
+def full_band_check(dev, errs, clock_mhz, library):
     """A band over the whole headline lattice (S = U = 41, ranges = 0, the
-    chunk kernel): rnnt_loss_pruned equals the dense rnnt_loss, costs and
+    cells walk): rnnt_loss_pruned equals the dense rnnt_loss, costs and
     gradients; the lattice kernel equals its plain version on that band's
     lpb and lpe. Returns the lattice kernel's launches in the pruned loss's
     call, its max abs error and its timing."""
@@ -801,7 +821,7 @@ def full_band_check(dev, errs):
     from warp_transducer_tpu_torch.ops.cuda import band as kband
     tag, B, T, L, V = SHAPES[0]
     S = L + 1
-    fail_unless(not kband.plan(B, T, S).row_mode, "the full band is not planned on the chunk kernel")
+    fail_unless(not kband.plan(B, T, S).row_mode, "the full band is not planned on the cells walk")
     acts, labels, il, ll = make_problem(B, T, L, V, seed=6, dev=dev)
     ranges = torch.zeros((B, T), dtype=torch.int32, device=dev)
     a = acts.requires_grad_(True)
@@ -819,7 +839,7 @@ def full_band_check(dev, errs):
     print(f"full band S=U={S} {tag}: pruned vs dense gradient relative norm error {rel:.3e} "
           "(tol 1e-3)")
     fail_unless(rel <= 1e-3, "the full-band pruned gradient differs from the dense one")
-    # The chunk kernel against its plain version at the shape its path gives it.
+    # The cells walk against its plain version at the shape its path gives it.
     del a, gd, gp
     with torch.no_grad():
         p = band.band_prep(acts.detach(), band.label_rows(*band.band_labels(labels, ranges, S)), 0)
@@ -831,15 +851,19 @@ def full_band_check(dev, errs):
                       "f32") for name in lat._fields)
     errs["band_stream"] = max(errs["band_stream"], err)
     event_ms, device_ms = time_ms(lattice, 10), launch_device_ms(lattice)
+    plan = kband.plan(B, T, S)
+    floor, step_n = band_chain_floor(band_step_instructions(library), S, il, clock_mhz, plan)
     timing = dict(
         ms=device_ms if device_ms is not None else event_ms, kernel_device_ms=device_ms,
         event_ms=event_ms,
         plain_ms=time_ms(lambda: band.forward_backward(p.lpb, p.lpe, ranges, il, ll), 1, 1),
         library_ms=None, bound=band_lattice_bound(ranges, il, ll, S),
-        registers=kband.kernel_registers(S), plan=kband.plan(B, T, S)._asdict())
+        chain_floor_ms=floor, step_instructions=step_n,
+        registers=kband.kernel_registers(T, S), plan=plan._asdict())
     print(f"time full_band B={B} T={T} S={S} band_stream: {timing['ms']:.4f} ms (a launch, "
           f"profiler; event {event_ms:.4f} ms) | plain {timing['plain_ms']:.4f} ms | bound "
-          f"{timing['bound'][0]:.4f} ms ({timing['bound'][1]}) | registers, local bytes "
+          f"{timing['bound'][0]:.4f} ms ({timing['bound'][1]}) | chain floor {floor} ms "
+          f"({step_n} SASS instructions a row step) | registers, local bytes "
           f"{timing['registers']}")
     return launches, err, timing
 
@@ -860,7 +884,7 @@ def pruned_timings(problems):
     band_steps = band_step_instructions(library)
     range_steps = ranges_step_instructions(library)
     print(f"band_stream: SASS instructions of the two row steps {band_steps} "
-          f"(ceil(log2 S): counts); ranges: SASS instructions a step of the three scans "
+          f"(ceil(log2 S), or the cells walk's (C, 64-bit offsets): counts); ranges: SASS instructions a step of the three scans "
           f"{range_steps} ((element bytes, lanes a row): counts); SM clock {clock_mhz} MHz (nvidia-smi "
           "clocks.max.sm)")
     for tag, B, T, L, V, S in PRUNED_SHAPES:
@@ -894,14 +918,14 @@ def pruned_timings(problems):
         # wrapper's host work as well at pruned_large_v); events beside it.
         lattice = lambda: kband.forward_backward(p.lpb, p.lpe, ranges, il, ll)  # noqa: E731
         event_ms, dev_ms = time_ms(lattice, 10), launch_device_ms(lattice)
-        floor, step_n = band_chain_floor(band_steps, S, il, clock_mhz)
+        floor, step_n = band_chain_floor(band_steps, S, il, clock_mhz, kband.plan(B, T, S))
         out["band_stream"][tag] = dict(
             ms=dev_ms if dev_ms is not None else event_ms, kernel_device_ms=dev_ms,
             event_ms=event_ms,
             plain_ms=time_ms(lambda: band.forward_backward(p.lpb, p.lpe, ranges, il, ll), 1, 1),
             library_ms=None, bound=band_lattice_bound(ranges, il, ll, S),
             chain_floor_ms=floor, step_instructions=step_n,
-            registers=kband.kernel_registers(S), plan=kband.plan(B, T, S)._asdict())
+            registers=kband.kernel_registers(T, S), plan=kband.plan(B, T, S)._asdict())
         grad_args = (acts, p.denom, x["fields"], lab_row, ranges, il, ll, 0, acts.dtype)
         out["band_grad"][tag] = dict(
             ms=time_ms(lambda: kband.band_grad(*grad_args), 10),
@@ -1782,6 +1806,188 @@ def duration_main_path(dev, totals):
     return problems
 
 
+# The shapes that took the earlier window block kernel (the walk's
+# predecessor, deleted): the char-level lattice (U = 601) at a training
+# batch of 128 for both duration-arc losses, TDT without a 0 duration at
+# B = 32 (no chain), f64 at B = 4 (TDT's rings take two passes), and a U
+# past the wrapper's former limit (a window of 8 frames: 17 passes).
+WIDE_WINDOW_SHAPE = ("char_long_B128", 128, 1000, 600, 29)
+WIDE_TDT_NO_D0 = ("char_long_B32", 32, 1000, 600, 29, (1, 2, 4))
+WIDE_WINDOW_F64 = ("char_long_f64", 4, 300, 600, 29)
+WIDE_WINDOW_LONG_U = ("U30000", 1, 8, 29999, 5, (8,))
+WIDE_CUT_B = 8  # the public losses against their plain route on this slice of the batch
+
+
+def former_block_phase(dev, totals, errs, clock_mhz, library):
+    """The window walk at the shapes of the earlier block kernel: the
+    public losses (``rnnt_loss_multiblank``, ``rnnt_loss_tdt``, forward and
+    backward) under the launch counters, the kernel against the plain
+    lattice on the same channels (f32 with window_tol, f64), the public
+    losses against their plain route on a slice of the batch, the plans and
+    timings. Returns {case: timing} for the kernels line and the window
+    kernel's launches here."""
+    from warp_transducer_tpu_torch import rnnt_loss_tdt
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import window
+    from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    steps = window_step_instructions(library)
+    out, launches = {}, 0
+    started = time.perf_counter()
+
+    def lattice_case(case, arcs, lpb, lpe, extra, il, ll, chain_weight, timed=True):
+        nonlocal launches
+        K.reset_launches()
+        got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+        torch.cuda.synchronize()
+        fail_unless(K.launches["window_stream"] == 1, f"{case}: the window kernel did not run")
+        launches += 1
+        started = time.perf_counter()
+        plain = window.forward_backward(lpb, lpe, extra, arcs, il, ll)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - started) * 1e3
+        rtol, atol = window_tol(chain_weight, lpb.dtype)
+        fields = ("alphas", "betas", "ll_forward", "ll_backward")
+        if lpb.dtype == torch.float32:
+            # The walk and the f32 plain version round the prefix form's
+            # cancellation each their own way, both a few ulps of max |c| off
+            # the f64 value at these U (PERF.md §6): the kernel is held
+            # against the plain version run in f64, at window_tol beyond the
+            # f32 plain version's own largest error there.
+            want64 = window.forward_backward(lpb.double(), lpe.double(), extra.double(), arcs,
+                                             il, ll)
+            # NEG is -1e30 in f64 and -1.0000000150e30 in f32: the reference
+            # takes the f32 value at the cells no path reaches.
+            want = type(want64)(*(torch.where(w.abs() < 1e29, w, p.double())
+                                  for w, p in zip(want64, plain)))
+            del want64
+            own = {f: float((getattr(plain, f).double() - getattr(want, f)).abs().max())
+                   for f in fields}
+            print(f"window_stream {case}: the f32 plain version's own largest error against "
+                  f"f64 {own}")
+            e = max(compare(f"window_stream {case} {f} (plain in f64)", getattr(got, f),
+                            getattr(want, f), (rtol, atol + own[f])) for f in fields)
+            errs["window_stream"] = max(errs["window_stream"], e)
+        else:
+            want = plain
+            max(compare(f"window_stream {case} {f}", getattr(got, f), getattr(want, f),
+                        (rtol, atol)) for f in fields)
+        del got, want, plain
+        plan = kwindow.lattice_plan(lpb, extra, arcs)
+        if not timed:
+            print(f"window_stream {case}: plan {plan._asdict()}")
+            return
+        fn = lambda: kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)  # noqa: E731
+        floor, step_n = window_chain_floor(steps, lpb.element_size(), plan, il, clock_mhz)
+        dev_ms = launch_device_ms(fn, iters=5)
+        t = out[case] = dict(
+            ms=dev_ms if dev_ms is not None else time_ms(fn, 5), kernel_device_ms=dev_ms,
+            plain_ms=plain_ms, library_ms=None, bound=window_bound(lpb, extra, arcs, il, ll),
+            chain_floor_ms=floor, step_instructions=step_n,
+            registers=kwindow.kernel_registers(plan, lpb.dtype), plan=plan._asdict())
+        print(f"time {case} window_stream: {t['ms']:.4f} ms (a launch) | plain {plain_ms:.1f} ms "
+              f"| bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) | chain floor {floor} ms "
+              f"({step_n} SASS instructions a row step) | registers, local bytes "
+              f"{t['registers']} | plan {t['plan']}")
+
+    def public_step(case, loss, acts, dur, labels, il, ll, durations):
+        """The public loss with gradients under the counters; the plain route
+        on a slice of the batch."""
+        K.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        if loss == "tdt":
+            acts.grad = dur.grad = None
+            costs = rnnt_loss_tdt(acts, dur, labels, il, ll, durations, reduction="none")
+            costs.sum().backward()
+        else:
+            costs, _ = duration_step(loss, acts, dur, labels, il, ll)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        print(f"main path {loss} {case} B={acts.shape[0]} T={acts.shape[1]} "
+              f"U={acts.shape[2]}: launches {counts}")
+        for k in ("prep", "window_stream", "grad_fields"):
+            fail_unless(counts[k] > 0, f"{k} kernel was not launched on the {loss} path ({case})")
+        fail_unless(counts["wavefront"] == 0, f"the {loss} path ran the dense lattice ({case})")
+        for k, n in counts.items():
+            totals[k] += n
+        fail_unless(bool(torch.isfinite(costs).all()) and bool(torch.isfinite(acts.grad).all()),
+                    f"{loss} {case}: costs or gradients not finite")
+        # On a slice of the batch against the plain route run in f64: the
+        # two f32 routes round the lattice each its own way, 1.2e-3 apart in
+        # the multi-blank gradient at U = 601 (PERF.md §6; the same at long_t
+        # on log-probs), so the f64 route is the reference.
+        b = min(WIDE_CUT_B, acts.shape[0])
+        runs, grads = [], []
+        for impl, dt in (("auto", acts.dtype), ("torch", torch.float64)):
+            cut = [x[:b].detach().to(dt).requires_grad_(True) for x in (acts, dur)]
+            if loss == "tdt":
+                c = rnnt_loss_tdt(cut[0], cut[1], labels[:b], il[:b], ll[:b], durations,
+                                  reduction="none", implementation=impl)
+                grads.append(torch.autograd.grad(c.sum(), cut))
+            else:
+                c, g = duration_step(loss, cut[0], cut[1], labels[:b], il[:b], ll[:b], impl)
+                grads.append((g["acts"].clone(),))
+            runs.append(c.detach())
+        key = "f64" if acts.dtype == torch.float64 else "f32"
+        compare(f"{loss} costs {case} B={b} kernels vs plain (f64)", runs[0], runs[1], key)
+        for g_k, g_p in zip(grads[0], grads[1]):
+            # (an infeasible slice has zero gradients in both)
+            rel = rel_norm(g_k, g_p) if float(g_p.norm()) > 0 else float(g_k.norm())
+            print(f"{loss} grads {case} B={b} kernels vs plain (f64): relative norm error "
+                  f"{rel:.3e} (tol 1e-3)")
+            fail_unless(rel <= 1e-3, f"the gradients of the kernels and the plain path differ "
+                        f"({loss} {case})")
+        acts.grad = dur.grad = None
+
+    for tag, B, T, L, V in (WIDE_WINDOW_SHAPE, WIDE_WINDOW_F64):
+        dtype = torch.float64 if tag.endswith("f64") else torch.float32
+        acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=15, dev=dev,
+                                                          dtype=dtype)
+        acts.requires_grad_(True)
+        dur.requires_grad_(True)
+        for loss in ("multiblank", "tdt"):
+            public_step(tag, loss, acts, dur, labels, il, ll, TDT_DURATIONS)
+        with torch.no_grad():
+            p = kprep.prepare(acts.detach(), labels, 0, False, extra_cols=(V - 2, V - 1))
+            lpd = torch.log_softmax(dur.detach(), -1)
+            j0 = TDT_DURATIONS.index(0)
+            lattice_case(f"multiblank_{tag}", window.multiblank_arcs(MB_DURATIONS), p.lpb,
+                         p.lpe, p.extras, il, ll, p.lpe)
+            lattice_case(f"tdt_{tag}", window.tdt_arcs(TDT_DURATIONS), p.lpb, p.lpe, lpd, il,
+                         ll, p.lpe + lpd[..., j0])
+        del acts, dur, p, lpd
+        torch.cuda.empty_cache()
+    tag, B, T, L, V, durs = WIDE_TDT_NO_D0
+    acts, dur, labels, il, ll = make_duration_problem(B, T, L, V, seed=16, dev=dev)
+    d3 = dur[..., 1:].contiguous().requires_grad_(True)
+    acts.requires_grad_(True)
+    public_step(tag, "tdt", acts, d3, labels, il, ll, durs)
+    with torch.no_grad():
+        p = kprep.prepare(acts.detach(), labels, 0, False)
+        arcs = window.tdt_arcs(durs)
+        lattice_case(f"tdt_no_d0_{tag}", arcs, p.lpb, p.lpe,
+                     torch.log_softmax(d3.detach(), -1).contiguous(), il, ll, None)
+        fail_unless(kwindow.lattice_plan(p.lpb, d3, arcs).warps > 1,
+                    "TDT without a 0 duration is not planned on several warps at B = 32")
+    del acts, dur, d3, p
+    torch.cuda.empty_cache()
+    tag, B, T, L, V, durs = WIDE_WINDOW_LONG_U
+    g = torch.Generator(device=dev).manual_seed(17)
+    lp = torch.log_softmax(torch.randn((B, T, L + 1, 3 + len(durs)), generator=g, device=dev) * 2,
+                           -1)
+    lpe = lp[..., 1].clone()
+    lpe[..., L] = -1e30
+    il = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ll = torch.full((B,), L, dtype=torch.int32, device=dev)
+    lattice_case(f"multiblank_w8_{tag}", window.multiblank_arcs(durs), lp[..., 0].contiguous(),
+                 lpe, lp[..., 3:].contiguous(), il, ll, lpe, timed=False)
+    del lp, lpe
+    torch.cuda.empty_cache()
+    print(f"former block phase: {time.perf_counter() - started:.1f} s")
+    return out, launches
+
+
 def log_probs_reference(tag, lp, dur, labels, il, ll, costs, grads, costs_p, grads_p):
     """The reference of the multi-blank step on log-probs: the plain route
     in f64 on the same log-probs. Its f32 gradient is a sparse set of arc
@@ -1827,7 +2033,7 @@ def duration_timings(problems):
     clock_mhz = sm_clock_mhz()
     window_steps = window_step_instructions(build.build())
     print(f"window_stream: SASS instructions a row step (alpha, beta) {window_steps} "
-          f"((element bytes, cells a lane): counts); SM clock {clock_mhz} MHz")
+          f"((element bytes, cells a lane, wide): counts); SM clock {clock_mhz} MHz")
     for tag, B, T, L, V in DURATION_SHAPES:
         acts, dur, labels, il, ll, lp = problems[tag]
         U = L + 1
@@ -1853,7 +2059,7 @@ def duration_timings(problems):
                 C = extra.shape[-1]
                 lats[loss] = kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)
                 win_k = lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)  # noqa: E731
-                plan = window_plan(p.lpb, extra, arcs)
+                plan = kwindow.lattice_plan(p.lpb, extra, arcs)
                 floor, step_n = window_chain_floor(window_steps, 4, plan, il, clock_mhz)
                 v = out["window_stream"][f"{loss}_{tag}"] = dict(
                     ms=time_ms(win_k, iters), kernel_device_ms=launch_device_ms(win_k),
@@ -1863,7 +2069,7 @@ def duration_timings(problems):
                     # Data-dependent: the channels are read at valid cells only;
                     # every cell of alphas and betas is written.
                     bound=window_bound(p.lpb, extra, arcs, il, ll),
-                    registers=kwindow.kernel_registers(plan, U, p.lpb.dtype),
+                    registers=kwindow.kernel_registers(plan, p.lpb.dtype),
                     step_instructions=step_n, chain_floor_ms=floor)
                 per_row = v["kernel_device_ms"] or v["ms"]
                 print(f"time {tag} window_stream {loss}: {per_row * 1e3 / T:.3f} us a row of "
@@ -3734,6 +3940,17 @@ def parallel_phase(dev, totals):
     return out
 
 
+_PHASE = {"name": "setup", "at": time.perf_counter()}
+
+
+def phase_seconds(next_name):
+    """Print the seconds since the last mark, under the phase that ended
+    (the script's own clock; the run's limit is on the whole of it)."""
+    now = time.perf_counter()
+    print(f"seconds of phase {_PHASE['name']}: {now - _PHASE['at']:.1f}", flush=True)
+    _PHASE.update(name=next_name, at=now)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is visible; this script runs only on a GPU")
@@ -3763,6 +3980,7 @@ def main():
 
     errs = dict.fromkeys(K.launches, 0.0)
 
+    phase_seconds("3")
     # ---- 3. every kernel against its plain version, at the main path's shapes
     def kernel_vs_plain(tag, B, T, L, V, dtype, full):
         acts, labels, il, ll = make_problem(B, T, L, V, seed=1, dev=dev, dtype=dtype)
@@ -3856,6 +4074,7 @@ def main():
     kernel_vs_plain("headline", B, T, L, V, torch.float64, full=True)
     torch.cuda.synchronize()
 
+    phase_seconds("4")
     # ---- 4. the main path, through the entry points a user calls
     small = torch.tensor(SMALL_ACTS, device=dev)
     small_args = (torch.tensor([[1, 2]], device=dev, dtype=torch.int32),
@@ -3921,6 +4140,7 @@ def main():
         problems[tag] = (acts, labels, il, ll)
         torch.cuda.empty_cache()
 
+    phase_seconds("5")
     # ---- 5. timings, CUDA events after warm-up
     from warp_transducer_tpu_torch.ops import rnnt as rnnt_module
     folded_grads = rnnt_module._grads
@@ -4041,22 +4261,25 @@ def main():
     del problems
     torch.cuda.empty_cache()
 
+    phase_seconds("5b")
     # ---- 5b. the char_long path: the dense lattice past one block's width on
     # the stripe kernel (f32; f64 past U = 352; past one cluster's reach), its
     # main path under the launch counters against the plain routes, timings
     stripe_timing, char_long_step = char_long_phase(dev, totals, errs, clock_mhz, build.build())
     torch.cuda.empty_cache()
 
+    phase_seconds("6")
     # ---- 6. the pruned path: its kernels against their plain versions, the
     # pruned step under the launch counters, the full band, the timings
     pruned_kernels_vs_plain(dev, errs)
     pruned_problems = pruned_main_path(dev, totals)
     row_err = errs["band_stream"]  # the row walk's, at the pruned shapes
-    chunk_launches, chunk_err, chunk_timing = full_band_check(dev, errs)
+    cells_launches, cells_err, cells_timing = full_band_check(dev, errs, clock_mhz, build.build())
     band_timings, step_ms, step_mb = pruned_timings(pruned_problems)
     del pruned_problems
     torch.cuda.empty_cache()
 
+    phase_seconds("7")
     # ---- 7. the fused joint+loss: its two kernels against their plain
     # versions, the fused step against the unfused composition, the pruned
     # fused step on both routes, the timings and peak memories
@@ -4071,6 +4294,7 @@ def main():
     del pf_step, pf_ranges
     torch.cuda.empty_cache()
 
+    phase_seconds("8")
     # ---- 8. the duration-arc losses: the window kernel and the extra
     # columns of prep and grad against their plain versions, both steps
     # under the launch counters, the timings
@@ -4080,6 +4304,14 @@ def main():
     del duration_problems
     torch.cuda.empty_cache()
 
+    phase_seconds("8b")
+    # ---- 8b. the window walk at the shapes of the earlier block kernel (B =
+    # 128 at U = 601, TDT without a 0 duration, f64, U = 30,000): the public
+    # losses under the counters, the kernel against the plain lattice
+    former_window, former_window_launches = former_block_phase(dev, totals, errs, clock_mhz,
+                                                               build.build())
+
+    phase_seconds("9")
     # ---- 9. the duration-arc losses fused into the joint: joint_prep and
     # joint_grad with the extra columns and with the duration head, and the
     # duration-head pair, against their plain versions; both steps under the
@@ -4091,24 +4323,28 @@ def main():
     del variant_steps
     torch.cuda.empty_cache()
 
+    phase_seconds("9b")
     # ---- 9b. the fused joint at joint width 2048 (deep k-slice streams): its
     # kernels with and without the hooks against their plain versions, the
     # four fused losses under the launch counters against the plain path, the
     # fused train step of the whole model at joint_dim 2048, the timings
     wide_kernel_ms, wide_step, wide_train = wide_phase(dev, totals, errs)
 
+    phase_seconds("10")
     # ---- 10. the training surface: the eight train steps of the whole model
     # at its own width, each under the launch counters against its plain
     # twin, ten Adam steps, the timings; the binding on CUDA tensors
     train = train_phase(dev, totals)
     binding_check(dev, totals)
 
+    phase_seconds("11")
     # ---- 11. the inference side: the five decoders at the train phase's
     # width and batch, with no host sync, their best hypotheses rescored
     # through the alignments and the losses' kernels; the three alignments
     # at the duration-arc shapes against the plain route and their own paths
     serve = serve_phase(dev, totals)
 
+    phase_seconds("12")
     # ---- 12. the data-parallel wrappers of parallel/sharding.py: NCCL at
     # world size 1 at the shapes above, bit-equal to the local calls and
     # timed beside them; two gloo ranks sharing the card
@@ -4195,9 +4431,9 @@ def main():
                          for tag, t in band_timings[k].items()}}
         if k == "ranges":  # the whole of ranges_from_posteriors: argmax and scans
             entry["chain_floor_ms"] = head["chain_floor_ms"]
-        if k == "band_stream":  # the row walk (S <= 32), the chunk kernel above
+        if k == "band_stream":  # the row walk (S <= 32), the cells walk above
             entry["chain_floor_ms"] = head["chain_floor_ms"]
-            entry["by_shape"]["full_band"] = timing(chunk_timing) | {"plan": chunk_timing["plan"]}
+            entry["by_shape"]["full_band"] = timing(cells_timing) | {"plan": cells_timing["plan"]}
             # One wrapper and counter; the plan picks the kernel by S, and
             # every band of the main paths (S = 5) takes the row walk.
             fail_unless(all(kband.plan(B, T, S).row_mode for _, B, T, _, _, S in PRUNED_SHAPES)
@@ -4207,11 +4443,13 @@ def main():
                 "band_row_kernel": {"shapes": [tag for tag, *_ in PRUNED_SHAPES]
                                     + [PRUNED_FUSED_SHAPE[0]],
                                     "launches": totals[k], "max_abs_err": row_err},
-                "band_chunk_kernel": {"shapes": ["full_band B=128 T=150 S=41"],
-                                      "launches_full_band": chunk_launches,
-                                      "max_abs_err": chunk_err, "ms": chunk_timing["ms"],
-                                      "plain_ms": chunk_timing["plain_ms"],
-                                      "bound_ms": chunk_timing["bound"][0]}}
+                "band_cells_kernel": {"shapes": ["full_band B=128 T=150 S=41"],
+                                      "launches_full_band": cells_launches,
+                                      "max_abs_err": cells_err,
+                                      "ms": cells_timing["ms"],
+                                      "plain_ms": cells_timing["plain_ms"],
+                                      "bound_ms": cells_timing["bound"][0],
+                                      "chain_floor_ms": cells_timing["chain_floor_ms"]}}
         kernels.append(entry)
     joint_sources = {
         "joint_prep": ("warp_transducer_tpu_torch/csrc/joint_prep.cu",
@@ -4270,7 +4508,9 @@ def main():
         "bound_by": head["bound"][1], "library_ms": head["library_ms"],
         "shape": "multiblank headline B=128 T=150 L=40 V=28 durations (2, 4) f32",
         "by_shape": {case: timing(t) | {"step_ms": duration_step_ms[case]}
-                     for case, t in duration_kernel_ms["window_stream"].items()}})
+                     for case, t in duration_kernel_ms["window_stream"].items()}
+        | {case: timing(t) | {"plan": t["plan"]} for case, t in former_window.items()},
+        "launches_former_block_shapes": former_window_launches})
     head = variant_kernel_ms["dur_head"]["fused_prep"]
     kernels.append({
         "name": "dur_head", "route": "cuda",
@@ -4302,6 +4542,7 @@ def main():
                                "train_step": wide_train}}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"parallel": parallel}))
+    phase_seconds("report")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,10 +12,11 @@
 # backward branch; a diverged shuffle's out-of-line path jumps back
 # unconditionally) around a SHFL.UP that holds no SHFL.DOWN, and beta's, the
 # innermost loop around a SHFL.DOWN (static counts: the loops over arcs and
-# copies inside a row count once). For band_stream.cu, the two row steps of
-# each row-walk instance as chip_smoke.band_step_instructions reads them:
-# the innermost loops around a SHFL.IDX (the shuffles by δ), in the order of
-# their code. For ranges.cu, the instructions a step of the three scans as
+# copies inside a row count once; the narrow instances, and with
+# window_stream_wide the wide ones). For band_stream.cu, the two row steps of each row-walk instance as
+# chip_smoke.band_step_instructions reads them: the innermost loops around
+# a SHFL.IDX (the shuffles by δ), in the order of their code; and of each
+# cells-walk instance, alpha's and beta's step as for window_stream.cu. For ranges.cu, the instructions a step of the three scans as
 # chip_smoke.ranges_step_instructions reads them, and the SASS of each scan
 # loop of the f32 kernel with 32 lanes a row.
 #
@@ -69,7 +70,8 @@ for k in "$@"; do
         if (t < addr) { nb++; lo[nb] = t; hi[nb] = addr } } }
     END { dump() }' | c++filt
   if [ "$k" = band_stream ]; then
-    echo "== $k.cu: instructions of the two row steps (ceil(log2 S): alpha, beta)"
+    echo "== $k.cu: instructions of the two row steps (ceil(log2 S), or (cells, C, 64-bit):"
+    echo "   alpha, beta)"
     python3 -c 'import sys; sys.path.insert(0, "."); import chip_smoke
 print(chip_smoke.band_step_instructions(sys.argv[1]))' "$OUT/$k.cubin"
     continue
@@ -96,7 +98,7 @@ for a, b in sorted(loops):
 EOF
     continue
   fi
-  [ "$k" = window_stream ] || continue
+  case $k in window_stream | window_stream_wide) ;; *) continue ;; esac
   echo "== $k.cu: instructions of one row step (alpha, beta), a function"
   $BIN/cuobjdump -sass "$OUT/$k.cubin" | awk '
     function hex(h,  i, c, v) { v = 0; h = tolower(h)

@@ -14,8 +14,8 @@ in a process of its own, at three shapes:
   the band prep);
 * full_band (128, 150, 40, 28, S = U = 41): the band over the whole
   headline lattice (ranges 0), lpb and lpe by the plain band prep of
-  chip_smoke.make_problem's acts (seed 2), which the chunk kernel takes
-  (the lattice kernel only).
+  chip_smoke.make_problem's acts (seed 2), which the cells walk takes (one
+  warp, three cells a lane; the lattice kernel only).
 
 For each: ``kernel_ms``, the profiler's device time of one launch of the
 lattice kernel (chip_smoke.launch_device_ms over this file's kernel names);
@@ -24,8 +24,9 @@ the roofline bound (chip_smoke.py's, bytes over 3.35 TB/s or operations
 over 67 TFLOP/s); T_max, the longest utterance's rows; for this checkout
 the plan, the registers of the kernel the shape runs and its chain floor:
 T_max × the SASS instructions of the longer row step, alpha or beta
-(chip_smoke.band_step_instructions, read with cuobjdump from the built
-library) ÷ the SM clock that nvidia-smi reports. At the two pruned shapes
+(chip_smoke.band_step_instructions: the row walk's, and the cells walk's
+by instance; read with cuobjdump from the built library) ÷ the SM clock
+that nvidia-smi reports. At the two pruned shapes
 also the pruned step (chip_smoke.pruned_step, forward and backward: CUDA
 events, and its peak device memory above what it starts with); ``band_prep``: ``ops/cuda/band.py::band_prep`` on the band (the
 profiler's device time a launch, events beside it, bound, for this
@@ -60,7 +61,7 @@ SWEEP = [(128, 150, 21), (128, 500, 101), (128, 1500, 101), (128, 500, 301), (12
          (16, 1500, 301), (32, 1500, 301), (256, 1500, 301)]
 # The band lattice kernel's names in this checkout and its parents, and
 # the band prep's.
-KERNELS = ("band_kernel", "band_row_kernel", "band_chunk_kernel")
+KERNELS = ("band_kernel", "band_row_kernel", "band_chunk_kernel", "band_cells_kernel")
 PREP_KERNELS = ("band_prep_kernel", "band_prep_tile_kernel", "band_prep_warp_kernel")
 
 
@@ -103,7 +104,8 @@ def one(root, iters):
     library = build.build()
     steps = sm.band_step_instructions(library)
     range_steps = sm.ranges_step_instructions(library) if new else {}
-    out = {"root": str(root), "sm_clock_mhz": clock_mhz, "steps": steps,
+    out = {"root": str(root), "sm_clock_mhz": clock_mhz,
+           "steps": {str(k): v for k, v in steps.items()},
            "range_steps": {f"{elt} bytes, G {g}": n for (elt, g), n in range_steps.items()}}
     for tag, B, T, L, V, S in SHAPES:
         (lpb, lpe, ranges, il, ll), x = inputs(tag, B, T, L, V, S, dev, sm)
@@ -111,8 +113,10 @@ def one(root, iters):
         r = {"kernel_ms": sm.launch_device_ms(fn, iters=20, names=KERNELS),
              "ms": sm.time_ms(fn, iters), "bound_ms": sm.band_lattice_bound(ranges, il, ll, S)[0],
              "t_max": int(il.max()), "plan": kband.plan(B, T, S)._asdict(),
-             "registers": kband.kernel_registers(S)}
-        r["chain_floor_ms"], r["step_instructions"] = sm.band_chain_floor(steps, S, il, clock_mhz)
+             "registers": (kband.kernel_registers(T, S) if hasattr(kband, "cells")
+                           else kband.kernel_registers(S))}
+        r["chain_floor_ms"], r["step_instructions"] = sm.band_chain_floor(
+            steps, S, il, clock_mhz, kband.plan(B, T, S))
         if x is not None:
             step = lambda: sm.pruned_step(*x["problem"], S)  # noqa: E731
             r["step_ms"], r["step_peak_mb"] = sm.time_ms(step, 5), sm.peak_mb(step)

@@ -12,13 +12,16 @@ TDT with durations 0, 1, 2, 4, its duration log-probs by log_softmax) at
 shapes made by chip_smoke.make_duration_problem (seed 14, the main path's):
 headline (128, 150, 40, 28), long_t (16, 1500, 300, 50), the fused shape's
 lattice (64, 150, 20; the lattice does not depend on V, so V = 28 stands in
-for 5000), and both sides of the switch to the block kernel (100, 150, U =
-544 and 545).
+for 5000), both sides of one warp's 17 cells (100, 150, U = 544 and 545),
+and the shapes that took the earlier block kernel: B = 128, T = 1000, U =
+601 (a character-level model's labels at a training batch), B = 32 on the
+same U with TDT durations (1, 2, 4) beside the two families (no duration 0:
+no chain), and f64 at B = 4, T = 300, U = 601.
 
 For each: ``kernel_ms``, the profiler's device time of the window kernel
 over its launches (``alpha_kernel_ms``: the same without betas, alpha's
-walk alone; ``one_warp_kernel_ms``: with one warp a lattice forced, where
-the plan takes more); ``ms``, CUDA events over ``--iters`` calls (the
+walk alone; ``warps_kernel_ms``: with 1, 2 and 4 warps a lattice forced,
+where the plan takes more than one); ``ms``, CUDA events over ``--iters`` calls (the
 wrapper's host work too); the bytes bound (chip_smoke.window_bound); T_max;
 for this checkout the plan, the registers of the kernel the shape runs and
 its chain floor: T_max × the SASS instructions of the longer row step
@@ -41,9 +44,12 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 SHAPES = [("headline", 128, 150, 40, 28), ("long_t", 16, 1500, 300, 50),
           ("fused", 64, 150, 20, 28),
-          # both sides of the switch to the block kernel: with B = 100 the plan
-          # keeps one warp a lattice, whose cap is 17 cells a lane (U = 544 f32)
-          ("cap_warp", 100, 150, 543, 28), ("cap_block", 100, 150, 544, 28)]
+          # both sides of one warp's cap: with B = 100 the plan keeps one warp
+          # a lattice up to 17 cells a lane (U = 544 f32), two above
+          ("cap_warp", 100, 150, 543, 28), ("cap_block", 100, 150, 544, 28),
+          # the shapes of the earlier block kernel
+          ("B128_U601", 128, 1000, 600, 28), ("B32_U601", 32, 1000, 600, 28),
+          ("f64_B4_U601", 4, 300, 600, 28)]
 # The window kernel's names in this checkout and its parents.
 KERNELS = ("window_kernel", "window_warp_kernel", "window_block_kernel")
 
@@ -85,38 +91,44 @@ def one(root, iters):
     sm = smoke()
     dev = torch.device("cuda", 0)
     clock_mhz = sm.sm_clock_mhz()
-    new = hasattr(kwindow, "plan")
+    new = hasattr(kwindow, "lattice_plan")
     steps = sm.window_step_instructions(build.build()) if new else {}
     out = {"root": str(root), "sm_clock_mhz": clock_mhz, "step_instructions": {
-        f"{elt}_{c}": v for (elt, c), v in steps.items()}}
+        f"{elt}_{c}_{'wide' if w else 'narrow'}": v for (elt, c, w), v in steps.items()}}
     for tag, B, T, L, V in SHAPES:
         acts, dur, labels, il, ll = sm.make_duration_problem(B, T, L, V, seed=14, dev=dev)
         p = kprep.prepare(acts, labels, 0, False, extra_cols=(V - 2, V - 1))
         lpd = torch.log_softmax(dur, -1)
         del acts, dur
-        for family, arcs, extra in (
-                ("multiblank", window.multiblank_arcs(sm.MB_DURATIONS), p.extras),
-                ("tdt", window.tdt_arcs(sm.TDT_DURATIONS), lpd)):
-            fn = lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll)  # noqa: E731
-            U = L + 1
-            alpha = lambda: kwindow.forward_backward(p.lpb, p.lpe, extra, arcs, il, ll,  # noqa: E731
+        dtype = torch.float64 if tag.startswith("f64") else torch.float32
+        lpb, lpe, lpB, lpd = (x.to(dtype) for x in (p.lpb, p.lpe, p.extras, lpd))
+        families = [("multiblank", window.multiblank_arcs(sm.MB_DURATIONS), lpB),
+                    ("tdt", window.tdt_arcs(sm.TDT_DURATIONS), lpd)]
+        if tag == "B32_U601":  # TDT without a 0 duration: no chain
+            families.append(("tdt_no_d0", window.tdt_arcs((1, 2, 4)),
+                             torch.log_softmax(lpd[..., 1:], -1).contiguous()))
+        for family, arcs, extra in families:
+            fn = lambda: kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)  # noqa: E731
+            alpha = lambda: kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll,  # noqa: E731
                                                      compute_betas=False)
             r = {"kernel_ms": kernel_ms(fn), "alpha_kernel_ms": kernel_ms(alpha),
                  "ms": sm.time_ms(fn, iters),
-                 "bound_ms": sm.window_bound(p.lpb, extra, arcs, il, ll)[0],
+                 "bound_ms": sm.window_bound(lpb, extra, arcs, il, ll)[0],
                  "t_max": int(il.max())}
             if new:
-                plan = sm.window_plan(p.lpb, extra, arcs)
+                plan = kwindow.lattice_plan(lpb, extra, arcs)
                 r["plan"] = plan._asdict()
-                r["registers"] = kwindow.kernel_registers(plan, U, p.lpb.dtype)
+                r["registers"] = kwindow.kernel_registers(plan, dtype)
                 r["chain_floor_ms"], r["step_instructions"] = sm.window_chain_floor(
-                    steps, 4, plan, il, clock_mhz)
-                if plan.warps > 1:  # the one-warp alternative, in the same process
-                    one_warp = lambda: kwindow.launch(p.lpb, p.lpe, extra, arcs, il, ll,  # noqa: E731
-                                                      warps=1)
-                    r["one_warp_kernel_ms"] = kernel_ms(one_warp)
+                    steps, lpb.element_size(), plan, il, clock_mhz)
+                if plan.warps > 1:  # the alternatives, in the same process
+                    r["warps_kernel_ms"] = {
+                        g: kernel_ms(lambda: kwindow.launch(lpb, lpe, extra, arcs, il, ll,
+                                                            warps=g))
+                        for g in (1, 2, 4) if g != plan.warps
+                        and kwindow.lattice_plan(lpb, extra, arcs, warps=g).passes == 1}
             out[f"{family}_{tag}"] = r
-        del p, lpd, il, ll, labels
+        del p, lpd, lpb, lpe, lpB, il, ll, labels
         torch.cuda.empty_cache()
     print(json.dumps(out))
 

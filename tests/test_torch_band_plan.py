@@ -6,7 +6,8 @@ plan (a card test holds it against the C entry). Here:
 
 * the plan: tile rows, ring slots, copy distance, the block of two warps
   (alpha and beta of one utterance), shared memory, and the switch to the
-  chunk kernel above S = 32 or for 32-bit offsets;
+  cells walk above S = 32 or past 32-bit offsets; the cells walk's warps,
+  cells, chunks, offsets and where its rows lie;
 * a numpy emulation of the row walk over that plan, lane by lane: tiles of
   TILE_ROWS rows of lpb, lpe and ranges copied into a ring of SLOTS tiles,
   AHEAD_TILES tiles ahead (the kernel's copy_words: 16-byte chunks where
@@ -32,9 +33,19 @@ plan (a card test holds it against the C entry). Here:
   the JAX package's ``ops/pruned.py::_band_lattice`` on ragged shapes that
   reach every edge: T_b = 1 (and 0), U_b = 1, an infeasible band, δ = 0 and
   δ = S - 1 steps, T not a multiple of the tile, several laps of the ring,
-  S = 1, 2, 5, 31 and 32; S = 33 takes the chunk kernel. One small case
-  also equals the Pallas kernel ``pallas/band_stream.py::
-  band_forward_backward`` in interpret mode.
+  S = 1, 2, 5, 31 and 32. One small case also equals the Pallas kernel
+  ``pallas/band_stream.py::band_forward_backward`` in interpret mode.
+* a numpy emulation of the cells walk (S > 32): G warps, lane l of warp g
+  holding C cells from g·32·C + l·C, a row in chunks of 32·G·C; each step's
+  inputs loaded two steps ahead; the chain's prefix within each warp's
+  frame; the no-emit terms read from the two rows at s ± δ, each read
+  checked to find the row it wants written before the last sync and no
+  word overwritten before the sync after its read; the (max, sum) pair
+  scans, the warps' exchange and the chunks' carry moved between frames by
+  the chain totals; every cell written once. At S = 33, 41 (the full band
+  of the headline shape), 100, 600 (two warps), 1100 (four) and 4400 (two
+  chunks of 8 warps) it must equal the plain version (and, at the full
+  band, the JAX package's engine).
 
 This is the only check of the row walk's index arithmetic where no card is
 present. Tolerances: the emulation computes in float64 with the plain
@@ -453,25 +464,326 @@ def test_emulation_matches_the_pallas_kernel():
 @pytest.mark.parametrize("S,row_mode", [(1, True), (2, True), (5, True), (31, True), (32, True),
                                         (33, False), (41, False), (70, False)])
 def test_switch_to_the_chunk_kernel_above_32(S, row_mode):
+    """The row walk up to S = 32; above, the cells walk: a block per lattice,
+    one warp of C = 3 (S = 33 … 96) cells a lane, its two rows and the
+    warps' exchange in shared memory."""
     p = KB.plan(128, 1500, S)
     assert p.row_mode == row_mode
     if row_mode:
         assert (p.tile_rows, p.slots, p.ahead) == (R, SLOTS, AHEAD)
         assert p.per_block == 2 and p.blocks == 128 and p.threads == 2 * WARP
         assert p.smem == 2 * KB.lattice_words(S) * 4 <= KB.SMEM_BYTES
+        assert (p.warps, p.cells, p.chunks) == (0, 0, 0)
     else:
         assert (p.tile_rows, p.slots, p.ahead) == (0, 0, 0)
         assert p.per_block == 1 and p.blocks == 256 and p.threads == WARP
-        assert p.smem == 3 * S * 4
+        assert (p.warps, p.cells, p.chunks) == (1, 3, 1)
+        assert p.smem == (2 * S + KB.CELL_XCH) * 4 and not p.rows_device and not p.offsets64
 
 
 def test_switch_to_the_chunk_kernel_beyond_32_bit_offsets():
     """The row walk indexes a lattice with 32-bit offsets: (T + 2·TILE_ROWS)·S
-    must stay below 2^31."""
+    must stay below 2^31; past it the cells walk (one warp, one cell a lane)
+    with 32-bit offsets while (T + 2)·S fits, else its 64-bit instance."""
     S = 5
     T_max = KB.MAX_OFFSET // S - 2 * R
     assert KB.plan(4, T_max, S).row_mode
-    assert not KB.plan(4, T_max + 1, S).row_mode
+    p = KB.plan(4, T_max + 1, S)
+    assert not p.row_mode and (p.warps, p.cells, p.chunks) == (1, 1, 1) and not p.offsets64
+    assert KB.plan(4, KB.MAX_OFFSET // S - 2, S).offsets64 is False
+    assert KB.plan(4, KB.MAX_OFFSET // S - 1, S).offsets64 is True
+
+
+@pytest.mark.parametrize("S,G,C,chunks,rows_device", [
+    (33, 1, 3, 1, False), (41, 1, 3, 1, False), (100, 1, 5, 1, False), (544, 1, 17, 1, False),
+    (545, 2, 9, 1, False), (600, 2, 11, 1, False), (1089, 4, 9, 1, False),
+    (4352, 8, 17, 1, False), (4353, 8, 17, 2, False), (20000, 8, 17, 5, False),
+    (29000, 8, 17, 7, False), (29100, 8, 17, 7, True), (100_000, 8, 17, 23, True)])
+def test_cells_walk_plan(S, G, C, chunks, rows_device):
+    """Warps doubled while a lane would hold more than 17 cells, up to 8;
+    past 8·32·17 cells a row, chunks; the two rows in device memory past
+    what a block holds. No S is refused."""
+    p = KB.plan(128, 150, S)
+    assert not p.row_mode and (p.warps, p.cells, p.chunks, p.rows_device) == \
+        (G, C, chunks, rows_device)
+    assert (chunks - 1) * WARP * G * C < S <= chunks * WARP * G * C
+    assert p.threads == WARP * G and p.blocks == 256 and p.smem <= KB.SMEM_BYTES
+
+
+# ---- the cells walk --------------------------------------------------------
+
+def _join(a, b):
+    """(m, s) ⊕ (m, s) as csrc/band_stream.cu::join, elementwise."""
+    (am, as_), (bm, bs) = a, b
+    with np.errstate(over="ignore", invalid="ignore"):
+        d = am - bm
+        e = np.exp(-np.abs(d))
+    ge = d >= 0
+    return np.where(ge, am, bm), np.where(ge, bs * e + as_, as_ * e + bs)
+
+
+def _lanes_up(x, d):
+    """__shfl_up_sync along the lanes of (G, 32) arrays: lane l gets lane
+    l - d's value; lanes < d their own."""
+    y = x.copy()
+    y[:, d:] = x[:, :-d]
+    return y
+
+
+def _lanes_down(x, d):
+    y = x.copy()
+    y[:, :-d] = x[:, d:]
+    return y
+
+
+def _pick(c, a, b):
+    return np.where(c, a[0], b[0]), np.where(c, a[1], b[1])
+
+
+def _shift(p, by):
+    return p[0] + by, p[1]
+
+
+EMPTY = (-np.finfo(np.float64).max, 0.0)
+
+
+class _Rows:
+    """The lattice's two rows (w.rows): each word with the row it holds,
+    the sync epoch that wrote it and the last epoch that read it; a read
+    must find the row it wants written before the last sync, a write must
+    not meet a read of the same epoch."""
+
+    def __init__(self, S):
+        self.value = np.full((2, S), np.nan)
+        self.row = np.full((2, S), -10 ** 9)
+        self.wepoch = np.full((2, S), -10 ** 9)
+        self.repoch = np.full((2, S), -10 ** 9)
+        self.epoch = 0
+
+    def read(self, t, idx, mask):
+        i = idx[mask]
+        assert np.all(self.row[t & 1, i] == t), "a row read the wrong row"
+        assert np.all(self.wepoch[t & 1, i] < self.epoch), "a row read before the sync"
+        self.repoch[t & 1, i] = self.epoch
+        out = np.full(mask.shape, np.nan)
+        out[mask] = self.value[t & 1, i]
+        return out
+
+    def write(self, t, idx, values, mask):
+        i = idx[mask]
+        assert np.all(self.repoch[t & 1, i] < self.epoch), "a row overwritten before the sync"
+        self.value[t & 1, i] = values[mask]
+        self.row[t & 1, i] = t
+        self.wepoch[t & 1, i] = self.epoch
+
+
+def _warp_chain(e, s, S):
+    """csrc/band_stream.cu::warp_chain on (G, 32, C): c within each warp's
+    frame and each warp's total."""
+    x = np.where(s < S, np.maximum(e, CLAMP), 0.0)
+    C = x.shape[-1]
+    c = np.zeros_like(x)
+    run = np.zeros(x.shape[:2])
+    for j in range(C):
+        c[..., j] = run
+        run = run + x[..., j]
+    incl = run.copy()
+    sh = 1
+    while sh < WARP:
+        incl = np.where(LANE >= sh, incl + _lanes_up(incl, sh), incl)
+        sh *= 2
+    ex = _lanes_up(incl, 1)
+    ex[:, 0] = 0.0
+    return c + ex[..., None], incl[:, -1]
+
+
+def _cells_walk(lpb, lpe, ranges, T, S, Tb, Ub, G, C, is_beta):
+    """One lattice as the G warps of the cells walk take it, C cells a lane,
+    a row in chunks of 32·G·C: (field (T, S), ll)."""
+    CW = WARP * G * C
+    nch = -(-S // CW)
+    Tw = min(max(Tb, 0), T)
+    u0 = (np.arange(G)[:, None, None] * WARP * C + LANE[None, :, None] * C
+          + np.arange(C)[None, None, :])
+    rows = _Rows(S)
+    out = np.full((T, S), np.nan)
+    writes = np.zeros((T, S), int)
+    neg = NEG
+
+    def step_of(i):
+        return (Tw - 1 - i // nch, nch - 1 - i % nch) if is_beta else (i // nch, i % nch)
+
+    def load(i):  # the inputs of step i, as load_inputs reads them
+        t, k = step_of(i)
+        if i >= Tw * nch or not 0 <= t < Tw:
+            return None
+        s = k * CW + u0
+        on = s < S
+        sc = np.where(on, s, 0)
+        return (t, k, np.where(on, lpb[t, sc], 0.0), np.where(on, lpe[t, sc], 0.0), ranges[t])
+
+    queue = [load(0), load(1)]
+    chunk = EMPTY
+    r_row = delta = 0
+    ll = neg
+    for i in range(Tw * nch):
+        t, k = step_of(i)
+        got = queue.pop(0)
+        queue.append(load(i + 2))  # two steps ahead
+        assert got[:2] == (t, k), "a step consumed another step's inputs"
+        _, _, b, e, r = got
+        first = k == (nch - 1 if is_beta else 0)
+        has_next = t + 1 < Tw
+        if first:
+            if i > 0:
+                rows.epoch += 1  # lattice_sync: the last row is in w.rows
+            if is_beta:
+                delta = r_row - r if has_next else 0
+            else:
+                delta = r - r_row if t > 0 else 0
+            r_row = r
+            chunk = EMPTY
+        s = k * CW + u0
+        c, ctot = _warp_chain(e, s, S)
+        if not is_beta:
+            src = s + delta
+            m = (t > 0) & (src < S)
+            ne = np.where(m, rows.read(t - 1, np.where(m, src, 0), m), neg)
+            if t == 0:
+                ne = np.where(s == 0, 0.0, neg)
+            p = (ne - c, np.ones_like(c))
+            for j in range(1, C):
+                p[0][..., j], p[1][..., j] = _join((p[0][..., j - 1], p[1][..., j - 1]),
+                                                   (p[0][..., j], p[1][..., j]))
+            tot = (p[0][..., -1].copy(), p[1][..., -1].copy())
+            sh = 1
+            while sh < WARP:
+                o = (_lanes_up(tot[0], sh), _lanes_up(tot[1], sh))
+                tot = _pick(LANE >= sh, _join(o, tot), tot)
+                sh *= 2
+            carry = [_lanes_up(tot[0], 1), _lanes_up(tot[1], 1)]
+            carry[0][:, 0], carry[1][:, 0] = EMPTY
+            wtot = (tot[0][:, -1], tot[1][:, -1])
+            before = []
+            acc = chunk
+            for h in range(G):  # the exchange: frames moved by the chain totals
+                before.append(acc)
+                acc = _shift(_join(acc, (wtot[0][h], wtot[1][h])), ctot[h])
+            chunk = acc
+            bm = np.array([x[0] for x in before])[:, None]
+            bs = np.array([x[1] for x in before])[:, None]
+            carry = _join((bm, bs), carry)
+            with np.errstate(divide="ignore"):
+                jm, js = _join((carry[0][..., None], carry[1][..., None]), p)
+                a = c + jm + np.log(js)
+            av = np.where(r + s < Ub, a, neg)
+            bc = np.maximum(b, neg)
+            on = s < S
+            out[t, s[on]] = av[on]
+            writes[t, s[on]] += 1
+            rows.write(t, np.where(on, s, 0), av + bc, on)
+            hit = on & (t == Tb - 1) & (r + s == Ub - 1)
+            if hit.any():
+                ll = float((av + bc)[hit][0])
+        else:
+            src = s - delta
+            m = has_next & (src >= 0) & (src < S)
+            bc = np.maximum(b, neg)
+            nb = np.where(m, rows.read(t + 1, np.where(m, src, 0), m), neg) + bc
+            nb = np.where((t == Tb - 1) & (r + s == Ub - 1), bc, nb)
+            on = s < S
+            p = (np.where(on, nb + c, EMPTY[0]), np.where(on, 1.0, 0.0))
+            for j in range(C - 2, -1, -1):
+                p[0][..., j], p[1][..., j] = _join((p[0][..., j + 1], p[1][..., j + 1]),
+                                                   (p[0][..., j], p[1][..., j]))
+            tot = (p[0][..., 0].copy(), p[1][..., 0].copy())
+            sh = 1
+            while sh < WARP:
+                o = (_lanes_down(tot[0], sh), _lanes_down(tot[1], sh))
+                tot = _pick(LANE + sh < WARP, _join(o, tot), tot)
+                sh *= 2
+            carry = [_lanes_down(tot[0], 1), _lanes_down(tot[1], 1)]
+            carry[0][:, -1], carry[1][:, -1] = EMPTY
+            wtot = (tot[0][:, 0], tot[1][:, 0])
+            after = [None] * G
+            acc = chunk
+            for h in range(G - 1, -1, -1):
+                acc = _shift(acc, ctot[h])
+                after[h] = acc
+                acc = _join(acc, (wtot[0][h], wtot[1][h]))
+            chunk = acc
+            am = np.array([x[0] for x in after])[:, None]
+            as_ = np.array([x[1] for x in after])[:, None]
+            carry = _join((am, as_), carry)
+            with np.errstate(divide="ignore"):
+                jm, js = _join((carry[0][..., None], carry[1][..., None]), p)
+                bv = jm + np.log(js) - c
+            ov = np.where(r + s < Ub, bv, neg)
+            out[t, s[on]] = ov[on]
+            writes[t, s[on]] += 1
+            rows.write(t, np.where(on, s, 0), ov, on)
+            if t == 0 and k == 0:
+                ll = float(ov[0, 0, 0])
+    out[Tw:] = neg
+    writes[Tw:] += 1
+    assert np.all(writes == 1), "a cell written other than once"
+    if not is_beta:
+        s_star = Ub - 1 - r_row
+        if not (Tw > 0 and Tb == Tw and 0 <= s_star < S):
+            ll = neg
+    return out, ll
+
+
+def emulate_cells(lpb, lpe, ranges, il, ll):
+    """(alphas, betas, ll_forward, ll_backward) of the cells walk's plan in
+    float64."""
+    B, T, S = lpb.shape
+    p = KB.plan(B, T, S)
+    assert not p.row_mode and p.blocks == 2 * B
+    res = {k: [] for k in ("alphas", "betas", "ll_forward", "ll_backward")}
+    for b in range(B):
+        for is_beta, field, name in ((False, "alphas", "ll_forward"),
+                                     (True, "betas", "ll_backward")):
+            out, llv = _cells_walk(lpb[b], lpe[b], ranges[b], T, S, int(il[b]), int(ll[b]) + 1,
+                                   p.warps, p.cells, is_beta)
+            res[field].append(out)
+            res[name].append(llv)
+    return {k: np.array(v) for k, v in res.items()}
+
+
+# The cells walk: B, T, S, input lengths, label lengths, frames with a step
+# of S - 1, whether the JAX engine is compared too (its compile costs
+# seconds a shape).
+CELLS_CASES = {
+    "S33": (3, 20, 33, [20, 1, 12], [40, 0, 20], (3, 17), False),
+    "S41_full_band": (3, 12, 41, [12, 7, 12], [40, 30, 2], (), True),
+    "S100": (2, 9, 100, [9, 4], [130, 60], (2, 5), False),
+    "S600_two_warps": (2, 5, 600, [5, 3], [700, 640], (1, 3), False),
+    "S1100_four_warps": (1, 4, 1100, [4], [1300], (2,), False),
+    "S4400_two_chunks": (1, 3, 4400, [3], [4500], (1,), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CELLS_CASES))
+def test_cells_walk_matches_plain_and_jax(case):
+    B, T, S, il, ll, jumps, with_jax = CELLS_CASES[case]
+    lpb, lpe, ranges, il, ll = _problem(len(case), B, T, S, il, ll, jumps)
+    p = KB.plan(B, T, S)
+    assert not p.row_mode
+    got = emulate_cells(lpb, lpe, ranges, il, ll)
+    want = TB.forward_backward(*map(torch.tensor, (lpb, lpe, ranges, il, ll)))
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):  # every cell
+        np.testing.assert_allclose(got[name], getattr(want, name).numpy(), err_msg=name, **F64)
+    if not with_jax:
+        return
+    ref = JPR._band_lattice(*map(jnp.asarray, (np.maximum(lpb, NEG), lpe, ranges, il, ll)),
+                            implementation="xla")
+    mask = TB.band_valid(torch.tensor(ranges), torch.tensor(il), torch.tensor(ll), S).numpy()
+    for name in ("alphas", "betas"):
+        np.testing.assert_allclose(got[name][mask], np.asarray(getattr(ref, name))[mask],
+                                   err_msg=name, **F64)
+    for name in ("ll_forward", "ll_backward"):
+        np.testing.assert_allclose(got[name], np.asarray(getattr(ref, name)), err_msg=name, **F64)
 
 
 def test_the_ring_covers_the_walk():

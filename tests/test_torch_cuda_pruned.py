@@ -13,10 +13,11 @@ Tolerances: f32 rtol 1e-5 / atol 1e-5 — the band prep's warp mode
 plain two-pass logsumexp (~1e-7 relative; its tile mode takes two passes
 too, but sums in another order); the lattice's row walk (S <= 32) takes its log-sum-exp's exp
 and log on the SFU (ex2/lg2.approx, about 1e-7 absolute a step; its adds
-follow the plain version's order), and the chunk kernel (S > 32) carries
-its prefixes across 32-lane chunks, another association than the plain
-full-row scan; neither is bit-equal to the plain version, each is
-bit-reproducible (no atomics). 16-bit gradients within one ulp of
+follow the plain version's order), and the cells walk (S > 32) scans C
+cells a lane, then the lane totals, then the warps' (each warp in its own
+frame of the chain), another association than the plain full-row scan;
+neither is bit-equal to the plain version, each is bit-reproducible (no
+atomics). 16-bit gradients within one ulp of
 their type (both round one f32 value once). Ranges exactly: the range
 kernel forms (α + β) − ll in the plain version's order and type and takes
 the first maximum, as torch.argmax.
@@ -230,7 +231,9 @@ def _check_lattice(got, want, ranges, il, ll, S):
 
 
 @pytest.mark.parametrize("B,T,S", [(3, 70, 5), (2, 1500, 5), (1, 1, 1), (4, 33, 32), (2, 9, 33),
-                                   (300, 150, 5)])
+                                   (300, 150, 5), (128, 150, 41), (2, 9, 100), (2, 9, 544),
+                                   (2, 9, 545), (2, 9, 600), (2, 9, 4353), (2, 9, 20000),
+                                   (2, 9, 30000), (2, 4_000_000, 5), (2, 300_000, 600)])
 def test_band_plan_matches_kernel(dev, B, T, S):
     assert kband.kernel_plan(B, T, S) == kband.plan(B, T, S)
 
@@ -238,8 +241,58 @@ def test_band_plan_matches_kernel(dev, B, T, S):
 @pytest.mark.parametrize("S", [1, 2, 5, 31, 32])
 def test_band_row_walk_registers(dev, S):
     """Every instance of the row walk: registers reported, no spills."""
-    regs, local = kband.kernel_registers(S)
+    regs, local = kband.kernel_registers(150, S)
     assert 0 < regs <= 255 and local == 0, (regs, local)
+
+
+@pytest.mark.parametrize("T", [150, 100_000_000], ids=["int", "long_long"])
+def test_band_cells_walk_registers(dev, T):
+    """Every instance of the cells walk (C = 1, 3, … 17; 32- and 64-bit
+    offsets; C = 1 with 32-bit offsets is the row walk's band): registers
+    reported, no spills."""
+    for C in range(1, 18, 2):
+        p = kband.plan(1, T, 32 * C)
+        if p.row_mode:
+            continue
+        assert p.cells == C and p.offsets64 == (T > 1_000_000), p
+        regs, local = kband.kernel_registers(T, 32 * C)
+        assert 0 < regs <= 255 and local == 0, (C, regs, local)
+
+
+@pytest.mark.parametrize("B,T,U,S,infeasible", [
+    (128, 150, 41, 41, False), (3, 40, 120, 100, True), (3, 30, 700, 600, False),
+    (2, 6, 20100, 20000, False), (2, 4, 30100, 30000, True)],
+    ids=["full_band_S41", "S100", "S600_two_warps", "S20000_chunks", "S30000_rows_in_memory"])
+def test_band_cells_walk_kernel(dev, B, T, U, S, infeasible):
+    """The cells walk at the shapes that took the earlier chunk kernel and
+    past any earlier limit: the full band of the headline shape, one warp of
+    five cells a lane, two warps, 8 warps in chunks, the rows in device
+    memory; against the plain version."""
+    lpb, lpe, ranges, il, ll = _lattice_case(dev, B, T, U, S, seed=S, infeasible=infeasible)
+    p = kband.plan(B, T, S)
+    assert not p.row_mode and (p.rows_device == (S == 30000)) and (p.chunks > 1) == (S >= 20000)
+    K.reset_launches()
+    got = kband.forward_backward(lpb, lpe, ranges, il, ll)
+    torch.cuda.synchronize()
+    assert K.launches["band_stream"] == 1
+    if S <= 100:
+        _check_lattice(got, band.forward_backward(lpb, lpe, ranges, il, ll), ranges, il, ll, S)
+        return
+    # Wide bands: the walk and the f32 plain version round the prefix form's
+    # cancellation against |c| each their own way (both about one to four
+    # ulps of max |c| off the f64 value at S = 20,000; PERF.md §6):
+    # held against the plain version in f64 at rtol 1e-5 and an atol of
+    # 1e-5, four ulps of max |c| and the f32 plain version's own largest
+    # error there.
+    want = band.forward_backward(lpb.double(), lpe.double(), ranges, il, ll)
+    plain = band.forward_backward(lpb, lpe, ranges, il, ll)
+    c_max = float(lpe.clamp_min(-1e4).double().sum(-1).abs().max())
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        w = getattr(want, name)
+        # (the cells a path reaches; NEG is -1e30 in f64 and -1.0000000150e30 in f32)
+        own = float(((getattr(plain, name).double() - w).abs() * (w.abs() < 1e29)).max())
+        torch.testing.assert_close(getattr(got, name).double(), w, rtol=1e-5,
+                                   atol=1e-5 + c_max * 2.0 ** -22 + own)
 
 
 @pytest.mark.parametrize("B,T,U,S,infeasible", [
@@ -249,7 +302,7 @@ def test_band_row_walk_registers(dev, S):
     ids=["S1", "S2_infeasible", "S31", "S32_infeasible", "S33_chunks", "T1", "T1_S32",
          "T97", "T32", "T33"])
 def test_band_row_walk_kernel(dev, B, T, U, S, infeasible):
-    """The row walk (S <= 32) and the chunk kernel (S = 33) against the plain
+    """The row walk (S <= 32) and the cells walk (S = 33) against the plain
     version, at the edges of the plan: S = 1, 2, 31, 32, 33, T = 1, T on and
     off the tile of 32 rows, T_b = 1, U_b = 1 and infeasible bands."""
     lpb, lpe, ranges, il, ll = _lattice_case(dev, B, T, U, S, seed=S + T, infeasible=infeasible)

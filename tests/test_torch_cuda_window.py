@@ -34,7 +34,8 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.float64: dict(rtol=1e-10
 MULTIBLANK = [(), (2,), (2, 4), (2, 3, 8)]
 TDT = [(0, 1, 2, 4), (1, 2, 3), (0, 1, 3), (1, 2), (2,)]
 # (B, T, U): ragged; B = 1; T = 1 (so T_b = 1); U = 1; U not a multiple of
-# 32; U above one block of 512 threads; U above 1024.
+# 32; U past one warp's 17 cells (two warps); U above 1024 (four warps, and
+# for the larger arc sets' f64 rings two passes).
 SHAPES = [(4, 9, 6), (1, 9, 4), (2, 1, 3), (3, 7, 1), (2, 6, 45), (2, 5, 600), (2, 4, 1100)]
 
 
@@ -72,6 +73,36 @@ def _close(got, want, dtype, U=0):
     tol = TOL[dtype]
     torch.testing.assert_close(got.double().cpu(), want.double().cpu(), rtol=tol["rtol"],
                                atol=tol["atol"] * (1 + U / 10))
+
+
+def _check_wide(arcs, B, T, U, C, dtype, dev, seed):
+    """A lattice past what one block's rings hold at one pass, or with many
+    warps: the f32 walk and the f32 plain version round the prefix form's
+    cancellation against |c| each their own way (at U = 30,000 the plain
+    version is about nine ulps of max |c| off its f64 value, the walk
+    about four; PERF.md §6), so an f32 kernel is held against the
+    plain version run in f64, at rtol 1e-5 and an atol of 1e-5, four ulps of
+    max |c| (chip_smoke.window_tol) and the f32 plain version's own largest
+    error there; f64 against the plain version, rtol 1e-10 and atol 1e-10
+    and four ulps of max |c|."""
+    lpb, lpe, extra, il, ll = _channels(B, T, U, C, seed, dtype, dev)
+    got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    torch.cuda.synchronize()
+    want = window.forward_backward(lpb.double(), lpe.double(), extra.double(), arcs, il, ll)
+    plain = window.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    chain = (lpe if arcs.chain == (1,) else lpe + extra[..., arcs.chain[1] - 2]
+             if arcs.chain else None)
+    c_max = float(chain[..., :-1].clamp_min(-1e4).double().sum(-1).abs().max()) if chain is not None else 0.0
+    ulps = 2.0 ** -22 if dtype == torch.float32 else 2.0 ** -51
+    for name in ("alphas", "betas", "ll_forward", "ll_backward"):
+        w = getattr(want, name).cpu()
+        # (the cells a path reaches; NEG is -1e30 in f64 and -1.0000000150e30 in f32)
+        own = float(((getattr(plain, name).double().cpu() - w).abs() * (w.abs() < 1e29)).max()) \
+            if dtype == torch.float32 else 0.0
+        tol = TOL[dtype]
+        torch.testing.assert_close(getattr(got, name).double().cpu(), w, rtol=tol["rtol"],
+                                   atol=tol["atol"] + c_max * ulps + own)
+    return got
 
 
 def _check_lattice(arcs, B, T, U, C, dtype, dev, betas=True, seed=1):
@@ -133,9 +164,9 @@ def test_window_kernel_without_big_blanks_is_the_wavefront_kernel(dev, B, T, U, 
         _close(getattr(got, name), getattr(want, name), dtype, U)
 
 
-# The warp kernel's edges: U at 31/32/33 (one to two cells a lane, C odd: 1
-# and 3), the f32 cap 544 ± 1 and the f64 cap 288 ± 1 (above each, the
-# block kernel); ragged lengths with T_b = T, U_b = U in the first lattice.
+# The walk's edges: U at 31/32/33 (one to two cells a lane, C odd: 1 and 3),
+# one warp's 17 (f32) and 9 (f64) cells ± 1 (above each, two warps a
+# lattice); ragged lengths with T_b = T, U_b = U in the first lattice.
 EDGE_U = [(torch.float32, U) for U in (31, 32, 33, 543, 544, 545)] + \
     [(torch.float64, U) for U in (31, 32, 33, 287, 288, 289)]
 
@@ -153,8 +184,8 @@ def test_window_kernel_edge_u(dev, family, dtype, U, betas):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("U", [41, 301, 600])
 def test_window_kernel_bit_equal_across_calls(dev, dtype, U):
-    """No atomics: two calls give the same bits (warp kernel; block kernel
-    at U = 600, and in f64 at U = 301)."""
+    """No atomics: two calls give the same bits (one warp a lattice; two and
+    four at U = 600, and two passes in f64 at U = 600)."""
     lpb, lpe, extra, il, ll = _channels(5, 12, U, 4, 7, dtype, dev)
     arcs = window.tdt_arcs(TDT[0])
     first = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
@@ -167,58 +198,62 @@ def test_window_kernel_bit_equal_across_calls(dev, dtype, U):
 def test_window_plan_matches_kernel(dev):
     """ops/cuda/window.py::plan (the CPU tests' mirror) against the C plan,
     on this card's SM count and on an H100's, with the warps a lattice the
-    rule's and forced."""
+    rule's and forced, arcs of two and three channels, at the U of one warp,
+    of several, of the wide instance, of passes and past 32-bit offsets."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     arc_sets = [window.multiblank_arcs(()), window.multiblank_arcs((2, 4)),
-                window.tdt_arcs((0, 1, 2, 4)), window.tdt_arcs((1, 2)),
-                window.tdt_arcs(tuple(range(1, 9)))]
+                window.tdt_arcs((0, 1, 2, 4)), window.tdt_arcs((1, 2)), window.tdt_arcs((1, 2, 4)),
+                window.tdt_arcs(tuple(range(1, 9))), window.tdt_arcs((0, 1, 2, 3, 4)),
+                window.multiblank_arcs((2, 4, 8))]
     for dtype in (torch.float32, torch.float64):
         elt = torch.tensor([], dtype=dtype).element_size()
         for arcs in arc_sets:
             W, n_arcs = arcs.window, len(arcs.blank_arcs) + len(arcs.emit_arcs)
             n_extra = max(0, max(c for _, chs in arcs.blank_arcs + arcs.emit_arcs for c in chs) - 1)
             chain = arcs.chain is not None
-            for U in (1, 21, 31, 32, 33, 41, 129, 257, 287, 288, 289, 301, 543, 544, 545, 1100):
+            for U in (1, 21, 31, 32, 33, 41, 129, 257, 287, 288, 289, 301, 543, 544, 545, 601,
+                      1100, 1800, 2177, 5000, 30000):
                 for B in (1, 16, 33, 128, 1000):
                     for betas in (True, False):
                         for sms in (n_sm, 132):
                             for T in (1, 1500, 4_000_000):
-                                for warps in (0, 1, 4):
-                                    args = (W, n_arcs, n_extra, chain, betas, sms, warps)
-                                    assert kwindow.plan(B, T, U, elt, *args) == \
-                                        kwindow.kernel_plan(B, T, U, dtype, *args), (dtype, U, args)
+                                for warps in (0, 1, 4, 16):
+                                    for ch in (2, 3):
+                                        args = (W, n_arcs, n_extra, chain, betas, sms, warps, ch)
+                                        assert kwindow.plan(B, T, U, elt, *args) == \
+                                            kwindow.kernel_plan(B, T, U, dtype, *args), \
+                                            (dtype, U, B, T, args)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_window_kernels_do_not_spill(dev, dtype):
-    """Every instance of the warp kernel (C = 1, 3, … up to the cap) and the
-    block kernel: no local memory."""
+    """Every instance of the kernel, narrow and wide (C = 1, 3, … up to the
+    cap): no local memory."""
     cap = kwindow.max_cells(torch.tensor([], dtype=dtype).element_size())
-    for C in range(1, cap + 1, 2):
-        regs, local = kwindow.kernel_registers(kwindow.Plan(True, 1, C, 1, 1, 32, 0, 0), 32 * C,
-                                               dtype)
-        assert local == 0, (C, regs, local)
-    block = kwindow.Plan(False, 0, 0, 1, 1, 512, 0, 0)
-    assert kwindow.kernel_registers(block, 1100, dtype)[1] == 0
+    for wide in (False, True):
+        for C in range(1, cap + 1, 2):
+            p = kwindow.Plan(wide, 1, C, 1, 1, 1, 32, 0, 0, 0)
+            regs, local = kwindow.kernel_registers(p, dtype)
+            assert local == 0, (wide, C, regs, local)
 
 
-# (U, warps a lattice, dtype): every forced choice the warp kernel takes (f64
-# with one warp stops at U = 288).
-WARPS_CASES = [(U, G, torch.float32) for U in (70, 130, 301) for G in (1, 2, 4)] + \
+# (U, warps a lattice, dtype): forced choices of the narrow instance (G <=
+# 4) and the wide one (8 and 16 warps; f64 at U = 301 with one warp: C = 11
+# is past its cap, so passes).
+WARPS_CASES = [(U, G, torch.float32) for U in (70, 130, 301) for G in (1, 2, 4, 8)] + \
     [(U, G, torch.float64) for U in (70, 130) for G in (1, 2, 4)] + \
-    [(301, G, torch.float64) for G in (2, 4)]
+    [(301, G, torch.float64) for G in (1, 2, 4, 16)] + [(601, 16, torch.float32)]
 
 
 @pytest.mark.parametrize("U,warps,dtype", WARPS_CASES,
                          ids=[f"U{U}_G{G}_{str(d)[6:]}" for U, G, d in WARPS_CASES])
-@pytest.mark.parametrize("family", ["multiblank", "tdt"])
+@pytest.mark.parametrize("family", ["multiblank", "tdt", "tdt_no_d0"])
 def test_window_kernel_warps_a_lattice(dev, family, U, warps, dtype):
-    """The warp kernel with one, two and four warps a lattice forced (a
-    named barrier a row, two with emit arcs), against the plain lattice; the
-    warps' column boundaries fall inside the lattices and beyond U_b."""
-    arcs = (window.multiblank_arcs(MULTIBLANK[2]) if family == "multiblank"
-            else window.tdt_arcs(TDT[0]))
-    C = len(MULTIBLANK[2]) if family == "multiblank" else len(TDT[0])
+    """The walk with one to sixteen warps a lattice forced (a named barrier
+    a row, two with emit arcs; without a chain only the emit arcs' one),
+    against the plain lattice; the warps' column boundaries fall inside the
+    lattices and beyond U_b."""
+    arcs, C = _family(family)
     lpb, lpe, extra, il, ll = _channels(3, 11, U, C, U + warps, dtype, dev)
     for betas in (True, False):
         got = kwindow.launch(lpb, lpe, extra, arcs, il, ll, compute_betas=betas, warps=warps)
@@ -228,13 +263,54 @@ def test_window_kernel_warps_a_lattice(dev, family, U, warps, dtype):
             _close(getattr(got, name), getattr(want, name), dtype, U)
 
 
+def _family(family):
+    """The arcs and extra channels of the three lattices of the tests."""
+    if family == "multiblank":
+        return window.multiblank_arcs(MULTIBLANK[2]), len(MULTIBLANK[2])
+    if family == "tdt":
+        return window.tdt_arcs(TDT[0]), len(TDT[0])
+    return window.tdt_arcs((1, 2, 4)), 3
+
+
 def test_window_kernel_three_channel_arcs(dev):
-    """An arc of three channels (no public loss has one) takes the block
-    kernel; the result is the plain lattice's."""
+    """An arc of three channels (no public loss has one) takes the wide
+    instance; the result is the plain lattice's, also with several warps
+    and in passes."""
     arcs = window.WindowArcs(chain=(1, 2), blank_arcs=((1, (0, 2, 3)), (2, (0, 3))),
                              emit_arcs=((2, (1, 2, 3)),))
-    for B, T, U in ((3, 9, 6), (2, 7, 70)):
-        _check_lattice(arcs, B, T, U, 2, torch.float32, dev)
+    for B, T, U in ((3, 9, 6), (2, 7, 70), (2, 6, 700), (2, 5, 3000)):
+        for dtype in (torch.float32, torch.float64):
+            _check_wide(arcs, B, T, U, 2, dtype, dev, seed=U)
+
+
+# The shapes that took the earlier block kernel, now on the walk: many
+# lattices at U = 601 (B = 128; fewer rows than the main shapes' 1000), TDT
+# without a 0 duration (G > 1 without a chain), f64 past U = 288, rings past
+# one block (passes), in f32 and f64.
+WIDE_CASES = {
+    "mb_B128_U601": ("multiblank", 128, 6, 601),
+    "tdt_B128_U601": ("tdt", 128, 6, 601),
+    "tdt124_B32_U601": ("tdt_no_d0", 32, 9, 601),
+    "mb_U1100": ("multiblank", 3, 8, 1100),
+    "tdt_U2000": ("tdt", 2, 7, 2000),
+    "mb_U5000": ("multiblank", 2, 5, 5000),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_window_kernel_former_block_shapes(dev, case, dtype):
+    family, B, T, U = WIDE_CASES[case]
+    arcs, C = _family(family)
+    p = kwindow.plan(B, T, U, torch.tensor([], dtype=dtype).element_size(), arcs.window,
+                     len(arcs.blank_arcs) + len(arcs.emit_arcs), C, arcs.chain is not None, True,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert p is not None
+    if family == "tdt_no_d0" and dtype == torch.float32:
+        assert p.warps > 1
+    K.reset_launches()
+    _check_wide(arcs, B, T, U, C, dtype, dev, seed=U)
+    assert K.launches["window_stream"] == 1
 
 
 def test_window_kernel_infeasible_tdt(dev):
@@ -251,12 +327,19 @@ def test_window_kernel_infeasible_tdt(dev):
         _close(getattr(got, name), getattr(want, name), torch.float32)
 
 
+def test_window_kernel_u_30000(dev):
+    """U = 30,000 with a window of 8 (the wrapper refused it before the
+    passes; 17 passes now): the lattice computes and equals its plain
+    version (``_check_wide``)."""
+    arcs = window.multiblank_arcs((8,))
+    for dtype in (torch.float32, torch.float64):
+        _check_wide(arcs, 1, 8, 30000, 1, dtype, dev, seed=30)
+
+
 def test_window_kernel_rejects(dev):
-    lpb = torch.zeros((1, 2, 30000), device=dev)
-    extra = torch.zeros((1, 2, 30000, 1), device=dev)
+    lpb = torch.zeros((1, 2, 30), device=dev)
+    extra = torch.zeros((1, 2, 30, 1), device=dev)
     il, ll = torch.tensor([2]), torch.tensor([3])
-    with pytest.raises(ValueError, match="limit"):
-        kwindow.forward_backward(lpb, lpb, extra, window.multiblank_arcs((8,)), il, ll)
     small, ex = lpb[:, :, :4].contiguous(), extra[:, :, :4].contiguous()
     with pytest.raises(ValueError, match="channels"):
         kwindow.forward_backward(small, small, ex, window.multiblank_arcs((2, 3)), il, ll)

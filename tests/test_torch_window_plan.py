@@ -70,7 +70,7 @@ def _shfl_down(x, d):
 
 
 def _join(a, b):
-    """(m, s) ⊕ (m, s) as csrc/window_stream.cu::join, elementwise."""
+    """(m, s) ⊕ (m, s) as csrc/window_walk.cuh::join, elementwise."""
     (am, as_), (bm, bs) = a, b
     with np.errstate(over="ignore", invalid="ignore"):
         d = am - bm
@@ -149,33 +149,39 @@ class _Memory:
 
 class _CopyRing:
     """The copy ring: row r's channels in slot r % COPY_ROWS (lpb and lpe of
-    UP values each, then the U·Cx extras and ROW_PAD words), each warp
-    copying its own columns in cp.async group g (a group a row, committed by
-    every warp); a word can be read once its group has landed."""
+    UP values each, then the U·Cx extras, ROW_PAD words and, wide, the
+    2 + n_arcs values a row that the previous pass handed on), each warp
+    copying its own columns (and the taking warp the handed row) in
+    cp.async group g (a group a row, committed by every warp); a word can be
+    read once its group has landed."""
 
-    def __init__(self, U, Cx, G, C, clock):
+    def __init__(self, U, Cx, G, C, clock, hw=0):
         self.up = G * WARP * C
         self.P = WARP * C
-        self.words = (2 + Cx) * self.up + KW.ROW_PAD
+        self.hbase = (2 + Cx) * self.up + KW.ROW_PAD
+        self.words = self.hbase + hw
         self.mem = _Memory((KW.COPY_ROWS, self.words), G, clock)
         self.group = np.full((KW.COPY_ROWS, self.words), -1)
         self.groups = 0  # committed
         self.landed = -1  # the newest landed group
-        self.U, self.Cx, self.G = U, Cx, G
+        self.U, self.Cx, self.G, self.hw = U, Cx, G, hw
 
-    def copy(self, r, Tv, pb, pe, px):
+    def copy(self, r, Tv, pb, pe, px, hin=None, taker=0):
         if 0 <= r < Tv:
             slot = r % KW.COPY_ROWS
             for g in range(self.G):
                 lo, hi = g * self.P, min((g + 1) * self.P, self.U)
-                if lo >= hi:
-                    continue
-                w = np.arange(lo, hi)
-                wx = np.arange(lo * self.Cx, hi * self.Cx)
-                words = np.concatenate([w, self.up + w, 2 * self.up + wx])
-                vals = np.concatenate([pb[r, lo:hi], pe[r, lo:hi], px[r].reshape(-1)[wx]])
-                self.mem.write((slot, words), vals, r, g, np.ones(len(words), bool))
-                self.group[slot, words] = self.groups
+                if lo < hi:
+                    w = np.arange(lo, hi)
+                    wx = np.arange(lo * self.Cx, hi * self.Cx)
+                    words = np.concatenate([w, self.up + w, 2 * self.up + wx])
+                    vals = np.concatenate([pb[r, lo:hi], pe[r, lo:hi], px[r].reshape(-1)[wx]])
+                    self.mem.write((slot, words), vals, r, g, np.ones(len(words), bool))
+                    self.group[slot, words] = self.groups
+                if hin is not None and g == taker:
+                    words = self.hbase + np.arange(self.hw)
+                    self.mem.write((slot, words), hin[r], r, g, np.ones(self.hw, bool))
+                    self.group[slot, words] = self.groups
         self.groups += 1  # commit (empty groups too)
 
     def wait(self, n):
@@ -224,30 +230,66 @@ def _chain_prefix(ring, r, refs, u, U, warp):
     return c + ex[..., None], incl
 
 
-def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
-    """One lattice as the G warps of the warp kernel walk it: (field, ll)."""
+def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G, C, passes=1, wide=False):
+    """One lattice as the G warps of the kernel walk it, C cells a lane, in
+    ``passes`` passes of 32·G·C columns (alpha left to right, beta right to
+    left; each hands its rows on to the next through device memory, 2 +
+    n_arcs values a row): (field, ll)."""
+    out = np.full(T * U, np.nan)
+    writes = np.zeros(T * U, np.int64)
+    up = G * WARP * C
+    n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
+    hand = None  # the rows the previous pass handed on
+    ll = NEG
+    for q in range(passes):
+        k = passes - 1 - q if is_beta else q
+        start = k * up
+        hout = np.full((T, 2 + n_arcs), np.nan) if q + 1 < passes else None
+        llq = _walk_pass(pb[:, start:], pe[:, start:], px[:, start:], arcs, T, U, start, Tb, Ub,
+                         is_beta, G, C, wide, hand, hout, out, writes)
+        if llq is not None:
+            ll = llq
+        hand = hout
+    assert np.all(writes == 1), "a cell written other than once"
+    return out.reshape(T, U), ll
+
+
+def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wide, hin, hout,
+               out, writes):
+    """One pass of one lattice: columns start … start + 32·G·C - 1 (U, U_b
+    and u count from start); writes its cells of ``out`` and, where another
+    pass follows, its rows of ``hout``; reads the previous pass's from
+    ``hin``. Returns ll where this pass gives it, else None."""
     Cx = px.shape[-1]
-    C = KW.cells(-(-U // G))
     P = WARP * C
     up = G * P
+    U = min(up, U_all - start)
+    Ur = U_all - start
+    Ub = Ub_all - start
     W = arcs.window
     R = W + 1
     K = KW.AHEAD
+    ro = 1 if wide else 0  # alpha's rings keep column -1 (the edge)
+    RS = up + (1 if wide else 0)
     Tv, Uv = min(max(Tb, 0), T), min(max(Ub, 0), U)
+    first_pass = start == 0
     warp = np.arange(G)[:, None, None] + np.zeros((G, WARP, C), int)
     u = warp * P + LANE[None, :, None] * C + np.arange(C)[None, None, :]  # (G, 32, C)
     inside = u < U
     cross = G > 1 and len(arcs.emit_arcs) > 0  # a second barrier a row
-    out = np.full(T * U, np.nan)
-    writes = np.zeros(T * U, np.int64)
     arc_list = list(arcs.blank_arcs) + list(arcs.emit_arcs)
     n_blank = len(arcs.blank_arcs)
     refs = [_slot_arc(chs, up, Cx) for _, chs in arc_list]
     chain = _slot_arc(arcs.chain, up, Cx) if arcs.chain is not None else None
     clock = _Clock()
-    copies = _CopyRing(U, Cx, G, C, clock)
+    hw = 2 + len(arc_list) if wide else 0
+    taker = G - 1 if is_beta else 0
+    copies = _CopyRing(U, Cx, G, C, clock, hw)
     xch = _Memory((2, G, 4), G, clock)
     ones = np.ones((G, WARP, C))
+    # the lane that takes the previous pass's rows, and the one that hands on
+    rx_at = (G - 1, WARP - 1, C - 1) if is_beta else (0, 0, 0)
+    tx_at = (0, 0, 0) if is_beta else (G - 1, WARP - 1, C - 1)
 
     def barrier():
         if G > 1:
@@ -257,16 +299,16 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
         clock.step += 1
 
     def store(rows, cols, values, mask):
-        cells = (rows * U + cols)[mask]
+        cells = (rows * U_all + start + cols)[mask]
         np.add.at(writes, cells, 1)
         out[cells] = np.broadcast_to(values, mask.shape)[mask]
 
-    def write_out(mem, lead, tag, r):
+    def write_out(mem, lead, tag, r, shift=0):
         """Row r goes out, coalesced: lane l of warp g writes g·P + l + 32k."""
         w = (np.arange(G)[:, None, None] * P + LANE[None, :, None]
              + WARP * np.arange(C)[None, None, :])
         m = w < U
-        got = mem.read(lead + (np.where(m, w, 0),), tag, warp, m)
+        got = mem.read(lead + (np.where(m, w, 0) + shift,), tag, warp, m)
         store(np.full_like(w, r), w, got, m)
 
     def publish(par, values, slot):
@@ -280,37 +322,50 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
         return [xch.read((par, np.array(warps(g), int), slot), 0, g,
                          np.ones(len(warps(g)), bool)) for g in range(G)]
 
+    def copy(r):
+        copies.copy(r, Tv, pb, pe, px, hin, taker)
+
+    def handed(r, i):
+        """Value i of the row r that the previous pass handed on, as the
+        taking lane reads it from its copy."""
+        one = np.array([True])
+        return copies.read(r, np.array([copies.hbase + i]), taker, one)[0]
+
     for i in range(K):  # the prime
-        copies.copy(Tv - 1 - i if is_beta else i, Tv, pb, pe, px)
+        copy(Tv - 1 - i if is_beta else i)
     copies.wait(K - 1)
     syncwarp()
     c_nxt = np.zeros((G, WARP, C))
     end_nxt = np.zeros(G)  # lane 31: the warp's chain total
+    tot_nxt = 0.0  # the pass's chain total
     if chain is not None and Tv > 0:
         c_nxt, incl = _chain_prefix(copies, Tv - 1 if is_beta else 0, chain, u, U, warp)
         end_nxt = incl[:, -1].copy()
+        tot_nxt = end_nxt.sum() if G == 1 else None
         if G > 1:
             publish(1, end_nxt, 2)
             barrier()
             offs = [sum(v) for v in gather(1, 2, lambda g: range(g))]
             c_nxt = c_nxt + np.array(offs)[:, None, None]
-    ll = NEG
+            tot_nxt = offs[-1] + end_nxt[-1]
+    ll = None
     if not is_beta:
-        dep = _Memory((len(arc_list), R, up), G, clock)
+        dep = _Memory((len(arc_list), R, RS), G, clock)
         stage = _Memory((2, up), G, clock)
         for t in range(Tv):
-            c_cur = c_nxt
+            c_cur, tot_cur = c_nxt, tot_nxt
             copies.wait(K - 2)
             syncwarp()
-            copies.copy(t + K, Tv, pb, pe, px)
+            copy(t + K)
             if chain is not None and t + 1 < Tv:
                 c_nxt, incl = _chain_prefix(copies, t + 1, chain, u, U, warp)
                 end_nxt = incl[:, -1].copy()
+                tot_nxt = end_nxt[0]
             if t > 0:
                 write_out(stage, ((t - 1) & 1,), t - 1, t - 1)
             m0 = arc_list[0][0]
             m = inside & (t >= m0)
-            p = (np.where(m, dep.read((0, (t - m0) % R, np.where(m, u, 0)), t - m0, warp, m),
+            p = (np.where(m, dep.read((0, (t - m0) % R, np.where(m, u, 0) + ro), t - m0, warp, m),
                           NEG), ones.copy())
             for i in range(1, len(arc_list)):
                 mi = arc_list[i][0]
@@ -318,15 +373,19 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
                     continue
                 emit = i >= n_blank
                 src = u - 1 if emit else u
-                m = inside & (src >= 0)  # at a warp's first column, the warp before's last
-                x = dep.read((i, (t - mi) % R, np.where(m, src, 0)), t - mi, warp, m)
+                # at a warp's first column, the warp before's last; at a pass's, the edge
+                m = inside & (src >= (0 if first_pass else -1))
+                x = dep.read((i, (t - mi) % R, np.where(m, src, 0) + ro), t - mi, warp, m)
                 p = _select(m, _join(p, (x, ones)), p)
             below = p[0] < NEG  # the plain sum starts at NEG
             p = (np.where(below, NEG, p[0]), np.where(below, 1.0, p[1]))
-            if t == 0:
+            if t == 0 and first_pass:
                 p[0][0, 0, 0], p[1][0, 0, 0] = 0.0, 1.0
             if chain is not None:
                 pm, ps = p[0] - c_cur, p[1].copy()
+                if hin is not None:  # the previous passes' carry, in this pass's frame
+                    h = (handed(t, 0), handed(t, 1))
+                    pm[rx_at], ps[rx_at] = _join(h, (pm[rx_at], ps[rx_at]))
                 for j in range(1, C):
                     pm[..., j], ps[..., j] = _join((pm[..., j - 1], ps[..., j - 1]),
                                                    (pm[..., j], ps[..., j]))
@@ -355,38 +414,52 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
                     if t + 1 < Tv:
                         offs = np.array([sum(v) for v in gather(t & 1, 2, lambda g: range(g))])
                         c_nxt = c_nxt + offs[:, None, None]
-                a = c_cur + _value(_join((carry[0][..., None], carry[1][..., None]), (pm, ps)))
+                        tot_nxt = offs[-1] + end_nxt[-1]
+                jn = _join((carry[0][..., None], carry[1][..., None]), (pm, ps))
+                a = c_cur + _value(jn)
+                if hout is not None:  # the carry, moved into the next pass's frame
+                    hout[t, 0], hout[t, 1] = jn[0][tx_at] + tot_cur, jn[1][tx_at]
             else:
                 a = _value(p)
             a = np.where(u < Uv, a, NEG)
             stage.write(((t & 1), u), a, t, warp, np.ones_like(inside))
             for i, (mi, _) in enumerate(arc_list):
                 w = _weight(copies, t, refs[i], u, warp, inside)
-                dep.write((i, t % R, np.where(inside, u, 0)), a + w, t, warp, inside)
+                dep.write((i, t % R, np.where(inside, u, 0) + ro), a + w, t, warp, inside)
+                if i >= n_blank:
+                    if hout is not None:
+                        hout[t, 2 + i - n_blank] = (a + w)[tx_at]
+                    if hin is not None:  # the previous pass's edge: this ring's column -1
+                        dep.write((i, t % R, np.array([0])), handed(t, 2 + i - n_blank), t, 0,
+                                  np.array([True]))
             if cross:
                 barrier()
         syncwarp()
         if Tv > 0:
             write_out(stage, ((Tv - 1) & 1,), Tv - 1, Tv - 1)
-        if 1 <= Ub <= U:
+        if 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U:
             uf = Ub - 1
             one = np.array([True])
+            ll = NEG
             for t in range(max(Tb - W, 0), Tv):
                 for i in range(n_blank):
                     if t + arc_list[i][0] == Tb:
-                        x = dep.read((i, t % R, np.array([uf])), t, uf // P, one)[0]
+                        x = dep.read((i, t % R, np.array([uf + ro])), t, uf // P, one)[0]
                         with np.errstate(over="ignore"):
                             ll = max(ll, x) + np.log1p(np.exp(-abs(ll - x)))
+        elif not 1 <= Ub_all <= U_all and first_pass:
+            ll = NEG
     else:
-        ring = _Memory((R, up + KW.SLACK), G, clock)
+        ring = _Memory((R, RS + KW.SLACK), G, clock)
         for r in range(Tv - 1, -1, -1):
-            c_cur = c_nxt
+            c_cur, tot_cur = c_nxt, tot_nxt
             copies.wait(K - 2)
             syncwarp()
-            copies.copy(r - K, Tv, pb, pe, px)
+            copy(r - K)
             if chain is not None and r >= 1:
                 c_nxt, incl = _chain_prefix(copies, r - 1, chain, u, U, warp)
                 end_nxt = incl[:, -1].copy()
+                tot_nxt = end_nxt[0]
             if r + 1 < Tv:
                 write_out(ring, ((r + 1) % R,), r + 1, r + 1)
             p = None
@@ -394,7 +467,8 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
                 emit = i >= n_blank
                 w = np.where(inside, _weight(copies, r, refs[i], u, warp, inside), NEG)
                 src = u + 1 if emit else u
-                m = inside & (r + mi < Tv) & (src < U)  # at a warp's last column, the next's first
+                # at a warp's last column, the next's first; at a pass's, the edge
+                m = inside & (r + mi < Tv) & (src < Ur)
                 b = np.where(m, ring.read(((r + mi) % R, np.where(m, src, 0)), r + mi, warp, m),
                              NEG)
                 end = (not emit) and r + mi == Tb
@@ -407,6 +481,9 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
             p = (np.where(inside, p[0], LOWEST), np.where(inside, p[1], 0.0))
             if chain is not None:
                 pm, ps = p[0] + c_cur, p[1].copy()
+                if hin is not None:  # the later passes' carry, moved into this pass's frame
+                    h = (handed(r, 0) + tot_cur, handed(r, 1))
+                    pm[rx_at], ps[rx_at] = _join((pm[rx_at], ps[rx_at]), h)
                 for j in range(C - 2, -1, -1):
                     pm[..., j], ps[..., j] = _join((pm[..., j + 1], ps[..., j + 1]),
                                                    (pm[..., j], ps[..., j]))
@@ -435,37 +512,48 @@ def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G):
                     if r >= 1:
                         offs = np.array([sum(v) for v in gather(par, 2, lambda g: range(g))])
                         c_nxt = c_nxt + offs[:, None, None]
-                bv = _value(_join((carry[0][..., None], carry[1][..., None]), (pm, ps))) - c_cur
+                        tot_nxt = offs[-1] + end_nxt[-1]
+                jn = _join((carry[0][..., None], carry[1][..., None]), (pm, ps))
+                bv = _value(jn) - c_cur
+                if hout is not None:  # the carry, in this pass's frame
+                    hout[r, 0], hout[r, 1] = jn[0][tx_at], jn[1][tx_at]
             else:
                 bv = _value(p)
-            ring.write((r % R, np.where(inside, u, 0)), np.where(u < Uv, bv, NEG), r, warp,
-                       inside)
+            bv = np.where(u < Uv, bv, NEG)
+            ring.write((r % R, np.where(inside, u, 0)), bv, r, warp, inside)
+            if hout is not None:
+                hout[r, 2] = bv[tx_at]
+            if hin is not None:  # the edge: β at the next pass's first column
+                ring.write((r % R, np.array([up])), handed(r, 2), r, G - 1, np.array([True]))
             if cross:
                 barrier()
         syncwarp()
         if Tv > 0:
             write_out(ring, (0,), 0, 0)
-            ll = ring.read((np.array([0]), np.array([0])), 0, 0, np.array([True]))[0]
+            if first_pass:
+                ll = ring.read((np.array([0]), np.array([0])), 0, 0, np.array([True]))[0]
+        elif first_pass:
+            ll = NEG
     rows = np.arange(Tv, T)[:, None] + 0 * np.arange(U)[None, :]  # the NEG fill
     store(rows, np.arange(U)[None, :] + 0 * rows, NEG, np.ones_like(rows, bool))
-    assert np.all(writes == 1), "a cell written other than once"
-    return out.reshape(T, U), ll
+    return ll
 
 
 def emulate(lpb, lpe, extra, arcs, il, ll, compute_betas=True, elt=8, warps=0):
-    """(alphas, betas, ll_forward, ll_backward) of the warp kernel's plan
-    for ``elt``-byte values (``warps`` a lattice forced, or the plan's),
+    """(alphas, betas, ll_forward, ll_backward) of the kernel's plan for
+    ``elt``-byte values (``warps`` a lattice forced, or the plan's),
     computed in float64 numpy."""
     B, T, U = lpb.shape
     n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
     p = KW.plan(B, T, U, elt, arcs.window, n_arcs, extra.shape[-1], arcs.chain is not None,
-                compute_betas, N_SM, warps)
-    assert p.warp_mode and p.cells == KW.cells(-(-U // p.warps))
+                compute_betas, N_SM, warps, KW.arc_channels(arcs))
+    assert p is not None and (p.passes - 1) * WARP * p.warps * p.cells < U
+    assert p.passes * WARP * p.warps * p.cells >= U
     out = {"alphas": [], "betas": [], "ll_forward": [], "ll_backward": []}
     for b in range(B):
         for is_beta in ((False, True) if compute_betas else (False,)):
             field, llv = _walk(lpb[b], lpe[b], extra[b], arcs, T, U, int(il[b]), int(ll[b]) + 1,
-                               is_beta, p.warps)
+                               is_beta, p.warps, p.cells, p.passes, p.wide)
             out["betas" if is_beta else "alphas"].append(field)
             out["ll_backward" if is_beta else "ll_forward"].append(llv)
     return {k: np.array(v) for k, v in out.items() if v}
@@ -513,10 +601,42 @@ CASES = {
     "two_warps_mb": (MB, 2, 7, 70, [7, 6], [69, 32], 8, 2),
     "four_warps_tdt": (("tdt", (0, 1, 3)), 2, 8, 130, [8, 6], [129, 95], 8, 4),
     "four_warps_mb_w8": (("multiblank", (8,)), 2, 12, 200, [12, 9], [199, 33], 8, 4),
+    # the shapes of the earlier block kernel: U = 601 on two and four warps
+    # (f32), TDT without a 0 duration on four warps (no chain: the warps
+    # trade only the emit arcs' edge column)
+    "U601_two_warps_mb": (MB, 1, 4, 601, [4], [600], 4, 2),
+    "U601_four_warps_tdt": (TDT, 1, 3, 601, [3], [470], 4, 4),
+    "no_chain_four_warps": (("tdt", (1, 2, 4)), 2, 7, 150, [7, 5], [149, 60], 8, 4),
+    "no_chain_U601": (("tdt", (1, 2, 4)), 1, 5, 601, [5], [599], 4, 0),
+    # the wide instance: 8 and 16 warps, arcs of three channels, passes
+    # (the rings of a lattice past one block at every G: multi-blank with a
+    # window of 8 in f64 at U = 1000 in two, TDT with eight durations in
+    # three, with and without a chain)
+    "wide_8_warps_mb": (MB, 2, 6, 300, [6, 4], [299, 150], 8, 8),
+    "wide_16_warps_tdt": (TDT, 2, 5, 200, [5, 3], [199, 120], 8, 16),
+    "three_channels": (("three", (2, 3)), 2, 7, 70, [7, 5], [69, 40], 8, 0),
+    "three_channels_4_warps": (("three", (2, 3)), 2, 6, 300, [6, 4], [299, 100], 4, 4),
+    "passes_mb_w8": (("multiblank", (8,)), 1, 4, 1000, [4], [999], 8, 0),
+    "passes_tdt_no_chain": (("tdt", (1, 2, 3, 4, 5, 6, 7, 8)), 2, 5, 300, [5, 3], [299, 140], 8,
+                            0),
+    "passes_tdt_chain": (("tdt", (0, 1, 2, 3, 4, 5, 6, 8)), 2, 5, 300, [5, 4], [299, 128], 8, 0),
 }
 
 
+# Cases held against the plain version alone: they check the wide
+# instance's schedule (the plain lattice is held against the JAX package at
+# these arcs by the other cases and, at U = 601, by
+# tests/test_torch_window_wide.py), and the JAX engines' compiles at their
+# shapes would cost most of a minute.
+SCHEDULE_ONLY = {"U601_two_warps_mb", "no_chain_four_warps", "wide_8_warps_mb", "wide_16_warps_tdt", "passes_mb_w8",
+                 "passes_tdt_no_chain", "passes_tdt_chain", "U601_four_warps_tdt",
+                 "no_chain_U601"}
+
+
 def _arcs(family, durations):
+    if family == "three":  # arcs of three channels; no public loss has one
+        return TW.WindowArcs(chain=(1, 2), blank_arcs=((1, (0, 2, 3)), (2, (0, 3))),
+                             emit_arcs=((2, (1, 2, 3)),))
     return TW.multiblank_arcs(durations) if family == "multiblank" else TW.tdt_arcs(durations)
 
 
@@ -553,6 +673,8 @@ def test_emulation_matches_plain_and_jax(case):
     got = emulate(lpb, lpe, extra, arcs, il, ll, True, elt, warps)
     # every cell, NEG outside the lattice in both
     _check(got, _plain(lpb, lpe, extra, arcs, il, ll), FIELDS, rtol=1e-12, atol=1e-10)
+    if family == "three" or case in SCHEDULE_ONLY:
+        return
     # The JAX engines clamp as the port does; cells no path reaches hold NEG.
     ref = _jax(family, durations, np.maximum(lpb, NEG), lpe, extra, il, ll)
     for name, x, live in zip(FIELDS, ref, _live(ref)):
@@ -610,23 +732,44 @@ def _plan(B, U, elt, arcs=None, betas=True, T=1500, n_extra=None, warps=0):
     if n_extra is None:
         n_extra = max(c for _, chs in arcs.blank_arcs + arcs.emit_arcs for c in chs) - 1
     return KW.plan(B, T, U, elt, arcs.window, n_arcs, max(n_extra, 0), arcs.chain is not None,
-                   betas, N_SM, warps)
+                   betas, N_SM, warps, KW.arc_channels(arcs))
+
+
+def _covers(p, U, elt):
+    """What every plan holds: odd cells within the cap, the passes' columns
+    cover U and no pass is empty, shared memory and threads within a block,
+    the passes' device memory iff there are several."""
+    up = WARP * p.warps * p.cells
+    assert p.cells % 2 == 1 and p.cells <= KW.max_cells(elt)
+    assert (p.passes - 1) * up < U <= p.passes * up
+    assert p.smem == p.lattice_words * elt * p.per_block <= KW.SMEM_BYTES
+    assert p.threads == WARP * p.warps * p.per_block
+    assert p.threads <= (KW.wide_warps(elt, p.cells) if p.wide else KW.MAX_WARPS) * WARP
+    assert (p.hand > 0) == (p.passes > 1) and (p.passes == 1 or p.wide)
+    assert p.warps <= (KW.WIDE_MAX_G if p.wide else KW.MAX_G)
 
 
 @pytest.mark.parametrize("elt,cap", [(4, 544), (8, 288)])
 def test_switch_to_block_kernel_above_the_cap(elt, cap):
-    """One warp a lattice (B = 100: too many lattices for more): the cap is
-    the instance of most cells."""
+    """One warp a lattice (B = 100: too many lattices for more) up to the
+    instance of most cells; above it the plan takes four warps (the shapes
+    of the earlier block kernel), or two, and passes where the rings of two
+    or four warps do not fit a block."""
     for U in (1, 31, 32, 33, cap - 1, cap):
         p = _plan(100, U, elt)
-        assert p.warp_mode and p.warps == 1 and p.cells == KW.cells(U) <= KW.max_cells(elt)
+        assert not p.wide and p.warps == 1 and p.cells == KW.cells(U) <= KW.max_cells(elt)
         assert p.cells % 2 == 1 and WARP * p.cells >= U > WARP * (p.cells - 2)
         assert p.smem <= KW.SMEM_BYTES and p.threads <= KW.MAX_WARPS * WARP
     for U in (cap + 1, 600, 1100):
         p = _plan(100, U, elt)
-        assert not p.warp_mode and p.blocks == 100 and p.per_block == 1
-        assert p.threads == min(KW.MAX_THREADS, -(-U // WARP) * WARP)
-        assert p.smem == KW.block_smem(U, 4, elt)
+        _covers(p, U, elt)
+        assert p.warps > 1 and p.blocks == -(-200 // p.per_block)
+        n_arcs, W = 6, 4  # TDT (0, 1, 2, 4)
+        narrow_fits = any(KW.cells(-(-U // g)) <= KW.max_cells(elt) and KW.lattice_words(
+            g, KW.cells(-(-U // g)), W, n_arcs, 4, 2) * elt <= KW.SMEM_BYTES for g in (2, 4))
+        assert p.wide == (not narrow_fits) and (p.passes > 1) == (not narrow_fits)
+    assert _plan(100, 600, 4)[:4] == (False, 4, 5, 1)
+    assert _plan(100, 1100, 4)[:4] == (True, 2, 9, 2)
 
 
 @pytest.mark.parametrize("B,U,betas,warps", [
@@ -634,55 +777,71 @@ def test_switch_to_block_kernel_above_the_cap(elt, cap):
     (34, 301, True, 2),
     (32, 301, True, 4), (128, 301, True, 1), (16, 257, True, 4), (16, 256, True, 2),
     (16, 129, True, 2), (16, 128, True, 1), (128, 41, True, 1), (64, 21, True, 1),
-    (16, 600, True, 4), (16, 1100, True, 0)])
+    (16, 600, True, 4), (16, 1100, True, 4)])
 def test_warps_a_lattice(B, U, betas, warps):
-    """Four or two warps a lattice where a chain is solved, each warp gets
-    more than 64 columns and the lattices' warps stay within two an SM; with
-    four warps U = 600 f32 fits the warp kernel, U = 1100 does not."""
+    """Four or two warps a lattice where each warp gets more than 64 columns
+    and the lattices' warps stay within two an SM; with four warps U = 600
+    f32 fits one pass of the narrow instance, U = 1100 takes two passes."""
     p = _plan(B, U, 4, betas=betas)
-    assert p.warp_mode == (warps > 0) and p.warps == warps
-    if warps:
-        assert p.cells == KW.cells(-(-U // warps)) and WARP * p.cells * warps >= U
-        assert p.threads == WARP * warps * p.per_block <= KW.MAX_WARPS * WARP
+    assert p.warps == warps
+    _covers(p, U, 4)
+    assert p.passes == (2 if U == 1100 else 1) and p.wide == (U == 1100)
+    assert p.cells == KW.cells(-(-U // p.passes // warps)) or p.passes > 1
 
 
 def test_no_chain_takes_one_warp():
+    """TDT without a 0 duration (no chain) takes warps a lattice by the same
+    rule as a lattice with a chain: four at B = 16, U = 301, and forced four
+    runs; U = 601 at B = 32 (one warp would need 19 cells) takes four."""
     arcs = TW.tdt_arcs((1, 2))
-    assert _plan(16, 301, 4, arcs).warps == 1
-    assert not _plan(16, 301, 4, arcs, warps=4).warp_mode  # forced: refused
+    assert _plan(16, 301, 4, arcs).warps == 4
+    assert _plan(16, 301, 4, arcs, warps=4)[:4] == (False, 4, 3, 1)
+    assert _plan(32, 601, 4, TW.tdt_arcs((1, 2, 4)), T=1000)[:4] == (False, 4, 5, 1)
 
 
 def test_switch_where_the_rings_do_not_fit():
     """TDT with eight durations up to 8 frames at U = 301 keeps 16 arcs × 9
-    rows of departures: more than a block holds with one warp, so the block
-    kernel; with four warps it fits."""
+    rows of departures: more than a block holds at every G, so two passes of
+    one warp and five cells; at U = 41 one pass fits."""
     arcs = TW.tdt_arcs((1, 2, 3, 4, 5, 6, 7, 8))
-    assert not _plan(100, 301, 4, arcs, n_extra=8).warp_mode
+    p = _plan(100, 301, 4, arcs, n_extra=8)
+    assert p[:4] == (True, 1, 5, 2)
+    _covers(p, 301, 4)
     n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
-    assert KW.lattice_words(1, KW.cells(301), 8, n_arcs, 8, 2) * 4 > KW.SMEM_BYTES
-    assert _plan(100, 41, 4, arcs, n_extra=8).warp_mode
+    for g in (1, 2, 4, 8, 16):
+        assert KW.lattice_words(g, KW.cells(-(-301 // g)), 8, n_arcs, 8, 2, True) * 4 > \
+            KW.SMEM_BYTES
+    assert _plan(100, 41, 4, arcs, n_extra=8)[:4] == (False, 1, 3, 1)
 
 
 def test_switch_beyond_32_bit_offsets():
+    """Past 32-bit offsets inside a lattice the wide instance (64-bit
+    offsets) takes the same warps and cells in one pass."""
     U, Cx = 301, 4
     T_max = KW.INT_MAX // (U * Cx) - KW.AHEAD
-    assert _plan(4, U, 4, T=T_max).warp_mode
-    assert not _plan(4, U, 4, T=T_max + 1).warp_mode
+    narrow, wide = _plan(4, U, 4, T=T_max), _plan(4, U, 4, T=T_max + 1)
+    assert not narrow.wide and wide.wide and wide.passes == 1
+    assert (narrow.warps, narrow.cells) == (wide.warps, wide.cells)
 
 
 @pytest.mark.parametrize("G,C,elt", [(1, 1, 4), (1, 3, 4), (4, 3, 4), (1, 11, 4), (1, 9, 8)])
 def test_shared_memory_of_a_lattice(G, C, elt):
     """The copy ring, alpha's departure rings and staged rows or beta's ring
     and slack, the exchange, in values; a lattice of the duration-arc losses'
-    main shapes fits a block."""
+    main shapes fits a block. The wide instance keeps the passes' values in
+    each copied row, one more column a ring row, and 16 warps' exchange."""
     up = G * WARP * C
     for n_arcs, W, Cx in ((3, 4, 2), (6, 4, 4)):  # multi-blank (2, 4), TDT (0, 1, 2, 4)
         copy = KW.COPY_ROWS * ((2 + Cx) * up + KW.ROW_PAD)
-        alpha = copy + n_arcs * (W + 1) * up + 2 * up + KW.XCH_WORDS
-        beta = copy + (W + 1) * up + KW.SLACK + KW.XCH_WORDS
+        alpha = copy + n_arcs * (W + 1) * up + 2 * up + KW.xch_words(False)
+        beta = copy + (W + 1) * up + KW.SLACK + KW.xch_words(False)
         assert KW.lattice_words(G, C, W, n_arcs, Cx, 2) == max(alpha, beta)
         assert KW.lattice_words(G, C, W, n_arcs, Cx, 1) == alpha
         assert max(alpha, beta) * elt <= KW.SMEM_BYTES
+        copy = KW.COPY_ROWS * ((2 + Cx) * up + KW.ROW_PAD + 2 + n_arcs)
+        alpha = copy + n_arcs * (W + 1) * (up + 1) + 2 * up + 128
+        beta = copy + (W + 1) * (up + 1) + KW.SLACK + 128
+        assert KW.lattice_words(G, C, W, n_arcs, Cx, 2, True) == max(alpha, beta)
 
 
 @pytest.mark.parametrize("B,U,betas,per_block", [
@@ -692,11 +851,55 @@ def test_shared_memory_of_a_lattice(G, C, elt):
 def test_lattices_a_block(B, U, betas, per_block):
     p = _plan(B, U, 4, betas=betas, T=150)
     lattices = B * (2 if betas else 1)
-    assert p.warp_mode and p.per_block == per_block
+    assert not p.wide and p.per_block == per_block
     assert p.threads == WARP * p.warps * per_block <= KW.MAX_WARPS * WARP
     assert p.blocks == -(-lattices // per_block)
     assert (p.blocks - 1) * p.per_block < lattices <= p.blocks * p.per_block
     assert p.smem == p.lattice_words * 4 * per_block <= KW.SMEM_BYTES
+
+
+# The shapes that took the earlier block kernel, on the plan: (name, B, T, U,
+# element bytes, arcs, the plan's (wide, warps, cells, passes)).
+FORMER_BLOCK_SHAPES = [
+    ("mb_B128_U601", 128, 1000, 601, 4, TW.multiblank_arcs((2, 4)), (False, 4, 5, 1)),
+    ("tdt_B128_U601", 128, 1000, 601, 4, TW.tdt_arcs((0, 1, 2, 4)), (False, 4, 5, 1)),
+    ("tdt124_B32_U601", 32, 1000, 601, 4, TW.tdt_arcs((1, 2, 4)), (False, 4, 5, 1)),
+    ("mb_f64_B4_U601", 4, 300, 601, 8, TW.multiblank_arcs((2, 4)), (False, 4, 5, 1)),
+    ("tdt_f64_B4_U601", 4, 300, 601, 8, TW.tdt_arcs((0, 1, 2, 4)), (True, 4, 3, 2)),
+    ("mb_U2000", 128, 1000, 2000, 4, TW.multiblank_arcs((2, 4)), (True, 2, 17, 2)),
+    ("mb248_U1100", 16, 1000, 1100, 4, TW.multiblank_arcs((2, 4, 8)), (True, 4, 5, 2)),
+    ("mb_w8_U30000", 1, 8, 30000, 4, TW.multiblank_arcs((8,)), (True, 8, 7, 17)),
+    ("mb_w8_U30000_f64", 1, 8, 30000, 8, TW.multiblank_arcs((8,)), (True, 4, 7, 34)),
+]
+
+
+@pytest.mark.parametrize("case", FORMER_BLOCK_SHAPES, ids=[c[0] for c in FORMER_BLOCK_SHAPES])
+def test_plans_at_the_former_block_shapes(case):
+    _, B, T, U, elt, arcs, want = case
+    p = _plan(B, U, elt, arcs, T=T)
+    assert tuple(p[:4]) == want, p
+    _covers(p, U, elt)
+    if p.passes > 1:
+        assert p.hand == B * 2 * 2 * T * (2 + len(arcs.blank_arcs) + len(arcs.emit_arcs))
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("U", [33, 301, 601, 5000])
+def test_forced_warps_run(U, warps):
+    """Every forced G up to 16 gives a plan that runs: the narrow instance
+    up to 4 warps where it fits, else the wide one, in passes where needed."""
+    p = _plan(3, U, 4, T=50, warps=warps)
+    assert p.warps == warps
+    _covers(p, U, 4)
+    assert p.wide == (warps > 4 or p.passes > 1)
+
+
+def test_no_plan_for_a_window_past_one_warp():
+    """A window so long that one warp's rings do not fit a block has no
+    plan; the wrapper raises."""
+    arcs = TW.multiblank_arcs((900,))
+    assert _plan(2, 40, 4, arcs, T=50, n_extra=1) is None
+    assert _plan(2, 40, 4, TW.multiblank_arcs((200,)), T=50, n_extra=1) is not None
 
 
 def test_cells_are_odd_and_cover_the_columns():

@@ -60,23 +60,39 @@
 // What bounds it now is the chain's latency: three shuffles and three
 // log-sum-exps of two SFU round trips each, in series, at S = 5
 // (scripts/sass_count.sh band_stream: the row steps' instructions).
-// The plan (tile rows, ring slots, copy distance, the switch to the chunk
-// kernel) is `plan` below, mirrored by ops/cuda/band.py::plan;
-// wtt_band_plan lets a card test hold the two equal, and
-// tests/test_torch_band_plan.py replays the row walk's schedule in numpy.
 //
 // Numerics: the SFU's log-sum-exp differs from the plain version's
 // log1p(exp()) by about 1e-7 absolute a step, below the rounding of |α| >=
 // 1, so the two agree to f32 rounding, not bit for bit.
 //
-// The chunk kernel (band_chunk_kernel, S > 32): one warp per lattice and
-// direction walks each row in 32-lane chunks and carries the prefix (sum
-// and log-sum-exp) from one chunk to the next; beta first writes the row's
-// exclusive prefix to shared memory in ascending chunks, then runs the
-// suffix scan in descending chunks. Its scans are the plain version's
-// Hillis–Steele order and precise log-sum-exp (wtt::lse); the neighbour row
-// stays in shared memory (three rows of S floats), and a row's inputs are
-// loaded one row ahead. The full band (S = U) takes it.
+// The cells walk (band_cells_kernel: S > 32, or a band past the row walk's
+// 32-bit offsets): a block per lattice (utterance and direction), G warps,
+// lane l of warp g holding the C consecutive cells from g·32·C + l·C, C odd
+// (a template parameter, up to kMaxCells) so that rows read from shared
+// memory at a lane stride of C words meet no bank twice. One warp while
+// C <= kMaxCells (S <= 544), else G doubled up to kMaxCellWarps; past
+// 8·32·17 cells a row goes in chunks of 32·G·C, left to right (alpha) or
+// right to left (beta). A step (a row, or a chunk of one):
+// * the chain's prefix c within the warp: local sums of the lane's clamped
+//   lpe and a 5-step shuffle scan of the lane totals (every warp in its own
+//   frame, c = 0 at its first cell);
+// * the no-emit terms from the last row, kept in shared memory (two rows of
+//   S, device memory past what a block holds), at s + δ (alpha) or s - δ
+//   (beta), which may lie in any lane or warp;
+// * the log-sum-exp as (max, sum) pairs: a local scan of the lane's C
+//   cells, the warp scan of the lane totals, the exclusive carry; with G > 1
+//   the warps trade their (pair, chain total) behind one barrier a step,
+//   and a pair moves from a warp's frame into the next one's by the chain
+//   total between them (the same for the carry between chunks), so that no
+//   warp waits on another's prefix; then the fix-up of each cell;
+// * one barrier (one warp: __syncwarp) a row, after its values went to the
+//   row buffer.
+// A step's inputs (lpb, lpe, ranges) are loaded two steps ahead into
+// registers; exp and log take the SFU (ex2/lg2.approx) as the row walk's do.
+// The plan (the switch, tile rows, warps, cells, chunks, offsets, where the
+// rows lie) is `plan` below, mirrored by ops/cuda/band.py::plan;
+// wtt_band_plan lets a card test hold the two equal, and
+// tests/test_torch_band_plan.py replays both walks' schedules in numpy.
 #include <cstdint>
 
 #include "common.cuh"
@@ -112,17 +128,40 @@ __host__ __device__ constexpr int slot_words(int S) {
 }
 __host__ __device__ constexpr int lattice_words(int S) { return kSlots * slot_words(S); }
 
+// The cells walk: at most kMaxCellWarps warps a lattice and kMaxCells
+// (odd) cells a lane; the exchange of a lattice's warps: two slots (parity)
+// of kMaxCellWarps warps' (total m, total s, chain total, unused).
+constexpr int kMaxCellWarps = 8;
+constexpr int kMaxCells = 17;
+constexpr int kCellXch = 2 * kMaxCellWarps * 4;
+constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
+
 struct Plan {
-  int row_mode;   // 1: the row walk; 0: the chunk kernel
-  int tile_rows;  // rows a tile (row mode)
-  int slots;      // ring slots, tiles (row mode)
-  int ahead;      // copy distance, tiles (row mode)
-  int per_block;  // lattices (warps) a block
+  int row_mode;     // 1: the row walk; 0: the cells walk
+  int tile_rows;    // rows a tile (row mode)
+  int slots;        // ring slots, tiles (row mode)
+  int ahead;        // copy distance, tiles (row mode)
+  int per_block;    // lattices a block
   int blocks;
   int threads;
-  int smem;       // dynamic shared memory a block, bytes
+  int smem;         // dynamic shared memory a block, bytes
+  int warps;        // G, warps a lattice (cells walk)
+  int cells;        // C, cells a lane (cells walk)
+  int chunks;       // chunks of 32·G·C cells a row (cells walk)
+  int offsets64;    // 64-bit offsets inside a lattice (cells walk)
+  int rows_device;  // the two rows of a lattice in device memory, 2·S values (cells walk)
 };
 
+// C for n cells a warp: the least odd number with 32·C >= n.
+int cells_for(int n) {
+  const int c = (n + wtt::kWarp - 1) / wtt::kWarp;
+  return c + 1 - c % 2;
+}
+
+// The row walk where S <= 32 and its 32-bit offsets reach; else the cells
+// walk: one warp while C <= kMaxCells, else G doubled up to kMaxCellWarps,
+// past which a row goes in chunks of 32·G·kMaxCells cells; its two rows in
+// shared memory where they fit, else in device memory.
 Plan plan(int B, int T, int S) {
   Plan p{};
   if (S <= kMaxRowS && (long long)(T + 2 * kTileRows) * S <= kMaxOffset) {
@@ -134,12 +173,24 @@ Plan plan(int B, int T, int S) {
     p.blocks = B;
     p.threads = kRowLattices * wtt::kWarp;
     p.smem = kRowLattices * lattice_words(S) * (int)sizeof(float);
-  } else {
-    p.per_block = 1;
-    p.blocks = 2 * B;
-    p.threads = wtt::kWarp;
-    p.smem = 3 * S * (int)sizeof(float);
+    return p;
   }
+  int G = 1, C = cells_for(S);
+  while (C > kMaxCells && G < kMaxCellWarps) {
+    G *= 2;
+    C = cells_for((S + G - 1) / G);
+  }
+  C = C < kMaxCells ? C : kMaxCells;
+  const long long rows = 2LL * S + kCellXch;
+  p.per_block = 1;
+  p.blocks = 2 * B;
+  p.threads = G * wtt::kWarp;
+  p.warps = G;
+  p.cells = C;
+  p.chunks = (S + G * wtt::kWarp * C - 1) / (G * wtt::kWarp * C);
+  p.offsets64 = (long long)(T + 2) * S > kMaxOffset;
+  p.rows_device = rows * (long long)sizeof(float) > kSmemMax;
+  p.smem = (int)((p.rows_device ? kCellXch : rows) * sizeof(float));
   return p;
 }
 
@@ -515,179 +566,343 @@ __global__ void __launch_bounds__(kRowLattices * wtt::kWarp, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The chunk kernel, for S > 32: grid (B, 2), blockIdx.y choosing alpha or
-// beta, one warp each (the earlier design; the file's header says how it walks).
+// The cells walk: band_cells_kernel, a block per lattice (utterance and
+// direction), G warps, C cells a lane (the file's header says how it walks).
 
-// Inclusive prefix sum over lanes [0, width), Hillis–Steele.
-__device__ __forceinline__ float scan_sum(float x, int lane, int width) {
-  for (int sh = 1; sh < width; sh <<= 1) {
-    const float y = __shfl_up_sync(kFull, x, sh);
-    if (lane >= sh) x = x + y;
+__device__ __forceinline__ float fast_exp(float x) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * kLog2e));
+  return e;
+}
+__device__ __forceinline__ float fast_log(float x) {
+  float l;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(x));
+  return l * kLn2;
+}
+
+// m + log(s): a log-sum-exp in progress; (lowest, 0) is the empty sum and
+// joins with anything to give it back.
+struct Pair {
+  float m, s;
+};
+__device__ __forceinline__ Pair empty() { return {-FLT_MAX, 0.f}; }
+__device__ __forceinline__ float value(Pair p) { return p.m + fast_log(p.s); }
+// a ⊕ b, one exp.
+__device__ __forceinline__ Pair join(Pair a, Pair b) {
+  const float d = a.m - b.m;
+  const float e = fast_exp(-fabsf(d));
+  if (d >= 0.f) return {a.m, fmaf(b.s, e, a.s)};
+  return {b.m, fmaf(a.s, e, b.s)};
+}
+// A pair moved into a frame whose chain starts `by` later (m + by).
+__device__ __forceinline__ Pair shift(Pair p, float by) { return {p.m + by, p.s}; }
+__device__ __forceinline__ Pair pick(bool c, Pair a, Pair b) {
+  return {c ? a.m : b.m, c ? a.s : b.s};
+}
+__device__ __forceinline__ Pair shfl_up(Pair p, int d) {
+  return {__shfl_up_sync(kFull, p.m, d), __shfl_up_sync(kFull, p.s, d)};
+}
+__device__ __forceinline__ Pair shfl_down(Pair p, int d) {
+  return {__shfl_down_sync(kFull, p.m, d), __shfl_down_sync(kFull, p.s, d)};
+}
+__device__ __forceinline__ Pair shfl(Pair p, int lane) {
+  return {__shfl_sync(kFull, p.m, lane), __shfl_sync(kFull, p.s, lane)};
+}
+
+// One lattice of the cells walk: its inputs and outputs from the
+// utterance's first row, offsets inside it of type Off.
+template <typename Off>
+struct CellWalk {
+  const float* pb;  // lpb, lpe (T, S), ranges (T,)
+  const float* pe;
+  const int* pr;
+  float* out;   // its alphas or betas
+  float* rows;  // [2][S]: the last two rows (shared memory, or device memory past it)
+  float* xch;   // [2][kMaxCellWarps][4], shared
+  int T, S, Tb, Ub, Tw, G, g, lane, u0, CW, nch;
+};
+
+// The inputs of one step (row t, chunk k) at the lane's cells: lpb and lpe
+// (0 beyond the band) and ranges[t]; nothing is read for t outside [0, Tw).
+template <int C>
+struct Inputs {
+  float b[C], e[C];
+  int r;
+};
+template <int C, typename Off>
+__device__ __forceinline__ void load_inputs(const CellWalk<Off>& w, int t, int k, Inputs<C>& in) {
+  if (t < 0 || t >= w.Tw) return;
+  const int s0 = k * w.CW + w.u0;
+  const Off row = (Off)t * w.S;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const bool on = s0 + j < w.S;
+    in.b[j] = on ? w.pb[row + s0 + j] : 0.f;
+    in.e[j] = on ? w.pe[row + s0 + j] : 0.f;
   }
-  return x;
+  in.r = w.pr[t];
 }
 
-// Inclusive prefix log-sum-exp over lanes [0, width), Hillis–Steele.
-__device__ __forceinline__ float scan_lse(float x, int lane, int width) {
-  for (int sh = 1; sh < width; sh <<= 1) {
-    const float y = __shfl_up_sync(kFull, x, sh);
-    if (lane >= sh) x = wtt::lse(x, y);
+// The lattice's warps meet (a lattice of one warp: its __syncwarp); the
+// rows written before are visible after.
+template <typename Off>
+__device__ __forceinline__ void lattice_sync(const CellWalk<Off>& w) {
+  if (w.G > 1)
+    __syncthreads();
+  else
+    __syncwarp();
+}
+
+// The chain's exclusive prefix c within the warp (the warp's frame: c = 0
+// at its first cell): local sums of the clamped lpe (0 beyond the band),
+// then the lane totals' exclusive Hillis–Steele warp scan (the inclusive
+// scan shifted by one lane). Returns the warp's chain total on every lane.
+template <int C>
+__device__ __forceinline__ float warp_chain(const float (&e)[C], int s0, int S, int lane,
+                                            float (&c)[C]) {
+  float run = 0.f;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    c[j] = run;
+    run += s0 + j < S ? clamp_chain(e[j]) : 0.f;
   }
-  return x;
-}
-
-// Inclusive suffix log-sum-exp over lanes [0, width), Hillis–Steele.
-__device__ __forceinline__ float scan_lse_rev(float x, int lane, int width) {
-  for (int sh = 1; sh < width; sh <<= 1) {
-    const float y = __shfl_down_sync(kFull, x, sh);
-    if (lane + sh < width) x = wtt::lse(x, y);
+  float incl = run;
+#pragma unroll
+  for (int sh = 1; sh < wtt::kWarp; sh <<= 1) {
+    const float o = __shfl_up_sync(kFull, incl, sh);
+    incl += lane >= sh ? o : 0.f;
   }
-  return x;
+  const float ex = __shfl_up_sync(kFull, incl, 1);
+#pragma unroll
+  for (int j = 0; j < C; ++j) c[j] += lane == 0 ? 0.f : ex;
+  return __shfl_sync(kFull, incl, wtt::kWarp - 1);
 }
 
-// Exclusive prefix sum of chunk k's values (lanes [0, width)): the
-// inclusive scan shifted by one lane, never the inclusive sum minus the
-// element. `carry` holds the sum of the earlier chunks and is advanced.
-__device__ __forceinline__ float excl_prefix(float x, int lane, int width, int k,
-                                                   float& carry) {
-  float incl = scan_sum(x, lane, width);
-  if (k > 0) incl = carry + incl;
-  float c = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) c = carry;
-  carry = __shfl_sync(kFull, incl, wtt::kWarp - 1);
-  return c;
-}
-
-__global__ void band_chunk_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
-                                  const int* __restrict__ ranges, const int* __restrict__ input_lengths,
-                                  const int* __restrict__ label_lengths, float* __restrict__ alphas,
-                                  float* __restrict__ betas, float* __restrict__ ll_forward,
-                                  float* __restrict__ ll_backward, int T, int S) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x;
-  const int b = blockIdx.x;
-  const int Tb = input_lengths[b];
-  const int Ub = label_lengths[b] + 1;
-  const long long base = (long long)b * T * S;
-  const float* pb = lpb + base;
-  const float* pe = lpe + base;
-  const int* r = ranges + (long long)b * T;
+// Alpha over rows 0 .. Tw-1, each row in chunks of CW cells, left to right.
+template <int C, typename Off>
+__device__ void cells_alpha(const CellWalk<Off>& w, float* __restrict__ llf) {
   const float neg = float(wtt::kNeg);
-  const int nchunks = (S + wtt::kWarp - 1) / wtt::kWarp;
-  const int last = nchunks - 1;
-  float* nbr = smem;        // the neighbour row: α + lpb of row t-1, or β of row t+1
-  float* cur = smem + S;    // the row being written
-  float* pre = smem + 2 * S;  // beta: the row's exclusive prefix
-  for (int s = lane; s < S; s += wtt::kWarp) nbr[s] = neg;
-  __syncwarp();
-
-  // Lane's element of chunk k of row t (0 beyond the row).
-  auto load = [&](const float* p, int t, int k) -> float {
-    const int s = k * wtt::kWarp + lane;
-    return s < S ? p[(long long)t * S + s] : 0.f;
-  };
-
-  if (blockIdx.y == 0) {
-    // ---- alpha, rows ascending ----
-    float llf = neg;
-    int r_prev = r[0];
-    int pf_r = r[0];
-    float pf_b = load(pb, 0, 0), pf_e = load(pe, 0, 0);
-    for (int t = 0; t < T; ++t) {
-      const int rt = pf_r;
-      const int da = t > 0 ? rt - r_prev : 0;
-      r_prev = rt;
-      const float b0 = pf_b, e0 = pf_e;
-      if (t + 1 < T) {  // next row's inputs, independent of this row's chain
-        pf_r = r[t + 1];
-        pf_b = load(pb, t + 1, 0);
-        pf_e = load(pe, t + 1, 0);
-      }
-      float carry_c = 0.f, carry_z = neg;
-      for (int k = 0; k < nchunks; ++k) {
-        const int s = k * wtt::kWarp + lane;
-        const int width = min(wtt::kWarp, S - k * wtt::kWarp);
-        const bool in = s < S;
-        const float lpb_v = in ? wtt::clamp_neg(k == 0 ? b0 : load(pb, t, k)) : neg;
-        const float lpe_c = in ? clamp_chain(k == 0 ? e0 : load(pe, t, k)) : 0.f;
-        const float c = excl_prefix(lpe_c, lane, width, k, carry_c);
-        const int src = s + da;
-        float ne = (in && src >= 0 && src < S) ? nbr[src] : neg;
-        if (t == 0 && s == 0) ne = 0.f;
-        float z = scan_lse(ne - c, lane, width);
-        if (k > 0) z = wtt::lse(z, carry_z);
-        carry_z = __shfl_sync(kFull, z, wtt::kWarp - 1);
-        const bool valid = in && t < Tb && rt + s < Ub;
-        const float a = valid ? c + z : neg;
-        if (in) {
-          alphas[base + (long long)t * S + s] = a;
-          cur[s] = a + lpb_v;
-        }
-        if (t == Tb - 1) {  // the terminal row: read ll at s*, if it is in the band
-          const unsigned hit = __ballot_sync(kFull, valid && rt + s == Ub - 1);
-          if (hit) llf = __shfl_sync(kFull, a + lpb_v, __ffs(hit) - 1);
-        }
-      }
-      __syncwarp();
-      float* tmp = nbr;
-      nbr = cur;
-      cur = tmp;
+  const int S = w.S, lane = w.lane, n = w.Tw * w.nch;
+  Inputs<C> in0, in1;
+  load_inputs<C>(w, 0, 0, in0);
+  load_inputs<C>(w, 1 / w.nch, 1 % w.nch, in1);
+  Pair chunk = empty();  // the row's earlier chunks, in this chunk's frame
+  int r_row = 0, delta = 0;
+  float ll_val = neg;
+  bool owner = false;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const int t = i / w.nch, k = i - t * w.nch;
+    const Inputs<C> in = in0;
+    in0 = in1;
+    load_inputs<C>(w, (i + 2) / w.nch, (i + 2) % w.nch, in1);  // two steps ahead
+    if (k == 0) {
+      if (t > 0) lattice_sync(w);  // row t - 1 is in w.rows
+      delta = t > 0 ? in.r - r_row : 0;
+      r_row = in.r;
+      chunk = empty();
     }
-    if (lane == 0) ll_forward[b] = llf;
-  } else {
-    // ---- beta, rows descending ----
-    float llb = neg;
-    int r_next = 0;
-    int pf_r = r[T - 1];
-    float pf_e = load(pe, T - 1, 0), pf_b = load(pb, T - 1, last);
-    for (int t = T - 1; t >= 0; --t) {
-      const int rt = pf_r;
-      const int db = t + 1 < T ? r_next - rt : 0;
-      r_next = rt;
-      const float e0 = pf_e, bl = pf_b;
-      if (t > 0) {  // next row's inputs, independent of this row's chain
-        pf_r = r[t - 1];
-        pf_e = load(pe, t - 1, 0);
-        pf_b = load(pb, t - 1, last);
-      }
-      float carry_c = 0.f;
-      for (int k = 0; k < nchunks; ++k) {  // exclusive prefix, ascending chunks
-        const int s = k * wtt::kWarp + lane;
-        const int width = min(wtt::kWarp, S - k * wtt::kWarp);
-        const bool in = s < S;
-        const float lpe_c = in ? clamp_chain(k == 0 ? e0 : load(pe, t, k)) : 0.f;
-        const float c = excl_prefix(lpe_c, lane, width, k, carry_c);
-        if (in) pre[s] = c;
-      }
-      __syncwarp();
-      float carry_p = neg;
-      for (int k = last; k >= 0; --k) {  // suffix log-sum-exp, descending chunks
-        const int s = k * wtt::kWarp + lane;
-        const int width = min(wtt::kWarp, S - k * wtt::kWarp);
-        const bool in = s < S;
-        const float lpb_v = in ? wtt::clamp_neg(k == last ? bl : load(pb, t, k)) : neg;
-        const float c = in ? pre[s] : 0.f;
-        const int src = s - db;
-        float ne = ((in && src >= 0 && src < S) ? nbr[src] : neg) + lpb_v;
-        if (t == Tb - 1 && rt + s == Ub - 1) ne = lpb_v;  // the terminal cell seeds beta
-        float p = scan_lse_rev(ne + c, lane, width);
-        if (k < last) p = wtt::lse(p, carry_p);
-        carry_p = __shfl_sync(kFull, p, 0);
-        const bool valid = in && t < Tb && rt + s < Ub;
-        const float bv = valid ? p - c : neg;
-        if (in) {
-          betas[base + (long long)t * S + s] = bv;
-          cur[s] = bv;
-        }
-        if (t == 0 && k == 0) llb = __shfl_sync(kFull, bv, 0);
-      }
-      __syncwarp();
-      float* tmp = nbr;
-      nbr = cur;
-      cur = tmp;
+    const float* prev = w.rows + ((t + 1) & 1) * S;
+    float* next = w.rows + (t & 1) * S;
+    const int s0 = k * w.CW + w.u0;
+    float c[C];
+    const float ctot = warp_chain<C>(in.e, s0, S, lane, c);
+    // The terms ne - c: the no-emit arrival from row t - 1 at s + δ (NEG
+    // outside the band; row 0 starts at s = 0), and their local inclusive
+    // scan.
+    Pair p[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int s = s0 + j, src = s + delta;
+      const float ne = t == 0 ? (s == 0 ? 0.f : neg) : (src < S ? prev[src] : neg);
+      p[j] = {ne - c[j], 1.f};
+      if (j > 0) p[j] = join(p[j - 1], p[j]);
     }
-    if (lane == 0) ll_backward[b] = llb;
+    // The lane totals' inclusive warp scan, the exclusive carry.
+    Pair tot = p[C - 1];
+#pragma unroll
+    for (int sh = 1; sh < wtt::kWarp; sh <<= 1) tot = pick(lane >= sh, join(shfl_up(tot, sh), tot), tot);
+    Pair carry = pick(lane == 0, empty(), shfl_up(tot, 1));
+    const Pair wtot = shfl(tot, wtt::kWarp - 1);
+    // The earlier chunks and warps, moved into this warp's frame (warp h's
+    // total reaches the next warp's frame shifted by h's chain total); the
+    // next chunk's carry.
+    Pair before = chunk;
+    if (w.G > 1) {
+      const int par = i & 1;
+      if (lane == wtt::kWarp - 1) {
+        float* x = w.xch + (par * kMaxCellWarps + w.g) * 4;
+        x[0] = wtot.m;
+        x[1] = wtot.s;
+        x[2] = ctot;
+      }
+      __syncthreads();
+      Pair acc = chunk;
+      for (int h = 0; h < w.G; ++h) {
+        const float* x = w.xch + (par * kMaxCellWarps + h) * 4;
+        if (h == w.g) before = acc;
+        acc = shift(join(acc, Pair{x[0], x[1]}), x[2]);
+      }
+      chunk = acc;
+    } else {
+      chunk = shift(join(chunk, wtot), ctot);
+    }
+    carry = join(before, carry);
+    // α = c + LSE; band cells outside the lattice hold NEG; the row goes
+    // out and, with its lpb, into w.rows for the next row.
+    const Off row = (Off)t * S;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int s = s0 + j;
+      const float a = c[j] + value(join(carry, p[j]));
+      const float av = in.r + s < w.Ub ? a : neg;
+      const float bc = wtt::clamp_neg(in.b[j]);
+      if (s < S) {
+        w.out[row + s] = av;
+        next[s] = av + bc;
+      }
+      if (s < S && t == w.Tb - 1 && in.r + s == w.Ub - 1) {
+        ll_val = av + bc;
+        owner = true;
+      }
+    }
   }
+  // ll_forward: α + lpb at s* of row T_b - 1, NEG for an infeasible band.
+  const int s_star = w.Ub - 1 - r_row;
+  const bool feasible = w.Tw > 0 && w.Tb == w.Tw && s_star >= 0 && s_star < S;
+  if (feasible ? owner : (w.g == 0 && lane == 0)) *llf = feasible ? ll_val : neg;
+}
+
+// Beta over rows Tw-1 .. 0, each row in chunks of CW cells, right to left;
+// seeded by lpb at the terminal cell; ll_backward = β(0, 0).
+template <int C, typename Off>
+__device__ void cells_beta(const CellWalk<Off>& w, float* __restrict__ llb) {
+  const float neg = float(wtt::kNeg);
+  const int S = w.S, lane = w.lane, n = w.Tw * w.nch, nch = w.nch;
+  // Step i: row Tw - 1 - i / nch, chunk nch - 1 - i % nch.
+  Inputs<C> in0, in1;
+  load_inputs<C>(w, w.Tw - 1, nch - 1, in0);
+  load_inputs<C>(w, w.Tw - 1 - 1 / nch, nch - 1 - 1 % nch, in1);
+  Pair chunk = empty();  // the row's later chunks, in the next chunk's frame
+  int r_row = 0, delta = 0;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const int t = w.Tw - 1 - i / nch, k = nch - 1 - i % nch;
+    const Inputs<C> in = in0;
+    in0 = in1;
+    load_inputs<C>(w, w.Tw - 1 - (i + 2) / nch, nch - 1 - (i + 2) % nch, in1);
+    const bool has_next = t + 1 < w.Tw;
+    if (k == nch - 1) {
+      if (i > 0) lattice_sync(w);  // row t + 1 is in w.rows
+      delta = has_next ? r_row - in.r : 0;  // δ(t + 1)
+      r_row = in.r;
+      chunk = empty();
+    }
+    const float* prev = w.rows + ((t + 1) & 1) * S;
+    float* next = w.rows + (t & 1) * S;
+    const int s0 = k * w.CW + w.u0;
+    float c[C];
+    const float ctot = warp_chain<C>(in.e, s0, S, lane, c);
+    // The terms nb + c: β of row t + 1 at s - δ(t + 1) (NEG outside the
+    // band and below the walk) plus lpb, the bare lpb at the terminal cell;
+    // nothing beyond the band; their local inclusive suffix scan.
+    Pair p[C];
+#pragma unroll
+    for (int j = C - 1; j >= 0; --j) {
+      const int s = s0 + j, src = s - delta;
+      const float bc = wtt::clamp_neg(in.b[j]);
+      float nb = (has_next && src >= 0 && src < S ? prev[src] : neg) + bc;
+      nb = t == w.Tb - 1 && in.r + s == w.Ub - 1 ? bc : nb;
+      p[j] = s < S ? Pair{nb + c[j], 1.f} : empty();
+      if (j < C - 1) p[j] = join(p[j + 1], p[j]);
+    }
+    Pair tot = p[0];
+#pragma unroll
+    for (int sh = 1; sh < wtt::kWarp; sh <<= 1)
+      tot = pick(lane + sh < wtt::kWarp, join(shfl_down(tot, sh), tot), tot);
+    Pair carry = pick(lane == wtt::kWarp - 1, empty(), shfl_down(tot, 1));
+    const Pair wtot = shfl(tot, 0);
+    // The later warps and chunks, moved into this warp's frame (a pair
+    // moves into the frame of the warp before by that warp's chain total);
+    // the carry of the chunk before, in this chunk's frame.
+    Pair after = shift(chunk, ctot);
+    if (w.G > 1) {
+      const int par = i & 1;
+      if (lane == 0) {
+        float* x = w.xch + (par * kMaxCellWarps + w.g) * 4;
+        x[0] = wtot.m;
+        x[1] = wtot.s;
+        x[2] = ctot;
+      }
+      __syncthreads();
+      Pair acc = chunk;
+      for (int h = w.G - 1; h >= 0; --h) {
+        const float* x = w.xch + (par * kMaxCellWarps + h) * 4;
+        acc = shift(acc, x[2]);
+        if (h == w.g) after = acc;
+        acc = join(acc, Pair{x[0], x[1]});
+      }
+      chunk = acc;
+    } else {
+      chunk = join(after, wtot);
+    }
+    carry = join(after, carry);
+    const Off row = (Off)t * S;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int s = s0 + j;
+      const float bv = value(join(carry, p[j])) - c[j];
+      const float out = in.r + s < w.Ub ? bv : neg;
+      if (s < S) {
+        w.out[row + s] = out;
+        next[s] = out;
+      }
+      if (t == 0 && s == 0) *llb = out;
+    }
+  }
+  if (w.Tw == 0 && w.g == 0 && lane == 0) *llb = neg;
+}
+
+// Grid: a block per lattice, 2·B: utterance i / 2, alpha (even) or beta;
+// G warps a block. `rows`: device memory for the lattices' two rows where
+// they do not fit the block's shared memory (2·S values a lattice), else
+// null.
+template <int C, typename Off>
+__global__ void __launch_bounds__(kMaxCellWarps * wtt::kWarp, 1)
+    band_cells_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
+                      const int* __restrict__ ranges, const int* __restrict__ input_lengths,
+                      const int* __restrict__ label_lengths, float* __restrict__ alphas,
+                      float* __restrict__ betas, float* __restrict__ ll_forward,
+                      float* __restrict__ ll_backward, int T, int S, int G, float* rows) {
+  extern __shared__ __align__(16) float smem[];
+  const int lattice = blockIdx.x, b = lattice / 2;
+  const bool is_beta = lattice % 2 == 1;
+  const long long base = (long long)b * T * S;
+  CellWalk<Off> w;
+  w.pb = lpb + base;
+  w.pe = lpe + base;
+  w.pr = ranges + (long long)b * T;
+  w.out = (is_beta ? betas : alphas) + base;
+  w.xch = smem;
+  w.rows = rows != nullptr ? rows + (long long)lattice * 2 * S : smem + kCellXch;
+  w.T = T;
+  w.S = S;
+  w.Tb = input_lengths[b];
+  w.Ub = label_lengths[b] + 1;
+  w.Tw = min(max(w.Tb, 0), T);
+  w.G = G;
+  w.g = threadIdx.x / wtt::kWarp;
+  w.lane = threadIdx.x % wtt::kWarp;
+  w.u0 = w.g * wtt::kWarp * C + w.lane * C;
+  w.CW = G * wtt::kWarp * C;
+  w.nch = (S + w.CW - 1) / w.CW;
+  if (is_beta)
+    cells_beta<C, Off>(w, ll_backward + b);
+  else
+    cells_alpha<C, Off>(w, ll_forward + b);
+  // The rows beyond T_b, coalesced.
+  const float neg = float(wtt::kNeg);
+  for (Off x = (Off)w.Tw * S + threadIdx.x; x < (Off)T * S; x += blockDim.x) w.out[x] = neg;
 }
 
 // ---------------------------------------------------------------------------
@@ -695,6 +910,8 @@ __global__ void band_chunk_kernel(const float* __restrict__ lpb, const float* __
 
 using RowKernel = void (*)(const float*, const float*, const int*, const int*, const int*,
                           float*, float*, float*, float*, int, int);
+using CellsKernel = void (*)(const float*, const float*, const int*, const int*, const int*,
+                             float*, float*, float*, float*, int, int, int, float*);
 
 // The row walk's instance for a band of S <= kMaxRowS: ceil(log2 S) scan steps.
 RowKernel row_kernel(int S) {
@@ -710,17 +927,30 @@ RowKernel row_kernel(int S) {
   }
 }
 
+// The cells walk's instance of C cells a lane: C = C0, C0 + 2, ... up to
+// kMaxCells.
+template <int C, typename Off>
+CellsKernel cells_kernel_of(int cells) {
+  if (cells == C) return band_cells_kernel<C, Off>;
+  if constexpr (C + 2 <= kMaxCells) return cells_kernel_of<C + 2, Off>(cells);
+  return nullptr;
+}
+CellsKernel cells_kernel(const Plan& p) {
+  return p.offsets64 ? cells_kernel_of<1, long long>(p.cells) : cells_kernel_of<1, int>(p.cells);
+}
+
 }  // namespace
 
 extern "C" {
 
 // lpb, lpe: (B,T,S) f32; ranges: (B,T) int32; lengths: (B,) int32;
-// alphas, betas: (B,T,S) f32; ll_forward, ll_backward: (B,) f32. T, S >= 1.
-// Returns the launch's cudaError_t.
+// alphas, betas: (B,T,S) f32; ll_forward, ll_backward: (B,) f32; rows:
+// 4·B·S f32 where the plan keeps the rows in device memory, else unused
+// (may be null). T, S >= 1. Returns the launch's cudaError_t.
 int wtt_band_stream(const void* lpb, const void* lpe, const int* ranges,
                     const int* input_lengths, const int* label_lengths, void* alphas,
                     void* betas, void* ll_forward, void* ll_backward, int B, int T, int S,
-                    void* stream) {
+                    void* rows, void* stream) {
   if (B == 0) return 0;
   if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
   const Plan p = plan(B, T, S);
@@ -731,45 +961,46 @@ int wtt_band_stream(const void* lpb, const void* lpe, const int* ranges,
   float* be = static_cast<float*>(betas);
   float* lf = static_cast<float*>(ll_forward);
   float* lb = static_cast<float*>(ll_backward);
-  if (p.row_mode) {
-    const RowKernel k = row_kernel(S);
-    if (p.smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    k<<<p.blocks, p.threads, p.smem, st>>>(pb, pe, ranges, input_lengths, label_lengths, al, be,
-                                           lf, lb, T, S);
-    return (int)cudaGetLastError();
-  }
+  const void* k = p.row_mode ? reinterpret_cast<const void*>(row_kernel(S))
+                             : reinterpret_cast<const void*>(cells_kernel(p));
+  if (k == nullptr || (p.rows_device && rows == nullptr)) return (int)cudaErrorInvalidValue;
   if (p.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        band_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  band_chunk_kernel<<<dim3(B, 2), p.threads, p.smem, st>>>(
-      pb, pe, ranges, input_lengths, label_lengths, al, be, lf, lb, T, S);
+  if (p.row_mode) {
+    row_kernel(S)<<<p.blocks, p.threads, p.smem, st>>>(pb, pe, ranges, input_lengths,
+                                                       label_lengths, al, be, lf, lb, T, S);
+  } else {
+    cells_kernel(p)<<<p.blocks, p.threads, p.smem, st>>>(
+        pb, pe, ranges, input_lengths, label_lengths, al, be, lf, lb, T, S, p.warps,
+        p.rows_device ? static_cast<float*>(rows) : nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
 // The launch plan for B utterances of T frames and a band of S: out =
-// {row walk (1) or chunk kernel (0), tile rows, ring slots, copy distance
+// {row walk (1) or cells walk (0), tile rows, ring slots, copy distance
 // (tiles), lattices a block, blocks, threads a block, dynamic shared memory
-// a block}.
+// a block, warps a lattice, cells a lane, chunks a row, 64-bit offsets,
+// rows in device memory}.
 void wtt_band_plan(int B, int T, int S, int* out) {
   const Plan p = plan(B, T, S);
-  const int v[8] = {p.row_mode, p.tile_rows, p.slots, p.ahead,
-                    p.per_block, p.blocks, p.threads, p.smem};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const int v[13] = {p.row_mode, p.tile_rows, p.slots,  p.ahead,     p.per_block,
+                     p.blocks,   p.threads,   p.smem,   p.warps,     p.cells,
+                     p.chunks,   p.offsets64, p.rows_device};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
 }
 
-// Registers and local (spill) bytes a thread of the kernel that a band of
-// S runs, as ptxas compiled it.
-int wtt_band_attrs(int S, int* regs, int* local_bytes) {
+// Registers and local (spill) bytes a thread of the kernel instance that a
+// band of T rows and S cells runs, as ptxas compiled it.
+int wtt_band_attrs(int T, int S, int* regs, int* local_bytes) {
+  const Plan p = plan(1, T, S);
+  const void* k = p.row_mode ? reinterpret_cast<const void*>(row_kernel(S))
+                             : reinterpret_cast<const void*>(cells_kernel(p));
   cudaFuncAttributes a;
-  const cudaError_t err = S > kMaxRowS
-                              ? cudaFuncGetAttributes(&a, band_chunk_kernel)
-                              : cudaFuncGetAttributes(&a, row_kernel(S));
+  const cudaError_t err = cudaFuncGetAttributes(&a, k);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

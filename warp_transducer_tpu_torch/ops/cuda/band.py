@@ -7,16 +7,19 @@ plain versions are in ``ops/band.py``.
 
 The band lattice kernel plans its launch itself; ``plan`` mirrors that plan
 for the CPU tests (``tests/test_torch_band_plan.py``), and a card test holds
-it against the C entry ``wtt_band_plan``. Two kernels:
+it against the C entry ``wtt_band_plan``. Two walks:
 
-* the row walk (S <= MAX_ROW_S): a warp per utterance and direction, lane s
-  holding band cell s, alpha and beta of an utterance in one block; tiles of
-  TILE_ROWS rows of lpb, lpe and ranges copied AHEAD_TILES tiles ahead into
-  a ring of SLOTS tiles, results parked in the ring and written out a tile
-  at a time;
-* the chunk kernel (S > MAX_ROW_S): a warp per utterance and direction
-  walking each row in 32-lane chunks, three rows of S values in shared
-  memory.
+* the row walk (S <= MAX_ROW_S, 32-bit offsets): a warp per utterance and
+  direction, lane s holding band cell s, alpha and beta of an utterance in
+  one block; tiles of TILE_ROWS rows of lpb, lpe and ranges copied
+  AHEAD_TILES tiles ahead into a ring of SLOTS tiles, results parked in the
+  ring and written out a tile at a time;
+* the cells walk (every other band): a block per utterance and direction,
+  G warps, C (odd) consecutive cells a lane; one warp while C <= MAX_CELLS,
+  else G doubled up to MAX_CELL_WARPS, past which a row goes in chunks of
+  32·G·C cells; the last two rows in shared memory, or in device memory
+  (4·B·S values, which the wrapper allocates) past what a block holds. No S
+  is refused.
 """
 from __future__ import annotations
 
@@ -34,19 +37,28 @@ TILE_ROWS = 32
 AHEAD_TILES = 2  # tile k + AHEAD_TILES is copied as the walk enters tile k
 SLOTS = AHEAD_TILES + 1
 ROW_LATTICES = 2  # a block of the row walk: alpha and beta of one utterance
-# The row walk indexes a lattice with 32-bit offsets, up to (T + 2·TILE_ROWS)·S.
+# The row walk indexes a lattice with 32-bit offsets, up to (T + 2·TILE_ROWS)·S;
+# the cells walk takes 64-bit ones past (T + 2)·S.
 MAX_OFFSET = 2 ** 31 - 1
+MAX_CELL_WARPS = 8
+MAX_CELLS = 17
+CELL_XCH = 2 * MAX_CELL_WARPS * 4  # the exchange of a lattice's warps, values
 
 
 class Plan(NamedTuple):
-    row_mode: bool  # the row walk; else the chunk kernel
-    tile_rows: int  # rows a tile (0 in chunk mode)
-    slots: int  # ring slots, tiles (0 in chunk mode)
-    ahead: int  # copy distance, tiles (0 in chunk mode)
-    per_block: int  # lattices (warps) a block
+    row_mode: bool  # the row walk; else the cells walk
+    tile_rows: int  # rows a tile (0 in the cells walk)
+    slots: int  # ring slots, tiles (0 in the cells walk)
+    ahead: int  # copy distance, tiles (0 in the cells walk)
+    per_block: int  # lattices a block
     blocks: int
     threads: int  # a block
     smem: int  # dynamic shared memory a block, bytes
+    warps: int  # G, warps a lattice (0 in the row walk)
+    cells: int  # C, cells a lane (0 in the row walk)
+    chunks: int  # chunks of 32·G·C cells a row (0 in the row walk)
+    offsets64: bool  # 64-bit offsets inside a lattice (cells walk)
+    rows_device: bool  # the last two rows in device memory (cells walk)
 
 
 def arr_words(n: int) -> int:
@@ -65,30 +77,47 @@ def lattice_words(S: int) -> int:
     return SLOTS * slot_words(S)
 
 
+def cells(n: int) -> int:
+    """C for n cells a warp: the least odd number with 32·C >= n."""
+    c = -(-n // WARP)
+    return c + 1 - c % 2
+
+
 def plan(B: int, T: int, S: int) -> Plan:
     """The band lattice kernel's launch plan for B utterances of T frames and
     a band of S (``csrc/band_stream.cu::plan``)."""
     if S <= MAX_ROW_S and (T + 2 * TILE_ROWS) * S <= MAX_OFFSET:
         return Plan(True, TILE_ROWS, SLOTS, AHEAD_TILES, ROW_LATTICES, B, ROW_LATTICES * WARP,
-                    ROW_LATTICES * lattice_words(S) * 4)
-    return Plan(False, 0, 0, 0, 1, 2 * B, WARP, 3 * S * 4)
+                    ROW_LATTICES * lattice_words(S) * 4, 0, 0, 0, False, False)
+    G, C = 1, cells(S)
+    while C > MAX_CELLS and G < MAX_CELL_WARPS:
+        G *= 2
+        C = cells(-(-S // G))
+    C = min(C, MAX_CELLS)
+    rows_words = 2 * S + CELL_XCH
+    rows_device = rows_words * 4 > SMEM_BYTES
+    return Plan(False, 0, 0, 0, 1, 2 * B, WARP * G, (CELL_XCH if rows_device else rows_words) * 4,
+                G, C, -(-S // (WARP * G * C)), (T + 2) * S > MAX_OFFSET, rows_device)
 
 
 def kernel_plan(B: int, T: int, S: int) -> Plan:
     """The plan as the C entry ``wtt_band_plan`` computes it."""
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 13)()
     lib().wtt_band_plan(B, T, S, out)
-    return Plan(bool(out[0]), *out[1:])
+    v = list(out)
+    return Plan(bool(v[0]), *v[1:11], bool(v[11]), bool(v[12]))
 
 
-def kernel_registers(S: int) -> tuple:
-    """(registers a thread, local bytes a thread) of the kernel that a band
-    of S runs, as ptxas compiled it; for the measurement scripts."""
+def kernel_registers(T: int, S: int) -> tuple:
+    """(registers a thread, local bytes a thread) of the kernel instance
+    that a band of T rows and S cells runs, as ptxas compiled it; for the
+    measurement scripts."""
     regs, local = ctypes.c_int(), ctypes.c_int()
-    err = lib().wtt_band_attrs(S, ctypes.byref(regs), ctypes.byref(local))
+    err = lib().wtt_band_attrs(T, S, ctypes.byref(regs), ctypes.byref(local))
     if err != 0:
         raise RuntimeError(f"band_stream: cudaFuncGetAttributes failed: cudaError {err}")
     return regs.value, local.value
+
 
 def band_prep_registers(dtype: torch.dtype, plan) -> tuple:
     """(registers a thread, local bytes a thread) of the band prep kernel
@@ -152,9 +181,9 @@ def _band_prep(acts, lab_row, blank, plan):
 def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor, ranges: torch.Tensor,
                      input_lengths: torch.Tensor,
                      label_lengths: torch.Tensor) -> _plain.BandLattice:
-    """``band.forward_backward`` on the card: one warp for α and one for β
-    of each utterance, the row walk for S <= 32 and the chunk kernel above
-    (``plan``). On a CPU tensor this is the plain version."""
+    """``band.forward_backward`` on the card, one launch at any S: the row
+    walk for S <= 32, the cells walk above (``plan``). On a CPU tensor this
+    is the plain version."""
     if lpb.device.type != "cuda":
         return _plain.forward_backward(lpb, lpe, ranges, input_lengths, label_lengths)
     dev = lpb.device
@@ -168,19 +197,17 @@ def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor, ranges: torch.Tensor,
         raise ValueError(f"ranges must be {(B, T)}; got {tuple(r.shape)}")
     if T < 1 or S < 1:
         raise ValueError(f"the band needs T >= 1 and S >= 1; got T={T}, S={S}")
-    if plan(B, T, S).smem > SMEM_BYTES:
-        raise ValueError(f"S={S} exceeds the band kernel's limit of {SMEM_BYTES // 12}: three "
-                         "rows of S f32 values must fit the 227 KB of shared memory a block "
-                         "may use")
     alphas = torch.empty_like(lpb)
     betas = torch.empty_like(lpb)
     ll_forward = torch.empty((B,), dtype=torch.float32, device=dev)
     ll_backward = torch.empty_like(ll_forward)
+    row_mem = (torch.empty((4 * B * S,), dtype=torch.float32, device=dev)
+               if plan(B, T, S).rows_device else None)
     with torch.cuda.device(dev):
         err = lib().wtt_band_stream(
             lpb.data_ptr(), lpe.data_ptr(), r.data_ptr(), il.data_ptr(), ll.data_ptr(),
             alphas.data_ptr(), betas.data_ptr(), ll_forward.data_ptr(), ll_backward.data_ptr(),
-            B, T, S, stream(dev))
+            B, T, S, None if row_mem is None else row_mem.data_ptr(), stream(dev))
     check(err, "band_stream")
     return _plain.BandLattice(alphas, betas, ll_forward, ll_backward)
 

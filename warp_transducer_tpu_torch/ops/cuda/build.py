@@ -135,16 +135,16 @@ def library() -> ctypes.CDLL:
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_wavefront_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_wavefront_plan.restype = None
-    lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p]
-    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-1] + [i, p]
-    lib.wtt_window_plan.argtypes = [i, i, i, i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p, p]
+    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-2] + [i, p, p]
+    lib.wtt_window_plan.argtypes = [i] * 12 + [ctypes.POINTER(ctypes.c_int)]
     lib.wtt_window_plan.restype = None
     lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p, p]
     lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
                                      ll, i, i, i, i, i, p, p]
     lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
     lib.wtt_band_prep_planned.argtypes = lib.wtt_band_prep.argtypes[:-1] + [p, p]
-    lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.wtt_band_stream.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p, p]
     lib.wtt_band_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_band_plan.restype = None
     lib.wtt_band_grad.argtypes = [p, i, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, p, p]
@@ -193,7 +193,7 @@ def library() -> ctypes.CDLL:
         fn.restype = ll
     lib.wtt_window_attrs.argtypes = [i, i, i, ip, ip]
     lib.wtt_window_attrs.restype = i
-    lib.wtt_band_attrs.argtypes = [i, ip, ip]
+    lib.wtt_band_attrs.argtypes = [i, i, ip, ip]
     lib.wtt_band_attrs.restype = i
     lib.wtt_band_prep_attrs.argtypes = [i, i, i, ip, ip]
     lib.wtt_band_prep_attrs.restype = i

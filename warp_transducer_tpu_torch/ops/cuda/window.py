@@ -1,23 +1,32 @@
-"""Wrapper of the pending-window lattice kernel (``csrc/window_stream.cu``),
-the counterpart of ``warp_transducer_tpu/ops/pallas/window_stream.py``.
+"""Wrapper of the pending-window lattice kernel (``csrc/window_stream.cu``;
+its walk ``csrc/window_walk.cuh``), the counterpart of
+``warp_transducer_tpu/ops/pallas/window_stream.py``.
 
 The kernel plans its launch itself; ``plan`` mirrors that plan in Python for
 the CPU tests (``tests/test_torch_window_plan.py``), and a card test holds it
-against the C entry ``wtt_window_plan``. Two kernels:
+against the C entry ``wtt_window_plan``. One kernel, two instances of each
+cell count:
 
-* the warp kernel: G warps walk one lattice (an utterance and a direction)
-  row by row, warp g owning the columns g·32·C … (g + 1)·32·C - 1 and its
-  lane l the C (odd) consecutive ones from g·32·C + l·C; G is 4 or 2 where a
-  chain is solved, U is long and the lattices are few, else 1. A lattice
-  keeps in shared memory a ring of COPY_ROWS rows of its channels (copied
-  AHEAD rows ahead), alpha a ring of W + 1 rows of departures per arc and
-  two staged rows, beta a ring of W + 1 rows of its own values and SLACK
-  values, and the warps' exchange of row totals (XCH_WORDS);
-* the block kernel, above the warp kernel's cap (``max_cells``), where a
-  lattice's rings do not fit a block, or for an arc of three channels (the
-  warp kernel reads two a cell; no public loss has one): a block per lattice
-  and direction, a thread a column, the ring of W pending rows, one staging
-  row and the block scans' totals in shared memory.
+* G warps walk one lattice (an utterance and a direction) row by row, warp
+  g owning the columns g·32·C … (g + 1)·32·C - 1 and its lane l the C (odd)
+  consecutive ones from g·32·C + l·C. A lattice keeps in shared memory a
+  ring of COPY_ROWS rows of its channels (copied AHEAD rows ahead), alpha a
+  ring of W + 1 rows of departures per arc and two staged rows, beta a ring
+  of W + 1 rows of its own values and SLACK values, and the warps' exchange
+  of row totals;
+* the narrow instance (G <= 4, arcs of one or two channels, 32-bit offsets
+  inside a lattice) runs the main shapes; the wide one takes every other
+  lattice: G up to 16, arcs of three channels, 64-bit offsets, and passes —
+  where a lattice's rings do not fit a block at any G, its columns are cut
+  into passes of 32·G·C walked one after another, each handing on per row
+  the chain's carry and the edge column through device memory
+  (``Plan.hand`` values, which the wrapper allocates).
+
+G is 4 or 2 where U is long and the lattices are few, else 1; where that G
+does not run (C past ``max_cells`` or the rings past a block) the plan
+takes 4 warps (or 2), then the wide instance, then passes. No U is refused; a
+plan exists unless a window is so long that one warp's rings do not fit
+a block.
 """
 from __future__ import annotations
 
@@ -32,30 +41,37 @@ from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
 _LATTICE_DTYPES = (torch.float32, torch.float64)
 
 WARP = 32
-# The warp kernel (csrc/window_stream.cu): channel rows copied AHEAD rows
-# ahead into a ring of COPY_ROWS; at most MAX_WARPS warps a block and MAX_G
-# warps a lattice.
+# Channel rows copied AHEAD rows ahead into a ring of COPY_ROWS; the narrow
+# instance takes at most MAX_G warps a lattice and MAX_WARPS a block, the
+# wide one WIDE_MAX_G and ``wide_warps``.
 AHEAD = 3
 COPY_ROWS = AHEAD + 1
 MAX_WARPS = 8
 MAX_G = 4
+WIDE_MAX_G = 16
+# Channels an arc of the narrow instance sums, at most (the wide one: 3).
+ARC_CHANNELS = 2
 # Values after beta's ring that an emit arc's load at the last padded column
-# may touch; the exchange: two slots of MAX_G warps' four values.
+# may touch.
 SLACK = 32
-XCH_WORDS = 2 * MAX_G * 4
 ROW_PAD = 4  # words after a copied row's channels; the first holds 0
-MAX_THREADS = 512  # the block kernel's threads a block
 INT_MAX = 2 ** 31 - 1
-# What the block kernel keeps in shared memory beside its ring of W rows:
-# one row of U values, and the scans' totals (two sets of 32 sums and of 32
-# pairs).
-_EXTRA_ROWS = 1
-_SCAN_TOTALS = 192
+
+
+def xch_words(wide: bool) -> int:
+    """The exchange of a lattice's warps: two slots of the instance's most
+    warps' four values."""
+    return 2 * (WIDE_MAX_G if wide else MAX_G) * 4
+
+
+def wide_warps(elt: int, C: int) -> int:
+    """Warps a block of the wide instance of C cells a lane: 16 where a
+    thread's registers fit 128 (f32 C <= 13, f64 C = 1), else 8."""
+    return 16 if (C <= 13 if elt == 4 else C <= 1) else 8
 
 
 def max_cells(elt: int) -> int:
-    """The warp kernel's most cells a lane: 17 in f32, 9 in f64 (with one
-    warp a lattice, U <= 544 and U <= 288)."""
+    """The most cells a lane: 17 in f32, 9 in f64."""
     return 17 if elt == 4 else 9
 
 
@@ -66,84 +82,144 @@ def cells(n: int) -> int:
 
 
 class Plan(NamedTuple):
-    warp_mode: bool  # the warp kernel; else the block kernel
-    warps: int  # G, warps a lattice (0 in block mode)
-    cells: int  # C, cells a lane (0 in block mode)
+    wide: bool  # the wide instance (G > 4, passes, 64-bit offsets, three-channel arcs)
+    warps: int  # G, warps a lattice
+    cells: int  # C, cells a lane
+    passes: int  # column passes of 32·G·C a lattice (wide)
     per_block: int  # lattices a block
     blocks: int
     threads: int  # a block
     smem: int  # dynamic shared memory a block, bytes
-    lattice_words: int  # shared memory of a lattice, values (0 in block mode)
+    lattice_words: int  # shared memory of a lattice, values
+    hand: int  # values of device memory the passes hand rows on through (0: one pass)
 
 
-def lattice_words(G: int, C: int, W: int, n_arcs: int, n_extra: int, dirs: int) -> int:
+def lattice_words(G: int, C: int, W: int, n_arcs: int, n_extra: int, dirs: int,
+                  wide: bool = False) -> int:
     """Values of one lattice's shared memory: the copy ring of COPY_ROWS rows
-    (lpb and lpe of UP = G·32·C values each, then UP·n_extra extras and
-    ROW_PAD words), then
-    alpha's departure rings (n_arcs × (W + 1) rows of UP) and two staged rows
+    (lpb and lpe of UP = G·32·C values each, then UP·n_extra extras, ROW_PAD
+    words and, wide, the 2 + n_arcs values a row the passes hand on), then
+    alpha's departure rings (n_arcs × (W + 1) rows) and two staged rows of UP
     or beta's ring of W + 1 rows and SLACK values, then the exchange; the
-    larger of alpha's and beta's where the block holds both."""
+    larger of alpha's and beta's where the block holds both. The wide rings'
+    rows keep one more column (the edge between passes)."""
     up = G * WARP * C
-    copy = COPY_ROWS * ((2 + n_extra) * up + ROW_PAD)
-    alpha = copy + n_arcs * (W + 1) * up + 2 * up + XCH_WORDS
-    beta = copy + (W + 1) * up + SLACK + XCH_WORDS
+    rs = up + (1 if wide else 0)
+    copy = COPY_ROWS * ((2 + n_extra) * up + ROW_PAD + (2 + n_arcs if wide else 0))
+    alpha = copy + n_arcs * (W + 1) * rs + 2 * up + xch_words(wide)
+    beta = copy + (W + 1) * rs + SLACK + xch_words(wide)
     return max(alpha, beta) if dirs == 2 else alpha
 
 
+def preferred_warps(U: int, lattices: int, n_sm: int) -> int:
+    """G0: 4 or 2 where each warp gets more than 64 columns and the
+    lattices' warps stay within two an SM, else 1."""
+    return next((g for g in (4, 2) if U > 2 * WARP * g and lattices * g <= 2 * n_sm), 1)
+
+
 def plan(B: int, T: int, U: int, elt: int, W: int, n_arcs: int, n_extra: int, has_chain: bool,
-         compute_betas: bool, n_sm: int, warps: int = 0) -> Plan:
+         compute_betas: bool, n_sm: int, warps: int = 0, arc_channels: int = 2) -> Plan | None:
     """The kernel's launch plan for B lattices of T frames and U labels of
     ``elt``-byte values, a longest duration W, n_arcs blank and emit arcs,
-    n_extra extra channels, with or without a chain, on a card of ``n_sm``
-    SMs; ``warps`` a lattice forced, or 0 for the rule
-    (``csrc/window_stream.cu::plan``)."""
+    n_extra extra channels, with or without a chain, arcs of up to
+    ``arc_channels`` channels, on a card of ``n_sm`` SMs; ``warps`` a
+    lattice forced, or 0 for the rule (``csrc/window_stream.cu::plan``):
+    the narrow instance at G0, else at 4 … 2·G0, the first that runs; else
+    the wide one at G0 … 16 in one pass; else the fewest passes that run on
+    some G.
+    None where nothing runs (a window whose rings do not fit for one warp)."""
     dirs = 2 if compute_betas else 1
     lattices = B * dirs
-    G = warps or next((g for g in (4, 2) if has_chain and U > 2 * WARP * g
-                       and lattices * g <= 2 * n_sm), 1)
-    C = cells(-(-U // G))
-    nbytes = lattice_words(G, C, W, n_arcs, n_extra, dirs) * elt
-    if not warps and G > 1 and (C > max_cells(elt) or nbytes > SMEM_BYTES):
-        G, C = 1, cells(U)
-        nbytes = lattice_words(G, C, W, n_arcs, n_extra, dirs) * elt
-    small = (T + AHEAD) * U * max(n_extra, 1) <= INT_MAX
-    if (small and U >= 1 and G <= MAX_G and (has_chain or G == 1) and C <= max_cells(elt)
-            and nbytes <= SMEM_BYTES):
-        cap = min(MAX_WARPS // G, SMEM_BYTES // nbytes)
-        per_block = max(1, min(cap, -(-lattices // n_sm)))
-        return Plan(True, G, C, per_block, -(-lattices // per_block), WARP * G * per_block,
-                    nbytes * per_block, nbytes // elt)
-    threads = -(-U // WARP) * WARP if U <= MAX_THREADS else MAX_THREADS
-    return Plan(False, 0, 0, 1, B, threads, block_smem(U, W, elt), 0)
+    G0 = warps or preferred_warps(U, lattices, n_sm)
+    narrow = arc_channels <= ARC_CHANNELS and (T + AHEAD) * U * max(n_extra, 1) <= INT_MAX
 
+    def runs(G, C, wide):
+        return (C <= max_cells(elt) and (not wide or G <= wide_warps(elt, C))
+                and lattice_words(G, C, W, n_arcs, n_extra, dirs, wide) * elt <= SMEM_BYTES)
 
-def block_smem(U: int, W: int, elt: int) -> int:
-    """Shared memory of the block kernel: W + 1 rows of U values and the
-    scans' totals."""
-    return ((W + _EXTRA_ROWS) * U + _SCAN_TOTALS) * elt
+    def doublings(top):
+        g = G0
+        while g <= top:
+            yield g
+            if warps:
+                return
+            g *= 2
+
+    def narrow_order():
+        """G0, then 4 … 2·G0: more warps walk a row sooner (PERF.md §6)."""
+        yield G0
+        g = MAX_G
+        while not warps and g > G0:
+            yield g
+            g //= 2
+
+    found = None
+    for wide in ((False, True) if narrow else (True,)):
+        order = doublings(WIDE_MAX_G) if wide else (g for g in narrow_order() if g <= MAX_G)
+        found = next(((wide, g, cells(-(-U // g)), 1) for g in order
+                      if runs(g, cells(-(-U // g)), wide)), None)
+        if found:
+            break
+    n = 2
+    while found is None and -(-U // (n - 1)) > WARP:
+        cols = -(-U // n)
+        g = next((g for g in doublings(WIDE_MAX_G) if runs(g, cells(-(-cols // g)), True)), None)
+        if g is not None:
+            C = cells(-(-cols // g))
+            found = (True, g, C, -(-U // (g * WARP * C)))
+        n += 1
+    if found is None:
+        return None
+    wide, G, C, passes = found
+    nbytes = lattice_words(G, C, W, n_arcs, n_extra, dirs, wide) * elt
+    cap = min((wide_warps(elt, C) if wide else MAX_WARPS) // G, SMEM_BYTES // nbytes)
+    per_block = max(1, min(cap, -(-lattices // n_sm)))
+    return Plan(wide, G, C, passes, per_block, -(-lattices // per_block), WARP * G * per_block,
+                nbytes * per_block, nbytes // elt, lattices * 2 * T * (2 + n_arcs) if passes > 1
+                else 0)
 
 
 def kernel_plan(B: int, T: int, U: int, dtype: torch.dtype, W: int, n_arcs: int, n_extra: int,
-                has_chain: bool, compute_betas: bool, n_sm: int, warps: int = 0) -> Plan:
+                has_chain: bool, compute_betas: bool, n_sm: int, warps: int = 0,
+                arc_channels: int = 2) -> Plan | None:
     """The plan as the C entry ``wtt_window_plan`` computes it."""
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 11)()
     lib().wtt_window_plan(B, T, U, DTYPE_CODES[dtype], W, n_arcs, n_extra, int(has_chain),
-                          int(compute_betas), n_sm, warps, out)
+                          int(compute_betas), n_sm, warps, arc_channels, out)
     if out[0] < 0:
         raise ValueError(f"the window kernel takes no {dtype}")
-    return Plan(bool(out[0]), *out[1:])
+    if out[1] == 0:
+        return None
+    return Plan(bool(out[0]), *out[1:9], out[9] + (out[10] << 31))
 
 
-def kernel_registers(p: Plan, U: int, dtype: torch.dtype) -> tuple:
-    """(registers a thread, local bytes a thread) of the kernel that plan
-    ``p`` runs for U labels, as ptxas compiled it; for the measurement
+def kernel_registers(p: Plan, dtype: torch.dtype) -> tuple:
+    """(registers a thread, local bytes a thread) of the kernel instance
+    that plan ``p`` runs, as ptxas compiled it; for the measurement
     scripts."""
     regs, local = ctypes.c_int(), ctypes.c_int()
-    err = lib().wtt_window_attrs(p.cells if p.warp_mode else 0, U, DTYPE_CODES[dtype],
-                                 ctypes.byref(regs), ctypes.byref(local))
+    err = lib().wtt_window_attrs(p.cells, int(p.wide), DTYPE_CODES[dtype], ctypes.byref(regs),
+                                 ctypes.byref(local))
     if err != 0:
         raise RuntimeError(f"window_stream: cudaFuncGetAttributes failed: cudaError {err}")
     return regs.value, local.value
+
+
+def arc_channels(arcs: _plain.WindowArcs) -> int:
+    """The most channels an arc (the chain among them) sums."""
+    return max(len(chs) for chs in ((arcs.chain or (1,)),)
+               + tuple(chs for _, chs in arcs.blank_arcs + arcs.emit_arcs))
+
+
+def lattice_plan(lpb: torch.Tensor, extra: torch.Tensor, arcs: _plain.WindowArcs,
+                 compute_betas: bool = True, warps: int = 0) -> Plan | None:
+    """``plan`` for these CUDA inputs on their card."""
+    B, T, U = lpb.shape
+    return plan(B, T, U, lpb.element_size(), arcs.window,
+                len(arcs.blank_arcs) + len(arcs.emit_arcs), extra.shape[-1],
+                arcs.chain is not None, compute_betas,
+                torch.cuda.get_device_properties(lpb.device).multi_processor_count, warps,
+                arc_channels(arcs))
 
 
 def _arc_table(arcs: _plain.WindowArcs):
@@ -162,10 +238,9 @@ def forward_backward(lpb: torch.Tensor, lpe: torch.Tensor, extra: torch.Tensor,
                      arcs: _plain.WindowArcs, input_lengths: torch.Tensor,
                      label_lengths: torch.Tensor,
                      compute_betas: bool = True) -> _plain.LatticeResult:
-    """``ops.window.forward_backward`` on the card, one launch: the warp
-    kernel (alpha and beta side by side, or alpha alone without betas), or
-    the block kernel above its cap (``plan``). On a CPU tensor this is the
-    plain version."""
+    """``ops.window.forward_backward`` on the card, one launch (alpha and
+    beta side by side, or alpha alone without betas) at any U (``plan``). On
+    a CPU tensor this is the plain version."""
     if lpb.device.type != "cuda":
         return _plain.forward_backward(lpb, lpe, extra, arcs, input_lengths, label_lengths,
                                        compute_betas=compute_betas)
@@ -189,21 +264,19 @@ def launch(lpb: torch.Tensor, lpe: torch.Tensor, extra: torch.Tensor, arcs: _pla
     if T < 1 or U < 1:
         raise ValueError(f"the lattice needs T >= 1 and U >= 1; got T={T}, U={U}")
     _plain.check_arcs(arcs, C)
-    W = arcs.window
-    # The block kernel takes every U the warp kernel does not; its limit is
-    # the wrapper's.
-    if block_smem(U, W, lpb.element_size()) > SMEM_BYTES:
-        max_u = (SMEM_BYTES // lpb.element_size() - _SCAN_TOTALS) // (W + _EXTRA_ROWS)
-        raise ValueError(
-            f"U={U} exceeds the window kernel's limit of {max_u} for {lpb.dtype} and a longest "
-            f"duration of {W}: {W} + {_EXTRA_ROWS} rows of U values must fit the "
-            f"{SMEM_BYTES} bytes of shared memory a block may use")
+    p = lattice_plan(lpb, extra, arcs, compute_betas, warps)
+    if p is None:
+        raise ValueError(f"no launch of the window kernel runs a longest duration of "
+                         f"{arcs.window} with {len(arcs.blank_arcs) + len(arcs.emit_arcs)} arcs "
+                         f"in {lpb.dtype}: one warp's rings of {arcs.window} + 1 rows do not fit "
+                         f"the {SMEM_BYTES} bytes of shared memory a block may use")
     il = input_lengths.to(device=dev, dtype=torch.int32).contiguous()
     ll = label_lengths.to(device=dev, dtype=torch.int32).contiguous()
     alphas = torch.empty_like(lpb)
     betas = torch.empty_like(lpb) if compute_betas else None
     ll_forward = torch.empty((B,), dtype=lpb.dtype, device=dev)
     ll_backward = torch.empty_like(ll_forward) if compute_betas else None
+    hand = torch.empty((p.hand,), dtype=lpb.dtype, device=dev) if p.hand else None
     table = _arc_table(arcs)
     with torch.cuda.device(dev):
         err = lib().wtt_window_stream_warps(
@@ -212,7 +285,8 @@ def launch(lpb: torch.Tensor, lpe: torch.Tensor, extra: torch.Tensor, arcs: _pla
             il.data_ptr(), ll.data_ptr(), alphas.data_ptr(),
             None if betas is None else betas.data_ptr(), ll_forward.data_ptr(),
             None if ll_backward is None else ll_backward.data_ptr(),
-            B, T, U, int(compute_betas), warps, stream(dev))
+            B, T, U, int(compute_betas), warps, None if hand is None else hand.data_ptr(),
+            stream(dev))
     check(err, "window_stream")
     if not compute_betas:
         return _plain.LatticeResult(alphas, alphas, ll_forward, ll_forward)
