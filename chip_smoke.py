@@ -177,7 +177,8 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "joint_grad_g_kernel", "joint_grad_dh_kernel", "joint_grad_d_kernel",
                 "joint_grad_dw_kernel", "joint_grad_db_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
-                "window_warp_kernel")
+                "window_warp_kernel", "window_table_kernel", "prep_many_tile_kernel",
+                "prep_many_warp_kernel", "grad_many_tile_kernel", "grad_many_warp_kernel")
 
 
 # The fused joint's kernels by wrapper: K6a (the layout of W, h, the prep)
@@ -1988,6 +1989,434 @@ def former_block_phase(dev, totals, errs, clock_mhz, library):
     return out, launches
 
 
+# The duration sets past the kernels' by-value tables (no duration set is
+# refused): TDT with the TDT paper's durations 0 … 8 (arXiv:2304.06795; 11
+# channels, 8 blank and 8 emit arcs), the multi-blank loss with nine big
+# blanks, the largest counts (D = 33, past a warp's 32 lanes; K = 16), and
+# a window of 300 frames, whose rings pass a block and lie in device
+# memory. Each runs on its kernels' instances of their own: K7's table
+# instance, K3's and grad.cu's table of columns, K6a/K6b's kMany, K6c/K6d
+# in groups of 8 columns.
+MANY_TDT = tuple(range(9))
+MANY_MB = tuple(range(2, 11))
+WIDEST_TDT = tuple(range(33))
+WIDEST_MB = tuple(range(2, 18))
+LONG_WINDOW = ("w300", 4, 1500, 300, 40, (2, 4, 8, 16, 32, 64, 128, 300))
+# The plain references (their lattices are T steps of torch ops) run on a
+# slice of the batch: in f64 at long_t and the 300-frame window, in f32 at
+# D = 33 and K = 16 at headline, and in f64 on log-probs there.
+MANY_CUT_B = 2
+MANY_CUT_WIDEST = 16
+MANY_TRAIN_CFG = dict(vocab_size=5000, tdt_durations=MANY_TDT)
+
+
+def many_problem(B, T, L, V, D, n_cols, seed, dev):
+    """Token logits, duration logits (D columns), labels off the blank and
+    the last ``n_cols`` columns, ragged lengths (the first utterance full),
+    from a seed, on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acts = torch.randn((B, T, L + 1, V), generator=g, device=dev)
+    dur = torch.randn((B, T, L + 1, max(D, 1)), generator=g, device=dev)
+    labels = torch.randint(1, V - n_cols, (B, L), generator=g, device=dev, dtype=torch.int32)
+    il = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    ll = torch.randint(L // 2, L + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    il[0], ll[0] = T, L
+    return acts, dur, labels, il, ll
+
+
+def many_step(loss, x, dur, labels, il, ll, durations, implementation="auto"):
+    """(costs, gradients) of one public loss forward and backward: ``tdt``
+    (rnnt_loss_tdt, d tokens and d durations), ``multiblank``
+    (rnnt_loss_multiblank) or ``multiblank_lp`` (the binding on log-probs;
+    its plain twin through the op route the binding calls)."""
+    from warp_transducer_tpu_torch import rnnt_loss_multiblank, rnnt_loss_tdt
+    from warp_transducer_tpu_torch.bindings import torch_binding
+    from warp_transducer_tpu_torch.ops import multiblank
+    leaves = [x.detach().requires_grad_(True)]
+    if loss == "tdt":
+        leaves.append(dur.detach().requires_grad_(True))
+        costs = rnnt_loss_tdt(*leaves, labels, il, ll, durations, reduction="none",
+                              implementation=implementation)
+    elif loss == "multiblank":
+        costs = rnnt_loss_multiblank(leaves[0], labels, il, ll, durations, sigma=MB_SIGMA,
+                                     reduction="none", implementation=implementation)
+    elif implementation == "auto":
+        costs = torch_binding.rnnt_loss_multiblank(leaves[0], labels, il, ll, durations,
+                                                   sigma=MB_SIGMA, reduction="none",
+                                                   from_log_probs=True)
+    else:
+        costs = multiblank._multiblank_costs(leaves[0], labels, il, ll, durations, 0, None,
+                                             "none", MB_SIGMA, 0.0, 0.0, True, implementation)
+    return costs.detach(), torch.autograd.grad(costs.sum(), leaves)
+
+
+def many_durations_phase(dev, totals, errs):
+    """The duration-arc losses at duration sets past the kernels' by-value
+    tables, through the public entry points with gradients under the launch
+    counters (no host sync allowed, no plain stage, the new instances
+    launched), each against its plain route: TDT 0 … 8 at headline (plain
+    f32) and long_t (plain f64 on a slice), the multi-blank loss with nine
+    big blanks at headline, raw and through the binding on log-probs (plain
+    f64), D = 33 and K = 16 at headline, the 300-frame window at B = 4,
+    T = 1500, U = 301 (plain f64), the fused TDT loss with D = 9 on both
+    routes and the fused multi-blank loss with K = 9 at the fused shape
+    (plain route), ``make_tdt_fused_train_step`` on
+    TransducerConfig(vocab_size=5000, tdt_durations=0 … 8) for ten Adam steps
+    against its plain twin, then ``greedy_decode_tdt`` on that model. Then
+    each new instance timed (profiler device ms) beside the by-value
+    instance at the same shape. Returns ({kernel: {case: timing}},
+    {kernel: {instance: launches}}, the train step's numbers)."""
+    from warp_transducer_tpu_torch.models import decoding as D
+    from warp_transducer_tpu_torch.models import transducer as tm
+    from warp_transducer_tpu_torch.ops import cuda as K
+    from warp_transducer_tpu_torch.ops import fused_joint, gradients, prep, tdt_fused, window
+    from warp_transducer_tpu_torch.ops.cuda import grad as kgrad
+    from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
+    from warp_transducer_tpu_torch.ops.cuda import prep as kprep
+    from warp_transducer_tpu_torch.ops.cuda import window as kwindow
+    started = time.perf_counter()
+    timings = {k: {} for k in ("window_stream", "prep", "grad_fields", "joint_prep",
+                               "joint_grad", "dur_head")}
+    launches = {k: {} for k in timings}
+
+    def counted(name, fn, instances, must=()):
+        """fn() under the launch counters; ``instances`` {counter: the new
+        instance that this call's launches of that kernel are}."""
+        K.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync on the path raises
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in K.launches.items() if n}
+        print(f"main path {name}: launches {counts}")
+        for k in tuple(instances) + tuple(must):
+            fail_unless(counts.get(k, 0) > 0, f"{k} kernel was not launched on the {name} path")
+        fail_unless("wavefront" not in counts, f"the {name} path ran the dense lattice")
+        for k, n in counts.items():
+            totals[k] += n
+        for k, inst in instances.items():
+            launches[k][inst] = launches[k].get(inst, 0) + counts.get(k, 0)
+        return out
+
+    def check(name, got, want, ref, tol=1e-3):
+        compare(f"{name} costs kernels vs {ref}", got[0], want[0].to(got[0].dtype), "f32")
+        for i, (g, w) in enumerate(zip(got[1], want[1])):
+            fail_unless(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                        f"{name}: gradient {i} not finite")
+            rel = rel_norm(g.double(), w.double()) if float(w.norm()) > 0 else float(g.norm())
+            print(f"{name} gradient {i} kernels vs {ref}: relative norm error {rel:.3e} "
+                  f"(tol {tol:g})")
+            fail_unless(rel <= tol, f"{name}: gradient {i} differs from {ref}")
+
+    def public(name, loss, x, dur, labels, il, ll, durations, instances, cut=None, f64=False):
+        """The public loss under the counters, against the plain route on the
+        first ``cut`` utterances (all by default), in f64 with ``f64``."""
+        got = counted(name, lambda: many_step(loss, x, dur, labels, il, ll, durations),
+                      instances)
+        fail_unless(bool((got[0] < 1e29).all()), f"{name}: an utterance is infeasible")
+        b = cut or x.shape[0]
+
+        def part(t):
+            return (t[:b].double() if f64 else t[:b]) if t.is_floating_point() else t[:b]
+
+        want = many_step(loss, part(x), part(dur), labels[:b], il[:b], ll[:b], durations,
+                         "torch")
+        got = (got[0][:b], tuple(g[:b] for g in got[1]))
+        check(name, got, want, f"plain{' (f64)' if f64 else ''} on {b} utterances")
+
+    # The losses on logits. TDT 0 … 8 at both duration shapes; the rest at headline.
+    for tag, B, T, L, V in DURATION_SHAPES:
+        acts, dur, labels, il, ll = many_problem(B, T, L, V, len(MANY_TDT), 0, 30, dev)
+        public(f"tdt_d9 {tag}", "tdt", acts, dur, labels, il, ll, MANY_TDT,
+               {"window_stream": f"table_tdt_d9_{tag}"},
+               **(dict(cut=MANY_CUT_B, f64=True) if tag == "long_t" else {}))
+        del acts, dur
+    _, B, T, L, V = DURATION_SHAPES[0]
+    acts, dur, labels, il, ll = many_problem(B, T, L, V, len(WIDEST_TDT), len(WIDEST_MB), 31, dev)
+    public("tdt_d33 headline", "tdt", acts, dur, labels, il, ll, WIDEST_TDT,
+           {"window_stream": "table_tdt_d33_headline"}, cut=MANY_CUT_WIDEST)
+    many = {k: "many_k9_headline" for k in ("prep", "grad_fields")}
+    public("multiblank_k9 headline", "multiblank", acts, dur, labels, il, ll, MANY_MB,
+           many | {"window_stream": "table_mb_k9_headline"})
+    lp = torch.log_softmax(acts, -1)
+    public("multiblank_lp_k9 headline", "multiblank_lp", lp, dur, labels, il, ll, MANY_MB,
+           {k: "many_k9_log_probs_headline" for k in ("prep", "grad_fields")}
+           | {"window_stream": "table_mb_k9_headline"}, cut=MANY_CUT_WIDEST, f64=True)
+    public("multiblank_k16 headline", "multiblank", acts, dur, labels, il, ll, WIDEST_MB,
+           {k: "many_k16_headline" for k in ("prep", "grad_fields")}
+           | {"window_stream": "table_mb_k16_headline"}, cut=MANY_CUT_WIDEST)
+    del lp
+    tag, B, T, L, V, durs = LONG_WINDOW
+    w_acts, w_dur, w_labels, w_il, w_ll = many_problem(B, T, L, V, 1, len(durs), 32, dev)
+    public(f"multiblank_{tag} B={B} T={T} U={L + 1}", "multiblank", w_acts, w_dur, w_labels,
+           w_il, w_ll, durs, {"window_stream": f"table_{tag}_rings_in_device"}, cut=MANY_CUT_B,
+           f64=True)
+    with torch.no_grad():
+        p = kprep.prepare(w_acts, w_labels, 0, False, extra_cols=tuple(range(V - len(durs), V)))
+        plan = kwindow.lattice_plan(p.lpb, p.extras, window.multiblank_arcs(durs))
+        print(f"window_stream {tag}: plan {plan._asdict()}")
+        fail_unless(plan.wide == kwindow.TABLE and plan.rings > 0,
+                    f"the {tag} window is not planned with its rings in device memory")
+    torch.cuda.empty_cache()
+
+    # The fused losses at the fused shape, D = 9 on both routes and K = 9.
+    ftag, FB, FT, FL, FV, FH = FUSED_SHAPE
+    joint = make_joint_module(FV, FH, seed=33, dev=dev, durations=MANY_TDT)
+    enc, pred, f_labels, f_il, f_ll = make_model_problem(FB, FT, FL, FV, seed=34, dev=dev,
+                                                         cfg=joint.cfg, n_cols=len(MANY_MB))
+
+    def tdt_fused_step(implementation="auto"):
+        loss, grads = joint_step(joint, lambda a, b: joint.tdt_fused_loss(
+            a, b, f_labels, f_il, f_ll, reduction="sum", sigma=VARIANT_SIGMA,
+            implementation=implementation), enc, pred)
+        return loss, tuple(g for g in grads.values() if g is not None)
+
+    def mb_fused_step(implementation="auto"):
+        loss, grads = joint_step(joint, lambda a, b: joint.multiblank_fused_loss(
+            a, b, f_labels, f_il, f_ll, MANY_MB, reduction="sum", sigma=VARIANT_SIGMA,
+            implementation=implementation), enc, pred)
+        return loss, tuple(g for g in grads.values() if g is not None)
+
+    old = tdt_fused._tdt_single_chunk
+    try:
+        routes = {}
+        for integrated in (True, False):
+            set_tdt_route(integrated)
+            route = "integrated" if integrated else "composed"
+            inst = ({k: f"many_d9_{ftag}" for k in ("joint_prep", "joint_grad")} if integrated
+                    else {"dur_head": f"groups_d9_{ftag}"})
+            routes[route] = counted(f"tdt_fused_d9 {ftag} {route}", tdt_fused_step,
+                                    inst | {"window_stream": f"table_tdt_d9_{ftag}"},
+                                    ("joint_prep", "joint_grad"))
+        plain = tdt_fused_step("torch")
+    finally:
+        tdt_fused._tdt_single_chunk = old
+    for route, got in routes.items():
+        check(f"tdt_fused_d9 {ftag} {route}", got, plain, "the plain path")
+    got = counted(f"multiblank_fused_k9 {ftag}", mb_fused_step,
+                  {k: f"many_k9_{ftag}" for k in ("joint_prep", "joint_grad")}
+                  | {"window_stream": f"table_mb_k9_{ftag}"})
+    check(f"multiblank_fused_k9 {ftag}", got, mb_fused_step("torch"), "the plain path")
+    del routes, plain, got
+    torch.cuda.empty_cache()
+
+    # The whole model at TransducerConfig()'s widths with durations 0 … 8.
+    cfg = tm.TransducerConfig(**MANY_TRAIN_CFG)
+    integrated = bool(tdt_fused._tdt_single_chunk(None, None, None))
+    maker, kw, _, kernels = TRAIN_STEPS["tdt_fused"]
+    kernels = kernels + (() if integrated else ("dur_head",))
+    train, model = train_step_check(dev, totals, "tdt_fused_d9", maker, kw, cfg, kernels, 35,
+                                    TRAIN_ADAM_STEPS, keep_model=True)
+    _, TB, TT, TL = TRAIN_SHAPE
+    batch = make_train_batch(TB, TT, TL, cfg.vocab_size, 36, dev, cfg.input_dim)
+    max_symbols = 2 * TL
+    decode = lambda: D.greedy_decode_tdt(model, batch["feats"], batch["feat_lengths"],  # noqa: E731
+                                         max_symbols)
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in the decode raises
+    try:
+        out = decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check_hypotheses("greedy_tdt_d9", "tdt", out, cfg.vocab_size, max_symbols)
+    train["greedy_decode_ms"] = time_ms(decode, 3, 1)
+    print(f"serve greedy_tdt_d9 B={TB} T={TT} V={cfg.vocab_size}: {train['greedy_decode_ms']:.4f} "
+          f"ms a call; hypotheses' lengths {out[1].tolist()[:8]} …")
+    del model, batch, out
+    torch.cuda.empty_cache()
+
+    # The timings: each new instance (profiler device ms a launch) beside the
+    # by-value instance at the same shape.
+    def max_err(got, want):
+        """The largest |got − want| over the fields of two results, at the
+        cells the plain version holds finite (NEG elsewhere in both)."""
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        e = 0.0
+        for a, b in pairs:
+            if a is not None and b is not None:
+                live = b.abs() < 1e29
+                if bool(live.any()):
+                    e = max(e, float((a.double() - b.double())[live].abs().max()))
+        return e
+
+    def timed(kernel, case, fn, names, bound_, plain_fn=None, library_fn=None):
+        """The kernel's device ms a launch (profiler), and where the plain
+        version runs, its time and the kernel's largest error against it."""
+        dev_ms = launch_device_ms(fn, iters=5, names=names)
+        t = timings[kernel][case] = dict(
+            ms=dev_ms if dev_ms is not None else time_ms(fn, 5), kernel_device_ms=dev_ms,
+            plain_ms=None, library_ms=time_ms(library_fn, 5) if library_fn else None,
+            bound=bound_)
+        if plain_fn:  # once, by the host clock (its lattices take seconds at these shapes)
+            got = fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain_fn()
+            torch.cuda.synchronize()
+            t["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            t["max_abs_err"] = max_err(got, want)
+            errs[kernel] = max(errs[kernel], t["max_abs_err"])
+            del got, want
+        print(f"time {case} {kernel}: {t['ms']:.4f} ms (a launch) | plain "
+              f"{t['plain_ms'] if t['plain_ms'] is None else round(t['plain_ms'], 4)} ms | "
+              f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) | library {t['library_ms']}"
+              f" | largest error against the plain version {t.get('max_abs_err')}")
+
+    def call_timed(kernel, case, fn, bound_, plain_fn=None, library_fn=None):
+        dev_ms = device_ms(fn, iters=3)
+        t = timings[kernel][case] = dict(
+            ms=dev_ms if dev_ms is not None else time_ms(fn, 3), kernel_device_ms=dev_ms,
+            plain_ms=time_ms(plain_fn, 1, 1) if plain_fn else None,
+            library_ms=time_ms(library_fn, 3) if library_fn else None, bound=bound_)
+        print(f"time {case} {kernel}: {t['ms']:.4f} ms (device ms a call) | plain "
+              f"{t['plain_ms']} ms | bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+
+    table, warp = ("window_table_kernel",), ("window_warp_kernel",)
+    with torch.no_grad():
+        for tag, B, T, L, V in DURATION_SHAPES:
+            acts, dur, labels, il, ll = many_problem(B, T, L, V, len(MANY_TDT), 0, 30, dev)
+            p = kprep.prepare(acts, labels, 0, False)
+            for name, durs, names in (("tdt_d9", MANY_TDT, table),
+                                      ("tdt_d4", TDT_DURATIONS, warp)):
+                lpd = torch.log_softmax(dur[..., :len(durs)], -1).contiguous()
+                arcs = window.tdt_arcs(durs)
+                fn = lambda: kwindow.forward_backward(p.lpb, p.lpe, lpd, arcs, il, ll)  # noqa: E731
+                # the plain lattice (seconds a call) once, at the new instance's headline
+                plain_fn = ((lambda: window.forward_backward(p.lpb, p.lpe, lpd, arcs, il, ll))
+                            if tag == "headline" and name == "tdt_d9" else None)
+                timed("window_stream", f"{name}_{tag}", fn, names,
+                      window_bound(p.lpb, lpd, arcs, il, ll), plain_fn)
+            del acts, dur, p, lpd
+        _, B, T, L, V = DURATION_SHAPES[0]
+        U, rows = L + 1, B * T * (L + 1)
+        acts, dur, labels, il, ll = many_problem(B, T, L, V, len(WIDEST_TDT), len(WIDEST_MB),
+                                                 31, dev)
+        lp = torch.log_softmax(acts, -1)
+        labels_u = prep.label_rows(labels, U)
+        n_big = acts.numel()
+        for K_ in (9, 2):
+            cols = tuple(range(V - K_, V))
+            suffix = f"k{K_}_headline"
+            many_inst = K_ > 8
+            p_names = (("prep_many_tile_kernel", "prep_many_warp_kernel") if many_inst
+                       else ("prep_tile_kernel", "prep_warp_kernel"))
+            g_names = (("grad_many_tile_kernel", "grad_many_warp_kernel") if many_inst
+                       else ("grad_fields_tile_kernel", "grad_fields_warp_kernel"))
+            timed("prep", suffix, lambda: kprep.prepare(acts, labels, 0, False, extra_cols=cols),
+                  p_names, bound(n_big * 4 + B * L * 4 + (3 + K_) * rows * 4, 4 * n_big,
+                                 F32_OPS_PER_S),
+                  lambda: prep.prepare(acts, labels, 0, False, extra_cols=cols),
+                  lambda: torch.logsumexp(acts, -1))
+            idx = torch.cat([torch.zeros((B, T, U, 1), dtype=torch.long, device=dev),
+                             labels_u.long()[:, None, :, None].expand(B, T, U, 1),
+                             torch.arange(V - K_, V, device=dev).expand(B, T, U, K_)], -1)
+            timed("prep", f"{suffix}_log_probs",
+                  lambda: kprep.prepare(lp, labels, 0, True, extra_cols=cols), p_names,
+                  bound(2 * (2 + K_) * rows * 4 + B * L * 4, 0, F32_OPS_PER_S),
+                  lambda: prep.prepare(lp, labels, 0, True, extra_cols=cols),
+                  lambda: torch.gather(lp, 3, idx))
+            pr = kprep.prepare(acts, labels, 0, False, extra_cols=cols)
+            arcs = window.multiblank_arcs(tuple(range(2, 2 + K_)) if K_ > 2 else MB_DURATIONS)
+            lat = kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll)
+            fields = gradients.coefficients(pr.lpb, pr.lpe, lat.alphas, lat.betas,
+                                            lat.ll_forward, il, ll)
+            extra = pr.extras.exp().contiguous()
+            kw = dict(extra_cols=cols, extra_fields=extra)
+            timed("grad_fields", suffix, lambda: kgrad.dense_grad(
+                acts, pr.denom, fields, labels_u, il, ll, 0, acts.dtype, **kw), g_names,
+                bound(2 * n_big * 4 + (4 + K_) * rows * 4, 3 * n_big, F32_OPS_PER_S),
+                lambda: gradients.dense_grad(acts, pr.denom, fields, labels_u, il, ll, 0,
+                                             acts.dtype, **kw))
+            timed("grad_fields", f"{suffix}_sparse", lambda: kgrad.sparse_grad(
+                fields, labels_u, il, ll, 0, V, acts.dtype, **kw), g_names,
+                bound(n_big * 4 + (3 + K_) * rows * 4, 0, F32_OPS_PER_S),
+                lambda: gradients.sparse_grad(fields, labels_u, il, ll, 0, V, acts.dtype, **kw))
+            timed("window_stream", f"mb_{suffix}",
+                  lambda: kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll),
+                  table if K_ > 2 else warp, window_bound(pr.lpb, pr.extras, arcs, il, ll))
+            del pr, lat, fields, extra, idx
+        p = kprep.prepare(acts, labels, 0, False)
+        lpd = torch.log_softmax(dur, -1).contiguous()
+        arcs = window.tdt_arcs(WIDEST_TDT)
+        timed("window_stream", "tdt_d33_headline",
+              lambda: kwindow.forward_backward(p.lpb, p.lpe, lpd, arcs, il, ll), table,
+              window_bound(p.lpb, lpd, arcs, il, ll))
+        pr = kprep.prepare(acts, labels, 0, False, extra_cols=tuple(range(V - 16, V)))
+        arcs = window.multiblank_arcs(WIDEST_MB)
+        timed("window_stream", "mb_k16_headline",
+              lambda: kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll), table,
+              window_bound(pr.lpb, pr.extras, arcs, il, ll))
+        del pr
+        del acts, dur, lp, p, lpd
+        tag, B, T, L, V, durs = LONG_WINDOW
+        cols = tuple(range(V - len(durs), V))
+        p = kprep.prepare(w_acts, w_labels, 0, False, extra_cols=cols)
+        for name, ds, names in ((f"{tag}_rings_in_device", durs, table),
+                                (f"mb_k2_{tag}_shape", MB_DURATIONS, warp)):
+            ex = p.extras[..., :len(ds)].contiguous()
+            arcs = window.multiblank_arcs(ds)
+            timed("window_stream", name,
+                  lambda: kwindow.forward_backward(p.lpb, p.lpe, ex, arcs, w_il, w_ll), names,
+                  window_bound(p.lpb, ex, arcs, w_il, w_ll))
+        del p, ex, w_acts, w_dur
+        torch.cuda.empty_cache()
+        # K6a/K6b (K = 9 beside K = 2, D = 9 beside D = 4) and K6c/K6d (D = 9
+        # beside D = 4) at the fused shape, f32.
+        problem = make_joint_problem(FB, FT, FL, FV, FH, seed=37, dev=dev, n_cols=9)
+        e, p, W, bias, labels, il, ll = problem
+        rows = int((il.long() * (ll.long() + 1)).sum())
+        g = torch.Generator(device=dev).manual_seed(38)
+        args = (e, p, W, bias, labels, il, ll, 0)
+        denom = kjoint.fused_prep(*args).denom
+        f = [torch.rand((FB, FT, FL + 1), generator=g, device=dev)
+             * gradients._valid_cells((FB, FT, FL + 1), il, ll, dev) for _ in range(3 + 9)]
+        fields = gradients.Coefficients(*f[:3])
+        in_bytes = sum(x.numel() * x.element_size() for x in (e, p, W, bias))
+        small = FB * FT * (FL + 1) * 4
+        for n in (9, 2):
+            cols = tuple(range(FV - n, FV))
+            cX = torch.stack(f[3:3 + n], -1)
+            call_timed("joint_prep", f"k{n}_{ftag}",
+                       lambda: kjoint.fused_prep(*args, extra_cols=cols),
+                       bound(in_bytes + 3 * small + rows * n * 4, 2 * rows * FH * FV,
+                             TF32X3_OPS_PER_S))
+            call_timed("joint_grad", f"k{n}_{ftag}",
+                       lambda: kjoint.fused_grad(*args[:-1], denom, fields, 0,
+                                                 extra=(cols, cX)),
+                       bound(2 * in_bytes + 4 * small + rows * n * 4, 6 * rows * FH * FV,
+                             TF32X3_OPS_PER_S))
+        for n in (9, 4):
+            Wd = torch.randn((FH, n), generator=g, device=dev) / FH ** 0.5
+            bias_d = torch.randn((n,), generator=g, device=dev) * 0.1
+            gd = torch.stack(f[3:3 + n], -1) - 0.5 * f[0][..., None]
+            head = (Wd.numel() + n) * 4
+            call_timed("joint_prep", f"d{n}_{ftag}",
+                       lambda: kjoint.fused_prep(*args, dur_head=(Wd, bias_d)),
+                       bound(in_bytes + 3 * small + rows * n * 4 + head,
+                             2 * rows * FH * (FV + n), TF32X3_OPS_PER_S))
+            call_timed("joint_grad", f"d{n}_{ftag}",
+                       lambda: kjoint.fused_grad(*args[:-1], denom, fields, 0,
+                                                 dur_head=(Wd, gd)),
+                       bound(2 * in_bytes + 4 * small + rows * n * 4 + 2 * head,
+                             6 * rows * FH * FV + 4 * rows * FH * n, TF32X3_OPS_PER_S))
+            ep = (e.numel() + p.numel()) * 4
+            call_timed("dur_head", f"prep_d{n}_{ftag}",
+                       lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll),
+                       tanh_bound(ep + head + rows * n * 4, rows * FH, 1 + n),
+                       lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll))
+            call_timed("dur_head", f"grad_d{n}_{ftag}",
+                       lambda: kjoint.dur_head_grad(e, p, Wd, gd, il, ll),
+                       tanh_bound(2 * ep + 2 * Wd.numel() * 4 + rows * n * 4, rows * FH,
+                                  5 + 2 * n),
+                       lambda: fused_joint.dur_head_grad(e, p, Wd, gd, il, ll))
+        del problem, e, p, W, f, fields, denom
+    torch.cuda.empty_cache()
+    print(f"many durations phase: {time.perf_counter() - started:.1f} s")
+    return timings, launches, train
+
+
 def log_probs_reference(tag, lp, dur, labels, il, ll, costs, grads, costs_p, grads_p):
     """The reference of the multi-blank step on log-probs: the plain route
     in f64 on the same log-probs. Its f32 gradient is a sparse set of arc
@@ -2712,7 +3141,8 @@ def train_phase(dev, totals):
     return results
 
 
-def train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed, adam_steps):
+def train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed, adam_steps,
+                     keep_model=False):
     """One train step of ``models/transducer.py`` (``maker`` with ``kw``) on
     the whole model of ``cfg`` at TRAIN_SHAPE: one step (forward, loss,
     backward, Adam) under the launch counters with no host sync allowed,
@@ -2723,7 +3153,7 @@ def train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed, adam_step
     ``adam_steps`` more steps on the same batch, each timed by CUDA events,
     after which the loss must be lower; the device breakdown (idle share,
     the port's kernels' share of busy time) and the peak memory of a step.
-    Returns its numbers."""
+    Returns its numbers (and the trained model, with ``keep_model``)."""
     from warp_transducer_tpu_torch.models import transducer as tm
     from warp_transducer_tpu_torch.ops import cuda as K
     tag, B, T, L = TRAIN_SHAPE
@@ -2791,9 +3221,9 @@ def train_step_check(dev, totals, name, maker, kw, cfg, kernels, seed, adam_step
         "port_kernels_ms": prof and prof[3],
         "port_share_of_busy": prof and prof[3] / prof[0], "peak_mb": mb,
         "plain_step_ms_once": plain_s * 1e3}
-    del model, step, batch, losses
+    del step, batch, losses
     torch.cuda.empty_cache()
-    return out
+    return (out, model) if keep_model else out
 
 
 # The fused shape at joint width 2048: above the widest configuration of the
@@ -4330,6 +4760,15 @@ def main():
     # fused train step of the whole model at joint_dim 2048, the timings
     wide_kernel_ms, wide_step, wide_train = wide_phase(dev, totals, errs)
 
+    phase_seconds("9c")
+    # ---- 9c. duration sets past the kernels' by-value tables: TDT 0 … 8
+    # (headline, long_t, fused on both routes, the whole model's train step
+    # and its greedy decoder), nine and sixteen big blanks (raw, on
+    # log-probs, fused), D = 33, a 300-frame window with its rings in device
+    # memory, each against its plain route; the new instances timed beside
+    # the by-value ones
+    many_timing, many_launches, many_train = many_durations_phase(dev, totals, errs)
+
     phase_seconds("10")
     # ---- 10. the training surface: the eight train steps of the whole model
     # at its own width, each under the launch counters against its plain
@@ -4527,6 +4966,15 @@ def main():
                      for case, t in variant_kernel_ms["dur_head"].items()} | {
                          case: timing(t) | {"bound_term": t["bound"][2]}
                          for case, t in wide_kernel_ms["dur_head"].items()}})
+    # The instances past eight columns or arcs (and K7's rings in device
+    # memory) under their kernels' entries: their launches on this run's
+    # main paths (phase 9c) and their timings beside the by-value instance.
+    for entry in kernels:
+        if entry["name"] in many_timing:
+            entry["past_eight"] = {
+                "launches": many_launches[entry["name"]],
+                "by_shape": {case: timing(t) for case, t in many_timing[entry["name"]].items()}}
+    print(json.dumps({"many_durations": {"train_step": many_train}}))
     print(json.dumps({"fused_duration_arc": {
         "steps": {name: {"ms": ms, "peak_mb": mb} for name, (ms, mb) in variant_step.items()},
         "tdt_routes_ms": variant_routes}}))

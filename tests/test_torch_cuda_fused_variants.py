@@ -539,8 +539,10 @@ def test_wrapper_refusals(dev):
     e, p, W, bias, Wd, bias_d, labels, il, ll = _problem(2, 5, 3, 12, 8, 2, 4, device=dev)
     with pytest.raises(ValueError, match="extra columns"):
         kjoint.fused_prep(e, p, W, bias, labels, il, ll, 0, extra_cols=(12,))
-    with pytest.raises(ValueError, match="at most 8"):
-        kjoint.fused_prep(e, p, W, bias, labels, il, ll, 0, extra_cols=tuple(range(1, 10)))
+    # nine columns are taken (the instance past eight reads a device table)
+    got = kjoint.fused_prep(e, p, W, bias, labels, il, ll, 0, extra_cols=tuple(range(1, 10)))
+    torch.testing.assert_close(got.extras, fused_joint.fused_prep(
+        e, p, W, bias, labels, il, ll, 0, extra_cols=tuple(range(1, 10))).extras, **F32)
     with pytest.raises(ValueError, match="Wd must be"):
         kjoint.fused_prep(e, p, W, bias, labels, il, ll, 0, dur_head=(Wd[:4], bias_d))
     with pytest.raises(ValueError, match="bias_d"):

@@ -204,7 +204,8 @@ def test_window_plan_matches_kernel(dev):
     arc_sets = [window.multiblank_arcs(()), window.multiblank_arcs((2, 4)),
                 window.tdt_arcs((0, 1, 2, 4)), window.tdt_arcs((1, 2)), window.tdt_arcs((1, 2, 4)),
                 window.tdt_arcs(tuple(range(1, 9))), window.tdt_arcs((0, 1, 2, 3, 4)),
-                window.multiblank_arcs((2, 4, 8))]
+                window.multiblank_arcs((2, 4, 8)), window.tdt_arcs(tuple(range(9))),
+                window.multiblank_arcs(tuple(range(2, 11))), window.multiblank_arcs((2, 300))]
     for dtype in (torch.float32, torch.float64):
         elt = torch.tensor([], dtype=dtype).element_size()
         for arcs in arc_sets:
@@ -219,7 +220,8 @@ def test_window_plan_matches_kernel(dev):
                             for T in (1, 1500, 4_000_000):
                                 for warps in (0, 1, 4, 16):
                                     for ch in (2, 3):
-                                        args = (W, n_arcs, n_extra, chain, betas, sms, warps, ch)
+                                        args = (W, n_arcs, n_extra, chain, betas, sms, warps, ch,
+                                                kwindow.by_value(arcs, n_extra))
                                         assert kwindow.plan(B, T, U, elt, *args) == \
                                             kwindow.kernel_plan(B, T, U, dtype, *args), \
                                             (dtype, U, B, T, args)
@@ -230,7 +232,7 @@ def test_window_kernels_do_not_spill(dev, dtype):
     """Every instance of the kernel, narrow and wide (C = 1, 3, … up to the
     cap): no local memory."""
     cap = kwindow.max_cells(torch.tensor([], dtype=dtype).element_size())
-    for wide in (False, True):
+    for wide in (kwindow.NARROW, kwindow.WIDE, kwindow.TABLE):
         for C in range(1, cap + 1, 2):
             p = kwindow.Plan(wide, 1, C, 1, 1, 1, 32, 0, 0, 0)
             regs, local = kwindow.kernel_registers(p, dtype)
@@ -421,8 +423,10 @@ def test_grad_kernel_extra_cols(dev, K_cols, dtype):
 
 def test_extra_cols_rejected(dev):
     acts, labels, il, ll = _acts_problem(2, 3, 3, 12, 7, torch.float32, dev)
-    with pytest.raises(ValueError, match="at most 8"):
-        kprep.prepare(acts, labels, 0, False, extra_cols=tuple(range(1, 10)))
+    # nine columns are taken (the instance past eight reads a device table)
+    got = kprep.prepare(acts, labels, 0, False, extra_cols=tuple(range(1, 10)))
+    torch.testing.assert_close(got.extras, prep.prepare(acts, labels, 0, False,
+                                                        extra_cols=tuple(range(1, 10))).extras)
     with pytest.raises(ValueError, match="inside"):
         kprep.prepare(acts, labels, 0, False, extra_cols=(12,))
     p = prep.prepare(acts, labels, 0, False)

@@ -148,7 +148,7 @@ def test_shared_memory_within_a_block(H, U):
     # 32 labels, whatever H and U are.
     ut, tt, _, _ = J.dur_head_plan(4, U, H)
     uc = min(U + U % 2, J.DUR_GRAD_UC)
-    prep = 4 * ((ut + tt) * J.DUR_PREP_LD + J.DUR_PREP_KC * J.DUR_MAX_D)
+    prep = 4 * ((ut + tt) * J.DUR_PREP_LD + J.DUR_PREP_KC * J.DUR_GROUP_D)
     grad = 4 * ((1 + J.DUR_GRAD_WARPS) * uc * J.DUR_GRAD_KS
-                + J.DUR_GRAD_WARPS * J.DUR_GRAD_TF * uc * J.DUR_MAX_D)
+                + J.DUR_GRAD_WARPS * J.DUR_GRAD_TF * uc * J.DUR_GROUP_D)
     assert max(prep, grad) <= J.dur_smem_bytes() <= min(SMEM_BYTES, 48 * 1024)

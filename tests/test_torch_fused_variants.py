@@ -308,12 +308,14 @@ def test_validation():
     head = (_t(q["Wd"]), _t(q["bias_d"]))
     with pytest.raises(ValueError, match="extra columns"):
         _torch_prep(q, extra_cols=(10,))
-    with pytest.raises(ValueError, match="at most 8"):
-        _torch_prep(q, extra_cols=tuple(range(9)))
+    # nine extra columns and a head of nine columns compute (no cap)
+    assert _torch_prep(q, extra_cols=tuple(range(9))).extras.shape[-1] == 9
+    assert fused_joint.dur_head_prep(_t(q["e"]), _t(q["p"]), torch.zeros(8, 9),
+                                     torch.zeros(9)).shape[-1] == 9
     with pytest.raises(ValueError, match="Wd must be"):
         _torch_prep(q, dur_head=(head[0][:4], head[1]))
     with pytest.raises(ValueError, match="Wd must be"):
-        fused_joint.dur_head_prep(_t(q["e"]), _t(q["p"]), torch.zeros(8, 9), torch.zeros(9))
+        fused_joint.dur_head_prep(_t(q["e"]), _t(q["p"]), torch.zeros(8, 0), torch.zeros(0))
     with pytest.raises(ValueError, match="bias_d has 2 columns"):
         _torch_prep(q, dur_head=(head[0], head[1][:2]))
     denom = _torch_prep(q).denom

@@ -546,7 +546,8 @@ def emulate(lpb, lpe, extra, arcs, il, ll, compute_betas=True, elt=8, warps=0):
     B, T, U = lpb.shape
     n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
     p = KW.plan(B, T, U, elt, arcs.window, n_arcs, extra.shape[-1], arcs.chain is not None,
-                compute_betas, N_SM, warps, KW.arc_channels(arcs))
+                compute_betas, N_SM, warps, KW.arc_channels(arcs),
+                KW.by_value(arcs, extra.shape[-1]))
     assert p is not None and (p.passes - 1) * WARP * p.warps * p.cells < U
     assert p.passes * WARP * p.warps * p.cells >= U
     out = {"alphas": [], "betas": [], "ll_forward": [], "ll_backward": []}
@@ -620,6 +621,16 @@ CASES = {
     "passes_tdt_no_chain": (("tdt", (1, 2, 3, 4, 5, 6, 7, 8)), 2, 5, 300, [5, 3], [299, 140], 8,
                             0),
     "passes_tdt_chain": (("tdt", (0, 1, 2, 3, 4, 5, 6, 8)), 2, 5, 300, [5, 4], [299, 128], 8, 0),
+    # the table instance: more arcs and channels than the by-value table
+    # holds (TDT 0 … 8: 11 channels; 0 … 32: 64 arcs; nine and sixteen big
+    # blanks), its rings in shared memory or, where they pass a block, in
+    # device memory (sixteen big blanks on four warps; a window of 300)
+    "table_tdt_0_8": (("tdt", tuple(range(9))), 2, 11, 9, [11, 7], [8, 4], 8, 0),
+    "table_tdt_0_32": (("tdt", tuple(range(33))), 2, 6, 5, [6, 4], [4, 2], 8, 0),
+    "table_mb_k9": (("multiblank", tuple(range(2, 11))), 2, 12, 9, [12, 9], [8, 5], 8, 0),
+    "table_mb_k16_rings_in_device": (("multiblank", tuple(range(2, 18))), 1, 20, 300, [20],
+                                     [299], 8, 4),
+    "rings_in_device_w300": (("multiblank", (2, 300)), 1, 302, 5, [302], [4], 8, 0),
 }
 
 
@@ -630,7 +641,11 @@ CASES = {
 # shapes would cost most of a minute.
 SCHEDULE_ONLY = {"U601_two_warps_mb", "no_chain_four_warps", "wide_8_warps_mb", "wide_16_warps_tdt", "passes_mb_w8",
                  "passes_tdt_no_chain", "passes_tdt_chain", "U601_four_warps_tdt",
-                 "no_chain_U601"}
+                 "no_chain_U601", "table_tdt_0_8", "table_tdt_0_32", "table_mb_k9",
+                 "table_mb_k16_rings_in_device", "rings_in_device_w300"}
+# The table instance's cases: (instance, whether the rings lie in device memory).
+TABLE_CASES = {"table_tdt_0_8": False, "table_tdt_0_32": True, "table_mb_k9": False,
+               "table_mb_k16_rings_in_device": True, "rings_in_device_w300": True}
 
 
 def _arcs(family, durations):
@@ -673,6 +688,10 @@ def test_emulation_matches_plain_and_jax(case):
     got = emulate(lpb, lpe, extra, arcs, il, ll, True, elt, warps)
     # every cell, NEG outside the lattice in both
     _check(got, _plain(lpb, lpe, extra, arcs, il, ll), FIELDS, rtol=1e-12, atol=1e-10)
+    p = _plan(B, U, elt, arcs, T=T, n_extra=len(durations), warps=warps)
+    assert (p.wide == KW.TABLE) == (case in TABLE_CASES), p
+    if case in TABLE_CASES:
+        assert (p.rings > 0) == TABLE_CASES[case], p
     if family == "three" or case in SCHEDULE_ONLY:
         return
     # The JAX engines clamp as the port does; cells no path reaches hold NEG.
@@ -732,7 +751,7 @@ def _plan(B, U, elt, arcs=None, betas=True, T=1500, n_extra=None, warps=0):
     if n_extra is None:
         n_extra = max(c for _, chs in arcs.blank_arcs + arcs.emit_arcs for c in chs) - 1
     return KW.plan(B, T, U, elt, arcs.window, n_arcs, max(n_extra, 0), arcs.chain is not None,
-                   betas, N_SM, warps, KW.arc_channels(arcs))
+                   betas, N_SM, warps, KW.arc_channels(arcs), KW.by_value(arcs, max(n_extra, 0)))
 
 
 def _covers(p, U, elt):
@@ -742,9 +761,12 @@ def _covers(p, U, elt):
     up = WARP * p.warps * p.cells
     assert p.cells % 2 == 1 and p.cells <= KW.max_cells(elt)
     assert (p.passes - 1) * up < U <= p.passes * up
-    assert p.smem == p.lattice_words * elt * p.per_block <= KW.SMEM_BYTES
+    # the table instance keeps its arcs after its lattices
+    table = p.smem - p.lattice_words * elt * p.per_block
+    assert p.smem <= KW.SMEM_BYTES and table % KW.TABLE_ARC_BYTES == 0
+    assert (table > 0) == (p.wide == KW.TABLE)
     assert p.threads == WARP * p.warps * p.per_block
-    assert p.threads <= (KW.wide_warps(elt, p.cells) if p.wide else KW.MAX_WARPS) * WARP
+    assert p.threads <= KW.block_warps(p.wide, elt, p.cells) * WARP
     assert (p.hand > 0) == (p.passes > 1) and (p.passes == 1 or p.wide)
     assert p.warps <= (KW.WIDE_MAX_G if p.wide else KW.MAX_G)
 
@@ -895,11 +917,20 @@ def test_forced_warps_run(U, warps):
 
 
 def test_no_plan_for_a_window_past_one_warp():
-    """A window so long that one warp's rings do not fit a block has no
-    plan; the wrapper raises."""
+    """A window so long that one warp's rings do not fit a block runs on the
+    table instance with its rings in device memory (at any U, in passes
+    where the copy ring needs them); no plan only where even one warp's copy
+    ring of a 32-column pass passes a block (thousands of channels)."""
     arcs = TW.multiblank_arcs((900,))
-    assert _plan(2, 40, 4, arcs, T=50, n_extra=1) is None
-    assert _plan(2, 40, 4, TW.multiblank_arcs((200,)), T=50, n_extra=1) is not None
+    p = _plan(2, 40, 4, arcs, T=50, n_extra=1)
+    assert p.wide == KW.TABLE and p.passes == 1
+    assert p.rings == 2 * 2 * KW.ring_words(p.warps, p.cells, 900, 2)
+    _covers(p, 40, 4)
+    wide = _plan(2, 40000, 4, TW.multiblank_arcs((300, 2, 4, 8, 16, 32, 64, 128, 256)), T=50)
+    assert wide.wide == KW.TABLE and wide.passes > 1 and wide.rings > 0 and wide.hand > 0
+    _covers(wide, 40000, 4)
+    assert _plan(2, 40, 4, TW.multiblank_arcs((200,)), T=50, n_extra=1).wide != KW.TABLE
+    assert KW.plan(2, 50, 40, 4, 2, 2, 3000, True, True, N_SM, by_value=False) is None
 
 
 def test_cells_are_odd_and_cover_the_columns():

@@ -21,7 +21,10 @@ enum DType { kF32 = 0, kF64 = 1, kBF16 = 2, kF16 = 3 };
 constexpr int kWarp = 32;
 
 // Extra vocabulary columns of the prep and gradient kernels (the big blanks
-// of the multi-blank loss), passed to the kernel by value.
+// of the multi-blank loss), passed to the kernel by value up to
+// kMaxExtraCols of them. Past that, the kernels' instances of their own read
+// the columns from a table in device memory and loop over it at run time
+// (there is no cap); ExtraCols then carries the count alone.
 constexpr int kMaxExtraCols = 8;
 struct ExtraCols {
   int n;
@@ -37,6 +40,22 @@ inline bool extra_cols(const int* host, int K, int V, ExtraCols* out) {
     if (k < K && (host[k] < 0 || host[k] >= V)) return false;
   }
   return true;
+}
+
+// Whether K >= 0 host indices (a table of any length) all lie inside [0, V).
+inline bool cols_inside(const int* host, int K, int V) {
+  if (K < 0 || (K > 0 && host == nullptr)) return false;
+  for (int k = 0; k < K; ++k)
+    if (host[k] < 0 || host[k] >= V) return false;
+  return true;
+}
+// ExtraCols for K columns of a table read at run time (K > kMaxExtraCols):
+// the count, every entry -1.
+inline ExtraCols many_cols(int K) {
+  ExtraCols c;
+  c.n = K;
+  for (int k = 0; k < kMaxExtraCols; ++k) c.col[k] = -1;
+  return c;
 }
 
 // Read an element of any input type in its accumulation type.

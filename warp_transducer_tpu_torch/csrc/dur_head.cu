@@ -1,5 +1,5 @@
-// Duration-head kernels of the fused TDT loss: the second, tiny projection
-// (D <= 8 columns) of the joint features h = tanh(e ⊕ p), on its own, without
+// Duration-head kernels of the fused TDT loss: the second, narrow projection
+// (D columns, any D) of the joint features h = tanh(e ⊕ p), on its own, without
 // the (B, T, U, H) features ever reaching device memory. They go with the
 // fused joint kernels of the token head alone (joint_prep.cu, joint_grad.cu
 // without their duration head): the composed route of ops/tdt_fused.py.
@@ -26,7 +26,12 @@
 // (≈ 0.015 ms there), the FP32 pipe the gradient (≈ 0.02 ms). The design
 // spends nothing on what the arithmetic does not need: no search for a
 // row's place, no shuffles, no atomics, no FMA slots for columns beyond D
-// (D is a template parameter, 1..8).
+// (D is a template parameter, 1..8). Past 8 columns the kernels run in
+// groups of 8 (instances of their own, kGroup): blockIdx.z takes columns
+// 8·z … 8·z + 7 of a head of D, at run time, with the D = 8 instance's
+// registers; the gradient's groups write partials of de2 and dp2 (their dh
+// is the group's share of g_dur·Wdᵀ, and d enters both linearly) and their
+// own columns of dWd's partials, all added in a fixed order afterwards.
 //
 // Design.
 // * dur_prep_kernel — a tile of cells a block, a thread a cell. The block
@@ -98,12 +103,16 @@ __device__ __forceinline__ void lattice(const Rows& rows, int b, int& Tb, int& U
 // ---- prep --------------------------------------------------------------------
 
 // grid (B, tiles_t · tiles_u): blockIdx.y = it · tiles_u + iu.
-template <int D>
+// kGroup: D = 8 columns of a head of Dfull, the group blockIdx.z.
+template <int D, bool kGroup = false>
 __global__ void __launch_bounds__(kPrepThreads)
 dur_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
                 const float* __restrict__ Wd, const float* __restrict__ bias_d, Rows rows,
-                float* __restrict__ dlog, int H, int tiles_u) {
+                float* __restrict__ dlog, int H, int tiles_u, int Dfull = D) {
   constexpr int DP = (D + 3) / 4 * 4;  // Wd's row in shared memory: whole float4
+  const int ld = kGroup ? Dfull : D;   // Wd's and dlog's row
+  const int d0 = kGroup ? (int)blockIdx.z * D : 0;
+  const int nd = kGroup ? min(D, Dfull - d0) : D;
   __shared__ __align__(16) float s_ep[kPrepRows * kPrepLd];
   __shared__ __align__(16) float s_wd[kPrepKC * DP];
   const int b = blockIdx.x;
@@ -146,7 +155,7 @@ dur_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
     }
     for (int idx = tid; idx < kPrepKC * DP; idx += kPrepThreads) {
       const int k = k0 + idx / DP, c = idx % DP;
-      s_wd[idx] = k < H && c < D ? Wd[k * D + c] : 0.f;
+      s_wd[idx] = k < H && c < nd ? Wd[k * ld + d0 + c] : 0.f;
     }
     __syncthreads();
     // Beyond H both e and p are zero, and tanh(0) = 0.
@@ -170,8 +179,12 @@ dur_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
     }
   }
   if (!active) return;
-  float* dst = dlog + (((long long)b * rows.T + t0 + tl) * rows.U + u0 + ul) * D;
-  if constexpr (D % 4 == 0) {
+  float* dst = dlog + (((long long)b * rows.T + t0 + tl) * rows.U + u0 + ul) * ld + d0;
+  if constexpr (kGroup) {
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      if (c < nd) dst[c] = acc[c] + bias_d[d0 + c];
+  } else if constexpr (D % 4 == 0) {
 #pragma unroll
     for (int c = 0; c < D; c += 4)
       *reinterpret_cast<float4*>(dst + c) = make_float4(
@@ -188,12 +201,15 @@ dur_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
 // grid (B, ceil(H / 32), kGradSplits): block (b, j, z) owns k = 32·j + lane
 // of utterance b for the frames of split z, and writes split z's partials of
 // dp2 and dWd.
-template <int D>
+// kGroup: D = 8 columns of a head of Dfull, the group blockIdx.z /
+// kGradSplits (and the split blockIdx.z % kGradSplits); `de` is then the
+// group's partial of de2 and dp_part holds a partial a group and split.
+template <int D, bool kGroup = false>
 __global__ void __launch_bounds__(kGradThreads, D <= 6 ? 8 : 7)
 dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
                 const float* __restrict__ Wd, const float* __restrict__ g_dur, Rows rows,
                 float* __restrict__ de, float* __restrict__ dp_part,
-                float* __restrict__ dWd_part, int H) {
+                float* __restrict__ dWd_part, int H, int Dfull = D) {
   constexpr int DP = (D + 3) / 4 * 4;  // a cell's g_dur in shared memory: whole float4
   constexpr int kG = kGradTF * kGradUC * DP;  // a warp's g_dur rows
   constexpr int kL = (kGradUC * D + wtt::kWarp - 1) / wtt::kWarp;  // of a frame, a lane's
@@ -201,7 +217,10 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
   __shared__ float s_dp[kGradWarps][kGradUC][kGradKS];
   extern __shared__ __align__(16) float s_g[];  // kGradWarps × kG
   const int b = blockIdx.x, lane = threadIdx.x % wtt::kWarp, w = threadIdx.x / wtt::kWarp;
-  const int z = blockIdx.z;
+  const int z = kGroup ? (int)blockIdx.z % kGradSplits : (int)blockIdx.z;
+  const int ld = kGroup ? Dfull : D;  // Wd's, g_dur's and dWd's row
+  const int d0 = kGroup ? (int)blockIdx.z / kGradSplits * D : 0;
+  const int nd = kGroup ? min(D, Dfull - d0) : D;
   const int k = blockIdx.y * kGradKS + lane;
   const bool kin = k < H;
   const int T = rows.T, U = rows.U;
@@ -210,12 +229,14 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
   float wd[D], acc[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    wd[c] = kin ? Wd[k * D + c] : 0.f;
+    wd[c] = kin && c < nd ? Wd[k * ld + d0 + c] : 0.f;
     acc[c] = 0.f;
   }
   const long long eb = (long long)b * T * H + k;  // e[b, 0, k], de[b, 0, k]
   const long long pb = (long long)b * U * H + k;  // p[b, 0, k]
-  float* dp = dp_part + (long long)z * rows.B * U * H;  // this split's partial of dp2
+  if (kGroup) de += (long long)(blockIdx.z / kGradSplits) * rows.B * T * H;  // the group's
+  // This split's partial of dp2 (with groups: this group's and split's).
+  float* dp = dp_part + (long long)(kGroup ? (int)blockIdx.z : z) * rows.B * U * H;
   float* g_w = s_g + w * kG;
 
   for (int u0 = 0; u0 < Ub; u0 += kGradUC) {
@@ -239,11 +260,16 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
       for (int f = 0; f < kGradTF; ++f) {
         const int t = first + f;
         e_next[f] = kin && t < Tb ? e[eb + (long long)t * H] : 0.f;
-        const float* g = g_dur + (((long long)b * T + t) * U + u0) * D;
+        const float* g = g_dur + (((long long)b * T + t) * U + u0) * ld + d0;
 #pragma unroll
         for (int i = 0; i < kL; ++i) {
           const int idx = lane + i * wtt::kWarp;
-          g_next[f][i] = t < Tb && idx < nu * D ? __ldg(g + idx) : 0.f;
+          if constexpr (kGroup)  // the group's columns of each cell
+            g_next[f][i] = t < Tb && idx < nu * D && idx % D < nd
+                               ? __ldg(g + (long long)(idx / D) * ld + idx % D)
+                               : 0.f;
+          else
+            g_next[f][i] = t < Tb && idx < nu * D ? __ldg(g + idx) : 0.f;
         }
       }
     };
@@ -335,7 +361,7 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
       float s = red[lane * D + c];
 #pragma unroll
       for (int x = 1; x < kGradWarps; ++x) s += red[(x * kGradKS + lane) * D + c];
-      dWd_part[(((long long)z * rows.B + b) * H + k) * D + c] = s;
+      if (c < nd) dWd_part[(((long long)z * rows.B + b) * H + k) * ld + d0 + c] = s;
     }
   }
 }
@@ -409,6 +435,54 @@ int launch_grad(const float* e, const float* p, const float* Wd, const float* g_
   return (int)cudaGetLastError();
 }
 
+// Past 8 columns: groups of 8 (the kGroup instances of D = 8). The prep's
+// grid takes a third dimension of groups; the gradient's partials (part, as
+// dur_part_floats counts them): dp2 a group and split, de2 a group, dWd a
+// split and utterance (each group its columns), added in that order.
+constexpr int kGroupD = 8;
+inline int groups(int D) { return (D + kGroupD - 1) / kGroupD; }
+
+long long dur_part_floats(int B, int T, int U, int H, int D) {
+  const long long bh = (long long)B * H;
+  if (D <= kPanel) return kGradSplits * (bh * U + bh * D);
+  return groups(D) * (kGradSplits * bh * U + bh * T) + kGradSplits * bh * D;
+}
+
+int launch_prep_groups(const float* e, const float* p, const float* Wd, const float* bias_d,
+                       Rows rows, float* dlog, int H, int D, cudaStream_t stream) {
+  const int ut = prep_ut(rows.U), tt = prep_tt(rows.U);
+  const int tiles_u = (rows.U + ut - 1) / ut;
+  const long long tiles = (long long)((rows.T + tt - 1) / tt) * tiles_u;
+  if (tiles > 65535 || groups(D) > 65535) return (int)cudaErrorInvalidValue;
+  dur_prep_kernel<kGroupD, true>
+      <<<dim3(rows.B, (unsigned)tiles, groups(D)), kPrepThreads, 0, stream>>>(
+          e, p, Wd, bias_d, rows, dlog, H, tiles_u, D);
+  return (int)cudaGetLastError();
+}
+
+int launch_grad_groups(const float* e, const float* p, const float* Wd, const float* g_dur,
+                       Rows rows, float* de, float* dp, float* dWd, float* part, int H, int D,
+                       cudaStream_t stream) {
+  const int ng = groups(D);
+  const long long n_dp = (long long)rows.B * rows.U * H, n_de = (long long)rows.B * rows.T * H;
+  float* dp_part = part;                                // (group, split) × (B, U, H)
+  float* de_part = dp_part + (long long)ng * kGradSplits * n_dp;  // group × (B, T, H)
+  float* dWd_part = de_part + ng * n_de;                // (split, b) × (H, D)
+  if (rows.B > 0) {
+    if ((long long)ng * kGradSplits > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid(rows.B, (H + kGradKS - 1) / kGradKS, ng * kGradSplits);
+    dur_grad_kernel<kGroupD, true><<<grid, kGradThreads, grad_g_smem(kGroupD), stream>>>(
+        e, p, Wd, g_dur, rows, de_part, dp_part, dWd_part, H, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err = sum_parts(dp_part, dp, n_dp, ng * kGradSplits, stream);
+  if (err == cudaSuccess) err = sum_parts(de_part, de, n_de, ng, stream);
+  if (err == cudaSuccess)
+    err = sum_parts(dWd_part, dWd, (long long)H * D, kGradSplits * rows.B, stream);
+  return (int)err;
+}
+
 // The switch over D = 1..8 of the two launches.
 template <template <int> class F, typename... A>
 int by_d(int D, A... a) {
@@ -435,8 +509,9 @@ template <int D> struct GradByD {
 
 extern "C" {
 
-// Shared memory of a block of the larger of the two kernels (at D = 8; it
-// does not depend on H or U), for the mirror in ops/cuda/joint.py.
+// Shared memory of a block of the larger of the two kernels (at D = 8, as
+// the groups of a larger head take; it does not depend on H or U), for the
+// mirror in ops/cuda/joint.py.
 long long wtt_dur_head_smem() {
   return (long long)(kPrepSmem > kGradSmem ? kPrepSmem : kGradSmem);
 }
@@ -454,14 +529,19 @@ void wtt_dur_head_plan(int T, int U, int H, int* out) {
 
 // e: (B,T,H) f32; p: (B,U,H) f32; Wd: (H,D) f32; bias_d: (D,) f32; offsets:
 // (B+1) int64 running sums of T_b·U_b; label_lengths: (B,) int32; dlog:
-// (B,T,U,D) f32, pre-filled with zeros. 1 <= D <= 8. Returns the launch's
-// cudaError_t.
+// (B,T,U,D) f32, pre-filled with zeros. Any D >= 1 (past 8 in groups of 8).
+// Returns the launch's cudaError_t.
 int wtt_dur_head_prep(const void* e, const void* p, const void* Wd, const void* bias_d,
                       const void* offsets, const int* label_lengths, void* dlog, int B, int T,
                       int U, int H, int D, void* stream) {
   if ((long long)B * T * U == 0) return 0;
-  if (D < 1 || D > kPanel) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
+  if (D > kPanel)
+    return launch_prep_groups(static_cast<const float*>(e), static_cast<const float*>(p),
+                              static_cast<const float*>(Wd), static_cast<const float*>(bias_d),
+                              rows, static_cast<float*>(dlog), H, D,
+                              static_cast<cudaStream_t>(stream));
   return by_d<PrepByD>(D, static_cast<const float*>(e), static_cast<const float*>(p),
                     static_cast<const float*>(Wd), static_cast<const float*>(bias_d), rows,
                     static_cast<float*>(dlog), H, static_cast<cudaStream_t>(stream));
@@ -470,20 +550,32 @@ int wtt_dur_head_prep(const void* e, const void* p, const void* Wd, const void* 
 // The inputs of wtt_dur_head_prep with g_dur: (B,T,U,D) f32, zero outside
 // the lattice, in place of bias_d. de: (B,T,H) f32 and dp: (B,U,H) f32,
 // written whole (zeros outside the lattice); dWd: (H,D) f32, written whole;
-// part: f32 scratch of 2·B·(U·H + H·D) (a partial of dp and of dWd an
-// utterance and frame split). Every base 16-byte aligned. Returns the
+// part: f32 scratch of wtt_dur_head_part_floats values (D <= 8:
+// 2·B·(U·H + H·D), a partial of dp and of dWd an utterance and frame split;
+// past 8, the groups' partials too). Every base 16-byte aligned. Returns the
 // launches' cudaError_t.
 int wtt_dur_head_grad(const void* e, const void* p, const void* Wd, const void* g_dur,
                       const void* offsets, const int* label_lengths, void* de, void* dp,
                       void* dWd, void* part, int B, int T, int U, int H, int D,
                       void* stream) {
   if (H == 0) return 0;
-  if (D < 1 || D > kPanel) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
+  if (D > kPanel)
+    return launch_grad_groups(static_cast<const float*>(e), static_cast<const float*>(p),
+                              static_cast<const float*>(Wd), static_cast<const float*>(g_dur),
+                              rows, static_cast<float*>(de), static_cast<float*>(dp),
+                              static_cast<float*>(dWd), static_cast<float*>(part), H, D,
+                              static_cast<cudaStream_t>(stream));
   return by_d<GradByD>(D, static_cast<const float*>(e), static_cast<const float*>(p),
                     static_cast<const float*>(Wd), static_cast<const float*>(g_dur), rows,
                     static_cast<float*>(de), static_cast<float*>(dp), static_cast<float*>(dWd),
                     static_cast<float*>(part), H, static_cast<cudaStream_t>(stream));
+}
+
+// Values of the gradient's f32 scratch `part` at these sizes.
+long long wtt_dur_head_part_floats(int B, int T, int U, int H, int D) {
+  return dur_part_floats(B, T, U, H, D);
 }
 
 }  // extern "C"

@@ -19,7 +19,11 @@
 //
 // Fields mode (wtt_grad; the multi-blank loss and the TDT token head, whose
 // coefficients are not the standard ones): coef, cb, ce come as (B, T, U)
-// fields and K <= 8 extra columns' posteriors as a (B, T, U, K) field.
+// fields and K extra columns' posteriors as a (B, T, U, K) field. K has no
+// cap: up to 8 columns come by value (the instances the main shapes run);
+// past 8, instances of their own (ManyFieldsOp, dense and sparse) read the
+// columns from a table in device memory, looked through in a loop at run
+// time for a column inside [min col_k, max col_k] only.
 //
 // Per element of a valid row ((t < T_b) & (u < U_b); others are written 0),
 // rows.cuh::grad_element: dense g = coef·exp(x + denom) − cb·[v = blank]
@@ -161,6 +165,36 @@ struct FieldsOp : Common<TIo, TAcc> {
   }
 };
 
+// K > kMaxExtraCols extra columns: the same element, the columns read from a
+// device table in a loop at run time (cols.n = K). Dense: every matching
+// column subtracted, in the order of k, after blank and the label; sparse:
+// the last matching column over blank and under the label.
+// Columns that run lo, lo + 1, … in the order of k (the default big
+// blanks, the last K columns) are found without the loop: k = col − lo.
+template <typename TIo, typename TAcc, bool SPARSE>
+struct ManyFieldsOp : FieldsOp<TIo, TAcc, SPARSE> {
+  using Tacc = TAcc;
+  const int* table;  // (K,) int32 in device memory
+  bool contiguous;   // table[k] == lo + k for every k
+
+  __device__ __forceinline__ Tacc apply(const GradRow<Tacc>& r, int col, Tacc x,
+                                        const Tacc* ext) const {
+    Tacc out = wtt::rows::grad_element<Tacc>(r, col, x, this->blank, SPARSE, 0, this->cols,
+                                             nullptr);
+    if ((unsigned)(col - this->lo) <= (unsigned)this->span && r.valid &&
+        !(SPARSE && col == r.lab)) {
+      if (contiguous) {
+        const Tacc e = ext[col - this->lo];
+        out = SPARSE ? -e : out - e;
+      } else {
+        for (int k = 0; k < this->n_extra; ++k)
+          if (col == __ldg(table + k)) out = SPARSE ? -ext[k] : out - ext[k];
+      }
+    }
+    return out;
+  }
+};
+
 template <typename Tio, typename Tacc, int VEC>
 __global__ void __launch_bounds__(wtt::rows::kThreads)
     grad_lattice_tile_kernel(const LatticeOp<Tio, Tacc> op) {
@@ -179,6 +213,17 @@ __global__ void __launch_bounds__(wtt::rows::kThreads)
 template <typename Tio, typename Tacc, int VEC, bool SPARSE>
 __global__ void __launch_bounds__(wtt::rows::kThreads)
     grad_fields_warp_kernel(const FieldsOp<Tio, Tacc, SPARSE> op) {
+  wtt::rows::warp_body<VEC>(op);
+}
+
+template <typename Tio, typename Tacc, int VEC, bool SPARSE>
+__global__ void __launch_bounds__(wtt::rows::kThreads)
+    grad_many_tile_kernel(const ManyFieldsOp<Tio, Tacc, SPARSE> op) {
+  wtt::rows::tile_body<VEC>(op);
+}
+template <typename Tio, typename Tacc, int VEC, bool SPARSE>
+__global__ void __launch_bounds__(wtt::rows::kThreads)
+    grad_many_warp_kernel(const ManyFieldsOp<Tio, Tacc, SPARSE> op) {
   wtt::rows::warp_body<VEC>(op);
 }
 
@@ -247,11 +292,23 @@ int lattice(const void* acts, const void* denom, const void* lpb, const void* lp
 }
 
 template <typename Tio, typename Tacc, bool SPARSE>
+int launch_many(const ManyFieldsOp<Tio, Tacc, SPARSE>& op, cudaStream_t s) {
+  constexpr int V16 = kVec(sizeof(Tio));
+  return wtt::rows::launch(op, grad_many_tile_kernel<Tio, Tacc, 1, SPARSE>,
+                           grad_many_tile_kernel<Tio, Tacc, V16, SPARSE>,
+                           grad_many_warp_kernel<Tio, Tacc, 1, SPARSE>,
+                           grad_many_warp_kernel<Tio, Tacc, V16, SPARSE>, s);
+}
+
+// host_cols: the K columns (a host array), table: the same in device memory
+// (read past kMaxExtraCols of them).
+template <typename Tio, typename Tacc, bool SPARSE>
 int fields_mode(const void* acts, const void* denom, const void* coef, const void* cb,
-                const void* ce, const void* extra, const wtt::ExtraCols& cols, const int* labels,
+                const void* ce, const void* extra, const wtt::ExtraCols& cols,
+                const int* host_cols, const int* table, const int* labels,
                 const int* input_lengths, const int* label_lengths, void* grads, long long rows,
                 int T, int U, int V, int blank, const wtt::rows::Plan& plan, cudaStream_t s) {
-  FieldsOp<Tio, Tacc, SPARSE> op;
+  ManyFieldsOp<Tio, Tacc, SPARSE> op;  // its FieldsOp part is the launch of K <= kMaxExtraCols
   fill_common<Tio, Tacc>(op, acts, denom, labels, input_lengths, label_lengths, grads, rows, T,
                          U, V, blank, SPARSE, cols, plan);
   op.coef = static_cast<const Tacc*>(coef);
@@ -261,29 +318,36 @@ int fields_mode(const void* acts, const void* denom, const void* coef, const voi
   op.lo = -1;
   op.span = 0;
   if (cols.n) {
-    int hi = cols.col[0];
-    op.lo = cols.col[0];
+    int hi = host_cols[0];
+    op.lo = host_cols[0];
     for (int k = 1; k < cols.n; ++k) {
-      op.lo = cols.col[k] < op.lo ? cols.col[k] : op.lo;
-      hi = cols.col[k] > hi ? cols.col[k] : hi;
+      op.lo = host_cols[k] < op.lo ? host_cols[k] : op.lo;
+      hi = host_cols[k] > hi ? host_cols[k] : hi;
     }
     op.span = hi - op.lo;
   }
-  return launch_fields(op, s);
+  op.table = table;
+  op.contiguous = true;
+  for (int k = 1; k < cols.n; ++k)
+    op.contiguous = op.contiguous && host_cols[k] == host_cols[0] + k;
+  if (cols.n > wtt::kMaxExtraCols) return launch_many(op, s);
+  const FieldsOp<Tio, Tacc, SPARSE>& few = op;
+  return launch_fields(few, s);
 }
 
 template <typename Tio, typename Tacc>
 int fields(const void* acts, const void* denom, const void* coef, const void* cb, const void* ce,
-           const void* extra, const wtt::ExtraCols& cols, const int* labels,
-           const int* input_lengths, const int* label_lengths, void* grads, long long rows,
-           int T, int U, int V, int blank, int sparse, const wtt::rows::Plan& plan,
-           cudaStream_t s) {
-  return sparse ? fields_mode<Tio, Tacc, true>(acts, denom, coef, cb, ce, extra, cols, labels,
-                                               input_lengths, label_lengths, grads, rows, T, U,
-                                               V, blank, plan, s)
-                : fields_mode<Tio, Tacc, false>(acts, denom, coef, cb, ce, extra, cols, labels,
-                                                input_lengths, label_lengths, grads, rows, T, U,
-                                                V, blank, plan, s);
+           const void* extra, const wtt::ExtraCols& cols, const int* host_cols,
+           const int* table, const int* labels, const int* input_lengths,
+           const int* label_lengths, void* grads, long long rows, int T, int U, int V, int blank,
+           int sparse, const wtt::rows::Plan& plan, cudaStream_t s) {
+  return sparse ? fields_mode<Tio, Tacc, true>(acts, denom, coef, cb, ce, extra, cols, host_cols,
+                                               table, labels, input_lengths, label_lengths, grads,
+                                               rows, T, U, V, blank, plan, s)
+                : fields_mode<Tio, Tacc, false>(acts, denom, coef, cb, ce, extra, cols,
+                                                host_cols, table, labels, input_lengths,
+                                                label_lengths, grads, rows, T, U, V, blank, plan,
+                                                s);
 }
 
 int elt_size(int dtype) {
@@ -348,33 +412,38 @@ int wtt_grad_lattice(const void* acts, int dtype, const void* denom, const void*
 // Fields mode. acts, grads: (B,T,U,V) of type `dtype` (acts and denom
 // unused, may be null, when sparse); denom, coef, cb, ce: (B,T,U) f32, or
 // f64 for f64; extra: (B,T,U,K) of the same type for the K columns
-// extra_cols (a host array), in both modes; labels: (B,U)
+// extra_cols (a host array, any K), in both modes; table: the same K
+// columns as an int32 array in device memory, read past
+// wtt::kMaxExtraCols of them (may be null up to that); labels: (B,U)
 // int32; lengths: (B,) int32; plan as above. Returns the launch's
 // cudaError_t.
 int wtt_grad(const void* acts, int dtype, const void* denom, const void* coef,
              const void* cb, const void* ce, const void* extra, const int* extra_cols, int K,
-             const int* labels, const int* input_lengths, const int* label_lengths,
-             void* grads, long long rows, int T, int U, int V, int blank, int sparse,
-             const unsigned* plan_host, void* stream) {
+             const int* table, const int* labels, const int* input_lengths,
+             const int* label_lengths, void* grads, long long rows, int T, int U, int V,
+             int blank, int sparse, const unsigned* plan_host, void* stream) {
   if (rows == 0) return 0;
   wtt::ExtraCols cols;
   const wtt::rows::Plan plan = wtt::rows::plan_from(plan_host);
-  if (!wtt::extra_cols(extra_cols, K, V, &cols) || !shape_ok(rows, V, dtype, plan))
-    return (int)cudaErrorInvalidValue;
+  const bool cols_ok = K > wtt::kMaxExtraCols
+                           ? wtt::cols_inside(extra_cols, K, V) && table != nullptr
+                           : wtt::extra_cols(extra_cols, K, V, &cols);
+  if (K > wtt::kMaxExtraCols) cols = wtt::many_cols(K);
+  if (!cols_ok || !shape_ok(rows, V, dtype, plan)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case wtt::kF32:
-      return fields<float, float>(acts, denom, coef, cb, ce, extra, cols, labels,
-          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
+      return fields<float, float>(acts, denom, coef, cb, ce, extra, cols, extra_cols, table,
+          labels, input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
     case wtt::kF64:
-      return fields<double, double>(acts, denom, coef, cb, ce, extra, cols, labels,
-          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
+      return fields<double, double>(acts, denom, coef, cb, ce, extra, cols, extra_cols, table,
+          labels, input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
     case wtt::kBF16:
-      return fields<__nv_bfloat16, float>(acts, denom, coef, cb, ce, extra, cols, labels,
-          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
+      return fields<__nv_bfloat16, float>(acts, denom, coef, cb, ce, extra, cols, extra_cols, table,
+          labels, input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
     case wtt::kF16:
-      return fields<__half, float>(acts, denom, coef, cb, ce, extra, cols, labels,
-          input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
+      return fields<__half, float>(acts, denom, coef, cb, ce, extra, cols, extra_cols, table,
+          labels, input_lengths, label_lengths, grads, rows, T, U, V, blank, sparse, plan, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

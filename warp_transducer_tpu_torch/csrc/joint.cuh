@@ -3,8 +3,12 @@
 // valid lattice rows, the product engine of the token head (warpgroup MMA
 // from a ring of bulk copies in shared memory), the layouts of its operands
 // in device memory, the per-row panels of the extra coefficient fields and of
-// the duration head's cotangent, and the duration head's own products (D <= 8
-// columns: a warp's dot products going in, one thread per k coming back).
+// the duration head's cotangent, and the duration head's own products (a
+// warp's dot products going in, one thread per k coming back). Up to 8 extra
+// columns or duration columns ride in the panels and the by-value column
+// table; past 8 (no cap) the kernels' instances of their own (kMany) read the
+// columns from a device table and the fields from device memory, and take
+// the duration head in groups of 8 columns.
 //
 // Rows. A row is a lattice cell (b, t, u); only the cells inside each
 // utterance's lattice, t < T_b and u < U_b, carry work. They are numbered
@@ -50,8 +54,17 @@ namespace joint {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / wtt::kWarp;
 // Width of a per-row panel in shared memory: the K extra coefficient fields
-// or the D duration columns of a row, padded with zeros.
+// or the D duration columns of a row, padded with zeros; K or D past it run
+// in the kMany instances.
 constexpr int kPanel = wtt::kMaxExtraCols;
+
+// K > kPanel extra columns (the kMany instances): their indices in device
+// memory, the least and the largest of them, and whether they run lo, lo + 1,
+// … in the order of k (the default big blanks: found without the table).
+struct ManyCols {
+  const int* table;
+  int lo, hi, contiguous;
+};
 
 struct Rows {
   const long long* offsets;  // (B+1) running sums of valid cells
@@ -437,6 +450,20 @@ __device__ __forceinline__ bool has_extra(const wtt::ExtraCols& cols, int v0, in
   return any;
 }
 
+// The kMany forms of the two: the range first, then a loop over the table
+// at run time (the last match, as extra_index gives it).
+__device__ __forceinline__ int extra_index(const ManyCols& mc, int n, int v) {
+  if (v < mc.lo || v > mc.hi) return -1;
+  if (mc.contiguous) return v - mc.lo;
+  int k = -1;
+  for (int i = 0; i < n; ++i)
+    if (__ldg(mc.table + i) == v) k = i;
+  return k;
+}
+__device__ __forceinline__ bool has_extra(const ManyCols& mc, int v0, int width) {
+  return mc.hi >= v0 && mc.lo < v0 + width;
+}
+
 // One element of the dense gradient, formed in f32 before any rounding:
 // coef·softmax(v) − cb·[v = blank] − ce·[v = label] − cx[xk] where column v
 // is extra column xk (xk = -1: none). cx: the row's panel of extra fields.
@@ -467,6 +494,22 @@ __device__ __forceinline__ void load_panel(float* panel, const float* __restrict
   }
 }
 
+// panel[m·kPanel + c] = src[cell(m)·ld + c0 + c] for the tile's rows and
+// c < nc (<= kPanel), zero elsewhere: columns c0 … c0 + nc − 1 of a
+// (B, T, U, ld) src, a group of a head wider than a panel.
+template <int BM>
+__device__ __forceinline__ void load_panel_cols(float* panel, const float* __restrict__ src,
+                                                int ld, int c0, int nc, const int* s_b,
+                                                const int* s_t, const int* s_u, int T, int U) {
+  for (int idx = threadIdx.x; idx < BM * kPanel; idx += kThreads) {
+    const int m = idx / kPanel, c = idx % kPanel;
+    const int b = s_b[m];
+    float x = 0.f;
+    if (b >= 0 && c < nc) x = src[(((long long)b * T + s_t[m]) * U + s_u[m]) * ld + c0 + c];
+    panel[idx] = x;
+  }
+}
+
 // ---- the duration head --------------------------------------------------------
 
 // The duration head of one row, by the calling warp:
@@ -489,6 +532,25 @@ __device__ __forceinline__ void dur_row(const float* __restrict__ e_row,
 #pragma unroll
   for (int d = 0; d < kPanel; ++d)
     if (d < D) out[d] = wtt::warp_sum(out[d]);
+}
+
+// dur_row for columns d0 … d0 + nd − 1 (nd <= kPanel) of a head of ld
+// columns: a group of a head wider than a panel.
+__device__ __forceinline__ void dur_row_group(const float* __restrict__ e_row,
+                                              const float* __restrict__ p_row,
+                                              const float* __restrict__ Wd, int H, int ld, int d0,
+                                              int nd, int lane, float (&out)[kPanel]) {
+#pragma unroll
+  for (int d = 0; d < kPanel; ++d) out[d] = 0.f;
+  for (int k = lane; k < H; k += wtt::kWarp) {
+    const float h = tanhf(e_row[k] + p_row[k]);
+#pragma unroll
+    for (int d = 0; d < kPanel; ++d)
+      if (d < nd) out[d] = fmaf(h, Wd[(long long)k * ld + d0 + d], out[d]);
+  }
+#pragma unroll
+  for (int d = 0; d < kPanel; ++d)
+    if (d < nd) out[d] = wtt::warp_sum(out[d]);
 }
 
 // dst[cell·D + d] = out[d] + bias_d[d], lane d writing column d (a select:
@@ -550,7 +612,9 @@ inline size_t dur_grad_smem_bytes(int H, int BM) {
 // sum_parts_kernel adds the partials in a fixed order, so dWd does not
 // depend on the order in which blocks ran. e, p: f32; g_dur: (B, T, U, D),
 // zero outside the lattice.
-template <int BM>
+// kGroups: a head wider than a panel, walked once for each group of kPanel
+// columns (the kMany instance).
+template <int BM, bool kGroups = false>
 __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
                                                const float* __restrict__ p,
                                                const float* __restrict__ g_dur, const Rows& rows,
@@ -568,6 +632,8 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
   const long long total = rows.offsets[rows.B];
   float* out = dWd_part + (size_t)blockIdx.x * H * D;
 
+  for (int d0 = 0; d0 < (kGroups ? D : 1); d0 += kPanel) {
+  const int nd = kGroups ? min(kPanel, D - d0) : D;
   for (int k0 = 0; k0 < H; k0 += kDwdPass) {
     float acc[KQ][kPanel] = {};
     for (long long first = (long long)blockIdx.x * BM; first < total;
@@ -575,7 +641,10 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
       __syncthreads();  // the last tile consumed
       place_rows<BM>(rows, first, s_b, s_t, s_u);
       __syncthreads();
-      load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
+      if constexpr (kGroups)
+        load_panel_cols<BM>(s_gd, g_dur, D, d0, nd, s_b, s_t, s_u, rows.T, rows.U);
+      else
+        load_panel<BM>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
       fill_h<BM>(hs, ldh, e, p, s_b, s_t, s_u, rows.T, rows.U, H, k0, cols);
       __syncthreads();
 #pragma unroll
@@ -595,8 +664,9 @@ __device__ __forceinline__ void dur_grad_tiles(const float* __restrict__ e,
       if (k >= H) continue;
 #pragma unroll
       for (int d = 0; d < kPanel; ++d)
-        if (d < D) out[k * D + d] = acc[q][d];
+        if (d < nd) out[k * D + d0 + d] = acc[q][d];
     }
+  }
   }
 }
 
@@ -677,25 +747,47 @@ struct GradArgs {
   Rows rows;
   const float *denom, *coef, *cb, *ce, *cx;
   wtt::ExtraCols cols;
+  ManyCols many;  // K > kPanel: the device table and its range
   int H, V, blank;
   cudaStream_t stream;
 };
 
+// The extra columns of an entry: up to kPanel by value (`cols`), past that
+// from the device table (cols.n = K and `many`); false when they are not
+// indices inside [0, V), or past kPanel without a table.
+inline bool read_cols(const int* extra_cols, int K, const int* table, int V,
+                      wtt::ExtraCols* cols, ManyCols* many) {
+  *many = ManyCols{table, 0, -1, 0};
+  if (K <= kPanel) return wtt::extra_cols(extra_cols, K, V, cols);
+  if (table == nullptr || !wtt::cols_inside(extra_cols, K, V)) return false;
+  *cols = wtt::many_cols(K);
+  many->lo = many->hi = extra_cols[0];
+  many->contiguous = 1;
+  for (int k = 1; k < K; ++k) {
+    many->lo = extra_cols[k] < many->lo ? extra_cols[k] : many->lo;
+    many->hi = extra_cols[k] > many->hi ? extra_cols[k] : many->hi;
+    many->contiguous &= extra_cols[k] == extra_cols[0] + k;
+  }
+  return true;
+}
+
 // The common arguments of the gradient kernels' entries; false when the
-// extra columns are not K <= 8 indices inside [0, V) with their fields.
+// extra columns are not indices inside [0, V) with their fields (and, past
+// kPanel of them, their device table).
 inline bool make_grad_args(GradArgs* a, const void* e, const void* p, const void* W,
                            const void* bias, const int* lab_full, const void* offsets,
                            const int* label_lengths, const void* denom, const void* coef,
                            const void* cb, const void* ce, const void* cx, const int* extra_cols,
-                           int K, int B, int T, int U, int H, int V, int blank, void* stream) {
+                           int K, const int* table, int B, int T, int U, int H, int V, int blank,
+                           void* stream) {
   *a = GradArgs{static_cast<const float*>(e), static_cast<const float*>(p), W,
                 static_cast<const float*>(bias), lab_full,
                 Rows{static_cast<const long long*>(offsets), label_lengths, B, T, U},
                 static_cast<const float*>(denom), static_cast<const float*>(coef),
                 static_cast<const float*>(cb), static_cast<const float*>(ce),
-                static_cast<const float*>(cx), wtt::ExtraCols{}, H, V, blank,
+                static_cast<const float*>(cx), wtt::ExtraCols{}, ManyCols{}, H, V, blank,
                 static_cast<cudaStream_t>(stream)};
-  return wtt::extra_cols(extra_cols, K, V, &a->cols) && (K == 0 || cx != nullptr);
+  return read_cols(extra_cols, K, table, V, &a->cols, &a->many) && (K == 0 || cx != nullptr);
 }
 
 // Set a kernel's dynamic shared memory and launch it; returns the error.

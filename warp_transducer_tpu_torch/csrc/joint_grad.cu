@@ -17,7 +17,10 @@
 // head, its cotangent g_dur (B, T, U, D) joins dh as g_dur·Wdᵀ before the
 // (1 − h²), and dWd = hᵀ·g_dur. Rows outside (t < T_b) & (u < U_b) have zero
 // coefficients and are never visited (joint.cuh numbers the valid rows only).
-// K and D are run-time numbers (0: none), at most 8 each.
+// K and D are run-time numbers (0: none), with no cap. Up to 8 of either
+// they ride in per-row panels in shared memory; past 8 the instances of
+// their own (kMany) look the columns up in a device table, read the extra
+// fields and g_dur from device memory, and take dWd in groups of 8 columns.
 //
 // Types as joint_prep.cu: e, p, bias and the fields in f32; W f32 or bf16.
 // With bf16 W, h and g are rounded to bf16 before the three products (db
@@ -82,7 +85,7 @@ using namespace wtt::joint;
 
 // A block: rows first .. first + 127 of the chunk (chunk-local tile
 // blockIdx.x) and columns v0 .. v0 + 127 of Vp (blockIdx.y).
-template <typename TW>
+template <typename TW, bool kMany = false>
 __global__ void __launch_bounds__(kThreads, 1)
 joint_grad_g_kernel(const typename Op<TW>::T* __restrict__ h,
                     const typename Op<TW>::T* __restrict__ wt, int chunk,
@@ -92,7 +95,7 @@ joint_grad_g_kernel(const typename Op<TW>::T* __restrict__ h,
                     const float* __restrict__ ce, const float* __restrict__ cx,
                     const wtt::ExtraCols cols, int H, int V, int blank,
                     typename Op<TW>::T* __restrict__ g, typename Op<TW>::T* __restrict__ gt,
-                    float* __restrict__ db_part) {
+                    float* __restrict__ db_part, const ManyCols many) {
   using O = Op<TW>;
   using T = typename O::T;
   constexpr int KS = O::kKS;
@@ -117,7 +120,7 @@ joint_grad_g_kernel(const typename Op<TW>::T* __restrict__ h,
   const int tid = threadIdx.x;
   place_rows<kBM>(rows, first, s_b, s_t, s_u);
   __syncthreads();
-  load_panel<kBM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
+  if constexpr (!kMany) load_panel<kBM>(s_cx, cx, cols.n, s_b, s_t, s_u, rows.T, rows.U);
   if (tid < kBM) {
     const int b = s_b[tid];
     const bool on = b >= 0;
@@ -130,7 +133,8 @@ joint_grad_g_kernel(const typename Op<TW>::T* __restrict__ h,
   } else {
     const int n = tid - kBM, v = v0 + n;
     s_bias[n] = v < V ? bias[v] : 0.f;
-    s_xk[n] = extra_index(cols, v);
+    // (a kMany launch for a wide duration head may carry K <= kPanel by value)
+    s_xk[n] = kMany && cols.n > kPanel ? extra_index(many, cols.n, v) : extra_index(cols, v);
   }
 
   const Frag f;
@@ -155,10 +159,13 @@ joint_grad_g_kernel(const typename Op<TW>::T* __restrict__ h,
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int n = 8 * j + f.tq2 + q, v = v0 + n;
+        // kMany: the row's extra fields in device memory, read at a match only.
+        const float* cxm =
+            kMany ? cx + (((long long)s_b[m] * rows.T + s_t[m]) * rows.U + s_u[m]) * cols.n
+                  : s_cx + m * kPanel;
         out[q] = v < V && s_b[m] >= 0
                      ? grad_element(acc[4 * j + 2 * r + q] + s_bias[n], s_den[m], s_coef[m],
-                                    s_cb[m], s_ce[m], v, blank, s_lab[m], s_cx + m * kPanel,
-                                    s_xk[n])
+                                    s_cb[m], s_ce[m], v, blank, s_lab[m], cxm, s_xk[n])
                      : 0.f;
       }
       *reinterpret_cast<float2*>(gs + m * kGLd + 8 * j + f.tq2) = make_float2(out[0], out[1]);
@@ -242,6 +249,9 @@ joint_grad_dh_kernel(const typename Op<TW>::T* __restrict__ g,
 constexpr int kDRows = 8;
 constexpr int kDTile = 2 * kDRows;  // rows a block
 
+// kMany: D > kPanel, g_dur read from device memory (every thread of a row
+// reads the same values).
+template <bool kMany = false>
 __global__ void __launch_bounds__(kThreads)
 joint_grad_d_kernel(const float* __restrict__ dh_part, int nsplit, int chunk, Rows rows,
                     long long row_begin, const float* __restrict__ e,
@@ -255,7 +265,7 @@ joint_grad_d_kernel(const float* __restrict__ dh_part, int nsplit, int chunk, Ro
   const int Hp = pad128(H), tid = threadIdx.x;
   place_rows<kDTile>(rows, first, s_b, s_t, s_u);
   __syncthreads();
-  load_panel<kDTile>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
+  if constexpr (!kMany) load_panel<kDTile>(s_gd, g_dur, D, s_b, s_t, s_u, rows.T, rows.U);
   __syncthreads();
   const int k = blockIdx.y * kBN + (tid & 127), m1 = (tid >> 7) * kDRows + kDRows;
   if (k >= H) return;
@@ -266,7 +276,12 @@ joint_grad_d_kernel(const float* __restrict__ dh_part, int nsplit, int chunk, Ro
     if (b < 0) break;
     float dh = 0.f;
     for (int z = 0; z < nsplit; ++z) dh += dh_part[((long long)z * chunk + m0 + m) * Hp + k];
-    for (int c = 0; c < D; ++c) dh = fmaf(s_gd[m * kPanel + c], Wd[k * D + c], dh);
+    if constexpr (kMany) {
+      const float* gd = g_dur + (((long long)b * rows.T + s_t[m]) * rows.U + s_u[m]) * D;
+      for (int c = 0; c < D; ++c) dh = fmaf(__ldg(gd + c), Wd[(long long)k * D + c], dh);
+    } else {
+      for (int c = 0; c < D; ++c) dh = fmaf(s_gd[m * kPanel + c], Wd[k * D + c], dh);
+    }
     const float hv = tanhf(e[((long long)b * rows.T + s_t[m]) * H + k] +
                            p[((long long)b * rows.U + s_u[m]) * H + k]);
     const float d = dh * (1.f - hv * hv);
@@ -282,13 +297,13 @@ joint_grad_d_kernel(const float* __restrict__ dh_part, int nsplit, int chunk, Ro
 
 // ---- dWd ---------------------------------------------------------------------
 
-template <int TM>
+template <int TM, bool kMany = false>
 __global__ void __launch_bounds__(kThreads)
 joint_grad_dwd_kernel(const float* __restrict__ e, const float* __restrict__ p,
                       const float* __restrict__ g_dur, Rows rows, float* __restrict__ dWd_part,
                       int H, int D) {
   extern __shared__ float smem[];
-  dur_grad_tiles<kDim * TM>(e, p, g_dur, rows, dWd_part, H, D, smem);
+  dur_grad_tiles<kDim * TM, kMany>(e, p, g_dur, rows, dWd_part, H, D, smem);
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -318,18 +333,22 @@ int launch_rows(const GradArgs& a, const RowsArgs& r, int w_dtype) {
   err = wtt_joint_h(a.e, a.p, a.rows.offsets, a.rows.label_lengths, a.rows.B, a.rows.T, a.rows.U,
                     a.H, r.row_begin, r.chunk, w_dtype, r.h, r.ht, a.stream);
   if (err != 0) return err;
-  err = (int)launch(joint_grad_g_kernel<TW>, dim3(r.chunk / kBM, q.vp / kBN), (size_t)q.g_smem,
+  // Past kPanel extra or duration columns, the kMany instances.
+  const bool many = a.cols.n > kPanel || r.D > kPanel;
+  err = (int)launch(many ? joint_grad_g_kernel<TW, true> : joint_grad_g_kernel<TW, false>,
+                    dim3(r.chunk / kBM, q.vp / kBN), (size_t)q.g_smem,
                     a.stream, static_cast<const T*>(r.h), static_cast<const T*>(r.wt), r.chunk,
                     a.bias, a.lab_full, a.rows, r.row_begin, a.denom, a.coef, a.cb, a.ce, a.cx,
                     a.cols, a.H, a.V, a.blank, static_cast<T*>(r.g), static_cast<T*>(r.gt),
-                    r.db_part);
+                    r.db_part, a.many);
   if (err != 0) return err;
   err = (int)launch(joint_grad_dh_kernel<TW>, dim3(r.chunk / kBM, q.hp / kBN, r.dh_split),
                     (size_t)q.dh_smem, a.stream, static_cast<const T*>(r.g),
                     static_cast<const T*>(r.wp), r.chunk, a.rows, r.row_begin, r.dh_part, a.H,
                     a.V);
   if (err != 0) return err;
-  joint_grad_d_kernel<<<dim3(r.chunk / kDTile, q.hp / kBN), kThreads, 0, a.stream>>>(
+  auto d_kernel = many ? joint_grad_d_kernel<true> : joint_grad_d_kernel<false>;
+  d_kernel<<<dim3(r.chunk / kDTile, q.hp / kBN), kThreads, 0, a.stream>>>(
       r.dh_part, r.dh_split, r.chunk, a.rows, r.row_begin, a.e, a.p, r.Wd, r.g_dur, r.D, r.de,
       r.dp, a.H);
   return (int)cudaGetLastError();
@@ -344,7 +363,8 @@ int attrs(int which, int* regs, int* local_bytes) {
 template <int TM>
 int launch_dwd(const float* e, const float* p, const float* g_dur, Rows rows, float* dWd,
                float* dWd_part, int nsplit, int H, int D, cudaStream_t stream) {
-  auto kernel = joint_grad_dwd_kernel<TM>;
+  // Past kPanel columns, the kMany instance walks the rows once a group.
+  auto kernel = D > kPanel ? joint_grad_dwd_kernel<TM, true> : joint_grad_dwd_kernel<TM, false>;
   const size_t bytes = dur_grad_smem_bytes(H, kDim * TM);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -385,11 +405,12 @@ int wtt_joint_grad_rows_attrs(int which, int w_dtype, int* regs, int* local_byte
 }
 
 // The inputs of wtt_joint_prep plus denom, coef, cb, ce: (B,T,U) f32, and
-// cx: (B,T,U,K) f32 for the K columns extra_cols (a host array; K = 0: cx
-// unused). Wd: (H,D) f32 and g_dur: (B,T,U,D) f32, zero outside the lattice
-// (D = 0: both unused). de: (B,T,H) f32 and dp: (B,U,H) f32, both zeroed by
-// the caller (the kernels add into them). The launches cover the valid rows
-// row_begin .. row_begin + chunk − 1 (row_begin and chunk multiples of 128).
+// cx: (B,T,U,K) f32 for the K columns extra_cols (a host array, any K; K = 0:
+// cx unused) and table, as there. Wd: (H,D) f32 and g_dur: (B,T,U,D) f32,
+// zero outside the lattice (any D; D = 0: both unused). de: (B,T,H) f32 and
+// dp: (B,U,H) f32, both zeroed by the caller (the kernels add into them). The
+// launches cover the valid rows row_begin .. row_begin + chunk − 1 (row_begin
+// and chunk multiples of 128).
 // Scratch, in W's operand type (bf16, or f32 as tf32 hi then lo): wt (Vp,
 // Hp) and wp (Hp, Vp), laid out here when row_begin is 0 and read by every
 // chunk after; the chunk's h (chunk, Hp), ht (Hp, chunk), g (chunk, Vp) and
@@ -401,17 +422,18 @@ int wtt_joint_grad_rows(const void* e, const void* p, const void* W, int w_dtype
                         const void* bias, const int* lab_full, const void* offsets,
                         const int* label_lengths, const void* denom, const void* coef,
                         const void* cb, const void* ce, const void* cx, const int* extra_cols,
-                        int K, const void* Wd, const void* g_dur, int D, void* de, void* dp,
+                        int K, const int* table, const void* Wd, const void* g_dur, int D,
+                        void* de, void* dp,
                         long long row_begin, int chunk, int dh_split, void* wt, void* wp, void* h,
                         void* ht, void* g, void* gt, void* db_part, void* dh_part, int B, int T,
                         int U, int H, int V, int blank, void* stream) {
   if ((long long)B * T * U == 0 || V == 0 || H == 0) return 0;
-  if (D < 0 || D > kPanel || (D > 0 && (Wd == nullptr || g_dur == nullptr)) || chunk < kBM ||
+  if (D < 0 || (D > 0 && (Wd == nullptr || g_dur == nullptr)) || chunk < kBM ||
       chunk % kBM != 0 || row_begin % kBM != 0 || dh_split < 1)
     return (int)cudaErrorInvalidValue;
   GradArgs a;
   if (!make_grad_args(&a, e, p, W, bias, lab_full, offsets, label_lengths, denom, coef, cb, ce,
-                      cx, extra_cols, K, B, T, U, H, V, blank, stream))
+                      cx, extra_cols, K, table, B, T, U, H, V, blank, stream))
     return (int)cudaErrorInvalidValue;
   const RowsArgs r{static_cast<const float*>(Wd), static_cast<const float*>(g_dur), D,
                    static_cast<float*>(de), static_cast<float*>(dp), row_begin, chunk, dh_split,
@@ -430,7 +452,7 @@ int wtt_joint_grad_dwd(const void* e, const void* p, const void* offsets,
                        const int* label_lengths, const void* g_dur, void* dWd, void* dWd_part,
                        int nsplit, int B, int T, int U, int H, int D, void* stream) {
   if (H == 0 || D == 0) return 0;
-  if (D < 0 || D > kPanel || nsplit < 1) return (int)cudaErrorInvalidValue;
+  if (D < 0 || nsplit < 1) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
   const float* ef = static_cast<const float*>(e);
   const float* pf = static_cast<const float*>(p);

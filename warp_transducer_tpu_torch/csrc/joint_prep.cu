@@ -17,7 +17,11 @@
 // (u < U_b) are not touched: the wrapper pre-fills lpb, lpe and lpx with NEG
 // and denom and dlog with 0, as the plain version
 // (ops/fused_joint.py::fused_prep) writes them. K and D are run-time numbers
-// (0: none), at most 8 each: the kernel is not instantiated per K or D.
+// (0: none), with no cap: the kernel is not instantiated per K or D. Up to 8
+// of either, the columns come by value and the duration head in one warp
+// pass a row; past 8, the instance of its own (kMany) looks the columns up
+// in a device table (in the V tiles that their range reaches) and takes the
+// duration head in groups of 8 columns, a warp pass a group.
 //
 // Types: e, p and bias arrive in f32. W is f32 or bf16. With bf16 W, h is
 // rounded to bf16 before the product, as the JAX package rounds it, and the
@@ -129,7 +133,7 @@ joint_h_kernel(const float* __restrict__ e, const float* __restrict__ p, Rows ro
 
 // ---- the prep -------------------------------------------------------------------
 
-template <typename TW>
+template <typename TW, bool kMany = false>
 __global__ void __launch_bounds__(kThreads, 1)
 joint_prep_kernel(const typename Op<TW>::T* __restrict__ h, const typename Op<TW>::T* __restrict__ wt,
                   int chunk, const float* __restrict__ bias, const int* __restrict__ lab_full,
@@ -138,7 +142,7 @@ joint_prep_kernel(const typename Op<TW>::T* __restrict__ h, const typename Op<TW
                   const wtt::ExtraCols cols, const float* __restrict__ e,
                   const float* __restrict__ p, const float* __restrict__ Wd,
                   const float* __restrict__ bias_d, float* __restrict__ dlog, int D, int H, int V,
-                  int blank) {
+                  int blank, const ManyCols many) {
   using O = Op<TW>;
   using T = typename O::T;
   constexpr int KS = O::kKS;
@@ -170,10 +174,18 @@ joint_prep_kernel(const typename Op<TW>::T* __restrict__ h, const typename Op<TW
       const int b = s_b[m];
       if (b < 0) break;
       float out[kPanel];
-      dur_row(e + ((long long)b * rows.T + s_t[m]) * H, p + ((long long)b * rows.U + s_u[m]) * H,
-              Wd, H, D, lane, out);
-      store_dur_row(dlog + (((long long)b * rows.T + s_t[m]) * rows.U + s_u[m]) * D, out, bias_d,
-                    D, lane);
+      const float* e_row = e + ((long long)b * rows.T + s_t[m]) * H;
+      const float* p_row = p + ((long long)b * rows.U + s_u[m]) * H;
+      float* dst = dlog + (((long long)b * rows.T + s_t[m]) * rows.U + s_u[m]) * D;
+      if constexpr (kMany) {  // a group of kPanel columns a pass
+        for (int d0 = 0; d0 < D; d0 += kPanel) {
+          dur_row_group(e_row, p_row, Wd, H, D, d0, min(kPanel, D - d0), lane, out);
+          store_dur_row(dst + d0, out, bias_d + d0, min(kPanel, D - d0), lane);
+        }
+      } else {
+        dur_row(e_row, p_row, Wd, H, D, lane, out);
+        store_dur_row(dst, out, bias_d, D, lane);
+      }
     }
   }
   __syncthreads();  // s_lab (the ring's first step synchronises again)
@@ -195,7 +207,9 @@ joint_prep_kernel(const typename Op<TW>::T* __restrict__ h, const typename Op<TW
         if (i % nk != nk - 1) return;
         // The V tile's logits complete.
         const int v0 = i / nk * kBN;
-        const bool extras_here = has_extra(cols, v0, kBN);
+        // (a kMany launch for a wide duration head may carry K <= kPanel by value)
+        const bool by_table = kMany && cols.n > kPanel;
+        const bool extras_here = by_table ? has_extra(many, v0, kBN) : has_extra(cols, v0, kBN);
         float tile_max[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
         for (int j = 0; j < 16; ++j)
@@ -213,7 +227,7 @@ joint_prep_kernel(const typename Op<TW>::T* __restrict__ h, const typename Op<TW
                 if (v == blank) s_bl[m] = x;
                 if (v == lab[r]) s_le[m] = x;
                 if (extras_here) {
-                  const int xk = extra_index(cols, v);
+                  const int xk = by_table ? extra_index(many, cols.n, v) : extra_index(cols, v);
                   if (xk >= 0 && s_b[m] >= 0)
                     lpx[(((long long)s_b[m] * rows.T + s_t[m]) * rows.U + s_u[m]) * cols.n + xk] =
                         x;
@@ -287,6 +301,7 @@ struct Args {
   Rows rows;
   float *lpb, *lpe, *denom, *lpx;
   wtt::ExtraCols cols;
+  ManyCols many;  // K > kPanel: the device table and its range
   const float *Wd, *bias_d;
   float* dlog;
   int D, H, V, blank;
@@ -305,10 +320,13 @@ int launch_prep(const Args& a) {
   for (long long r0 = 0; r0 < cells; r0 += a.chunk) {
     err = h_chunk<TW>(a.e, a.p, a.rows, r0, a.chunk, a.H, a.h, nullptr, a.stream);
     if (err != 0) return err;
-    err = (int)launch(joint_prep_kernel<TW>, dim3(a.chunk / kBM), (size_t)q.prep_smem, a.stream,
+    // Past kPanel extra or duration columns, the kMany instance.
+    auto kernel = a.cols.n > kPanel || a.D > kPanel ? joint_prep_kernel<TW, true>
+                                                    : joint_prep_kernel<TW, false>;
+    err = (int)launch(kernel, dim3(a.chunk / kBM), (size_t)q.prep_smem, a.stream,
                       static_cast<const T*>(a.h), static_cast<const T*>(a.wt), a.chunk, a.bias,
                       a.lab_full, a.rows, r0, a.lpb, a.lpe, a.denom, a.lpx, a.cols, a.e, a.p, a.Wd,
-                      a.bias_d, a.dlog, a.D, a.H, a.V, a.blank);
+                      a.bias_d, a.dlog, a.D, a.H, a.V, a.blank, a.many);
     if (err != 0) return err;
   }
   return 0;
@@ -401,20 +419,22 @@ int wtt_joint_h(const void* e, const void* p, const void* offsets, const int* la
 // bias: (V,) f32; lab_full: (B,U) int32, -1 where the row has no label;
 // offsets: (B+1) int64 running sums of T_b·U_b; label_lengths: (B,) int32;
 // lpb, lpe, denom: (B,T,U) f32, pre-filled. lpx: (B,T,U,K) f32, pre-filled,
-// for the K columns extra_cols (a host array, each inside [0, V); K <= 8;
-// K = 0: lpx unused). Wd: (H,D) f32, bias_d: (D,) f32, dlog: (B,T,U,D) f32,
-// pre-filled (D <= 8; D = 0: all three unused). Scratch: wt, Wᵀ as
+// for the K columns extra_cols (a host array, each inside [0, V); any K;
+// K = 0: lpx unused); table: the same columns as an int32 array in device
+// memory, read past 8 of them (may be null up to that). Wd: (H,D) f32,
+// bias_d: (D,) f32, dlog: (B,T,U,D) f32, pre-filled (any D; D = 0: all
+// three unused). Scratch: wt, Wᵀ as
 // wtt_joint_weights writes it, and h, a chunk's h as wtt_joint_h writes it,
 // for chunks of `chunk` rows (a multiple of 128). The launches run chunk by
 // chunk over all B·T·U cells. Returns the launches' cudaError_t.
 int wtt_joint_prep(const void* e, const void* p, const void* W, int w_dtype, const void* bias,
                    const int* lab_full, const void* offsets, const int* label_lengths, void* lpb,
                    void* lpe, void* denom, void* lpx, const int* extra_cols, int K,
-                   const void* Wd, const void* bias_d, void* dlog, int D, void* wt, void* h,
-                   int chunk, int B, int T, int U, int H, int V, int blank, void* stream) {
+                   const int* table, const void* Wd, const void* bias_d, void* dlog, int D,
+                   void* wt, void* h, int chunk, int B, int T, int U, int H, int V, int blank,
+                   void* stream) {
   if ((long long)B * T * U == 0 || V == 0) return 0;
-  if (H < 1 || D < 0 || D > kPanel || chunk < kBM || chunk % kBM != 0)
-    return (int)cudaErrorInvalidValue;
+  if (H < 1 || D < 0 || chunk < kBM || chunk % kBM != 0) return (int)cudaErrorInvalidValue;
   if ((K > 0 && lpx == nullptr) ||
       (D > 0 && (Wd == nullptr || bias_d == nullptr || dlog == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -422,10 +442,11 @@ int wtt_joint_prep(const void* e, const void* p, const void* W, int w_dtype, con
          static_cast<const float*>(bias), lab_full,
          Rows{static_cast<const long long*>(offsets), label_lengths, B, T, U},
          static_cast<float*>(lpb), static_cast<float*>(lpe), static_cast<float*>(denom),
-         static_cast<float*>(lpx), wtt::ExtraCols{}, static_cast<const float*>(Wd),
-         static_cast<const float*>(bias_d), static_cast<float*>(dlog), D, H, V, blank, wt, h,
-         chunk, static_cast<cudaStream_t>(stream)};
-  if (!wtt::extra_cols(extra_cols, K, V, &a.cols)) return (int)cudaErrorInvalidValue;
+         static_cast<float*>(lpx), wtt::ExtraCols{}, ManyCols{},
+         static_cast<const float*>(Wd), static_cast<const float*>(bias_d),
+         static_cast<float*>(dlog), D, H, V, blank, wt, h, chunk,
+         static_cast<cudaStream_t>(stream)};
+  if (!read_cols(extra_cols, K, table, V, &a.cols, &a.many)) return (int)cudaErrorInvalidValue;
   switch (w_dtype) {
     case wtt::kF32: return launch_prep<float>(a);
     case wtt::kBF16: return launch_prep<__nv_bfloat16>(a);

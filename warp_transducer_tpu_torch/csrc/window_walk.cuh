@@ -103,9 +103,19 @@
 //
 // No atomics: two calls give the same bits.
 //
-// The walk's code (this header) is built in two files, so that the two
-// halves compile in parallel: window_stream.cu (the narrow instances, the
-// plan and the launches) and window_stream_wide.cu (the wide instances).
+// A third kernel, window_table_kernel, takes every arc table past the
+// narrow and wide instances' by-value one (more than kMaxArcs blank or emit
+// arcs, more than kMaxChannels channels) and every window whose rings pass a
+// block at every G and pass: the wide walk over the arcs of a table in
+// device memory, copied into the block's shared memory as it starts and
+// read in the walk's loops, 8 warps a block (kTableWarps), its rings in
+// device memory where they pass a block. The by-value instances keep their
+// code: the table instance is an instantiation of its own.
+//
+// The walk's code (this header) is built in three files, so that they
+// compile in parallel: window_stream.cu (the narrow instances, the plan and
+// the launches), window_stream_wide.cu (the wide instances) and
+// window_stream_table.cu (the table instances).
 #pragma once
 
 #include <climits>
@@ -116,9 +126,14 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxArcs = 9;         // the standard blank and eight big blanks
+// The arc table that the narrow and the wide instances take by value: up to
+// kMaxArcs blank and kMaxArcs emit arcs over up to kMaxChannels channels
+// (the standard blank and eight big blanks; lpb, lpe and eight extra
+// channels). Past these the table instance takes the arcs from device
+// memory, any number of them over any number of channels.
+constexpr int kMaxArcs = 9;
 constexpr int kMaxArcChannels = 3;  // an arc sums at most three channels
-constexpr int kMaxChannels = 10;    // lpb, lpe and eight extra channels
+constexpr int kMaxChannels = 10;
 // Row-chain sentinel of the prefix sums (ops/band.py::CLAMP).
 constexpr double kClamp = -1.0e4;
 
@@ -148,6 +163,9 @@ struct Shape {
 // 512-thread block), else 8 (ptxas spills f32 C >= 15 and f64 C >= 3 at 128).
 constexpr int kNarrowWarps = 8;
 constexpr int wide_warps(int elt, int C) { return (elt == 4 ? C <= 13 : C <= 1) ? 16 : 8; }
+// The table instance: at most 8 warps a block at every C (its arc loops
+// and table take registers past 128 a thread where 16 warps share an SM).
+constexpr int kTableWarps = 8;
 template <typename T, int C, bool kWide>
 constexpr int block_threads() {
   return (kWide ? wide_warps(sizeof(T), C) : kNarrowWarps) * wtt::kWarp;
@@ -185,6 +203,35 @@ struct SlotArcs {
   SlotArc<N> chain;
   SlotArc<N> arc[2 * kMaxArcs];  // the blank arcs, then the emit arcs
 };
+
+// The table instance's arcs: the chain by value, the blank arcs and then the
+// emit arcs in the block's shared memory (copied there from device memory
+// as the kernel starts), read in loops at run time.
+template <int N>
+struct TableArcs {
+  int W, has_chain, n_blank, n_emit;
+  SlotArc<N> chain;
+  const SlotArc<N>* arc;
+};
+
+// An arc row of the device table (m, n, ch0, ch1, ch2) as the walk reads
+// it, for copied rows of UP values of lpb and of lpe, then UP·Cx extras
+// interleaved by cell, then the zero word. The channels are summed in the
+// row's order, as the plain version sums them.
+template <int N>
+__device__ __forceinline__ SlotArc<N> table_arc(const int* row, int up, int Cx) {
+  SlotArc<N> a;
+  a.m = row[0];
+  a.n = row[1];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int c = row[2 + k];
+    const bool used = k < a.n;
+    a.base[k] = !used ? (2 + Cx) * up : c == 0 ? 0 : c == 1 ? up : 2 * up + (c - 2);
+    a.stride[k] = !used ? 0 : c < 2 ? 1 : Cx;
+  }
+  return a;
+}
 
 // max(x, kClamp) that keeps a NaN, as torch.clamp_min does.
 template <typename T>
@@ -292,8 +339,9 @@ __device__ __forceinline__ void lattice_barrier(const Walk<T>& s) {
 // copy ring, coalesced; no copy for a row outside [0, Tv). A warp reads only
 // the words it copied. (Copies of 16 bytes from the rows' 16-byte lines,
 // with the bounds checks at the tensors' ends, made a row slower.) Wide: the
-// warp that receives the previous pass's row (`takes`) copies it too.
-template <typename T, int C, bool kWide>
+// warp that receives the previous pass's row (`takes`) copies it too, a
+// value a lane (kTable: in a loop, for a row of more than 32 values).
+template <typename T, int C, bool kWide, bool kTable = false>
 __device__ __forceinline__ void copy_row(const Walk<T>& s, int r, bool takes) {
   using Off = typename Shape<kWide>::Off;
   if (!in_rows(r, s.Tv)) return;
@@ -316,7 +364,11 @@ __device__ __forceinline__ void copy_row(const Walk<T>& s, int r, bool takes) {
 #pragma unroll 4
   for (int w = first * s.Cx + s.lane; w < end; w += wtt::kWarp)
     copy_async(dst + (2 * s.UP + w) * sizeof(T), px + w);
-  if constexpr (kWide) {
+  if constexpr (kTable) {
+    if (takes)
+      for (int i = s.lane; i < s.hw; i += wtt::kWarp)
+        copy_async(dst + (s.hbase + i) * sizeof(T), s.hin + (Off)r * s.hw + i);
+  } else if constexpr (kWide) {
     if (takes && s.lane < s.hw)
       copy_async(dst + (s.hbase + s.lane) * sizeof(T), s.hin + (Off)r * s.hw + s.lane);
   }
@@ -432,14 +484,14 @@ __device__ __forceinline__ Pair<T> warp_totals(const Walk<T>& s, int par, int lo
 
 // Alpha over rows 0 .. Tv-1; ll_forward from the departures of the
 // terminal blank arcs.
-template <typename T, int C, bool kWide>
-__device__ void alpha_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh>& arcs,
-                           T* __restrict__ llf) {
+template <typename T, int C, bool kWide, class Arcs = SlotArcs<Shape<kWide>::kArcCh>>
+__device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ llf) {
   using Sh = Shape<kWide>;
   using Off = typename Sh::Off;
   constexpr int N = Sh::kArcCh;
   constexpr int kMaxG = Sh::kMaxG;
   constexpr int kP = wtt::kWarp * C;
+  constexpr bool kTab = !std::is_same<Arcs, SlotArcs<N>>::value;  // the table instance
   // Wide: the rings keep column -1 (the previous pass's edge) before the
   // pass's columns.
   constexpr int ro = kWide ? 1 : 0;
@@ -458,7 +510,7 @@ __device__ void alpha_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh
   // reads the previous warp's last column of an earlier row.
   const bool cross = s.G > 1 && arcs.n_emit > 0;
   for (int r = 0; r < kAhead; ++r) {
-    copy_row<T, C, kWide>(s, r, takes);
+    copy_row<T, C, kWide, kTab>(s, r, takes);
     copy_commit();
   }
   T c_cur[C], c_nxt[C];
@@ -487,7 +539,7 @@ __device__ void alpha_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh
     tot_cur = tot_nxt;
     copy_wait<kAhead - 2>();  // rows t and t + 1
     __syncwarp();             // every lane's copies and the rings' last row
-    copy_row<T, C, kWide>(s, t + kAhead, takes);
+    copy_row<T, C, kWide, kTab>(s, t + kAhead, takes);
     copy_commit();
     const T* row = s.copy + (t % kCopyRows) * s.slot_words;
     // The chain's weights of row t + 1, for its prefix, scanned below beside
@@ -662,14 +714,14 @@ __device__ void alpha_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh
 }
 
 // Beta over rows Tv-1 .. 0; ll_backward = β(0, 0).
-template <typename T, int C, bool kWide>
-__device__ void beta_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh>& arcs,
-                          T* __restrict__ llb) {
+template <typename T, int C, bool kWide, class Arcs = SlotArcs<Shape<kWide>::kArcCh>>
+__device__ void beta_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ llb) {
   using Sh = Shape<kWide>;
   using Off = typename Sh::Off;
   constexpr int N = Sh::kArcCh;
   constexpr int kMaxG = Sh::kMaxG;
   constexpr int kP = wtt::kWarp * C;
+  constexpr bool kTab = !std::is_same<Arcs, SlotArcs<N>>::value;  // the table instance
   const T neg = T(wtt::kNeg);
   const int lane = s.lane, u0 = s.u0, U = s.U, R = s.R, UP = s.UP;
   const int ld = kWide ? s.ld : U;
@@ -688,7 +740,7 @@ __device__ void beta_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh>
   // reads the next warp's first column of a later row.
   const bool cross = s.G > 1 && arcs.n_emit > 0;
   for (int r = 0; r < kAhead; ++r) {
-    copy_row<T, C, kWide>(s, s.Tv - 1 - r, takes);
+    copy_row<T, C, kWide, kTab>(s, s.Tv - 1 - r, takes);
     copy_commit();
   }
   T c_cur[C], c_nxt[C];
@@ -717,7 +769,7 @@ __device__ void beta_walk(const Walk<T>& s, const SlotArcs<Shape<kWide>::kArcCh>
     tot_cur = tot_nxt;
     copy_wait<kAhead - 2>();  // rows r and r - 1
     __syncwarp();
-    copy_row<T, C, kWide>(s, r - kAhead, takes);
+    copy_row<T, C, kWide, kTab>(s, r - kAhead, takes);
     copy_commit();
     const T* row = s.copy + (r % kCopyRows) * s.slot_words;
     // The chain's weights of row r - 1 (for r = 0: a slot no one uses).
@@ -952,11 +1004,123 @@ __global__ void __launch_bounds__(block_threads<T, C, kWide>(), 1)
   }
 }
 
+// The table instance: the wide walk (G up to 16, three-channel arcs, 64-bit
+// offsets, passes) over arcs of any number and channels of any count. The
+// arc table comes from device memory (`table`: rows of five ints, the chain
+// first, then the n_blank blank arcs, then the n_emit emit arcs), copied
+// into the block's shared memory after its lattices' slices as the block
+// starts and read there in the walk's loops. Where a lattice's rings do not
+// fit a block (`rings` not null) they lie in device memory, `ring_words`
+// values a lattice, and the lattice's shared memory keeps its copy ring,
+// staged rows and exchange: the walk reads and writes them through the same
+// pointers, ordered by the same __syncwarp and barriers.
+template <typename T, int C>
+__global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
+    window_table_kernel(const T* __restrict__ lpb, const T* __restrict__ lpe,
+                        const T* __restrict__ extra, int Cx, const int* __restrict__ table,
+                        int n_blank, int n_emit, int W, const int* __restrict__ input_lengths,
+                        const int* __restrict__ label_lengths, T* __restrict__ alphas,
+                        T* __restrict__ betas, T* __restrict__ ll_forward,
+                        T* __restrict__ ll_backward, int B, int Tmax, int U, int dirs, int G,
+                        int per_block, int lattice_words, int passes, T* hand, T* rings,
+                        long long ring_words) {
+  using Sh = Shape<true>;
+  using Off = typename Sh::Off;
+  constexpr int N = Sh::kArcCh;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_arcs = n_blank + n_emit;
+  const int UP = G * wtt::kWarp * C;
+  SlotArc<N>* sarc = reinterpret_cast<SlotArc<N>*>(
+      smem_raw + (size_t)per_block * lattice_words * sizeof(T));
+  for (int i = threadIdx.x; i <= n_arcs; i += blockDim.x)
+    sarc[i] = table_arc<N>(table + 5 * i, UP, Cx);
+  __syncthreads();  // the only block barrier: every thread is here
+  const int warp = threadIdx.x / wtt::kWarp;
+  const int slot = warp / G;
+  const int lattice = blockIdx.x * per_block + slot;
+  if (lattice >= B * dirs) return;  // every warp of the lattice
+  const TableArcs<N> arcs{W, table[1] != 0, n_blank, n_emit, sarc[0], sarc + 1};
+  const int b = lattice / dirs;
+  const bool is_beta = lattice % dirs == 1;
+  const int R = W + 1;
+  Walk<T> s;
+  s.lane = threadIdx.x % wtt::kWarp;
+  s.g = warp % G;
+  s.G = G;
+  s.bar = 1 + slot;
+  s.Tb = input_lengths[b];
+  const int Ub = label_lengths[b] + 1;
+  s.Tv = min(max(s.Tb, 0), Tmax);
+  s.Cx = Cx;
+  s.R = R;
+  s.UP = UP;
+  s.hw = 2 + n_arcs;
+  s.hbase = (2 + Cx) * s.UP + kRowPad;
+  s.slot_words = s.hbase + s.hw;
+  s.u0 = s.g * wtt::kWarp * C + s.lane * C;
+  const long long base = (long long)b * Tmax * U;
+  T* mine = reinterpret_cast<T*>(smem_raw) + (size_t)slot * lattice_words;
+  s.copy = mine;
+  if (s.lane < kCopyRows) s.copy[s.lane * s.slot_words + (2 + Cx) * s.UP] = T(0);
+  __syncwarp();
+  T* after_copy = mine + kCopyRows * s.slot_words;
+  if (rings != nullptr) {
+    s.ring = rings + (long long)lattice * ring_words;
+    s.stage = after_copy;
+  } else {
+    s.ring = after_copy;
+    s.stage = s.ring + n_arcs * R * (s.UP + 1);
+  }
+  s.xch = mine + lattice_words - Sh::kXchWords;
+  s.ld = U;
+  const T neg = T(wtt::kNeg);
+  const int P = wtt::kWarp * C;
+  T* const hand_mine = passes > 1 ? hand + (long long)lattice * 2 * Tmax * s.hw : nullptr;
+  for (int q = 0; q < passes; ++q) {
+    // The pass: alpha's left to right, beta's right to left.
+    const int k = is_beta ? passes - 1 - q : q;
+    s.start = k * s.UP;
+    s.U = min(s.UP, U - s.start);
+    s.Ur = U - s.start;
+    s.Ub = Ub - s.start;
+    s.Uv = min(max(s.Ub, 0), s.U);
+    s.pb = lpb + base + s.start;
+    s.pe = lpe + base + s.start;
+    s.px = extra + (base + s.start) * Cx;
+    s.out = (is_beta ? betas : alphas) + base + s.start;
+    s.hin = q > 0 ? hand_mine + (long long)((q - 1) & 1) * Tmax * s.hw : nullptr;
+    s.hout = q + 1 < passes ? hand_mine + (long long)(q & 1) * Tmax * s.hw : nullptr;
+    if (is_beta)
+      beta_walk<T, C, true, TableArcs<N>>(s, arcs, ll_backward + b);
+    else
+      alpha_walk<T, C, true, TableArcs<N>>(s, arcs, ll_forward + b);
+    // The rows beyond T_b, coalesced, each warp its columns.
+    for (int t = s.Tv; t < Tmax; ++t) {
+#pragma unroll
+      for (int kk = 0; kk < C; ++kk) {
+        const int u = s.g * P + s.lane + kk * wtt::kWarp;
+        if (u < s.U) s.out[(Off)t * U + u] = neg;
+      }
+    }
+    if (q + 1 < passes) {  // the next pass reuses the rings and reads the rows handed on
+      __threadfence_block();
+      __syncwarp();
+      lattice_barrier(s);
+    }
+  }
+}
+
 // The kernel instance of C cells a lane: C = C0, C0 + 2, ... up to kMax.
 template <typename T, int C, int kMax, bool kWide>
 const void* warp_kernel_of(int cells) {
   if (cells == C) return reinterpret_cast<const void*>(window_warp_kernel<T, C, kWide>);
   if constexpr (C + 2 <= kMax) return warp_kernel_of<T, C + 2, kMax, kWide>(cells);
+  return nullptr;
+}
+template <typename T, int C, int kMax>
+const void* table_kernel_of(int cells) {
+  if (cells == C) return reinterpret_cast<const void*>(window_table_kernel<T, C>);
+  if constexpr (C + 2 <= kMax) return table_kernel_of<T, C + 2, kMax>(cells);
   return nullptr;
 }
 
@@ -966,4 +1130,7 @@ namespace wtt_window {
 // The wide instance of `cells` cells a lane for `elt`-byte values, or null
 // (window_stream_wide.cu).
 const void* wide_kernel(int elt, int cells);
+// The table instance of `cells` cells a lane, or null
+// (window_stream_table.cu).
+const void* table_kernel(int elt, int cells);
 }  // namespace wtt_window

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..prep import device_ints
 from .build import library as lib
 
 # One counter per kernel, raised by one right after each successful launch.
@@ -56,6 +57,21 @@ def check(err: int, kernel: str) -> None:
         msg = lib().wtt_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err} ({msg})")
     launches[kernel] += 1
+
+
+_TABLES = {}
+
+
+def device_table(values, device: torch.device) -> torch.Tensor:
+    """``values`` as an int32 tensor on ``device``, made once for each table
+    and device and then kept: the kernels' instances past eight extra
+    columns or duration arcs read their tables from device memory. It is
+    made by one ``fill_`` an entry (``ops.prep.device_ints``), so nothing
+    waits for the card."""
+    key = (device, tuple(int(v) for v in values))
+    if key not in _TABLES:
+        _TABLES[key] = device_ints(key[1], device, torch.int32)
+    return _TABLES[key]
 
 
 def stream(device: torch.device) -> int:

@@ -128,18 +128,19 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry's argtypes declared."""
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wtt_prep.argtypes = [p, i, p, p, p, p, p, p, i, ll, i, i, i, i, i, p]
+    lib.wtt_prep.argtypes = [p, i, p, p, p, p, p, p, i, p, ll, i, i, i, i, i, p]
     lib.wtt_prep_planned.argtypes = lib.wtt_prep.argtypes[:-1] + [p, p]
     lib.wtt_reduce_plan.argtypes = [i, i, i, p]
     lib.wtt_reduce_plan.restype = None
     lib.wtt_wavefront.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.wtt_wavefront_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.wtt_wavefront_plan.restype = None
-    lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, i, i, i, i, p, p]
-    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-2] + [i, p, p]
-    lib.wtt_window_plan.argtypes = [i] * 12 + [ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, p, i, i, i, i,
+                                      p, p, p]
+    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-3] + [i, p, p, p]
+    lib.wtt_window_plan.argtypes = [i] * 13 + [ctypes.POINTER(ctypes.c_int)]
     lib.wtt_window_plan.restype = None
-    lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, ll, i, i, i, i, i, p, p]
+    lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, p, ll, i, i, i, i, i, p, p]
     lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
                                      ll, i, i, i, i, i, p, p]
     lib.wtt_band_prep.argtypes = [p, i, p, p, p, p, ll, i, i, p]
@@ -153,9 +154,11 @@ def library() -> ctypes.CDLL:
     lib.wtt_ranges_plan.restype = None
     joint = [p, p, p, i, p, p, p, p]  # e, p, W, its type, bias, lab_full, offsets, label lengths
     dims = [i, i, i, i, i, i, p]  # B, T, U, H, V, blank, stream
-    # lpb, lpe, denom; lpx, its columns, K; Wd, bias_d, dlog, D; the scratch Wᵀ, h, the chunk
-    lib.wtt_joint_prep.argtypes = joint + [p, p, p, p, p, i, p, p, p, i, p, p, i] + dims
-    fields = [p, p, p, p, p, p, i]  # denom, coef, cb, ce; cx, its columns, K
+    # lpb, lpe, denom; lpx, its columns, K, their device table; Wd, bias_d, dlog, D; the
+    # scratch Wᵀ, h, the chunk
+    lib.wtt_joint_prep.argtypes = joint + [p, p, p, p, p, i, p, p, p, p, i, p, p, i] + dims
+    # denom, coef, cb, ce; cx, its columns, K, their device table
+    fields = [p, p, p, p, p, p, i, p]
     # the rows row_begin .. + chunk − 1, dh's splits; the scratch Wᵀ, W, h, hᵀ, g, gᵀ, the
     # partials of db and dh
     chunk = [ll, i, i, p, p, p, p, p, p, p, p]
@@ -169,6 +172,8 @@ def library() -> ctypes.CDLL:
     lib.wtt_dur_head_prep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wtt_dur_head_grad.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wtt_dur_head_plan.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_dur_head_part_floats.argtypes = [i, i, i, i, i]
+    lib.wtt_dur_head_part_floats.restype = ctypes.c_longlong
     lib.wtt_dur_head_plan.restype = None
     for fn in (lib.wtt_prep, lib.wtt_prep_planned, lib.wtt_wavefront, lib.wtt_window_stream,
                lib.wtt_window_stream_warps,

@@ -6,10 +6,11 @@ the XLA pass of ``warp_transducer_tpu/ops/gradients.py``, in two modes:
   lpb and lpe itself, and no (B, T, U) field is written — the dense loss's
   backward;
 * fields mode (``dense_grad``, ``sparse_grad``; counted under
-  ``grad_fields``): the (B, T, U) coefficient fields come in, with up to 8
-  extra columns in both — the multi-blank loss (dense on raw activations,
-  sparse on log-probs) and the TDT token head, whose coefficients are not
-  the standard ones.
+  ``grad_fields``): the (B, T, U) coefficient fields come in, with any
+  number of extra columns in both (up to 8 by value; past 8 the kernel's
+  instances of their own read them from a device table) — the multi-blank
+  loss (dense on raw activations, sparse on log-probs) and the TDT token
+  head, whose coefficients are not the standard ones.
 
 Both run on the row passes of ``csrc/rows.cuh``, planned by ``rows.plan``.
 On a CPU tensor each function is its plain version in ``ops/gradients.py``.
@@ -22,6 +23,7 @@ import torch
 
 from .. import gradients as _plain
 from . import DTYPE_CODES, check, int32, lib, require, rows, stream
+from .prep import col_table
 
 _COMPUTE = (torch.float32, torch.float64)
 
@@ -142,8 +144,9 @@ def _launch(acts, denom, fields, labels_u, input_lengths, label_lengths, blank,
             None if sparse else denom.data_ptr(), fields.coef.data_ptr(),
             fields.cb.data_ptr(), fields.ce.data_ptr(),
             extra_fields.data_ptr() if K else None, (ctypes.c_int * K)(*cols), K,
-            lab.data_ptr(), il.data_ptr(), ll.data_ptr(), grads.data_ptr(), B * T * U, T, U, V,
-            int(blank), int(sparse), _row_plan(V, grads, None if sparse else acts), stream(dev))
+            col_table(cols, dev), lab.data_ptr(), il.data_ptr(), ll.data_ptr(), grads.data_ptr(),
+            B * T * U, T, U, V, int(blank), int(sparse),
+            _row_plan(V, grads, None if sparse else acts), stream(dev))
     check(err, "grad_fields")
     return grads
 

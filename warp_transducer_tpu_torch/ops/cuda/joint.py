@@ -34,6 +34,7 @@ from .. import fused_joint as _plain
 from .. import gradients as _gradients
 from .. import prep as _prep
 from . import DTYPE_CODES, SMEM_BYTES, check, lib, require, stream
+from .prep import col_table
 
 _F32 = (torch.float32,)
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
@@ -209,7 +210,9 @@ def dwd_tile(H: int) -> int:
 # DUR_PREP_LD words. The gradient: a block owns DUR_GRAD_KS columns of k of
 # one utterance for a share of its frames (DUR_GRAD_SPLITS blocks share
 # them), DUR_GRAD_WARPS warps a block deal them DUR_GRAD_TF at a time, labels
-# go in chunks of DUR_GRAD_UC, two at a time.
+# go in chunks of DUR_GRAD_UC, two at a time. A head has any D: the kernels
+# are instances of D = 1 … DUR_GROUP_D, and a wider head runs in groups of
+# DUR_GROUP_D columns (blockIdx.z).
 DUR_PREP_THREADS = 256
 DUR_PREP_KC = 32
 DUR_PREP_LD = DUR_PREP_KC + 4
@@ -218,7 +221,7 @@ DUR_GRAD_KS = 32
 DUR_GRAD_UC = 32
 DUR_GRAD_TF = 2
 DUR_GRAD_SPLITS = 2
-DUR_MAX_D = 8
+DUR_GROUP_D = 8
 
 
 def dur_prep_tile(U: int) -> tuple:
@@ -238,12 +241,24 @@ def dur_head_plan(T: int, U: int, H: int) -> tuple:
 def dur_smem_bytes() -> int:
     """Static shared memory of a block of the larger of the two kernels:
     the prep's e and p rows (tt + ut <= 257) and Wd's chunk, the gradient's
-    p chunk, its warps' dp sums and their frames' g_dur (at D = 8); neither
-    depends on H or U."""
-    prep = 4 * ((DUR_PREP_THREADS + 1) * DUR_PREP_LD + DUR_PREP_KC * DUR_MAX_D)
+    p chunk, its warps' dp sums and their frames' g_dur (at D = 8, which a
+    group of a wider head takes too); neither depends on H or U."""
+    prep = 4 * ((DUR_PREP_THREADS + 1) * DUR_PREP_LD + DUR_PREP_KC * DUR_GROUP_D)
     grad = 4 * ((1 + DUR_GRAD_WARPS) * DUR_GRAD_UC * DUR_GRAD_KS
-                + DUR_GRAD_WARPS * DUR_GRAD_TF * DUR_GRAD_UC * DUR_MAX_D)
+                + DUR_GRAD_WARPS * DUR_GRAD_TF * DUR_GRAD_UC * DUR_GROUP_D)
     return max(prep, grad)
+
+
+def dur_part_floats(B: int, T: int, U: int, H: int, D: int) -> int:
+    """Values of the duration-head gradient's f32 scratch
+    (``dur_head.cu::dur_part_floats``): a partial of dp2 and of dWd an
+    utterance and frame split; past DUR_GROUP_D columns, a partial of dp2 a
+    group and split, of de2 a group, and dWd's."""
+    bh = B * H
+    if D <= DUR_GROUP_D:
+        return DUR_GRAD_SPLITS * (bh * U + bh * D)
+    groups = -(-D // DUR_GROUP_D)
+    return groups * (DUR_GRAD_SPLITS * bh * U + bh * T) + DUR_GRAD_SPLITS * bh * D
 
 
 def _ptr(t):
@@ -293,7 +308,8 @@ def fused_prep(e, p, W, bias, labels, input_lengths, label_lengths, blank: int,
         err = lib().wtt_joint_prep(
             e32.data_ptr(), p32.data_ptr(), Wk.data_ptr(), DTYPE_CODES[Wk.dtype], b32.data_ptr(),
             lab.data_ptr(), offsets.data_ptr(), ll.data_ptr(), lpb.data_ptr(), lpe.data_ptr(),
-            denom.data_ptr(), _ptr(lpX), _host_cols(cols), K, _ptr(Wd32), _ptr(bias_d32),
+            denom.data_ptr(), _ptr(lpX), _host_cols(cols), K, col_table(cols, dev), _ptr(Wd32),
+            _ptr(bias_d32),
             _ptr(dlog), D, wt.data_ptr(), h.data_ptr(), chunk, B, T, U, H, V, int(blank),
             stream(dev))
     check(err, "joint_prep")
@@ -396,7 +412,7 @@ def fused_grad(e, p, W, bias, labels, input_lengths, label_lengths, denom,
     code = DTYPE_CODES[Wk.dtype]
     inputs = (Wk.data_ptr(), code, b32.data_ptr(), lab.data_ptr(), offsets.data_ptr(),
               ll.data_ptr(), denom.data_ptr(), fields.coef.data_ptr(), fields.cb.data_ptr(),
-              fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K)
+              fields.ce.data_ptr(), _ptr(cX), _host_cols(cols), K, col_table(cols, dev))
     scratch = tuple(x.data_ptr() for x in (wt, wp, h, ht, g, gt, db_part, dh_part))
     out = ()
     with torch.cuda.device(dev):
@@ -460,7 +476,7 @@ def dur_head_grad(e, p, Wd, g_dur, input_lengths=None, label_lengths=None):
     de = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     dp = torch.empty((B, U, H), dtype=torch.float32, device=dev)
     dWd = torch.empty((H, D), dtype=torch.float32, device=dev)
-    part = torch.empty(DUR_GRAD_SPLITS * B * (U * H + H * D), dtype=torch.float32, device=dev)
+    part = torch.empty(dur_part_floats(B, T, U, H, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib().wtt_dur_head_grad(e32.data_ptr(), p32.data_ptr(), Wd32.data_ptr(),
                                       gd.data_ptr(), offsets.data_ptr(), ll.data_ptr(),

@@ -7,7 +7,7 @@ import ctypes
 import torch
 
 from .. import prep as _plain
-from . import DTYPE_CODES, check, lib, require, stream
+from . import DTYPE_CODES, check, device_table, lib, require, stream
 
 
 def prepare(acts: torch.Tensor, labels: torch.Tensor, blank: int,
@@ -40,6 +40,17 @@ def library_plan(V: int, elt: int, align: int) -> tuple:
     return tuple(out)
 
 
+# Extra columns past this many go to the kernels' own instances, which read
+# them from a table in device memory (csrc/common.cuh::kMaxExtraCols).
+COLS_BY_VALUE = 8
+
+
+def col_table(cols, dev):
+    """The address of the device table of the columns past COLS_BY_VALUE of
+    them (prep.cu, grad.cu), else None."""
+    return device_table(cols, dev).data_ptr() if len(cols) > COLS_BY_VALUE else None
+
+
 def _launch(acts, labels, blank, log_probs_input, extra_cols, plan):
     dev = acts.device
     require(acts, "acts", dev, DTYPE_CODES, 4)
@@ -59,7 +70,7 @@ def _launch(acts, labels, blank, log_probs_input, extra_cols, plan):
     args = (acts.data_ptr(), DTYPE_CODES[acts.dtype], lab.data_ptr(), lpb.data_ptr(),
             lpe.data_ptr(), None if denom is None else denom.data_ptr(),
             extras.data_ptr() if K else None, (ctypes.c_int * K)(*cols), K,
-            B * T * U, T, U, V, int(blank), int(bool(log_probs_input)))
+            col_table(cols, dev), B * T * U, T, U, V, int(blank), int(bool(log_probs_input)))
     with torch.cuda.device(dev):
         if plan is None:
             err = lib().wtt_prep(*args, stream(dev))

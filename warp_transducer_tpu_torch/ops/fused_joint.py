@@ -159,11 +159,9 @@ def _contract(g, h, hm, W32, mm, Wd32=None, g_dur=None):
 
 
 def _check_dur_head(Wd, other, H, what):
-    """(Wd, other) of a duration head as f32: Wd (H, D) with 1 <= D <=
-    ``MAX_EXTRA_COLS``."""
-    if Wd.dim() != 2 or Wd.shape[0] != H or not 1 <= Wd.shape[1] <= _prep.MAX_EXTRA_COLS:
-        raise ValueError(f"Wd must be (H={H}, D) with 1 <= D <= {_prep.MAX_EXTRA_COLS}; got "
-                         f"{tuple(Wd.shape)}")
+    """(Wd, other) of a duration head as f32: Wd (H, D) with D >= 1."""
+    if Wd.dim() != 2 or Wd.shape[0] != H or Wd.shape[1] < 1:
+        raise ValueError(f"Wd must be (H={H}, D) with D >= 1; got {tuple(Wd.shape)}")
     if other.shape[-1] != Wd.shape[1]:
         raise ValueError(f"{what} has {other.shape[-1]} columns for D = {Wd.shape[1]}")
     return Wd.float(), other.float()

@@ -91,7 +91,7 @@ def rnnt_loss_multiblank_fused_joint(e, p, W, bias, labels, input_lengths, label
     ever holding the (B, T, U, V) logits, their gradient or the (B, T, U, H)
     joint features in device memory. Differentiable w.r.t. e, p, W and bias.
     Arguments as in ``rnnt_loss_fused_joint`` plus the multi-blank ones of
-    ``rnnt_loss_multiblank`` (at most ``prep.MAX_EXTRA_COLS`` big blanks);
+    ``rnnt_loss_multiblank`` (any number of big blanks);
     ``implementation``: 'auto' | 'torch' | 'cuda' (``ops/rnnt.py``). As
     there, the fused kernels take any H on a CUDA tensor.
     """

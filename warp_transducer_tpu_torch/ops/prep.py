@@ -55,11 +55,6 @@ def label_rows(labels: torch.Tensor, U: int) -> torch.Tensor:
     return torch.nn.functional.pad(lab, (0, 1)).contiguous()
 
 
-# The most extra columns one prep or gradient pass takes (the kernels hold
-# their indices in a fixed array).
-MAX_EXTRA_COLS = 8
-
-
 def device_ints(values, device, dtype=torch.int64) -> torch.Tensor:
     """A short integer tensor made on ``device`` by one ``fill_`` an entry:
     unlike ``torch.tensor(values, device=...)`` or ``out[i] = v`` (a copy
@@ -72,11 +67,9 @@ def device_ints(values, device, dtype=torch.int64) -> torch.Tensor:
 
 
 def check_extra_cols(extra_cols, V: int) -> tuple:
-    """The extra columns as a tuple of ints, each inside [0, V), at most
-    ``MAX_EXTRA_COLS`` of them."""
+    """The extra columns as a tuple of ints, each inside [0, V); any number
+    of them."""
     cols = tuple(int(c) for c in extra_cols)
-    if len(cols) > MAX_EXTRA_COLS:
-        raise ValueError(f"at most {MAX_EXTRA_COLS} extra columns, got {len(cols)}")
     if any(c < 0 or c >= V for c in cols):
         raise ValueError(f"extra columns {cols} must lie inside [0, V={V})")
     return cols

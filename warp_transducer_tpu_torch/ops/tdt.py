@@ -23,9 +23,10 @@ Stages, each the kernel on a CUDA tensor and the plain version on a CPU
 tensor (``implementation`` as in ``ops/rnnt.py``): the token head's prep
 (``csrc/prep.cu``), the pending-window lattice with the arcs of
 ``window.tdt_arcs`` (``csrc/window_stream.cu``), and the token head's pass
-over V (``csrc/grad.cu``). The duration head (D <= 8 columns) is plain
-torch on every device: ``torch.log_softmax`` going in, one elementwise
-(B, T, U, D) expression coming out.
+over V (``csrc/grad.cu``). The duration head (D columns, any number of
+them: the duration set has no cap) is plain torch on every device:
+``torch.log_softmax`` going in, one elementwise (B, T, U, D) expression
+coming out.
 """
 from __future__ import annotations
 
@@ -235,8 +236,6 @@ def rnnt_loss_tdt(token_logits, duration_logits, labels, input_lengths, label_le
         raise ValueError(
             f"duration_logits last dim {duration_logits.shape[-1]} != "
             f"len(durations) = {len(durs)}")
-    if len(durs) > _window.MAX_CHANNELS - 2:
-        raise ValueError(f"at most {_window.MAX_CHANNELS - 2} durations, got {len(durs)}")
     if reduction not in ("none", "sum", "mean"):
         raise ValueError(f"reduction must be none|sum|mean, got {reduction!r}")
     if fastemit_lambda < 0:

@@ -8,9 +8,10 @@ computes the same value as
 
 but the token logits (and the (B, T, U, H) joint features) live only
 tile-wise, forward and backward: the TDT twin of ``rnnt_loss_fused_joint``.
-The duration head is tiny (D <= 8 columns), so its logits are held as
-(B, T, U, D); the O(B·T·U·V) token tensor and the O(B·T·U·H) features are
-not. Gradients flow to all six joint inputs. Counterpart of
+The duration head is narrow (D columns, one a duration; the duration set
+has no cap), so its logits are held as (B, T, U, D); the O(B·T·U·V) token
+tensor and the O(B·T·U·H) features are not. Gradients flow to all six joint
+inputs. Counterpart of
 ``warp_transducer_tpu/ops/tdt_fused.py``.
 
 Why the composition is exact: the TDT token-head gradient is
@@ -175,8 +176,6 @@ def rnnt_loss_tdt_fused_joint(e, p, W, bias, Wd, bias_d, labels, input_lengths, 
     durs = _check_durations(durations)
     if Wd.shape[1] != len(durs):
         raise ValueError(f"duration head has {Wd.shape[1]} columns for {len(durs)} durations")
-    if len(durs) > _window.MAX_CHANNELS - 2:
-        raise ValueError(f"at most {_window.MAX_CHANNELS - 2} durations, got {len(durs)}")
     if fastemit_lambda < 0:
         raise ValueError(f"fastemit_lambda must be >= 0, got {fastemit_lambda}")
     if delay_penalty < 0:

@@ -43,12 +43,10 @@ import torch
 
 from .band import CLAMP
 from .lattice import LatticeResult, _lse
-from .prep import MAX_EXTRA_COLS, NEG
+from .prep import NEG
 
-# What the kernel's arc table holds (csrc/window_stream.cu): lpb, lpe and up
-# to eight extra channels; the standard blank and eight big blanks.
-MAX_CHANNELS = 2 + MAX_EXTRA_COLS
-MAX_ARCS = 1 + MAX_EXTRA_COLS
+# The most channels an arc sums (the kernel's arc rows hold three). The
+# lattice takes any number of channels and arcs.
 MAX_ARC_CHANNELS = 3
 
 Arc = Tuple[int, Tuple[int, ...]]
@@ -89,9 +87,8 @@ def tdt_arcs(durations) -> WindowArcs:
 
 def check_arcs(arcs: WindowArcs, n_extra: int) -> None:
     """Raise ValueError unless the arc table and the number of extra
-    channels are what the lattice (and the kernel's fixed-size table) takes."""
-    if n_extra > MAX_CHANNELS - 2:
-        raise ValueError(f"at most {MAX_CHANNELS - 2} extra channels, got {n_extra}")
+    channels are what the lattice takes: any number of arcs and channels,
+    each arc summing one to three distinct channels that exist."""
     if not arcs.blank_arcs:
         raise ValueError("the lattice needs at least one blank arc (none ends the path)")
     groups = [chs for _, chs in arcs.blank_arcs + arcs.emit_arcs]
@@ -103,8 +100,6 @@ def check_arcs(arcs: WindowArcs, n_extra: int) -> None:
         if any(c < 0 or c >= 2 + n_extra for c in chs) or len(set(chs)) != len(chs):
             raise ValueError(f"arc channels {chs} must be distinct and lie inside "
                              f"[0, {2 + n_extra})")
-    if len(arcs.blank_arcs) > MAX_ARCS or len(arcs.emit_arcs) > MAX_ARCS:
-        raise ValueError(f"at most {MAX_ARCS} blank arcs and {MAX_ARCS} emit arcs")
     if any(m < 1 for m, _ in arcs.blank_arcs + arcs.emit_arcs):
         raise ValueError("blank and emit arcs advance at least one frame")
 
