@@ -1994,7 +1994,8 @@ def former_block_phase(dev, totals, errs, clock_mhz, library):
 # channels, 8 blank and 8 emit arcs), the multi-blank loss with nine big
 # blanks, the largest counts (D = 33, past a warp's 32 lanes; K = 16), and
 # a window of 300 frames, whose rings pass a block and lie in device
-# memory. Each runs on its kernels' instances of their own: K7's table
+# memory (the others' fit a block: alpha keeps one pending window of W + 1
+# slots whatever the number of arcs). Each runs on its kernels' instances of their own: K7's table
 # instance, K3's and grad.cu's table of columns, K6a/K6b's kMany, K6c/K6d
 # in groups of 8 columns.
 MANY_TDT = tuple(range(9))
@@ -2274,6 +2275,15 @@ def many_durations_phase(dev, totals, errs):
               f"{t['plain_ms']} ms | bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
 
     table, warp = ("window_table_kernel",), ("window_warp_kernel",)
+
+    def in_shared(case, lpb, extra, arcs):
+        """The table instance's plan at this shape: alpha's pending window and
+        beta's ring in shared memory, printed."""
+        plan = kwindow.lattice_plan(lpb, extra, arcs)
+        print(f"window_stream {case}: plan {plan._asdict()}")
+        fail_unless(plan.wide == kwindow.TABLE and plan.rings == 0,
+                    f"the table instance's rings at {case} are not in shared memory")
+
     with torch.no_grad():
         for tag, B, T, L, V in DURATION_SHAPES:
             acts, dur, labels, il, ll = many_problem(B, T, L, V, len(MANY_TDT), 0, 30, dev)
@@ -2286,6 +2296,8 @@ def many_durations_phase(dev, totals, errs):
                 # the plain lattice (seconds a call) once, at the new instance's headline
                 plain_fn = ((lambda: window.forward_backward(p.lpb, p.lpe, lpd, arcs, il, ll))
                             if tag == "headline" and name == "tdt_d9" else None)
+                if names == table:
+                    in_shared(f"{name}_{tag}", p.lpb, lpd, arcs)
                 timed("window_stream", f"{name}_{tag}", fn, names,
                       window_bound(p.lpb, lpd, arcs, il, ll), plain_fn)
             del acts, dur, p, lpd
@@ -2333,6 +2345,8 @@ def many_durations_phase(dev, totals, errs):
                 fields, labels_u, il, ll, 0, V, acts.dtype, **kw), g_names,
                 bound(n_big * 4 + (3 + K_) * rows * 4, 0, F32_OPS_PER_S),
                 lambda: gradients.sparse_grad(fields, labels_u, il, ll, 0, V, acts.dtype, **kw))
+            if K_ > 2:
+                in_shared(f"mb_{suffix}", pr.lpb, pr.extras, arcs)
             timed("window_stream", f"mb_{suffix}",
                   lambda: kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll),
                   table if K_ > 2 else warp, window_bound(pr.lpb, pr.extras, arcs, il, ll))
@@ -2340,11 +2354,13 @@ def many_durations_phase(dev, totals, errs):
         p = kprep.prepare(acts, labels, 0, False)
         lpd = torch.log_softmax(dur, -1).contiguous()
         arcs = window.tdt_arcs(WIDEST_TDT)
+        in_shared("tdt_d33_headline", p.lpb, lpd, arcs)
         timed("window_stream", "tdt_d33_headline",
               lambda: kwindow.forward_backward(p.lpb, p.lpe, lpd, arcs, il, ll), table,
               window_bound(p.lpb, lpd, arcs, il, ll))
         pr = kprep.prepare(acts, labels, 0, False, extra_cols=tuple(range(V - 16, V)))
         arcs = window.multiblank_arcs(WIDEST_MB)
+        in_shared("mb_k16_headline", pr.lpb, pr.extras, arcs)
         timed("window_stream", "mb_k16_headline",
               lambda: kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll), table,
               window_bound(pr.lpb, pr.extras, arcs, il, ll))

@@ -16,7 +16,13 @@ for 5000), both sides of one warp's 17 cells (100, 150, U = 544 and 545),
 and the shapes that took the earlier block kernel: B = 128, T = 1000, U =
 601 (a character-level model's labels at a training batch), B = 32 on the
 same U with TDT durations (1, 2, 4) beside the two families (no duration 0:
-no chain), and f64 at B = 4, T = 300, U = 601.
+no chain), and f64 at B = 4, T = 300, U = 601. Then the table instance
+(``window_table_kernel``) at chip_smoke.many_durations_phase's shapes and
+problems (chip_smoke.many_problem): TDT with durations 0 … 8 at headline and
+long_t, TDT with D = 33, the multi-blank loss with K = 9 and K = 16 big
+blanks at headline, and the 300-frame window (B = 4, T = 1500, U = 301, big
+blanks of 2 … 300 frames), the parent's and this checkout's in the same
+turns (``table_*`` entries; ``--table-only`` times them alone).
 
 For each: ``kernel_ms``, the profiler's device time of the window kernel
 over its launches (``alpha_kernel_ms``: the same without betas, alpha's
@@ -50,8 +56,18 @@ SHAPES = [("headline", 128, 150, 40, 28), ("long_t", 16, 1500, 300, 50),
           # the shapes of the earlier block kernel
           ("B128_U601", 128, 1000, 600, 28), ("B32_U601", 32, 1000, 600, 28),
           ("f64_B4_U601", 4, 300, 600, 28)]
+# The table instance's shapes: (tag, B, T, L, V, family, durations, and
+# chip_smoke.many_problem's duration columns, label-free columns and seed),
+# chip_smoke.many_durations_phase's problems.
+TABLE_SHAPES = [
+    ("tdt_d9_headline", 128, 150, 40, 28, "tdt", tuple(range(9)), (9, 0, 30)),
+    ("tdt_d9_long_t", 16, 1500, 300, 50, "tdt", tuple(range(9)), (9, 0, 30)),
+    ("tdt_d33_headline", 128, 150, 40, 28, "tdt", tuple(range(33)), (33, 16, 31)),
+    ("mb_k9_headline", 128, 150, 40, 28, "multiblank", tuple(range(2, 11)), (33, 16, 31)),
+    ("mb_k16_headline", 128, 150, 40, 28, "multiblank", tuple(range(2, 18)), (33, 16, 31)),
+    ("w300", 4, 1500, 300, 40, "multiblank", (2, 4, 8, 16, 32, 64, 128, 300), (1, 8, 32))]
 # The window kernel's names in this checkout and its parents.
-KERNELS = ("window_kernel", "window_warp_kernel", "window_block_kernel")
+KERNELS = ("window_kernel", "window_warp_kernel", "window_block_kernel", "window_table_kernel")
 
 
 def smoke():
@@ -81,7 +97,33 @@ def kernel_ms(fn, iters=20):
     return ms / n if n else None
 
 
-def one(root, iters):
+def table_shapes(sm, kprep, kwindow, window, dev, out, new):
+    """The table instance at TABLE_SHAPES, into ``out``."""
+    for tag, B, T, L, V, family, durs, (D, n_cols, seed) in TABLE_SHAPES:
+        tdt = family == "tdt"
+        acts, dur, labels, il, ll = sm.many_problem(B, T, L, V, D, n_cols, seed, dev)
+        if tdt:
+            p = kprep.prepare(acts, labels, 0, False)
+            lpb, lpe = p.lpb, p.lpe
+            extra = torch.log_softmax(dur, -1).contiguous()
+            arcs = window.tdt_arcs(durs)
+        else:
+            p = kprep.prepare(acts, labels, 0, False, extra_cols=tuple(range(V - len(durs), V)))
+            lpb, lpe, extra = p.lpb, p.lpe, p.extras
+            arcs = window.multiblank_arcs(durs)
+        del acts, dur
+        fn = lambda: kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)  # noqa: E731
+        r = {"kernel_ms": kernel_ms(fn, iters=5), "bound_ms": sm.window_bound(
+            lpb, extra, arcs, il, ll)[0], "t_max": int(il.max())}
+        if new:
+            plan = kwindow.lattice_plan(lpb, extra, arcs)
+            r["plan"], r["registers"] = plan._asdict(), kwindow.kernel_registers(plan, lpb.dtype)
+        out[f"table_{tag}"] = r
+        del p, lpb, lpe, extra, il, ll, labels
+        torch.cuda.empty_cache()
+
+
+def one(root, iters, by_value=True):
     """Time the package of ``root``; print one JSON line."""
     sys.path.insert(0, str(Path(root).resolve()))
     from warp_transducer_tpu_torch.ops import window
@@ -95,7 +137,7 @@ def one(root, iters):
     steps = sm.window_step_instructions(build.build()) if new else {}
     out = {"root": str(root), "sm_clock_mhz": clock_mhz, "step_instructions": {
         f"{elt}_{c}_{'wide' if w else 'narrow'}": v for (elt, c, w), v in steps.items()}}
-    for tag, B, T, L, V in SHAPES:
+    for tag, B, T, L, V in SHAPES if by_value else ():
         acts, dur, labels, il, ll = sm.make_duration_problem(B, T, L, V, seed=14, dev=dev)
         p = kprep.prepare(acts, labels, 0, False, extra_cols=(V - 2, V - 1))
         lpd = torch.log_softmax(dur, -1)
@@ -130,6 +172,7 @@ def one(root, iters):
             out[f"{family}_{tag}"] = r
         del p, lpd, lpb, lpe, lpB, il, ll, labels
         torch.cuda.empty_cache()
+    table_shapes(sm, kprep, kwindow, window, dev, out, new)
     print(json.dumps(out))
 
 
@@ -138,12 +181,14 @@ def main():
     parser.add_argument("--root", default=str(HERE / "build" / "parent"),
                         help="the parent checkout, timed first and last")
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--table-only", action="store_true",
+                        help="time the table instance's shapes alone")
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_window.py: no CUDA device is visible")
     if args.one:
-        one(args.one, args.iters)
+        one(args.one, args.iters, not args.table_only)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -152,16 +197,18 @@ def main():
     for label, root in (("parent", args.root), ("this", str(HERE)), ("this", str(HERE)),
                         ("parent", args.root)):
         proc = subprocess.run([sys.executable, __file__, "--one", root, "--iters",
-                               str(args.iters)], capture_output=True, text=True)
+                               str(args.iters)] + (["--table-only"] if args.table_only else []),
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             sys.exit(f"time_window.py: the {label} run failed:\n{proc.stdout}\n{proc.stderr}")
         r = json.loads(proc.stdout.strip().splitlines()[-1])
         r["label"] = label
         runs.append(r)
         print(f"{label}: " + " | ".join(
-            f"{case} kernel {v['kernel_ms']} ms, event {v['ms']:.4f} ms"
-            + (f", chain floor {v['chain_floor_ms']} ms, registers {v['registers']}"
-               if "registers" in v else "")
+            f"{case} kernel {v['kernel_ms']} ms"
+            + (f", event {v['ms']:.4f} ms" if "ms" in v else "")
+            + (f", chain floor {v['chain_floor_ms']} ms" if "chain_floor_ms" in v else "")
+            + (f", registers {v['registers']}" if "registers" in v else "")
             for case, v in r.items() if isinstance(v, dict) and "kernel_ms" in v), flush=True)
     print(json.dumps({"card": smi, "runs": runs}))
 

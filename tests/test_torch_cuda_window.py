@@ -231,8 +231,9 @@ def test_window_plan_matches_kernel(dev):
 def test_window_kernels_do_not_spill(dev, dtype):
     """Every instance of the kernel, narrow and wide (C = 1, 3, … up to the
     cap): no local memory."""
-    cap = kwindow.max_cells(torch.tensor([], dtype=dtype).element_size())
+    elt = torch.tensor([], dtype=dtype).element_size()
     for wide in (kwindow.NARROW, kwindow.WIDE, kwindow.TABLE):
+        cap = kwindow.table_max_cells(elt) if wide == kwindow.TABLE else kwindow.max_cells(elt)
         for C in range(1, cap + 1, 2):
             p = kwindow.Plan(wide, 1, C, 1, 1, 1, 32, 0, 0, 0)
             regs, local = kwindow.kernel_registers(p, dtype)

@@ -20,7 +20,16 @@ that plan (a card test holds it against the C entry). Here:
   column u - 1: at a lane's first cell, the previous lane's last one),
   beta's from its ring of W + 1 rows; alpha's rows written out from the
   staged row a row late, beta's from its ring; each lattice stopping at its
-  own T_b, then the NEG fill of rows T_b … T-1.
+  own T_b, then the NEG fill of rows T_b … T-1;
+* the table instance's alpha on its pending window (``_Pending``): W + 1
+  slots of (max, sum) pairs tagged with the row each gathers for, row t
+  reading and emptying its slot, then scattering its departures a group of
+  one m at a time (the arcs joined first, emit arcs one column on: within
+  a lane, by the shuffle, from lane 31 into its warp's entry, from the last
+  warp handed on to the next pass pre-joined), ll_forward summed as the
+  terminal arcs are sent. A lane's own cells need no ``__syncwarp`` (one
+  thread reads and writes them); a warp's entry needs a barrier between
+  its writer and its reader.
 
 Every ring read is checked to find the row it wants, written at an earlier
 row step (a __syncwarp between) and never overwritten in the step that reads
@@ -105,9 +114,11 @@ class _Memory:
         self.value = np.full(shape, np.nan)
         self.row = np.full(shape, -10 ** 9)
         self.wwarp = np.full(shape, -1)
+        self.wthread = np.full(shape, -1)
         self.wstep = np.full(shape, -10 ** 9)
         self.wepoch = np.full(shape, -10 ** 9)
         self.rstep = np.full(shape + (G,), -10 ** 9)
+        self.rthread = np.full(shape + (G,), -1)
         self.repoch = np.full(shape + (G,), -10 ** 9)
         self.G, self.clock = G, clock
 
@@ -115,32 +126,41 @@ class _Memory:
     def _pick(idx, mask):
         return tuple(np.broadcast_to(i, mask.shape)[mask] for i in idx)
 
-    def write(self, idx, values, row, warp, mask):
+    def write(self, idx, values, row, warp, mask, thread=None):
+        """``thread`` (a thread id a word, or None): a word that one thread
+        reads and writes in one row step (the table instance's pending
+        window) needs no __syncwarp between."""
         idx = self._pick(idx, mask)
         warp = np.broadcast_to(warp, mask.shape)[mask]
+        thread = -2 if thread is None else np.broadcast_to(thread, mask.shape)[mask]
         for g in range(self.G):
             same = warp == g
-            assert np.all(self.rstep[idx + (g,)][same] < self.clock.step), \
+            own = self.rthread[idx + (g,)] == thread
+            assert np.all(((self.rstep[idx + (g,)] < self.clock.step) | own)[same]), \
                 "a word overwritten in the row step that a lane of its warp reads it"
             assert np.all(self.repoch[idx + (g,)][~same] < self.clock.epoch), \
                 "a word overwritten before a barrier after another warp's read"
         self.value[idx] = np.broadcast_to(values, mask.shape)[mask]
         self.row[idx] = np.broadcast_to(row, mask.shape)[mask]
         self.wwarp[idx] = warp
+        self.wthread[idx] = thread
         self.wstep[idx] = self.clock.step
         self.wepoch[idx] = self.clock.epoch
 
-    def read(self, idx, row, warp, mask):
+    def read(self, idx, row, warp, mask, thread=None):
         idx_m = self._pick(idx, mask)
         warp_m = np.broadcast_to(warp, mask.shape)[mask]
+        thread = -3 if thread is None else np.broadcast_to(thread, mask.shape)[mask]
         assert np.all(self.row[idx_m] == np.broadcast_to(row, mask.shape)[mask]), \
             "a ring read the wrong row"
         same = self.wwarp[idx_m] == warp_m
-        assert np.all(self.wstep[idx_m][same] < self.clock.step), \
+        own = self.wthread[idx_m] == thread
+        assert np.all(((self.wstep[idx_m] < self.clock.step) | own)[same]), \
             "a word read in the row step that its warp wrote it"
         assert np.all(self.wepoch[idx_m][~same] < self.clock.epoch), \
             "a word of another warp read without a barrier after its write"
         self.rstep[idx_m + (warp_m,)] = self.clock.step
+        self.rthread[idx_m + (warp_m,)] = thread
         self.repoch[idx_m + (warp_m,)] = self.clock.epoch
         out = np.full(mask.shape, np.nan)
         out[mask] = self.value[idx_m]
@@ -195,6 +215,105 @@ class _CopyRing:
         return got
 
 
+class _Pending:
+    """Alpha's pending window of the table instance: R slots of the UP
+    columns' (max, sum) pairs and one entry a warp (the emit departures of
+    its last column, for the next warp's first column or, from the last
+    warp, the next pass's), each word tagged with the row it gathers for.
+    A lane reads and writes its own cells in one row step (no __syncwarp);
+    a warp's entry is written by its lane 31 and read by the next warp's
+    lane 0 (a barrier between)."""
+
+    def __init__(self, G, C, R, up, clock, barrier):
+        self.G, self.C, self.R, self.up = G, C, R, up
+        self.P = WARP * C
+        self.mem = _Memory((R, 2, up + G), G, clock)
+        self.warp = np.arange(G)[:, None, None] + np.zeros((G, WARP, C), int)
+        self.u = self.warp * self.P + LANE[None, :, None] * C + np.arange(C)[None, None, :]
+        self.thread = self.warp * WARP + LANE[None, :, None]
+        self.all = np.ones((G, WARP, C), bool)
+        self.g = np.arange(G)
+        for r in range(R):  # every slot empty, tagged with the first row it serves
+            self._put(r, self.u, (LOWEST, 0.0), r, self.warp, self.all, self.thread)
+            self._put(r, up + self.g, (LOWEST, 0.0), r, self.g, np.ones(G, bool),
+                      self.g * WARP + WARP - 1)
+        barrier()
+
+    def _get(self, slot, cols, row, warp, mask, thread):
+        return tuple(self.mem.read((slot, k, cols), row, warp, mask, thread) for k in (0, 1))
+
+    def _put(self, slot, cols, pair, row, warp, mask, thread):
+        for k in (0, 1):
+            self.mem.write((slot, k, cols), pair[k], row, warp, mask, thread)
+
+    def arrivals(self, t, handed_in, hout):
+        """Row t's arrivals (G, 32, C) from its slot, emptied for row t + R:
+        at a warp's first column joined with the warp before's entry, at the
+        pass's (``handed_in``) with the previous pass's pair; the last warp's
+        entry goes to ``hout`` row t."""
+        sl, R, up, G = t % self.R, self.R, self.up, self.G
+        p = self._get(sl, self.u, t, self.warp, self.all, self.thread)
+        self._put(sl, self.u, (LOWEST, 0.0), t + R, self.warp, self.all, self.thread)
+        p = (p[0].copy(), p[1].copy())
+        if G > 1:
+            gi = np.arange(1, G)
+            one = np.ones(G - 1, bool)
+            x = self._get(sl, up + gi - 1, t, gi, one, gi * WARP)
+            j = _join(x, (p[0][gi, 0, 0], p[1][gi, 0, 0]))
+            p[0][gi, 0, 0], p[1][gi, 0, 0] = j
+            self._put(sl, up + gi - 1, (LOWEST, 0.0), t + R, gi, one, gi * WARP)
+        if handed_in is not None:  # lane 0 of warp 0, from its copied row
+            p[0][0, 0, 0], p[1][0, 0, 0] = _join(handed_in, (p[0][0, 0, 0], p[1][0, 0, 0]))
+        if hout is not None:  # lane 31 of the last warp hands its entry on
+            one, last = np.array([True]), np.array([up + G - 1])
+            x = self._get(sl, last, t, G - 1, one, G * WARP - 1)
+            hout[t, 2], hout[t, 3] = x[0][0], x[1][0]
+            self._put(sl, last, (LOWEST, 0.0), t + R, G - 1, one, G * WARP - 1)
+        return p
+
+    def scatter(self, t, groups, departures, final, Tb, lf, hands_on):
+        """Row t's departures (``departures(i)``: arc i's α + w at every
+        cell, NEG beyond U) joined by m, emit arcs moved one column on,
+        into slot (t + m) mod R; the terminal blank arcs (t + m = T_b) at
+        the cell ``final`` added to ll_forward's running sum ``lf``, which
+        is returned."""
+        G, up = self.G, self.up
+        # the warps whose lane 31 sends its emit departures into its entry
+        sends = self.g[(self.g + 1 < G) | hands_on]
+        for m, blanks, emits in groups:
+            sl, row = (t + m) % self.R, t + m
+            old = self._get(sl, self.u, row, self.warp, self.all, self.thread)
+            d = (np.full((G, WARP, self.C), LOWEST), np.zeros((G, WARP, self.C)))
+            for k, i in enumerate(blanks):
+                x = departures(i)
+                d = (x, np.ones_like(x)) if k == 0 else _join(d, (x, np.ones_like(x)))
+                if t + m == Tb and final.any():
+                    xf = x[final][0]
+                    with np.errstate(over="ignore"):
+                        lf = max(lf, xf) + np.log1p(np.exp(-abs(lf - xf)))
+            if emits:
+                # one column on: within a lane at once, arc by arc; a lane's
+                # last cell's, joined over the arcs, by the shuffle to the
+                # next lane's first; lane 31's into its warp's entry
+                dm, ds = d[0].reshape(G, WARP, self.C).copy(), d[1].reshape(G, WARP, self.C).copy()
+                last = (np.full((G, WARP), LOWEST), np.zeros((G, WARP)))
+                for i in emits:
+                    x = departures(i)
+                    dm[..., 1:], ds[..., 1:] = _join((dm[..., 1:], ds[..., 1:]),
+                                                     (x[..., :-1], np.ones_like(x[..., :-1])))
+                    last = _join(last, (x[..., -1], np.ones_like(x[..., -1])))
+                dm[:, 1:, 0], ds[:, 1:, 0] = _join((dm[:, 1:, 0], ds[:, 1:, 0]),
+                                                   (last[0][:, :-1], last[1][:, :-1]))
+                d = (dm, ds)
+                if len(sends):
+                    one = np.ones(len(sends), bool)
+                    olde = self._get(sl, up + sends, row, sends, one, sends * WARP + WARP - 1)
+                    new = _join(olde, (last[0][sends, -1], last[1][sends, -1]))
+                    self._put(sl, up + sends, new, row, sends, one, sends * WARP + WARP - 1)
+            self._put(sl, self.u, _join(old, d), row, self.warp, self.all, self.thread)
+        return lf
+
+
 def _slot_arc(chs, up, Cx):
     """(base, stride) of each channel of an arc in a copied row."""
     return [(0, 1) if c == 0 else (up, 1) if c == 1 else (2 * up + c - 2, Cx) for c in chs]
@@ -230,21 +349,39 @@ def _chain_prefix(ring, r, refs, u, U, warp):
     return c + ex[..., None], incl
 
 
+def _hand_words(arcs, wide):
+    """Values a row the passes hand on: the wide instance's 2 + n_arcs, the
+    table instance's TABLE_HAND."""
+    if wide == KW.TABLE:
+        return KW.TABLE_HAND
+    return 2 + len(arcs.blank_arcs) + len(arcs.emit_arcs) if wide else 0
+
+
+def _groups(arcs):
+    """The table instance's groups of one m, ascending: (m, the indices of
+    its blank arcs, of its emit arcs), each in table order (blank arcs
+    first, then emit arcs, as the kernel's arc list)."""
+    n_blank = len(arcs.blank_arcs)
+    ms = sorted({m for m, _ in arcs.blank_arcs + arcs.emit_arcs})
+    return [(m, [i for i, (mi, _) in enumerate(arcs.blank_arcs) if mi == m],
+             [n_blank + i for i, (mi, _) in enumerate(arcs.emit_arcs) if mi == m]) for m in ms]
+
+
 def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G, C, passes=1, wide=False):
     """One lattice as the G warps of the kernel walk it, C cells a lane, in
     ``passes`` passes of 32·G·C columns (alpha left to right, beta right to
-    left; each hands its rows on to the next through device memory, 2 +
-    n_arcs values a row): (field, ll)."""
+    left; each hands its rows on to the next through device memory,
+    ``_hand_words`` values a row): (field, ll)."""
     out = np.full(T * U, np.nan)
     writes = np.zeros(T * U, np.int64)
     up = G * WARP * C
-    n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
+    hw = _hand_words(arcs, wide)
     hand = None  # the rows the previous pass handed on
     ll = NEG
     for q in range(passes):
         k = passes - 1 - q if is_beta else q
         start = k * up
-        hout = np.full((T, 2 + n_arcs), np.nan) if q + 1 < passes else None
+        hout = np.full((T, hw), np.nan) if q + 1 < passes else None
         llq = _walk_pass(pb[:, start:], pe[:, start:], px[:, start:], arcs, T, U, start, Tb, Ub,
                          is_beta, G, C, wide, hand, hout, out, writes)
         if llq is not None:
@@ -282,7 +419,8 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
     refs = [_slot_arc(chs, up, Cx) for _, chs in arc_list]
     chain = _slot_arc(arcs.chain, up, Cx) if arcs.chain is not None else None
     clock = _Clock()
-    hw = 2 + len(arc_list) if wide else 0
+    hw = _hand_words(arcs, wide)
+    table = wide == KW.TABLE
     taker = G - 1 if is_beta else 0
     copies = _CopyRing(U, Cx, G, C, clock, hw)
     xch = _Memory((2, G, 4), G, clock)
@@ -350,8 +488,12 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
             tot_nxt = offs[-1] + end_nxt[-1]
     ll = None
     if not is_beta:
-        dep = _Memory((len(arc_list), R, RS), G, clock)
         stage = _Memory((2, up), G, clock)
+        if table:
+            pend = _Pending(G, C, R, up, clock, barrier)
+            lf = NEG
+        else:
+            dep = _Memory((len(arc_list), R, RS), G, clock)
         for t in range(Tv):
             c_cur, tot_cur = c_nxt, tot_nxt
             copies.wait(K - 2)
@@ -363,20 +505,24 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
                 tot_nxt = end_nxt[0]
             if t > 0:
                 write_out(stage, ((t - 1) & 1,), t - 1, t - 1)
-            m0 = arc_list[0][0]
-            m = inside & (t >= m0)
-            p = (np.where(m, dep.read((0, (t - m0) % R, np.where(m, u, 0) + ro), t - m0, warp, m),
-                          NEG), ones.copy())
-            for i in range(1, len(arc_list)):
-                mi = arc_list[i][0]
-                if t < mi:
-                    continue
-                emit = i >= n_blank
-                src = u - 1 if emit else u
-                # at a warp's first column, the warp before's last; at a pass's, the edge
-                m = inside & (src >= (0 if first_pass else -1))
-                x = dep.read((i, (t - mi) % R, np.where(m, src, 0) + ro), t - mi, warp, m)
-                p = _select(m, _join(p, (x, ones)), p)
+            if table:
+                p = pend.arrivals(t, (handed(t, 2), handed(t, 3)) if hin is not None else None,
+                                  hout)
+            else:
+                m0 = arc_list[0][0]
+                m = inside & (t >= m0)
+                p = (np.where(m, dep.read((0, (t - m0) % R, np.where(m, u, 0) + ro), t - m0, warp,
+                                          m), NEG), ones.copy())
+                for i in range(1, len(arc_list)):
+                    mi = arc_list[i][0]
+                    if t < mi:
+                        continue
+                    emit = i >= n_blank
+                    src = u - 1 if emit else u
+                    # at a warp's first column, the warp before's last; at a pass's, the edge
+                    m = inside & (src >= (0 if first_pass else -1))
+                    x = dep.read((i, (t - mi) % R, np.where(m, src, 0) + ro), t - mi, warp, m)
+                    p = _select(m, _join(p, (x, ones)), p)
             below = p[0] < NEG  # the plain sum starts at NEG
             p = (np.where(below, NEG, p[0]), np.where(below, 1.0, p[1]))
             if t == 0 and first_pass:
@@ -423,7 +569,13 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
                 a = _value(p)
             a = np.where(u < Uv, a, NEG)
             stage.write(((t & 1), u), a, t, warp, np.ones_like(inside))
-            for i, (mi, _) in enumerate(arc_list):
+            if table:
+                def departures(i):
+                    return np.where(inside, a + _weight(copies, t, refs[i], u, warp, inside), NEG)
+
+                lf = pend.scatter(t, _groups(arcs), departures, u == Ub - 1, Tb, lf,
+                                  hout is not None)
+            for i, (mi, _) in enumerate(arc_list if not table else ()):
                 w = _weight(copies, t, refs[i], u, warp, inside)
                 dep.write((i, t % R, np.where(inside, u, 0) + ro), a + w, t, warp, inside)
                 if i >= n_blank:
@@ -437,7 +589,9 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
         syncwarp()
         if Tv > 0:
             write_out(stage, ((Tv - 1) & 1,), Tv - 1, Tv - 1)
-        if 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U:
+        if 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U and table:
+            ll = lf  # summed as the terminal arcs were sent
+        elif 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U:
             uf = Ub - 1
             one = np.array([True])
             ll = NEG
@@ -623,14 +777,22 @@ CASES = {
     "passes_tdt_chain": (("tdt", (0, 1, 2, 3, 4, 5, 6, 8)), 2, 5, 300, [5, 4], [299, 128], 8, 0),
     # the table instance: more arcs and channels than the by-value table
     # holds (TDT 0 … 8: 11 channels; 0 … 32: 64 arcs; nine and sixteen big
-    # blanks), its rings in shared memory or, where they pass a block, in
-    # device memory (sixteen big blanks on four warps; a window of 300)
+    # blanks), alpha's pending window and beta's ring in shared memory or,
+    # where they pass a block, in device memory (sixteen big blanks on four
+    # warps in f64; a window of 300 at U = 40); several warps trading emit
+    # arrivals through their entries, with and without a chain; passes
+    # handing on the chain's carry and the pre-joined arrivals of the next
+    # pass's first column (U_b at a pass's last column)
     "table_tdt_0_8": (("tdt", tuple(range(9))), 2, 11, 9, [11, 7], [8, 4], 8, 0),
     "table_tdt_0_32": (("tdt", tuple(range(33))), 2, 6, 5, [6, 4], [4, 2], 8, 0),
     "table_mb_k9": (("multiblank", tuple(range(2, 11))), 2, 12, 9, [12, 9], [8, 5], 8, 0),
     "table_mb_k16_rings_in_device": (("multiblank", tuple(range(2, 18))), 1, 20, 300, [20],
                                      [299], 8, 4),
-    "rings_in_device_w300": (("multiblank", (2, 300)), 1, 302, 5, [302], [4], 8, 0),
+    "rings_in_device_w300": (("multiblank", (2, 300)), 1, 302, 40, [302], [39], 8, 0),
+    "table_tdt_0_8_four_warps": (("tdt", tuple(range(9))), 2, 7, 200, [7, 5], [199, 120], 8, 4),
+    "table_no_chain_two_warps": (("tdt", tuple(range(1, 10))), 2, 12, 90, [12, 9], [89, 40], 8,
+                                 2),
+    "table_passes_tdt_0_8": (("tdt", tuple(range(9))), 2, 5, 500, [5, 4], [499, 383], 8, 0),
 }
 
 
@@ -642,10 +804,13 @@ CASES = {
 SCHEDULE_ONLY = {"U601_two_warps_mb", "no_chain_four_warps", "wide_8_warps_mb", "wide_16_warps_tdt", "passes_mb_w8",
                  "passes_tdt_no_chain", "passes_tdt_chain", "U601_four_warps_tdt",
                  "no_chain_U601", "table_tdt_0_8", "table_tdt_0_32", "table_mb_k9",
-                 "table_mb_k16_rings_in_device", "rings_in_device_w300"}
+                 "table_mb_k16_rings_in_device", "rings_in_device_w300",
+                 "table_tdt_0_8_four_warps", "table_no_chain_two_warps", "table_passes_tdt_0_8"}
 # The table instance's cases: (instance, whether the rings lie in device memory).
-TABLE_CASES = {"table_tdt_0_8": False, "table_tdt_0_32": True, "table_mb_k9": False,
-               "table_mb_k16_rings_in_device": True, "rings_in_device_w300": True}
+TABLE_CASES = {"table_tdt_0_8": False, "table_tdt_0_32": False, "table_mb_k9": False,
+               "table_mb_k16_rings_in_device": True, "rings_in_device_w300": True,
+               "table_tdt_0_8_four_warps": False, "table_no_chain_two_warps": False,
+               "table_passes_tdt_0_8": True}
 
 
 def _arcs(family, durations):
@@ -760,6 +925,7 @@ def _covers(p, U, elt):
     the passes' device memory iff there are several."""
     up = WARP * p.warps * p.cells
     assert p.cells % 2 == 1 and p.cells <= KW.max_cells(elt)
+    assert p.wide != KW.TABLE or p.cells <= KW.table_max_cells(elt)
     assert (p.passes - 1) * up < U <= p.passes * up
     # the table instance keeps its arcs after its lattices
     table = p.smem - p.lattice_words * elt * p.per_block
@@ -864,6 +1030,38 @@ def test_shared_memory_of_a_lattice(G, C, elt):
         alpha = copy + n_arcs * (W + 1) * (up + 1) + 2 * up + 128
         beta = copy + (W + 1) * (up + 1) + KW.SLACK + 128
         assert KW.lattice_words(G, C, W, n_arcs, Cx, 2, True) == max(alpha, beta)
+
+
+# The table instance's shapes on the card: (name, B, T, U, arcs, extra
+# channels, whether its rings lie in device memory).
+TABLE_SHAPES = [
+    ("tdt_0_8_long_t", 16, 1500, 301, TW.tdt_arcs(tuple(range(9))), 9, False),
+    ("tdt_0_8_headline", 128, 150, 41, TW.tdt_arcs(tuple(range(9))), 9, False),
+    ("tdt_d33_headline", 128, 150, 41, TW.tdt_arcs(tuple(range(33))), 33, False),
+    ("mb_k9_headline", 128, 150, 41, TW.multiblank_arcs(tuple(range(2, 11))), 9, False),
+    ("mb_k16_headline", 128, 150, 41, TW.multiblank_arcs(tuple(range(2, 18))), 16, False),
+    ("w300", 4, 1500, 301, TW.multiblank_arcs((2, 4, 8, 16, 32, 64, 128, 300)), 8, True),
+]
+
+
+@pytest.mark.parametrize("case", TABLE_SHAPES, ids=[c[0] for c in TABLE_SHAPES])
+def test_table_rings_in_shared_memory(case):
+    """Alpha's pending window holds W + 1 slots of UP + G pairs whatever the
+    number of arcs: with it the table instance's rings fit a block at TDT
+    0 … 8 (long_t, headline), D = 33, K = 9 and K = 16 (headline); only a
+    window of hundreds of frames keeps them in device memory."""
+    _, B, T, U, arcs, n_extra, in_device = case
+    p = _plan(B, U, 4, arcs, T=T, n_extra=n_extra)
+    assert p.wide == KW.TABLE and p.passes == 1 and p.hand == 0
+    assert (p.rings > 0) == in_device, p
+    _covers(p, U, 4)
+    up = WARP * p.warps * p.cells
+    W = arcs.window
+    for n_arcs in (1, len(arcs.blank_arcs) + len(arcs.emit_arcs), 1000):
+        assert KW.alpha_ring_words(p.warps, p.cells, W, n_arcs, KW.TABLE) == \
+            2 * (W + 1) * (up + p.warps)
+    if in_device:
+        assert p.rings == 2 * B * KW.ring_words(p.warps, p.cells, W, 0)
 
 
 @pytest.mark.parametrize("B,U,betas,per_block", [

@@ -36,34 +36,46 @@ int cells_for(int n) {
   return c + 1 - c % 2;
 }
 
+// Values of alpha's rings of a lattice of G warps, C cells a lane: the
+// narrow and wide instances' departure rings, n_arcs × (W + 1) rows (wide:
+// of one more column, the edge); the table instance's pending window, W + 1
+// slots of UP + G (max, sum) pairs whatever the number of arcs.
+long long alpha_ring_words(int G, int C, int W, int n_arcs, int wide) {
+  const long long up = (long long)G * wtt::kWarp * C, R = W + 1;
+  return wide == kTable ? 2 * R * (up + G) : n_arcs * R * (up + (wide ? 1 : 0));
+}
+
 // Shared memory of a lattice of G warps, C cells a lane: the copy ring
-// (wide: with the 2 + n_arcs values a row the passes hand on), then alpha's
-// departure rings and staged rows (beta: its ring and slack), then the
-// exchange; the larger of the two where the block holds both. The wide
-// rings keep one more column a row (the edge).
+// (wide: with the 2 + n_arcs values a row the passes hand on, the table
+// instance kTableHand), then alpha's rings and staged rows (beta: its ring
+// and slack), then the exchange; the larger of the two where the block
+// holds both. The wide rings keep one more column a row (the edge).
 long long lattice_words(int G, int C, int W, int n_arcs, int Cx, int dirs, int wide,
                         int dev_rings = 0) {
   const long long up = (long long)G * wtt::kWarp * C, R = W + 1, rs = up + (wide ? 1 : 0);
-  const long long copy = kCopyRows * ((2LL + Cx) * up + kRowPad + (wide ? 2 + n_arcs : 0));
+  const long long hand = wide == kTable ? kTableHand : wide ? 2 + n_arcs : 0;
+  const long long copy = kCopyRows * ((2LL + Cx) * up + kRowPad + hand);
   const long long xch = wide ? Shape<true>::kXchWords : Shape<false>::kXchWords;
   if (dev_rings) return copy + 2 * up + xch;  // alpha's staged rows; beta keeps less
-  const long long alpha = copy + n_arcs * R * rs + 2 * up + xch;
+  const long long alpha = copy + alpha_ring_words(G, C, W, n_arcs, wide) + 2 * up + xch;
   const long long beta = copy + R * rs + kSlack + xch;
   return dirs == 2 && beta > alpha ? beta : alpha;
 }
 
 // Values of a lattice's rings in device memory (the table instance): the
-// larger of alpha's departure rings and beta's ring with its slack.
+// larger of alpha's pending window and beta's ring with its slack.
 long long ring_words(int G, int C, int W, int n_arcs) {
   const long long rs = (long long)G * wtt::kWarp * C + 1, R = W + 1;
-  const long long alpha = n_arcs * R * rs, beta = R * rs + kSlack;
+  const long long alpha = alpha_ring_words(G, C, W, n_arcs, kTable), beta = R * rs + kSlack;
   return alpha > beta ? alpha : beta;
 }
 
 // Bytes of the table instance's arc table in a block's shared memory: the
-// chain and the n_arcs arcs.
+// chain and the n_arcs arcs, the arcs sorted (SlotArcs of 32 bytes), two
+// arrays of n_arcs groups of 16 bytes and their count, in 32-byte units.
 long long table_bytes(int n_arcs) {
-  return (long long)(n_arcs + 1) * sizeof(SlotArc<Shape<true>::kArcCh>);
+  static_assert(sizeof(SlotArc<Shape<true>::kArcCh>) == 32 && sizeof(Group) == 16, "");
+  return (3LL * n_arcs + 2) * 32;
 }
 
 // B utterances of T frames and U labels, `elt`-byte values, a longest
@@ -102,7 +114,8 @@ Plan plan(int B, int T, int U, int elt, int W, int n_arcs, int Cx, int has_chain
   auto runs = [&](int G, int C, int wide) {
     const long long extra = wide == kTable ? table_bytes(n_arcs) : 0;
     const int most = wide == kTable ? kTableWarps : wide_warps(elt, C);
-    return C <= max_cells(elt) && (!wide || G <= most) &&
+    return C <= (wide == kTable ? table_max_cells(elt) : max_cells(elt)) &&
+           (!wide || G <= most) &&
            lattice_words(G, C, W, n_arcs, Cx, dirs, wide, dev) * elt + extra <= kSmemMax;
   };
   int wide = -1, G = 0, C = 0, passes = 1;
@@ -173,7 +186,7 @@ Plan plan(int B, int T, int U, int elt, int W, int n_arcs, int Cx, int has_chain
   p.threads = wtt::kWarp * G * p.per_block;
   p.smem = (int)(bytes * p.per_block + (wide == kTable ? table_bytes(n_arcs) : 0));
   p.lattice_words = (int)(bytes / elt);
-  p.hand = passes > 1 ? lattices * 2 * T * (2LL + n_arcs) : 0;
+  p.hand = passes > 1 ? lattices * 2 * T * (wide == kTable ? kTableHand : 2LL + n_arcs) : 0;
   p.rings = dev ? lattices * ring_words(G, C, W, n_arcs) : 0;
   return p;
 }

@@ -8,8 +8,8 @@
 namespace wtt_window {
 
 const void* table_kernel(int elt, int cells) {
-  if (elt == 4) return table_kernel_of<float, 1, max_cells(4)>(cells);
-  if (elt == 8) return table_kernel_of<double, 1, max_cells(8)>(cells);
+  if (elt == 4) return table_kernel_of<float, 1, table_max_cells(4)>(cells);
+  if (elt == 8) return table_kernel_of<double, 1, table_max_cells(8)>(cells);
   return nullptr;
 }
 

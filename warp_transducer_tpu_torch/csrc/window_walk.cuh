@@ -108,9 +108,38 @@
 // arcs, more than kMaxChannels channels) and every window whose rings pass a
 // block at every G and pass: the wide walk over the arcs of a table in
 // device memory, copied into the block's shared memory as it starts and
-// read in the walk's loops, 8 warps a block (kTableWarps), its rings in
-// device memory where they pass a block. The by-value instances keep their
-// code: the table instance is an instantiation of its own.
+// read in the walk's loops, 8 warps a block (kTableWarps). Its alpha keeps
+// one pending window of arrivals, as the TPU kernel does
+// (window_stream.py:153-208), in place of a ring of departures for each
+// arc, so that its memory does not grow with the number of arcs:
+// * W + 1 slots of the pass's UP columns, slot t mod (W + 1) gathering the
+//   arrivals of row t; row t reads its slot into the chain scan (where the
+//   by-value instances gather `ne`), then empties it for row t + W + 1;
+// * row t then scatters its departures: the block sorts the table into
+//   groups of one m as it starts; a lane joins a group's arcs in registers
+//   (a blank arc's α(t, u) + w(t, u) at u, an emit arc's moved on to u + 1:
+//   within the lane, to the next lane by a shuffle, from lane 31 into its
+//   warp's entry after the slot's columns, which the next warp's lane 0
+//   reads behind the row's barrier, or, from the last warp, which the pass
+//   hands on pre-joined as the next pass's first column's arrival), then
+//   joins them into slot (t + m) mod (W + 1): one read and one write a cell
+//   for each distinct m, not one for each arc (TDT's blank and emit arc of
+//   one duration share a group). Every cell has one writer, the lane that
+//   owns it, so only the warps' entries need a barrier; W + 1 slots keep a
+//   row's scatter off the slot that it empties;
+// * the slots hold (max, sum) pairs, the walk's own joins: a join is one
+//   exp and no log, and the row reads its arrivals as the pairs its scans
+//   take. Measured against log values (one word a cell, a log at every
+//   join) on the scatter's first form: log values 0–1% faster where the
+//   window lies in shared memory, 6% at the 300-frame window in device
+//   memory (PERF.md §6, the pending window's findings); the pairs stay, the later
+//   forms were timed with them only;
+// * ll_forward's terminal blank arcs are summed as they are sent, in a
+//   register of the lane that owns column U_b - 1 (the pending slot of row
+//   T_b mixes them with other arrivals).
+// Beta keeps its ring of W + 1 rows. Where the window or beta's ring passes
+// a block they lie in device memory. The by-value instances keep their code:
+// the table instance is an instantiation of its own.
 //
 // The walk's code (this header) is built in three files, so that they
 // compile in parallel: window_stream.cu (the narrow instances, the plan and
@@ -142,6 +171,8 @@ constexpr int kAhead = 3;
 constexpr int kCopyRows = kAhead + 1;
 constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
 constexpr int max_cells(int elt) { return elt == 4 ? 17 : 9; }
+// The table instance's: f64 stops at 7 (its scatter's pairs spilled at 9).
+constexpr int table_max_cells(int elt) { return elt == 4 ? 17 : 7; }
 // Values after beta's ring that an emit arc's load at the last padded column
 // may touch (its value is selected away).
 constexpr int kSlack = 32;
@@ -166,6 +197,10 @@ constexpr int wide_warps(int elt, int C) { return (elt == 4 ? C <= 13 : C <= 1) 
 // The table instance: at most 8 warps a block at every C (its arc loops
 // and table take registers past 128 a thread where 16 warps share an SM).
 constexpr int kTableWarps = 8;
+// Values a row that the table instance's passes hand on: the chain's carry
+// as a pair, then (alpha) the arrivals of the next pass's first column as a
+// pair, (beta) the edge column.
+constexpr int kTableHand = 4;
 template <typename T, int C, bool kWide>
 constexpr int block_threads() {
   return (kWide ? wide_warps(sizeof(T), C) : kNarrowWarps) * wtt::kWarp;
@@ -204,14 +239,25 @@ struct SlotArcs {
   SlotArc<N> arc[2 * kMaxArcs];  // the blank arcs, then the emit arcs
 };
 
+// The arcs of one duration m in the table instance's sorted copy: `n` arcs
+// from `first`, the `n_blank` blank arcs before the emit arcs.
+struct Group {
+  int m, first, n_blank, n;
+};
+
 // The table instance's arcs: the chain by value, the blank arcs and then the
 // emit arcs in the block's shared memory (copied there from device memory
-// as the kernel starts), read in loops at run time.
+// as the kernel starts), read in loops at run time (beta); the same arcs
+// sorted by (m, blank before emit, table order) and their groups of one m
+// (alpha's scatter).
 template <int N>
 struct TableArcs {
   int W, has_chain, n_blank, n_emit;
   SlotArc<N> chain;
   const SlotArc<N>* arc;
+  const SlotArc<N>* sorted;
+  const Group* group;
+  int n_groups;
 };
 
 // An arc row of the device table (m, n, ch0, ch1, ch2) as the walk reads
@@ -314,7 +360,8 @@ struct Walk {
   T* out;       // its alphas or betas
   T* copy;      // [kCopyRows][slot_words]: rows of lpb, lpe (UP each), extra (UP·Cx), the pad
                 // and (wide) the incoming pass's hw values
-  T* ring;      // alpha: [n_arcs][R][RS] departures; beta: [R][RS] rows of beta
+  T* ring;      // alpha: [n_arcs][R][RS] departures (the table instance: the pending
+                // window, [R][2][UP + G]); beta: [R][RS] rows of beta
   T* stage;     // alpha: [2][UP], rows on their way out
   T* xch;       // [2][kMaxG][4]: each warp's row total (m, s) and chain total
   int Tv, Uv, Tb, Ub, U, Cx, R, UP, slot_words, lane, g, G, bar, u0;
@@ -326,6 +373,7 @@ struct Walk {
   int ld, Ur, start, hw, hbase;
   const T* hin;
   T* hout;
+  bool dev_ring;  // the table instance: its rings lie in device memory
 };
 
 // The G warps of a lattice meet (bar.sync id, 32·G); a lattice of one warp
@@ -482,6 +530,108 @@ __device__ __forceinline__ Pair<T> warp_totals(const Walk<T>& s, int par, int lo
   return acc;
 }
 
+// The table instance's departures of row t (values a at the lane's cells),
+// scattered into the pending window `pend`: for each group of one m its
+// arcs joined in registers (a blank arc's α(t, u) + w(t, u) at u; an emit
+// arc's moved on to u + 1: within the lane, by a shuffle to the next lane,
+// from lane 31 into its warp's entry after the slot's columns), then joined
+// into slot (t + m) mod R, one read and one write a cell for each m. The
+// terminal blank arcs (t + m = T_b, once a lattice) add their departure at
+// column U_b - 1 to ll_forward's running sum `lf` of the lane that owns it.
+// A row step is a chain of dependent loads and joins, a group after
+// another. Where C cells of pairs leave registers to spare (f32 C <= 7, f64
+// C <= 3: the main shapes), the loop over a group's arcs has no branch
+// (each arc joins into every cell, blank or emit by a select; an emit arc's
+// cell 0 and a blank arc's `last` join the empty pair, and a group without
+// emit arcs shuffles it too) and the slot's loads (and lane 31's entry) go
+// out before the arcs' sums: of the forms tried, the shortest row step
+// (PERF.md §6; an entry loaded as it is joined cost the 300-frame
+// window, whose window lies in device memory, 8%). Past
+// them, blank and emit arcs take loops of their own and the slot is loaded
+// as it is joined, so that no instance spills.
+template <typename T, int C, int N, class Arcs>
+__device__ __forceinline__ void scatter(const Walk<T>& s, const Arcs& arcs, T* pend, const T* row,
+                                        const T (&a)[C], int t, int st, T& lf) {
+  constexpr bool kSmall = C * sizeof(T) <= 28;
+  const int lane = s.lane, u0 = s.u0, UP = s.UP, R = s.R, RSP = UP + s.G, uf = s.Ub - 1;
+  const bool edge_out = lane == wtt::kWarp - 1 && (s.g + 1 < s.G || s.hout != nullptr);
+  const int xo = UP + s.g;  // the warp's entry
+  const T lo = wtt::lowest<T>();
+#pragma unroll 1
+  for (int k = 0; k < arcs.n_groups; ++k) {
+    const Group gr = arcs.group[k];
+    T* const dst = pend + (st + gr.m >= R ? st + gr.m - R : st + gr.m) * 2 * RSP;
+    const int nb = gr.first + gr.n_blank, ne = gr.first + gr.n;
+    Pair<T> old[C], olde, d[C], last = identity<T>();
+#pragma unroll
+    for (int j = 0; j < C; ++j) d[j] = identity<T>();
+    if constexpr (kSmall) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) old[j] = Pair<T>{dst[u0 + j], dst[RSP + u0 + j]};
+      olde = Pair<T>{dst[edge_out ? xo : u0], dst[RSP + (edge_out ? xo : u0)]};
+#pragma unroll 1
+      for (int i = gr.first; i < ne; ++i) {
+        T w[C];
+        arc_weights<T, C, N>(row, arcs.sorted[i], u0, w);
+        const bool emit = i >= nb;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const bool to = !(emit && j == 0);
+          const T x = emit ? (j > 0 ? a[j - 1] + w[j - 1] : lo) : a[j] + w[j];
+          d[j] = join(d[j], Pair<T>{x, to ? T(1) : T(0)});
+        }
+        last = join(last, Pair<T>{emit ? a[C - 1] + w[C - 1] : lo, emit ? T(1) : T(0)});
+      }
+    } else {
+#pragma unroll 1
+      for (int i = gr.first; i < nb; ++i) {
+        T w[C];
+        arc_weights<T, C, N>(row, arcs.sorted[i], u0, w);
+#pragma unroll
+        for (int j = 0; j < C; ++j) d[j] = join(d[j], Pair<T>{a[j] + w[j], T(1)});
+      }
+#pragma unroll 1
+      for (int i = nb; i < ne; ++i) {
+        T w[C];
+        arc_weights<T, C, N>(row, arcs.sorted[i], u0, w);
+#pragma unroll
+        for (int j = 0; j + 1 < C; ++j) d[j + 1] = join(d[j + 1], Pair<T>{a[j] + w[j], T(1)});
+        last = join(last, Pair<T>{a[C - 1] + w[C - 1], T(1)});
+      }
+    }
+    if (kSmall || ne > nb) {  // small: a group without emit arcs shuffles an empty pair
+      const Pair<T> in = shfl_up(last, 1);
+      const Pair<T> d0 = join(d[0], in);
+      d[0].m = lane > 0 ? d0.m : d[0].m;
+      d[0].s = lane > 0 ? d0.s : d[0].s;
+      if (edge_out) {
+        if constexpr (!kSmall) olde = Pair<T>{dst[xo], dst[RSP + xo]};
+        const Pair<T> o = join(olde, last);
+        dst[xo] = o.m;
+        dst[RSP + xo] = o.s;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if constexpr (!kSmall) old[j] = Pair<T>{dst[u0 + j], dst[RSP + u0 + j]};
+      const Pair<T> o = join(old[j], d[j]);
+      dst[u0 + j] = o.m;
+      dst[RSP + u0 + j] = o.s;
+    }
+    if (t + gr.m == s.Tb && u0 <= uf && uf < u0 + C) {
+#pragma unroll 1
+      for (int i = gr.first; i < nb; ++i) {
+        T w[C];
+        arc_weights<T, C, N>(row, arcs.sorted[i], u0, w);
+        T xf = a[0] + w[0];
+#pragma unroll
+        for (int j = 1; j < C; ++j) xf = u0 + j == uf ? a[j] + w[j] : xf;
+        lf = wtt::lse(lf, xf);
+      }
+    }
+  }
+}
+
 // Alpha over rows 0 .. Tv-1; ll_forward from the departures of the
 // terminal blank arcs.
 template <typename T, int C, bool kWide, class Arcs = SlotArcs<Shape<kWide>::kArcCh>>
@@ -507,8 +657,35 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
   const bool tx = kWide && s.hout != nullptr && s.g == s.G - 1 && lane == wtt::kWarp - 1;
   const int n_arcs = arcs.n_blank + arcs.n_emit;
   // With several warps and emit arcs, a second barrier a row: an emit arc
-  // reads the previous warp's last column of an earlier row.
+  // reads the previous warp's last column of an earlier row (the table
+  // instance: the previous warp's entry of the pending window).
   const bool cross = s.G > 1 && arcs.n_emit > 0;
+  // The table instance's pending window: R slots of RSP (max, sum) pairs,
+  // the m values of a slot then its s values; a slot's UP columns, then one
+  // entry a warp g (the emit departures of its last column, for the next
+  // warp's first column or, from the last warp, the next pass's). Each lane
+  // empties its own cells, lane 31 its warp's entry; the barrier orders
+  // that before any warp sends.
+  [[maybe_unused]] const int RSP = UP + s.G;
+  if constexpr (kTab) {
+    for (int r = 0; r < R; ++r) {
+      T* pm = s.ring + r * 2 * RSP;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        pm[u0 + j] = wtt::lowest<T>();
+        pm[RSP + u0 + j] = T(0);
+      }
+      if (lane == wtt::kWarp - 1) {
+        pm[UP + s.g] = wtt::lowest<T>();
+        pm[RSP + UP + s.g] = T(0);
+      }
+    }
+    lattice_barrier(s);
+  }
+  // ll_forward's column, and (the table instance) the running sum of the
+  // terminal blank arcs' departures there, in the lane that owns it.
+  const int uf = s.Ub - 1;
+  T lf = neg;
   for (int r = 0; r < kAhead; ++r) {
     copy_row<T, C, kWide, kTab>(s, r, takes);
     copy_commit();
@@ -565,18 +742,56 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
     // scan carries only into cells beyond U (masked below); the emit arcs'
     // read at u = 0 is the one word selected away. A NEG term joins exactly.
     Pair<T> p[C];
-    for_arcs(arcs.arc, n_arcs, [&](int i, const SlotArc<N>& arc) {
-      const int m = arc.m;
-      const bool emit = i >= arcs.n_blank;
-      const T* src = s.ring + (i * R + (st - m < 0 ? st - m + R : st - m)) * RS + ro + u0 -
-                     (emit ? 1 : 0);
-      const bool has = t >= m, first = emit && u0 == 0 && first_pass;
+    if constexpr (kTab) {
+      // The table instance reads them from row t's slot of the pending
+      // window, every arc's departures joined as they were sent, and empties
+      // its cells for row t + R: the lane's own, at a warp's first column
+      // the warp before's entry, at a pass's the previous pass's (handed on
+      // in the copied row); the pass's last column's entry goes on to the
+      // next pass.
+      auto arrivals = [&](T* pend) {
+        T* pm = pend + st * 2 * RSP;
 #pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const T x = has && !(j == 0 && first) ? src[j] : neg;
-        p[j] = i == 0 ? Pair<T>{x, T(1)} : join(p[j], Pair<T>{x, T(1)});
-      }
-    });
+        for (int j = 0; j < C; ++j) {
+          p[j] = Pair<T>{pm[u0 + j], pm[RSP + u0 + j]};
+          pm[u0 + j] = wtt::lowest<T>();
+          pm[RSP + u0 + j] = T(0);
+        }
+        if (s.g > 0 && lane == 0) {
+          const int x = UP + s.g - 1;
+          p[0] = join(Pair<T>{pm[x], pm[RSP + x]}, p[0]);
+          pm[x] = wtt::lowest<T>();
+          pm[RSP + x] = T(0);
+        }
+        if (rx) p[0] = join(Pair<T>{row[s.hbase + 2], row[s.hbase + 3]}, p[0]);
+        if (tx) {
+          const int x = UP + s.G - 1;
+          s.hout[(Off)t * s.hw + 2] = pm[x];
+          s.hout[(Off)t * s.hw + 3] = pm[RSP + x];
+          pm[x] = wtt::lowest<T>();
+          pm[RSP + x] = T(0);
+        }
+      };
+      // In shared memory through a pointer the compiler sees to be shared
+      // (shared-memory loads and stores, not generic ones).
+      if (s.dev_ring)
+        arrivals(s.ring);
+      else
+        arrivals(s.copy + kCopyRows * s.slot_words);
+    } else {
+      for_arcs(arcs.arc, n_arcs, [&](int i, const SlotArc<N>& arc) {
+        const int m = arc.m;
+        const bool emit = i >= arcs.n_blank;
+        const T* src = s.ring + (i * R + (st - m < 0 ? st - m + R : st - m)) * RS + ro + u0 -
+                       (emit ? 1 : 0);
+        const bool has = t >= m, first = emit && u0 == 0 && first_pass;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const T x = has && !(j == 0 && first) ? src[j] : neg;
+          p[j] = i == 0 ? Pair<T>{x, T(1)} : join(p[j], Pair<T>{x, T(1)});
+        }
+      });
+    }
     // The plain sum starts at NEG: a sum below it is NEG.
 #pragma unroll
     for (int j = 0; j < C; ++j) {
@@ -663,23 +878,30 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
       a[j] = u0 + j < s.Uv ? a[j] : neg;
       stage[j] = a[j];
     }
-    // The departures of row t; wide, an emit arc's at the pass's last
-    // column go on to the next pass, and the previous pass's become this
-    // ring's column -1.
-    for_arcs(arcs.arc, n_arcs, [&](int i, const SlotArc<N>& arc) {
-      T w[C];
-      arc_weights<T, C, N>(row, arc, u0, w);
-      T* dst = s.ring + (i * R + st) * RS + ro + u0;
+    if constexpr (kTab) {  // the departures, into the pending window
+      if (s.dev_ring)
+        scatter<T, C, N>(s, arcs, s.ring, row, a, t, st, lf);
+      else  // through a pointer the compiler sees to be shared, as the arrivals
+        scatter<T, C, N>(s, arcs, s.copy + kCopyRows * s.slot_words, row, a, t, st, lf);
+    } else {
+      // The departures of row t; wide, an emit arc's at the pass's last
+      // column go on to the next pass, and the previous pass's become this
+      // ring's column -1.
+      for_arcs(arcs.arc, n_arcs, [&](int i, const SlotArc<N>& arc) {
+        T w[C];
+        arc_weights<T, C, N>(row, arc, u0, w);
+        T* dst = s.ring + (i * R + st) * RS + ro + u0;
 #pragma unroll
-      for (int j = 0; j < C; ++j) dst[j] = a[j] + w[j];
-      if constexpr (kWide) {
-        const int e = i - arcs.n_blank;
-        if (e >= 0) {
-          if (tx) s.hout[(Off)t * s.hw + 2 + e] = a[C - 1] + w[C - 1];
-          if (rx) dst[-1] = row[s.hbase + 2 + e];
+        for (int j = 0; j < C; ++j) dst[j] = a[j] + w[j];
+        if constexpr (kWide) {
+          const int e = i - arcs.n_blank;
+          if (e >= 0) {
+            if (tx) s.hout[(Off)t * s.hw + 2 + e] = a[C - 1] + w[C - 1];
+            if (rx) dst[-1] = row[s.hbase + 2 + e];
+          }
         }
-      }
-    });
+      });
+    }
     if (cross) lattice_barrier(s);
     st = st + 1 == R ? 0 : st + 1;
   }
@@ -697,16 +919,17 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
   // ll_forward: the blank arcs that land exactly on T_b from (t, U_b - 1),
   // rows ascending, arcs in order, starting at NEG; their departures are
   // still in the rings (the last W + 1 rows), in the column's own warp (and
-  // pass).
-  const int uf = s.Ub - 1;
+  // pass). The table instance summed them as it sent them.
   const bool inside = kWide ? s.Ub + s.start >= 1 && s.Ub <= s.Ur : s.Ub >= 1 && s.Ub <= U;
   if (inside) {
     if (u0 <= uf && uf < u0 + C) {
-      T l = neg;
-      for (int t = max(s.Tb - arcs.W, 0); t < s.Tv; ++t)
-        for (int i = 0; i < arcs.n_blank; ++i)
-          if (t + arcs.arc[i].m == s.Tb) l = wtt::lse(l, s.ring[(i * R + t % R) * RS + ro + uf]);
-      *llf = l;
+      if constexpr (!kTab) {
+        for (int t = max(s.Tb - arcs.W, 0); t < s.Tv; ++t)
+          for (int i = 0; i < arcs.n_blank; ++i)
+            if (t + arcs.arc[i].m == s.Tb)
+              lf = wtt::lse(lf, s.ring[(i * R + t % R) * RS + ro + uf]);
+      }
+      *llf = lf;
     }
   } else if (u0 == 0 && first_pass) {
     *llf = neg;
@@ -1009,11 +1232,16 @@ __global__ void __launch_bounds__(block_threads<T, C, kWide>(), 1)
 // arc table comes from device memory (`table`: rows of five ints, the chain
 // first, then the n_blank blank arcs, then the n_emit emit arcs), copied
 // into the block's shared memory after its lattices' slices as the block
-// starts and read there in the walk's loops. Where a lattice's rings do not
-// fit a block (`rings` not null) they lie in device memory, `ring_words`
-// values a lattice, and the lattice's shared memory keeps its copy ring,
-// staged rows and exchange: the walk reads and writes them through the same
-// pointers, ordered by the same __syncwarp and barriers.
+// starts, sorted there into groups of one m, and read there in the walk's
+// loops. Alpha keeps one pending window of arrivals (its size does not
+// depend on the number of arcs), beta its ring of W + 1 rows. Where they do
+// not fit a block (`rings` not null) they lie in device memory,
+// `ring_words` values a lattice, and the lattice's shared memory keeps its
+// copy ring, staged rows and exchange: the walk reads and writes them
+// through the same pointers, ordered by the same __syncwarp and barriers.
+// The passes hand on kTableHand values a row: the chain's carry and the
+// pre-joined emit arrivals of the next pass's first column (beta: the carry
+// and its edge column).
 template <typename T, int C>
 __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
     window_table_kernel(const T* __restrict__ lpb, const T* __restrict__ lpe,
@@ -1030,16 +1258,51 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_arcs = n_blank + n_emit;
   const int UP = G * wtt::kWarp * C;
+  // After the lattices' slices: the arcs in table order (the chain first),
+  // the arcs sorted, the groups as each first arc of one m finds them (at
+  // its place in the sorted order), the groups in order, their count.
   SlotArc<N>* sarc = reinterpret_cast<SlotArc<N>*>(
       smem_raw + (size_t)per_block * lattice_words * sizeof(T));
+  SlotArc<N>* sorted = sarc + n_arcs + 1;
+  Group* at_first = reinterpret_cast<Group*>(sorted + n_arcs);
+  Group* group = at_first + n_arcs;
+  int* n_groups = reinterpret_cast<int*>(group + n_arcs);
   for (int i = threadIdx.x; i <= n_arcs; i += blockDim.x)
     sarc[i] = table_arc<N>(table + 5 * i, UP, Cx);
-  __syncthreads();  // the only block barrier: every thread is here
+  __syncthreads();
+  // Arc i's place in the order (m, blank before emit, table order) and, for
+  // the first arc of its m, its group.
+  for (int i = threadIdx.x; i < n_arcs; i += blockDim.x) {
+    const int m = sarc[1 + i].m;
+    const bool emit = i >= n_blank;
+    int before = 0, rank = 0, same = 0, same_blank = 0;
+    for (int j = 0; j < n_arcs; ++j) {
+      const int mj = sarc[1 + j].m;
+      const bool ej = j >= n_blank;
+      before += mj < m;
+      same += mj == m;
+      same_blank += mj == m && !ej;
+      rank += mj < m || (mj == m && (ej < emit || (ej == emit && j < i)));
+    }
+    sorted[rank] = sarc[1 + i];
+    if (rank == before) at_first[rank] = Group{m, before, same_blank, same};
+  }
+  __syncthreads();
+  // The groups in order of m: a group's index counts the changes of m
+  // before its first arc.
+  for (int q = threadIdx.x; q < n_arcs; q += blockDim.x) {
+    int k = 0;
+    for (int j = 1; j <= q; ++j) k += sorted[j].m != sorted[j - 1].m;
+    if (q == 0 || sorted[q].m != sorted[q - 1].m) group[k] = at_first[q];
+    if (q == n_arcs - 1) *n_groups = k + 1;
+  }
+  __syncthreads();  // the last block barrier: every thread is here
   const int warp = threadIdx.x / wtt::kWarp;
   const int slot = warp / G;
   const int lattice = blockIdx.x * per_block + slot;
   if (lattice >= B * dirs) return;  // every warp of the lattice
-  const TableArcs<N> arcs{W, table[1] != 0, n_blank, n_emit, sarc[0], sarc + 1};
+  const TableArcs<N> arcs{W,      table[1] != 0, n_blank, n_emit, sarc[0],
+                          sarc + 1, sorted,        group,   *n_groups};
   const int b = lattice / dirs;
   const bool is_beta = lattice % dirs == 1;
   const int R = W + 1;
@@ -1054,7 +1317,7 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
   s.Cx = Cx;
   s.R = R;
   s.UP = UP;
-  s.hw = 2 + n_arcs;
+  s.hw = kTableHand;
   s.hbase = (2 + Cx) * s.UP + kRowPad;
   s.slot_words = s.hbase + s.hw;
   s.u0 = s.g * wtt::kWarp * C + s.lane * C;
@@ -1064,12 +1327,15 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
   if (s.lane < kCopyRows) s.copy[s.lane * s.slot_words + (2 + Cx) * s.UP] = T(0);
   __syncwarp();
   T* after_copy = mine + kCopyRows * s.slot_words;
-  if (rings != nullptr) {
+  // Alpha: the pending window (R slots of 2·(UP + G) values) and two staged
+  // rows; beta: its ring of R rows of UP + 1 and the slack.
+  s.dev_ring = rings != nullptr;
+  if (s.dev_ring) {
     s.ring = rings + (long long)lattice * ring_words;
     s.stage = after_copy;
   } else {
     s.ring = after_copy;
-    s.stage = s.ring + n_arcs * R * (s.UP + 1);
+    s.stage = s.ring + 2 * R * (s.UP + G);
   }
   s.xch = mine + lattice_words - Sh::kXchWords;
   s.ld = U;

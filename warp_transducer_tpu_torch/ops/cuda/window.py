@@ -24,8 +24,10 @@ cell count:
 
 * the table instance takes every arc table: the wide walk, its arcs (any
   number, over any number of channels) read from a table in device memory
-  that the block copies into its shared memory, and, where a lattice's
-  rings pass a block, the rings in device memory (``Plan.rings`` values,
+  that the block copies into its shared memory and sorts into groups of one
+  duration; alpha keeps one pending window of W + 1 slots of arrivals (as
+  the TPU kernel does), whatever the number of arcs, beta its ring; where
+  they pass a block, they lie in device memory (``Plan.rings`` values,
   which the wrapper allocates).
 
 G is 4 or 2 where U is long and the lattices are few, else 1; where that G
@@ -72,6 +74,10 @@ BY_VALUE_EXTRA = 8
 # Bytes of one arc of the table instance's table in shared memory
 # (SlotArc<3>: m, n, three bases, three strides).
 TABLE_ARC_BYTES = 32
+# Values a row that the table instance's passes hand on (the chain's carry
+# and alpha's pre-joined arrivals at the next pass's first column, or
+# beta's edge), window_walk.cuh::kTableHand.
+TABLE_HAND = 4
 # The instances (Plan.wide).
 NARROW, WIDE, TABLE = 0, 1, 2
 # Warps a block of the table instance, at every C (window_walk.cuh::kTableWarps).
@@ -100,6 +106,12 @@ def max_cells(elt: int) -> int:
     return 17 if elt == 4 else 9
 
 
+def table_max_cells(elt: int) -> int:
+    """The table instance's most cells a lane: 17 in f32, 7 in f64 (its
+    scatter's pairs spilled at 9)."""
+    return 17 if elt == 4 else 7
+
+
 def cells(n: int) -> int:
     """C for a warp of n columns: the least odd number with 32·C >= n."""
     c = -(-n // WARP)
@@ -121,30 +133,50 @@ class Plan(NamedTuple):
     rings: int = 0  # values of device memory of the rings (0: in shared memory)
 
 
+def alpha_ring_words(G: int, C: int, W: int, n_arcs: int, wide: int) -> int:
+    """Values of alpha's rings: the narrow and wide instances' departure
+    rings, n_arcs × (W + 1) rows of UP (wide: UP + 1, the edge); the table
+    instance's pending window, W + 1 slots of UP + G (max, sum) pairs
+    whatever the number of arcs."""
+    up = G * WARP * C
+    if wide == TABLE:
+        return 2 * (W + 1) * (up + G)
+    return n_arcs * (W + 1) * (up + (1 if wide else 0))
+
+
+def table_bytes(n_arcs: int) -> int:
+    """Bytes of the table instance's arcs in a block's shared memory: the
+    chain and the arcs, the arcs sorted (TABLE_ARC_BYTES each), two arrays of
+    n_arcs groups of 16 bytes and their count, in units of 32 bytes."""
+    return (3 * n_arcs + 2) * TABLE_ARC_BYTES
+
+
 def lattice_words(G: int, C: int, W: int, n_arcs: int, n_extra: int, dirs: int,
-                  wide: bool = False, dev_rings: bool = False) -> int:
+                  wide: int = NARROW, dev_rings: bool = False) -> int:
     """Values of one lattice's shared memory: the copy ring of COPY_ROWS rows
     (lpb and lpe of UP = G·32·C values each, then UP·n_extra extras, ROW_PAD
-    words and, wide, the 2 + n_arcs values a row the passes hand on), then
-    alpha's departure rings (n_arcs × (W + 1) rows) and two staged rows of UP
-    or beta's ring of W + 1 rows and SLACK values, then the exchange; the
-    larger of alpha's and beta's where the block holds both. The wide rings'
-    rows keep one more column (the edge between passes)."""
+    words and, wide, the 2 + n_arcs values a row the passes hand on, the
+    table instance TABLE_HAND), then alpha's rings (``alpha_ring_words``)
+    and two staged rows of UP or beta's ring of W + 1 rows and SLACK values,
+    then the exchange; the larger of alpha's and beta's where the block holds
+    both. The wide rings' rows keep one more column (the edge between
+    passes)."""
     up = G * WARP * C
     rs = up + (1 if wide else 0)
-    copy = COPY_ROWS * ((2 + n_extra) * up + ROW_PAD + (2 + n_arcs if wide else 0))
+    hand = TABLE_HAND if wide == TABLE else 2 + n_arcs if wide else 0
+    copy = COPY_ROWS * ((2 + n_extra) * up + ROW_PAD + hand)
     if dev_rings:  # the table instance's rings in device memory: alpha's staged rows stay
         return copy + 2 * up + xch_words(wide)
-    alpha = copy + n_arcs * (W + 1) * rs + 2 * up + xch_words(wide)
+    alpha = copy + alpha_ring_words(G, C, W, n_arcs, wide) + 2 * up + xch_words(wide)
     beta = copy + (W + 1) * rs + SLACK + xch_words(wide)
     return max(alpha, beta) if dirs == 2 else alpha
 
 
 def ring_words(G: int, C: int, W: int, n_arcs: int) -> int:
     """Values of a lattice's rings in device memory (the table instance):
-    the larger of alpha's departure rings and beta's ring and slack."""
+    the larger of alpha's pending window and beta's ring and slack."""
     rs = G * WARP * C + 1
-    return max(n_arcs * (W + 1) * rs, (W + 1) * rs + SLACK)
+    return max(alpha_ring_words(G, C, W, n_arcs, TABLE), (W + 1) * rs + SLACK)
 
 
 def by_value(arcs: _plain.WindowArcs, n_extra: int) -> bool:
@@ -180,13 +212,14 @@ def plan(B: int, T: int, U: int, elt: int, W: int, n_arcs: int, n_extra: int, ha
     G0 = warps or preferred_warps(U, lattices, n_sm)
     narrow = (by_value and arc_channels <= ARC_CHANNELS
               and (T + AHEAD) * U * max(n_extra, 1) <= INT_MAX)
-    table_bytes = (n_arcs + 1) * TABLE_ARC_BYTES
+    table = table_bytes(n_arcs)
     dev = False  # the table instance's rings in device memory
 
     def runs(G, C, wide):
-        extra = table_bytes if wide == TABLE else 0
+        extra = table if wide == TABLE else 0
         most = TABLE_WARPS if wide == TABLE else wide_warps(elt, C)
-        return (C <= max_cells(elt) and (not wide or G <= most)
+        cap = table_max_cells(elt) if wide == TABLE else max_cells(elt)
+        return (C <= cap and (not wide or G <= most)
                 and lattice_words(G, C, W, n_arcs, n_extra, dirs, wide, dev) * elt + extra
                 <= SMEM_BYTES)
 
@@ -243,12 +276,13 @@ def plan(B: int, T: int, U: int, elt: int, W: int, n_arcs: int, n_extra: int, ha
     wide, G, C, passes = found
     dev = dev and wide == TABLE
     nbytes = lattice_words(G, C, W, n_arcs, n_extra, dirs, wide, dev) * elt
-    room = SMEM_BYTES - (table_bytes if wide == TABLE else 0)
+    room = SMEM_BYTES - (table if wide == TABLE else 0)
     cap = min(block_warps(wide, elt, C) // G, room // nbytes)
     per_block = max(1, min(cap, -(-lattices // n_sm)))
+    hand = TABLE_HAND if wide == TABLE else 2 + n_arcs
     return Plan(wide, G, C, passes, per_block, -(-lattices // per_block), WARP * G * per_block,
-                nbytes * per_block + (table_bytes if wide == TABLE else 0), nbytes // elt,
-                lattices * 2 * T * (2 + n_arcs) if passes > 1 else 0,
+                nbytes * per_block + (table if wide == TABLE else 0), nbytes // elt,
+                lattices * 2 * T * hand if passes > 1 else 0,
                 lattices * ring_words(G, C, W, n_arcs) if dev else 0)
 
 
