@@ -2158,7 +2158,7 @@ def many_durations_phase(dev, totals, errs):
         p = kprep.prepare(w_acts, w_labels, 0, False, extra_cols=tuple(range(V - len(durs), V)))
         plan = kwindow.lattice_plan(p.lpb, p.extras, window.multiblank_arcs(durs))
         print(f"window_stream {tag}: plan {plan._asdict()}")
-        fail_unless(plan.wide == kwindow.TABLE and plan.rings > 0,
+        fail_unless(plan.wide in kwindow.TABLES and plan.rings > 0,
                     f"the {tag} window is not planned with its rings in device memory")
     torch.cuda.empty_cache()
 
@@ -2277,11 +2277,12 @@ def many_durations_phase(dev, totals, errs):
     table, warp = ("window_table_kernel",), ("window_warp_kernel",)
 
     def in_shared(case, lpb, extra, arcs):
-        """The table instance's plan at this shape: alpha's pending window and
-        beta's ring in shared memory, printed."""
+        """The table instance's plan at this shape (its rings form or its
+        pending form): alpha's rings or pending window and beta's ring in
+        shared memory, printed."""
         plan = kwindow.lattice_plan(lpb, extra, arcs)
         print(f"window_stream {case}: plan {plan._asdict()}")
-        fail_unless(plan.wide == kwindow.TABLE and plan.rings == 0,
+        fail_unless(plan.wide in kwindow.TABLES and plan.rings == 0,
                     f"the table instance's rings at {case} are not in shared memory")
 
     with torch.no_grad():

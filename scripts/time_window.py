@@ -21,8 +21,12 @@ no chain), and f64 at B = 4, T = 300, U = 601. Then the table instance
 problems (chip_smoke.many_problem): TDT with durations 0 … 8 at headline and
 long_t, TDT with D = 33, the multi-blank loss with K = 9 and K = 16 big
 blanks at headline, and the 300-frame window (B = 4, T = 1500, U = 301, big
-blanks of 2 … 300 frames), the parent's and this checkout's in the same
-turns (``table_*`` entries; ``--table-only`` times them alone).
+blanks of 2 … 300 frames) and TDT 0 … 8 in f64 at B = 128, T = 150, U = 241
+(its lattice cast from f32), the parent's and this checkout's in the same
+turns (``table_*`` entries; ``--table-only`` times them alone); where the
+checkout has the table instance's two forms, each forced in the same
+process (``forms_kernel_ms``: ``rings``, a ring of departures an arc, and
+``pending``, alpha's pending window) beside the plan's own choice.
 
 For each: ``kernel_ms``, the profiler's device time of the window kernel
 over its launches (``alpha_kernel_ms``: the same without betas, alpha's
@@ -65,7 +69,10 @@ TABLE_SHAPES = [
     ("tdt_d33_headline", 128, 150, 40, 28, "tdt", tuple(range(33)), (33, 16, 31)),
     ("mb_k9_headline", 128, 150, 40, 28, "multiblank", tuple(range(2, 11)), (33, 16, 31)),
     ("mb_k16_headline", 128, 150, 40, 28, "multiblank", tuple(range(2, 18)), (33, 16, 31)),
-    ("w300", 4, 1500, 300, 40, "multiblank", (2, 4, 8, 16, 32, 64, 128, 300), (1, 8, 32))]
+    ("w300", 4, 1500, 300, 40, "multiblank", (2, 4, 8, 16, 32, 64, 128, 300), (1, 8, 32)),
+    # f64, where the rings form's nine cells a lane keep its rings in
+    # device memory and the pending form's cap of seven takes two warps
+    ("tdt_d9_f64_U241", 128, 150, 240, 28, "tdt", tuple(range(9)), (9, 0, 30))]
 # The window kernel's names in this checkout and its parents.
 KERNELS = ("window_kernel", "window_warp_kernel", "window_block_kernel", "window_table_kernel")
 
@@ -112,12 +119,20 @@ def table_shapes(sm, kprep, kwindow, window, dev, out, new):
             lpb, lpe, extra = p.lpb, p.lpe, p.extras
             arcs = window.multiblank_arcs(durs)
         del acts, dur
+        if "f64" in tag:
+            lpb, lpe, extra = (x.double() for x in (lpb, lpe, extra))
         fn = lambda: kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)  # noqa: E731
         r = {"kernel_ms": kernel_ms(fn, iters=5), "bound_ms": sm.window_bound(
             lpb, extra, arcs, il, ll)[0], "t_max": int(il.max())}
         if new:
             plan = kwindow.lattice_plan(lpb, extra, arcs)
             r["plan"], r["registers"] = plan._asdict(), kwindow.kernel_registers(plan, lpb.dtype)
+        if hasattr(kwindow, "PENDING"):  # both forms, forced
+            forms = {"rings": kwindow.TABLE, "pending": kwindow.PENDING}
+            r["forms_kernel_ms"] = {name: kernel_ms(lambda: kwindow.launch(  # noqa: B023
+                lpb, lpe, extra, arcs, il, ll, form=f), iters=5) for name, f in forms.items()}
+            r["forms_plan"] = {name: kwindow.lattice_plan(lpb, extra, arcs, form=f)._asdict()
+                               for name, f in forms.items()}
         out[f"table_{tag}"] = r
         del p, lpb, lpe, extra, il, ll, labels
         torch.cuda.empty_cache()
@@ -209,6 +224,7 @@ def main():
             + (f", event {v['ms']:.4f} ms" if "ms" in v else "")
             + (f", chain floor {v['chain_floor_ms']} ms" if "chain_floor_ms" in v else "")
             + (f", registers {v['registers']}" if "registers" in v else "")
+            + (f", forms {v['forms_kernel_ms']}" if "forms_kernel_ms" in v else "")
             for case, v in r.items() if isinstance(v, dict) and "kernel_ms" in v), flush=True)
     print(json.dumps({"card": smi, "runs": runs}))
 

@@ -1,14 +1,6 @@
-"""What the port's CPU test modules share: one torch thread a process, and
-a fixture that drops JAX's compiled programs when a test module ends.
-
-Importing this module sets torch's intra-op threads to one. The tests run
-in several worker processes on a box's few cores, beside JAX's own thread
-pools, and torch's pool meets at a barrier in every op it splits: where its
-threads outnumber the free cores, each of a plain lattice's thousands of
-small ops waits on a descheduled thread (``ops/lattice.py``'s U = 601 took
-52 s on eight threads beside eight busy processes, 0.32 s on one). The
-port's CPU tests run the plain versions at small sizes, where one thread
-is as fast as eight on an idle box.
+"""A fixture that drops JAX's compiled programs when a test module ends;
+importing this module also sets torch's intra-op threads to one
+(``torch_threads``).
 
 Each compiled XLA program holds memory mappings of its own, and the port's
 JAX-comparing test modules compile thousands of them (the interpret-mode
@@ -18,16 +10,11 @@ mappings a process (vm.max_map_count, 65530 by default), where the next
 compile fails with a segmentation fault. A module opts in with
 
     from jax_programs import release_compiled_programs  # noqa: F401
-
-and a module that needs only the thread setting with
-
-    import jax_programs  # noqa: F401
 """
 import jax
 import pytest
-import torch
 
-torch.set_num_threads(1)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 
 @pytest.fixture(autouse=True, scope="module")

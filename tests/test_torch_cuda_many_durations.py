@@ -6,10 +6,10 @@ its plain PyTorch version on the card at small shapes:
   16 and 32 extra columns read from a device table;
 * K7's table instance (csrc/window_walk.cuh::window_table_kernel): TDT with
   D = 9, 17 and 33 durations (33 crosses a warp's lanes), multi-blank with
-  K = 9, 16 and 32 big blanks, alpha's pending window and beta's ring in
-  shared memory and, where they pass a block (a longest duration of 300 and
-  sixteen big blanks on four warps in f64), in device memory, in passes at
-  a long U;
+  K = 9, 16 and 32 big blanks, in its rings form (a ring of departures an
+  arc) and its pending form (alpha's pending window), the rings in shared
+  memory and, where they pass a block, in device memory, in passes at a
+  long U;
 * K6c/K6d (csrc/dur_head.cu) in groups of 8 columns at D = 9, 17 and 33;
 * K6a/K6b (csrc/joint_prep.cu, joint_grad.cu) with K = 9 and 16 extra
   columns and with a duration head of D = 9 and 33;
@@ -95,39 +95,48 @@ def test_prep_and_grad_many_columns(dev, V, n_cols, dtype):
 
 # ---- K7's table instance -------------------------------------------------------------------
 
-# (arcs, B, T, U, the types in which the rings lie in device memory): alpha's
-# pending window of W + 1 slots fits a block at every count of arcs here;
-# a longest duration of 300 (f64), sixteen big blanks on four warps (f64)
-# and the passes of a long U keep the rings in device memory.
-F64 = (torch.float64,)
+# (arcs, B, T, U, the types in which the rings lie in device memory in the
+# rings form, in the pending form): alpha's pending window of W + 1 slots
+# fits a block at every count of arcs here but a longest duration of 300
+# and sixteen big blanks on four warps in f64 and the passes of a long U;
+# the rings form's rings pass a block at D = 33, K = 16 on four warps, K =
+# 32 in f64, the window of 300 and the long U.
+F64, BOTH = (torch.float64,), (torch.float32, torch.float64)
 WINDOW_CASES = {
-    "tdt_d9": (window.tdt_arcs(tuple(range(9))), 4, 12, 41, ()),
-    "tdt_d17": (window.tdt_arcs(tuple(range(17))), 3, 20, 9, ()),
-    "tdt_d33": (window.tdt_arcs(tuple(range(33))), 3, 40, 6, ()),
-    "tdt_d9_no_chain": (window.tdt_arcs(tuple(range(1, 10))), 2, 15, 33, ()),
-    "mb_k9": (window.multiblank_arcs(tuple(range(2, 11))), 4, 14, 41, ()),
-    "mb_k16_four_warps": (window.multiblank_arcs(tuple(range(2, 18))), 2, 25, 300, F64),
-    "mb_k32": (window.multiblank_arcs(tuple(range(2, 34))), 2, 40, 9, ()),
-    "w300": (window.multiblank_arcs((2, 4, 8, 16, 32, 64, 128, 300)), 2, 320, 45, F64),
-    "tdt_d9_long_u": (window.tdt_arcs(tuple(range(9))), 1, 6, 9000, (torch.float32,) + F64),
+    "tdt_d9": (window.tdt_arcs(tuple(range(9))), 4, 12, 41, (), ()),
+    "tdt_d17": (window.tdt_arcs(tuple(range(17))), 3, 20, 9, (), ()),
+    "tdt_d33": (window.tdt_arcs(tuple(range(33))), 3, 40, 6, BOTH, ()),
+    "tdt_d9_no_chain": (window.tdt_arcs(tuple(range(1, 10))), 2, 15, 33, (), ()),
+    "mb_k9": (window.multiblank_arcs(tuple(range(2, 11))), 4, 14, 41, (), ()),
+    "mb_k16_four_warps": (window.multiblank_arcs(tuple(range(2, 18))), 2, 25, 300, BOTH,
+                          F64),
+    "mb_k32": (window.multiblank_arcs(tuple(range(2, 34))), 2, 40, 9, F64, ()),
+    "w300": (window.multiblank_arcs((2, 4, 8, 16, 32, 64, 128, 300)), 2, 320, 45, BOTH,
+             F64),
+    "tdt_d9_long_u": (window.tdt_arcs(tuple(range(9))), 1, 6, 9000, BOTH, BOTH),
 }
+FORMS = pytest.mark.parametrize("form", [kwindow.TABLE, kwindow.PENDING],
+                                ids=["rings", "pending"])
 
 
+@FORMS
 @DTYPES
 @pytest.mark.parametrize("case", list(WINDOW_CASES))
-def test_window_table_instance(dev, case, dtype):
-    arcs, B, T, U, dev_rings = WINDOW_CASES[case]
+def test_window_table_instance(dev, case, dtype, form):
+    arcs, B, T, U, *dev_rings = WINDOW_CASES[case]
     n = max(c for _, chs in arcs.blank_arcs + arcs.emit_arcs for c in chs) - 1
     lpb, lpe, extra, il, ll = _channels(B, T, U, n, 3, dtype, dev)
-    p = kwindow.lattice_plan(lpb, extra, arcs)
-    assert p.wide == kwindow.TABLE and (p.rings > 0) == (dtype in dev_rings), p
-    assert p == kwindow.kernel_plan(B, T, U, dtype, arcs.window,
-                                    len(arcs.blank_arcs) + len(arcs.emit_arcs), n,
-                                    arcs.chain is not None, True,
-                                    torch.cuda.get_device_properties(dev).multi_processor_count,
-                                    0, kwindow.arc_channels(arcs), False)
+    p = kwindow.lattice_plan(lpb, extra, arcs, form=form)
+    in_device = dev_rings[0 if form == kwindow.TABLE else 1]
+    assert p.wide == form and (p.rings > 0) == (dtype in in_device), p
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = (B, T, U, dtype, arcs.window, len(arcs.blank_arcs) + len(arcs.emit_arcs), n,
+            arcs.chain is not None, True, n_sm, 0, kwindow.arc_channels(arcs), False)
+    assert p == kwindow.kernel_plan(*args, form=form)
+    assert kwindow.lattice_plan(lpb, extra, arcs) == kwindow.kernel_plan(*args) in \
+        (p, kwindow.lattice_plan(lpb, extra, arcs, form=kwindow.TABLE + kwindow.PENDING - form))
     for betas in (True, False):
-        got = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll, compute_betas=betas)
+        got = kwindow.launch(lpb, lpe, extra, arcs, il, ll, compute_betas=betas, form=form)
         torch.cuda.synchronize()
         want = window.forward_backward(lpb, lpe, extra, arcs, il, ll, compute_betas=betas)
         if dtype == torch.float32 and U > 600:
@@ -151,22 +160,25 @@ def test_window_table_instance(dev, case, dtype):
             _close(getattr(got, name), getattr(want, name), dtype, U=min(U, 600))
 
 
-def test_window_table_reproducible(dev):
-    arcs, B, T, U, _ = WINDOW_CASES["mb_k16_four_warps"]
+@FORMS
+def test_window_table_reproducible(dev, form):
+    arcs, B, T, U, *_ = WINDOW_CASES["mb_k16_four_warps"]
     lpb, lpe, extra, il, ll = _channels(B, T, U, 16, 4, torch.float32, dev)
-    a = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
-    b = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    a = kwindow.launch(lpb, lpe, extra, arcs, il, ll, form=form)
+    b = kwindow.launch(lpb, lpe, extra, arcs, il, ll, form=form)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def test_window_table_reproducible_emit_arcs(dev):
-    """Emit arcs that cross lanes, warps (their entries) and passes (the
-    pre-joined arrivals handed on): two calls give the same bits."""
-    arcs, B, T, U, _ = WINDOW_CASES["tdt_d9_long_u"]
+@FORMS
+def test_window_table_reproducible_emit_arcs(dev, form):
+    """Emit arcs that cross lanes, warps (the pending form: their entries)
+    and passes (the edge column, or the pre-joined arrivals handed on): two
+    calls give the same bits."""
+    arcs, B, T, U, *_ = WINDOW_CASES["tdt_d9_long_u"]
     lpb, lpe, extra, il, ll = _channels(B, T, U, 9, 5, torch.float32, dev)
-    assert kwindow.lattice_plan(lpb, extra, arcs).passes > 1
-    a = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
-    b = kwindow.forward_backward(lpb, lpe, extra, arcs, il, ll)
+    assert kwindow.lattice_plan(lpb, extra, arcs, form=form).passes > 1
+    a = kwindow.launch(lpb, lpe, extra, arcs, il, ll, form=form)
+    b = kwindow.launch(lpb, lpe, extra, arcs, il, ll, form=form)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -222,9 +222,13 @@ def test_window_plan_matches_kernel(dev):
                                     for ch in (2, 3):
                                         args = (W, n_arcs, n_extra, chain, betas, sms, warps, ch,
                                                 kwindow.by_value(arcs, n_extra))
-                                        assert kwindow.plan(B, T, U, elt, *args) == \
-                                            kwindow.kernel_plan(B, T, U, dtype, *args), \
+                                        p = kwindow.plan(B, T, U, elt, *args)
+                                        assert p == kwindow.kernel_plan(B, T, U, dtype, *args), \
                                             (dtype, U, B, T, args)
+                                        for form in kwindow.TABLES if p and p.wide else ():
+                                            assert kwindow.plan(B, T, U, elt, *args, form) == \
+                                                kwindow.kernel_plan(B, T, U, dtype, *args,
+                                                                    form), (form, U, B, T, args)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -232,8 +236,8 @@ def test_window_kernels_do_not_spill(dev, dtype):
     """Every instance of the kernel, narrow and wide (C = 1, 3, … up to the
     cap): no local memory."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    for wide in (kwindow.NARROW, kwindow.WIDE, kwindow.TABLE):
-        cap = kwindow.table_max_cells(elt) if wide == kwindow.TABLE else kwindow.max_cells(elt)
+    for wide in (kwindow.NARROW, kwindow.WIDE, kwindow.TABLE, kwindow.PENDING):
+        cap = kwindow.kind_max_cells(wide, elt)
         for C in range(1, cap + 1, 2):
             p = kwindow.Plan(wide, 1, C, 1, 1, 1, 32, 0, 0, 0)
             regs, local = kwindow.kernel_registers(p, dtype)

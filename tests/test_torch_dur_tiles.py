@@ -26,7 +26,7 @@ import pytest
 
 from warp_transducer_tpu_torch.ops.cuda import SMEM_BYTES
 from warp_transducer_tpu_torch.ops.cuda import joint as J
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 # T, U, input lengths, label lengths (U_b = label length + 1).
 CASES = {

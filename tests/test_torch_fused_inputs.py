@@ -29,7 +29,7 @@ from warp_transducer_tpu_torch import (rnnt_loss_fused_joint, rnnt_loss_multibla
                                        rnnt_loss_pruned_fused, rnnt_loss_simple,
                                        rnnt_loss_tdt_fused_joint)
 from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 B, T, U, V, H, S = 3, 7, 4, 13, 16, 3
 

@@ -25,7 +25,7 @@ from warp_transducer_tpu.ops import fused_joint as JF
 from warp_transducer_tpu.ops.pallas import joint_fused as K6
 from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_fused_joint
 from warp_transducer_tpu_torch.ops import fused_joint, gradients, lattice
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 COST = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)

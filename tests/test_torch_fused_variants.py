@@ -27,7 +27,7 @@ from warp_transducer_tpu.ops.pallas import joint_fused as K6
 from warp_transducer_tpu_torch.ops import fused_joint, gradients
 from warp_transducer_tpu_torch.ops.cuda import joint as kjoint
 from warp_transducer_tpu_torch.ops.prep import NEG
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 PREP = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)

@@ -28,7 +28,7 @@ from warp_transducer_tpu.ops import rnnt as JR
 from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_and_grad
 from warp_transducer_tpu_torch.ops import gradients as TG
 from warp_transducer_tpu_torch.ops import rnnt as TR
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 B, T, U, V = 4, 7, 5, 9
 IL = np.array([7, 1, 5, 6], np.int32)  # utterance 1: T_b = 1

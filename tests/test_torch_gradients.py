@@ -17,7 +17,7 @@ from warp_transducer_tpu.ops import gradients as JG
 from warp_transducer_tpu.ops import lattice as JL
 from warp_transducer_tpu.ops import prep as JP
 from warp_transducer_tpu_torch.ops import gradients as TG
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 B, T, U, V = 3, 6, 4, 7
 IL = np.array([6, 4, 5], np.int32)

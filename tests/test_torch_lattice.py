@@ -23,7 +23,7 @@ from warp_transducer_tpu.ops import prep as JP
 from warp_transducer_tpu.ops.pallas import wavefront as K2
 from warp_transducer_tpu.ops.pallas import wavefront_stream as K1
 from warp_transducer_tpu_torch.ops import lattice as TL
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 ENGINES = {
     "xla": JL.forward_backward,

@@ -21,7 +21,7 @@ from warp_transducer_tpu_torch import rnnt_loss
 from warp_transducer_tpu_torch.models import Joint, TransducerConfig
 from warp_transducer_tpu_torch.ops import pruned_fused, tdt_fused
 from warp_transducer_tpu_torch.utils.convert import joint_state_dict_from_flax
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 OUT = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)

@@ -30,7 +30,7 @@ from warp_transducer_tpu.utils.numpy_oracle_multiblank import multiblank_single
 from warp_transducer_tpu_torch.bindings import torch_binding as tb
 from warp_transducer_tpu_torch.ops import gradients as TG
 from warp_transducer_tpu_torch.ops import prep as TP
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 TOL = {torch.float64: (dict(rtol=1e-10, atol=0), dict(rtol=0, atol=1e-10)),
        torch.float32: (dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, atol=1e-5))}

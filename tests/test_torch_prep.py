@@ -19,7 +19,7 @@ import torch
 from warp_transducer_tpu.ops import prep as JP
 from warp_transducer_tpu.ops.pallas import prep_fused as JPF
 from warp_transducer_tpu_torch.ops import prep as TP
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 F64 = dict(rtol=1e-10, atol=1e-10)

@@ -20,7 +20,7 @@ from warp_transducer_tpu.ops import pruned_fused as JPF
 from warp_transducer_tpu_torch import (gather_banded, rnnt_loss_fused_joint, rnnt_loss_pruned,
                                        rnnt_loss_pruned_fused)
 from warp_transducer_tpu_torch.ops import fused_joint, pruned_fused
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 NAMES = ("de", "dp", "dW", "db")
 ROUTES = {"sweep": 0, "materialise": 4096}

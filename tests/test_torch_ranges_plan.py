@@ -31,7 +31,7 @@ import torch
 from warp_transducer_tpu_torch.ops import band
 from warp_transducer_tpu_torch.ops.cuda import SMEM_BYTES
 from warp_transducer_tpu_torch.ops.cuda import ranges as R
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 K_LOW = -(2 ** 31) // 2
 U_LAYOUTS = [1, 2, 21, 31, 32, 33, 301]

@@ -25,7 +25,7 @@ from warp_transducer_tpu.utils.options import RNNTOptions as JaxOptions
 from warp_transducer_tpu_torch import (LatticeResult, RNNTLoss, RNNTOptions,
                                        forward_backward_mismatch, rnnt_forward_backward,
                                        rnnt_loss, rnnt_loss_and_grad, rnnt_score)
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 COST = dict(rtol=1e-5)
 GRAD = dict(atol=1e-6, rtol=1e-4)

@@ -23,7 +23,7 @@ import torch
 
 from warp_transducer_tpu_torch.ops.cuda import SMEM_BYTES
 from warp_transducer_tpu_torch.ops.cuda import rows as R
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.float16]
 # Every V up to 600, then each side of the switch to a warp a row and V of

@@ -20,7 +20,7 @@ import torch
 from warp_transducer_tpu.ops import pruned as JPR
 from warp_transducer_tpu.ops import simple as JS
 from warp_transducer_tpu_torch import rnnt_loss, rnnt_loss_simple, rnnt_prune_ranges
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 COST = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)

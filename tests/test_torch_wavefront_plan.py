@@ -50,7 +50,7 @@ from warp_transducer_tpu.ops import lattice as JL
 from warp_transducer_tpu_torch.ops import lattice as TL
 from warp_transducer_tpu_torch.ops import prep as TP
 from warp_transducer_tpu_torch.ops.cuda import wavefront as W
-import jax_programs  # noqa: F401  (one torch thread a process)
+import torch_threads  # noqa: F401  (one torch thread a process)
 
 NEG = -1.0e30
 N_SM = 132  # an H100's SMs

@@ -21,10 +21,13 @@ that plan (a card test holds it against the C entry). Here:
   beta's from its ring of W + 1 rows; alpha's rows written out from the
   staged row a row late, beta's from its ring; each lattice stopping at its
   own T_b, then the NEG fill of rows T_b … T-1;
-* the table instance's alpha on its pending window (``_Pending``): W + 1
+* the table instance's rings form walks as the wide instance does, its
+  arcs read from the table; its pending form's alpha keeps its pending
+  window (``_Pending``): W + 1
   slots of (max, sum) pairs tagged with the row each gathers for, row t
   reading and emptying its slot, then scattering its departures a group of
-  one m at a time (the arcs joined first, emit arcs one column on: within
+  one m at a time, as the host's table (``_arc_rows``) lists them (the arcs
+  joined first, emit arcs one column on: within
   a lane, by the shuffle, from lane 31 into its warp's entry, from the last
   warp handed on to the next pass pre-joined), ll_forward summed as the
   terminal arcs are sent. A lane's own cells need no ``__syncwarp`` (one
@@ -272,8 +275,9 @@ class _Pending:
         return p
 
     def scatter(self, t, groups, departures, final, Tb, lf, hands_on):
-        """Row t's departures (``departures(i)``: arc i's α + w at every
-        cell, NEG beyond U) joined by m, emit arcs moved one column on,
+        """Row t's departures (``departures(chs)``: the α + w of the arc of
+        channels ``chs`` at every cell, NEG beyond U) joined by m, emit arcs
+        moved one column on,
         into slot (t + m) mod R; the terminal blank arcs (t + m = T_b) at
         the cell ``final`` added to ll_forward's running sum ``lf``, which
         is returned."""
@@ -350,21 +354,37 @@ def _chain_prefix(ring, r, refs, u, U, warp):
 
 
 def _hand_words(arcs, wide):
-    """Values a row the passes hand on: the wide instance's 2 + n_arcs, the
-    table instance's TABLE_HAND."""
-    if wide == KW.TABLE:
-        return KW.TABLE_HAND
+    """Values a row the passes hand on: the wide instance's and the rings
+    form's 2 + n_arcs, the pending form's PENDING_HAND."""
+    if wide == KW.PENDING:
+        return KW.PENDING_HAND
     return 2 + len(arcs.blank_arcs) + len(arcs.emit_arcs) if wide else 0
 
 
 def _groups(arcs):
-    """The table instance's groups of one m, ascending: (m, the indices of
+    """The pending form's groups of one m, ascending: (m, the indices of
     its blank arcs, of its emit arcs), each in table order (blank arcs
     first, then emit arcs, as the kernel's arc list)."""
     n_blank = len(arcs.blank_arcs)
     ms = sorted({m for m, _ in arcs.blank_arcs + arcs.emit_arcs})
     return [(m, [i for i, (mi, _) in enumerate(arcs.blank_arcs) if mi == m],
              [n_blank + i for i, (mi, _) in enumerate(arcs.emit_arcs) if mi == m]) for m in ms]
+
+
+def _table_groups(arcs):
+    """The pending form's groups as the kernel reads them from the host's
+    table (``KW._arc_rows``: after the chain and the arcs, the arcs sorted
+    and one row (m, first, n_blank, n, 0) a group): (m, the channels of its
+    blank arcs, of its emit arcs)."""
+    rows = np.asarray(KW._arc_rows(arcs)).reshape(-1, 5)
+    n = len(arcs.blank_arcs) + len(arcs.emit_arcs)
+    ordered, heads = rows[1 + n:1 + 2 * n], rows[1 + 2 * n:]
+    chs = [tuple(int(c) for c in r[2:2 + r[1]]) for r in ordered]
+    out = []
+    for m, first, nb, cnt, _ in heads:
+        assert np.all(ordered[first:first + cnt, 0] == m)
+        out.append((int(m), chs[first:first + nb], chs[first + nb:first + cnt]))
+    return out
 
 
 def _walk(pb, pe, px, arcs, T, U, Tb, Ub, is_beta, G, C, passes=1, wide=False):
@@ -420,7 +440,7 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
     chain = _slot_arc(arcs.chain, up, Cx) if arcs.chain is not None else None
     clock = _Clock()
     hw = _hand_words(arcs, wide)
-    table = wide == KW.TABLE
+    pending = wide == KW.PENDING
     taker = G - 1 if is_beta else 0
     copies = _CopyRing(U, Cx, G, C, clock, hw)
     xch = _Memory((2, G, 4), G, clock)
@@ -489,7 +509,7 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
     ll = None
     if not is_beta:
         stage = _Memory((2, up), G, clock)
-        if table:
+        if pending:
             pend = _Pending(G, C, R, up, clock, barrier)
             lf = NEG
         else:
@@ -505,7 +525,7 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
                 tot_nxt = end_nxt[0]
             if t > 0:
                 write_out(stage, ((t - 1) & 1,), t - 1, t - 1)
-            if table:
+            if pending:
                 p = pend.arrivals(t, (handed(t, 2), handed(t, 3)) if hin is not None else None,
                                   hout)
             else:
@@ -569,13 +589,14 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
                 a = _value(p)
             a = np.where(u < Uv, a, NEG)
             stage.write(((t & 1), u), a, t, warp, np.ones_like(inside))
-            if table:
-                def departures(i):
-                    return np.where(inside, a + _weight(copies, t, refs[i], u, warp, inside), NEG)
+            if pending:
+                def departures(chs):
+                    ref = _slot_arc(chs, up, Cx)
+                    return np.where(inside, a + _weight(copies, t, ref, u, warp, inside), NEG)
 
-                lf = pend.scatter(t, _groups(arcs), departures, u == Ub - 1, Tb, lf,
+                lf = pend.scatter(t, _table_groups(arcs), departures, u == Ub - 1, Tb, lf,
                                   hout is not None)
-            for i, (mi, _) in enumerate(arc_list if not table else ()):
+            for i, (mi, _) in enumerate(arc_list if not pending else ()):
                 w = _weight(copies, t, refs[i], u, warp, inside)
                 dep.write((i, t % R, np.where(inside, u, 0) + ro), a + w, t, warp, inside)
                 if i >= n_blank:
@@ -589,7 +610,7 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
         syncwarp()
         if Tv > 0:
             write_out(stage, ((Tv - 1) & 1,), Tv - 1, Tv - 1)
-        if 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U and table:
+        if 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U and pending:
             ll = lf  # summed as the terminal arcs were sent
         elif 1 <= Ub_all <= U_all and 0 <= Ub - 1 < U:
             uf = Ub - 1
@@ -693,15 +714,15 @@ def _walk_pass(pb, pe, px, arcs, T, U_all, start, Tb, Ub_all, is_beta, G, C, wid
     return ll
 
 
-def emulate(lpb, lpe, extra, arcs, il, ll, compute_betas=True, elt=8, warps=0):
+def emulate(lpb, lpe, extra, arcs, il, ll, compute_betas=True, elt=8, warps=0, form=0):
     """(alphas, betas, ll_forward, ll_backward) of the kernel's plan for
-    ``elt``-byte values (``warps`` a lattice forced, or the plan's),
-    computed in float64 numpy."""
+    ``elt``-byte values (``warps`` a lattice and ``form`` the table
+    instance's form forced, or the plan's), computed in float64 numpy."""
     B, T, U = lpb.shape
     n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
     p = KW.plan(B, T, U, elt, arcs.window, n_arcs, extra.shape[-1], arcs.chain is not None,
                 compute_betas, N_SM, warps, KW.arc_channels(arcs),
-                KW.by_value(arcs, extra.shape[-1]))
+                KW.by_value(arcs, extra.shape[-1]), form)
     assert p is not None and (p.passes - 1) * WARP * p.warps * p.cells < U
     assert p.passes * WARP * p.warps * p.cells >= U
     out = {"alphas": [], "betas": [], "ll_forward": [], "ll_backward": []}
@@ -806,11 +827,13 @@ SCHEDULE_ONLY = {"U601_two_warps_mb", "no_chain_four_warps", "wide_8_warps_mb", 
                  "no_chain_U601", "table_tdt_0_8", "table_tdt_0_32", "table_mb_k9",
                  "table_mb_k16_rings_in_device", "rings_in_device_w300",
                  "table_tdt_0_8_four_warps", "table_no_chain_two_warps", "table_passes_tdt_0_8"}
-# The table instance's cases: (instance, whether the rings lie in device memory).
-TABLE_CASES = {"table_tdt_0_8": False, "table_tdt_0_32": False, "table_mb_k9": False,
-               "table_mb_k16_rings_in_device": True, "rings_in_device_w300": True,
-               "table_tdt_0_8_four_warps": False, "table_no_chain_two_warps": False,
-               "table_passes_tdt_0_8": True}
+# The table instance's cases: (the form the plan takes, whether its rings
+# lie in device memory). Each case also replays the other form.
+R_, P_ = KW.TABLE, KW.PENDING
+TABLE_CASES = {"table_tdt_0_8": (R_, False), "table_tdt_0_32": (P_, False),
+               "table_mb_k9": (R_, False), "table_mb_k16_rings_in_device": (R_, True),
+               "rings_in_device_w300": (R_, True), "table_tdt_0_8_four_warps": (P_, False),
+               "table_no_chain_two_warps": (P_, False), "table_passes_tdt_0_8": (R_, True)}
 
 
 def _arcs(family, durations):
@@ -854,9 +877,9 @@ def test_emulation_matches_plain_and_jax(case):
     # every cell, NEG outside the lattice in both
     _check(got, _plain(lpb, lpe, extra, arcs, il, ll), FIELDS, rtol=1e-12, atol=1e-10)
     p = _plan(B, U, elt, arcs, T=T, n_extra=len(durations), warps=warps)
-    assert (p.wide == KW.TABLE) == (case in TABLE_CASES), p
+    assert (p.wide in KW.TABLES) == (case in TABLE_CASES), p
     if case in TABLE_CASES:
-        assert (p.rings > 0) == TABLE_CASES[case], p
+        assert (p.wide, p.rings > 0) == TABLE_CASES[case], p
     if family == "three" or case in SCHEDULE_ONLY:
         return
     # The JAX engines clamp as the port does; cells no path reaches hold NEG.
@@ -867,6 +890,46 @@ def test_emulation_matches_plain_and_jax(case):
                                    err_msg=name)
     if case == "infeasible_tdt":  # an odd T_b has no path; T_b = 4 with one label has one
         assert got["ll_forward"][0] < -1e29 < got["ll_forward"][1]
+
+
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_emulation_of_the_other_table_form(case):
+    """Each table case in the form its plan does not take: the rings form
+    where the plan takes the pending one, and the other way round, its
+    passes and its rings in shared or device memory as that form plans
+    them."""
+    (family, durations), B, T, U, il, ll, elt, warps = CASES[case]
+    arcs = _arcs(family, durations)
+    other = KW.PENDING if TABLE_CASES[case][0] == KW.TABLE else KW.TABLE
+    p = _plan(B, U, elt, arcs, T=T, n_extra=len(durations), warps=warps, form=other)
+    assert p.wide == other
+    _covers(p, U, elt)
+    lpb, lpe, extra, il, ll = _channels(B, T, U, len(durations), il, ll, seed=len(case))
+    got = emulate(lpb, lpe, extra, arcs, il, ll, True, elt, warps, other)
+    _check(got, _plain(lpb, lpe, extra, arcs, il, ll), FIELDS, rtol=1e-12, atol=1e-10)
+
+
+@pytest.mark.parametrize("family,durations", [
+    ("tdt", tuple(range(9))), ("tdt", tuple(range(1, 10))), ("tdt", (0, 1, 2, 4)),
+    ("multiblank", tuple(range(2, 18))), ("multiblank", (2, 4, 8, 16, 32, 64, 128, 300))])
+def test_pending_table_rows(family, durations):
+    """The host's table (``_arc_rows``) that the kernel copies: the chain and
+    the arcs in order, then the pending form's arcs sorted by (m, blank
+    before emit, table order) and its groups of one m, ascending, each
+    naming its first sorted arc, its blank arcs and its arcs."""
+    arcs = _arcs(family, durations)
+    arc_list = arcs.blank_arcs + arcs.emit_arcs
+    rows = np.asarray(KW._arc_rows(arcs)).reshape(-1, 5)
+    n = len(arc_list)
+    assert [tuple(r[2:2 + r[1]]) for r in rows[1:1 + n]] == [chs for _, chs in arc_list]
+    assert [r[0] for r in rows[1:1 + n]] == [m for m, _ in arc_list]
+    want = [(m, [arc_list[i][1] for i in b], [arc_list[i][1] for i in e])
+            for m, b, e in _groups(arcs)]
+    assert _table_groups(arcs) == want
+    heads = rows[1 + 2 * n:]
+    assert list(heads[:, 0]) == sorted({m for m, _ in arc_list})
+    assert heads[0, 1] == 0 and heads[:, 3].sum() == n
+    assert list(heads[1:, 1]) == list(np.cumsum(heads[:-1, 3]))
 
 
 @pytest.mark.parametrize("case", ["U31_mb", "U33_tdt_no_chain", "headline_like", "T1_U1",
@@ -910,13 +973,14 @@ def test_lengths_beyond_the_arrays(warps):
     _check(got, _plain(lpb, lpe, extra, arcs, il, ll), FIELDS, rtol=1e-12, atol=1e-10)
 
 
-def _plan(B, U, elt, arcs=None, betas=True, T=1500, n_extra=None, warps=0):
+def _plan(B, U, elt, arcs=None, betas=True, T=1500, n_extra=None, warps=0, form=0):
     arcs = arcs or _arcs(*TDT)
     n_arcs = len(arcs.blank_arcs) + len(arcs.emit_arcs)
     if n_extra is None:
         n_extra = max(c for _, chs in arcs.blank_arcs + arcs.emit_arcs for c in chs) - 1
     return KW.plan(B, T, U, elt, arcs.window, n_arcs, max(n_extra, 0), arcs.chain is not None,
-                   betas, N_SM, warps, KW.arc_channels(arcs), KW.by_value(arcs, max(n_extra, 0)))
+                   betas, N_SM, warps, KW.arc_channels(arcs), KW.by_value(arcs, max(n_extra, 0)),
+                   form)
 
 
 def _covers(p, U, elt):
@@ -925,12 +989,12 @@ def _covers(p, U, elt):
     the passes' device memory iff there are several."""
     up = WARP * p.warps * p.cells
     assert p.cells % 2 == 1 and p.cells <= KW.max_cells(elt)
-    assert p.wide != KW.TABLE or p.cells <= KW.table_max_cells(elt)
+    assert p.cells <= KW.kind_max_cells(p.wide, elt)
     assert (p.passes - 1) * up < U <= p.passes * up
     # the table instance keeps its arcs after its lattices
     table = p.smem - p.lattice_words * elt * p.per_block
     assert p.smem <= KW.SMEM_BYTES and table % KW.TABLE_ARC_BYTES == 0
-    assert (table > 0) == (p.wide == KW.TABLE)
+    assert (table > 0) == (p.wide in KW.TABLES)
     assert p.threads == WARP * p.warps * p.per_block
     assert p.threads <= KW.block_warps(p.wide, elt, p.cells) * WARP
     assert (p.hand > 0) == (p.passes > 1) and (p.passes == 1 or p.wide)
@@ -1033,35 +1097,47 @@ def test_shared_memory_of_a_lattice(G, C, elt):
 
 
 # The table instance's shapes on the card: (name, B, T, U, arcs, extra
-# channels, whether its rings lie in device memory).
+# channels, the form the plan takes, whether its rings lie in device
+# memory).
 TABLE_SHAPES = [
-    ("tdt_0_8_long_t", 16, 1500, 301, TW.tdt_arcs(tuple(range(9))), 9, False),
-    ("tdt_0_8_headline", 128, 150, 41, TW.tdt_arcs(tuple(range(9))), 9, False),
-    ("tdt_d33_headline", 128, 150, 41, TW.tdt_arcs(tuple(range(33))), 33, False),
-    ("mb_k9_headline", 128, 150, 41, TW.multiblank_arcs(tuple(range(2, 11))), 9, False),
-    ("mb_k16_headline", 128, 150, 41, TW.multiblank_arcs(tuple(range(2, 18))), 16, False),
-    ("w300", 4, 1500, 301, TW.multiblank_arcs((2, 4, 8, 16, 32, 64, 128, 300)), 8, True),
+    ("tdt_0_8_long_t", 16, 1500, 301, TW.tdt_arcs(tuple(range(9))), 9, KW.PENDING, False),
+    ("tdt_0_8_headline", 128, 150, 41, TW.tdt_arcs(tuple(range(9))), 9, KW.TABLE, False),
+    ("tdt_d33_headline", 128, 150, 41, TW.tdt_arcs(tuple(range(33))), 33, KW.PENDING, False),
+    ("mb_k9_headline", 128, 150, 41, TW.multiblank_arcs(tuple(range(2, 11))), 9, KW.TABLE,
+     False),
+    ("mb_k16_headline", 128, 150, 41, TW.multiblank_arcs(tuple(range(2, 18))), 16, KW.PENDING,
+     False),
+    ("w300", 4, 1500, 301, TW.multiblank_arcs((2, 4, 8, 16, 32, 64, 128, 300)), 8, KW.TABLE,
+     True),
 ]
 
 
 @pytest.mark.parametrize("case", TABLE_SHAPES, ids=[c[0] for c in TABLE_SHAPES])
 def test_table_rings_in_shared_memory(case):
     """Alpha's pending window holds W + 1 slots of UP + G pairs whatever the
-    number of arcs: with it the table instance's rings fit a block at TDT
-    0 … 8 (long_t, headline), D = 33, K = 9 and K = 16 (headline); only a
-    window of hundreds of frames keeps them in device memory."""
-    _, B, T, U, arcs, n_extra, in_device = case
+    number of arcs: in the pending form the table instance's rings fit a
+    block at TDT 0 … 8 (long_t, headline), D = 33, K = 9 and K = 16
+    (headline); only a window of hundreds of frames keeps them in device
+    memory. The plan takes the pending form where, on the same warps and
+    cells, the rings form's rings pass a block (long_t, D = 33) or hold
+    fewer lattices a block (K = 16), else the rings form."""
+    name, B, T, U, arcs, n_extra, form, in_device = case
     p = _plan(B, U, 4, arcs, T=T, n_extra=n_extra)
-    assert p.wide == KW.TABLE and p.passes == 1 and p.hand == 0
+    assert p.wide == form and p.passes == 1 and p.hand == 0
     assert (p.rings > 0) == in_device, p
     _covers(p, U, 4)
-    up = WARP * p.warps * p.cells
-    W = arcs.window
-    for n_arcs in (1, len(arcs.blank_arcs) + len(arcs.emit_arcs), 1000):
-        assert KW.alpha_ring_words(p.warps, p.cells, W, n_arcs, KW.TABLE) == \
-            2 * (W + 1) * (up + p.warps)
+    q = _plan(B, U, 4, arcs, T=T, n_extra=n_extra, form=KW.PENDING)
+    r = _plan(B, U, 4, arcs, T=T, n_extra=n_extra, form=KW.TABLE)
+    assert (q.rings > 0) == (name == "w300"), q
+    same = q[1:3] == r[1:3] and q.blocks <= r.blocks
+    assert p == (q if same and (q.rings == 0 < r.rings or q.blocks < r.blocks) else r)
+    up = WARP * q.warps * q.cells
+    W, n_arcs = arcs.window, len(arcs.blank_arcs) + len(arcs.emit_arcs)
+    for n in (1, n_arcs, 1000):
+        assert KW.alpha_ring_words(q.warps, q.cells, W, n, KW.PENDING) == \
+            2 * (W + 1) * (up + q.warps)
     if in_device:
-        assert p.rings == 2 * B * KW.ring_words(p.warps, p.cells, W, 0)
+        assert p.rings == 2 * B * KW.ring_words(p.warps, p.cells, W, n_arcs, p.wide)
 
 
 @pytest.mark.parametrize("B,U,betas,per_block", [

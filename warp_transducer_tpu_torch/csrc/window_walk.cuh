@@ -108,43 +108,56 @@
 // arcs, more than kMaxChannels channels) and every window whose rings pass a
 // block at every G and pass: the wide walk over the arcs of a table in
 // device memory, copied into the block's shared memory as it starts and
-// read in the walk's loops, 8 warps a block (kTableWarps). Its alpha keeps
-// one pending window of arrivals, as the TPU kernel does
-// (window_stream.py:153-208), in place of a ring of departures for each
-// arc, so that its memory does not grow with the number of arcs:
-// * W + 1 slots of the pass's UP columns, slot t mod (W + 1) gathering the
-//   arrivals of row t; row t reads its slot into the chain scan (where the
-//   by-value instances gather `ne`), then empties it for row t + W + 1;
-// * row t then scatters its departures: the block sorts the table into
-//   groups of one m as it starts; a lane joins a group's arcs in registers
-//   (a blank arc's α(t, u) + w(t, u) at u, an emit arc's moved on to u + 1:
-//   within the lane, to the next lane by a shuffle, from lane 31 into its
-//   warp's entry after the slot's columns, which the next warp's lane 0
-//   reads behind the row's barrier, or, from the last warp, which the pass
-//   hands on pre-joined as the next pass's first column's arrival), then
-//   joins them into slot (t + m) mod (W + 1): one read and one write a cell
-//   for each distinct m, not one for each arc (TDT's blank and emit arc of
-//   one duration share a group). Every cell has one writer, the lane that
-//   owns it, so only the warps' entries need a barrier; W + 1 slots keep a
-//   row's scatter off the slot that it empties;
-// * the slots hold (max, sum) pairs, the walk's own joins: a join is one
-//   exp and no log, and the row reads its arrivals as the pairs its scans
-//   take. Measured against log values (one word a cell, a log at every
-//   join) on the scatter's first form: log values 0–1% faster where the
-//   window lies in shared memory, 6% at the 300-frame window in device
-//   memory (PERF.md §6, the pending window's findings); the pairs stay, the later
-//   forms were timed with them only;
-// * ll_forward's terminal blank arcs are summed as they are sent, in a
-//   register of the lane that owns column U_b - 1 (the pending slot of row
-//   T_b mixes them with other arrivals).
-// Beta keeps its ring of W + 1 rows. Where the window or beta's ring passes
-// a block they lie in device memory. The by-value instances keep their code:
-// the table instance is an instantiation of its own.
+// read in the walk's loops, 8 warps a block (kTableWarps). It comes in two
+// forms (kPend), and the plan takes the one that measured faster:
+// * the rings form: alpha keeps a ring of W + 1 rows of departures for
+//   each arc, as the by-value instances do. Its row step gathers one
+//   independent load an arc, so it is the faster form wherever its rings
+//   take no more of the card's memory than the pending window does: K = 9,
+//   TDT 0 … 8 at T = 150 and the 300-frame window (PERF.md §6).
+// * the pending form: alpha keeps one pending window of arrivals, as the
+//   TPU kernel does (window_stream.py:153-208), so that its memory does not
+//   grow with the number of arcs. The plan takes it where, on the rings
+//   form's warps and cells a lattice, that keeps the rings in shared memory
+//   when the rings form's pass a block (TDT 0 … 8 at T = 1500, D = 33), or
+//   fits more lattices a block (K = 16).
+//   - W + 1 slots of the pass's UP columns, slot t mod (W + 1) gathering
+//     the arrivals of row t; row t reads its slot into the chain scan
+//     (where the by-value instances gather `ne`), then empties it for row
+//     t + W + 1;
+//   - row t then scatters its departures a group of one m at a time (the
+//     host sorts the table into those groups): a lane joins a group's arcs
+//     in registers (a blank arc's α(t, u) + w(t, u) at u, an emit arc's
+//     moved on to u + 1: within the lane, to the next lane by a shuffle,
+//     from lane 31 into its warp's entry after the slot's columns, which
+//     the next warp's lane 0 reads behind the row's barrier, or, from the
+//     last warp, which the pass hands on pre-joined as the next pass's
+//     first column's arrival), then joins them into slot (t + m) mod
+//     (W + 1): one read and one write a cell for each distinct m, not one
+//     for each arc (TDT's blank and emit arc of one duration share a
+//     group). Every cell has one writer, the lane that owns it, so only the
+//     warps' entries need a barrier; W + 1 slots keep a row's scatter off
+//     the slot that it empties. Each group's read waits for the store
+//     before it (the slots may alias), so a row step is a chain of
+//     dependent loads where the rings form's loads overlap;
+//   - the slots hold (max, sum) pairs, the walk's own joins: a join is one
+//     exp and no log, and the row reads its arrivals as the pairs its scans
+//     take. Log values (one word a cell, a log at every store), timed on
+//     this form beside the pairs where the plan takes it: 1.3% and 1.8%
+//     slower at TDT 0 … 8 at T = 1500 and D = 33, 2.3% faster at K = 16
+//     (PERF.md §6);
+//   - ll_forward's terminal blank arcs are summed as they are sent, in a
+//     register of the lane that owns column U_b - 1 (the pending slot of
+//     row T_b mixes them with other arrivals).
+// Beta keeps its ring of W + 1 rows in both. Where the rings pass a block
+// they lie in device memory. The by-value instances keep their code: the
+// table instance is an instantiation of its own.
 //
-// The walk's code (this header) is built in three files, so that they
+// The walk's code (this header) is built in four files, so that they
 // compile in parallel: window_stream.cu (the narrow instances, the plan and
-// the launches), window_stream_wide.cu (the wide instances) and
-// window_stream_table.cu (the table instances).
+// the launches), window_stream_wide.cu (the wide instances),
+// window_stream_table.cu (the table instance's rings form) and
+// window_stream_pending.cu (its pending form).
 #pragma once
 
 #include <climits>
@@ -171,8 +184,9 @@ constexpr int kAhead = 3;
 constexpr int kCopyRows = kAhead + 1;
 constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
 constexpr int max_cells(int elt) { return elt == 4 ? 17 : 9; }
-// The table instance's: f64 stops at 7 (its scatter's pairs spilled at 9).
-constexpr int table_max_cells(int elt) { return elt == 4 ? 17 : 7; }
+// The table instance's pending form's: f64 stops at 7 (its scatter's pairs
+// spilled at 9).
+constexpr int pending_max_cells(int elt) { return elt == 4 ? 17 : 7; }
 // Values after beta's ring that an emit arc's load at the last padded column
 // may touch (its value is selected away).
 constexpr int kSlack = 32;
@@ -197,10 +211,11 @@ constexpr int wide_warps(int elt, int C) { return (elt == 4 ? C <= 13 : C <= 1) 
 // The table instance: at most 8 warps a block at every C (its arc loops
 // and table take registers past 128 a thread where 16 warps share an SM).
 constexpr int kTableWarps = 8;
-// Values a row that the table instance's passes hand on: the chain's carry
+// Values a row that the pending form's passes hand on: the chain's carry
 // as a pair, then (alpha) the arrivals of the next pass's first column as a
-// pair, (beta) the edge column.
-constexpr int kTableHand = 4;
+// pair, (beta) the edge column. The rings form hands on 2 + n_arcs, as the
+// wide instance does.
+constexpr int kPendHand = 4;
 template <typename T, int C, bool kWide>
 constexpr int block_threads() {
   return (kWide ? wide_warps(sizeof(T), C) : kNarrowWarps) * wtt::kWarp;
@@ -234,12 +249,13 @@ struct SlotArc {
 
 template <int N>
 struct SlotArcs {
+  static constexpr bool kPend = false;
   int W, has_chain, n_blank, n_emit;
   SlotArc<N> chain;
   SlotArc<N> arc[2 * kMaxArcs];  // the blank arcs, then the emit arcs
 };
 
-// The arcs of one duration m in the table instance's sorted copy: `n` arcs
+// The arcs of one duration m in the pending form's sorted copy: `n` arcs
 // from `first`, the `n_blank` blank arcs before the emit arcs.
 struct Group {
   int m, first, n_blank, n;
@@ -247,11 +263,13 @@ struct Group {
 
 // The table instance's arcs: the chain by value, the blank arcs and then the
 // emit arcs in the block's shared memory (copied there from device memory
-// as the kernel starts), read in loops at run time (beta); the same arcs
-// sorted by (m, blank before emit, table order) and their groups of one m
-// (alpha's scatter).
-template <int N>
+// as the kernel starts), read in loops at run time; the pending form
+// (kPend) also keeps the same arcs sorted by (m, blank before emit, table
+// order) and their groups of one m (alpha's scatter), as the host sorted
+// them.
+template <int N, bool P>
 struct TableArcs {
+  static constexpr bool kPend = P;
   int W, has_chain, n_blank, n_emit;
   SlotArc<N> chain;
   const SlotArc<N>* arc;
@@ -360,7 +378,7 @@ struct Walk {
   T* out;       // its alphas or betas
   T* copy;      // [kCopyRows][slot_words]: rows of lpb, lpe (UP each), extra (UP·Cx), the pad
                 // and (wide) the incoming pass's hw values
-  T* ring;      // alpha: [n_arcs][R][RS] departures (the table instance: the pending
+  T* ring;      // alpha: [n_arcs][R][RS] departures (the pending form: its
                 // window, [R][2][UP + G]); beta: [R][RS] rows of beta
   T* stage;     // alpha: [2][UP], rows on their way out
   T* xch;       // [2][kMaxG][4]: each warp's row total (m, s) and chain total
@@ -373,7 +391,7 @@ struct Walk {
   int ld, Ur, start, hw, hbase;
   const T* hin;
   T* hout;
-  bool dev_ring;  // the table instance: its rings lie in device memory
+  bool dev_ring;  // the pending form: its rings lie in device memory
 };
 
 // The G warps of a lattice meet (bar.sync id, 32·G); a lattice of one warp
@@ -530,7 +548,7 @@ __device__ __forceinline__ Pair<T> warp_totals(const Walk<T>& s, int par, int lo
   return acc;
 }
 
-// The table instance's departures of row t (values a at the lane's cells),
+// The pending form's departures of row t (values a at the lane's cells),
 // scattered into the pending window `pend`: for each group of one m its
 // arcs joined in registers (a blank arc's α(t, u) + w(t, u) at u; an emit
 // arc's moved on to u + 1: within the lane, by a shuffle to the next lane,
@@ -642,6 +660,7 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
   constexpr int kMaxG = Sh::kMaxG;
   constexpr int kP = wtt::kWarp * C;
   constexpr bool kTab = !std::is_same<Arcs, SlotArcs<N>>::value;  // the table instance
+  constexpr bool kPend = Arcs::kPend;  // its pending form
   // Wide: the rings keep column -1 (the previous pass's edge) before the
   // pass's columns.
   constexpr int ro = kWide ? 1 : 0;
@@ -657,17 +676,17 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
   const bool tx = kWide && s.hout != nullptr && s.g == s.G - 1 && lane == wtt::kWarp - 1;
   const int n_arcs = arcs.n_blank + arcs.n_emit;
   // With several warps and emit arcs, a second barrier a row: an emit arc
-  // reads the previous warp's last column of an earlier row (the table
-  // instance: the previous warp's entry of the pending window).
+  // reads the previous warp's last column of an earlier row (the pending
+  // form: the previous warp's entry of the pending window).
   const bool cross = s.G > 1 && arcs.n_emit > 0;
-  // The table instance's pending window: R slots of RSP (max, sum) pairs,
+  // The pending form's window: R slots of RSP (max, sum) pairs,
   // the m values of a slot then its s values; a slot's UP columns, then one
   // entry a warp g (the emit departures of its last column, for the next
   // warp's first column or, from the last warp, the next pass's). Each lane
   // empties its own cells, lane 31 its warp's entry; the barrier orders
   // that before any warp sends.
   [[maybe_unused]] const int RSP = UP + s.G;
-  if constexpr (kTab) {
+  if constexpr (kPend) {
     for (int r = 0; r < R; ++r) {
       T* pm = s.ring + r * 2 * RSP;
 #pragma unroll
@@ -682,7 +701,7 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
     }
     lattice_barrier(s);
   }
-  // ll_forward's column, and (the table instance) the running sum of the
+  // ll_forward's column, and (the pending form) the running sum of the
   // terminal blank arcs' departures there, in the lane that owns it.
   const int uf = s.Ub - 1;
   T lf = neg;
@@ -742,8 +761,8 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
     // scan carries only into cells beyond U (masked below); the emit arcs'
     // read at u = 0 is the one word selected away. A NEG term joins exactly.
     Pair<T> p[C];
-    if constexpr (kTab) {
-      // The table instance reads them from row t's slot of the pending
+    if constexpr (kPend) {
+      // The pending form reads them from row t's slot of the pending
       // window, every arc's departures joined as they were sent, and empties
       // its cells for row t + R: the lane's own, at a warp's first column
       // the warp before's entry, at a pass's the previous pass's (handed on
@@ -878,7 +897,7 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
       a[j] = u0 + j < s.Uv ? a[j] : neg;
       stage[j] = a[j];
     }
-    if constexpr (kTab) {  // the departures, into the pending window
+    if constexpr (kPend) {  // the departures, into the pending window
       if (s.dev_ring)
         scatter<T, C, N>(s, arcs, s.ring, row, a, t, st, lf);
       else  // through a pointer the compiler sees to be shared, as the arrivals
@@ -919,11 +938,11 @@ __device__ void alpha_walk(const Walk<T>& s, const Arcs& arcs, T* __restrict__ l
   // ll_forward: the blank arcs that land exactly on T_b from (t, U_b - 1),
   // rows ascending, arcs in order, starting at NEG; their departures are
   // still in the rings (the last W + 1 rows), in the column's own warp (and
-  // pass). The table instance summed them as it sent them.
+  // pass). The pending form summed them as it sent them.
   const bool inside = kWide ? s.Ub + s.start >= 1 && s.Ub <= s.Ur : s.Ub >= 1 && s.Ub <= U;
   if (inside) {
     if (u0 <= uf && uf < u0 + C) {
-      if constexpr (!kTab) {
+      if constexpr (!kPend) {
         for (int t = max(s.Tb - arcs.W, 0); t < s.Tv; ++t)
           for (int i = 0; i < arcs.n_blank; ++i)
             if (t + arcs.arc[i].m == s.Tb)
@@ -1228,25 +1247,30 @@ __global__ void __launch_bounds__(block_threads<T, C, kWide>(), 1)
 }
 
 // The table instance: the wide walk (G up to 16, three-channel arcs, 64-bit
-// offsets, passes) over arcs of any number and channels of any count. The
-// arc table comes from device memory (`table`: rows of five ints, the chain
-// first, then the n_blank blank arcs, then the n_emit emit arcs), copied
-// into the block's shared memory after its lattices' slices as the block
-// starts, sorted there into groups of one m, and read there in the walk's
-// loops. Alpha keeps one pending window of arrivals (its size does not
-// depend on the number of arcs), beta its ring of W + 1 rows. Where they do
-// not fit a block (`rings` not null) they lie in device memory,
-// `ring_words` values a lattice, and the lattice's shared memory keeps its
-// copy ring, staged rows and exchange: the walk reads and writes them
-// through the same pointers, ordered by the same __syncwarp and barriers.
-// The passes hand on kTableHand values a row: the chain's carry and the
-// pre-joined emit arrivals of the next pass's first column (beta: the carry
-// and its edge column).
-template <typename T, int C>
+// offsets, passes) over arcs of any number and channels of any count, in
+// its rings form or (kPend) its pending form. The arc table comes from
+// device memory (`table`: rows of five ints, the chain first, then the
+// n_blank blank arcs, then the n_emit emit arcs; then, which the pending
+// form reads, the same arcs sorted by (m, blank before emit, table order)
+// and one row (m, first, n_blank, n, 0) for each of the n_groups groups of
+// one m), copied into the block's shared memory after its lattices' slices
+// as the block starts and read there in the walk's loops. The rings form's
+// alpha keeps a ring of departures for each arc, the pending form's one
+// pending window of arrivals (its size does not depend on the number of
+// arcs); beta keeps its ring of W + 1 rows. Where they do not fit a block
+// (`rings` not null) they lie in device memory, `ring_words` values a
+// lattice, and the lattice's shared memory keeps its copy ring, staged rows
+// and exchange: the walk reads and writes them through the same pointers,
+// ordered by the same __syncwarp and barriers. The passes hand on 2 +
+// n_arcs values a row (the rings form, as the wide instance) or kPendHand:
+// the chain's carry and the pre-joined emit arrivals of the next pass's
+// first column (beta: the carry and its edge column).
+template <typename T, int C, bool kPend>
 __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
     window_table_kernel(const T* __restrict__ lpb, const T* __restrict__ lpe,
                         const T* __restrict__ extra, int Cx, const int* __restrict__ table,
-                        int n_blank, int n_emit, int W, const int* __restrict__ input_lengths,
+                        int n_blank, int n_emit, int n_groups, int W,
+                        const int* __restrict__ input_lengths,
                         const int* __restrict__ label_lengths, T* __restrict__ alphas,
                         T* __restrict__ betas, T* __restrict__ ll_forward,
                         T* __restrict__ ll_backward, int B, int Tmax, int U, int dirs, int G,
@@ -1258,51 +1282,29 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_arcs = n_blank + n_emit;
   const int UP = G * wtt::kWarp * C;
-  // After the lattices' slices: the arcs in table order (the chain first),
-  // the arcs sorted, the groups as each first arc of one m finds them (at
-  // its place in the sorted order), the groups in order, their count.
+  // After the lattices' slices: the arcs in table order (the chain first);
+  // the pending form's sorted arcs and groups after them.
   SlotArc<N>* sarc = reinterpret_cast<SlotArc<N>*>(
       smem_raw + (size_t)per_block * lattice_words * sizeof(T));
   SlotArc<N>* sorted = sarc + n_arcs + 1;
-  Group* at_first = reinterpret_cast<Group*>(sorted + n_arcs);
-  Group* group = at_first + n_arcs;
-  int* n_groups = reinterpret_cast<int*>(group + n_arcs);
+  Group* group = reinterpret_cast<Group*>(sorted + n_arcs);
   for (int i = threadIdx.x; i <= n_arcs; i += blockDim.x)
     sarc[i] = table_arc<N>(table + 5 * i, UP, Cx);
-  __syncthreads();
-  // Arc i's place in the order (m, blank before emit, table order) and, for
-  // the first arc of its m, its group.
-  for (int i = threadIdx.x; i < n_arcs; i += blockDim.x) {
-    const int m = sarc[1 + i].m;
-    const bool emit = i >= n_blank;
-    int before = 0, rank = 0, same = 0, same_blank = 0;
-    for (int j = 0; j < n_arcs; ++j) {
-      const int mj = sarc[1 + j].m;
-      const bool ej = j >= n_blank;
-      before += mj < m;
-      same += mj == m;
-      same_blank += mj == m && !ej;
-      rank += mj < m || (mj == m && (ej < emit || (ej == emit && j < i)));
+  if constexpr (kPend) {
+    for (int i = threadIdx.x; i < n_arcs; i += blockDim.x)
+      sorted[i] = table_arc<N>(table + 5 * (1 + n_arcs + i), UP, Cx);
+    for (int k = threadIdx.x; k < n_groups; k += blockDim.x) {
+      const int* row = table + 5 * (1 + 2 * n_arcs + k);
+      group[k] = Group{row[0], row[1], row[2], row[3]};
     }
-    sorted[rank] = sarc[1 + i];
-    if (rank == before) at_first[rank] = Group{m, before, same_blank, same};
   }
-  __syncthreads();
-  // The groups in order of m: a group's index counts the changes of m
-  // before its first arc.
-  for (int q = threadIdx.x; q < n_arcs; q += blockDim.x) {
-    int k = 0;
-    for (int j = 1; j <= q; ++j) k += sorted[j].m != sorted[j - 1].m;
-    if (q == 0 || sorted[q].m != sorted[q - 1].m) group[k] = at_first[q];
-    if (q == n_arcs - 1) *n_groups = k + 1;
-  }
-  __syncthreads();  // the last block barrier: every thread is here
+  __syncthreads();  // the only block barrier: every thread is here
   const int warp = threadIdx.x / wtt::kWarp;
   const int slot = warp / G;
   const int lattice = blockIdx.x * per_block + slot;
   if (lattice >= B * dirs) return;  // every warp of the lattice
-  const TableArcs<N> arcs{W,      table[1] != 0, n_blank, n_emit, sarc[0],
-                          sarc + 1, sorted,        group,   *n_groups};
+  const TableArcs<N, kPend> arcs{W,        table[1] != 0, n_blank, n_emit, sarc[0],
+                                 sarc + 1, sorted,        group,   n_groups};
   const int b = lattice / dirs;
   const bool is_beta = lattice % dirs == 1;
   const int R = W + 1;
@@ -1317,7 +1319,7 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
   s.Cx = Cx;
   s.R = R;
   s.UP = UP;
-  s.hw = kTableHand;
+  s.hw = kPend ? kPendHand : 2 + n_arcs;
   s.hbase = (2 + Cx) * s.UP + kRowPad;
   s.slot_words = s.hbase + s.hw;
   s.u0 = s.g * wtt::kWarp * C + s.lane * C;
@@ -1327,15 +1329,16 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
   if (s.lane < kCopyRows) s.copy[s.lane * s.slot_words + (2 + Cx) * s.UP] = T(0);
   __syncwarp();
   T* after_copy = mine + kCopyRows * s.slot_words;
-  // Alpha: the pending window (R slots of 2·(UP + G) values) and two staged
-  // rows; beta: its ring of R rows of UP + 1 and the slack.
+  // Alpha: its rings (n_arcs × R rows of UP + 1) or its pending window (R
+  // slots of 2·(UP + G) values), and two staged rows; beta: its ring of R
+  // rows of UP + 1 and the slack.
   s.dev_ring = rings != nullptr;
   if (s.dev_ring) {
     s.ring = rings + (long long)lattice * ring_words;
     s.stage = after_copy;
   } else {
     s.ring = after_copy;
-    s.stage = s.ring + 2 * R * (s.UP + G);
+    s.stage = s.ring + (kPend ? 2 * R * (s.UP + G) : n_arcs * R * (s.UP + 1));
   }
   s.xch = mine + lattice_words - Sh::kXchWords;
   s.ld = U;
@@ -1357,9 +1360,9 @@ __global__ void __launch_bounds__(kTableWarps * wtt::kWarp, 1)
     s.hin = q > 0 ? hand_mine + (long long)((q - 1) & 1) * Tmax * s.hw : nullptr;
     s.hout = q + 1 < passes ? hand_mine + (long long)(q & 1) * Tmax * s.hw : nullptr;
     if (is_beta)
-      beta_walk<T, C, true, TableArcs<N>>(s, arcs, ll_backward + b);
+      beta_walk<T, C, true, TableArcs<N, kPend>>(s, arcs, ll_backward + b);
     else
-      alpha_walk<T, C, true, TableArcs<N>>(s, arcs, ll_forward + b);
+      alpha_walk<T, C, true, TableArcs<N, kPend>>(s, arcs, ll_forward + b);
     // The rows beyond T_b, coalesced, each warp its columns.
     for (int t = s.Tv; t < Tmax; ++t) {
 #pragma unroll
@@ -1383,10 +1386,10 @@ const void* warp_kernel_of(int cells) {
   if constexpr (C + 2 <= kMax) return warp_kernel_of<T, C + 2, kMax, kWide>(cells);
   return nullptr;
 }
-template <typename T, int C, int kMax>
+template <typename T, int C, int kMax, bool kPend>
 const void* table_kernel_of(int cells) {
-  if (cells == C) return reinterpret_cast<const void*>(window_table_kernel<T, C>);
-  if constexpr (C + 2 <= kMax) return table_kernel_of<T, C + 2, kMax>(cells);
+  if (cells == C) return reinterpret_cast<const void*>(window_table_kernel<T, C, kPend>);
+  if constexpr (C + 2 <= kMax) return table_kernel_of<T, C + 2, kMax, kPend>(cells);
   return nullptr;
 }
 
@@ -1396,7 +1399,9 @@ namespace wtt_window {
 // The wide instance of `cells` cells a lane for `elt`-byte values, or null
 // (window_stream_wide.cu).
 const void* wide_kernel(int elt, int cells);
-// The table instance of `cells` cells a lane, or null
+// The table instance's rings form of `cells` cells a lane, or null
 // (window_stream_table.cu).
 const void* table_kernel(int elt, int cells);
+// Its pending form, or null (window_stream_pending.cu).
+const void* pending_kernel(int elt, int cells);
 }  // namespace wtt_window

@@ -137,8 +137,8 @@ def library() -> ctypes.CDLL:
     lib.wtt_wavefront_plan.restype = None
     lib.wtt_window_stream.argtypes = [p, p, p, i, i, p, i, i, p, p, p, p, p, p, p, i, i, i, i,
                                       p, p, p]
-    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-3] + [i, p, p, p]
-    lib.wtt_window_plan.argtypes = [i] * 13 + [ctypes.POINTER(ctypes.c_int)]
+    lib.wtt_window_stream_warps.argtypes = lib.wtt_window_stream.argtypes[:-3] + [i, i, p, p, p]
+    lib.wtt_window_plan.argtypes = [i] * 14 + [ctypes.POINTER(ctypes.c_int)]
     lib.wtt_window_plan.restype = None
     lib.wtt_grad.argtypes = [p, i, p, p, p, p, p, p, i, p, p, p, p, p, ll, i, i, i, i, i, p, p]
     lib.wtt_grad_lattice.argtypes = [p, i, p, p, p, p, p, p, p, ll, ctypes.c_double, p, p, p, p,
