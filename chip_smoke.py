@@ -178,7 +178,8 @@ PORT_KERNELS = ("prep_tile_kernel", "prep_warp_kernel", "wavefront_band_kernel",
                 "joint_grad_dw_kernel", "joint_grad_db_kernel", "joint_grad_dwd_kernel",
                 "sum_parts_kernel", "dur_prep_kernel", "dur_grad_kernel", "dur_sums_kernel",
                 "window_warp_kernel", "window_table_kernel", "prep_many_tile_kernel",
-                "prep_many_warp_kernel", "grad_many_tile_kernel", "grad_many_warp_kernel")
+                "prep_many_warp_kernel", "prep_many_lp_kernel", "grad_many_tile_kernel",
+                "grad_many_warp_kernel", "dur_grad_many_kernel")
 
 
 # The fused joint's kernels by wrapper: K6a (the layout of W, h, the prep)
@@ -249,30 +250,9 @@ def kernel_ms(fn, iters=3):
     return out
 
 
-def launch_device_ms(fn, iters=10, names=None):
-    """Device time of one launch of the port's kernels that ``fn`` makes
-    (for a call that launches one), from torch.profiler: their time over
-    their count, so that a record the profiler drops does not read as a
-    shorter call; None where it records none. ``names``: the kernel names
-    to count, PORT_KERNELS by default."""
-    names = PORT_KERNELS if names is None else names
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ours = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and (m := re.search(r"(\w+)[<(]", e.key)) and m.group(1) in names]
-    n = sum(e.count for e in ours)
-    return sum(e.self_device_time_total for e in ours) / n / 1e3 if n else None
-
-
-def device_ms(fn, iters=5):
-    """Device time of one call of ``fn``, all its kernels summed, from
-    torch.profiler (CUDA events time the host's launches as well where they
-    take longer than the kernels); None where the profiler records none."""
+def kernel_records(fn, iters, names=None):
+    """[(device ms, launches)] of each kernel that ``iters`` calls of ``fn``
+    launch (those of ``names`` where given), from torch.profiler."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -280,9 +260,32 @@ def device_ms(fn, iters=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / iters if total > 0 else None
+    return [(e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+            and e.self_device_time_total > 0
+            and (names is None or ((m := re.search(r"(\w+)[<(]", e.key)) and m.group(1) in names))]
+
+
+def launch_device_ms(fn, iters=10, names=None):
+    """Device time of one launch of the port's kernels that ``fn`` makes
+    (for a call that launches one), from torch.profiler: their time over
+    their count, so that a record the profiler drops does not read as a
+    shorter call; None where it records none. ``names``: the kernel names
+    to count, PORT_KERNELS by default."""
+    recs = kernel_records(fn, iters, PORT_KERNELS if names is None else names)
+    n = sum(c for _, c in recs)
+    return sum(ms for ms, _ in recs) / n if n else None
+
+
+def device_ms(fn, iters=5, names=None):
+    """Device time of one call of ``fn``, its kernels (those of ``names``
+    where given) summed, from torch.profiler (CUDA events time the host's
+    launches as well where they take longer than the kernels): each kernel's
+    time a launch times its launches a call, the count over the calls
+    rounded, so that a record the profiler drops does not read as a shorter
+    call; None where the profiler records none."""
+    total = sum(ms / c * max(1, round(c / iters)) for ms, c in kernel_records(fn, iters, names))
+    return total if total > 0 else None
 
 
 def graph_ms(fn, n=100):
@@ -2187,7 +2190,7 @@ def many_durations_phase(dev, totals, errs):
             set_tdt_route(integrated)
             route = "integrated" if integrated else "composed"
             inst = ({k: f"many_d9_{ftag}" for k in ("joint_prep", "joint_grad")} if integrated
-                    else {"dur_head": f"groups_d9_{ftag}"})
+                    else {"dur_head": f"past_eight_d9_{ftag}"})
             routes[route] = counted(f"tdt_fused_d9 {ftag} {route}", tdt_fused_step,
                                     inst | {"window_stream": f"table_tdt_d9_{ftag}"},
                                     ("joint_prep", "joint_grad"))
@@ -2242,14 +2245,19 @@ def many_durations_phase(dev, totals, errs):
                     e = max(e, float((a.double() - b.double())[live].abs().max()))
         return e
 
-    def timed(kernel, case, fn, names, bound_, plain_fn=None, library_fn=None):
+    def timed(kernel, case, fn, names, bound_, plain_fn=None, library_fn=None, graph_n=None):
         """The kernel's device ms a launch (profiler), and where the plain
-        version runs, its time and the kernel's largest error against it."""
+        version runs, its time and the kernel's largest error against it.
+        Where the profiler records none: with ``graph_n``, a call's device
+        ms, ``graph_n`` calls in a CUDA graph (the wrapper's small torch
+        kernels too, not its host work); else CUDA events."""
         dev_ms = launch_device_ms(fn, iters=5, names=names)
+        by = "profiler" if dev_ms is not None else "graph" if graph_n else "events"
+        ms = (dev_ms if dev_ms is not None else graph_ms(fn, graph_n) if graph_n
+              else time_ms(fn, 5))
         t = timings[kernel][case] = dict(
-            ms=dev_ms if dev_ms is not None else time_ms(fn, 5), kernel_device_ms=dev_ms,
-            plain_ms=None, library_ms=time_ms(library_fn, 5) if library_fn else None,
-            bound=bound_)
+            ms=ms, kernel_device_ms=dev_ms, timed_by=by, plain_ms=None,
+            library_ms=time_ms(library_fn, 5) if library_fn else None, bound=bound_)
         if plain_fn:  # once, by the host clock (its lattices take seconds at these shapes)
             got = fn()
             torch.cuda.synchronize()
@@ -2260,21 +2268,70 @@ def many_durations_phase(dev, totals, errs):
             t["max_abs_err"] = max_err(got, want)
             errs[kernel] = max(errs[kernel], t["max_abs_err"])
             del got, want
-        print(f"time {case} {kernel}: {t['ms']:.4f} ms (a launch) | plain "
+        print(f"time {case} {kernel}: {t['ms']:.4f} ms (a launch; {by}) | plain "
               f"{t['plain_ms'] if t['plain_ms'] is None else round(t['plain_ms'], 4)} ms | "
               f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) | library {t['library_ms']}"
               f" | largest error against the plain version {t.get('max_abs_err')}")
 
     def call_timed(kernel, case, fn, bound_, plain_fn=None, library_fn=None):
-        dev_ms = device_ms(fn, iters=3)
+        """Device ms a call (the port's kernels, profiler), the library's
+        likewise (every kernel; CUDA events where the profiler records
+        none)."""
+        dev_ms = device_ms(fn, iters=5, names=PORT_KERNELS)
+        lib_ms = (device_ms(library_fn, iters=5) or time_ms(library_fn, 3)) if library_fn else None
         t = timings[kernel][case] = dict(
             ms=dev_ms if dev_ms is not None else time_ms(fn, 3), kernel_device_ms=dev_ms,
-            plain_ms=time_ms(plain_fn, 1, 1) if plain_fn else None,
-            library_ms=time_ms(library_fn, 3) if library_fn else None, bound=bound_)
+            plain_ms=time_ms(plain_fn, 1, 1) if plain_fn else None, library_ms=lib_ms,
+            bound=bound_)
         print(f"time {case} {kernel}: {t['ms']:.4f} ms (device ms a call) | plain "
-              f"{t['plain_ms']} ms | bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+              f"{t['plain_ms']} ms | bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) | library "
+              f"{lib_ms}")
 
     table, warp = ("window_table_kernel",), ("window_warp_kernel",)
+
+    def dur_cotangent(e, p, il, ll, n, g):
+        """A duration head's cotangent (B, T, U, n), zero outside the lattice."""
+        valid = gradients._valid_cells((e.shape[0], e.shape[1], p.shape[1]), il, ll, dev)
+        return (torch.rand((*valid.shape, n), generator=g, device=dev) - 0.5) * valid[..., None]
+
+    def dur_case(case, e, p, il, ll, Wd, bias_d, gd, library=False):
+        """K6c and K6d with a head of Wd's columns: the gradient held against
+        its plain version (relative norm FUSED_GRAD_REL, elementwise within
+        GRAD_ATOL_SHARE of the median nonzero |g|, two calls bit-equal), then
+        both timed, every kernel of a call, beside the plain version and,
+        with ``library``, the library's products on a materialised h:
+        h32@Wd (prep), g_dur@Wdᵀ and h32ᵀ@g_dur (gradient)."""
+        H_, n = Wd.shape
+        got = kjoint.dur_head_grad(e, p, Wd, gd, il, ll)
+        again = kjoint.dur_head_grad(e, p, Wd, gd, il, ll)
+        torch.cuda.synchronize()
+        want = fused_joint.dur_head_grad(e, p, Wd, gd, il, ll)
+        for f, a, w, a2 in zip(("de2", "dp2", "dWd"), got, want, again):
+            rel = rel_norm(a, w)
+            print(f"dur_head grad {case} {f}: relative norm error {rel:.3e} (tol "
+                  f"{FUSED_GRAD_REL[torch.float32]:g}); two calls bit-equal {torch.equal(a, a2)}")
+            fail_unless(rel <= FUSED_GRAD_REL[torch.float32] and torch.equal(a, a2),
+                        f"dur_head grad {case} {f}: differs from its plain version or between calls")
+            errs["dur_head"] = max(errs["dur_head"], compare(f"dur_head grad {case} {f}", a, w,
+                                                             grad_tol(w, "f32")))
+        del got, again, want
+        rows_ = int((il.long().clamp(0, e.shape[1]) * (ll.long() + 1)).sum())
+        ep = (e.numel() + p.numel()) * 4
+        head = (Wd.numel() + n) * 4
+        lib_prep = lib_grad = None
+        if library:
+            h32 = torch.tanh(e[:, :, None] + p[:, None]).reshape(-1, H_)
+            gd2 = gd.reshape(-1, n)
+            lib_prep = lambda: torch.matmul(h32, Wd)  # noqa: E731
+            lib_grad = lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2))  # noqa: E731
+        call_timed("dur_head", f"prep_{case}", lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll),
+                   tanh_bound(ep + head + rows_ * n * 4, rows_ * H_, 1 + n),
+                   lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), lib_prep)
+        call_timed("dur_head", f"grad_{case}", lambda: kjoint.dur_head_grad(e, p, Wd, gd, il, ll),
+                   tanh_bound(2 * ep + 2 * Wd.numel() * 4 + rows_ * n * 4, rows_ * H_, 5 + 2 * n),
+                   lambda: fused_joint.dur_head_grad(e, p, Wd, gd, il, ll), lib_grad)
+        if library:
+            del h32, gd2
 
     def in_shared(case, lpb, extra, arcs):
         """The table instance's plan at this shape (its rings form or its
@@ -2309,19 +2366,31 @@ def many_durations_phase(dev, totals, errs):
         lp = torch.log_softmax(acts, -1)
         labels_u = prep.label_rows(labels, U)
         n_big = acts.numel()
-        for K_ in (9, 2):
+        # K3 past 8 columns (the block's run of rows·K extras) at K = 9
+        # and 16 beside the by-value K = 2, raw and on log-probs: held against
+        # the plain version, then timed beside torch.logsumexp and beside the
+        # torch.gather of the same 2 + K columns.
+        for K_ in (9, 16, 2):
             cols = tuple(range(V - K_, V))
             suffix = f"k{K_}_headline"
-            many_inst = K_ > 8
-            p_names = (("prep_many_tile_kernel", "prep_many_warp_kernel") if many_inst
+            p_names = (("prep_many_tile_kernel", "prep_many_warp_kernel", "prep_many_lp_kernel")
+                       if K_ > 8
                        else ("prep_tile_kernel", "prep_warp_kernel"))
-            g_names = (("grad_many_tile_kernel", "grad_many_warp_kernel") if many_inst
-                       else ("grad_fields_tile_kernel", "grad_fields_warp_kernel"))
+            if K_ > 8:
+                for x, lpi in ((acts, False), (lp, True)):
+                    got = kprep.prepare(x, labels, 0, lpi, extra_cols=cols)
+                    torch.cuda.synchronize()
+                    want = prep.prepare(x, labels, 0, lpi, extra_cols=cols)
+                    for f in ("lpb", "lpe", "extras") + (() if lpi else ("denom",)):
+                        errs["prep"] = max(errs["prep"], compare(
+                            f"prep K={K_} {suffix}{'_log_probs' if lpi else ''} {f}",
+                            getattr(got, f), getattr(want, f), "f32"))
+                    del got, want
             timed("prep", suffix, lambda: kprep.prepare(acts, labels, 0, False, extra_cols=cols),
                   p_names, bound(n_big * 4 + B * L * 4 + (3 + K_) * rows * 4, 4 * n_big,
                                  F32_OPS_PER_S),
                   lambda: prep.prepare(acts, labels, 0, False, extra_cols=cols),
-                  lambda: torch.logsumexp(acts, -1))
+                  lambda: torch.logsumexp(acts, -1), graph_n=50)
             idx = torch.cat([torch.zeros((B, T, U, 1), dtype=torch.long, device=dev),
                              labels_u.long()[:, None, :, None].expand(B, T, U, 1),
                              torch.arange(V - K_, V, device=dev).expand(B, T, U, K_)], -1)
@@ -2329,7 +2398,39 @@ def many_durations_phase(dev, totals, errs):
                   lambda: kprep.prepare(lp, labels, 0, True, extra_cols=cols), p_names,
                   bound(2 * (2 + K_) * rows * 4 + B * L * 4, 0, F32_OPS_PER_S),
                   lambda: prep.prepare(lp, labels, 0, True, extra_cols=cols),
-                  lambda: torch.gather(lp, 3, idx))
+                  lambda: torch.gather(lp, 3, idx), graph_n=50)
+            del idx
+        # Raw K = 9 at long_t's V = 50, where a thread a row of the tile emits
+        # its extras (ops/cuda/rows.py::prep_many_by_row), beside K = 2.
+        _, LB, LT, LL, LV = DURATION_SHAPES[1]
+        lg = torch.Generator(device=dev).manual_seed(39)
+        l_acts = torch.randn((LB, LT, LL + 1, LV), generator=lg, device=dev)
+        l_labels = torch.randint(1, LV - 9, (LB, LL), generator=lg, device=dev,
+                                 dtype=torch.int32)
+        l_rows = LB * LT * (LL + 1)
+        for K_ in (9, 2):
+            cols = tuple(range(LV - K_, LV))
+            run = lambda: kprep.prepare(l_acts, l_labels, 0, False, extra_cols=cols)  # noqa: E731
+            plain_fn = lambda: prep.prepare(l_acts, l_labels, 0, False, extra_cols=cols)  # noqa: E731
+            if K_ > 8:
+                got, want = run(), plain_fn()
+                for f in ("lpb", "lpe", "extras", "denom"):
+                    errs["prep"] = max(errs["prep"], compare(
+                        f"prep K={K_} long_t {f}", getattr(got, f), getattr(want, f), "f32"))
+                del got, want
+            timed("prep", f"k{K_}_long_t", run,
+                  ("prep_many_tile_kernel", "prep_many_warp_kernel") if K_ > 8
+                  else ("prep_tile_kernel", "prep_warp_kernel"),
+                  bound(l_acts.numel() * 4 + LB * LL * 4 + (3 + K_) * l_rows * 4,
+                        4 * l_acts.numel(), F32_OPS_PER_S),
+                  plain_fn, lambda: torch.logsumexp(l_acts, -1), graph_n=5)
+        del l_acts, l_labels
+        torch.cuda.empty_cache()
+        for K_ in (9, 2):
+            cols = tuple(range(V - K_, V))
+            suffix = f"k{K_}_headline"
+            g_names = (("grad_many_tile_kernel", "grad_many_warp_kernel") if K_ > 8
+                       else ("grad_fields_tile_kernel", "grad_fields_warp_kernel"))
             pr = kprep.prepare(acts, labels, 0, False, extra_cols=cols)
             arcs = window.multiblank_arcs(tuple(range(2, 2 + K_)) if K_ > 2 else MB_DURATIONS)
             lat = kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll)
@@ -2351,7 +2452,7 @@ def many_durations_phase(dev, totals, errs):
             timed("window_stream", f"mb_{suffix}",
                   lambda: kwindow.forward_backward(pr.lpb, pr.lpe, pr.extras, arcs, il, ll),
                   table if K_ > 2 else warp, window_bound(pr.lpb, pr.extras, arcs, il, ll))
-            del pr, lat, fields, extra, idx
+            del pr, lat, fields, extra
         p = kprep.prepare(acts, labels, 0, False)
         lpd = torch.log_softmax(dur, -1).contiguous()
         arcs = window.tdt_arcs(WIDEST_TDT)
@@ -2418,17 +2519,24 @@ def many_durations_phase(dev, totals, errs):
                                                  dur_head=(Wd, gd)),
                        bound(2 * in_bytes + 4 * small + rows * n * 4 + 2 * head,
                              6 * rows * FH * FV + 4 * rows * FH * n, TF32X3_OPS_PER_S))
-            ep = (e.numel() + p.numel()) * 4
-            call_timed("dur_head", f"prep_d{n}_{ftag}",
-                       lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll),
-                       tanh_bound(ep + head + rows * n * 4, rows * FH, 1 + n),
-                       lambda: fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll))
-            call_timed("dur_head", f"grad_d{n}_{ftag}",
-                       lambda: kjoint.dur_head_grad(e, p, Wd, gd, il, ll),
-                       tanh_bound(2 * ep + 2 * Wd.numel() * 4 + rows * n * 4, rows * FH,
-                                  5 + 2 * n),
-                       lambda: fused_joint.dur_head_grad(e, p, Wd, gd, il, ll))
-        del problem, e, p, W, f, fields, denom
+            dur_case(f"d{n}_{ftag}", e, p, il, ll, Wd, bias_d, gd, library=n > 8)
+        # K6d past 8 columns in one pass at D = 16 and 33, and at D = 9
+        # at joint width 2048.
+        for n in (16, 33):
+            Wd = torch.randn((FH, n), generator=g, device=dev) / FH ** 0.5
+            bias_d = torch.randn((n,), generator=g, device=dev) * 0.1
+            gd = dur_cotangent(e, p, il, ll, n, g)
+            dur_case(f"d{n}_{ftag}", e, p, il, ll, Wd, bias_d, gd)
+        del problem, e, p, W, f, fields, denom, gd
+        torch.cuda.empty_cache()
+        WH = 2048
+        e = torch.randn((FB, FT, WH), generator=g, device=dev) * 0.5
+        p = torch.randn((FB, FL + 1, WH), generator=g, device=dev) * 0.5
+        Wd = torch.randn((WH, 9), generator=g, device=dev) / WH ** 0.5
+        bias_d = torch.randn((9,), generator=g, device=dev) * 0.1
+        dur_case(f"d9_{ftag}_h{WH}", e, p, il, ll, Wd, bias_d, dur_cotangent(e, p, il, ll, 9, g),
+                 library=True)
+        del e, p, Wd, bias_d
     torch.cuda.empty_cache()
     print(f"many durations phase: {time.perf_counter() - started:.1f} s")
     return timings, launches, train
@@ -4822,8 +4930,9 @@ def main():
     def timing(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1], "library_ms": t["library_ms"]} | {
-                    k: t[k] for k in ("device_ms", "kernel_device_ms", "chain_floor_ms",
-                                      "step_instructions", "registers") if k in t}
+                    k: t[k] for k in ("device_ms", "kernel_device_ms", "timed_by",
+                                      "chain_floor_ms", "step_instructions", "registers")
+                    if k in t}
 
     kernels = []
     for k, (source, replaces) in sources.items():

@@ -1,15 +1,18 @@
 """Time the standalone duration-head kernels (csrc/dur_head.cu) on one GPU.
 
-    python scripts/time_dur_head.py [--root DIR] [--iters N]
+    python scripts/time_dur_head.py [--root DIR] [--iters N] [--heads D[@H] ...]
 
-At the fused TDT shape of chip_smoke.py (B=64, T=150, L=20, H=256, D=4,
-f32; e, p and the lengths made from the same seed as its kernel timings, so
-0.564 of the cells are valid; g_dur random, zero outside the lattice) it times
-``dur_head_prep`` and ``dur_head_grad`` and prints, for each:
+At the fused TDT shape of chip_smoke.py (B=64, T=150, L=20, H=256, f32; e,
+p and the lengths made from the same seed as its kernel timings, so 0.564
+of the cells are valid; g_dur random, zero outside the lattice) it times
+``dur_head_prep`` and ``dur_head_grad`` for each head of ``--heads`` (D
+columns, at joint width H where given: by default D = 4, 9, 16, 33 and 9 at
+H = 2048) and prints, for each:
 
 * ``kernel_ms``: the profiler's device time of the kernels themselves a
-  call (the prep kernel; the gradient kernel and the kernel that adds its
-  partials), over the launches of the first, and each one's ms a launch;
+  call (the prep kernel; the gradient kernel and the kernels that add its
+  partials), over the launches of the first one found, and each one's ms a
+  launch;
 * ``device_ms``: every kernel the call launches (the wrapper's running sums
   of the lengths, zero fills);
 * ``ms``: CUDA events over ``--iters`` calls after warm-up (host work too);
@@ -33,9 +36,13 @@ from pathlib import Path
 
 import torch
 
-B, T, L, V, H, D = 64, 150, 20, 5000, 256, 4
+B, T, L, V, H = 64, 150, 20, 5000, 256
+HEADS = ("4", "9", "16", "33", "9@2048")
+# The kernels of a call, its main kernel first (the gradient's instance past
+# 8 columns, or an earlier tree's by-value or grouped one).
 KERNELS = {"prep": ("dur_prep_kernel",),
-           "grad": ("dur_grad_kernel", "dur_sums_kernel", "sum_parts_kernel")}
+           "grad": ("dur_grad_many_kernel", "dur_grad_kernel", "dur_sums_kernel",
+                    "sum_parts_kernel")}
 
 
 def time_ms(fn, iters):
@@ -71,13 +78,14 @@ def profile(fn, iters=20):
 
 def kernel_ms(fn, names, iters=20):
     """(device ms a call of the named kernels that the call launches: their
-    time over the launches of the first, once a call, so a dropped record
-    does not read as a shorter call; {name: ms a launch}), or (None, {})."""
+    time over the launches of the first of them found, once a call, so a
+    dropped record does not read as a shorter call; {name: ms a launch}), or
+    (None, {})."""
     rec = profile(fn, iters)
-    if names[0] not in rec:
-        return None, {}
     ours = {n: rec[n] for n in names if n in rec}
-    return (sum(ms for ms, _ in ours.values()) / rec[names[0]][1],
+    if not ours:
+        return None, {}
+    return (sum(ms for ms, _ in ours.values()) / next(iter(ours.values()))[1],
             {n: ms / k for n, (ms, k) in ours.items()})
 
 
@@ -102,7 +110,7 @@ def graph_ms(fn, n=100):
     return ms
 
 
-def problem(dev):
+def problem(dev, D, H):
     """chip_smoke.make_joint_problem's draws (seed 15) and make_dur_head's
     (seed 16), then g_dur."""
     g = torch.Generator(device=dev).manual_seed(15)
@@ -129,6 +137,8 @@ def main():
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                         help="checkout whose warp_transducer_tpu_torch is timed")
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--heads", nargs="+", default=HEADS,
+                        help="duration heads: D columns, or D@H at joint width H")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_dur_head.py: no CUDA device is visible")
@@ -139,26 +149,33 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}; package {args.root}")
-    e, p, Wd, bias_d, g_dur, il, ll = problem(dev)
-    rows = int((il.long() * (ll.long() + 1)).sum())
-    h32 = torch.tanh(e[:, :, None] + p[:, None]).reshape(-1, H)
-    gd2 = g_dur.reshape(-1, D)
-    calls = {
-        "prep": (lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll),
-                 lambda: torch.matmul(h32, Wd)),
-        "grad": (lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll),
-                 lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2))),
-    }
-    result = {"card": smi, "root": args.root, "valid_rows": rows}
-    for name, (fn, lib_fn) in calls.items():
-        alone, launches = kernel_ms(fn, KERNELS[name])
-        r = {"kernel_ms": alone, "launch_ms": launches, "device_ms": device_ms(fn),
-             "ms": time_ms(fn, args.iters), "library_graph_ms": graph_ms(lib_fn),
-             "library_device_ms": device_ms(lib_fn)}
-        result[name] = r
-        print(f"{name}: kernel {r['kernel_ms']} ms | device {r['device_ms']} ms | event "
-              f"{r['ms']:.4f} ms | library {r['library_graph_ms']:.4f} ms (graph), "
-              f"{r['library_device_ms']} ms (profiler); a launch {r['launch_ms']}")
+    result = {"card": smi, "root": args.root}
+    for head in args.heads:
+        D, _, width = head.partition("@")
+        D, Hh = int(D), int(width or H)
+        e, p, Wd, bias_d, g_dur, il, ll = problem(dev, D, Hh)
+        rows = int((il.long() * (ll.long() + 1)).sum())
+        h32 = torch.tanh(e[:, :, None] + p[:, None]).reshape(-1, Hh)
+        gd2 = g_dur.reshape(-1, D)
+        calls = {
+            "prep": (lambda: kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll),
+                     lambda: torch.matmul(h32, Wd)),
+            "grad": (lambda: kjoint.dur_head_grad(e, p, Wd, g_dur, il, ll),
+                     lambda: (torch.matmul(gd2, Wd.t()), torch.matmul(h32.t(), gd2))),
+        }
+        out = result[f"D{D}_H{Hh}"] = {"valid_rows": rows}
+        for name, (fn, lib_fn) in calls.items():
+            alone, launches = kernel_ms(fn, KERNELS[name])
+            r = {"kernel_ms": alone, "launch_ms": launches, "device_ms": device_ms(fn),
+                 "ms": time_ms(fn, args.iters), "library_graph_ms": graph_ms(lib_fn),
+                 "library_device_ms": device_ms(lib_fn)}
+            out[name] = r
+            print(f"D={D} H={Hh} {name}: kernel {r['kernel_ms']} ms | device {r['device_ms']} ms"
+                  f" | event {r['ms']:.4f} ms | library {r['library_graph_ms']:.4f} ms (graph), "
+                  f"{r['library_device_ms']} ms (profiler); a launch {r['launch_ms']}",
+                  flush=True)
+        del e, p, h32, gd2, g_dur, calls
+        torch.cuda.empty_cache()
     print(json.dumps(result))
 
 

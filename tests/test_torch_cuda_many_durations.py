@@ -10,11 +10,14 @@ its plain PyTorch version on the card at small shapes:
   arc) and its pending form (alpha's pending window), the rings in shared
   memory and, where they pass a block, in device memory, in passes at a
   long U;
-* K6c/K6d (csrc/dur_head.cu) in groups of 8 columns at D = 9, 17 and 33;
+* K6c (csrc/dur_head.cu) in groups of 8 columns and K6d in one pass
+  (dur_grad_many_kernel) at D = 9, 16, 17 and 33 and at H = 2048, and K6d
+  with its sums of dWd in device memory (D = 350);
 * K6a/K6b (csrc/joint_prep.cu, joint_grad.cu) with K = 9 and 16 extra
   columns and with a duration head of D = 9 and 33;
 * the public losses at D = 9 and K = 9 under the launch counters: the
-  kernels run, never the plain versions.
+  kernels run, never the plain versions; the multi-blank loss with nine
+  big blanks on log-probs (the binding) and ``multiblank_viterbi_align``.
 
 Every test needs a CUDA device and skips without one (the ``dev`` fixture
 decides while the test runs). On a machine with an H100:
@@ -184,10 +187,11 @@ def test_window_table_reproducible_emit_arcs(dev, form):
 
 # ---- K6c/K6d and K6a/K6b past eight columns -------------------------------------------------
 
-@pytest.mark.parametrize("D", [9, 17, 33])
-def test_dur_head_groups(dev, D):
-    B, T, U, H = 3, 9, 5, 200
-    e, p, _, _, Wd, bias_d, _, il, ll = _problem(B, T, U, 40, H, 0, D, seed=D, device=dev)
+def _dur_head_case(dev, B, T, U, H, D, seed):
+    """K6c and K6d against their plain versions: the prep at f32 1e-5, each
+    gradient at a relative norm of 1e-4 and elementwise within 1e-3 of its
+    median nonzero |g|; two calls of the gradient bit-equal."""
+    e, p, _, _, Wd, bias_d, _, il, ll = _problem(B, T, U, 40, H, 0, D, seed=seed, device=dev)
     got = kjoint.dur_head_prep(e, p, Wd, bias_d, il, ll)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, fused_joint.dur_head_prep(e, p, Wd, bias_d, il, ll), **F32)
@@ -199,7 +203,31 @@ def test_dur_head_groups(dev, D):
     want = fused_joint.dur_head_grad(e, p, Wd, gd, il, ll)
     for name, g, w, a in zip(("de2", "dp2", "dWd"), got, want, again):
         assert _rel(g, w) <= 1e-4, (name, _rel(g, w))
+        atol = 1e-3 * float(w.abs()[w != 0].median())
+        assert float((g - w).abs().max()) <= atol, (name, float((g - w).abs().max()), atol)
         assert torch.equal(g, a), name  # no atomics
+
+
+@pytest.mark.parametrize("D,H", [(9, 200), (16, 200), (17, 200), (33, 200), (9, 2048)])
+def test_dur_head_groups(dev, D, H):
+    """Past 8 columns: the prep in groups of 8, the gradient in one pass
+    (its warps' sums of dWd in shared memory)."""
+    assert not kjoint.dur_many_smem(D)[2]
+    _dur_head_case(dev, 3, 9, 5 if H > 256 else 37, H, D, seed=D)
+
+
+def test_dur_head_grad_sums_in_device_memory(dev):
+    """A head so wide that the warps' sums of dWd pass a block's shared
+    memory: they lie in the scratch, Wd is read from device memory."""
+    assert kjoint.dur_many_smem(350)[2]
+    _dur_head_case(dev, 2, 6, 5, 40, 350, seed=350)
+
+
+def test_dur_part_floats_matches_its_mirror(dev):
+    for B, T, U, H in ((3, 9, 5, 200), (64, 150, 21, 256), (2, 6, 5, 40), (4, 7, 300, 2048)):
+        for D in list(range(1, 80)) + [300, 344, 345, 350, 1000]:
+            assert K.lib().wtt_dur_head_part_floats(B, T, U, H, D) == \
+                kjoint.dur_part_floats(B, T, U, H, D), (B, T, U, H, D)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -270,3 +298,45 @@ def test_losses_run_the_kernels(dev):
     torch.testing.assert_close(total, want, rtol=1e-5, atol=1e-4)
     for g, w in zip(grads, wgrads):
         assert _rel(g, w) <= 1e-4
+
+
+def test_multiblank_nine_big_blanks_on_log_probs_and_alignment(dev):
+    """The binding's multi-blank loss on log-probs with nine big blanks
+    (K3 past 8 columns on log-probs, K7's table instance, grad.cu's sparse
+    mode) against the plain route in f64, and ``multiblank_viterbi_align``
+    (K3 past 8 columns, raw) against its plain route, f32 and f64."""
+    from warp_transducer_tpu_torch.bindings import torch_binding
+    from warp_transducer_tpu_torch.ops import alignment, multiblank
+    rng = np.random.default_rng(19)
+    B, T, U, V = 3, 14, 5, 30
+    big = tuple(range(2, 11))
+    acts = torch.tensor(rng.standard_normal((B, T, U, V)), dtype=torch.float32, device=dev)
+    labels = torch.tensor(rng.integers(1, V - 9, (B, U - 1)), dtype=torch.int32, device=dev)
+    il = torch.tensor([T, T - 3, T - 5], dtype=torch.int32, device=dev)
+    ll = torch.tensor([U - 1, U - 2, 1], dtype=torch.int32, device=dev)
+    lp = torch.log_softmax(acts, -1).requires_grad_(True)
+    K.reset_launches()
+    costs = torch_binding.rnnt_loss_multiblank(lp, labels, il, ll, big, sigma=0.05,
+                                               reduction="none", from_log_probs=True)
+    (grad,) = torch.autograd.grad(costs.sum(), lp)
+    torch.cuda.synchronize()
+    for name in ("prep", "window_stream", "grad_fields"):
+        assert K.launches[name] > 0, (name, dict(K.launches))
+    lp64 = lp.detach().double().requires_grad_(True)
+    want = multiblank._multiblank_costs(lp64, labels, il, ll, big, 0, None, "none", 0.05, 0.0,
+                                        0.0, True, "torch")
+    (wgrad,) = torch.autograd.grad(want.sum(), lp64)
+    torch.testing.assert_close(costs.double(), want.detach(), rtol=1e-5, atol=1e-4)
+    assert _rel(grad.double(), wgrad) <= 1e-4
+    for dtype in (torch.float32, torch.float64):
+        x = acts.to(dtype)
+        K.reset_launches()
+        got = alignment.multiblank_viterbi_align(x, labels, il, ll, big, sigma=0.05)
+        torch.cuda.synchronize()
+        assert K.launches["prep"] == 1, dict(K.launches)
+        ref = alignment.multiblank_viterbi_align(x, labels, il, ll, big, sigma=0.05,
+                                                 implementation="torch")
+        torch.testing.assert_close(got.score, ref.score, rtol=1e-5, atol=1e-5)
+        if dtype == torch.float64:
+            for field in got._fields[1:]:
+                assert torch.equal(getattr(got, field), getattr(ref, field)), field

@@ -7,7 +7,13 @@ Every V from a row shorter than a vector to the large-V shape, both modes
 ``prepare_planned`` where it fits), the four input types, K = 0 and 2
 extra columns, log-prob inputs, a row count that no tile divides, a base
 address off the 16-byte grid (one-element loads), and rows with columns at
--inf (masked tokens). Also the kernel's C planner against
+-inf (masked tokens). Past eight extra columns, the instances of their
+own (``prep_many_*``): K = 9, 16, 17 and 33 in both modes at V = 28, 50
+(tile and warp) and 5000 (warp), raw and on log-probs, f32, f64 and bf16
+(whose outputs are f32), so raw in a tile on both sides of
+``rows.prep_many_by_row`` (a thread a row at V = 50, K = 9 in f32 and up
+to K = 17 in f64; the block's run at V = 28, and at V = 50 from K = 16 in
+f32), and a table longer than the block keeps in shared memory. Also the kernel's C planner against
 ``rows.reduce_plan``. Tolerances as in tests/test_torch_cuda.py (f32 1e-5:
 the kernel's sums and the plain two-pass logsumexp round in another order;
 f64 1e-10; bf16 and f16 inputs compute in f32).
@@ -150,6 +156,47 @@ def test_prep_kernel_both_modes(dev, V, mode, dtype):
     torch.cuda.synchronize()
     assert K.launches["prep"] == before + 1
     _check(got, prep.prepare(acts, labels, 1, False, extra_cols=cols), dtype, False)
+
+
+MANY_CASES = {"V28_tile": (28, R.TILE), "V28_warp": (28, R.WARP), "V50_tile": (50, R.TILE),
+              "V50_warp": (50, R.WARP), "V5000_warp": (5000, R.WARP)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("lpi", [False, True], ids=["acts", "log_probs"])
+@pytest.mark.parametrize("n_cols", [9, 16, 17, 33])
+@pytest.mark.parametrize("case", list(MANY_CASES))
+def test_prep_kernel_many_columns(dev, case, n_cols, lpi, dtype):
+    """Past eight extra columns in each mode: the block's run of rows·K
+    values (16-byte vectors a thread, from wherever a block's run starts),
+    or a thread a row where rows.prep_many_by_row picks it, equals the
+    plain version."""
+    V, mode = MANY_CASES[case]
+    acts, labels = _problem(V, dtype, dev, seed=V + n_cols)
+    if lpi:
+        acts = torch.log_softmax(acts.float(), -1).to(dtype)
+    p = _forced(V, acts.element_size(), mode)
+    cols = _cols(V, n_cols)  # at V = 28, K = 33 wraps: a column may come twice
+    before = K.launches["prep"]
+    got = kprep.prepare_planned(acts, labels, 1, lpi, p, extra_cols=cols)
+    torch.cuda.synchronize()
+    assert K.launches["prep"] == before + 1
+    _check(got, prep.prepare(acts, labels, 1, lpi, extra_cols=cols), dtype, lpi)
+
+
+@pytest.mark.parametrize("lpi", [False, True], ids=["acts", "log_probs"])
+@pytest.mark.parametrize("V", [50, 5000])
+def test_prep_kernel_columns_past_the_shared_table(dev, V, lpi):
+    """4100 columns: the block keeps the table's first 4096 in shared memory
+    and reads the rest from device memory."""
+    acts, labels = _problem(V, torch.float32, dev, seed=V + 4)
+    acts = acts[:1, :5]
+    if lpi:
+        acts = torch.log_softmax(acts, -1)
+    cols = tuple((7 * k) % V for k in range(4100))
+    got = kprep.prepare(acts, labels[:1], 0, lpi, extra_cols=cols)
+    torch.cuda.synchronize()
+    _check(got, prep.prepare(acts, labels[:1], 0, lpi, extra_cols=cols), torch.float32, lpi)
 
 
 def test_prep_kernel_refuses_bad_plans(dev):

@@ -17,9 +17,17 @@ U_b = 1, an utterance without labels or frames, no lengths at all):
   owner and needs no atomic;
 * every column k < H is owned by exactly one block for each b;
 * the shared memory stays within a block's 227 KB (and the 48 KB of static
-  shared memory) for H up to 1024 and U up to 1000.
+  shared memory) for H up to 1024 and U up to 1000;
+* the gradient past 8 columns (dur_grad_many_kernel: units of 4 frames × 4
+  labels, chunks of 4 columns, g_dur staged a step ahead): replayed step by
+  step in float64, every output entry written and equal to its sum taken
+  directly (de2 whole, each split's partials of dp2 and dWd, the warps'
+  sums added in order), every (cell, column) of a step staged by exactly
+  one lane's load; its shared memory and scratch (``dur_part_floats``, the
+  by-value formula unless the warps' sums pass a block) as the C side
+  counts them.
 
-Exact checks, no tolerance.
+Exact checks, no tolerance, but for the replay's float64 sums (1e-12).
 """
 import numpy as np
 import pytest
@@ -153,3 +161,112 @@ def test_shared_memory_within_a_block(H, U):
     grad = 4 * ((1 + J.DUR_GRAD_WARPS) * uc * J.DUR_GRAD_KS
                 + J.DUR_GRAD_WARPS * J.DUR_GRAD_TF * uc * J.DUR_GROUP_D)
     assert max(prep, grad) <= J.dur_smem_bytes() <= min(SMEM_BYTES, 48 * 1024)
+
+
+def _many_grad_replay(e, p, Wd, g, Tb, Ub):
+    """dur_grad_many_kernel's loops in float64, a block (b, column slice,
+    split) and warp at a time, the 32 lanes as a vector: (de2, dp2
+    partials (S, B, U, H), dWd partials (S, B, H, D)), NaN where nothing
+    was written."""
+    B, T, H = e.shape
+    U, D = p.shape[1], Wd.shape[1]
+    W, UC, KS, S = J.DUR_GRAD_WARPS, J.DUR_GRAD_UC, J.DUR_GRAD_KS, J.DUR_GRAD_SPLITS
+    TF, UL, C = J.DUR_MANY_TF, J.DUR_MANY_UL, J.DUR_MANY_C
+    DC, step = J.dur_many_width(D), TF * W * S
+    de = np.full((B, T, H), np.nan)
+    dp = np.full((S, B, U, H), np.nan)
+    dwd = np.full((S, B, H, D), np.nan)
+    lane = np.arange(KS)
+    vals = np.arange(TF * UL * C)  # a step's values: v = q·C + c, lane v % 32
+    assert sorted(v % KS for v in vals) == sorted(list(range(KS)) * (len(vals) // KS))
+    for b in range(B):
+        tb, ub = int(Tb[b]), int(Ub[b])
+        for y in range(-(-H // KS)):
+            k = y * KS + lane
+            kin = k < H
+            kk = np.minimum(k, H - 1)
+            wd = np.where(kin[None, :], Wd[kk].T, 0.0)  # (D, 32)
+            wd = np.concatenate([wd, np.zeros((DC - D, KS))])
+            for z in range(S):
+                acc = np.zeros((W, DC, KS))
+                for u0 in range(0, ub, UC):
+                    nu = min(UC, ub - u0)
+                    nun = -(-nu // UL) * UL
+                    sp = np.zeros((UC, KS))
+                    sp[:nu] = np.where(kin, p[b, u0:u0 + nu][:, kk], 0.0)
+                    sdp = np.zeros((W, UC, KS))
+                    for w in range(W):
+                        for t0 in range(TF * (z * W + w), tb, step):
+                            ev = np.array([np.where(kin, e[b, t0 + f, kk], 0.0) if t0 + f < tb
+                                           else np.zeros(KS) for f in range(TF)])
+                            de_t = np.zeros((TF, KS))
+                            for ul0 in range(0, nun, UL):
+                                q = np.arange(TF * UL)
+                                f_q, j_q = q // UL, q % UL
+                                h = np.tanh(ev[f_q] + sp[ul0 + j_q])  # (16, 32)
+                                dh = np.zeros((TF * UL, KS))
+                                for c0 in range(0, DC, C):
+                                    # the step's staging from its lanes' loads
+                                    t_v, u_v = t0 + vals // C // UL, ul0 + vals // C % UL
+                                    c_v = c0 + vals % C
+                                    ok = (t_v < tb) & (u_v < nu) & (c_v < D)
+                                    gw = np.zeros(len(vals))
+                                    gw[ok] = g[b, t_v[ok], u0 + u_v[ok], c_v[ok]]
+                                    gq = gw.reshape(TF * UL, C)
+                                    dh += gq @ wd[c0:c0 + C]
+                                    acc[w, c0:c0 + C] += gq.T @ h
+                                d = dh * (1.0 - h * h)
+                                np.add.at(de_t, f_q, d)
+                                np.add.at(sdp[w], ul0 + j_q, d)
+                            for f in range(TF):
+                                t = t0 + f
+                                if t < tb:
+                                    sel = kin
+                                    prev = np.zeros(KS) if u0 == 0 else de[b, t, kk]
+                                    de[b, t, k[sel]] = (prev + de_t[f])[sel]
+                    dp[z, b, u0:u0 + nu][:, k[kin]] = sdp[:, :nu].sum(0)[:, kin]
+                # zeros outside the lattice; the warps' sums of dWd in order
+                if z == 0:
+                    de[b, (tb if ub > 0 else 0):, k[kin]] = 0.0
+                dp[z, b, ub:, k[kin]] = 0.0
+                dwd[z, b, k[kin]] = acc.sum(0)[:D].T[kin]
+    return de, dp, dwd
+
+
+@pytest.mark.parametrize("D", [9, 13, 33])
+@pytest.mark.parametrize("case", ["fused_like", "chunk_edges", "T1_U1", "zero_labels_inside",
+                                  "zero_frames", "no_lengths"])
+def test_many_grad_replay_writes_every_entry(case, D):
+    T, U, il, ll = CASES[case]
+    Tb, Ub = _lengths(T, U, il, ll)
+    B, H = len(Tb), 33  # two column slices, the second with one live lane
+    rng = np.random.default_rng(D)
+    e = rng.standard_normal((B, T, H)) * 0.5
+    p = rng.standard_normal((B, U, H)) * 0.5
+    Wd = rng.standard_normal((H, D))
+    g = rng.standard_normal((B, T, U, D)) * _valid(T, U, Tb, Ub)[..., None]
+    de, dp, dwd = _many_grad_replay(e, p, Wd, g, Tb, Ub)
+    assert not (np.isnan(de).any() or np.isnan(dp).any() or np.isnan(dwd).any())
+    h = np.tanh(e[:, :, None, :] + p[:, None, :, :])  # (B, T, U, H)
+    d = (g @ Wd.T) * (1.0 - h * h) * _valid(T, U, Tb, Ub)[..., None]
+    np.testing.assert_allclose(de, d.sum(2), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(dp.sum(0), d.sum(1), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(dwd.sum((0, 1)), np.einsum("btuh,btud->hd", h, g),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_many_shared_memory_and_scratch():
+    """Below the largest D whose warps' sums fit a block, the scratch is the
+    by-value one; past it the sums' slots are added and shared memory holds
+    only the staged g_dur; every launch fits a block."""
+    last = max(D for D in range(9, 2000) if not J.dur_many_smem(D)[2])
+    assert 300 < last < 400
+    for D in list(range(9, 40)) + [last, last + 1, 1000]:
+        static, dyn, in_device = J.dur_many_smem(D)
+        assert static <= 48 * 1024 and static + dyn <= SMEM_BYTES, D
+        assert in_device == (D > last), D
+        for B, T, U, H in ((3, 9, 5, 200), (64, 150, 21, 256), (4, 7, 300, 2048)):
+            by_value = J.DUR_GRAD_SPLITS * B * H * (U + D)
+            slots = J.DUR_GRAD_SPLITS * B * -(-H // J.DUR_GRAD_KS) * J.DUR_GRAD_WARPS \
+                * J.dur_many_width(D) * J.DUR_GRAD_KS
+            assert J.dur_part_floats(B, T, U, H, D) == by_value + (slots if in_device else 0)

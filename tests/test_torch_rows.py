@@ -15,7 +15,11 @@ every element is loaded once and lands in its own slot of its row, every
 element of every row falls in exactly one group's reduction, the vectors
 are aligned, the reads of one warp's step are free of bank conflicts, and
 the group and shared memory stay within the kernel's limits, also for f64
-rows reduced in f32 (the band prep). Exact checks, no tolerance.
+rows reduced in f32 (the band prep). The prep's run past eight extra
+columns (``csrc/prep.cu::ManyPrepOp::emit_run``) is mirrored too: every one
+of a block's rows·K extras is gathered from its own (row, column) and
+stored exactly once, its 16-byte stores aligned wherever the block's run
+starts, within the launch's shared memory. Exact checks, no tolerance.
 """
 import numpy as np
 import pytest
@@ -218,3 +222,72 @@ def test_reduce_plan_groups():
     for bad in ((0, 4), (10, 3)):
         with pytest.raises(ValueError, match="no row plan"):
             R.reduce_plan(*bad)
+
+
+@pytest.mark.parametrize("acc", [4, 8])
+@pytest.mark.parametrize("K", [9, 16, 17, 33, 300, 4100])
+def test_prep_run_stores_every_extra_once(K, acc):
+    """ManyPrepOp::emit_run over a block of nrows rows, its run starting
+    `start` values past a 16-byte boundary of extras: value i comes from row
+    i // K (the multiply-high division), column i % K, also as a vector's
+    values step through the row; it leaves by exactly one scalar store or
+    one 16-byte store, every vector aligned; a thread's vectors are q,
+    q + THREADS, ..., RUN_UNROLL of them loaded before any is stored."""
+    kvec = 16 // acc
+    mul, shr = R.division_magic(K)
+    t = np.arange(R.THREADS)
+    for nrows in (1, 3, R.WARP_ROWS, 73, 146, R.MAX_TILE_ROWS):
+        total = nrows * K
+        for start in range(kvec):
+            head = min(total, (kvec - start) % kvec)
+            nv = (total - head) // kvec
+            tail = head + nv * kvec
+            written = np.zeros(total, np.int64)
+            heads = np.concatenate([t[t < head] + j for j in range(0, head, R.THREADS)]) \
+                if head else np.zeros(0, np.int64)
+            np.add.at(written, heads, 1)
+            q = np.arange(nv)
+            i0 = head + q * kvec
+            assert np.all((start + i0) % kvec == 0)  # aligned in extras
+            r = (i0 * mul >> 32) >> shr
+            np.testing.assert_array_equal(r, i0 // K)
+            k = i0 - r * K
+            for c in range(kvec):  # the vector's values, stepping through the row
+                np.testing.assert_array_equal(r * K + k, i0 + c)
+                np.add.at(written, i0 + c, 1)
+                k = k + 1
+                r = np.where(k == K, r + 1, r)
+                k = np.where(k == K, 0, k)
+            i = tail + np.arange(total - tail)
+            assert len(i) < kvec
+            np.testing.assert_array_equal((i * mul >> 32) >> shr, i // K)
+            np.add.at(written, i, 1)
+            assert written.min() == 1 and written.max() == 1, (nrows, K, start)
+            # a thread's vectors: q0, q0 + THREADS, ... in groups of RUN_UNROLL
+            per_thread = np.bincount(q % R.THREADS, minlength=R.THREADS)
+            assert per_thread.max() <= -(-nv // R.THREADS)
+
+
+def test_prep_run_shared_memory_within_a_block():
+    for V in REDUCE_V:
+        for elt, acc in ((2, 4), (4, 4), (8, 8)):
+            p = R.reduce_plan(V, elt)
+            for reduce in (True, False):
+                offset = R.reduce_run_offset(p, reduce, acc)
+                assert offset % 16 == 0
+                assert offset >= (R.reduce_smem_bytes(p, acc) if reduce else 0)
+                if p.mode == R.WARP and reduce:  # the warps' rows' values
+                    assert offset >= R.WARP_ROWS * acc
+                for K in (9, 33, R.RUN_SHARED_COLS, 10 ** 6):
+                    assert R.reduce_run_smem(p, reduce, acc, K) <= SMEM_BYTES, (V, elt, K)
+
+
+# (V, K, a thread a row) in f32, as scripts/tune_prep.py --many measured the
+# two forms on an H100: a thread a row the faster at V = 50 up to K = 12,
+# V = 100 up to 16 and V = 200 up to 24; the block's run at V = 12 and 28,
+# V = 50 from K = 16 and V = 100 at K = 24; a warp a row always the run.
+@pytest.mark.parametrize("V,K,by_row", [
+    (12, 9, False), (28, 9, False), (28, 16, False), (50, 9, True), (50, 12, True),
+    (50, 16, False), (100, 16, True), (100, 24, False), (200, 24, True), (5000, 9, False)])
+def test_prep_many_by_row_sides(V, K, by_row):
+    assert R.prep_many_by_row(R.reduce_plan(V, 4), K) is by_row

@@ -26,12 +26,16 @@
 // (≈ 0.015 ms there), the FP32 pipe the gradient (≈ 0.02 ms). The design
 // spends nothing on what the arithmetic does not need: no search for a
 // row's place, no shuffles, no atomics, no FMA slots for columns beyond D
-// (D is a template parameter, 1..8). Past 8 columns the kernels run in
-// groups of 8 (instances of their own, kGroup): blockIdx.z takes columns
-// 8·z … 8·z + 7 of a head of D, at run time, with the D = 8 instance's
-// registers; the gradient's groups write partials of de2 and dp2 (their dh
-// is the group's share of g_dur·Wdᵀ, and d enters both linearly) and their
-// own columns of dWd's partials, all added in a fixed order afterwards.
+// (D is a template parameter, 1..8). Past 8 columns the prep runs in groups
+// of 8 (kGroup: blockIdx.z takes columns 8·z … 8·z + 7 of a head of D, at
+// run time, with the D = 8 instance's registers). The gradient past 8 has a
+// kernel of its own, dur_grad_many_kernel, which computes each cell's h once
+// for all D columns: groups of columns on the grid had recomputed the tanh,
+// which binds, in every group, and written a (B, T, H) partial of de2 and
+// (B, U, H) partials of dp2 for each, added by three more launches (0.207 ms
+// at D = 9 where D = 4's kernel took 0.082, NVIDIA H100 80GB HBM3, 700 W).
+// Its bound at D columns: the tanh and 2·D + 5 FP32-pipe instructions a
+// cell and k, as above.
 //
 // Design.
 // * dur_prep_kernel — a tile of cells a block, a thread a cell. The block
@@ -61,6 +65,16 @@
 //   partial; each block writes its partial of dWd; dur_sums_kernel adds the
 //   partials of both in a fixed order, in one launch. No
 //   atomics: de2, dp2 and dWd are bit-reproducible.
+// * dur_grad_many_kernel — the same blocks, frame deal, label chunks, de2
+//   stores, dp2 and dWd partials and sums launch, so its scratch is the
+//   by-value one in D. A warp steps through units of 4 frames × 4 labels:
+//   the unit's 16 h (16 independent tanh chains), then a chunk of 4 columns
+//   at a time Wd[k, chunk] and the warp's sums of dWd[k, chunk] from shared
+//   memory into registers, each cell's 4 values of g_dur a broadcast float4
+//   from the warp's staging (loaded a chunk ahead, coalesced, two values a
+//   lane), dh += g·Wd and sums += h·g, the sums back; then d, de2's and
+//   dp2's sums. Past what a block's shared memory holds (D in the hundreds)
+//   the sums lie in device memory and Wd is read from there.
 #include "joint.cuh"
 
 namespace {
@@ -201,15 +215,12 @@ dur_prep_kernel(const float* __restrict__ e, const float* __restrict__ p,
 // grid (B, ceil(H / 32), kGradSplits): block (b, j, z) owns k = 32·j + lane
 // of utterance b for the frames of split z, and writes split z's partials of
 // dp2 and dWd.
-// kGroup: D = 8 columns of a head of Dfull, the group blockIdx.z /
-// kGradSplits (and the split blockIdx.z % kGradSplits); `de` is then the
-// group's partial of de2 and dp_part holds a partial a group and split.
-template <int D, bool kGroup = false>
+template <int D>
 __global__ void __launch_bounds__(kGradThreads, D <= 6 ? 8 : 7)
 dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
                 const float* __restrict__ Wd, const float* __restrict__ g_dur, Rows rows,
                 float* __restrict__ de, float* __restrict__ dp_part,
-                float* __restrict__ dWd_part, int H, int Dfull = D) {
+                float* __restrict__ dWd_part, int H) {
   constexpr int DP = (D + 3) / 4 * 4;  // a cell's g_dur in shared memory: whole float4
   constexpr int kG = kGradTF * kGradUC * DP;  // a warp's g_dur rows
   constexpr int kL = (kGradUC * D + wtt::kWarp - 1) / wtt::kWarp;  // of a frame, a lane's
@@ -217,10 +228,7 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
   __shared__ float s_dp[kGradWarps][kGradUC][kGradKS];
   extern __shared__ __align__(16) float s_g[];  // kGradWarps × kG
   const int b = blockIdx.x, lane = threadIdx.x % wtt::kWarp, w = threadIdx.x / wtt::kWarp;
-  const int z = kGroup ? (int)blockIdx.z % kGradSplits : (int)blockIdx.z;
-  const int ld = kGroup ? Dfull : D;  // Wd's, g_dur's and dWd's row
-  const int d0 = kGroup ? (int)blockIdx.z / kGradSplits * D : 0;
-  const int nd = kGroup ? min(D, Dfull - d0) : D;
+  const int z = blockIdx.z;
   const int k = blockIdx.y * kGradKS + lane;
   const bool kin = k < H;
   const int T = rows.T, U = rows.U;
@@ -229,14 +237,12 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
   float wd[D], acc[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    wd[c] = kin && c < nd ? Wd[k * ld + d0 + c] : 0.f;
+    wd[c] = kin ? Wd[k * D + c] : 0.f;
     acc[c] = 0.f;
   }
   const long long eb = (long long)b * T * H + k;  // e[b, 0, k], de[b, 0, k]
   const long long pb = (long long)b * U * H + k;  // p[b, 0, k]
-  if (kGroup) de += (long long)(blockIdx.z / kGradSplits) * rows.B * T * H;  // the group's
-  // This split's partial of dp2 (with groups: this group's and split's).
-  float* dp = dp_part + (long long)(kGroup ? (int)blockIdx.z : z) * rows.B * U * H;
+  float* dp = dp_part + (long long)z * rows.B * U * H;  // this split's partial of dp2
   float* g_w = s_g + w * kG;
 
   for (int u0 = 0; u0 < Ub; u0 += kGradUC) {
@@ -260,16 +266,11 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
       for (int f = 0; f < kGradTF; ++f) {
         const int t = first + f;
         e_next[f] = kin && t < Tb ? e[eb + (long long)t * H] : 0.f;
-        const float* g = g_dur + (((long long)b * T + t) * U + u0) * ld + d0;
+        const float* g = g_dur + (((long long)b * T + t) * U + u0) * D;
 #pragma unroll
         for (int i = 0; i < kL; ++i) {
           const int idx = lane + i * wtt::kWarp;
-          if constexpr (kGroup)  // the group's columns of each cell
-            g_next[f][i] = t < Tb && idx < nu * D && idx % D < nd
-                               ? __ldg(g + (long long)(idx / D) * ld + idx % D)
-                               : 0.f;
-          else
-            g_next[f][i] = t < Tb && idx < nu * D ? __ldg(g + idx) : 0.f;
+          g_next[f][i] = t < Tb && idx < nu * D ? __ldg(g + idx) : 0.f;
         }
       }
     };
@@ -361,7 +362,218 @@ dur_grad_kernel(const float* __restrict__ e, const float* __restrict__ p,
       float s = red[lane * D + c];
 #pragma unroll
       for (int x = 1; x < kGradWarps; ++x) s += red[(x * kGradKS + lane) * D + c];
-      if (c < nd) dWd_part[(((long long)z * rows.B + b) * H + k) * ld + d0 + c] = s;
+      dWd_part[(((long long)z * rows.B + b) * H + k) * D + c] = s;
+    }
+  }
+}
+
+// ---- the gradient past 8 columns --------------------------------------------
+
+constexpr int kManyTF = 4;  // frames of a unit
+constexpr int kManyUL = 4;  // labels of a unit
+constexpr int kManyCells = kManyTF * kManyUL;
+constexpr int kManyC = 4;   // columns of a chunk (one float4 of a cell's g_dur)
+constexpr int kManyLane = kManyCells * kManyC / wtt::kWarp;  // a lane's loads of a step
+static_assert(kManyCells * kManyC % wtt::kWarp == 0, "a step's g_dur is whole lanes' loads");
+static_assert(kGradUC % kManyUL == 0, "a label chunk is whole units");
+
+// Columns of the sums and of Wd's slice: D up to whole chunks.
+__host__ __device__ inline int many_width(int D) { return (D + kManyC - 1) / kManyC * kManyC; }
+// The kernel's dynamic shared memory: the warps' staged g_dur, and the
+// warps' sums and Wd's slice unless they lie in device memory.
+inline size_t many_smem(int D, bool global) {
+  const size_t g = sizeof(float) * (size_t)kGradWarps * kManyCells * kManyC;
+  return global ? g : g + sizeof(float) * (size_t)(kGradWarps + 1) * many_width(D) * kGradKS;
+}
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
+constexpr size_t kManyStatic = sizeof(float) * (size_t)(1 + kGradWarps) * kGradUC * kGradKS;
+// Where the sums lie: in shared memory while a block holds them.
+inline bool many_global(int D) { return kManyStatic + many_smem(D, false) > kMaxSmem; }
+
+// grid (B, ceil(H / 32), kGradSplits), as dur_grad_kernel: block (b, j, z)
+// owns k = 32·j + lane of utterance b for the frames of split z and writes
+// split z's partials of dp2 and dWd, and de2 of its frames whole. One pass
+// over the cells for all D columns: a warp takes units of kManyTF frames ×
+// kManyUL labels, computes the unit's 16 h and, a chunk of kManyC columns at
+// a time, adds each cell's g·Wd into its dh and h·g into the warp's dWd sums
+// (Wd's and the sums' chunk in registers, the cells' g broadcast from the
+// warp's staging, loaded a chunk ahead). kGlobal: the warps' sums in device
+// memory (acc_g) and Wd read from device memory, for a head whose sums pass
+// a block's shared memory (many_smem).
+template <bool kGlobal>
+__global__ void __launch_bounds__(kGradThreads, 4)
+dur_grad_many_kernel(const float* __restrict__ e, const float* __restrict__ p,
+                     const float* __restrict__ Wd, const float* __restrict__ g_dur, Rows rows,
+                     float* __restrict__ de, float* __restrict__ dp_part,
+                     float* __restrict__ dWd_part, float* __restrict__ acc_g, int H, int D) {
+  __shared__ float s_p[kGradUC][kGradKS];
+  __shared__ float s_dp[kGradWarps][kGradUC][kGradKS];
+  extern __shared__ __align__(16) float s_many[];  // sums, Wd's slice, the warps' g
+  const int DC = many_width(D);
+  const int b = blockIdx.x, lane = threadIdx.x % wtt::kWarp, w = threadIdx.x / wtt::kWarp;
+  const int z = blockIdx.z;
+  const int k = blockIdx.y * kGradKS + lane;
+  const bool kin = k < H;
+  const int T = rows.T, U = rows.U;
+  int Tb, Ub;
+  lattice(rows, b, Tb, Ub);
+  // The warp's sums of dWd[k, c] at [c · 32 + lane], Wd[k, c] likewise.
+  float* acc;
+  float* s_wd = s_many + kGradWarps * DC * kGradKS;
+  float* g_w = s_many + (kGlobal ? 0 : (kGradWarps + 1) * DC * kGradKS) + w * kManyCells * kManyC;
+  if constexpr (kGlobal) {
+    acc = acc_g +
+          ((((long long)z * rows.B + b) * gridDim.y + blockIdx.y) * kGradWarps + w) * DC * kGradKS;
+  } else {
+    acc = s_many + w * DC * kGradKS;
+    for (int i = threadIdx.x; i < DC * kGradKS; i += kGradThreads) {
+      const int c = i / kGradKS, kk = blockIdx.y * kGradKS + i % kGradKS;
+      s_wd[i] = kk < H && c < D ? Wd[(long long)kk * D + c] : 0.f;
+    }
+  }
+  acc += lane;
+  for (int c = 0; c < DC; ++c) acc[c * kGradKS] = 0.f;
+  auto wd_at = [&](int c) {
+    if constexpr (kGlobal) return kin && c < D ? __ldg(Wd + (long long)k * D + c) : 0.f;
+    else return s_wd[c * kGradKS + lane];
+  };
+  const long long eb = (long long)b * T * H + k;  // e[b, 0, k], de[b, 0, k]
+  const long long pb = (long long)b * U * H + k;  // p[b, 0, k]
+  float* dp = dp_part + (long long)z * rows.B * U * H;  // this split's partial of dp2
+  const float* gb = g_dur + (long long)b * T * U * D;  // utterance b's g_dur
+  constexpr int kStep = kManyTF * kGradWarps * kGradSplits;  // frames between a warp's units
+
+  for (int u0 = 0; u0 < Ub; u0 += kGradUC) {
+    // The chunk's labels in units of kManyUL: the last unit's padding labels
+    // have p and g_dur zero, so they add nothing anywhere.
+    const int nu = min(kGradUC, Ub - u0), nun = (nu + kManyUL - 1) / kManyUL * kManyUL;
+    for (int ul = w; ul < nun; ul += kGradWarps) {
+      s_p[ul][lane] = kin && ul < nu ? p[pb + (long long)(u0 + ul) * H] : 0.f;
+#pragma unroll
+      for (int x = 0; x < kGradWarps; ++x) s_dp[x][ul][lane] = 0.f;
+    }
+    __syncthreads();
+    float* part = &s_dp[w][0][lane];
+    // A step is a unit's chunk of columns: its 16 cells × kManyC values of
+    // g_dur, value v = q · kManyC + c (cell q, column c) staged at g_w[v]
+    // and loaded by lane v % 32 a step ahead into registers (zeros at or
+    // beyond T_b, nu and D).
+    float g_next[kManyLane];
+    auto fetch = [&](int t0, int ul0, int c0) {
+#pragma unroll
+      for (int i = 0; i < kManyLane; ++i) {
+        const int v = lane + i * wtt::kWarp, q = v / kManyC;
+        const int t = t0 + q / kManyUL, u = ul0 + q % kManyUL, c = c0 + v % kManyC;
+        g_next[i] = t < Tb && u < nu && c < D
+                        ? __ldg(gb + ((long long)t * U + u0 + u) * D + c) : 0.f;
+      }
+    };
+    int t0 = kManyTF * (z * kGradWarps + w);
+    if (t0 < Tb) fetch(t0, 0, 0);
+    for (; t0 < Tb; t0 += kStep) {
+      float ev[kManyTF], de_t[kManyTF];
+#pragma unroll
+      for (int f = 0; f < kManyTF; ++f) {
+        ev[f] = kin && t0 + f < Tb ? e[eb + (long long)(t0 + f) * H] : 0.f;
+        de_t[f] = 0.f;
+      }
+      for (int ul0 = 0; ul0 < nun; ul0 += kManyUL) {
+        float h[kManyCells], dh[kManyCells];  // cell q = f · kManyUL + j
+#pragma unroll
+        for (int j = 0; j < kManyUL; ++j) {
+          const float pv = s_p[ul0 + j][lane];
+#pragma unroll
+          for (int f = 0; f < kManyTF; ++f) {
+            h[f * kManyUL + j] = tanhf(ev[f] + pv);
+            dh[f * kManyUL + j] = 0.f;
+          }
+        }
+        for (int c0 = 0; c0 < DC; c0 += kManyC) {
+          __syncwarp();  // the last step's g_dur consumed
+#pragma unroll
+          for (int i = 0; i < kManyLane; ++i) g_w[lane + i * wtt::kWarp] = g_next[i];
+          __syncwarp();
+          {  // the next step's g_dur, while this one computes
+            int tn = t0, un = ul0, cn = c0 + kManyC;
+            if (cn == DC) {
+              cn = 0;
+              un += kManyUL;
+              if (un == nun) {
+                un = 0;
+                tn += kStep;
+              }
+            }
+            if (tn < Tb) fetch(tn, un, cn);
+          }
+          float wd[kManyC], a[kManyC];
+#pragma unroll
+          for (int c = 0; c < kManyC; ++c) {
+            wd[c] = wd_at(c0 + c);
+            a[c] = acc[(c0 + c) * kGradKS];
+          }
+#pragma unroll
+          for (int q = 0; q < kManyCells; ++q) {
+            const float4 g = *reinterpret_cast<const float4*>(g_w + q * kManyC);
+            const float gv[kManyC] = {g.x, g.y, g.z, g.w};
+            float s = dh[q];
+#pragma unroll
+            for (int c = 0; c < kManyC; ++c) s = fmaf(gv[c], wd[c], s);
+            dh[q] = s;
+#pragma unroll
+            for (int c = 0; c < kManyC; ++c) a[c] = fmaf(h[q], gv[c], a[c]);
+          }
+#pragma unroll
+          for (int c = 0; c < kManyC; ++c) acc[(c0 + c) * kGradKS] = a[c];
+        }
+        float dsum[kManyUL];
+#pragma unroll
+        for (int j = 0; j < kManyUL; ++j) dsum[j] = 0.f;
+#pragma unroll
+        for (int f = 0; f < kManyTF; ++f)
+#pragma unroll
+          for (int j = 0; j < kManyUL; ++j) {
+            const float hq = h[f * kManyUL + j];
+            const float d = dh[f * kManyUL + j] * (1.f - hq * hq);
+            de_t[f] += d;
+            dsum[j] += d;
+          }
+#pragma unroll
+        for (int j = 0; j < kManyUL; ++j) part[(ul0 + j) * kGradKS] += dsum[j];
+      }
+#pragma unroll
+      for (int f = 0; f < kManyTF; ++f) {
+        if (kin && t0 + f < Tb) {
+          float* dst = de + eb + (long long)(t0 + f) * H;
+          *dst = u0 == 0 ? de_t[f] : *dst + de_t[f];
+        }
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nu * kGradKS; idx += kGradThreads) {
+      const int ul = idx / kGradKS, l = idx % kGradKS;
+      float s = s_dp[0][ul][l];
+#pragma unroll
+      for (int x = 1; x < kGradWarps; ++x) s += s_dp[x][ul][l];
+      if (blockIdx.y * kGradKS + l < H)
+        dp[(long long)b * U * H + (long long)(u0 + ul) * H + blockIdx.y * kGradKS + l] = s;
+    }
+    __syncthreads();  // s_p and s_dp consumed before the next chunk
+  }
+  // Outside the lattice: zeros (every frame when the utterance has no
+  // label); each split zeroes its partial of dp2, the first one de2.
+  if (kin) {
+    if (z == 0)
+      for (int t = (Ub > 0 ? Tb : 0) + w; t < T; t += kGradWarps) de[eb + (long long)t * H] = 0.f;
+    for (int u = Ub + w; u < U; u += kGradWarps) dp[pb + (long long)u * H] = 0.f;
+  }
+  // The warps' sums of dWd, added in the order of the warps.
+  __syncthreads();
+  if (w == 0 && kin) {
+    for (int c = 0; c < D; ++c) {
+      float s = acc[c * kGradKS];
+#pragma unroll
+      for (int x = 1; x < kGradWarps; ++x) s += acc[(x * DC + c) * kGradKS];
+      dWd_part[(((long long)z * rows.B + b) * H + k) * D + c] = s;
     }
   }
 }
@@ -415,37 +627,56 @@ dur_sums_kernel(const float* __restrict__ dp_part, float* __restrict__ dp, long 
   }
 }
 
-template <int D>
-int launch_grad(const float* e, const float* p, const float* Wd, const float* g_dur, Rows rows,
-                float* de, float* dp, float* dWd, float* part, int H, cudaStream_t stream) {
+// The gradient's scratch `part` (dur_part_floats): kGradSplits partials of
+// dp2, (B, U, H) each, then of dWd, (B, H, D) each, then (past 8 columns,
+// where a block's shared memory does not hold them) the warps' sums of dWd.
+struct Parts {
+  long long n_dp;
+  float *dp, *dWd, *sums;
+};
+inline Parts parts(float* part, Rows rows, int H, int D) {
   const long long n_dp = (long long)rows.B * rows.U * H;
-  float* dp_part = part;                             // kGradSplits × (B, U, H)
-  float* dWd_part = part + kGradSplits * n_dp;       // kGradSplits × (B, H, D)
-  if (rows.B > 0) {
-    const dim3 grid(rows.B, (H + kGradKS - 1) / kGradKS, kGradSplits);
-    dur_grad_kernel<D><<<grid, kGradThreads, grad_g_smem(D), stream>>>(
-        e, p, Wd, g_dur, rows, de, dp_part, dWd_part, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int dp_blocks = (int)((n_dp + kSumThreads - 1) / kSumThreads);
-  const int dwd_blocks = (H * D + wtt::kWarp - 1) / wtt::kWarp;
+  float* dWd = part + kGradSplits * n_dp;
+  return Parts{n_dp, part, dWd, dWd + (long long)kGradSplits * rows.B * H * D};
+}
+
+// dp2 and dWd from the partials, after the gradient kernel.
+int launch_sums(const Parts& s, Rows rows, float* dp, float* dWd, int H, int D,
+                cudaStream_t stream) {
+  const int dp_blocks = (int)((s.n_dp + kSumThreads - 1) / kSumThreads);
+  const int dwd_blocks = (int)(((long long)H * D + wtt::kWarp - 1) / wtt::kWarp);
   dur_sums_kernel<<<dp_blocks + dwd_blocks, kSumThreads, 0, stream>>>(
-      dp_part, dp, n_dp, dWd_part, dWd, H * D, kGradSplits * rows.B, dp_blocks);
+      s.dp, dp, s.n_dp, s.dWd, dWd, H * D, kGradSplits * rows.B, dp_blocks);
   return (int)cudaGetLastError();
 }
 
-// Past 8 columns: groups of 8 (the kGroup instances of D = 8). The prep's
-// grid takes a third dimension of groups; the gradient's partials (part, as
-// dur_part_floats counts them): dp2 a group and split, de2 a group, dWd a
-// split and utterance (each group its columns), added in that order.
+template <int D>
+int launch_grad(const float* e, const float* p, const float* Wd, const float* g_dur, Rows rows,
+                float* de, float* dp, float* dWd, float* part, int H, cudaStream_t stream) {
+  const Parts s = parts(part, rows, H, D);
+  if (rows.B > 0) {
+    const dim3 grid(rows.B, (H + kGradKS - 1) / kGradKS, kGradSplits);
+    dur_grad_kernel<D><<<grid, kGradThreads, grad_g_smem(D), stream>>>(
+        e, p, Wd, g_dur, rows, de, s.dp, s.dWd, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_sums(s, rows, dp, dWd, H, D, stream);
+}
+
+// Past 8 columns the prep runs in groups of 8 (the kGroup instances of D =
+// 8, the group on the grid's third dimension); the gradient in one pass
+// (dur_grad_many_kernel), its scratch laid out as Parts says.
 constexpr int kGroupD = 8;
 inline int groups(int D) { return (D + kGroupD - 1) / kGroupD; }
 
 long long dur_part_floats(int B, int T, int U, int H, int D) {
   const long long bh = (long long)B * H;
-  if (D <= kPanel) return kGradSplits * (bh * U + bh * D);
-  return groups(D) * (kGradSplits * bh * U + bh * T) + kGradSplits * bh * D;
+  const long long sums = D > kPanel && many_global(D)
+                             ? (long long)kGradSplits * B * ((H + kGradKS - 1) / kGradKS) *
+                                   kGradWarps * many_width(D) * kGradKS
+                             : 0;
+  return kGradSplits * (bh * U + bh * D) + sums;
 }
 
 int launch_prep_groups(const float* e, const float* p, const float* Wd, const float* bias_d,
@@ -460,27 +691,26 @@ int launch_prep_groups(const float* e, const float* p, const float* Wd, const fl
   return (int)cudaGetLastError();
 }
 
-int launch_grad_groups(const float* e, const float* p, const float* Wd, const float* g_dur,
-                       Rows rows, float* de, float* dp, float* dWd, float* part, int H, int D,
-                       cudaStream_t stream) {
-  const int ng = groups(D);
-  const long long n_dp = (long long)rows.B * rows.U * H, n_de = (long long)rows.B * rows.T * H;
-  float* dp_part = part;                                // (group, split) × (B, U, H)
-  float* de_part = dp_part + (long long)ng * kGradSplits * n_dp;  // group × (B, T, H)
-  float* dWd_part = de_part + ng * n_de;                // (split, b) × (H, D)
+int launch_grad_many(const float* e, const float* p, const float* Wd, const float* g_dur,
+                     Rows rows, float* de, float* dp, float* dWd, float* part, int H, int D,
+                     cudaStream_t stream) {
+  const Parts s = parts(part, rows, H, D);
   if (rows.B > 0) {
-    if ((long long)ng * kGradSplits > 65535) return (int)cudaErrorInvalidValue;
-    const dim3 grid(rows.B, (H + kGradKS - 1) / kGradKS, ng * kGradSplits);
-    dur_grad_kernel<kGroupD, true><<<grid, kGradThreads, grad_g_smem(kGroupD), stream>>>(
-        e, p, Wd, g_dur, rows, de_part, dp_part, dWd_part, H, D);
+    const bool global = many_global(D);
+    const size_t smem = many_smem(D, global);
+    const auto kernel = global ? dur_grad_many_kernel<true> : dur_grad_many_kernel<false>;
+    if (smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid(rows.B, (H + kGradKS - 1) / kGradKS, kGradSplits);
+    kernel<<<grid, kGradThreads, smem, stream>>>(e, p, Wd, g_dur, rows, de, s.dp, s.dWd, s.sums,
+                                                 H, D);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err = sum_parts(dp_part, dp, n_dp, ng * kGradSplits, stream);
-  if (err == cudaSuccess) err = sum_parts(de_part, de, n_de, ng, stream);
-  if (err == cudaSuccess)
-    err = sum_parts(dWd_part, dWd, (long long)H * D, kGradSplits * rows.B, stream);
-  return (int)err;
+  return launch_sums(s, rows, dp, dWd, H, D, stream);
 }
 
 // The switch over D = 1..8 of the two launches.
@@ -510,8 +740,8 @@ template <int D> struct GradByD {
 extern "C" {
 
 // Shared memory of a block of the larger of the two kernels (at D = 8, as
-// the groups of a larger head take; it does not depend on H or U), for the
-// mirror in ops/cuda/joint.py.
+// the prep's groups of a wider head take; it does not depend on H or U), for
+// the mirror in ops/cuda/joint.py.
 long long wtt_dur_head_smem() {
   return (long long)(kPrepSmem > kGradSmem ? kPrepSmem : kGradSmem);
 }
@@ -550,10 +780,10 @@ int wtt_dur_head_prep(const void* e, const void* p, const void* Wd, const void* 
 // The inputs of wtt_dur_head_prep with g_dur: (B,T,U,D) f32, zero outside
 // the lattice, in place of bias_d. de: (B,T,H) f32 and dp: (B,U,H) f32,
 // written whole (zeros outside the lattice); dWd: (H,D) f32, written whole;
-// part: f32 scratch of wtt_dur_head_part_floats values (D <= 8:
-// 2·B·(U·H + H·D), a partial of dp and of dWd an utterance and frame split;
-// past 8, the groups' partials too). Every base 16-byte aligned. Returns the
-// launches' cudaError_t.
+// part: f32 scratch of wtt_dur_head_part_floats values (2·B·(U·H + H·D), a
+// partial of dp and of dWd an utterance and frame split; and past 8 columns,
+// where a block's shared memory does not hold them, the warps' sums of
+// dWd). Every base 16-byte aligned. Returns the launches' cudaError_t.
 int wtt_dur_head_grad(const void* e, const void* p, const void* Wd, const void* g_dur,
                       const void* offsets, const int* label_lengths, void* de, void* dp,
                       void* dWd, void* part, int B, int T, int U, int H, int D,
@@ -562,11 +792,11 @@ int wtt_dur_head_grad(const void* e, const void* p, const void* Wd, const void* 
   if (D < 1) return (int)cudaErrorInvalidValue;
   const Rows rows{static_cast<const long long*>(offsets), label_lengths, B, T, U};
   if (D > kPanel)
-    return launch_grad_groups(static_cast<const float*>(e), static_cast<const float*>(p),
-                              static_cast<const float*>(Wd), static_cast<const float*>(g_dur),
-                              rows, static_cast<float*>(de), static_cast<float*>(dp),
-                              static_cast<float*>(dWd), static_cast<float*>(part), H, D,
-                              static_cast<cudaStream_t>(stream));
+    return launch_grad_many(static_cast<const float*>(e), static_cast<const float*>(p),
+                            static_cast<const float*>(Wd), static_cast<const float*>(g_dur),
+                            rows, static_cast<float*>(de), static_cast<float*>(dp),
+                            static_cast<float*>(dWd), static_cast<float*>(part), H, D,
+                            static_cast<cudaStream_t>(stream));
   return by_d<GradByD>(D, static_cast<const float*>(e), static_cast<const float*>(p),
                     static_cast<const float*>(Wd), static_cast<const float*>(g_dur), rows,
                     static_cast<float*>(de), static_cast<float*>(dp), static_cast<float*>(dWd),

@@ -31,9 +31,20 @@
 // prep.onepass_stats(extra_cols=...)), extras[row, k] = x[cols[k]] + d.
 // Every row is computed; the kernel takes no lengths. K has no cap: up to
 // 8 columns come by value, unrolled (the instances the main shapes run);
-// past 8 the kernels of their own (prep_many_tile_kernel,
-// prep_many_warp_kernel) read the columns from a table in device memory in
-// a loop at run time, the rest of the row's work unchanged.
+// past 8 the kernels of their own (prep_many_tile_kernel and
+// prep_many_warp_kernel raw, prep_many_lp_kernel on log-probs) read the
+// columns from a table and emit the extras with the whole block
+// (ManyPrepOp). A thread a row looping over K columns had made each row a
+// chain: nothing was __restrict__, so a column load could not rise above
+// the store before it (K dependent round trips to device memory a row on
+// log-probs, where the row is not in shared memory), the table was read
+// from device memory in every row, and the K outputs left at a stride of K
+// words across a warp. Here the block's rows·K extras are one contiguous
+// run that its threads take 16-byte vectors of, each vector's loads in
+// flight before its store; raw in a tile whose warps of rows times K are
+// few, a thread a row still (many_by_row), its row in shared memory.
+#include <cstdint>
+
 #include "reduce.cuh"
 
 namespace {
@@ -77,23 +88,129 @@ struct PrepOp {
   }
 };
 
-// K > kMaxExtraCols extra columns: their indices in a device table, read
-// in a loop at run time (cols.n = K).
-template <typename TIn, typename TAcc>
+// K > kMaxExtraCols extra columns (cols.n = K). Raw activations: the rows'
+// own fields by a thread a row, as above; then the block emits its rows' K
+// extras as one run (reduce.cuh's kRun): nrows·K contiguous values, each
+// thread taking 16-byte vectors of the run, kUnroll of them at once, so
+// that all of their values' loads are in flight before its stores (from
+// the tile in shared memory, or from device memory in the warp mode),
+// before the first boundary and after the last a value a thread. The table
+// of columns is read into shared memory once a block, while the block's
+// first loads fly (its first kSharedCols entries; a longer one is read from
+// device memory past them). On log-probs nothing is reduced and nothing
+// goes through reduce.cuh's bodies: prep_many_lp_kernel stages a block's
+// rows' labels and the table, has its rows' blank and label values and its
+// run's values in flight at once, then stores them, so that a block waits
+// for device memory twice. Mirrored by ops/cuda/rows.py (RUN_SHARED_COLS,
+// reduce_run_smem).
+//
+// kByRow: raw in a tile where a thread a row emits its row's K extras
+// itself, a column at a time from the table in device memory, after the
+// row's fields (many_by_row). The run's extras leave after the block's
+// reads, while a row's own thread writes them beside the other blocks'
+// reads: on an H100 (scripts/tune_prep.py --many, f32) a thread a row
+// was the faster where its warps' steps, the tile's warps of rows times
+// K, are few (V = 50 up to K = 12, V = 100 up to 16, V = 200 up to 24),
+// the run elsewhere (V = 12 and 28 from K = 9, V = 50 from K = 16, V =
+// 100 at K = 24).
+constexpr int kSharedCols = 4096;
+constexpr int kRowSteps = 40;
+
+inline bool many_by_row(const red::Plan& p, int K) {
+  return p.mode == red::kTile && (p.rows + wtt::kWarp - 1) / wtt::kWarp * K <= kRowSteps;
+}
+
+template <typename TIn, typename TAcc, bool kByRow = false>
 struct ManyPrepOp : PrepOp<TIn, TAcc> {
+  using Tin = TIn;
   using Tacc = TAcc;
+  using Stage = typename PrepOp<TIn, TAcc>::Stage;
+  static constexpr bool kRun = !kByRow;
+  static constexpr int kVec = 16 / (int)sizeof(Tacc);  // values a 16-byte store
+  static constexpr int kUnroll = 2;                     // vectors a thread has in flight
   const int* table;  // (K,) int32 in device memory
+  unsigned k_mul;    // division by K
+  int k_shr;
 
   template <class Read>
-  __device__ __forceinline__ void emit(int row, Tacc d, const Read& x,
-                                       const typename PrepOp<TIn, TAcc>::Stage& st) const {
-    const int lab = st.lab, K = this->cols.n;
+  __device__ __forceinline__ void emit(int row, Tacc d, const Read& x, const Stage& st) const {
+    const int lab = st.lab;
     const Tacc xe = (lab >= 0 && lab < this->V) ? x(lab) : Tacc(wtt::kNeg);
     this->lpb[row] = x(this->blank) + d;
     this->lpe[row] = st.last ? Tacc(wtt::kNeg) : xe + d;
     if (this->denom != nullptr) this->denom[row] = d;
-    Tacc* out = this->extras + (long long)row * K;
-    for (int k = 0; k < K; ++k) out[k] = x(__ldg(table + k)) + d;
+    if constexpr (kByRow) {
+      const int K = this->cols.n;
+      Tacc* out = this->extras + (long long)row * K;
+      for (int k = 0; k < K; ++k) out[k] = x(__ldg(table + k)) + d;
+    }
+  }
+
+  size_t run_smem() const {
+    return red::round16(sizeof(int) * (size_t)min(this->cols.n, kSharedCols));
+  }
+
+  __device__ __forceinline__ void load_table(unsigned char* smem) const {
+    int* s_cols = reinterpret_cast<int*>(smem);
+    const int kt = min(this->cols.n, kSharedCols);
+    for (int k = threadIdx.x; k < kt; k += red::kThreads) s_cols[k] = __ldg(table + k);
+  }
+
+  // Value i of the block's run: row i / K, column table[i % K].
+  template <class Rows>
+  __device__ __forceinline__ Tacc value(int r, int k, const Rows& x, const int* s_cols) const {
+    return x(r, k < kSharedCols ? s_cols[k] : __ldg(table + k));
+  }
+
+  template <class Rows>
+  __device__ __forceinline__ void emit_run(long long row0, int nrows, const Rows& x,
+                                           unsigned char* smem) const {
+    const int K = this->cols.n, total = nrows * K;
+    const int* s_cols = reinterpret_cast<const int*>(smem);
+    Tacc* dst = this->extras + row0 * K;
+    // Values before dst's first 16-byte boundary, then whole vectors, then
+    // fewer than kVec values.
+    const int lead = (int)(reinterpret_cast<uintptr_t>(dst) / sizeof(Tacc) % kVec);
+    const int head = min(total, (kVec - lead) % kVec);
+    const int nv = (total - head) / kVec, tail = head + nv * kVec;
+    for (int i = threadIdx.x; i < head; i += red::kThreads) {
+      const int r = red::div_by(i, k_mul, k_shr, K);
+      dst[i] = value(r, i - r * K, x, s_cols);
+    }
+    for (int q0 = threadIdx.x; q0 < nv; q0 += kUnroll * red::kThreads) {
+      Tacc v[kUnroll][kVec];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {  // every load before any store
+        const int q = q0 + u * red::kThreads;
+        if (q < nv) {
+          const int i = head + q * kVec;
+          int r = red::div_by(i, k_mul, k_shr, K), k = i - r * K;
+#pragma unroll
+          for (int c = 0; c < kVec; ++c) {
+            v[u][c] = value(r, k, x, s_cols);
+            if (++k == K) {
+              k = 0;
+              ++r;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int q = q0 + u * red::kThreads;
+        if (q < nv) {
+          if constexpr (kVec == 4)
+            *reinterpret_cast<float4*>(dst + head + q * kVec) =
+                make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+          else
+            *reinterpret_cast<double2*>(dst + head + q * kVec) = make_double2(v[u][0], v[u][1]);
+        }
+      }
+    }
+    for (int i = tail + threadIdx.x; i < total; i += red::kThreads) {
+      const int r = red::div_by(i, k_mul, k_shr, K);
+      dst[i] = value(r, i - r * K, x, s_cols);
+    }
   }
 };
 
@@ -106,9 +223,9 @@ __global__ void __launch_bounds__(red::kThreads) prep_warp_kernel(const PrepOp<T
   red::warp_body<VEC>(op);
 }
 
-template <typename Tin, typename Tacc, int VEC>
+template <typename Tin, typename Tacc, int VEC, bool kByRow>
 __global__ void __launch_bounds__(red::kThreads)
-    prep_many_tile_kernel(const ManyPrepOp<Tin, Tacc> op) {
+    prep_many_tile_kernel(const ManyPrepOp<Tin, Tacc, kByRow> op) {
   red::tile_body<VEC>(op);
 }
 template <typename Tin, typename Tacc, int VEC>
@@ -117,12 +234,91 @@ __global__ void __launch_bounds__(red::kThreads)
   red::warp_body<VEC>(op);
 }
 
+// Log-probs past kMaxExtraCols columns: `per_block` rows a block (the plan's
+// tile, or kWarpRows), a thread a row for the rows' own fields.
+template <typename Tin, typename Tacc>
+__global__ void __launch_bounds__(red::kThreads)
+    prep_many_lp_kernel(const ManyPrepOp<Tin, Tacc> op, int per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRows = red::kMaxTileRows / red::kThreads;
+  const long long row0 = (long long)blockIdx.x * per_block;
+  const int nrows = (int)min((long long)per_block, op.rows - row0), V = op.V;
+  const Tin* x = op.acts + row0 * V;
+  typename ManyPrepOp<Tin, Tacc>::Stage st[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = threadIdx.x + i * red::kThreads;
+    if (r < nrows) st[i] = op.stage((int)row0 + r);
+  }
+  op.load_table(smem);
+  __syncthreads();
+  Tacc xb[kRows], xl[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = threadIdx.x + i * red::kThreads;
+    if (r < nrows) {
+      const Tin* row = x + (long long)r * V;
+      const int lab = st[i].lab;
+      xb[i] = static_cast<Tacc>(wtt::to_acc(__ldg(row + op.blank)));
+      xl[i] = lab >= 0 && lab < V ? static_cast<Tacc>(wtt::to_acc(__ldg(row + lab)))
+                                  : Tacc(wtt::kNeg);
+    }
+  }
+  op.emit_run(row0, nrows,
+              [=](int r, int c) {
+                return static_cast<Tacc>(wtt::to_acc(__ldg(x + (long long)r * V + c))) + Tacc(0);
+              },
+              smem);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = threadIdx.x + i * red::kThreads;
+    if (r < nrows) {
+      op.lpb[row0 + r] = xb[i] + Tacc(0);
+      op.lpe[row0 + r] = st[i].last ? Tacc(wtt::kNeg) : xl[i] + Tacc(0);
+    }
+  }
+}
+
+// The instances past kMaxExtraCols columns: raw, the plan's body with the
+// run, or in a tile a thread a row (many_by_row); on log-probs,
+// prep_many_lp_kernel.
+template <typename Tin, typename Tacc>
+int launch_many(const PrepOp<Tin, Tacc>& few, const int* table, cudaStream_t stream) {
+  constexpr int V16 = 16 / (int)sizeof(Tin);
+  if (few.reduce && many_by_row(few.plan, few.cols.n)) {
+    ManyPrepOp<Tin, Tacc, true> op;
+    static_cast<PrepOp<Tin, Tacc>&>(op) = few;
+    op.table = table;
+    const auto kernel = few.plan.vec > 1 ? prep_many_tile_kernel<Tin, Tacc, V16, true>
+                                         : prep_many_tile_kernel<Tin, Tacc, 1, true>;
+    const long long blocks = (few.rows + few.plan.rows - 1) / few.plan.rows;
+    kernel<<<(unsigned)blocks, red::kThreads, red::smem_bytes(few.plan, sizeof(Tacc)), stream>>>(
+        op);
+    return (int)cudaGetLastError();
+  }
+  ManyPrepOp<Tin, Tacc> op;
+  static_cast<PrepOp<Tin, Tacc>&>(op) = few;
+  op.table = table;
+  red::division_magic((unsigned)few.cols.n, &op.k_mul, &op.k_shr);
+  if (!op.reduce) {
+    const int per_block = op.plan.mode == red::kTile ? op.plan.rows : red::kWarpRows;
+    const long long blocks = (op.rows + per_block - 1) / per_block;
+    prep_many_lp_kernel<Tin, Tacc>
+        <<<(unsigned)blocks, red::kThreads, op.run_smem(), stream>>>(op, per_block);
+    return (int)cudaGetLastError();
+  }
+  return red::launch(op, prep_many_tile_kernel<Tin, Tacc, 1, false>,
+                     prep_many_tile_kernel<Tin, Tacc, V16, false>,
+                     prep_many_warp_kernel<Tin, Tacc, 1>, prep_many_warp_kernel<Tin, Tacc, V16>,
+                     stream);
+}
+
 template <typename Tin, typename Tacc>
 int launch(const void* acts, const int* labels, void* lpb, void* lpe, void* denom,
            void* extras, const wtt::ExtraCols& cols, const int* table, long long rows, int T,
            int U, int V, int blank, int log_probs_input, const red::Plan& plan,
            cudaStream_t stream) {
-  ManyPrepOp<Tin, Tacc> op;  // its PrepOp part is the launch of K <= kMaxExtraCols
+  PrepOp<Tin, Tacc> op;
   op.acts = static_cast<const Tin*>(acts);
   op.labels = labels;
   op.lpb = static_cast<Tacc*>(lpb);
@@ -139,15 +335,10 @@ int launch(const void* acts, const int* labels, void* lpb, void* lpe, void* deno
   op.plan = plan;
   red::division_magic((unsigned)U, &op.u_mul, &op.u_shr);
   red::division_magic((unsigned)(T * U), &op.tu_mul, &op.tu_shr);
-  op.table = table;
+  if (cols.n > wtt::kMaxExtraCols) return launch_many(op, table, stream);
   constexpr int V16 = 16 / (int)sizeof(Tin);
-  if (cols.n > wtt::kMaxExtraCols)
-    return red::launch(op, prep_many_tile_kernel<Tin, Tacc, 1>,
-                       prep_many_tile_kernel<Tin, Tacc, V16>, prep_many_warp_kernel<Tin, Tacc, 1>,
-                       prep_many_warp_kernel<Tin, Tacc, V16>, stream);
-  const PrepOp<Tin, Tacc>& few = op;
-  return red::launch(few, prep_tile_kernel<Tin, Tacc, 1>, prep_tile_kernel<Tin, Tacc, V16>,
-                   prep_warp_kernel<Tin, Tacc, 1>, prep_warp_kernel<Tin, Tacc, V16>, stream);
+  return red::launch(op, prep_tile_kernel<Tin, Tacc, 1>, prep_tile_kernel<Tin, Tacc, V16>,
+                     prep_warp_kernel<Tin, Tacc, 1>, prep_warp_kernel<Tin, Tacc, V16>, stream);
 }
 
 int prep(const void* acts, int dtype, const int* labels, void* lpb, void* lpe, void* denom,

@@ -43,7 +43,21 @@
 // `V`, `reduce`, `plan`; `Stage stage(int row)`, the row's scalars; and
 // `template <class Read> void emit(int row, Tacc d, const Read& x, const
 // Stage&)`, where x(col) is the row's element col in Tacc.
+//
+// An Op with `static constexpr bool kRun = true`, launched only to reduce
+// (its `reduce` true), also emits values of the block's rows with the whole
+// block, after the rows' own `emit`: `void load_table(unsigned char* smem)`,
+// called by every thread while the block's first loads are in flight (a
+// __syncthreads follows before any use); `template <class Rows> void
+// emit_run(long long row0, int nrows, const Rows& x, unsigned char* smem)`,
+// every thread of the block calling it, where x(r, col) is row row0 + r's
+// element col plus the row's value (from the tile, or from device memory in
+// the warp mode); smem is the dynamic shared memory past the body's own
+// (run_offset), `size_t run_smem()` bytes of it. The warp mode then keeps a
+// block's rows' values in shared memory and no warp leaves before the run.
 #pragma once
+
+#include <type_traits>
 
 #include "rows.cuh"
 
@@ -158,6 +172,21 @@ inline size_t smem_bytes(const Plan& p, size_t acc) {
   return p.mode == kTile ? (size_t)p.rows * (p.stride + 1) * acc : 0;
 }
 
+// Whether an Op emits a run with the whole block (its kRun).
+template <class Op, class = void>
+constexpr bool kHasRun = false;
+template <class Op>
+constexpr bool kHasRun<Op, std::void_t<decltype(Op::kRun)>> = Op::kRun;
+
+__host__ __device__ constexpr size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Where a run's shared memory starts: past the tile and its rows' values,
+// past the block's rows' values in the warp mode.
+__host__ __device__ inline size_t run_offset(const Plan& p, size_t acc) {
+  return round16(p.mode == kTile ? (size_t)p.rows * (p.stride + 1) * acc
+                                 : (size_t)kWarpRows * acc);
+}
+
 // A row's elements in shared memory (already in Tacc) or in device memory.
 template <typename Tacc>
 struct SharedRow {
@@ -228,6 +257,7 @@ __device__ __forceinline__ void tile_body(const Op& op) {
     const int r = threadIdx.x + i * kThreads;
     if (r < nrows) st[i] = op.stage((int)row0 + r);
   }
+  if constexpr (kHasRun<Op>) op.load_table(smem + run_offset(p, sizeof(Tacc)));
 #pragma unroll
   for (int i = 0; i < kVecsPerThread; ++i) {
     const int e = (threadIdx.x + i * kThreads) * VEC;
@@ -270,6 +300,9 @@ __device__ __forceinline__ void tile_body(const Op& op) {
     const int r = threadIdx.x + i * kThreads;
     if (r < nrows) op.emit((int)row0 + r, sd[r], SharedRow<Tacc>{sx + r * S}, st[i]);
   }
+  if constexpr (kHasRun<Op>)
+    op.emit_run(row0, nrows, [=](int r, int c) { return sx[r * S + c] + sd[r]; },
+                smem + run_offset(p, sizeof(Tacc)));
 }
 
 // One element into a lane's online (max, sum-exp) pair.
@@ -283,13 +316,13 @@ __device__ __forceinline__ void online(Tacc& m, Tacc& s, Tacc x) {
   }
 }
 
+// Row ri by its warp: the row's value (0 without a reduction), after lane
+// 0 has emitted the row.
 template <int VEC, class Op>
-__device__ __forceinline__ void warp_body(const Op& op) {
+__device__ __forceinline__ typename Op::Tacc warp_row(const Op& op, long long ri) {
   using Tin = typename Op::Tin;
   using Tacc = typename Op::Tacc;
   const int V = op.V, lane = threadIdx.x % kWarp;
-  const long long ri = (long long)blockIdx.x * kWarpRows + threadIdx.x / kWarp;
-  if (ri >= op.rows) return;  // whole warps only
   const long long base = ri * V;
   const Tin* x = op.acts + base;
   typename Op::Stage st{};
@@ -332,6 +365,36 @@ __device__ __forceinline__ void warp_body(const Op& op) {
     d = -(row_max + lg(warp_sum(s * ex(m - row_max))));
   }
   if (lane == 0) op.emit((int)ri, d, DeviceRow<Tin, Tacc>{x}, st);
+  return d;
+}
+
+template <int VEC, class Op>
+__device__ __forceinline__ void warp_body(const Op& op) {
+  using Tacc = typename Op::Tacc;
+  const long long ri = (long long)blockIdx.x * kWarpRows + threadIdx.x / kWarp;
+  if constexpr (!kHasRun<Op>) {
+    if (ri >= op.rows) return;  // whole warps only
+    warp_row<VEC>(op, ri);
+  } else {
+    // The block's rows' values in shared memory, then the run over its rows.
+    extern __shared__ __align__(16) unsigned char smem[];
+    Tacc* sd = reinterpret_cast<Tacc*>(smem);
+    unsigned char* run = smem + run_offset(op.plan, sizeof(Tacc));
+    op.load_table(run);
+    if (ri < op.rows) {
+      const Tacc d = warp_row<VEC>(op, ri);
+      if (threadIdx.x % kWarp == 0) sd[threadIdx.x / kWarp] = d;
+    }
+    __syncthreads();
+    const long long row0 = (long long)blockIdx.x * kWarpRows;
+    const auto* x = op.acts + row0 * op.V;
+    const int V = op.V;
+    op.emit_run(row0, (int)min((long long)kWarpRows, op.rows - row0),
+                [=](int r, int c) {
+                  return static_cast<Tacc>(to_acc(__ldg(x + (long long)r * V + c))) + sd[r];
+                },
+                run);
+  }
 }
 
 // Launch with the kernel the plan names: tile<VEC> or warp<VEC>, VEC the
@@ -344,7 +407,9 @@ int launch(const Op& op, Kernel tile1, Kernel tile_vec, Kernel warp1, Kernel war
                         : (op.plan.vec > 1 ? warp_vec : warp1);
   const long long per_block = tile ? op.plan.rows : kWarpRows;
   const long long blocks = (op.rows + per_block - 1) / per_block;
-  const size_t smem = op.reduce ? smem_bytes(op.plan, sizeof(typename Op::Tacc)) : 0;
+  const size_t acc = sizeof(typename Op::Tacc);
+  size_t smem = op.reduce ? smem_bytes(op.plan, acc) : 0;
+  if constexpr (kHasRun<Op>) smem = run_offset(op.plan, acc) + op.run_smem();
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -211,8 +211,12 @@ def dwd_tile(H: int) -> int:
 # one utterance for a share of its frames (DUR_GRAD_SPLITS blocks share
 # them), DUR_GRAD_WARPS warps a block deal them DUR_GRAD_TF at a time, labels
 # go in chunks of DUR_GRAD_UC, two at a time. A head has any D: the kernels
-# are instances of D = 1 … DUR_GROUP_D, and a wider head runs in groups of
-# DUR_GROUP_D columns (blockIdx.z).
+# are instances of D = 1 … DUR_GROUP_D; a wider head's prep runs in groups of
+# DUR_GROUP_D columns (blockIdx.z), its gradient in one kernel
+# (dur_grad_many_kernel) on the same blocks, whose warps step through units
+# of DUR_MANY_TF frames × DUR_MANY_UL labels a chunk of DUR_MANY_C columns at
+# a time, their sums of dWd in shared memory (past what a block holds, in the
+# scratch).
 DUR_PREP_THREADS = 256
 DUR_PREP_KC = 32
 DUR_PREP_LD = DUR_PREP_KC + 4
@@ -222,6 +226,9 @@ DUR_GRAD_UC = 32
 DUR_GRAD_TF = 2
 DUR_GRAD_SPLITS = 2
 DUR_GROUP_D = 8
+DUR_MANY_TF = 4
+DUR_MANY_UL = 4
+DUR_MANY_C = 4
 
 
 def dur_prep_tile(U: int) -> tuple:
@@ -241,24 +248,43 @@ def dur_head_plan(T: int, U: int, H: int) -> tuple:
 def dur_smem_bytes() -> int:
     """Static shared memory of a block of the larger of the two kernels:
     the prep's e and p rows (tt + ut <= 257) and Wd's chunk, the gradient's
-    p chunk, its warps' dp sums and their frames' g_dur (at D = 8, which a
-    group of a wider head takes too); neither depends on H or U."""
+    p chunk, its warps' dp sums and their frames' g_dur (at D = 8, which the
+    prep's groups of a wider head take too; the wider gradient's is
+    ``dur_many_smem``); neither depends on H or U."""
     prep = 4 * ((DUR_PREP_THREADS + 1) * DUR_PREP_LD + DUR_PREP_KC * DUR_GROUP_D)
     grad = 4 * ((1 + DUR_GRAD_WARPS) * DUR_GRAD_UC * DUR_GRAD_KS
                 + DUR_GRAD_WARPS * DUR_GRAD_TF * DUR_GRAD_UC * DUR_GROUP_D)
     return max(prep, grad)
 
 
+def dur_many_width(D: int) -> int:
+    """Columns of the wide gradient's sums and Wd slice: D up to whole chunks."""
+    return -(-D // DUR_MANY_C) * DUR_MANY_C
+
+
+def dur_many_smem(D: int) -> tuple:
+    """(static, dynamic) shared memory of a block of the gradient past
+    DUR_GROUP_D columns and whether its warps' sums of dWd lie in device
+    memory: the p chunk and the warps' dp sums; the warps' staged g_dur, and
+    the sums and Wd's slice while a block holds them."""
+    static = 4 * (1 + DUR_GRAD_WARPS) * DUR_GRAD_UC * DUR_GRAD_KS
+    g = 4 * DUR_GRAD_WARPS * DUR_MANY_TF * DUR_MANY_UL * DUR_MANY_C
+    sums = 4 * (DUR_GRAD_WARPS + 1) * dur_many_width(D) * DUR_GRAD_KS
+    in_device = static + g + sums > SMEM_BYTES
+    return static, g if in_device else g + sums, in_device
+
+
 def dur_part_floats(B: int, T: int, U: int, H: int, D: int) -> int:
     """Values of the duration-head gradient's f32 scratch
     (``dur_head.cu::dur_part_floats``): a partial of dp2 and of dWd an
-    utterance and frame split; past DUR_GROUP_D columns, a partial of dp2 a
-    group and split, of de2 a group, and dWd's."""
+    utterance and frame split, whatever D; past DUR_GROUP_D columns where a
+    block's shared memory does not hold them, the warps' sums of dWd too."""
     bh = B * H
-    if D <= DUR_GROUP_D:
-        return DUR_GRAD_SPLITS * (bh * U + bh * D)
-    groups = -(-D // DUR_GROUP_D)
-    return groups * (DUR_GRAD_SPLITS * bh * U + bh * T) + DUR_GRAD_SPLITS * bh * D
+    sums = 0
+    if D > DUR_GROUP_D and dur_many_smem(D)[2]:
+        sums = DUR_GRAD_SPLITS * B * -(-H // DUR_GRAD_KS) * DUR_GRAD_WARPS \
+            * dur_many_width(D) * DUR_GRAD_KS
+    return DUR_GRAD_SPLITS * (bh * U + bh * D) + sums
 
 
 def _ptr(t):

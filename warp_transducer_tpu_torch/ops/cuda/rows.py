@@ -140,3 +140,42 @@ def reduce_smem_bytes(p: ReducePlan, acc: int) -> int:
     """Dynamic shared memory of a tile launch: the rows at their stride in
     the accumulation type (``acc`` bytes), then a value a row."""
     return p.rows * (p.stride + 1) * acc if p.mode == TILE else 0
+
+
+# Past eight extra columns the prep's block emits its rows' K extras as one
+# run (csrc/prep.cu::ManyPrepOp): each thread takes 16-byte vectors of it,
+# RUN_UNROLL at a time, the values before the run's first 16-byte boundary
+# and after its last one a value a thread; the column table's first
+# RUN_SHARED_COLS entries are in shared memory.
+RUN_SHARED_COLS = 4096
+RUN_UNROLL = 2
+# Raw in a tile, a thread a row emits its row's K extras itself where the
+# tile's warps of rows times K are at most this many (csrc/prep.cu::
+# many_by_row; chosen by scripts/tune_prep.py --many on an H100).
+RUN_ROW_STEPS = 40
+
+
+def prep_many_by_row(p: ReducePlan, K: int) -> bool:
+    """Whether the raw prep past eight extra columns has a thread a row emit
+    its row's extras (else the block's run)."""
+    return p.mode == TILE and -(-p.rows // WARP_LANES) * K <= RUN_ROW_STEPS
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def reduce_run_offset(p: ReducePlan, reduce: bool, acc: int) -> int:
+    """Where a run's shared memory starts: raw (``reduce``,
+    ``reduce.cuh::run_offset``) past the tile and its rows' values, or past
+    the block's rows' values in the warp mode; on log-probs
+    (``prep_many_lp_kernel``, in either mode) at 0."""
+    if not reduce:
+        return 0
+    return _round16(reduce_smem_bytes(p, acc) if p.mode == TILE else WARP_ROWS * acc)
+
+
+def reduce_run_smem(p: ReducePlan, reduce: bool, acc: int, K: int) -> int:
+    """Dynamic shared memory of a launch with a run of K columns: the body's,
+    then the table's first RUN_SHARED_COLS entries."""
+    return reduce_run_offset(p, reduce, acc) + _round16(4 * min(K, RUN_SHARED_COLS))
